@@ -1,0 +1,233 @@
+"""Build, bind and launch the hand-written CUDA kernels of the per-pod step.
+
+The sources live in `kernels/csrc/` (one `.cu` per kernel plus the shared
+`step_ctx.cuh`). On first use each source is compiled by `nvcc` for
+`sm_90a` into its own shared library with a plain C interface under
+`kernels/_build/` — all sources at once, one `nvcc` process each — and
+loaded with ctypes. Nothing is built or imported at module import: the CPU
+path never touches this machinery.
+
+Flags: `-fmad=false` (no silent FMA contraction; the kernels write
+`__fmaf_rn` where the reference contracts), IEEE division and square root,
+no flush-to-zero. A build or launch failure raises; there is no fallback.
+
+Counts: `LAUNCHES[name]` is bumped where a kernel is launched and nowhere
+else; `PLAIN_CALLS[name]` where a kernel's plain PyTorch version runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+KERNELS = ("filter_pod", "topology_pod", "score_argmax_pod", "commit_pod")
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+LAUNCHES: Counter = Counter()
+PLAIN_CALLS: Counter = Counter()
+_LIBS: dict = {}
+#: seconds the last build took and ptxas' report per kernel (for logs)
+BUILD_INFO: dict = {}
+
+
+def count_plain(name: str) -> None:
+    PLAIN_CALLS[name] += 1
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from source on first use")
+    return nvcc
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256()
+    for part in (CSRC / f"{name}.cu", CSRC / "step_ctx.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every kernel library that is not built yet (in parallel) and
+    load all of them. Returns {name: ctypes.CDLL}."""
+    if len(_LIBS) == len(KERNELS):
+        return _LIBS
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in KERNELS:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_INFO[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    for name in KERNELS:
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn = getattr(lib, f"simtpu_{name}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    first = _LIBS[KERNELS[0]]
+    first.simtpu_noop.argtypes = [ctypes.c_void_p]
+    first.simtpu_noop.restype = ctypes.c_int
+    first.simtpu_error_string.argtypes = [ctypes.c_int]
+    first.simtpu_error_string.restype = ctypes.c_char_p
+    return _LIBS
+
+
+_INT_FIELDS = ("n", "r", "p_ports", "w", "c", "tc", "flags", "pad_")
+# (field, owner, attribute, dtype) in step_ctx.cuh order
+_PTR_FIELDS = (
+    ("group", "buf", "group", torch.int32),
+    ("req", "buf", "req", torch.float32),
+    ("pin", "buf", "pin", torch.int32),
+    ("forced", "buf", "forced", torch.bool),
+    ("alloc", "statics", "alloc", torch.float32),
+    ("static_mask", "statics", "static_mask", torch.bool),
+    ("vol_mask", "statics", "vol_mask", torch.bool),
+    ("node_pref", "statics", "node_pref", torch.float32),
+    ("taint_intol", "statics", "taint_intol", torch.float32),
+    ("static_score", "statics", "static_score", torch.float32),
+    ("avoid_pen", "statics", "avoid_pen", torch.float32),
+    ("node_dom", "statics", "node_dom", torch.int32),
+    ("term_topo", "statics", "term_topo", torch.int32),
+    ("ip_of", "statics", "ip_of", torch.int32),
+    ("g_terms", "statics", "g_terms", torch.int32),
+    ("s_match", "statics", "s_match", torch.bool),
+    ("a_aff_req", "statics", "a_aff_req", torch.bool),
+    ("a_anti_req", "statics", "a_anti_req", torch.bool),
+    ("w_aff_pref", "statics", "w_aff_pref", torch.float32),
+    ("w_anti_pref", "statics", "w_anti_pref", torch.float32),
+    ("spread_hard", "statics", "spread_hard", torch.float32),
+    ("spread_soft", "statics", "spread_soft", torch.float32),
+    ("ss_host", "statics", "ss_host", torch.bool),
+    ("ss_zone", "statics", "ss_zone", torch.bool),
+    ("ports_req", "statics", "ports_req", torch.bool),
+    ("vol_rw_req", "statics", "vol_rw_req", torch.bool),
+    ("vol_ro_req", "statics", "vol_ro_req", torch.bool),
+    ("vol_att_req", "statics", "vol_att_req", torch.bool),
+    ("vol_class_mask", "statics", "vol_class_mask", torch.bool),
+    ("attach_limits", "statics", "attach_limits", torch.float32),
+    ("score_w", "statics", "score_w", torch.float32),
+    ("node_valid", "statics", "node_valid", torch.bool),
+    ("free", "state", "free", torch.float32),
+    ("cnt_match", "state", "cnt_match", torch.float32),
+    ("cnt_total", "state", "cnt_total", torch.float32),
+    ("cnt_own_anti", "state", "cnt_own_anti", torch.float32),
+    ("cnt_own_aff", "state", "cnt_own_aff", torch.float32),
+    ("w_own_aff_pref", "state", "w_own_aff_pref", torch.float32),
+    ("w_own_anti_pref", "state", "w_own_anti_pref", torch.float32),
+    ("ports_used", "state", "ports_used", torch.float32),
+    ("vols_any", "state", "vols_any", torch.float32),
+    ("vols_rw", "state", "vols_rw", torch.float32),
+    ("stage", "buf", "stage", torch.uint8),
+    ("raw", "buf", "raw", torch.float32),
+    ("score", "buf", "score", torch.float32),
+    ("chosen", "buf", "chosen", torch.int32),
+    ("placed", "buf", "placed", torch.bool),
+    ("reason", "buf", "reason", torch.int32),
+    ("out_node", "buf", "out_node", torch.int32),
+)
+
+
+class StepCtx(ctypes.Structure):
+    """ctypes mirror of `struct StepCtx` in csrc/step_ctx.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in _INT_FIELDS] + [
+        (f, ctypes.c_void_p) for f, _, _, _ in _PTR_FIELDS
+    ]
+
+
+def make_ctx(buf) -> StepCtx:
+    """The kernels' argument block for a StepBuffers: checks every tensor's
+    device, dtype and contiguity, then takes its address. The buffers keep
+    the tensors alive as long as the block is in use."""
+    owners = {"buf": buf, "statics": buf.statics, "state": buf.state}
+    tensors = {}
+    for field, owner, attr, dtype in _PTR_FIELDS:
+        t = getattr(owners[owner], attr)
+        if t.device != buf.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{owner}.{attr}: need a contiguous {dtype} tensor on {buf.device}, "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+        tensors[field] = t
+    st = buf.statics
+    n, r = st.alloc.shape
+    g, tc = st.g_terms.shape
+    p, w, c = st.ports_req.shape[1], st.vol_rw_req.shape[1], st.vol_class_mask.shape[0]
+    want = {
+        "req": (buf.n_pods, r), "free": (n, r), "ports_used": (n, p), "vols_any": (n, w),
+        "vols_rw": (n, w), "attach_limits": (n, c), "stage": (n,), "raw": (4, n),
+        **{f: (g, n) for f in ("static_mask", "vol_mask", "node_pref", "taint_intol",
+                                "static_score", "avoid_pen")},
+        **{f: (g, tc) for f in ("s_match", "a_aff_req", "a_anti_req", "w_aff_pref",
+                                 "w_anti_pref", "spread_hard", "spread_soft", "ss_host", "ss_zone")},
+    }
+    for field, shape in want.items():
+        if tuple(tensors[field].shape) != shape:
+            raise ValueError(f"{field}: shape {tuple(tensors[field].shape)}, want {shape}")
+    return StepCtx(
+        n=n, r=r, p_ports=p, w=w, c=c, tc=tc, flags=buf.flag_bits, pad_=0,
+        **{f: t.data_ptr() for f, t in tensors.items()},
+    )
+
+
+def launch(name: str, buf, i: int) -> None:
+    """Launch kernel `name` for pod i of `buf` on the current CUDA stream;
+    raises if the launch is refused. No synchronization."""
+    if not 0 <= i < buf.n_pods:
+        raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
+    libs = build()
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), i, stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+def launch_noop(device) -> None:
+    """An empty kernel launch: the per-launch floor (for measurements)."""
+    libs = build()
+    err = libs[KERNELS[0]].simtpu_noop(torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel failed to launch ({err})")
