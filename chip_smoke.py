@@ -5,19 +5,36 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the four per-pod
-   CUDA kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a);
-2. each kernel against its plain PyTorch version on the card, on the
-   tensorized smoke problem (1000 nodes x 10 000 pods) with a seeded
-   placement log, pod by pod: stage bits, argmax and reason must be equal,
-   and the state planes after the commit; then each kernel's time per
-   launch, its plain version's and the bytes bound;
-3. the main path: `simtpu_torch.simulate(device="cuda")` on the smoke
-   problem. Every kernel must have launched once per pod, no plain
-   version may have run, and the placements and reasons must equal the
-   golden file the JAX package produced on the CPU;
+1. the card's name and power limit (nvidia-smi); build the seven CUDA
+   kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
+   per source, all at once);
+2. each kernel against its plain PyTorch version on the card, pod by pod:
+   K1-K4 on the tensorized serial smoke problem (1000 nodes x 10 000 pods,
+   a seeded placement log) and a small edge problem; K1-K6 on the
+   tensorized extended problem with the storage and GPU flags live, on a
+   sample of storage, multi-claim, device, GPU, multi-GPU and preset pods
+   (stage bits, plans, scores, argmax, reason, state planes and per-pod
+   allocations must be equal); K7 on a seeded set of eviction entries
+   (w = -1, then the same entries with w = +1: every state plane equal to
+   the plain version's after each, and back to the state before the
+   eviction). Then each kernel's time per launch, its plain version's and
+   the bytes bound, and the device time per kernel (torch.profiler);
+3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
+   serial smoke problem. K1-K4 must have launched once per pod, no plain
+   version may have run, and the record (placements, reasons, preempted
+   pods, annotations) must equal the golden file the JAX package produced
+   on the CPU;
+3b. the extended main path: the same on the extended problem (Open-Local
+   storage, GPU-share, a priority tier that preempts), against its golden
+   file. K1-K4 must have launched once per pod step (preemptor retries
+   included), K5 once per storage-pod step and K6 once per GPU-pod step
+   (counted on the host from the batches), K7 at least once; no plain
+   version may have run;
 4. the demo example (examples/cluster/demo + application/web): every pod
-   placed, as on the CPU path.
+   placed, as on the CPU path;
+4b. the gpushare example (examples/cluster/gpushare + application/
+   gpushare) and the local-storage example (examples/cluster/demo +
+   application/local-storage): every pod placed, as on the CPU path.
 
 The line before the last is the JSON `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
@@ -36,13 +53,14 @@ import numpy as np
 import torch
 
 import simtpu_torch
-from simtpu_torch import smoke
+import simtpu_torch.api as tapi
+from simtpu_torch import smoke, synth
 from simtpu_torch.constants import LABEL_APP_NAME
 from simtpu_torch.core.objects import set_label
 from simtpu_torch.core.tensorize import Tensorizer
 from simtpu_torch.device import configure_numerics
 from simtpu_torch.engine import scan
-from simtpu_torch.engine.state import build_state
+from simtpu_torch.engine import state as sstate
 from simtpu_torch.io.cluster import create_cluster_resource_from_cluster_config
 from simtpu_torch.io.yaml_loader import load_resources
 from simtpu_torch.kernels import cuda
@@ -57,12 +75,18 @@ KERNELS = {
     "topology_pod": "simtpu/engine/scan.py:898",
     "score_argmax_pod": "simtpu/engine/scan.py:595",
     "commit_pod": "simtpu/engine/scan.py:1059",
+    "storage_pod": "simtpu/kernels/storage.py:25",
+    "gpu_pod": "simtpu/kernels/gpushare.py:25",
+    "delta_apply": "simtpu/engine/state.py:339",
 }
+STEP = ("filter_pod", "topology_pod", "score_argmax_pod", "commit_pod")
 WRAPPERS = {
     "filter_pod": (scan.filter_pod, scan.filter_pod_plain),
     "topology_pod": (scan.topology_pod, scan.topology_pod_plain),
     "score_argmax_pod": (scan.score_argmax_pod, scan.score_argmax_pod_plain),
     "commit_pod": (scan.commit_pod, scan.commit_pod_plain),
+    "storage_pod": (scan.storage_pod, scan.storage_pod_plain),
+    "gpu_pod": (scan.gpu_pod, scan.gpu_pod_plain),
 }
 N_SAMPLE = 48
 
@@ -97,7 +121,7 @@ def tensorized_batch(cluster, apps, device, log_len: int):
             set_label(pod, LABEL_APP_NAME, app.name)
             pods.append(pod)
     seed_name_hashes(None)
-    tz = Tensorizer(cluster.nodes)
+    tz = Tensorizer(cluster.nodes, storage_classes=list(cluster.storage_classes))
     batch = tz.add_pods(pods)
     tensors = tz.freeze()
     _, pod_arrays = scan.build_pod_arrays(batch, tensors.alloc.shape[1])
@@ -106,7 +130,7 @@ def tensorized_batch(cluster, apps, device, log_len: int):
     log_g = rng.integers(0, len(tensors.groups), k).astype(np.int32)
     log_n = rng.integers(0, tensors.n_nodes, k).astype(np.int32)
     log_r = pod_arrays[1][rng.integers(0, len(pod_arrays[0]), k)]
-    state = build_state(tensors, log_g, log_n, log_r, None, device)
+    state = sstate.build_state(tensors, log_g, log_n, log_r, None, device)
     statics = scan.statics_from(tensors, None, device)
     return tensors, batch, statics, state, pod_arrays
 
@@ -114,6 +138,17 @@ def tensorized_batch(cluster, apps, device, log_len: int):
 def smoke_batch(device):
     """The smoke problem (1000 nodes x 10 000 pods), 3000 logged placements."""
     return tensorized_batch(*smoke.smoke_problem(synth_cluster, synth_apps), device, 3000)
+
+
+def extended_batch(device):
+    """The extended problem (1000 nodes x 10 950 pods) plus a deployment
+    with a preset GPU assignment, 3000 logged placements."""
+    cluster, apps = smoke.extended_problem(synth, simtpu_torch.AppResource,
+                                           simtpu_torch.ResourceTypes)
+    preset = simtpu_torch.ResourceTypes(deployments=[
+        make_deployment("preset", 20, 500, 512, gpu_mem_mib=4096, gpu_count=2, gpu_index="0-1")])
+    return tensorized_batch(cluster, apps + [simtpu_torch.AppResource(name="preset", resource=preset)],
+                            device, 3000)
 
 
 def edge_batch(device):
@@ -144,15 +179,16 @@ def copy_state(dst, src):
         a.copy_(b)
 
 
+def tensor_diff(a, b) -> float:
+    if not a.numel():
+        return 0.0
+    if a.dtype in (torch.bool, torch.uint8):
+        return float((a != b).any())
+    return float((a.double() - b.double()).abs().max())
+
+
 def state_diff(a, b) -> float:
-    worst = 0.0
-    for x, y in zip(a, b):
-        if x.numel():
-            if x.dtype == torch.bool:
-                worst = max(worst, float((x != y).any()))
-            else:
-                worst = max(worst, float((x.double() - y.double()).abs().max()))
-    return worst
+    return max(tensor_diff(x, y) for x, y in zip(a, b))
 
 
 def score_diff(a, b) -> float:
@@ -162,14 +198,12 @@ def score_diff(a, b) -> float:
     return float((a[fin].double() - b[fin].double()).abs().max()) if fin.any() else 0.0
 
 
-def phase_compare(statics, state, pods, flags, n_sample, err):
+def phase_compare(statics, state, pods, flags, sample, err):
     """Each kernel against its plain version on identical inputs, pod by
-    pod along a seeded sample of the batch; `err` collects the largest
-    difference per kernel. Returns the kernel side's buffers."""
+    pod along `sample` (batch indices, ascending); `err` collects the
+    largest difference per kernel. Returns the kernel side's buffers."""
     kbuf = scan.StepBuffers(statics, clone_state(state), pods, flags)
     pbuf = scan.StepBuffers(statics, clone_state(state), pods, flags)
-    rng = np.random.default_rng(11)
-    sample = np.sort(rng.choice(kbuf.n_pods, min(n_sample, kbuf.n_pods), replace=False))
     for i in map(int, sample):
         copy_state(pbuf.state, kbuf.state)
         scan.filter_pod(kbuf, i)
@@ -177,6 +211,17 @@ def phase_compare(statics, state, pods, flags, n_sample, err):
         torch.cuda.synchronize()
         if not torch.equal(kbuf.stage & 0x3F, pbuf.stage & 0x3F):
             raise AssertionError(f"filter_pod: stage bits differ at pod {i}")
+        for name, live, fields in (("storage_pod", kbuf.storage_live, ("st_ok", "st_alloc", "st_take", "st_raw")),
+                                   ("gpu_pod", kbuf.gpu_live, ("gpu_ok", "gpu_sh"))):
+            if not live[i]:
+                continue
+            WRAPPERS[name][0](kbuf, i)
+            WRAPPERS[name][1](pbuf, i)
+            torch.cuda.synchronize()
+            for field in fields:
+                err[name] = max(err[name], tensor_diff(getattr(kbuf, field), getattr(pbuf, field)))
+            if err[name]:
+                raise AssertionError(f"{name}: plan differs from the plain version at pod {i}")
         scan.topology_pod(kbuf, i)
         scan.topology_pod_plain(pbuf, i)
         torch.cuda.synchronize()
@@ -193,10 +238,83 @@ def phase_compare(statics, state, pods, flags, n_sample, err):
         scan.commit_pod(kbuf, i)
         scan.commit_pod_plain(pbuf, i)
         torch.cuda.synchronize()
-        err["commit_pod"] = max(err["commit_pod"], state_diff(kbuf.state, pbuf.state))
+        err["commit_pod"] = max(err["commit_pod"], state_diff(kbuf.state, pbuf.state),
+                                *(tensor_diff(getattr(kbuf, f)[i], getattr(pbuf, f)[i])
+                                  for f in ("out_lvm", "out_take", "out_gpu")))
     if err["commit_pod"] or err["topology_pod"]:
         raise AssertionError(f"state or raw counts differ from the plain versions: {err}")
     return kbuf
+
+
+def extended_sample(kbuf, rng, per_kind: int = 8):
+    """Batch indices of storage pods (several LVM claims, exclusive
+    devices), GPU pods (one GPU, several, a preset assignment) and plain
+    pods, ascending."""
+    lvm = kbuf.lvm_size.cpu().numpy()
+    dev = kbuf.dev_size.cpu().numpy()
+    count = kbuf.gpu_count.cpu().numpy()
+    preset = kbuf.gpu_preset.cpu().numpy().sum(axis=1) > 0
+    gpu = kbuf.gpu_live
+    kinds = {
+        "multi-claim": (lvm > 0).sum(axis=1) >= 2,
+        "one-claim": (lvm > 0).sum(axis=1) == 1,
+        "device": (dev > 0).any(axis=1),
+        "one-gpu": gpu & (count == 1),
+        "multi-gpu": gpu & (count >= 2) & ~preset,
+        "preset": gpu & preset,
+        "plain": ~(kbuf.storage_live | gpu),
+    }
+    picks = []
+    for name, mask in kinds.items():
+        idx = np.flatnonzero(mask)
+        if not len(idx):
+            raise AssertionError(f"the extended batch has no {name} pod")
+        picks.append(rng.choice(idx, min(per_kind, len(idx)), replace=False))
+    return np.unique(np.concatenate(picks)), {k: int(v.sum()) for k, v in kinds.items()}
+
+
+def delta_entries(kbuf, placed_pods, rng, k: int):
+    """`k` seeded placements of a kernel run as remove_placements-style
+    records, half of them storage or GPU pods."""
+    node = kbuf.out_node.cpu().numpy()
+    ext = kbuf.storage_live | kbuf.gpu_live
+    ok = placed_pods[node[placed_pods] >= 0]
+    pick = np.concatenate([rng.choice(ok[ext[ok]], k // 2, replace=False),
+                           rng.choice(ok[~ext[ok]], k - k // 2, replace=False)])
+    g, req = kbuf.group.cpu().numpy(), kbuf.req.cpu().numpy()
+    lvm, take = kbuf.out_lvm.cpu().numpy(), kbuf.out_take.cpu().numpy()
+    shares, mem = kbuf.out_gpu.cpu().numpy(), kbuf.gpu_mem.cpu().numpy()
+    return [(int(g[i]), int(node[i]), req[i], int(node[i]), lvm[i], take[i], shares[i], float(mem[i]))
+            for i in pick]
+
+
+def phase_delta(statics, state, entries, tensors, err):
+    """K7 against its plain version: evict `entries` (w = -1), then restore
+    them (w = +1). Every plane must equal the plain version's after each
+    step and the state before the eviction after the round trip. Returns
+    the packed eviction entries."""
+    ext = tensors.ext
+    widths = (tensors.alloc.shape[1], ext.vg_cap.shape[1], ext.sdev_cap.shape[1],
+              ext.gpu_dev_total.shape[1])
+    before = clone_state(state)
+    kstate, pstate = clone_state(state), clone_state(state)
+    packed = {}
+    for sign in (-1.0, 1.0):
+        packed[sign] = sstate.pack_delta_entries(entries, *widths, sign)
+        sstate.apply_placement_deltas(statics, kstate, packed[sign])
+        sstate.apply_placement_deltas_plain(statics, pstate, packed[sign])
+        torch.cuda.synchronize()
+        err["delta_apply"] = max(err["delta_apply"], state_diff(kstate, pstate))
+        if err["delta_apply"]:
+            raise AssertionError(f"delta_apply (w = {sign:+.0f}) differs from the plain version")
+        if sign < 0:
+            moved = [n for n, a, b in zip(state._fields, kstate, before) if not torch.equal(a, b)]
+            if not {"free", "vg_free", "sdev_free", "gpu_free", "cnt_match"} <= set(moved):
+                raise AssertionError(f"the eviction left planes unchanged: moved {moved}")
+    off = [n for n, a, b in zip(state._fields, kstate, before) if not torch.equal(a, b)]
+    if off:
+        raise AssertionError(f"delta_apply round trip differs from the state before: {off}")
+    return packed
 
 
 def time_call(fn, iters: int) -> float:
@@ -213,53 +331,102 @@ def time_call(fn, iters: int) -> float:
 
 
 def kernel_bytes(buf, i: int) -> dict:
-    """Bytes each kernel must move for pod i (each input read once, each
-    output written once), from this run's shapes and this pod's terms."""
+    """Bytes each per-pod kernel must move for pod i (each input read once,
+    each output written once), from this run's shapes and this pod's terms
+    and demands."""
     st, s = buf.statics, buf.state
     n, r = st.alloc.shape
     p, w, c = st.ports_req.shape[1], st.vol_rw_req.shape[1], st.vol_class_mask.shape[0]
+    v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], s.gpu_free.shape[1]
     g = int(buf.group[i])
     terms = st.g_terms[g]
     terms = terms[terms >= 0]
     tv = int(terms.numel())
     ti = int((st.ip_of[terms.long()] >= 0).sum()) if tv else 0
+    live = int(buf.ext_live[i])
+    st_live, gpu_live = live & 1, (live >> 1) & 1
     f4 = 4
     k1 = n * r * f4 + n * p * f4 + 2 * n * w * f4 + n * c * f4 + 3 * n + n  # + stage out
     k2 = n + tv * 2 * n * f4 + ti * 4 * n * f4 + n + 4 * n * f4
-    k3 = n + 4 * n * f4 + n * r * f4 + n * 2 * f4 + 4 * n * f4 + n * f4
-    k4 = tv * n * f4 + 2 * tv * n * f4 + 2 * ti * 4 * n * f4 + 2 * r * f4 + 2 * (p + 2 * w) * f4
-    return {"filter_pod": k1, "topology_pod": k2, "score_argmax_pod": k3, "commit_pod": k4}
+    k3 = (n + 4 * n * f4 + n * r * f4 + n * 2 * f4 + 4 * n * f4 + n * f4
+          + st_live * (n + n * f4) + gpu_live * n)
+    k4 = (tv * n * f4 + 2 * tv * n * f4 + 2 * ti * 4 * n * f4 + 2 * r * f4 + 2 * (p + 2 * w) * f4
+          + st_live * (3 * v * f4 + 3 * sd) + gpu_live * 3 * gd * f4)
+    claims = buf.lvm_size.shape[1] * 8 + buf.dev_size.shape[1] * 8
+    k5 = (n * v * (3 * f4) + n * sd * (1 + 2 * f4) + n + claims
+          + n + n * v * f4 + n * sd + n * f4)
+    k6 = n * gd * (f4 + 1) + n * f4 + gd * 4 + 8 + n + n * gd * f4
+    return {"filter_pod": k1, "topology_pod": k2, "score_argmax_pod": k3, "commit_pod": k4,
+            "storage_pod": k5, "gpu_pod": k6}
 
 
-def phase_timing(kbuf):
-    """Per-launch time of each kernel and of its plain version on the card,
-    at the sampled pod with the most term rows."""
-    st = kbuf.statics
-    counts = [(int((st.g_terms[int(kbuf.group[i])] >= 0).sum()), i) for i in range(0, kbuf.n_pods, 97)]
-    i = max(counts)[1]
-    scratch = scan.StepBuffers(st, clone_state(kbuf.state), (kbuf.group.cpu(), kbuf.req.cpu(),
-                               kbuf.pin.cpu(), kbuf.forced.cpu()), kbuf.flags)
+def delta_bytes(statics, state, packed) -> int:
+    """Bytes K7 must move for these entries: the entries read once, and
+    every state element they touch read and written once."""
+    g, node, wgt, req, vg, sd, gp = (np.asarray(x) for x in packed)
+    live = wgt != 0
+    g, node = g[live], node[live]
+    e, r = req.shape[0], req.shape[1]
+    entry_bytes = e * (12 + 4 * r + 4 * vg.shape[1] + sd.shape[1] + 4 * gp.shape[1])
+    rows = np.unique(node)
+    row_bytes = len(rows) * (4 * r + 4 * state.ports_used.shape[1] + 8 * state.vols_any.shape[1]
+                             + 4 * state.vg_free.shape[1] + state.sdev_free.shape[1]
+                             + 4 * state.gpu_free.shape[1])
+    g_terms = statics.g_terms.cpu().numpy()
+    node_dom = statics.node_dom.cpu().numpy()
+    term_topo = statics.term_topo.cpu().numpy()
+    ip_of = statics.ip_of.cpu().numpy()
+    t_n = state.cnt_match.shape[0]
+    touched = np.zeros((t_n, node_dom.shape[1]), bool)
+    for gi, c in zip(g, node):
+        for term in g_terms[gi]:
+            if term < 0:
+                continue
+            dom = node_dom[term_topo[term]]
+            if dom[c] >= 0:
+                touched[term] |= dom == dom[c]
+    own = touched[ip_of >= 0].sum() if t_n else 0
+    count_bytes = 2 * 4 * (int(touched.sum()) + 4 * int(own) + int(touched.any(axis=1).sum()))
+    return int(entry_bytes + 2 * row_bytes + count_bytes)
+
+
+def phase_timing(kbuf, i: int, names):
+    """Per-launch time of each named kernel and of its plain version on the
+    card, at pod i of `kbuf`."""
+    scratch = scan.StepBuffers(kbuf.statics, clone_state(kbuf.state),
+                               tuple(getattr(kbuf, f).cpu() for f in (
+                                   "group", "req", "pin", "forced", "lvm_size", "lvm_vg", "dev_size",
+                                   "dev_media", "gpu_mem", "gpu_count", "gpu_preset")), kbuf.flags)
+    for name in ("filter_pod", "storage_pod", "gpu_pod", "topology_pod", "score_argmax_pod"):
+        if name in ("storage_pod", "gpu_pod") and not (
+                scratch.storage_live if name == "storage_pod" else scratch.gpu_live)[i]:
+            continue
+        WRAPPERS[name][0](scratch, i)  # the scratch the timed kernels read
     out = {}
-    for name, (wrapper, plain) in WRAPPERS.items():
+    for name in names:
+        wrapper, plain = WRAPPERS[name]
         ms = time_call(lambda: wrapper(scratch, i), 2000)
         plain_ms = time_call(lambda: plain(scratch, i), 20)
         out[name] = (ms, plain_ms)
-    launch_ms = time_call(lambda: cuda.launch_noop(kbuf.device), 2000)
-    return out, launch_ms, kernel_bytes(scratch, i), i
+    return out, kernel_bytes(scratch, i)
 
 
 def phase_profile(statics, state, pods, flags, n_pods: int):
-    """Device time per kernel and the device's busy share over the K1-K4
+    """Device time per kernel and the device's busy share over the per-pod
     loop of `n_pods` pods (torch.profiler's CUDA activity). Returns
     ({kernel: (device us per launch, launches)}, busy share, wall s)."""
-    from torch.profiler import ProfilerActivity, profile
-
     buf = scan.StepBuffers(statics, clone_state(state), tuple(x[:n_pods] for x in pods), flags)
     scan.run_batch(scan.StepBuffers(statics, clone_state(state), tuple(x[:8] for x in pods), flags))
     torch.cuda.synchronize()
+    return profile_kernels(lambda: scan.run_batch(buf))
+
+
+def profile_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        scan.run_batch(buf)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per = {}
@@ -273,6 +440,75 @@ def phase_profile(statics, state, pods, flags, n_pods: int):
                 per[name] = (dev_us / max(ev.count, 1), ev.count)
                 busy_us += dev_us
     return per, busy_us / 1e6 / wall, wall
+
+
+class CountingEngine(scan.Engine):
+    """The engine, counting on the host the pod steps of every batch and
+    how many of them need K5 (storage) and K6 (GPU)."""
+
+    steps = {"pods": 0, "storage": 0, "gpu": 0}
+
+    def place(self, batch):
+        flags = scan.flags_from(self.tensorizer.freeze(), batch.ext)
+        ext = batch.ext
+        storage = (np.asarray(ext["lvm_size"]) > 0).any(axis=1) | (np.asarray(ext["dev_size"]) > 0).any(axis=1)
+        CountingEngine.steps["pods"] += len(batch.group)
+        CountingEngine.steps["storage"] += int(storage.sum()) if flags.storage else 0
+        CountingEngine.steps["gpu"] += int((np.asarray(ext["gpu_mem"]) > 0).sum()) if flags.gpu else 0
+        return super().place(batch)
+
+
+def run_main_path(problem, golden, card: str, label: str):
+    """`simulate(device="cuda")` on a smoke problem with every count set to
+    0 just before and read just after; the record must equal the golden
+    file. Returns (launches, host step counts, wall s, pods, record)."""
+    cluster, apps = problem
+    CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
+    tapi.Engine = CountingEngine
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simtpu_torch.simulate(cluster, apps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seed_name_hashes(None)
+    tapi.Engine = scan.Engine
+    launches, steps = dict(cuda.LAUNCHES), dict(CountingEngine.steps)
+    plain_calls = sum(cuda.PLAIN_CALLS.values())
+    record = smoke.placement_record(result)
+    n_pods = len(record["placed"]) + len(record["failed"]) + len(record["preempted"])
+    short = [k for k in STEP if launches.get(k, 0) != steps["pods"]]
+    if short or plain_calls or steps["pods"] < n_pods:
+        raise AssertionError(f"{label}: launches {launches} for {steps} pod steps "
+                             f"({n_pods} pods), plain calls {plain_calls}")
+    if launches.get("storage_pod", 0) != steps["storage"] or launches.get("gpu_pod", 0) != steps["gpu"]:
+        raise AssertionError(f"{label}: K5/K6 launches {launches} != host-counted steps {steps}")
+    diffs = smoke.record_differences(record, smoke.load_record(golden))
+    if diffs:
+        raise AssertionError(f"{label} differs from the golden record:\n" + "\n".join(diffs))
+    log(f"{label}: simulate(device='cuda') {len(record['nodes'])} nodes x {n_pods} pods "
+        f"({steps['pods']} pod steps, {steps['storage']} storage, {steps['gpu']} GPU): {wall:.2f} s, "
+        f"{n_pods / wall:.0f} pods/s, {len(record['failed'])} unscheduled, "
+        f"{len(record['preempted'])} preempted, record == golden; launches {launches} [{card}]")
+    return launches, steps, wall, n_pods, record
+
+
+def run_example(cluster_dir: str, app_dir: str, name: str, extended=()):
+    """An example on the card and on the CPU path: equal, none unscheduled."""
+    cluster = create_cluster_resource_from_cluster_config(str(REPO / cluster_dir))
+    app = simtpu_torch.AppResource(name=name, resource=load_resources(str(REPO / app_dir)))
+    records = []
+    for dev in ("cuda", "cpu"):
+        seed_name_hashes(1)
+        records.append(smoke.placement_record(
+            simtpu_torch.simulate(cluster, [app], extended_resources=list(extended), device=dev)))
+        seed_name_hashes(None)
+    got, want = records
+    if got["failed"] or got != want:
+        raise AssertionError(f"{cluster_dir} + {app_dir}: {len(got['failed'])} unscheduled, "
+                             f"equal to CPU: {got == want}")
+    return got
 
 
 def main() -> int:
@@ -297,92 +533,153 @@ def main() -> int:
 
     # -- phase 2: kernels against their plain versions ---------------------
     configure_numerics()
+    err = dict.fromkeys(KERNELS, 0.0)
+    rng = np.random.default_rng(11)
     tensors, batch, statics, state, pods = smoke_batch(device)
     flags = scan.flags_from(tensors, batch.ext)
     log(f"phase 2: smoke shape N={tensors.n_nodes} T={tensors.n_terms} G={len(tensors.groups)} "
         f"Tc={statics.g_terms.shape[1]} pods={len(pods[0])} flags={flags}")
-    err = dict.fromkeys(KERNELS, 0.0)
-    kbuf = phase_compare(statics, state, pods, flags, N_SAMPLE, err)
-    phase_compare(statics, state, pods, scan.StepFlags(), N_SAMPLE // 2, err)
+    sample = np.sort(rng.choice(len(pods[0]), N_SAMPLE, replace=False))
+    kbuf = phase_compare(statics, state, pods, flags, sample, err)
+    phase_compare(statics, state, pods, scan.StepFlags(), sample[: N_SAMPLE // 2], err)
     e_tensors, e_batch, e_statics, e_state, e_pods = edge_batch(device)
-    edge_buf = phase_compare(e_statics, e_state, e_pods, scan.StepFlags(), len(e_pods[0]), err)
-    reasons = sorted(set(edge_buf.reason.tolist()))
+    edge_buf = phase_compare(e_statics, e_state, e_pods, scan.StepFlags(), range(len(e_pods[0])), err)
     log(f"phase 2: K1-K4 equal to their plain versions on {N_SAMPLE} smoke pods (derived flags), "
-        f"{N_SAMPLE // 2} (all flags) and the edge problem (reasons {reasons}); "
-        f"max |score diff| {err['score_argmax_pod']}")
-    times, launch_ms, nbytes, ti = phase_timing(kbuf)
+        f"{N_SAMPLE // 2} (all flags) and the edge problem (reasons {sorted(set(edge_buf.reason.tolist()))})")
+
+    x_tensors, x_batch, x_statics, x_state, x_pods = extended_batch(device)
+    x_flags = scan.flags_from(x_tensors, x_batch.ext)
+    probe = scan.StepBuffers(x_statics, x_state, x_pods, x_flags)
+    x_sample, kinds = extended_sample(probe, rng)
+    log(f"phase 2: extended shape N={x_tensors.n_nodes} V={x_statics.vg_cap.shape[1]} "
+        f"SD={x_statics.sdev_cap.shape[1]} GD={x_state.gpu_free.shape[1]} pods={len(x_pods[0])} "
+        f"(storage {int(probe.storage_live.sum())}, GPU {int(probe.gpu_live.sum())}; {kinds}) flags={x_flags}")
+    xbuf = phase_compare(x_statics, x_state, x_pods, x_flags, x_sample, err)
+    reasons = sorted(set(xbuf.reason[torch.as_tensor(x_sample, device=device)].tolist()))
+    log(f"phase 2: K1-K6 equal to their plain versions on {len(x_sample)} extended pods "
+        f"(reasons {reasons}); max |score diff| {err['score_argmax_pod']}")
+    # a kernel run of the first 3000 extended pods gives real placements to evict
+    run = scan.StepBuffers(x_statics, clone_state(x_state), x_pods, x_flags)
+    head = np.arange(3000)
+    for i in head:
+        scan.filter_pod(run, int(i))
+        if run.storage_live[i]:
+            scan.storage_pod(run, int(i))
+        if run.gpu_live[i]:
+            scan.gpu_pod(run, int(i))
+        scan.topology_pod(run, int(i))
+        scan.score_argmax_pod(run, int(i))
+        scan.commit_pod(run, int(i))
+    torch.cuda.synchronize()
+    entries = delta_entries(run, head, rng, 200)
+    packed = phase_delta(x_statics, run.state, entries, x_tensors, err)
+    log(f"phase 2: K7 equal to its plain version evicting and restoring {len(entries)} placements; "
+        "the round trip restores every plane bit for bit")
+
+    # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
+    # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
+    counts = [(int((statics.g_terms[int(kbuf.group[i])] >= 0).sum()), i) for i in range(0, kbuf.n_pods, 97)]
+    ti = max(counts)[1]
+    times, nbytes = phase_timing(kbuf, ti, STEP)
+    si = int(np.flatnonzero(probe.storage_live & ((probe.lvm_size.cpu().numpy() > 0).sum(axis=1) >= 2))[0])
+    gi = int(np.flatnonzero(probe.gpu_live & (probe.gpu_count.cpu().numpy() >= 2))[0])
+    s_times, s_bytes = phase_timing(xbuf, si, STEP + ("storage_pod",))
+    g_times, g_bytes = phase_timing(xbuf, gi, ("gpu_pod",))
+    launch_ms = time_call(lambda: cuda.launch_noop(device), 2000)
+    d_state = clone_state(run.state)
+
+    def delta_pair():
+        sstate.apply_placement_deltas(x_statics, d_state, packed[-1.0])
+        sstate.apply_placement_deltas(x_statics, d_state, packed[1.0])
+
+    delta_ms = time_call(delta_pair, 200) / 2
+    delta_plain_ms = time_call(
+        lambda: sstate.apply_placement_deltas_plain(x_statics, d_state, packed[-1.0])
+        or sstate.apply_placement_deltas_plain(x_statics, d_state, packed[1.0]), 2) / 2
+    d_bytes = delta_bytes(x_statics, run.state, packed[-1.0])
     for name, (host_ms, plain_ms) in times.items():
         log(f"  {name}: {host_ms * 1e3:.2f} us per back-to-back launch from Python, plain "
-            f"{plain_ms * 1e3:.1f} us, {nbytes[name]} B (pod {ti})")
+            f"{plain_ms * 1e3:.1f} us, {nbytes[name]} B (smoke pod {ti})")
+    for name, (host_ms, plain_ms) in list(s_times.items()) + list(g_times.items()):
+        at, b = (si, s_bytes) if name in s_times else (gi, g_bytes)
+        log(f"  {name}: {host_ms * 1e3:.2f} us per back-to-back launch from Python, plain "
+            f"{plain_ms * 1e3:.1f} us, {b[name]} B (extended pod {at})")
+    log(f"  delta_apply: {delta_ms * 1e3:.2f} us per launch of {len(entries)} entries, plain "
+        f"{delta_plain_ms * 1e3:.1f} us, {d_bytes} B")
     log(f"  empty launch: {launch_ms * 1e3:.2f} us")
 
     per, busy, pwall = phase_profile(statics, state, pods, flags, 2000)
-    log(f"  profiler, K1-K4 over 2000 pods: {pwall:.3f} s wall, device busy {busy:.3f} of it; "
-        + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in per.items()))
+    log(f"  profiler, serial smoke K1-K4 over 2000 pods: {pwall:.3f} s wall, device busy {busy:.3f} "
+        "of it; " + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in per.items()))
+    x_per, x_busy, x_wall = phase_profile(x_statics, x_state, x_pods, x_flags, 2000)
+    log(f"  profiler, extended K1-K6 over 2000 pods: {x_wall:.3f} s wall, device busy {x_busy:.3f} "
+        "of it; " + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in x_per.items()))
+    d_per, _, _ = profile_kernels(lambda: [delta_pair() for _ in range(20)])
+    x_per.update(d_per)
+    log(f"  profiler, delta_apply: {d_per['delta_apply'][0]:.2f} us x {d_per['delta_apply'][1]}")
 
-    # -- phase 3: the main path --------------------------------------------
-    cluster, apps = smoke.smoke_problem(synth_cluster, synth_apps)
-    cuda.reset_counts()
-    seed_name_hashes(smoke.NAME_SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = simtpu_torch.simulate(cluster, apps, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    seed_name_hashes(None)
-    launches = dict(cuda.LAUNCHES)
-    plain_calls = sum(cuda.PLAIN_CALLS.values())
-    record = smoke.placement_record(result)
-    n_pods = len(record["placed"]) + len(record["failed"])
-    short = [k for k in KERNELS if launches.get(k, 0) < n_pods]
-    if short or plain_calls:
-        raise AssertionError(f"main path: launches {launches} for {n_pods} pods, plain calls {plain_calls}")
-    diffs = smoke.record_differences(record, smoke.load_record())
-    if diffs:
-        raise AssertionError("main path differs from the golden placements:\n" + "\n".join(diffs))
-    log(f"phase 3: simulate(device='cuda') {smoke.N_NODES} nodes x {n_pods} pods: {wall:.2f} s, "
-        f"{n_pods / wall:.0f} pods/s, {len(record['failed'])} unscheduled, placements == golden "
-        f"[{card}]")
+    # -- phase 3: the serial main path -------------------------------------
+    launches, _, wall, n_pods, _ = run_main_path(
+        smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3")
 
-    # -- phase 4: the demo example -----------------------------------------
-    demo = create_cluster_resource_from_cluster_config(str(REPO / "examples/cluster/demo"))
-    web = simtpu_torch.AppResource(name="web", resource=load_resources(str(REPO / "examples/application/web")))
-    seed_name_hashes(1)
-    res = simtpu_torch.simulate(demo, [web], device="cuda")
-    seed_name_hashes(1)
-    ref = simtpu_torch.simulate(demo, [web], device="cpu")
-    seed_name_hashes(None)
-    got, want = smoke.placement_record(res), smoke.placement_record(ref)
-    if got["failed"] or got != want:
-        raise AssertionError(f"demo example: {len(got['failed'])} unscheduled, equal to CPU: {got == want}")
+    # -- phase 3b: the extended main path ----------------------------------
+    x_launches, x_steps, x_wall3, x_pods_n, x_record = run_main_path(
+        smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes),
+        smoke.EXT_GOLDEN, card, "phase 3b")
+    if x_launches.get("delta_apply", 0) < 1 or not x_record["preempted"]:
+        raise AssertionError(f"phase 3b: no preemption delta ran ({x_launches})")
+
+    # -- phase 4: the examples ---------------------------------------------
+    got = run_example("examples/cluster/demo", "examples/application/web", "web")
     log(f"phase 4: demo example, {len(got['placed'])} pods placed, equal to the CPU path")
+    gpu_rec = run_example("examples/cluster/gpushare", "examples/application/gpushare",
+                          "inference", ["gpu"])
+    st_rec = run_example("examples/cluster/demo", "examples/application/local-storage",
+                         "database", ["open-local"])
+    log(f"phase 4b: gpushare example {len(gpu_rec['placed'])} pods placed "
+        f"({len(gpu_rec['gpu_index'])} with GPU assignments), local-storage example "
+        f"{len(st_rec['placed'])} pods placed ({len(st_rec['node_ext'])} annotated nodes); "
+        "both equal to the CPU path")
 
     rows = []
     busy_s = 0.0
+    all_times = {**times, **{k: v for k, v in s_times.items() if k not in times}, **g_times,
+                 "delta_apply": (delta_ms, delta_plain_ms)}
+    all_bytes = {**nbytes, "storage_pod": s_bytes["storage_pod"], "gpu_pod": g_bytes["gpu_pod"],
+                 "delta_apply": d_bytes}
     for name, replaces in KERNELS.items():
-        host_ms, plain_ms = times[name]
-        # the kernel's own time on the card (profiler); the back-to-back
-        # launch time from Python (host_ms) is bound by the launch path
-        ms = per[name][0] / 1e3 if name in per else host_ms
-        busy_s += ms / 1e3 * launches[name]
+        host_ms, plain_ms = all_times[name]
+        # the kernel's own time on the card (profiler; K1-K4 at the serial
+        # smoke shape, K5-K7 at the extended one); the back-to-back launch
+        # time from Python (host_ms) is bound by the launch path
+        prof = per.get(name) if name in STEP else x_per.get(name)
+        ms = prof[0] / 1e3 if prof else host_ms
+        busy_s += ms / 1e3 * x_launches.get(name, 0)
         rows.append({
             "name": name,
             "route": "cuda",
             "source": f"simtpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": x_launches.get(name, 0),
             "max_abs_err": err[name],
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": all_bytes[name] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,
             "host_ms": host_ms,
             "launch_ms": launch_ms,
-            "ms_from": "profiler" if name in per else "cuda events",
+            "ms_from": "profiler" if prof else "cuda events",
+            "launches_serial_path": launches.get(name, 0),
+            "ms_extended": x_per[name][0] / 1e3 if name in x_per else None,
+            "host_ms_extended": s_times[name][0] if name in s_times else None,
         })
-    print(json.dumps({"kernels": rows, "card": card, "wall_s": wall, "pods_per_s": n_pods / wall,
-                      "loop_device_busy": busy, "simulate_device_busy": busy_s / wall}))
+    print(json.dumps({"kernels": rows, "card": card,
+                      "serial": {"wall_s": wall, "pods": n_pods, "pods_per_s": n_pods / wall},
+                      "extended": {"wall_s": x_wall3, "pods": x_pods_n, "pods_per_s": x_pods_n / x_wall3,
+                                   "pod_steps": x_steps, "preempted": len(x_record["preempted"]),
+                                   "device_busy": busy_s / x_wall3},
+                      "loop_device_busy": {"serial": busy, "extended": x_busy}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

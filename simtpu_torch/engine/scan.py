@@ -5,19 +5,30 @@ Each pod runs a full scheduling cycle (filter → score → select → state
 update) over the whole node axis; pods are strictly ordered like the
 reference's serial loop. Ties go to the lowest node index.
 
-On the device the per-pod step is four hand-written CUDA kernels
+On the device the per-pod step is up to six hand-written CUDA kernels
 (`kernels/csrc/`), launched back to back for pod `i` with no host sync:
 
 - K1 `filter_pod`: the per-node filter stages (static/pin/valid, ports,
   resources, volumes, attach limits, volume binding) → one byte of
   cumulative stage bits per node;
+- K5 `storage_pod` (Open-Local pods only): the LVM and exclusive-device
+  plans and the raw Open-Local score of every node;
+- K6 `gpu_pod` (GPU-share pods only): the GPU device plan of every node;
 - K2 `topology_pod`: the `[Tc, N]` work of the group's term rows — the
   hard-spread and inter-pod filters (stage bits 6 and 7) and the raw
   inter-pod, soft-spread and selector-spread count vectors;
-- K3 `score_argmax_pod`: the first failing stage, the normalizers, the
-  weighted score sum in the JAX package's term order, the argmax (lowest
-  index on ties) and the forced-pod override → chosen, placed, reason;
-- K4 `commit_pod`: the state update at the chosen node, IN PLACE.
+- K3 `score_argmax_pod`: the storage and GPU verdicts ANDed into the
+  cascade, the first failing stage, the normalizers, the weighted score
+  sum in the JAX package's term order (the Open-Local term last), the
+  argmax (lowest index on ties) and the forced-pod override → chosen,
+  placed, reason;
+- K4 `commit_pod`: the state update at the chosen node, IN PLACE, and the
+  pod's extended allocations at that node.
+
+A pod that demands no storage (no GPU memory) skips K5 (K6), as the JAX
+package's `lax.cond` skips the plans: the host decides from the batch's
+numpy arrays, and K3/K4 read a per-pod flag and use the skip constants
+(all nodes fit, raw score 0, zero allocation).
 
 Each kernel's wrapper below decides by the device of the tensors it is
 given: CPU tensors go to its plain PyTorch version (same module), CUDA
@@ -27,8 +38,14 @@ textbook functions `node_masks`, `topology_masks`, `topology_raws`,
 line; `filter_and_score` and `schedule_step` compose them.
 
 Bit layout of the stage byte (each bit implies the ones before it):
-0 static, 1 ports, 2 resources, 3 volumes, 4 attach, 5 bind, 6 spread,
-7 all. Storage and GPU-share stages equal `bind` in this slice.
+0 static, 1 ports, 2 resources, 3 volumes, 4 attach, 5 bind, 6 bind and
+spread, 7 bind, spread and inter-pod. The storage and GPU verdicts are not
+in the byte: K3 ANDs them into bits 5-7 (AND commutes, so `m_spread` =
+bit 6 & storage & GPU, `m_all` = bit 7 & storage & GPU).
+
+`Engine.remove_placements` / `restore_placements` apply signed log deltas
+to the carried state (preemption), through K7 `delta_apply` on the card
+(`engine/state.py apply_placement_deltas`).
 """
 
 from __future__ import annotations
@@ -49,6 +66,8 @@ from ..kernels.filters import (
     volume_conflict_free,
 )
 from ..kernels.fp import fma
+from ..kernels.gpushare import gpu_plan
+from ..kernels.storage import storage_plan
 from ..kernels.scores import (
     interpod_score,
     maxabs_normalize,
@@ -62,8 +81,10 @@ from ..kernels.scores import (
 from .state import (
     SchedState,
     add_rows,
+    apply_placement_deltas,
     build_state,
     interpod_term_index,
+    pack_delta_entries,
     take_rows,
     take_rows_i32,
 )
@@ -119,7 +140,7 @@ FILTER_CASCADE = (
 
 class StaticArrays(NamedTuple):
     """Per-simulation constants (the fields of the JAX package's
-    StaticArrays that the serial path without storage/GPU reads).
+    StaticArrays that the serial path reads).
 
     Unlike the JAX package, constant [G, N] planes are NOT collapsed to one
     row: every `[G, ...]` plane has all G rows, so a group index never needs
@@ -151,6 +172,14 @@ class StaticArrays(NamedTuple):
     vol_att_req: torch.Tensor  # [G, W] bool
     vol_class_mask: torch.Tensor  # [C, W] bool
     attach_limits: torch.Tensor  # [N, C] f32
+    # extended resources (Open-Local storage, GPU-share)
+    has_storage: torch.Tensor  # [N] bool
+    vg_cap: torch.Tensor  # [N, V] f32
+    vg_name_id: torch.Tensor  # [N, V] i32 interned VG name (-1 pad)
+    sdev_cap: torch.Tensor  # [N, SD] f32
+    sdev_media: torch.Tensor  # [N, SD] i32 media code (0 none)
+    gpu_dev_exists: torch.Tensor  # [N, GD] bool
+    gpu_total: torch.Tensor  # [N] f32
     score_w: torch.Tensor  # [schedconfig.N_TERMS] f32
     node_valid: torch.Tensor  # [N] bool
 
@@ -165,7 +194,10 @@ _STATIC_DTYPES = {
     "spread_hard": np.float32, "spread_soft": np.float32, "ss_host": bool,
     "ss_zone": bool, "ports_req": bool, "vol_rw_req": bool,
     "vol_ro_req": bool, "vol_att_req": bool, "vol_class_mask": bool,
-    "attach_limits": np.float32, "score_w": np.float32, "node_valid": bool,
+    "attach_limits": np.float32, "has_storage": bool, "vg_cap": np.float32,
+    "vg_name_id": np.int32, "sdev_cap": np.float32, "sdev_media": np.int32,
+    "gpu_dev_exists": bool, "gpu_total": np.float32, "score_w": np.float32,
+    "node_valid": bool,
 }
 _GROUP_NODE_PLANES = (
     "static_mask", "vol_mask", "node_pref", "taint_intol", "static_score", "avoid_pen",
@@ -257,6 +289,7 @@ def statics_from(tensors: ClusterTensors, sched_config, device) -> StaticArrays:
         return cached[2]
     g_terms, compact = _compact_terms(tensors)
     n = tensors.alloc.shape[0]
+    ext = tensors.ext
     score_w = sched_config.score_weights if sched_config is not None else DEFAULT_WEIGHTS
     statics = statics_from_numpy(
         dict(
@@ -286,6 +319,13 @@ def statics_from(tensors: ClusterTensors, sched_config, device) -> StaticArrays:
             vol_att_req=tensors.vol_att,
             vol_class_mask=tensors.vol_class_mask,
             attach_limits=tensors.attach_limits,
+            has_storage=ext.has_storage,
+            vg_cap=ext.vg_cap,
+            vg_name_id=ext.vg_name_id,
+            sdev_cap=ext.sdev_cap,
+            sdev_media=ext.sdev_media,
+            gpu_dev_exists=ext.gpu_dev_total > 0,
+            gpu_total=ext.gpu_total,
             score_w=score_w,
             node_valid=np.ones(n, bool),
         ),
@@ -358,7 +398,8 @@ def flags_from(tensors: ClusterTensors, batch_ext: dict) -> StepFlags:
 
 
 class StepEval(NamedTuple):
-    """The mask cascade and the combined score of one scheduling cycle."""
+    """The mask cascade, the combined score and the extended-resource plans
+    of one scheduling cycle (field for field the JAX package's StepEval)."""
 
     m_static: torch.Tensor  # [N]
     m_ports: torch.Tensor
@@ -366,11 +407,15 @@ class StepEval(NamedTuple):
     m_vol: torch.Tensor
     m_att: torch.Tensor
     m_bind: torch.Tensor
-    m_storage: torch.Tensor  # == m_bind: no storage demand in this slice
-    m_gpu: torch.Tensor  # == m_bind: no GPU-share demand in this slice
+    m_storage: torch.Tensor
+    m_gpu: torch.Tensor
     m_spread: torch.Tensor
     m_all: torch.Tensor
     score: torch.Tensor  # [N], -inf outside m_all
+    score_nostorage: torch.Tensor  # [N] score minus the Open-Local term
+    lvm_alloc: torch.Tensor  # [N, V]
+    dev_take: torch.Tensor  # [N, SD]
+    gpu_shares: torch.Tensor  # [N, GD]
 
     def fail_code(self) -> int:
         """First mask stage that emptied the candidate set."""
@@ -379,6 +424,38 @@ class StepEval(NamedTuple):
             if not bool(getattr(self, field).any()):
                 fail = code
         return fail
+
+
+class PodExt(NamedTuple):
+    """One pod's extended-resource demands (the tail of the pod tuple)."""
+
+    lvm_size: torch.Tensor  # [L] f32 LVM claim sizes (0 = padding)
+    lvm_vg: torch.Tensor  # [L] i32 named VG (-1 unnamed, -2 missing)
+    dev_size: torch.Tensor  # [K] f32 exclusive-device claim sizes
+    dev_media: torch.Tensor  # [K] i32 media code per claim
+    gpu_mem: float  # per-GPU memory request
+    gpu_count: int  # GPU shares requested
+    gpu_preset: torch.Tensor  # [GD] shares from an existing gpu-index annotation
+
+
+def pod_ext(pod, device) -> PodExt:
+    """The extended demands of a pod tuple (g, req, pin, forced, lvm_size,
+    lvm_vg, dev_size, dev_media, gpu_mem, gpu_count, gpu_preset)."""
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x, dtype), device=device)
+
+    return PodExt(
+        t(pod[4], np.float32), t(pod[5], np.int32), t(pod[6], np.float32),
+        t(pod[7], np.int32), float(pod[8]), int(pod[9]), t(pod[10], np.int32),
+    )
+
+
+def storage_demand(lvm_size, dev_size) -> np.ndarray:
+    """Which pods demand Open-Local storage (the JAX package's cond
+    predicate `any(lvm_size > 0) | any(dev_size > 0)`), over the claim axis
+    of host arrays of one pod or a batch."""
+    return (np.asarray(lvm_size) > 0).any(axis=-1) | (np.asarray(dev_size) > 0).any(axis=-1)
 
 
 class TopoRaws(NamedTuple):
@@ -490,12 +567,13 @@ def score_pod(
 ) -> torch.Tensor:
     """The combined score sum for one pod over all nodes, -inf outside
     `m_all`, in the JAX package's term order and with the arithmetic of its
-    compiled step (kernels/scores.py, "the step's composition"): the
-    resource pair as one FMA, the Simon numerator contracted, the static
-    pair as one FMA, the other terms added with two roundings each
-    (`score + w * term`). A term whose flag is False is not added; the
-    per-pod skips of the JAX package (a pod with no terms of a family) are
-    evaluated live, which gives the same constants."""
+    compiled step, whose weights are runtime values (kernels/scores.py,
+    "the step's composition"): the resource pair with two roundings, the
+    Simon term as one FMA — two roundings when the node-affinity term
+    follows it —, every later term added as one FMA `fma(w, term, score)`,
+    the static pair as one FMA added with two roundings. A term whose flag is False is not added; the per-pod skips
+    of the JAX package (a pod with no terms of a family) are evaluated
+    live, which gives the same constants."""
     f = flags
     t_cap = statics.g_terms.shape[1]
     if raws is None:
@@ -504,41 +582,87 @@ def score_pod(
     score = resource_base_score(state.free, statics.alloc, req, w_[0], w_[1])
     # Simon score + the GPU-share score, the same dominant-share formula:
     # computed once, counted twice
-    score = score + (w_[2] + w_[3]) * simon_minmax(statics.alloc, req, m_all)
+    simon = simon_minmax(statics.alloc, req, m_all)
     if f.node_pref:
-        score = score + w_[4] * minmax_normalize(statics.node_pref[g], m_all)
+        score = score + (w_[2] + w_[3]) * simon
+    else:
+        score = fma(w_[2] + w_[3], simon, score)
+    if f.node_pref:
+        score = fma(w_[4], minmax_normalize(statics.node_pref[g], m_all), score)
     if f.taint_pref:
-        score = score + w_[5] * taint_toleration_score(statics.taint_intol[g], m_all)
+        score = fma(w_[5], taint_toleration_score(statics.taint_intol[g], m_all), score)
     if t_cap and (f.interpod_pref or f.interpod_req):
-        score = score + w_[6] * maxabs_normalize(raws.ipa, m_all)
+        score = fma(w_[6], maxabs_normalize(raws.ipa, m_all), score)
     if t_cap and f.spread_soft:
-        score = score + w_[7] * spread_score_from_raw(raws.spread, m_all)
+        score = fma(w_[7], spread_score_from_raw(raws.spread, m_all), score)
     if t_cap and f.selector_spread:
         ss = selector_spread_from_counts(raws.ss_host, raws.ss_zone, statics.ss_zone[g].any(), m_all)
-        score = score + w_[8] * ss
+        score = fma(w_[8], ss, score)
     if f.static_score:
         score = score + fma(w_[9], statics.static_score[g], w_[11] * statics.avoid_pen[g])
     return torch.where(m_all, score, -torch.inf)
 
 
-def _finish_score(statics: StaticArrays, score, flags: StepFlags):
-    """The Open-Local term: w10 × minmax(0) = w10 × 0 for the storage-free
-    pods of this slice, added after the mask as in the JAX package."""
+def storage_step(statics: StaticArrays, state: SchedState, ext: PodExt):
+    """K5's function: (storage_ok [N], lvm_alloc [N, V], dev_take [N, SD],
+    raw Open-Local score [N]) of a pod that demands storage."""
+    return storage_plan(
+        state.vg_free, statics.vg_name_id, statics.vg_cap, state.sdev_free,
+        statics.sdev_cap, statics.sdev_media, statics.has_storage,
+        ext.lvm_size, ext.lvm_vg, ext.dev_size, ext.dev_media,
+    )
+
+
+def gpu_step(statics: StaticArrays, state: SchedState, ext: PodExt):
+    """K6's function: (gpu_ok [N], gpu_shares [N, GD]) of a GPU-share pod."""
+    return gpu_plan(
+        state.gpu_free, statics.gpu_dev_exists, statics.gpu_total,
+        ext.gpu_mem, ext.gpu_count, ext.gpu_preset,
+    )
+
+
+def open_local_term(statics: StaticArrays, score, raw, m_all, flags: StepFlags):
+    """`score + w10 * minmax(raw, m_all)` as one FMA, the Open-Local term
+    added after the mask as in the JAX package (a storage-free pod's raw 0
+    normalizes to exactly 0)."""
     if flags.storage:
-        score = score + statics.score_w[10] * torch.zeros_like(score)
+        score = fma(statics.score_w[10], minmax_normalize(raw, m_all), score)
     return score
 
 
 def filter_and_score(statics: StaticArrays, state: SchedState, pod, flags: StepFlags) -> StepEval:
-    """The full filter cascade and score sum for one pod (g, req, pin)."""
+    """The full filter cascade and score sum for one pod tuple (g, req, pin,
+    forced, lvm_size, lvm_vg, dev_size, dev_media, gpu_mem, gpu_count,
+    gpu_preset); a 4-tuple is a pod with no extended demands."""
     g, req, pin = int(pod[0]), pod[1], int(pod[2])
-    m_static, m_ports, m_res, m_vol, m_att, m_bind = node_masks(statics, state, g, req, pin, flags)
-    spread_ok, ip_ok = topology_masks(statics, state, g, m_static, flags)
-    m_spread = m_bind & spread_ok
+    f = flags
+    m_static, m_ports, m_res, m_vol, m_att, m_bind = node_masks(statics, state, g, req, pin, f)
+    ext = pod_ext(pod, statics.alloc.device) if len(pod) > 4 else None
+    # the skip constants of a storage-free pod: every node fits, zero
+    # allocation, raw score 0
+    storage_ok = torch.ones_like(m_bind)
+    lvm_alloc = torch.zeros_like(statics.vg_cap)
+    dev_take = torch.zeros(statics.sdev_cap.shape, dtype=torch.bool, device=m_bind.device)
+    raw = torch.zeros_like(statics.vg_cap[:, 0])
+    m_storage = m_bind
+    if f.storage:
+        if ext is not None and storage_demand(pod[4], pod[6]):
+            storage_ok, lvm_alloc, dev_take, raw = storage_step(statics, state, ext)
+        m_storage = m_bind & storage_ok
+    gpu_shares = torch.zeros_like(state.gpu_free)
+    m_gpu = m_storage
+    if f.gpu:
+        gpu_ok = torch.ones_like(m_bind)
+        if ext is not None and ext.gpu_mem > 0:
+            gpu_ok, gpu_shares = gpu_step(statics, state, ext)
+        m_gpu = m_storage & gpu_ok
+    spread_ok, ip_ok = topology_masks(statics, state, g, m_static, f)
+    m_spread = m_gpu & spread_ok
     m_all = m_spread & ip_ok
-    score = _finish_score(statics, score_pod(statics, state, g, req, m_all, flags), flags)
+    score = score_pod(statics, state, g, req, m_all, f)
     return StepEval(
-        m_static, m_ports, m_res, m_vol, m_att, m_bind, m_bind, m_bind, m_spread, m_all, score
+        m_static, m_ports, m_res, m_vol, m_att, m_bind, m_storage, m_gpu, m_spread, m_all,
+        open_local_term(statics, score, raw, m_all, f), score, lvm_alloc, dev_take, gpu_shares,
     )
 
 
@@ -564,13 +688,17 @@ def commit(
     chosen: int,
     placed: bool,
     flags: StepFlags,
+    extended=None,
 ) -> None:
     """K4's function: the state update at the chosen node, IN PLACE. A pod
-    that was not placed changes nothing (the JAX package adds zeros)."""
+    that was not placed changes nothing (the JAX package adds zeros).
+    `extended` = (lvm_alloc [V], dev_take [SD], gpu_shares [GD], gpu_mem):
+    the pod's extended allocations at the chosen node; None (or a None
+    row) adds nothing, exactly as the JAX package's zero allocation."""
     if not placed:
         return
     f = flags
-    state.free[chosen] -= req
+    state.free[chosen] += -req
     if f.ports:
         state.ports_used[chosen] += statics.ports_req[g].to(torch.float32)
     if f.vols or f.attach:
@@ -579,6 +707,13 @@ def commit(
         state.vols_any[chosen] += v_present.to(torch.float32)
         if f.vols:
             state.vols_rw[chosen] += v_rw.to(torch.float32)
+    if extended is not None:
+        lvm_row, take_row, shares_row, gpu_mem = extended
+        if f.storage and lvm_row is not None:
+            state.vg_free[chosen] += -lvm_row
+            state.sdev_free[chosen] &= ~take_row
+        if f.gpu and shares_row is not None:
+            state.gpu_free[chosen] += -shares_row * gpu_mem
     if not (uses_topology(f) and statics.g_terms.shape[1]):
         return
     # same-domain increment on the group's term rows: every node sharing
@@ -605,11 +740,14 @@ def commit(
 
 
 def schedule_step(statics: StaticArrays, state: SchedState, pod, flags: StepFlags):
-    """One scheduling cycle for one pod (g, req, pin, forced, ...) against
-    every node; updates `state` in place. Returns (out_node, reason)."""
+    """One scheduling cycle for one pod tuple against every node; updates
+    `state` in place. Returns (out_node, reason)."""
     ev = filter_and_score(statics, state, pod, flags)
     chosen, placed, reason = choose(ev, bool(pod[3]), int(pod[2]), statics.node_valid)
-    commit(statics, state, int(pod[0]), pod[1], chosen, placed, flags)
+    extended = None
+    if len(pod) > 4 and placed:
+        extended = (ev.lvm_alloc[chosen], ev.dev_take[chosen], ev.gpu_shares[chosen], float(pod[8]))
+    commit(statics, state, int(pod[0]), pod[1], chosen, placed, flags, extended)
     return (chosen if placed else -1), reason
 
 
@@ -617,10 +755,13 @@ def schedule_step(statics: StaticArrays, state: SchedState, pod, flags: StepFlag
 
 
 class StepBuffers:
-    """Everything K1–K4 read and write for one batch, on one device: the
+    """Everything K1–K6 read and write for one batch, on one device: the
     statics, the state (updated in place), the batch's pod arrays, the
-    per-node scratch (stage byte, raw count rows, score) and the per-pod
-    outputs, which stay on the device until the batch ends."""
+    per-node scratch (stage byte, raw count rows, score, the storage and
+    GPU plans) and the per-pod outputs, which stay on the device until the
+    batch ends. `storage_live` / `gpu_live` are host arrays: which pods
+    run K5 / K6 (decided from the batch's numpy arrays, no device sync);
+    `ext_live` is the same per-pod bitmask on the device for K3/K4."""
 
     def __init__(self, statics: StaticArrays, state: SchedState, pods, flags: StepFlags):
         dev = statics.alloc.device
@@ -629,26 +770,82 @@ class StepBuffers:
         self.state = state
         self.flags = flags
         self.flag_bits = flag_bits(flags)
+
+        def host(x, dtype):
+            return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, dtype)
+
+        def on_dev(x, dtype):
+            return torch.as_tensor(host(x, dtype), device=dev).contiguous()
+
         group, req, pin, forced = pods[:4]
-        self.group = torch.as_tensor(np.asarray(group, np.int32), device=dev)
-        self.req = torch.as_tensor(np.asarray(req, np.float32), device=dev).contiguous()
-        self.pin = torch.as_tensor(np.asarray(pin, np.int32), device=dev)
-        self.forced = torch.as_tensor(np.asarray(forced, bool), device=dev)
+        self.group = on_dev(group, np.int32)
+        self.req = on_dev(req, np.float32)
+        self.pin = on_dev(pin, np.int32)
+        self.forced = on_dev(forced, bool)
         n, p = statics.alloc.shape[0], len(self.group)
+        v, sd = statics.vg_cap.shape[1], statics.sdev_cap.shape[1]
+        gd = state.gpu_free.shape[1]
         self.n_pods = p
+        if len(pods) > 4:
+            lvm_size, lvm_vg, dev_size, dev_media, gpu_mem, gpu_count, gpu_preset = pods[4:]
+        else:  # no extended demands
+            lvm_size = dev_size = np.zeros((p, 1), np.float32)
+            lvm_vg = np.full((p, 1), -1, np.int32)
+            dev_media = np.zeros((p, 1), np.int32)
+            gpu_mem, gpu_count = np.zeros(p, np.float32), np.zeros(p, np.int32)
+            gpu_preset = np.zeros((p, gd), np.int32)
+        lvm_size, dev_size = host(lvm_size, np.float32), host(dev_size, np.float32)
+        gpu_mem = host(gpu_mem, np.float32)
+        self.storage_live = storage_demand(lvm_size, dev_size) & flags.storage
+        self.gpu_live = (gpu_mem > 0) if flags.gpu else np.zeros(p, bool)
+        self.ext_live = on_dev(self.storage_live.astype(np.uint8) | (self.gpu_live.astype(np.uint8) << 1),
+                               np.uint8)
+        self.lvm_size = on_dev(lvm_size, np.float32)
+        self.lvm_vg = on_dev(lvm_vg, np.int32)
+        self.dev_size = on_dev(dev_size, np.float32)
+        self.dev_media = on_dev(dev_media, np.int32)
+        self.gpu_mem = on_dev(gpu_mem, np.float32)
+        self.gpu_count = on_dev(gpu_count, np.int32)
+        self.gpu_preset = on_dev(gpu_preset, np.int32)
         self.stage = torch.zeros(n, dtype=torch.uint8, device=dev)
         self.raw = torch.zeros((4, n), dtype=torch.float32, device=dev)
         self.score = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.st_ok = torch.ones(n, dtype=torch.bool, device=dev)
+        self.st_alloc = torch.zeros((n, v), dtype=torch.float32, device=dev)
+        self.st_take = torch.zeros((n, sd), dtype=torch.bool, device=dev)
+        self.st_raw = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.gpu_ok = torch.ones(n, dtype=torch.bool, device=dev)
+        self.gpu_sh = torch.zeros((n, gd), dtype=torch.float32, device=dev)
         self.chosen = torch.zeros(p, dtype=torch.int32, device=dev)
         self.placed = torch.zeros(p, dtype=torch.bool, device=dev)
         self.reason = torch.zeros(p, dtype=torch.int32, device=dev)
         self.out_node = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        self.out_lvm = torch.zeros((p, v), dtype=torch.float32, device=dev)
+        self.out_take = torch.zeros((p, sd), dtype=torch.bool, device=dev)
+        self.out_gpu = torch.zeros((p, gd), dtype=torch.float32, device=dev)
         self.ctx = None  # the kernels' argument struct, built at first launch
+
+    def pod_ext(self, i: int) -> PodExt:
+        """Pod i's extended demands, as the plain versions take them."""
+        return PodExt(
+            self.lvm_size[i], self.lvm_vg[i], self.dev_size[i], self.dev_media[i],
+            float(self.gpu_mem[i]), int(self.gpu_count[i]), self.gpu_preset[i],
+        )
 
 
 def _stage_masks(stage: torch.Tensor):
     """The eight cumulative stage masks packed in the stage byte."""
     return [((stage >> b) & 1).bool() for b in range(8)]
+
+
+def _ext_masks(buf: StepBuffers, i: int):
+    """(storage_ok, gpu_ok, raw) of pod i as K3 reads them: the plan
+    buffers where K5/K6 ran for the pod, the skip constants elsewhere."""
+    live = int(buf.ext_live[i])
+    st_ok = buf.st_ok if live & 1 else torch.ones_like(buf.st_ok)
+    gpu_ok = buf.gpu_ok if live & 2 else torch.ones_like(buf.gpu_ok)
+    raw = buf.st_raw if live & 1 else torch.zeros_like(buf.st_raw)
+    return st_ok, gpu_ok, raw
 
 
 def filter_pod_plain(buf: StepBuffers, i: int) -> None:
@@ -661,6 +858,24 @@ def filter_pod_plain(buf: StepBuffers, i: int) -> None:
     for b, m in enumerate(masks):
         stage |= m.to(torch.uint8) << b
     buf.stage.copy_(stage)
+
+
+def storage_pod_plain(buf: StepBuffers, i: int) -> None:
+    """Plain version of K5: the storage plan of pod i into the scratch."""
+    cuda.count_plain("storage_pod")
+    ok, alloc, take, raw = storage_step(buf.statics, buf.state, buf.pod_ext(i))
+    buf.st_ok.copy_(ok)
+    buf.st_alloc.copy_(alloc)
+    buf.st_take.copy_(take)
+    buf.st_raw.copy_(raw)
+
+
+def gpu_pod_plain(buf: StepBuffers, i: int) -> None:
+    """Plain version of K6: the GPU plan of pod i into the scratch."""
+    cuda.count_plain("gpu_pod")
+    ok, shares = gpu_step(buf.statics, buf.state, buf.pod_ext(i))
+    buf.gpu_ok.copy_(ok)
+    buf.gpu_sh.copy_(shares)
 
 
 def topology_pod_plain(buf: StepBuffers, i: int) -> None:
@@ -678,17 +893,25 @@ def topology_pod_plain(buf: StepBuffers, i: int) -> None:
 
 
 def score_argmax_pod_plain(buf: StepBuffers, i: int) -> None:
-    """Plain version of K3: score, fail code, argmax and forced override."""
+    """Plain version of K3: the storage and GPU verdicts, score, fail code,
+    argmax and forced override."""
     cuda.count_plain("score_argmax_pod")
     g, pin, forced = int(buf.group[i]), int(buf.pin[i]), bool(buf.forced[i])
     m = _stage_masks(buf.stage)
+    st_ok, gpu_ok, raw = _ext_masks(buf, i)
+    m_storage = m[5] & st_ok
+    m_gpu = m_storage & gpu_ok
+    m_spread = m[6] & st_ok & gpu_ok
+    m_all = m[7] & st_ok & gpu_ok
     score = score_pod(
-        buf.statics, buf.state, g, buf.req[i], m[7], buf.flags, TopoRaws(*buf.raw.unbind(0))
+        buf.statics, buf.state, g, buf.req[i], m_all, buf.flags, TopoRaws(*buf.raw.unbind(0))
     )
-    score = _finish_score(buf.statics, score, buf.flags)
-    ev = StepEval(m[0], m[1], m[2], m[3], m[4], m[5], m[5], m[5], m[6], m[7], score)
+    none = torch.zeros(0)
+    ev = StepEval(m[0], m[1], m[2], m[3], m[4], m[5], m_storage, m_gpu, m_spread, m_all,
+                  open_local_term(buf.statics, score, raw, m_all, buf.flags), score,
+                  none, none, none)
     chosen, placed, reason = choose(ev, forced, pin, buf.statics.node_valid)
-    buf.score.copy_(score)
+    buf.score.copy_(ev.score)
     buf.chosen[i] = chosen
     buf.placed[i] = placed
     buf.reason[i] = reason
@@ -696,12 +919,26 @@ def score_argmax_pod_plain(buf: StepBuffers, i: int) -> None:
 
 
 def commit_pod_plain(buf: StepBuffers, i: int) -> None:
-    """Plain version of K4: the in-place state update for pod i."""
+    """Plain version of K4: the in-place state update for pod i and its
+    extended allocations at the chosen node."""
     cuda.count_plain("commit_pod")
-    commit(
-        buf.statics, buf.state, int(buf.group[i]), buf.req[i],
-        int(buf.chosen[i]), bool(buf.placed[i]), buf.flags,
-    )
+    chosen, placed = int(buf.chosen[i]), bool(buf.placed[i])
+    live = int(buf.ext_live[i])
+    extended = None
+    if placed:
+        st, gp = live & 1, live & 2
+        extended = (
+            buf.st_alloc[chosen] if st else None,
+            buf.st_take[chosen] if st else None,
+            buf.gpu_sh[chosen] if gp else None,
+            float(buf.gpu_mem[i]),
+        )
+        if st:
+            buf.out_lvm[i] = buf.st_alloc[chosen]
+            buf.out_take[i] = buf.st_take[chosen]
+        if gp:
+            buf.out_gpu[i] = buf.gpu_sh[chosen]
+    commit(buf.statics, buf.state, int(buf.group[i]), buf.req[i], chosen, placed, buf.flags, extended)
 
 
 def filter_pod(buf: StepBuffers, i: int) -> None:
@@ -710,6 +947,22 @@ def filter_pod(buf: StepBuffers, i: int) -> None:
         filter_pod_plain(buf, i)
     else:
         cuda.launch("filter_pod", buf, i)
+
+
+def storage_pod(buf: StepBuffers, i: int) -> None:
+    """K5 (`kernels/csrc/storage_pod.cu`) for pod i."""
+    if buf.device.type == "cpu":
+        storage_pod_plain(buf, i)
+    else:
+        cuda.launch("storage_pod", buf, i)
+
+
+def gpu_pod(buf: StepBuffers, i: int) -> None:
+    """K6 (`kernels/csrc/gpu_pod.cu`) for pod i."""
+    if buf.device.type == "cpu":
+        gpu_pod_plain(buf, i)
+    else:
+        cuda.launch("gpu_pod", buf, i)
 
 
 def topology_pod(buf: StepBuffers, i: int) -> None:
@@ -737,9 +990,14 @@ def commit_pod(buf: StepBuffers, i: int) -> None:
 
 
 def run_batch(buf: StepBuffers) -> None:
-    """K1→K4 for every pod of the batch, in order, with no host sync."""
+    """The per-pod kernels for every pod of the batch, in order, with no
+    host sync; K5/K6 only for the pods whose demands need them."""
     for i in range(buf.n_pods):
         filter_pod(buf, i)
+        if buf.storage_live[i]:
+            storage_pod(buf, i)
+        if buf.gpu_live[i]:
+            gpu_pod(buf, i)
         topology_pod(buf, i)
         score_argmax_pod(buf, i)
         commit_pod(buf, i)
@@ -747,7 +1005,12 @@ def run_batch(buf: StepBuffers) -> None:
 
 class Engine:
     """Host-side engine: threads the placement log across app batches, with
-    the scheduling state carried on `device` between batches."""
+    the scheduling state carried on `device` between batches.
+
+    The placement log is the functional analog of the scheduler cache:
+    evicting a victim deletes its log entry (`remove_placements`), and the
+    carried state follows through a signed log delta (K7) instead of a
+    rebuild from the whole log."""
 
     def __init__(self, tensorizer, device):
         self.tensorizer = tensorizer
@@ -763,6 +1026,10 @@ class Engine:
         self.ext_log = {"node": [], "vg_alloc": [], "sdev_take": [], "gpu_shares": [], "gpu_mem": []}
         self.last_state: SchedState = None
         self._last_vocab = None
+        #: the carried state no longer reflects the log (a batch or a delta
+        #: failed part-way, or a delta had no carry to apply to): the next
+        #: place() rebuilds it from the log
+        self._state_dirty = False
 
     def log_req_matrix(self, r: int) -> np.ndarray:
         """The placement log's request rows padded to r resource columns."""
@@ -786,25 +1053,32 @@ class Engine:
 
     def carried_state(self) -> SchedState:
         """The engine's carried state (dense; None before the first batch)."""
+        if self.last_state is not None and self._state_dirty:
+            raise ValueError(
+                "carried_state(): the carry no longer reflects the placement log; "
+                "place() again (which rebuilds it from the log) before reading it"
+            )
+        if self.last_state is not None and self._last_vocab != self.state_vocab(
+            self.tensorizer.freeze()
+        ):
+            raise ValueError(
+                "carried_state(): the carry predates a vocabulary change; place() the "
+                "pending batch first, or rebuild from the placement log"
+            )
         return self.last_state
 
     def place(self, batch: PodBatch):
         """Schedule one batch. Returns (node index per pod [-1 = failed],
-        reason codes, extras) like the JAX package's Engine.place; the
-        extended allocations in `extras` are all zero in this slice."""
+        reason codes, extras) like the JAX package's Engine.place: extras
+        carries each pod's extended allocation at its node (LVM per-VG
+        bytes, device take mask, GPU device shares)."""
         ext = batch.ext
-        for key in ("lvm_size", "dev_size", "gpu_mem"):
-            if np.asarray(ext[key]).size and np.asarray(ext[key]).max() > 0:
-                raise NotImplementedError(
-                    "storage and GPU-share pods: ROADMAP queue 1 "
-                    f"(a pod of this batch demands {key})"
-                )
         tensors = self.tensorizer.freeze()
         r = tensors.alloc.shape[1]
         req, pods = build_pod_arrays(batch, r)
         vocab = self.state_vocab(tensors)
         state = self.last_state
-        if state is None or self._last_vocab != vocab:
+        if state is None or self._state_dirty or self._last_vocab != vocab:
             state = build_state(
                 tensors,
                 np.asarray(self.placed_group, np.int32),
@@ -821,17 +1095,17 @@ class Engine:
             )
         buf = StepBuffers(statics, state, pods, flags_from(tensors, ext))
         # the batch updates the state in place: a failure part-way leaves it
-        # inconsistent with the log, so drop it until the batch completes
-        self.last_state = None
+        # inconsistent with the log until the batch completes
+        self.last_state = state
+        self._state_dirty = True
         run_batch(buf)
         nodes = buf.out_node.cpu().numpy().astype(np.int64)
         reasons = buf.reason.cpu().numpy()
-        self.last_state = state
+        lvm_alloc = buf.out_lvm.cpu().numpy()
+        dev_take = buf.out_take.cpu().numpy()
+        gpu_shares = buf.out_gpu.cpu().numpy()
         self._last_vocab = vocab
-        p = len(nodes)
-        lvm_alloc = np.zeros((p, tensors.ext.vg_cap.shape[1]), np.float32)
-        dev_take = np.zeros((p, tensors.ext.sdev_cap.shape[1]), bool)
-        gpu_shares = np.zeros((p, tensors.ext.gpu_dev_total.shape[1]), np.float32)
+        self._state_dirty = False
         ok = np.flatnonzero(nodes >= 0)
         self.placed_group.extend(np.asarray(batch.group)[ok].tolist())
         self.placed_node.extend(nodes[ok].tolist())
@@ -846,3 +1120,77 @@ class Engine:
             "dev_take": dev_take,
             "gpu_shares": gpu_shares,
         }
+
+    # -- preemption support -------------------------------------------------
+
+    def _apply_saved_delta(self, saved: dict, sign: float) -> None:
+        """Apply an eviction (sign=-1) or its undo (sign=+1) to the carried
+        state in place, so preemption does not force a rebuild from the
+        placement log. With no carry to apply to (none yet, a dirty one, or
+        one of an older vocabulary) the state is marked dirty instead and
+        the next place() rebuilds it."""
+        entries = saved["entries"]
+        if self.last_state is None or self._state_dirty or not entries:
+            self._state_dirty = True
+            return
+        tensors = self.tensorizer.freeze()
+        if self._last_vocab != self.state_vocab(tensors):
+            self._state_dirty = True
+            return
+        ext = tensors.ext
+        packed = pack_delta_entries(
+            entries,
+            tensors.alloc.shape[1],
+            ext.vg_cap.shape[1],
+            ext.sdev_cap.shape[1],
+            ext.gpu_dev_total.shape[1],
+            sign,
+        )
+        self._state_dirty = True
+        apply_placement_deltas(statics_from(tensors, self.sched_config, self.device),
+                               self.last_state, packed)
+        self._state_dirty = False
+
+    def remove_placements(self, indices: List[int]) -> dict:
+        """Delete log entries at `indices`; returns an undo token."""
+        idx = sorted(set(indices))
+        ext = self.ext_log
+        saved = {
+            "indices": idx,
+            "entries": [
+                (
+                    self.placed_group[i],
+                    self.placed_node[i],
+                    self.placed_req[i],
+                    ext["node"][i],
+                    ext["vg_alloc"][i],
+                    ext["sdev_take"][i],
+                    ext["gpu_shares"][i],
+                    ext["gpu_mem"][i],
+                )
+                for i in idx
+            ],
+        }
+        for i in reversed(idx):
+            del self.placed_group[i]
+            del self.placed_node[i]
+            del self.placed_req[i]
+            for key in ("node", "vg_alloc", "sdev_take", "gpu_shares", "gpu_mem"):
+                del ext[key][i]
+        self._apply_saved_delta(saved, sign=-1.0)
+        return saved
+
+    def restore_placements(self, saved: dict) -> None:
+        """Undo a remove_placements (entries return to their positions)."""
+        ext = self.ext_log
+        for i, entry in zip(saved["indices"], saved["entries"]):
+            g, node, req, enode, vg, sdev, gpu_sh, gpu_mem = entry
+            self.placed_group.insert(i, g)
+            self.placed_node.insert(i, node)
+            self.placed_req.insert(i, req)
+            ext["node"].insert(i, enode)
+            ext["vg_alloc"].insert(i, vg)
+            ext["sdev_take"].insert(i, sdev)
+            ext["gpu_shares"].insert(i, gpu_sh)
+            ext["gpu_mem"].insert(i, gpu_mem)
+        self._apply_saved_delta(saved, sign=1.0)

@@ -7,6 +7,11 @@ carry, which is immutable, the port updates these planes IN PLACE: the
 commit step (`kernels/csrc/commit_pod.cu`, or its plain version) adds the
 placed pod into the chosen node's rows and the same-domain count rows.
 
+`placement_delta_step` / `apply_placement_deltas` fold signed placement-log
+entries into the state in place (w = +1 re-places, -1 evicts, 0 is a
+padding no-op): the eviction and restore behind preemption, run on the card
+by `kernels/csrc/delta_apply.cu` (K7).
+
 `state_from_numpy` / `state_to_numpy` carry the JAX package's `SchedState`
 fields, as numpy arrays, into the port and back — the tests feed identical
 state to both packages through them.
@@ -18,6 +23,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..kernels import cuda
 
 
 def take_rows(plane: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -97,8 +104,10 @@ class SchedState(NamedTuple):
     vols_any:        [N, W] users of exclusive volume w (VolumeRestrictions)
     vols_rw:         [N, W] read-write users of exclusive volume w
 
-    This slice places no storage or GPU-share pod, so `vg_free`,
-    `sdev_free` and `gpu_free` are carried unchanged.
+    The commit step (K4) takes a placed pod's LVM allocation out of
+    `vg_free`, its exclusive devices out of `sdev_free` and its GPU shares
+    times its per-GPU memory out of `gpu_free`; a signed log delta (K7)
+    gives them back or takes them again.
     """
 
     free: torch.Tensor
@@ -242,3 +251,113 @@ def build_state(
         ),
         device,
     )
+
+
+# -- batch apply / undo of placement deltas ----------------------------------
+#
+# The analog of the scheduler cache's AddPod/RemovePod pair: signed
+# placement-log entries folded into the carried state in log order — +1
+# re-places, -1 evicts, 0 is a padding no-op — without rebuilding the state
+# from the whole log. Drives preemption (Engine._apply_saved_delta applies
+# an eviction and its undo as the same call with opposite signs).
+
+
+def placement_delta_step(statics, state: SchedState, entry) -> None:
+    """Apply one placement-log entry to the state IN PLACE with weight w
+    (+1 = re-place, -1 = evict): the JAX package's `placement_delta_step`,
+    i.e. the commit step's update without filters or node choice. `entry` =
+    (g, node, w, req [R], vg_alloc [V], sdev_take [SD], gpu_vec [GD])."""
+    g, node, w, req, vg_alloc, sdev_take, gpu_vec = entry
+    g, safe, w = int(g), max(int(node), 0), float(w)
+    f32 = torch.float32
+    state.free[safe] += -req * w
+    if state.ports_used.shape[1]:
+        state.ports_used[safe] += statics.ports_req[g].to(f32) * w
+    if state.vols_any.shape[1]:
+        v_rw = statics.vol_rw_req[g]
+        v_present = v_rw | statics.vol_ro_req[g] | statics.vol_att_req[g]
+        state.vols_any[safe] += v_present.to(f32) * w
+        state.vols_rw[safe] += v_rw.to(f32) * w
+    if state.vg_free.shape[1]:
+        state.vg_free[safe] += -vg_alloc * w
+    if state.sdev_free.shape[1]:
+        # boolean devices: w > 0 consumes (clear), otherwise releases (set)
+        row = state.sdev_free[safe]
+        state.sdev_free[safe] = row & ~sdev_take if w > 0 else row | sdev_take
+    if state.gpu_free.shape[1]:
+        state.gpu_free[safe] += -gpu_vec * w
+    t_cap = statics.g_terms.shape[1]
+    if not t_cap or w == 0:
+        return
+    terms_g = statics.g_terms[g]
+    tvalid = terms_g >= 0
+    tsafe = terms_g.clamp(min=0)
+    dom_sub = take_rows_i32(statics.node_dom, torch.where(tvalid, statics.term_topo[tsafe], -1))
+    valid_sub = (dom_sub >= 0) & tvalid[:, None]
+    dom_chosen = dom_sub[:, safe]
+    valid_chosen = (dom_chosen >= 0) & tvalid
+    same = valid_sub & (dom_sub == dom_chosen[:, None]) & valid_chosen[:, None]
+    inc = same.to(f32) * w  # [Tc, N]
+    add_rows(state.cnt_match, terms_g, statics.s_match[g].to(f32)[:, None] * inc)
+    state.cnt_total.index_add_(
+        0, terms_g[valid_chosen].long(), statics.s_match[g][valid_chosen].to(f32) * w
+    )
+    ip_eff = torch.where(tvalid, statics.ip_of[tsafe], -1)
+    for plane, vals in (
+        (state.cnt_own_anti, statics.a_anti_req[g].to(f32)),
+        (state.cnt_own_aff, statics.a_aff_req[g].to(f32)),
+        (state.w_own_aff_pref, statics.w_aff_pref[g]),
+        (state.w_own_anti_pref, statics.w_anti_pref[g]),
+    ):
+        add_rows(plane, ip_eff, vals[:, None] * inc)
+
+
+def apply_placement_deltas_plain(statics, state: SchedState, entries) -> None:
+    """Plain version of K7: `placement_delta_step` over the packed entries,
+    in order (w = 0 rows are exact no-ops)."""
+    cuda.count_plain("delta_apply")
+    dev = state.free.device
+    g_a, n_a, w_a, req_a, vg_a, sd_a, gp_a = (torch.as_tensor(np.asarray(x), device=dev)
+                                              for x in entries)
+    for e in range(len(g_a)):
+        if float(w_a[e]) == 0.0:
+            continue
+        placement_delta_step(
+            statics, state, (g_a[e], n_a[e], w_a[e], req_a[e], vg_a[e], sd_a[e], gp_a[e])
+        )
+
+
+def apply_placement_deltas(statics, state: SchedState, entries) -> None:
+    """Fold packed entries (`pack_delta_entries`) into the state IN PLACE,
+    in order: K7 (`kernels/csrc/delta_apply.cu`) for a state on the card, in
+    one launch; the plain version for a state on the CPU. Entries with
+    w = -1 undo what the same entries with w = +1 applied."""
+    if state.free.device.type == "cpu":
+        apply_placement_deltas_plain(statics, state, entries)
+    else:
+        cuda.launch_delta(statics, state, entries)
+
+
+def pack_delta_entries(entries, n_resources: int, vg_w: int, sd_w: int, gd_w: int,
+                       sign: float, pad_to: int = None):
+    """Padded entry arrays for `apply_placement_deltas` from saved
+    placement-log records in `Engine.remove_placements`' layout ((g, node,
+    req, ext_node, vg_alloc, sdev_take, gpu_shares, gpu_mem) per entry).
+    Rows beyond len(entries) carry w = 0 and are exact no-ops; `pad_to`
+    overrides the default pow2-bounded padding."""
+    v = len(entries)
+    v_pad = pad_to if pad_to is not None else 1 << max(v - 1, 0).bit_length()
+    g_a = np.zeros(v_pad, np.int32)
+    n_a = np.zeros(v_pad, np.int32)
+    w_a = np.zeros(v_pad, np.float32)
+    req_a = np.zeros((v_pad, n_resources), np.float32)
+    vg_a = np.zeros((v_pad, vg_w), np.float32)
+    sd_a = np.zeros((v_pad, sd_w), bool)
+    gp_a = np.zeros((v_pad, gd_w), np.float32)
+    for i, (g, node, req, _enode, vg, sdev, gpu_sh, gpu_mem) in enumerate(entries):
+        g_a[i], n_a[i], w_a[i] = g, node, sign
+        req_a[i, : req.shape[0]] = req
+        vg_a[i] = vg
+        sd_a[i] = sdev
+        gp_a[i] = np.asarray(gpu_sh) * gpu_mem
+    return (g_a, n_a, w_a, req_a, vg_a, sd_a, gp_a)

@@ -5,8 +5,11 @@
 // (simtpu/engine/state.py:62) it runs through. Reads chosen/placed from
 // device memory (K3 wrote them); a pod that was not placed changes
 // nothing. The thread of the chosen node subtracts the request from its
-// free row, adds the group's ports and exclusive volumes, and bumps
-// cnt_total; every node thread adds the group's incidence into its
+// free row, adds the group's ports and exclusive volumes, takes the pod's
+// LVM allocation, exclusive devices and GPU shares x per-GPU memory at
+// that node (K5/K6's plans; none for a pod that skipped them) out of
+// vg_free, sdev_free and gpu_free and writes them to the pod's output
+// rows, and bumps cnt_total; every node thread adds the group's incidence into its
 // cnt_match and own-plane entries for each term whose domain it shares
 // with the chosen node. Each (row, node) entry has one writer: no atomics,
 // no order dependence.
@@ -40,6 +43,30 @@ __global__ void commit_pod_kernel(StepCtx x, int i) {
         const bool present = rw || x.vol_ro_req[gw + w] || x.vol_att_req[gw + w];
         x.vols_any[cw + w] = x.vols_any[cw + w] + (present ? 1.0f : 0.0f);
         if (f & F_VOLS) x.vols_rw[cw + w] = x.vols_rw[cw + w] + (rw ? 1.0f : 0.0f);
+      }
+    }
+    const unsigned live = x.ext_live[i];
+    if ((f & F_STORAGE) && (live & LIVE_STORAGE)) {
+      const size_t cv = static_cast<size_t>(c) * x.v, iv = static_cast<size_t>(i) * x.v;
+      for (int v = 0; v < x.v; ++v) {
+        const float a = x.st_alloc[cv + v];
+        x.vg_free[cv + v] = x.vg_free[cv + v] + (-a);
+        x.out_lvm[iv + v] = a;
+      }
+      const size_t cs = static_cast<size_t>(c) * x.sd, is = static_cast<size_t>(i) * x.sd;
+      for (int d = 0; d < x.sd; ++d) {
+        const uint8_t take = x.st_take[cs + d];
+        x.sdev_free[cs + d] = (x.sdev_free[cs + d] && !take) ? 1 : 0;
+        x.out_take[is + d] = take;
+      }
+    }
+    if ((f & F_GPU) && (live & LIVE_GPU)) {
+      const float mem = x.gpu_mem[i];
+      const size_t cg = static_cast<size_t>(c) * x.gd, ig = static_cast<size_t>(i) * x.gd;
+      for (int d = 0; d < x.gd; ++d) {
+        const float sh = x.gpu_sh[cg + d];
+        x.gpu_free[cg + d] = x.gpu_free[cg + d] + (-sh) * mem;
+        x.out_gpu[ig + d] = sh;
       }
     }
   }

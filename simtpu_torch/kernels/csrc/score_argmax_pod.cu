@@ -1,31 +1,39 @@
 // K3 score_argmax_pod: score, first failing stage, argmax and reason.
 //
 // Replaces the JAX package's simtpu/engine/scan.py score_pod
-// (scan.py:595-727), StepEval.fail_code (scan.py:583) and the argmax and
+// (scan.py:595-727), the Open-Local term of filter_and_score
+// (scan.py:970-993), StepEval.fail_code (scan.py:583) and the argmax and
 // reason at scan.py:1045-1057, with the plugin scores and normalizers of
-// simtpu/kernels/scores.py. One block walks all N nodes twice:
+// simtpu/kernels/scores.py. For a pod that ran K5 (K6) the storage (GPU)
+// verdict is ANDed into the cascade after the bind stage, so the stages
+// are static, ports, resources, volumes, attach, bind, storage, GPU,
+// spread, all (FILTER_CASCADE). One block walks all N nodes twice:
 //   pass 1 reduces the stage bits (OR) and the masked normalizers — Simon
 //          share min/max, node-affinity min/max, taint max, inter-pod
-//          max |raw|, soft-spread min/max, SelectorSpread host/zone max —
-//          over the feasible nodes (min/max are order-free: bit-exact);
+//          max |raw|, soft-spread min/max, SelectorSpread host/zone max,
+//          Open-Local raw min/max — over the feasible nodes (min/max are
+//          order-free: bit-exact);
 //   pass 2 forms each node's weighted score in the JAX package's term
-//          order with the arithmetic of its compiled step (the resource
-//          pair, the Simon numerator and the static pair as FMAs, every
-//          other term two roundings — see simtpu_torch/kernels/scores.py;
-//          each pruned StepFlags term is left out), then the argmax with
-//          the lowest index on ties (all -inf gives 0).
+//          order with the arithmetic of its compiled step, whose weights
+//          are runtime values (the resource pair with two roundings, the
+//          Simon numerator, the Simon term unless node affinity follows,
+//          the static pair and every later term of the running sum as
+//          FMAs — see simtpu_torch/kernels/scores.py;
+//          each pruned StepFlags term is left out), the mask, then the
+//          Open-Local term w10 * minmax(raw), then the argmax with the
+//          lowest index on ties (all -inf gives 0).
 // Thread 0 applies the forced-pod override and writes chosen, placed,
 // reason and out_node for pod i.
 //
-// Bound: bytes — stage [N], raw [4,N], alloc and free [N,R] and the
-// group's four [N] score rows are read once, score [N] written once; at
-// N <= 1024 the launch latency dominates.
+// Bound: bytes — stage [N], raw [4,N], alloc and free [N,R], the group's
+// four [N] score rows and the storage/GPU verdicts and raw score are read
+// once, score [N] written once; at N <= 1024 the launch latency dominates.
 #include "step_ctx.cuh"
 
 namespace {
 
-constexpr int N_MIN = 3;  // simon, node_pref, soft spread
-constexpr int N_MAX = 7;  // simon, node_pref, taint, |ipa|, soft spread, ss host, ss zone
+constexpr int N_MIN = 4;  // simon, node_pref, soft spread, open-local
+constexpr int N_MAX = 8;  // simon, node_pref, taint, |ipa|, soft spread, ss host, ss zone, open-local
 constexpr float ZW = 0.666666687f;  // f32(2/3), SelectorSpread zone weighting
 
 // Simon's dominant share before the x100 (scores.py _dominant_share)
@@ -44,7 +52,8 @@ __device__ float dominant_share(const StepCtx& x, int n, const float* req) {
 
 // w0 * least_allocated + w1 * balanced_allocation as the compiled
 // reference computes it (scores.py resource_base_score):
-// fma(w0 * 50, frac_cpu + frac_mem, (w1 * 100) * (1 - |bcpu - bmem|))
+// (frac_cpu + frac_mem) * (w0 * 50) + (1 - |bcpu - bmem|) * (w1 * 100),
+// each product rounded
 __device__ float resource_base(const StepCtx& x, int n, const float* req, float w0, float w1) {
   const float* al = x.alloc + static_cast<size_t>(n) * x.r;
   const float* fr = x.free + static_cast<size_t>(n) * x.r;
@@ -57,8 +66,8 @@ __device__ float resource_base(const StepCtx& x, int n, const float* req, float 
     const float used = (a - fr[cols[k]]) + req[cols[k]];
     bfrac[k] = a > 0.0f ? __fdiv_rn(used, fmaxf(a, TINY)) : 1.0f;
   }
-  const float balanced = (w1 * MAX_NODE_SCORE) * (1.0f - fabsf(bfrac[0] - bfrac[1]));
-  return __fmaf_rn(w0 * 50.0f, frac[0] + frac[1], balanced);
+  const float balanced = (1.0f - fabsf(bfrac[0] - bfrac[1])) * (w1 * MAX_NODE_SCORE);
+  return (frac[0] + frac[1]) * (w0 * 50.0f) + balanced;
 }
 
 __device__ float minmax_norm(float v, float lo, float hi) {
@@ -89,18 +98,33 @@ __global__ void score_argmax_pod_kernel(StepCtx x, int i) {
   const size_t gn = static_cast<size_t>(g) * N;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
+  const unsigned live = x.ext_live[i];
+  const bool st_live = live & LIVE_STORAGE, gpu_live = live & LIVE_GPU;
   if (threadIdx.x == 0) any_bits = 0u;
   __syncthreads();
+
+  // the cascade of node n: stage bits 0-5, then bit 6 storage, 7 GPU,
+  // 8 spread, 9 all (K2's bits 6-7 ANDed with the storage/GPU verdicts)
+  auto cascade = [&](int n) -> unsigned {
+    const unsigned s = x.stage[n];
+    const bool ext_ok = (!st_live || x.st_ok[n]) && (!gpu_live || x.gpu_ok[n]);
+    const bool st = ((s >> 5) & 1u) && (!st_live || x.st_ok[n]);
+    const bool gp = st && (!gpu_live || x.gpu_ok[n]);
+    return (s & 0x3Fu) | (st ? 1u << 6 : 0u) | (gp ? 1u << 7 : 0u) |
+           (((s >> 6) & 1u) && ext_ok ? 1u << 8 : 0u) | (((s >> 7) & 1u) && ext_ok ? 1u << 9 : 0u);
+  };
+  constexpr unsigned ALL = 1u << 9;
 
   // pass 1: stage OR + masked normalizers
   float lo[N_MIN], hi[N_MAX];
   for (int k = 0; k < N_MIN; ++k) lo[k] = BIG;
   hi[0] = -BIG; hi[1] = -BIG; hi[2] = 0.0f; hi[3] = 0.0f; hi[4] = -BIG; hi[5] = 0.0f; hi[6] = 0.0f;
+  hi[7] = -BIG;
   unsigned bits = 0u;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const unsigned s = x.stage[n];
+    const unsigned s = cascade(n);
     bits |= s;
-    if (!(s & 0x80u)) continue;
+    if (!(s & ALL)) continue;
     const float sim = dominant_share(x, n, req) * MAX_NODE_SCORE;
     lo[0] = fminf(lo[0], sim); hi[0] = fmaxf(hi[0], sim);
     const float np_ = x.node_pref[gn + n];
@@ -111,6 +135,8 @@ __global__ void score_argmax_pod_kernel(StepCtx x, int i) {
     lo[2] = fminf(lo[2], sp); hi[4] = fmaxf(hi[4], sp);
     hi[5] = fmaxf(hi[5], x.raw[2 * N + n]);
     hi[6] = fmaxf(hi[6], x.raw[3 * N + n]);
+    const float ol = st_live ? x.st_raw[n] : 0.0f;
+    lo[3] = fminf(lo[3], ol); hi[7] = fmaxf(hi[7], ol);
   }
   atomicOr(&any_bits, bits);
   for (int off = 16; off > 0; off >>= 1) {
@@ -145,30 +171,34 @@ __global__ void score_argmax_pod_kernel(StepCtx x, int i) {
       // Simon min-max with the reference's contracted numerator share*100 - lo
       const float rng = hi[0] - lo[0];
       const float num = __fmaf_rn(dominant_share(x, n, req), MAX_NODE_SCORE, -lo[0]);
-      s = s + (w_[2] + w_[3]) * (rng > 0.0f ? __fdiv_rn(num * MAX_NODE_SCORE, fmaxf(rng, TINY)) : 0.0f);
+      const float simon = rng > 0.0f ? __fdiv_rn(num * MAX_NODE_SCORE, fmaxf(rng, TINY)) : 0.0f;
+      // one FMA, except when the node-affinity term follows (scores.py)
+      s = (f & F_NODE_PREF) ? s + (w_[2] + w_[3]) * simon : __fmaf_rn(w_[2] + w_[3], simon, s);
     }
-    if (f & F_NODE_PREF) s = s + w_[4] * minmax_norm(x.node_pref[gn + n], lo[1], hi[1]);
+    if (f & F_NODE_PREF) s = __fmaf_rn(w_[4], minmax_norm(x.node_pref[gn + n], lo[1], hi[1]), s);
     if (f & F_TAINT_PREF) {
       const float t = hi[2] > 0.0f
           ? MAX_NODE_SCORE * (1.0f - __fdiv_rn(x.taint_intol[gn + n], fmaxf(hi[2], TINY)))
           : MAX_NODE_SCORE;
-      s = s + w_[5] * t;
+      s = __fmaf_rn(w_[5], t, s);
     }
     if (terms && (f & (F_INTERPOD_PREF | F_INTERPOD_REQ))) {
       const float m = hi[3];
-      s = s + w_[6] * (m > 0.0f ? __fdiv_rn(x.raw[n] * MAX_NODE_SCORE, fmaxf(m, TINY)) : 0.0f);
+      s = __fmaf_rn(w_[6], m > 0.0f ? __fdiv_rn(x.raw[n] * MAX_NODE_SCORE, fmaxf(m, TINY)) : 0.0f, s);
     }
-    if (terms && (f & F_SPREAD_SOFT)) s = s + w_[7] * inv_minmax(x.raw[N + n], lo[2], hi[4]);
+    if (terms && (f & F_SPREAD_SOFT)) s = __fmaf_rn(w_[7], inv_minmax(x.raw[N + n], lo[2], hi[4]), s);
     if (terms && (f & F_SELECTOR_SPREAD)) {
       const float node = inv_max(x.raw[2 * N + n], hi[5]);
       const float zone = inv_max(x.raw[3 * N + n], hi[6]);
       // the zone blend carries the compiled reference's FMA contraction
       const float ss = (any_zone && hi[6] > 0.0f) ? __fmaf_rn(ZW, zone, (1.0f - ZW) * node) : node;
-      s = s + w_[8] * ss;
+      s = __fmaf_rn(w_[8], ss, s);
     }
     if (f & F_STATIC_SCORE) s = s + __fmaf_rn(w_[9], x.static_score[gn + n], w_[11] * x.avoid_pen[gn + n]);
-    if (!(x.stage[n] & 0x80u)) s = -INFINITY;
-    if (f & F_STORAGE) s = s + w_[10] * 0.0f;  // Open-Local: w10 * minmax(0)
+    if (!(cascade(n) & ALL)) s = -INFINITY;
+    // Open-Local: w10 * minmax(raw) over the feasible nodes, added after
+    // the mask (a pod that skipped K5 has raw 0, which normalizes to 0)
+    if (f & F_STORAGE) s = __fmaf_rn(w_[10], minmax_norm(st_live ? x.st_raw[n] : 0.0f, lo[3], hi[7]), s);
     x.score[n] = s;
     if (s > bv || (s == bv && n < bi)) { bv = s; bi = n; }
   }
@@ -185,7 +215,7 @@ __global__ void score_argmax_pod_kernel(StepCtx x, int i) {
   }
   const unsigned any = any_bits;
   // first stage (FILTER_CASCADE order) that no node passes
-  const int stage_bit[9] = {0, 1, 2, 3, 4, 5, 5, 5, 6};
+  const int stage_bit[9] = {0, 1, 2, 3, 4, 5, 6, 7, 8};
   const int stage_code[9] = {FAIL_STATIC, FAIL_PORTS, FAIL_RESOURCES, FAIL_VOLUME, FAIL_ATTACH,
                              FAIL_VOLUME_BIND, FAIL_STORAGE, FAIL_GPU, FAIL_SPREAD};
   int fail = FAIL_INTERPOD;
@@ -195,7 +225,7 @@ __global__ void score_argmax_pod_kernel(StepCtx x, int i) {
   const int pin = x.pin[i];
   const int pin_c = pin < 0 ? 0 : (pin >= N ? N - 1 : pin);
   const int chosen = forced ? pin : bi;
-  const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any >> 7) & 1u);
+  const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any & ALL) != 0u);
   x.chosen[i] = chosen;
   x.placed[i] = placed ? 1 : 0;
   x.reason[i] = placed ? OK : (forced ? FAIL_NO_NODE : fail);

@@ -1,12 +1,13 @@
-// The argument block shared by the four per-pod kernels (K1-K4) of the
-// serial scheduling step. Mirrored field for field by the ctypes
-// structure `StepCtx` in simtpu_torch/kernels/cuda.py; passed to every
-// kernel by value.
+// The argument blocks of the hand-written kernels: `StepCtx`, shared by
+// the six per-pod kernels (K1-K6) of the serial scheduling step, and
+// `DeltaCtx`, the signed log-delta kernel's (K7). Mirrored field for
+// field by the ctypes structures of the same names in
+// simtpu_torch/kernels/cuda.py; passed to every kernel by value.
 //
 // Numerics: built with -fmad=false and IEEE division, so every a*b+c is
 // two roundings unless written as __fmaf_rn, which is used exactly where
-// the JAX package's compiled reference contracts (the resource-fit slack
-// and SelectorSpread's zone blend).
+// the JAX package's compiled reference contracts (simtpu_torch/kernels/
+// fp.py lists the sites).
 #pragma once
 #include <cmath>
 #include <cstdint>
@@ -39,20 +40,35 @@ enum : int {
 };
 
 // stage byte bits (cumulative): 0 static, 1 ports, 2 res, 3 vol, 4 att,
-// 5 bind (= storage = gpu in this slice), 6 spread, 7 all
+// 5 bind, 6 bind & spread, 7 bind & spread & inter-pod; K3 ANDs the
+// storage and GPU verdicts (K5, K6) into bits 5-7
 constexpr int RES_CPU = 0;
 constexpr int RES_MEMORY = 1;
 constexpr float BIG = 3.4e38f;
 constexpr float TINY = 1e-30f;
 constexpr float MAX_NODE_SCORE = 100.0f;
+// widest VG / exclusive-device / GPU-device axis a thread keeps in
+// registers (checked by the wrapper)
+constexpr int MAX_EXT = 32;
+// ext_live bits: the pod ran K5 (storage) / K6 (GPU) this step
+constexpr int LIVE_STORAGE = 1;
+constexpr int LIVE_GPU = 2;
 
 struct StepCtx {
-  int n, r, p_ports, w, c, tc, flags, pad_;
+  int n, r, p_ports, w, c, tc, flags, v, sd, gd, l, k;
   // the batch's pod arrays [P]
   const int* group;
   const float* req;  // [P, R]
   const int* pin;
   const uint8_t* forced;
+  const float* lvm_size;   // [P, L] LVM claim sizes (0 = padding)
+  const int* lvm_vg;       // [P, L] named VG (-1 unnamed, -2 missing)
+  const float* dev_size;   // [P, K] exclusive-device claim sizes
+  const int* dev_media;    // [P, K]
+  const float* gpu_mem;    // [P] per-GPU memory request
+  const int* gpu_count;    // [P] GPU shares requested
+  const int* gpu_preset;   // [P, GD] shares of an existing gpu-index annotation
+  const uint8_t* ext_live; // [P] LIVE_STORAGE | LIVE_GPU
   // statics
   const float* alloc;         // [N, R]
   const uint8_t* static_mask; // [G, N]
@@ -80,6 +96,13 @@ struct StepCtx {
   const uint8_t* vol_att_req; // [G, W]
   const uint8_t* vol_class_mask; // [C, W]
   const float* attach_limits; // [N, C]
+  const uint8_t* has_storage; // [N]
+  const float* vg_cap;        // [N, V]
+  const int* vg_name_id;      // [N, V] (-1 pad)
+  const float* sdev_cap;      // [N, SD]
+  const int* sdev_media;      // [N, SD]
+  const uint8_t* gpu_dev_exists; // [N, GD]
+  const float* gpu_total;     // [N]
   const float* score_w;       // [12]
   const uint8_t* node_valid;  // [N]
   // state, updated in place by K4
@@ -93,14 +116,66 @@ struct StepCtx {
   float* ports_used;      // [N, P]
   float* vols_any;        // [N, W]
   float* vols_rw;         // [N, W]
+  float* vg_free;         // [N, V]
+  uint8_t* sdev_free;     // [N, SD]
+  float* gpu_free;        // [N, GD]
   // per-node scratch and per-pod outputs
   uint8_t* stage;  // [N]
   float* raw;      // [4, N]: inter-pod raw, soft-spread raw, SS host, SS zone
   float* score;    // [N]
+  uint8_t* st_ok;  // [N] K5: storage verdict
+  float* st_alloc; // [N, V] K5: LVM allocation
+  uint8_t* st_take; // [N, SD] K5: exclusive devices taken
+  float* st_raw;   // [N] K5: raw Open-Local score
+  uint8_t* gpu_ok; // [N] K6: GPU verdict
+  float* gpu_sh;   // [N, GD] K6: GPU shares per device
   int* chosen;     // [P]
   uint8_t* placed; // [P]
   int* reason;     // [P]
   int* out_node;   // [P]
+  float* out_lvm;  // [P, V] the pod's LVM allocation at its node
+  uint8_t* out_take; // [P, SD]
+  float* out_gpu;  // [P, GD]
+};
+
+struct DeltaCtx {
+  int n, r, p_ports, w, v, sd, gd, tc, e, pad_;
+  // packed log entries [E] (engine/state.py pack_delta_entries)
+  const int* g;
+  const int* node;
+  const float* wgt;        // +1 re-place, -1 evict, 0 padding
+  const float* req;        // [E, R]
+  const float* vg;         // [E, V]
+  const uint8_t* sd_take;  // [E, SD]
+  const float* gp;         // [E, GD] GPU shares x per-GPU memory
+  // statics
+  const uint8_t* ports_req;   // [G, P]
+  const uint8_t* vol_rw_req;  // [G, W]
+  const uint8_t* vol_ro_req;  // [G, W]
+  const uint8_t* vol_att_req; // [G, W]
+  const int* node_dom;        // [K, N]
+  const int* term_topo;       // [T]
+  const int* ip_of;           // [T]
+  const int* g_terms;         // [G, Tc]
+  const uint8_t* s_match;     // [G, Tc]
+  const uint8_t* a_aff_req;   // [G, Tc]
+  const uint8_t* a_anti_req;  // [G, Tc]
+  const float* w_aff_pref;    // [G, Tc]
+  const float* w_anti_pref;   // [G, Tc]
+  // state, updated in place
+  float* free;            // [N, R]
+  float* cnt_match;       // [T, N]
+  float* cnt_total;       // [T]
+  float* cnt_own_anti;    // [Ti, N]
+  float* cnt_own_aff;     // [Ti, N]
+  float* w_own_aff_pref;  // [Ti, N]
+  float* w_own_anti_pref; // [Ti, N]
+  float* vg_free;         // [N, V]
+  uint8_t* sdev_free;     // [N, SD]
+  float* gpu_free;        // [N, GD]
+  float* ports_used;      // [N, P]
+  float* vols_any;        // [N, W]
+  float* vols_rw;         // [N, W]
 };
 
 static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

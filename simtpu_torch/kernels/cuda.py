@@ -1,7 +1,8 @@
-"""Build, bind and launch the hand-written CUDA kernels of the per-pod step.
+"""Build, bind and launch the hand-written CUDA kernels.
 
-The sources live in `kernels/csrc/` (one `.cu` per kernel plus the shared
-`step_ctx.cuh`). On first use each source is compiled by `nvcc` for
+K1-K6 make up the per-pod scheduling step (`engine/scan.py`), K7 applies
+signed placement-log deltas (`engine/state.py`). The sources live in
+`kernels/csrc/` (one `.cu` per kernel plus the shared `step_ctx.cuh`). On first use each source is compiled by `nvcc` for
 `sm_90a` into its own shared library with a plain C interface under
 `kernels/_build/` — all sources at once, one `nvcc` process each — and
 loaded with ctypes. Nothing is built or imported at module import: the CPU
@@ -26,9 +27,17 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
-KERNELS = ("filter_pod", "topology_pod", "score_argmax_pod", "commit_pod")
+KERNELS = (
+    "filter_pod", "topology_pod", "score_argmax_pod", "commit_pod",
+    "storage_pod", "gpu_pod", "delta_apply",
+)
+#: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
+STEP_KERNELS = KERNELS[:6]
+#: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
+MAX_EXT = 32
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -100,7 +109,10 @@ def build() -> dict:
     for name in KERNELS:
         lib = ctypes.CDLL(str(_lib_path(name)))
         fn = getattr(lib, f"simtpu_{name}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        if name in STEP_KERNELS:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     first = _LIBS[KERNELS[0]]
@@ -111,13 +123,21 @@ def build() -> dict:
     return _LIBS
 
 
-_INT_FIELDS = ("n", "r", "p_ports", "w", "c", "tc", "flags", "pad_")
+_INT_FIELDS = ("n", "r", "p_ports", "w", "c", "tc", "flags", "v", "sd", "gd", "l", "k")
 # (field, owner, attribute, dtype) in step_ctx.cuh order
 _PTR_FIELDS = (
     ("group", "buf", "group", torch.int32),
     ("req", "buf", "req", torch.float32),
     ("pin", "buf", "pin", torch.int32),
     ("forced", "buf", "forced", torch.bool),
+    ("lvm_size", "buf", "lvm_size", torch.float32),
+    ("lvm_vg", "buf", "lvm_vg", torch.int32),
+    ("dev_size", "buf", "dev_size", torch.float32),
+    ("dev_media", "buf", "dev_media", torch.int32),
+    ("gpu_mem", "buf", "gpu_mem", torch.float32),
+    ("gpu_count", "buf", "gpu_count", torch.int32),
+    ("gpu_preset", "buf", "gpu_preset", torch.int32),
+    ("ext_live", "buf", "ext_live", torch.uint8),
     ("alloc", "statics", "alloc", torch.float32),
     ("static_mask", "statics", "static_mask", torch.bool),
     ("vol_mask", "statics", "vol_mask", torch.bool),
@@ -144,6 +164,13 @@ _PTR_FIELDS = (
     ("vol_att_req", "statics", "vol_att_req", torch.bool),
     ("vol_class_mask", "statics", "vol_class_mask", torch.bool),
     ("attach_limits", "statics", "attach_limits", torch.float32),
+    ("has_storage", "statics", "has_storage", torch.bool),
+    ("vg_cap", "statics", "vg_cap", torch.float32),
+    ("vg_name_id", "statics", "vg_name_id", torch.int32),
+    ("sdev_cap", "statics", "sdev_cap", torch.float32),
+    ("sdev_media", "statics", "sdev_media", torch.int32),
+    ("gpu_dev_exists", "statics", "gpu_dev_exists", torch.bool),
+    ("gpu_total", "statics", "gpu_total", torch.float32),
     ("score_w", "statics", "score_w", torch.float32),
     ("node_valid", "statics", "node_valid", torch.bool),
     ("free", "state", "free", torch.float32),
@@ -156,13 +183,25 @@ _PTR_FIELDS = (
     ("ports_used", "state", "ports_used", torch.float32),
     ("vols_any", "state", "vols_any", torch.float32),
     ("vols_rw", "state", "vols_rw", torch.float32),
+    ("vg_free", "state", "vg_free", torch.float32),
+    ("sdev_free", "state", "sdev_free", torch.bool),
+    ("gpu_free", "state", "gpu_free", torch.float32),
     ("stage", "buf", "stage", torch.uint8),
     ("raw", "buf", "raw", torch.float32),
     ("score", "buf", "score", torch.float32),
+    ("st_ok", "buf", "st_ok", torch.bool),
+    ("st_alloc", "buf", "st_alloc", torch.float32),
+    ("st_take", "buf", "st_take", torch.bool),
+    ("st_raw", "buf", "st_raw", torch.float32),
+    ("gpu_ok", "buf", "gpu_ok", torch.bool),
+    ("gpu_sh", "buf", "gpu_sh", torch.float32),
     ("chosen", "buf", "chosen", torch.int32),
     ("placed", "buf", "placed", torch.bool),
     ("reason", "buf", "reason", torch.int32),
     ("out_node", "buf", "out_node", torch.int32),
+    ("out_lvm", "buf", "out_lvm", torch.float32),
+    ("out_take", "buf", "out_take", torch.bool),
+    ("out_gpu", "buf", "out_gpu", torch.float32),
 )
 
 
@@ -174,37 +213,54 @@ class StepCtx(ctypes.Structure):
     ]
 
 
+def _checked(field: str, t: torch.Tensor, device, dtype) -> torch.Tensor:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{field}: need a contiguous {dtype} tensor on {device}, "
+            f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    return t
+
+
+def _check_shapes(tensors: dict, want: dict) -> None:
+    for field, shape in want.items():
+        if tuple(tensors[field].shape) != shape:
+            raise ValueError(f"{field}: shape {tuple(tensors[field].shape)}, want {shape}")
+
+
 def make_ctx(buf) -> StepCtx:
     """The kernels' argument block for a StepBuffers: checks every tensor's
-    device, dtype and contiguity, then takes its address. The buffers keep
-    the tensors alive as long as the block is in use."""
+    device, dtype, contiguity and shape, then takes its address. The
+    buffers keep the tensors alive as long as the block is in use."""
     owners = {"buf": buf, "statics": buf.statics, "state": buf.state}
-    tensors = {}
-    for field, owner, attr, dtype in _PTR_FIELDS:
-        t = getattr(owners[owner], attr)
-        if t.device != buf.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"{owner}.{attr}: need a contiguous {dtype} tensor on {buf.device}, "
-                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-        tensors[field] = t
+    tensors = {
+        field: _checked(f"{owner}.{attr}", getattr(owners[owner], attr), buf.device, dtype)
+        for field, owner, attr, dtype in _PTR_FIELDS
+    }
     st = buf.statics
     n, r = st.alloc.shape
     g, tc = st.g_terms.shape
     p, w, c = st.ports_req.shape[1], st.vol_rw_req.shape[1], st.vol_class_mask.shape[0]
-    want = {
-        "req": (buf.n_pods, r), "free": (n, r), "ports_used": (n, p), "vols_any": (n, w),
+    v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], buf.state.gpu_free.shape[1]
+    l, k = buf.lvm_size.shape[1], buf.dev_size.shape[1]
+    if max(v, sd, gd) > MAX_EXT:
+        raise ValueError(f"VG/device/GPU axes ({v}, {sd}, {gd}) wider than {MAX_EXT}")
+    pods = buf.n_pods
+    _check_shapes(tensors, {
+        "req": (pods, r), "free": (n, r), "ports_used": (n, p), "vols_any": (n, w),
         "vols_rw": (n, w), "attach_limits": (n, c), "stage": (n,), "raw": (4, n),
+        "lvm_size": (pods, l), "lvm_vg": (pods, l), "dev_size": (pods, k), "dev_media": (pods, k),
+        "gpu_preset": (pods, gd), "vg_name_id": (n, v), "vg_free": (n, v), "sdev_free": (n, sd),
+        "sdev_media": (n, sd), "gpu_dev_exists": (n, gd), "gpu_free": (n, gd),
+        "st_alloc": (n, v), "st_take": (n, sd), "gpu_sh": (n, gd),
+        "out_lvm": (pods, v), "out_take": (pods, sd), "out_gpu": (pods, gd),
         **{f: (g, n) for f in ("static_mask", "vol_mask", "node_pref", "taint_intol",
                                 "static_score", "avoid_pen")},
         **{f: (g, tc) for f in ("s_match", "a_aff_req", "a_anti_req", "w_aff_pref",
                                  "w_anti_pref", "spread_hard", "spread_soft", "ss_host", "ss_zone")},
-    }
-    for field, shape in want.items():
-        if tuple(tensors[field].shape) != shape:
-            raise ValueError(f"{field}: shape {tuple(tensors[field].shape)}, want {shape}")
+    })
     return StepCtx(
-        n=n, r=r, p_ports=p, w=w, c=c, tc=tc, flags=buf.flag_bits, pad_=0,
+        n=n, r=r, p_ports=p, w=w, c=c, tc=tc, flags=buf.flag_bits, v=v, sd=sd, gd=gd, l=l, k=k,
         **{f: t.data_ptr() for f, t in tensors.items()},
     )
 
@@ -223,6 +279,94 @@ def launch(name: str, buf, i: int) -> None:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
     LAUNCHES[name] += 1
+
+
+_DELTA_INT_FIELDS = ("n", "r", "p_ports", "w", "v", "sd", "gd", "tc", "e", "pad_")
+# (field, owner, dtype) in step_ctx.cuh DeltaCtx order
+_DELTA_PTR_FIELDS = (
+    ("g", "entries", torch.int32),
+    ("node", "entries", torch.int32),
+    ("wgt", "entries", torch.float32),
+    ("req", "entries", torch.float32),
+    ("vg", "entries", torch.float32),
+    ("sd_take", "entries", torch.bool),
+    ("gp", "entries", torch.float32),
+    ("ports_req", "statics", torch.bool),
+    ("vol_rw_req", "statics", torch.bool),
+    ("vol_ro_req", "statics", torch.bool),
+    ("vol_att_req", "statics", torch.bool),
+    ("node_dom", "statics", torch.int32),
+    ("term_topo", "statics", torch.int32),
+    ("ip_of", "statics", torch.int32),
+    ("g_terms", "statics", torch.int32),
+    ("s_match", "statics", torch.bool),
+    ("a_aff_req", "statics", torch.bool),
+    ("a_anti_req", "statics", torch.bool),
+    ("w_aff_pref", "statics", torch.float32),
+    ("w_anti_pref", "statics", torch.float32),
+    ("free", "state", torch.float32),
+    ("cnt_match", "state", torch.float32),
+    ("cnt_total", "state", torch.float32),
+    ("cnt_own_anti", "state", torch.float32),
+    ("cnt_own_aff", "state", torch.float32),
+    ("w_own_aff_pref", "state", torch.float32),
+    ("w_own_anti_pref", "state", torch.float32),
+    ("vg_free", "state", torch.float32),
+    ("sdev_free", "state", torch.bool),
+    ("gpu_free", "state", torch.float32),
+    ("ports_used", "state", torch.float32),
+    ("vols_any", "state", torch.float32),
+    ("vols_rw", "state", torch.float32),
+)
+
+
+class DeltaCtx(ctypes.Structure):
+    """ctypes mirror of `struct DeltaCtx` in csrc/step_ctx.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in _DELTA_INT_FIELDS] + [
+        (f, ctypes.c_void_p) for f, _, _ in _DELTA_PTR_FIELDS
+    ]
+
+
+def make_delta_ctx(statics, state, entries: dict) -> DeltaCtx:
+    """K7's argument block: `entries` maps g, node, wgt, req, vg, sd_take,
+    gp to device tensors (which the caller keeps alive until the launch is
+    enqueued; the stream orders any reuse of their memory after it)."""
+    device = state.free.device
+    owners = {"entries": entries, "statics": statics._asdict(), "state": state._asdict()}
+    tensors = {
+        f: _checked(f"{owner}.{f}", owners[owner][f], device, dtype)
+        for f, owner, dtype in _DELTA_PTR_FIELDS
+    }
+    n, r = state.free.shape
+    e = tensors["g"].shape[0]
+    v, sd, gd = state.vg_free.shape[1], state.sdev_free.shape[1], state.gpu_free.shape[1]
+    _check_shapes(tensors, {"node": (e,), "wgt": (e,), "req": (e, r), "vg": (e, v),
+                            "sd_take": (e, sd), "gp": (e, gd)})
+    return DeltaCtx(
+        n=n, r=r, p_ports=state.ports_used.shape[1], w=state.vols_any.shape[1], v=v, sd=sd,
+        gd=gd, tc=statics.g_terms.shape[1], e=e, pad_=0,
+        **{f: t.data_ptr() for f, t in tensors.items()},
+    )
+
+
+def launch_delta(statics, state, packed) -> None:
+    """K7 over the packed entries (`engine/state.py pack_delta_entries`) on
+    the current CUDA stream, in one launch; raises if it is refused."""
+    libs = build()
+    device = state.free.device
+    names = ("g", "node", "wgt", "req", "vg", "sd_take", "gp")
+    entries = {
+        name: torch.as_tensor(np.ascontiguousarray(arr), device=device)
+        for name, arr in zip(names, packed)
+    }
+    ctx = make_delta_ctx(statics, state, entries)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = libs["delta_apply"].simtpu_delta_apply(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel delta_apply failed to launch: {msg} ({err})")
+    LAUNCHES["delta_apply"] += 1
 
 
 def launch_noop(device) -> None:

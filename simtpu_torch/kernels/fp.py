@@ -3,10 +3,13 @@
 XLA's CPU backend lets LLVM contract `a * b + c` into one FMA inside a
 fusion (measured: `jax.jit(lambda a, b, c: a * b + c)` differs from the
 two-rounding numpy result on ~23% of random f32 lanes). The JAX package's
-reference results therefore carry an FMA at two sites that matter for
-placements: the resource-fit slack (`free + eps * max(|free|, 1)`) and
-SelectorSpread's zone blend. The CUDA kernels use `__fmaf_rn` there; this
-is the same operation in plain PyTorch, on any device.
+reference results therefore carry an FMA at the sites that contract in its
+compiled step: the resource-fit slack (`free + eps * max(|free|, 1)`),
+SelectorSpread's zone blend, the Simon numerator, the static score pair,
+the running score sum's later terms (kernels/scores.py) and the Open-Local
+raw score's device term (kernels/storage.py). The CUDA kernels use
+`__fmaf_rn` there; this is the same operation in plain PyTorch, on any
+device.
 
 Method: the product of two f32 values is exact in f64; the f64 sum is
 rounded to odd (TwoSum gives its exact error) and then to f32, which gives

@@ -207,32 +207,41 @@ def interpod_score(
 
 # -- the step's composition, as the compiled reference computes it ----------
 #
-# Inside the JAX package's compiled scan step, XLA reassociates constant
-# factors (`w0 * (mean * 100)` becomes `sum * (w0 * 50)`, `w1 * (x * 100)`
-# becomes `x * (w1 * 100)`) and LLVM contracts some `a * b + c` into one
-# FMA: the resource pair, the Simon numerator `share * 100 - lo`, the
-# static pair `w9 * image + w11 * avoid` (and, in the functions above, the
-# resource-fit slack and the zone blend). The running sum adds every other
-# term with two roundings. Read off the compiled reference's LLVM IR and
-# pinned by tests/test_torch_kernels.py against a scan that also returns
-# its scores — bit-identical for the default weights (1 and 2); with other
-# weights the last bit of a score can still differ (ROADMAP, open).
+# The JAX package's engine compiles its scan step with the score weights as
+# a runtime argument (StaticArrays.score_w), and XLA's CPU backend lets
+# LLVM contract some `a * b + c` into one FMA. Read off the compiled scan
+# (its optimized HLO, `XLA_FLAGS=--xla_dump_to`) and pinned by
+# tests/test_torch_kernels.py and tests/test_torch_extended.py against a
+# scan that also returns its scores, with the default and with custom
+# weights:
+# - the resource pair is `frac_sum * (w0 * 50) + (1 - |d|) * (w1 * 100)`,
+#   two rounded products and a rounded sum (XLA folds the constant
+#   factors: `w0 * (mean * 100)` becomes `frac_sum * (w0 * 50)`);
+# - the Simon term is one FMA, `fma(w2 + w3, x, score)`, except when the
+#   node-affinity term follows it (StepFlags.node_pref): then it is added
+#   with two roundings; its numerator `share * 100 - lo` is contracted;
+# - every later term of the running sum is one FMA, `fma(w, term, score)`
+#   (node affinity, taint, inter-pod, soft spread, SelectorSpread, and the
+#   Open-Local term after the mask);
+# - the static pair is `score + fma(w9, image, w11 * avoid)`.
+# With the default weights (1 and 2) every product by a weight is exact,
+# so an FMA there rounds like the two-rounding form.
 
 
 def resource_base_score(
     free: torch.Tensor, alloc: torch.Tensor, req: torch.Tensor, w_least, w_balanced
 ) -> torch.Tensor:
     """`w_least * least_allocated + w_balanced * balanced_allocation` as the
-    compiled step computes it: fma(w_least * 50, frac_sum, (w_balanced *
-    100) * (1 - |cpuFrac - memFrac|))."""
+    compiled step computes it: frac_sum * (w_least * 50) + (1 - |cpuFrac -
+    memFrac|) * (w_balanced * 100), each product rounded."""
     cols = [RES_CPU, RES_MEMORY]
     al = alloc[:, cols]
     fa = free[:, cols] - req[cols]
     frac = torch.where(al > 0, fa.clamp(min=0.0) / _clamp_min(al, _TINY), 0.0)
     used_after = al - free[:, cols] + req[cols]
     bfrac = torch.where(al > 0, used_after / _clamp_min(al, _TINY), 1.0)
-    balanced = (w_balanced * MAX_NODE_SCORE) * (1.0 - (bfrac[:, 0] - bfrac[:, 1]).abs())
-    return fma(w_least * 50.0, frac[:, 0] + frac[:, 1], balanced)
+    balanced = (1.0 - (bfrac[:, 0] - bfrac[:, 1]).abs()) * (w_balanced * MAX_NODE_SCORE)
+    return (frac[:, 0] + frac[:, 1]) * (w_least * 50.0) + balanced
 
 
 def simon_minmax(alloc: torch.Tensor, req: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

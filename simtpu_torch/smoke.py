@@ -1,12 +1,31 @@
-"""The serial smoke problem: one definition for the golden file, the tests
-and `chip_smoke.py`.
+"""The smoke problems: one definition for the golden files, the tests and
+`chip_smoke.py`.
 
-1000 nodes × 10 000 pods: `bench.py build_problem`'s "hard" constraint mix
-(zone spread, half of it DoNotSchedule; preferred and required pod
-anti-affinity; node selectors; tolerations) without Open-Local storage or
-GPU-share pods, at the top of the serial path's range (under 1024 nodes
-and 16 384 pods). Pod-name suffixes are seeded (`seed_name_hashes`), so a
-placement record keyed by pod name compares across runs and packages.
+**Serial smoke problem** — 1000 nodes × 10 000 pods: `bench.py
+build_problem`'s "hard" constraint mix (zone spread, half of it
+DoNotSchedule; preferred and required pod anti-affinity; node selectors;
+tolerations) without Open-Local storage or GPU-share pods, at the top of the
+serial path's range (under 1024 nodes and 16 384 pods).
+
+**Extended problem** (`EXT_*`) — the same mix with the storage and GPU
+knobs on, at the same scale: 1000 nodes (30% with Open-Local VGs, half of
+those with exclusive SSDs; 40% with 2-8 GPUs of 16 GiB) × 10 000 pods (25%
+GPU-share, 60% of those multi-GPU; 25% Open-Local, 30% of those on an
+exclusive device, 60% of the LVM ones with 2-3 claims; 15% zone
+self-affinity), then a priority tier at priority 1000 as one more app:
+`EXT_TIER` = 400 CPU-heavy pods (60 cores), 400 GPU-share pods (two 16 GiB
+GPUs) and 150 LVM pods (two claims, 250 and 150 GiB). The tier outgrows
+the capacity the ordinary pods leave, so part of it fails and preempts: on
+the JAX package (simtpu.simulate on the CPU, wavefront off) the tier's first
+attempt fails 55 pods for resources and 163 for GPU memory, preemption
+evicts 500 pods, and every tier pod ends up placed (the golden file records
+each placement, eviction and annotation). 10 950 pods in all, under the
+serial path's limits. Cut from bench.py's 100 000 nodes × 1 000 000 pods to
+the serial path's range; the widths (constraint mix, resource kinds) are
+bench.py's.
+
+Pod-name suffixes are seeded (`seed_name_hashes`), so a placement record
+keyed by pod name compares across runs and packages.
 """
 
 from __future__ import annotations
@@ -14,6 +33,8 @@ from __future__ import annotations
 import gzip
 import json
 from pathlib import Path
+
+from .constants import ANNO_NODE_GPU_SHARE, ANNO_NODE_LOCAL_STORAGE, ANNO_POD_GPU_INDEX
 
 N_NODES = 1000
 N_PODS = 10000
@@ -32,9 +53,29 @@ APPS_KW = dict(
     gpu_frac=0,
 )
 NAME_SEED = 2026
+DATA = Path(__file__).resolve().parent.parent / "tests" / "data"
 #: placements and reasons of the JAX package's simtpu.simulate on the CPU
 #: (written by tests/test_torch_golden.py)
-GOLDEN = Path(__file__).resolve().parent.parent / "tests" / "data" / "torch_serial_smoke.json.gz"
+GOLDEN = DATA / "torch_serial_smoke.json.gz"
+
+EXT_CLUSTER_KW = dict(CLUSTER_KW, storage_frac=0.3, gpu_frac=0.4)
+EXT_APPS_KW = dict(
+    APPS_KW,
+    gpu_frac=0.25,
+    gpu_multi_frac=0.6,
+    storage_frac=0.25,
+    storage_device_frac=0.3,
+    lvm_multi_frac=0.6,
+    affinity_frac=0.15,
+)
+#: the priority tier: (name, replicas, make_deployment keywords)
+EXT_TIER = (
+    ("tier-cpu", 400, dict(cpu_milli=60000, mem_mib=8192)),
+    ("tier-gpu", 400, dict(cpu_milli=2000, mem_mib=4096, gpu_mem_mib=16384, gpu_count=2)),
+    ("tier-lvm", 150, dict(cpu_milli=2000, mem_mib=4096, lvm_gib=(250, 150))),
+)
+EXT_PRIORITY = 1000
+EXT_GOLDEN = DATA / "torch_extended_smoke.json.gz"
 
 
 def smoke_problem(synth_cluster, synth_apps, n_nodes=N_NODES, n_pods=N_PODS):
@@ -42,33 +83,79 @@ def smoke_problem(synth_cluster, synth_apps, n_nodes=N_NODES, n_pods=N_PODS):
     return synth_cluster(n_nodes, **CLUSTER_KW), synth_apps(n_pods, **APPS_KW)
 
 
+def extended_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, n_pods=N_PODS):
+    """(cluster, apps) of the extended problem from a package's own synth
+    module, AppResource and ResourceTypes: the storage/GPU mix, then the
+    priority tier as one more app."""
+    cluster = synth.synth_cluster(n_nodes, **EXT_CLUSTER_KW)
+    apps = synth.synth_apps(n_pods, **EXT_APPS_KW)
+    tier = resources_cls(
+        deployments=[
+            synth.make_deployment(name, replicas, priority=EXT_PRIORITY, **kw)
+            for name, replicas, kw in EXT_TIER
+        ]
+    )
+    return cluster, apps + [app_cls(name="tier", resource=tier)]
+
+
 def _key(pod: dict) -> str:
     meta = pod["metadata"]
     return f"{meta.get('namespace', '')}/{meta['name']}"
 
 
+_NODE_ANNOS = (ANNO_NODE_LOCAL_STORAGE, ANNO_NODE_GPU_SHARE)
+
+
 def placement_record(result) -> dict:
-    """{"nodes": node names, "placed": {pod: node index}, "failed": {pod:
-    reason string}} of a SimulateResult (either package's)."""
+    """A SimulateResult (either package's) as plain data: "nodes" (node
+    names), "placed" ({pod: node index}), "failed" ({pod: reason string}),
+    "preempted" (sorted evicted pods), "gpu_index" ({placed pod: its GPU
+    device assignment}) and "node_ext" ({node: its Open-Local and GPU-share
+    annotations, as the simulation wrote them})."""
     nodes = [st.node["metadata"]["name"] for st in result.node_status]
     placed = {
         _key(pod): i for i, st in enumerate(result.node_status) for pod in st.pods
     }
+    gpu_index = {
+        _key(pod): (pod["metadata"].get("annotations") or {})[ANNO_POD_GPU_INDEX]
+        for st in result.node_status
+        for pod in st.pods
+        if ANNO_POD_GPU_INDEX in (pod["metadata"].get("annotations") or {})
+    }
+    node_ext = {}
+    for st in result.node_status:
+        annos = st.node["metadata"].get("annotations") or {}
+        ext = {k: annos[k] for k in _NODE_ANNOS if k in annos}
+        if ext:
+            node_ext[st.node["metadata"]["name"]] = ext
     failed = {_key(u.pod): u.reason for u in result.unscheduled_pods}
-    return {"nodes": nodes, "placed": dict(sorted(placed.items())), "failed": dict(sorted(failed.items()))}
+    return {
+        "nodes": nodes,
+        "placed": dict(sorted(placed.items())),
+        "failed": dict(sorted(failed.items())),
+        "preempted": sorted(_key(p.pod) for p in result.preempted_pods),
+        "gpu_index": dict(sorted(gpu_index.items())),
+        "node_ext": dict(sorted(node_ext.items())),
+    }
 
 
 def record_differences(got: dict, want: dict, limit: int = 5) -> list:
     """Human-readable differences between two placement records (empty =
-    identical): node list, every pod's node, every failed pod's reason."""
+    identical): node list, every pod's node, every failed pod's reason, the
+    preempted pods, GPU assignments and node annotations."""
     out = []
     if got["nodes"] != want["nodes"]:
         out.append("node lists differ")
-    for field in ("placed", "failed"):
-        for pod in sorted(set(got[field]) | set(want[field])):
-            a, b = got[field].get(pod), want[field].get(pod)
+    if got["preempted"] != want["preempted"]:
+        only_got = sorted(set(got["preempted"]) - set(want["preempted"]))
+        only_want = sorted(set(want["preempted"]) - set(got["preempted"]))
+        out.append(f"preempted differ: {len(got['preempted'])} vs golden {len(want['preempted'])}, "
+                   f"only here {only_got[:3]}, only in golden {only_want[:3]}")
+    for field in ("placed", "failed", "gpu_index", "node_ext"):
+        for key in sorted(set(got[field]) | set(want[field])):
+            a, b = got[field].get(key), want[field].get(key)
             if a != b:
-                out.append(f"{field} {pod}: {a!r} != golden {b!r}")
+                out.append(f"{field} {key}: {a!r} != golden {b!r}")
     return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
 
 

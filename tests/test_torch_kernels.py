@@ -284,16 +284,18 @@ def _jax_scan_with_eval(statics, state, pods, flags):
     masks and score. XLA shares the step's filter/score computation between
     the argmax and the extra outputs, so these are the values the compiled
     scan ranks (a standalone `jax.jit(filter_and_score)` fuses — and so
-    rounds — differently)."""
+    rounds — differently). The statics are an argument of the compiled
+    function, as in the engine's `_run_scan`: closed over, they would be
+    constants, and XLA folds constant weights into other roundings."""
 
-    def step(st, pod):
-        new, (node, reason, *_) = jscan.schedule_step(statics, st, pod, flags)
-        ev = jscan.filter_and_score(statics, st, pod, flags)
-        masks = jnp.stack([getattr(ev, f) for f in tscan.StepEval._fields[:-1]])
+    def step(stc, st, pod):
+        new, (node, reason, *_) = jscan.schedule_step(stc, st, pod, flags)
+        ev = jscan.filter_and_score(stc, st, pod, flags)
+        masks = jnp.stack([getattr(ev, f) for f in [f for f, _ in tscan.FILTER_CASCADE]])
         return new, (node, reason, masks, ev.score)
 
-    run = jax.jit(lambda s, p: jax.lax.scan(step, s, p))
-    return run(jax.tree_util.tree_map(jnp.copy, state), pods)
+    run = jax.jit(lambda stc, s, p: jax.lax.scan(lambda a, b: step(stc, a, b), s, p))
+    return run(statics, jax.tree_util.tree_map(jnp.copy, state), pods)
 
 
 def test_filter_and_score_and_schedule_step_match(problem):
@@ -308,9 +310,9 @@ def test_filter_and_score_and_schedule_step_match(problem):
     t_state = tstate.state_from_numpy(_numpy_tree(state), "cpu")
     flags = _port_flags(jflags)
     for i in range(len(pods[0])):
-        pod = (pods[0][i], torch.as_tensor(pods[1][i]), pods[2][i], pods[3][i])
+        pod = (pods[0][i], torch.as_tensor(pods[1][i]), *(x[i] for x in pods[2:]))
         ev = tscan.filter_and_score(t_statics, t_state, pod, flags)
-        for k, field in enumerate(tscan.StepEval._fields[:-1]):
+        for k, field in enumerate([f for f, _ in tscan.FILTER_CASCADE]):
             np.testing.assert_array_equal(getattr(ev, field).numpy(), np.asarray(j_masks[i, k]),
                                           err_msg=f"pod {i} {field}")
         np.testing.assert_array_equal(ev.score.numpy(), np.asarray(j_score[i]), err_msg=f"pod {i}")
@@ -348,20 +350,25 @@ def test_statics_carried_across_expand_collapsed_planes(problem):
 
 
 def test_ctypes_step_ctx_mirrors_the_cuda_header():
-    """The kernels' argument block is passed by value: the ctypes structure
-    must list the header's fields in the header's order."""
+    """The kernels' argument blocks are passed by value: each ctypes
+    structure (StepCtx of K1-K6, DeltaCtx of K7) must list the header's
+    fields in the header's order."""
     import re
 
     from simtpu_torch.kernels import cuda
 
     header = (cuda.CSRC / "step_ctx.cuh").read_text()
-    body = header[header.index("struct StepCtx {"):]
-    body = body[: body.index("};")]
-    ints = re.search(r"int ([\w, ]+);", body).group(1).replace(" ", "").split(",")
-    ptrs = re.findall(r"\*\s*(\w+);", body)
-    assert ints == list(cuda._INT_FIELDS)
-    assert ptrs == [f for f, *_ in cuda._PTR_FIELDS]
-    assert [f for f, _ in cuda.StepCtx._fields_] == ints + ptrs
+    for struct, int_fields, ptr_fields, mirror in (
+        ("StepCtx", cuda._INT_FIELDS, cuda._PTR_FIELDS, cuda.StepCtx),
+        ("DeltaCtx", cuda._DELTA_INT_FIELDS, cuda._DELTA_PTR_FIELDS, cuda.DeltaCtx),
+    ):
+        body = header[header.index(f"struct {struct} {{"):]
+        body = body[: body.index("};")]
+        ints = re.search(r"int ([\w, ]+);", body).group(1).replace(" ", "").split(",")
+        ptrs = re.findall(r"\*\s*(\w+);", body)
+        assert ints == list(int_fields), struct
+        assert ptrs == [f for f, *_ in ptr_fields], struct
+        assert [f for f, _ in mirror._fields_] == ints + ptrs, struct
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
@@ -377,8 +384,11 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
     )
     before_plain, before_launch = dict(cuda.PLAIN_CALLS), dict(cuda.LAUNCHES)
     tscan.run_batch(buf)
+    calls = {"storage_pod": int(buf.storage_live.sum()), "gpu_pod": int(buf.gpu_live.sum()),
+             "delta_apply": 0}
     for name in cuda.KERNELS:
-        assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == buf.n_pods
+        want = calls.get(name, buf.n_pods)
+        assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == want
         assert cuda.LAUNCHES.get(name, 0) == before_launch.get(name, 0)
 
 
@@ -406,12 +416,20 @@ def test_kernel_argument_block_checks_its_tensors(problem):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("n_nodes", [64, 257, 1000])
-def test_scores_bit_identical_at_the_smoke_mix(n_nodes):
+@pytest.mark.parametrize(
+    "n_nodes,weights",
+    [(64, None), (257, None), (1000, None), (257, "custom")],
+    ids=["64", "257", "1000", "257-custom-weights"],
+)
+def test_scores_bit_identical_at_the_smoke_mix(n_nodes, weights):
     """The smoke problem's constraint mix at several node counts: the port's
     K1→K4 plain chain yields the compiled scan's own scores for 200 pods
-    (XLA's fusion, and so its FMA contraction, can change with shape)."""
+    (XLA's fusion, and so its FMA contraction, can change with shape), with
+    the default score weights and with the custom weights of
+    `test_k1_to_k4_plain_chain_matches_jax_scan[general-custom-weights]`
+    given through a scheduler configuration."""
     from simtpu_torch import smoke
+    from simtpu.schedconfig import SchedulerConfig
 
     cluster, apps = smoke.smoke_problem(synth_cluster, synth_apps, n_nodes, smoke.N_PODS)
     seed_name_hashes(1)
@@ -431,7 +449,8 @@ def test_scores_bit_identical_at_the_smoke_mix(n_nodes):
         tensors, rng.integers(0, len(tensors.groups), k).astype(np.int32),
         rng.integers(0, tensors.n_nodes, k).astype(np.int32), arrays[1][rng.integers(0, 200, k)], None,
     )
-    statics = jscan.statics_from(tensors)
+    config = SchedulerConfig(score_weights=CUSTOM_WEIGHTS.copy()) if weights else None
+    statics = jscan.statics_from(tensors, config)
     for jflags in (jscan.flags_from(tensors, batch.ext), jscan.StepFlags()):
         _, (j_node, _, _, j_score) = _jax_scan_with_eval(statics, state, arrays, jflags)
         buf = tscan.StepBuffers(tscan.statics_from_numpy(_numpy_tree(statics), "cpu"),
