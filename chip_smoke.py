@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the seven CUDA
+1. the card's name and power limit (nvidia-smi); build the eight CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -17,8 +17,13 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    allocations must be equal); K7 on a seeded set of eviction entries
    (w = -1, then the same entries with w = +1: every state plane equal to
    the plain version's after each, and back to the state before the
-   eviction). Then each kernel's time per launch, its plain version's and
-   the bytes bound, and the device time per kernel (torch.profiler);
+   eviction); K8 on the placement logs of the fixtures of
+   `simtpu_torch/audit/fuzz.py` run on the card — clean, with the optional
+   families cut to width 0, under every mutation class and every bulk
+   corruption (forced and pinned entries, an exact fill included): the flag
+   words must be equal. Then each kernel's time per launch, its plain
+   version's and the bytes bound, and the device time per kernel
+   (torch.profiler);
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
    serial smoke problem. K1-K4 must have launched once per pod, no plain
    version may have run, and the record (placements, reasons, preempted
@@ -30,11 +35,30 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    included), K5 once per storage-pod step and K6 once per GPU-pod step
    (counted on the host from the batches), K7 at least once; no plain
    version may have run;
+3c. K8 against its plain version on the placement logs of phases 3 and 3b,
+   clean and under the same corruptions;
 4. the demo example (examples/cluster/demo + application/web): every pod
    placed, as on the CPU path;
 4b. the gpushare example (examples/cluster/gpushare + application/
    gpushare) and the local-storage example (examples/cluster/demo +
-   application/local-storage): every pod placed, as on the CPU path.
+   application/local-storage): every pod placed, as on the CPU path;
+4c. the three example configs through the `apply` front door
+   (`simtpu_torch.cli apply`, `-e gpu` / `-e open-local` as
+   tests/test_examples.py runs them) on the card and on the CPU path: the
+   same exit code and report text, apart from the timing and engine lines;
+5. the capacity main path: the capacity problem (smoke.py: 900 nodes, the
+   serial smoke mix plus a burst app, a 64-core template) written as a
+   simon Config and planned by `Applier.run` on the card. The plan — count,
+   probes, the winning candidate's placements, reasons and annotations, a
+   clean audit — must equal the golden record the JAX package produced; K8
+   must have launched once per candidate and K1-K4 once per pod step of
+   every candidate. Prints the plan's wall, each candidate's wall and the
+   audit's split (upload, K8, host interpod/spread checks);
+5b. the divergence fallback: a cut of the capacity problem planned clean
+   and with the audit's view corrupted (`_audit_inject`): the injected plan
+   ships the certified re-run, with the clean plan's count;
+Last, K8's time at the capacity winner's log (device time from the
+profiler, back-to-back launches from Python, the plain version's).
 
 The line before the last is the JSON `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
@@ -43,9 +67,15 @@ no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,7 +84,10 @@ import torch
 
 import simtpu_torch
 import simtpu_torch.api as tapi
+from simtpu_torch.api import Simulator
 from simtpu_torch import smoke, synth
+from simtpu_torch import cli as tcli
+from simtpu_torch.audit import checker, fuzz
 from simtpu_torch.constants import LABEL_APP_NAME
 from simtpu_torch.core.objects import set_label
 from simtpu_torch.core.tensorize import Tensorizer
@@ -63,7 +96,9 @@ from simtpu_torch.engine import scan
 from simtpu_torch.engine import state as sstate
 from simtpu_torch.io.cluster import create_cluster_resource_from_cluster_config
 from simtpu_torch.io.yaml_loader import load_resources
+from simtpu_torch.kernels import audit as kaudit
 from simtpu_torch.kernels import cuda
+from simtpu_torch.plan.capacity import Applier, ApplierOptions, plan_capacity
 from simtpu_torch.synth import make_deployment, synth_apps, synth_cluster
 from simtpu_torch.workloads.expand import get_valid_pods_exclude_daemonset, seed_name_hashes
 
@@ -78,6 +113,7 @@ KERNELS = {
     "storage_pod": "simtpu/kernels/storage.py:25",
     "gpu_pod": "simtpu/kernels/gpushare.py:25",
     "delta_apply": "simtpu/engine/state.py:339",
+    "audit_bulk": "simtpu/audit/checker.py:388",
 }
 STEP = ("filter_pod", "topology_pod", "score_argmax_pod", "commit_pod")
 WRAPPERS = {
@@ -461,11 +497,13 @@ class CountingEngine(scan.Engine):
 def run_main_path(problem, golden, card: str, label: str):
     """`simulate(device="cuda")` on a smoke problem with every count set to
     0 just before and read just after; the record must equal the golden
-    file. Returns (launches, host step counts, wall s, pods, record)."""
+    file. Returns (launches, host step counts, wall s, pods, record, the
+    closed simulator's copy)."""
     cluster, apps = problem
     CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
     tapi.Engine = CountingEngine
     cuda.reset_counts()
+    tapi.Simulator = CapturingSimulator
     seed_name_hashes(smoke.NAME_SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -474,6 +512,7 @@ def run_main_path(problem, golden, card: str, label: str):
     wall = time.perf_counter() - t0
     seed_name_hashes(None)
     tapi.Engine = scan.Engine
+    tapi.Simulator = Simulator
     launches, steps = dict(cuda.LAUNCHES), dict(CountingEngine.steps)
     plain_calls = sum(cuda.PLAIN_CALLS.values())
     record = smoke.placement_record(result)
@@ -491,7 +530,198 @@ def run_main_path(problem, golden, card: str, label: str):
         f"({steps['pods']} pod steps, {steps['storage']} storage, {steps['gpu']} GPU): {wall:.2f} s, "
         f"{n_pods / wall:.0f} pods/s, {len(record['failed'])} unscheduled, "
         f"{len(record['preempted'])} preempted, record == golden; launches {launches} [{card}]")
-    return launches, steps, wall, n_pods, record
+    return launches, steps, wall, n_pods, record, CapturingSimulator.last
+
+
+class CapturingSimulator(tapi.Simulator):
+    """The simulator, keeping a shallow copy of its last instance as it
+    closes, so its placement log can be audited after the timed run."""
+
+    last = None
+
+    def close(self) -> None:
+        CapturingSimulator.last = copy.copy(self)
+        super().close()
+
+
+def k8_cases(tensors, e, seed: int):
+    """(label, tensors, entries) for K8's comparisons: clean, the optional
+    families cut to width 0, every mutation class and bulk corruption with
+    a target in this log."""
+    cases = [("clean", tensors, e), ("zero-widths", *fuzz.zero_widths(tensors, e))]
+    for kind in fuzz.MUTATION_CLASSES:
+        mut = fuzz.mutate_entries(kind, tensors, e, np.random.default_rng(seed))
+        if mut is not None:
+            cases.append((kind, tensors, mut))
+    for kind in fuzz.BULK_CORRUPTIONS:
+        got = fuzz.corrupt(kind, tensors, e, np.random.default_rng(seed))
+        if got is not None:
+            cases.append((kind, *got))
+    return cases
+
+
+def compare_k8(label: str, tensors, e, node_valid, device, err, seed: int = 0) -> dict:
+    """K8 against its plain version on the card, on every case of k8_cases;
+    the flag words must be equal. Returns {case: entries flagged}."""
+    nv = np.ones(tensors.alloc.shape[0], bool) if node_valid is None else np.asarray(node_valid, bool)
+    out = {}
+    for case, t, x_e in k8_cases(tensors, e, seed):
+        x = checker._upload(t, x_e, nv, device)
+        got = kaudit.audit_bulk(x)
+        want = kaudit.audit_bulk_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"audit_bulk: {label} {case}: {bad} flag words differ from the plain version")
+        err["audit_bulk"] = max(err["audit_bulk"], float((got != want).sum()))
+        out[case] = int((want != 0).sum())
+    if out["clean"] or out["zero-widths"]:
+        raise AssertionError(f"audit_bulk: {label}: the clean log is flagged ({out})")
+    return out
+
+
+def audit_bytes(x) -> int:
+    """Bytes K8 must move: the per-node planes and the entries read once,
+    the group planes' rows the entries gather, the flag words written."""
+    n, r = x.alloc.shape
+    m = x.g.shape[0]
+    p, w, c = x.ports.shape[1], x.vol_rw.shape[1], x.vol_class_mask.shape[0]
+    v, sd, gd = x.vg_avail0.shape[1], x.sdev_free0.shape[1], x.gpu_total.shape[1]
+    node_b = n * (8 * r + 1 + 8 * c + 8 * v + sd + 8 * gd)
+    group_b = m * (2 + p + 3 * w) + 8 * c * w
+    entry_b = m * (3 * 8 + 1 + 8 * r + 8 * v + sd + 8 * gd)
+    return int(node_b + group_b + entry_b + 4 * m)
+
+
+def plan_on_card(cluster, apps, template, **kw):
+    """plan_capacity on the card with the counts set to 0 just before and
+    read just after, pod names seeded as in the golden run."""
+    CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
+    tapi.Engine = CountingEngine
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        plan = plan_capacity(cluster, apps, template, device="cuda", **kw)
+    finally:
+        seed_name_hashes(None)
+        tapi.Engine = scan.Engine
+    return plan, dict(cuda.LAUNCHES), dict(CountingEngine.steps), sum(cuda.PLAIN_CALLS.values())
+
+
+def run_capacity(card: str):
+    """The capacity problem through the apply front door on the card: a
+    simon Config in a temp dir, `Applier.run`. Returns (plan, launches,
+    steps, wall, the winner's (tensors, entries, node_valid))."""
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu_torch.AppResource,
+                                                     simtpu_torch.ResourceTypes)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke.write_capacity_config(tmp, cluster, apps, template)
+        applier = Applier(ApplierOptions(simon_config=cfg, device="cuda"))
+        CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
+        tapi.Engine = CountingEngine
+        tapi.Simulator = CapturingSimulator
+        cuda.reset_counts()
+        seed_name_hashes(smoke.NAME_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            plan = applier.run()
+            torch.cuda.synchronize()
+        finally:
+            seed_name_hashes(None)
+            tapi.Engine = scan.Engine
+            tapi.Simulator = Simulator
+        wall = time.perf_counter() - t0
+    launches, steps = dict(cuda.LAUNCHES), dict(CountingEngine.steps)
+    plain_calls = sum(cuda.PLAIN_CALLS.values())
+    diffs = smoke.plan_differences(smoke.plan_record(plan), smoke.load_record(smoke.CAP_GOLDEN))
+    if diffs:
+        raise AssertionError("phase 5: the plan differs from the golden record:\n" + "\n".join(diffs))
+    n_cand = len(plan.candidates)
+    if launches.get("audit_bulk", 0) != n_cand or plain_calls:
+        raise AssertionError(f"phase 5: K8 launched {launches.get('audit_bulk', 0)} times for "
+                             f"{n_cand} candidates; plain calls {plain_calls}")
+    short = [k for k in STEP if launches.get(k, 0) != steps["pods"]]
+    if short or steps["pods"] < n_cand * (smoke.N_PODS + sum(b[1] for b in smoke.CAP_BURST)):
+        raise AssertionError(f"phase 5: launches {launches} for {steps} pod steps over {n_cand} candidates")
+    if plan.engine["audit"].get("fallback") or not plan.engine["audit"].get("ok"):
+        raise AssertionError(f"phase 5: the audit is not clean: {plan.engine['audit']}")
+    sim = CapturingSimulator.last
+    winner = (*checker.simulation_entries(sim), sim._engine.node_valid)
+    splits = [c["audit_split"] for c in plan.candidates]
+    mean = {k: sum(sp[k] for sp in splits) / n_cand for k in ("upload", "bulk", "host")}
+    log(f"phase 5: apply (Applier.run, {plan.engine['search']} search) on the capacity problem: "
+        f"{plan.nodes_added} nodes added, {n_cand} candidates, plan {plan.timings['plan']:.2f} s "
+        f"(ingest {plan.timings['ingest']:.2f} s, wall {wall:.2f} s); plan == golden, audit clean "
+        f"({plan.audit['checked']} placements); launches {launches} [{card}]")
+    for c in plan.candidates:
+        sp = c["audit_split"]
+        log(f"  candidate +{c['count']}: {c['wall_s']:.3f} s, audit {c['audit_wall_s'] * 1e3:.1f} ms "
+            f"(upload {sp['upload'] * 1e3:.2f}, K8 {sp['bulk'] * 1e3:.2f}, host {sp['host'] * 1e3:.2f} ms)")
+    log("  audit split, mean per candidate: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in mean.items()))
+    return plan, launches, steps, wall, winner, mean
+
+
+def run_injected(card: str):
+    """A cut of the capacity problem planned clean and with the audit's view
+    of every primary candidate corrupted: the injected plan must ship the
+    certified re-run with the clean plan's count."""
+    burst = tuple((name, replicas // 10, cpu, mem) for name, replicas, cpu, mem in smoke.CAP_BURST)
+    problem = smoke.capacity_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes,
+                                     n_nodes=90, n_pods=1000, burst=burst)
+    clean, _, _, _ = plan_on_card(*problem)
+    injected, launches, _, plain_calls = plan_on_card(*problem, _audit_inject=True)
+    doc = injected.audit
+    if not (injected.success and clean.success and injected.nodes_added == clean.nodes_added
+            and doc.get("fallback") is True and doc.get("ok") is True
+            and doc["fallback_audit"]["ok"] and doc["violations"] >= 1
+            and injected.candidates[-1]["fallback"] and not plain_calls
+            and launches.get("audit_bulk", 0) == len(injected.candidates)):
+        raise AssertionError(f"phase 5b: injected plan {injected.nodes_added} (clean {clean.nodes_added}), "
+                             f"audit {doc}, launches {launches}")
+    log(f"phase 5b: injected divergence on a cut (90 nodes, {1000 + sum(b[1] for b in burst)} pods): "
+        f"the audit caught {doc['violations']} violation(s) {doc['by_class']}, the certified re-run "
+        f"shipped {injected.nodes_added} nodes added == the clean plan's; "
+        f"{len(injected.candidates)} audits, K8 launched {launches.get('audit_bulk', 0)} times [{card}]")
+    return injected
+
+
+_AUDIT_TIME = re.compile(r", [0-9.]+s, \w+ mode\)")
+
+
+def cli_report(argv) -> tuple:
+    """(exit code, report lines) of `simtpu_torch.cli apply`, pod names
+    seeded, the timing and engine lines dropped."""
+    out = io.StringIO()
+    seed_name_hashes(23)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = tcli.main(argv)
+    finally:
+        seed_name_hashes(None)
+    lines = [_AUDIT_TIME.sub(")", line) for line in out.getvalue().splitlines()
+             if not line.startswith(("phase timings:", "engine selection:"))]
+    return rc, lines
+
+
+def run_cli_examples(card: str) -> list:
+    """The three example configs through the apply front door on the card
+    and on the CPU path: the same exit code and report text."""
+    os.chdir(REPO)
+    done = []
+    for config, extra in (("examples/simtpu-config.yaml", []),
+                          ("examples/simtpu-gpushare-config.yaml", ["-e", "gpu"]),
+                          ("examples/simtpu-storage-config.yaml", ["-e", "open-local"])):
+        argv = ["apply", "-f", config, *extra]
+        got = cli_report(argv + ["--device", "cuda"])
+        want = cli_report(argv + ["--device", "cpu"])
+        if got != want or got[0] != 0 or not any("Audit: clean (" in line for line in got[1]):
+            diff = [(a, b) for a, b in zip(got[1], want[1]) if a != b][:3]
+            raise AssertionError(f"phase 4c: {config}: exit {got[0]} vs {want[0]}, differing lines {diff}")
+        done.append((config, len(got[1])))
+    log(f"phase 4c: apply on the three example configs, report text equal to the CPU path's "
+        f"({', '.join(f'{c}: {n} lines' for c, n in done)}) [{card}]")
+    return done
 
 
 def run_example(cluster_dir: str, app_dir: str, name: str, extended=()):
@@ -575,6 +805,17 @@ def main() -> int:
     packed = phase_delta(x_statics, run.state, entries, x_tensors, err)
     log(f"phase 2: K7 equal to its plain version evicting and restoring {len(entries)} placements; "
         "the round trip restores every plane bit for bit")
+    for label, (f_cluster, f_apps) in (("bulk fixture", fuzz.bulk_fixture()),
+                                       ("mutation fixture", fuzz._mutation_fixture())):
+        f_sim = Simulator(device="cuda")
+        f_sim.run_cluster(f_cluster)
+        for app in f_apps:
+            f_sim.schedule_app(app)
+        f_tensors, f_e = checker.simulation_entries(f_sim)
+        flagged = compare_k8(label, f_tensors, f_e, None, device, err, seed=1)
+        f_sim.close()
+        log(f"phase 2: K8 equal to its plain version on the {label} ({len(f_e.n)} entries) "
+            f"in {len(flagged)} cases; entries flagged {flagged}")
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -619,15 +860,22 @@ def main() -> int:
     log(f"  profiler, delta_apply: {d_per['delta_apply'][0]:.2f} us x {d_per['delta_apply'][1]}")
 
     # -- phase 3: the serial main path -------------------------------------
-    launches, _, wall, n_pods, _ = run_main_path(
+    launches, _, wall, n_pods, _, s_sim = run_main_path(
         smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3")
 
     # -- phase 3b: the extended main path ----------------------------------
-    x_launches, x_steps, x_wall3, x_pods_n, x_record = run_main_path(
+    x_launches, x_steps, x_wall3, x_pods_n, x_record, x_sim = run_main_path(
         smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes),
         smoke.EXT_GOLDEN, card, "phase 3b")
     if x_launches.get("delta_apply", 0) < 1 or not x_record["preempted"]:
         raise AssertionError(f"phase 3b: no preemption delta ran ({x_launches})")
+
+    # -- phase 3c: K8 on the main paths' placement logs --------------------
+    for label, sim in (("serial log", s_sim), ("extended log", x_sim)):
+        l_tensors, l_e = checker.simulation_entries(sim)
+        flagged = compare_k8(label, l_tensors, l_e, sim._engine.node_valid, device, err, seed=2)
+        log(f"phase 3c: K8 equal to its plain version on the {label} ({len(l_e.n)} entries, "
+            f"N={l_tensors.n_nodes}) in {len(flagged)} cases; entries flagged {flagged}")
 
     # -- phase 4: the examples ---------------------------------------------
     got = run_example("examples/cluster/demo", "examples/application/web", "web")
@@ -641,12 +889,35 @@ def main() -> int:
         f"{len(st_rec['placed'])} pods placed ({len(st_rec['node_ext'])} annotated nodes); "
         "both equal to the CPU path")
 
+    # -- phase 4c: the example configs through the apply front door -------
+    run_cli_examples(card)
+
+    # -- phase 5: the capacity main path ------------------------------------
+    plan, c_launches, c_steps, c_wall, winner, c_split = run_capacity(card)
+
+    # -- phase 5b: the divergence fallback ----------------------------------
+    run_injected(card)
+
+    # K8's time at the capacity winner's log (M entries on the plan's nodes)
+    w_tensors, w_e, w_nv = winner
+    w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
+                          device)
+    k8_ms = time_call(lambda: kaudit.audit_bulk(w_x), 200)
+    k8_plain_ms = time_call(lambda: kaudit.audit_bulk_plain(w_x), 5)
+    k8_per, _, _ = profile_kernels(lambda: [kaudit.audit_bulk(w_x) for _ in range(20)])
+    x_per.update(k8_per)
+    k8_bytes = audit_bytes(w_x)
+    log(f"  audit_bulk: M={len(w_e.n)} N={w_tensors.n_nodes}: {k8_per['audit_bulk'][0]:.2f} us device "
+        f"(profiler), {k8_ms * 1e3:.2f} us per back-to-back launch from Python, plain "
+        f"{k8_plain_ms * 1e3:.1f} us, {k8_bytes} B")
+
     rows = []
     busy_s = 0.0
     all_times = {**times, **{k: v for k, v in s_times.items() if k not in times}, **g_times,
-                 "delta_apply": (delta_ms, delta_plain_ms)}
+                 "delta_apply": (delta_ms, delta_plain_ms), "audit_bulk": (k8_ms, k8_plain_ms)}
     all_bytes = {**nbytes, "storage_pod": s_bytes["storage_pod"], "gpu_pod": g_bytes["gpu_pod"],
-                 "delta_apply": d_bytes}
+                 "delta_apply": d_bytes, "audit_bulk": k8_bytes}
+    main_launches = {**x_launches, "audit_bulk": c_launches.get("audit_bulk", 0)}
     for name, replaces in KERNELS.items():
         host_ms, plain_ms = all_times[name]
         # the kernel's own time on the card (profiler; K1-K4 at the serial
@@ -660,7 +931,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"simtpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": x_launches.get(name, 0),
+            "launches": main_launches.get(name, 0),
             "max_abs_err": err[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -671,6 +942,7 @@ def main() -> int:
             "launch_ms": launch_ms,
             "ms_from": "profiler" if prof else "cuda events",
             "launches_serial_path": launches.get(name, 0),
+            "launches_capacity_path": c_launches.get(name, 0),
             "ms_extended": x_per[name][0] / 1e3 if name in x_per else None,
             "host_ms_extended": s_times[name][0] if name in s_times else None,
         })
@@ -679,7 +951,12 @@ def main() -> int:
                       "extended": {"wall_s": x_wall3, "pods": x_pods_n, "pods_per_s": x_pods_n / x_wall3,
                                    "pod_steps": x_steps, "preempted": len(x_record["preempted"]),
                                    "device_busy": busy_s / x_wall3},
-                      "loop_device_busy": {"serial": busy, "extended": x_busy}}))
+                      "loop_device_busy": {"serial": busy, "extended": x_busy},
+                      "capacity": {"nodes_added": plan.nodes_added, "candidates": len(plan.candidates),
+                                   "plan_s": plan.timings["plan"], "ingest_s": plan.timings["ingest"],
+                                   "wall_s": c_wall, "pod_steps": c_steps["pods"],
+                                   "candidate_wall_s": [c["wall_s"] for c in plan.candidates],
+                                   "audit_split_mean_s": c_split}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

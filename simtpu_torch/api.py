@@ -6,8 +6,10 @@ DefaultPreemption PostFilter analog, with PodDisruptionBudgets), and the
 one-shot `simulate()`. The engine runs on `device` (default `cuda`;
 `device="cpu"` selects the plain PyTorch path explicitly).
 
+`simulate(audit=True)` runs the independent placement auditor
+(`audit/checker.py`) over the final state before the simulator closes.
 Not in this port yet (ROADMAP queue 1): the bulk rounds engine, the
-compact carry, precompile, audit, explain and tracing options of the JAX
+compact carry, precompile, explain and tracing options of the JAX
 package's `simulate()`.
 """
 
@@ -1026,13 +1028,22 @@ def simulate(
     use_greed: bool = False,
     sched_config=None,
     device=None,
+    audit: bool = False,
+    _audit_inject: bool = False,
 ) -> SimulateResult:
     """One-shot simulation: expand cluster workloads, run the cluster, then
     schedule each app in order. Unscheduled pods accumulate across the
     cluster and every app; node status reflects the final cluster.
 
     `device=None` runs on the CUDA card (RuntimeError without one);
-    `device="cpu"` runs the plain PyTorch path."""
+    `device="cpu"` runs the plain PyTorch path.
+
+    With `audit=True` the independent placement auditor (`audit/checker.py`)
+    certifies the final state — engine placement log, preemption legality —
+    on the same device and attaches its `AuditReport` as `result.audit`
+    before the simulator closes. `_audit_inject` corrupts the audit's VIEW
+    (never the result), so the planner's divergence fallback can be driven
+    end to end."""
     sim = Simulator(
         extra_resources=extended_resources,
         use_greed=use_greed,
@@ -1048,6 +1059,10 @@ def simulate(
         result = sim.run_cluster(cluster)
         for app in apps:
             result = sim.schedule_app(app)
+        if audit:
+            from .audit.checker import audit_simulation
+
+            result.audit = audit_simulation(sim, inject=_audit_inject)
         return result
     finally:
         sim.close()

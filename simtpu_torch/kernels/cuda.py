@@ -1,7 +1,8 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
 K1-K6 make up the per-pod scheduling step (`engine/scan.py`), K7 applies
-signed placement-log deltas (`engine/state.py`). The sources live in
+signed placement-log deltas (`engine/state.py`), K8 is the placement
+auditor's bulk pass (`kernels/audit.py`). The sources live in
 `kernels/csrc/` (one `.cu` per kernel plus the shared `step_ctx.cuh`). On first use each source is compiled by `nvcc` for
 `sm_90a` into its own shared library with a plain C interface under
 `kernels/_build/` — all sources at once, one `nvcc` process each — and
@@ -32,7 +33,7 @@ import torch
 
 KERNELS = (
     "filter_pod", "topology_pod", "score_argmax_pod", "commit_pod",
-    "storage_pod", "gpu_pod", "delta_apply",
+    "storage_pod", "gpu_pod", "delta_apply", "audit_bulk",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
@@ -375,3 +376,75 @@ def launch_noop(device) -> None:
     err = libs[KERNELS[0]].simtpu_noop(torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"empty kernel failed to launch ({err})")
+
+
+_AUDIT_INT_FIELDS = ("n", "m", "r", "p", "w", "c", "v", "sd", "gd", "pad_")
+# (field, AuditInputs attribute, dtype) in audit_bulk.cu AuditCtx order
+_AUDIT_PTR_FIELDS = (
+    ("alloc", "alloc", torch.float64),
+    ("node_valid", "node_valid", torch.bool),
+    ("attach_limits", "attach_limits", torch.float64),
+    ("vg_avail0", "vg_avail0", torch.float64),
+    ("sdev_free0", "sdev_free0", torch.bool),
+    ("gpu_total", "gpu_total", torch.float64),
+    ("static_mask", "static_mask", torch.bool),
+    ("vol_mask", "vol_mask", torch.bool),
+    ("ports", "ports", torch.bool),
+    ("vol_rw", "vol_rw", torch.bool),
+    ("vol_ro", "vol_ro", torch.bool),
+    ("vol_att", "vol_att", torch.bool),
+    ("vol_class_mask", "vol_class_mask", torch.float64),
+    ("g", "g", torch.int64),
+    ("node", "n", torch.int64),
+    ("pin", "pin", torch.int64),
+    ("forced", "forced", torch.bool),
+    ("req", "req", torch.float64),
+    ("lvm", "lvm", torch.float64),
+    ("sdev", "sdev", torch.bool),
+    ("gpu", "gpu", torch.float64),
+)
+
+
+class AuditCtx(ctypes.Structure):
+    """ctypes mirror of `struct AuditCtx` in csrc/audit_bulk.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in _AUDIT_INT_FIELDS] + [
+        (f, ctypes.c_void_p) for f, _, _ in _AUDIT_PTR_FIELDS
+    ] + [("acc", ctypes.c_void_p), ("flags", ctypes.c_void_p)]
+
+
+def launch_audit(x) -> torch.Tensor:
+    """K8 over `x` (a kernels/audit.py AuditInputs on one CUDA device) on
+    the current stream, in one launch; returns the flag words [M] int32.
+    Raises if an input is malformed or the launch is refused."""
+    libs = build()
+    device = x.alloc.device
+    tensors = {
+        f: _checked(f"audit.{attr}", getattr(x, attr), device, dtype)
+        for f, attr, dtype in _AUDIT_PTR_FIELDS
+    }
+    n, r = x.alloc.shape
+    g = x.static_mask.shape[0]
+    m = x.g.shape[0]
+    p, w, c = x.ports.shape[1], x.vol_rw.shape[1], x.vol_class_mask.shape[0]
+    v, sd, gd = x.vg_avail0.shape[1], x.sdev_free0.shape[1], x.gpu_total.shape[1]
+    _check_shapes(tensors, {
+        "node_valid": (n,), "attach_limits": (n, c), "vg_avail0": (n, v), "sdev_free0": (n, sd),
+        "gpu_total": (n, gd), "static_mask": (g, n), "vol_mask": (g, n), "ports": (g, p),
+        "vol_rw": (g, w), "vol_ro": (g, w), "vol_att": (g, w), "vol_class_mask": (c, w),
+        "node": (m,), "pin": (m,), "forced": (m,), "req": (m, r), "lvm": (m, v),
+        "sdev": (m, sd), "gpu": (m, gd),
+    })
+    # the walkers' running sums: written (zeroed first) by the kernel itself
+    acc = torch.empty((n, r + p + 2 * w + v + sd + gd), dtype=torch.float64, device=device)
+    flags = torch.zeros(m, dtype=torch.int32, device=device)
+    ctx = AuditCtx(n=n, m=m, r=r, p=p, w=w, c=c, v=v, sd=sd, gd=gd, pad_=0,
+                   acc=acc.data_ptr(), flags=flags.data_ptr(),
+                   **{f: t.data_ptr() for f, t in tensors.items()})
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = libs["audit_bulk"].simtpu_audit_bulk(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel audit_bulk failed to launch: {msg} ({err})")
+    LAUNCHES["audit_bulk"] += 1
+    return flags

@@ -1,0 +1,333 @@
+"""Placement report tables.
+
+Mirrors `report()` (`pkg/apply/apply.go:306-578`): Pod Info and Node Info
+tables, plus Node Local Storage / GPU tables when the matching extended
+resource is enabled, and the audit section `apply` prints under them.
+Rendered with a small built-in grid writer standing in for tablewriter.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import List, Sequence
+
+from . import constants as C
+from .core.objects import annotations_of, labels_of, name_of, namespace_of, pod_requests
+from .core.quantity import format_quantity, parse_quantity
+
+
+def render_table(header: List[str], rows: List[List[str]], merge_col0: bool = True) -> str:
+    """ASCII grid with per-row separators and repeated-value merging in the
+    first column (tablewriter's SetAutoMergeCellsByColumnIndex([0]))."""
+    if merge_col0:
+        prev = None
+        merged = []
+        for row in rows:
+            row = list(row)
+            if row and row[0] == prev:
+                row[0] = ""
+            else:
+                prev = row[0]
+            merged.append(row)
+        rows = merged
+    widths = [len(h) for h in header]
+    for row in rows:
+        for i, cell in enumerate(row):
+            for line in str(cell).split("\n"):
+                widths[i] = max(widths[i], len(line))
+    sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+
+    def fmt(row):
+        cells = [str(c).split("\n") for c in row]
+        height = max(len(c) for c in cells) if cells else 1
+        lines = []
+        for k in range(height):
+            parts = []
+            for i, c in enumerate(cells):
+                text = c[k] if k < len(c) else ""
+                parts.append(f" {text:<{widths[i]}} ")
+            lines.append("|" + "|".join(parts) + "|")
+        return "\n".join(lines)
+
+    out = [sep, fmt(header).upper(), sep]
+    for row in rows:
+        out.append(fmt(row))
+        out.append(sep)
+    return "\n".join(out)
+
+
+def _pct(num: float, den: float) -> int:
+    return int(num / den * 100) if den else 0
+
+
+def audit_report(doc: dict) -> str:
+    """Render one audit record (`audit/checker.py AuditReport.counters()` /
+    a planner's `PlanResult.audit` doc) as the section the CLI prints
+    under the placement report.
+
+    Clean audits render one line; a dirty audit renders the per-violation
+    witness table (pod, node, constraint class, witness values) and —
+    when the divergence-safe fallback ran — the divergence diagnostic
+    (first divergent pod, differing state planes) and the fallback's own
+    verdict."""
+    if not doc:
+        return "Audit: not run (--no-audit)"
+    out: List[str] = []
+    if doc.get("fallback"):
+        fb = doc.get("fallback_audit") or {}
+        verdict = "certified" if fb.get("ok") else "NOT certified"
+        out.append(
+            f"Audit: PRIMARY ENGINE DIVERGED — {doc.get('violations', 0)} "
+            f"violation(s) over {doc.get('checked', 0)} placements; "
+            f"serial-exact fallback {verdict}"
+        )
+    elif doc.get("ok", False):
+        return (
+            f"Audit: clean ({doc.get('checked', 0)} placements certified, "
+            f"{doc.get('wall_s', 0.0):.3f}s, {doc.get('mode', '?')} mode)"
+        )
+    else:
+        out.append(
+            f"Audit: FAILED — {doc.get('violations', 0)} violation(s) "
+            f"over {doc.get('checked', 0)} placements"
+        )
+    detail = doc.get("detail") or []
+    if detail:
+        rows = [
+            [
+                v.get("class", ""),
+                v.get("pod", ""),
+                v.get("node", ""),
+                ", ".join(f"{k}={w}" for k, w in (v.get("witness") or {}).items()),
+            ]
+            for v in detail
+        ]
+        out.append(
+            render_table(
+                ["Constraint Class", "Pod", "Node", "Witness"],
+                rows,
+                merge_col0=False,
+            )
+        )
+    div = doc.get("divergence") or {}
+    if div:
+        lines = ["Divergence diagnostic:"]
+        for key in (
+            "divergent_pods",
+            "first_divergent_row",
+            "first_divergent_pod",
+            "audited_node",
+            "serial_node",
+            "nodes_changed",
+            "first_changed_node",
+        ):
+            if key in div and div[key] not in ("", None):
+                lines.append(f"  {key}: {div[key]}")
+        planes = div.get("state_planes") or []
+        if planes:
+            lines.append("  differing state planes: " + "; ".join(planes))
+        out.append("\n".join(lines))
+    return "\n".join(out)
+
+
+def contain_local_storage(extended: Sequence[str]) -> bool:
+    return "open-local" in extended
+
+
+def contain_gpu(extended: Sequence[str]) -> bool:
+    return "gpu" in extended
+
+
+def report(node_statuses, extended_resources: Sequence[str] = ()) -> str:
+    """Build the full report text (`pkg/apply/apply.go:306-578`)."""
+    out = []
+    with_storage = contain_local_storage(extended_resources)
+    with_gpu = contain_gpu(extended_resources)
+
+    # ---- Pod Info -------------------------------------------------------
+    header = ["Node", "Pod", "CPU Requests", "Memory Requests"]
+    if with_storage:
+        header.append("Volume Request")
+    if with_gpu:
+        header.append("GPU Mem Requests")
+    header.append("APP Name")
+    rows = []
+    for status in node_statuses:
+        node = status.node
+        alloc = ((node.get("status") or {}).get("allocatable")) or {}
+        cpu_alloc = parse_quantity(alloc.get("cpu"))
+        mem_alloc = parse_quantity(alloc.get("memory"))
+        gpu_alloc = parse_quantity(alloc.get(C.RES_GPU_MEM))
+        for pod in status.pods:
+            req = pod_requests(pod)
+            cpu = req.get("cpu", 0.0)
+            mem = req.get("memory", 0.0)
+            row = [
+                name_of(node),
+                f"{namespace_of(pod)}/{name_of(pod)}",
+                f"{format_quantity(cpu, 'cpu')}({_pct(cpu, cpu_alloc)}%)",
+                f"{format_quantity(mem, 'mem')}({_pct(mem, mem_alloc)}%)",
+            ]
+            if with_storage:
+                vol_lines = []
+                raw = annotations_of(pod).get(C.ANNO_POD_LOCAL_STORAGE)
+                if raw:
+                    vols = (json.loads(raw) or {}).get("volumes") or []
+                    for i, vol in enumerate(vols):
+                        size = parse_quantity(vol.get("size"))
+                        vol_lines.append(f"<{i}> {vol.get('kind')}: {format_quantity(size, 'mem')}")
+                row.append("\n".join(vol_lines))
+            if with_gpu:
+                annos = annotations_of(pod)
+                gpu_mem = parse_quantity(annos.get(C.ANNO_POD_GPU_MEM, 0))
+                gpu_cnt = parse_quantity(annos.get(C.ANNO_POD_GPU_COUNT, 0))
+                total = gpu_mem * gpu_cnt
+                row.append(f"{format_quantity(total, 'mem')}({_pct(total, gpu_alloc)}%)")
+            row.append(labels_of(pod).get(C.LABEL_APP_NAME, ""))
+            rows.append(row)
+    out.append("Pod Info")
+    out.append(render_table(header, rows))
+    out.append("")
+
+    # ---- Node Info ------------------------------------------------------
+    header = ["Node", "CPU Allocatable", "CPU Requests", "Memory Allocatable", "Memory Requests"]
+    if with_gpu:
+        header += ["GPU Mem Allocatable", "GPU Mem Requests"]
+    header += ["Pod Count", "New Node"]
+    rows = []
+    for status in node_statuses:
+        node = status.node
+        alloc = ((node.get("status") or {}).get("allocatable")) or {}
+        cpu_alloc = parse_quantity(alloc.get("cpu"))
+        mem_alloc = parse_quantity(alloc.get("memory"))
+        cpu_req = mem_req = gpu_req = 0.0
+        for pod in status.pods:
+            req = pod_requests(pod)
+            cpu_req += req.get("cpu", 0.0)
+            mem_req += req.get("memory", 0.0)
+            annos = annotations_of(pod)
+            gpu_req += parse_quantity(annos.get(C.ANNO_POD_GPU_MEM, 0)) * parse_quantity(
+                annos.get(C.ANNO_POD_GPU_COUNT, 0)
+            )
+        row = [
+            name_of(node),
+            format_quantity(cpu_alloc, "cpu"),
+            f"{format_quantity(cpu_req, 'cpu')}({_pct(cpu_req, cpu_alloc)}%)",
+            format_quantity(mem_alloc, "mem"),
+            f"{format_quantity(mem_req, 'mem')}({_pct(mem_req, mem_alloc)}%)",
+        ]
+        if with_gpu:
+            gpu_alloc = parse_quantity(alloc.get(C.RES_GPU_MEM))
+            row += [
+                format_quantity(gpu_alloc, "mem"),
+                f"{format_quantity(gpu_req, 'mem')}({_pct(gpu_req, gpu_alloc)}%)",
+            ]
+        row += [
+            str(len(status.pods)),
+            "√" if C.LABEL_NEW_NODE in labels_of(node) else "",
+        ]
+        rows.append(row)
+    out.append("Node Info")
+    out.append(render_table(header, rows, merge_col0=False))
+    out.append("")
+
+    # ---- Extended Resource Info ----------------------------------------
+    if with_storage or with_gpu:
+        out.append("Extended Resource Info")
+    if with_storage:
+        out.append("Node Local Storage")
+        rows = []
+        for status in node_statuses:
+            node = status.node
+            raw = annotations_of(node).get(C.ANNO_NODE_LOCAL_STORAGE)
+            if not raw:
+                continue
+            storage = json.loads(raw)
+            for vg in storage.get("vgs") or []:
+                cap = parse_quantity(vg.get("capacity"))
+                req = parse_quantity(vg.get("requested"))
+                rows.append(
+                    [
+                        name_of(node),
+                        "VG",
+                        vg.get("name", ""),
+                        format_quantity(cap, "mem"),
+                        f"{format_quantity(req, 'mem')}({_pct(req, cap)}%)",
+                    ]
+                )
+            for dev in storage.get("devices") or []:
+                cap = parse_quantity(dev.get("capacity"))
+                used = "used" if str(dev.get("isAllocated")).lower() == "true" else "unused"
+                rows.append(
+                    [
+                        name_of(node),
+                        f"Device({dev.get('mediaType')})",
+                        dev.get("device", ""),
+                        format_quantity(cap, "mem"),
+                        used,
+                    ]
+                )
+        out.append(
+            render_table(
+                ["Node", "Storage Kind", "Storage Name", "Storage Allocatable", "Storage Requests"],
+                rows,
+            )
+        )
+    if with_gpu:
+        out.append("GPU Node Resource")
+        rows = []
+        pod_rows = []
+        for status in node_statuses:
+            node = status.node
+            raw = annotations_of(node).get(C.ANNO_NODE_GPU_SHARE)
+            if raw:
+                info = json.loads(raw)
+                model = labels_of(node).get(C.LABEL_GPU_CARD_MODEL, "N/A")
+                total = info.get("gpuTotalMemory", 0)
+                used = info.get("gpuUsedMemory", 0)
+                rows.append(
+                    [
+                        f"{name_of(node)} ({model})",
+                        f"{info.get('gpuCount', 0)} GPUs",
+                        f"{format_quantity(used, 'mem')}/{format_quantity(total, 'mem')}"
+                        f"({_pct(used, total)}%)",
+                        f"{info.get('numPods', 0)} Pods",
+                    ]
+                )
+                for idx, dev in sorted((info.get("devs") or {}).items(), key=lambda kv: int(kv[0])):
+                    dtotal, dused = dev.get("gpuTotalMemory", 0), dev.get("gpuUsedMemory", 0)
+                    rows.append(
+                        [
+                            f"{name_of(node)} ({model})",
+                            str(idx),
+                            f"{format_quantity(dused, 'mem')}/{format_quantity(dtotal, 'mem')}"
+                            f"({_pct(dused, dtotal)}%)",
+                            "",
+                        ]
+                    )
+            for pod in status.pods:
+                annos = annotations_of(pod)
+                req = pod_requests(pod)
+                gpu_mem = parse_quantity(annos.get(C.ANNO_POD_GPU_MEM, 0))
+                gpu_cnt = parse_quantity(annos.get(C.ANNO_POD_GPU_COUNT, 0))
+                pod_rows.append(
+                    [
+                        name_of(pod),
+                        format_quantity(req.get("cpu", 0.0), "cpu"),
+                        format_quantity(req.get("memory", 0.0), "mem"),
+                        format_quantity(gpu_mem * gpu_cnt, "mem"),
+                        (pod.get("spec") or {}).get("nodeName", ""),
+                        annos.get(C.ANNO_POD_GPU_INDEX, ""),
+                    ]
+                )
+        out.append(render_table(["Node", "GPU ID", "GPU Request/Capacity", "Pod List"], rows))
+        out.append("\nPod -> Node Map")
+        pod_rows.sort(key=lambda r: r[0])
+        out.append(
+            render_table(
+                ["Pod", "CPU Req", "Mem Req", "GPU Req", "Host Node", "GPU IDX"],
+                pod_rows,
+                merge_col0=False,
+            )
+        )
+    return "\n".join(out)

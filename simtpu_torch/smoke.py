@@ -24,6 +24,19 @@ serial path's limits. Cut from bench.py's 100 000 nodes × 1 000 000 pods to
 the serial path's range; the widths (constraint mix, resource kinds) are
 bench.py's.
 
+**Capacity problem** (`CAP_*`) — the `apply` path at the top of the serial
+planner's range: the serial smoke mix on `synth_cluster(900, **CLUSTER_KW)`
+plus a "burst" app of three plain Deployments (no spread, no affinity;
+3 × 780 pods of 8 cores and 32 GiB), and a template node of 64 cores and
+256 GiB in zone-0. 12 340 declared pods (under 16 384) on 900 nodes plus
+at most 99 clones (under 1024), so `_resolve_engines` keeps the serial
+engine. Sized on the JAX package (`plan_capacity` on the CPU, the numpy
+audit twin, pod names seeded): the plan adds 43 nodes after 13 candidates
+(the doubling to 64, then the bisection 48, 40, 44, 42, 43), every
+candidate audited, the winner's 12 340 placements certified clean. The
+golden file keeps the verdict, the probes, the audit counters and the
+winner's placement record.
+
 Pod-name suffixes are seeded (`seed_name_hashes`), so a placement record
 keyed by pod name compares across runs and packages.
 """
@@ -77,6 +90,13 @@ EXT_TIER = (
 EXT_PRIORITY = 1000
 EXT_GOLDEN = DATA / "torch_extended_smoke.json.gz"
 
+CAP_NODES = 900
+#: the burst app: (name, replicas, cpu millicores, memory MiB), plain pods
+CAP_BURST = tuple((f"burst-{k}", 780, 8000, 32768) for k in "abc")
+CAP_TEMPLATE = dict(name="simon-template", cpu_milli=64000, mem_gib=256)
+CAP_ZONE = "zone-0"
+CAP_GOLDEN = DATA / "torch_capacity_smoke.json.gz"
+
 
 def smoke_problem(synth_cluster, synth_apps, n_nodes=N_NODES, n_pods=N_PODS):
     """(cluster, apps) from a package's own synth module functions."""
@@ -96,6 +116,51 @@ def extended_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, n_pods=N_PO
         ]
     )
     return cluster, apps + [app_cls(name="tier", resource=tier)]
+
+
+def capacity_problem(synth, app_cls, resources_cls, n_nodes=CAP_NODES, n_pods=N_PODS, burst=CAP_BURST):
+    """(cluster, apps, new_node) of the capacity problem from a package's own
+    synth module, AppResource and ResourceTypes: the serial smoke mix on
+    `n_nodes` nodes, then the burst app, and the template node."""
+    cluster = synth.synth_cluster(n_nodes, **CLUSTER_KW)
+    apps = synth.synth_apps(n_pods, **APPS_KW)
+    res = resources_cls(deployments=[synth.make_deployment(name, replicas, cpu, mem)
+                                     for name, replicas, cpu, mem in burst])
+    template = synth.make_node(
+        CAP_TEMPLATE["name"], CAP_TEMPLATE["cpu_milli"], CAP_TEMPLATE["mem_gib"],
+        labels={"topology.kubernetes.io/zone": CAP_ZONE,
+                "kubernetes.io/hostname": CAP_TEMPLATE["name"]})
+    return cluster, apps + [app_cls(name="burst", resource=res)], template
+
+
+def write_capacity_config(root, cluster, apps, template) -> str:
+    """Write (cluster, apps, template) as a simon Config under `root` — one
+    multi-document YAML file per directory, objects in list order — so the
+    `apply` front door loads exactly these objects. Returns the config's
+    path."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+
+    def dump(path: Path, objs) -> str:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w") as f:
+            yaml.dump_all(list(objs), f, Dumper=dumper, sort_keys=False)
+        return str(path.parent)
+
+    cluster_dir = dump(root / "cluster" / "nodes.yaml", cluster.nodes)
+    app_list = [{"name": a.name, "path": dump(root / "apps" / a.name / "deployments.yaml",
+                                              a.resource.deployments)} for a in apps]
+    new_node = dump(root / "newnode" / "node.yaml", [template])
+    config = {"apiVersion": "simon/v1alpha1", "kind": "Config",
+              "metadata": {"name": "capacity"},
+              "spec": {"cluster": {"customConfig": cluster_dir}, "appList": app_list,
+                       "newNode": new_node}}
+    path = root / "config.yaml"
+    with open(path, "w") as f:
+        yaml.dump(config, f, Dumper=dumper, sort_keys=False)
+    return str(path)
 
 
 def _key(pod: dict) -> str:
@@ -137,6 +202,31 @@ def placement_record(result) -> dict:
         "gpu_index": dict(sorted(gpu_index.items())),
         "node_ext": dict(sorted(node_ext.items())),
     }
+
+
+#: the audit counters a plan record keeps (wall time and mode vary by run)
+AUDIT_KEYS = ("ok", "checked", "violations", "by_class")
+
+
+def plan_record(plan) -> dict:
+    """A PlanResult (either package's) as plain data: its verdict, the
+    probes map, the shipped candidate's audit counters and the winning
+    candidate's placement record."""
+    return {
+        "success": plan.success,
+        "nodes_added": plan.nodes_added,
+        "message": plan.message,
+        "probes": {str(k): v for k, v in sorted(plan.probes.items())},
+        "audit": {k: plan.audit[k] for k in AUDIT_KEYS if k in plan.audit},
+        "record": placement_record(plan.result),
+    }
+
+
+def plan_differences(got: dict, want: dict, limit: int = 5) -> list:
+    """Human-readable differences between two plan records (empty = equal)."""
+    out = [f"{k}: {got[k]!r} != golden {want[k]!r}"
+           for k in ("success", "nodes_added", "message", "probes", "audit") if got[k] != want[k]]
+    return out + record_differences(got["record"], want["record"], limit)
 
 
 def record_differences(got: dict, want: dict, limit: int = 5) -> list:

@@ -4,13 +4,18 @@
 the smoke shape (1000 nodes × 10 000 pods) and returns its placement
 record; `compute_extended_golden()` does the same for the extended problem
 (Open-Local storage, GPU-share and a priority tier that preempts).
-`tests/data/torch_serial_smoke.json.gz` and
-`tests/data/torch_extended_smoke.json.gz` are those records, which
-`chip_smoke.py` holds the port's on-card runs against. Regenerate both with
-`JAX_PLATFORMS=cpu SIMTPU_WAVEFRONT=0 python tests/test_torch_golden.py --write`.
+`compute_capacity_golden()` runs the JAX package's `plan_capacity` on the
+capacity problem (the numpy audit twin, `SIMTPU_AUDIT_JIT=0`) and returns
+its plan record: verdict, probes, audit counters and the winning
+candidate's placement record.
+`tests/data/torch_serial_smoke.json.gz`,
+`tests/data/torch_extended_smoke.json.gz` and
+`tests/data/torch_capacity_smoke.json.gz` are those records, which
+`chip_smoke.py` holds the port's on-card runs against. Regenerate them with
+`JAX_PLATFORMS=cpu SIMTPU_WAVEFRONT=0 SIMTPU_AUDIT_JIT=0 python tests/test_torch_golden.py --write`.
 
-A full recompute takes tens of seconds on the CPU, so it is marked slow;
-the fast tier checks the committed files' shape.
+A full recompute takes tens of seconds (the plan: minutes) on the CPU, so
+it is marked slow; the fast tier checks the committed files' shape.
 """
 
 import sys
@@ -18,6 +23,7 @@ import sys
 import pytest
 
 from simtpu_torch import smoke
+from simtpu_torch.plan.capacity import AUTO_ENGINE_NODES, AUTO_ENGINE_PODS
 
 
 def _record(problem) -> dict:
@@ -44,6 +50,21 @@ def compute_extended_golden() -> dict:
     return _record(smoke.extended_problem(synth, simtpu.AppResource, simtpu.ResourceTypes))
 
 
+def compute_capacity_golden() -> dict:
+    import simtpu
+    from simtpu import synth
+    from simtpu.plan.capacity import plan_capacity
+    from simtpu.workloads.expand import seed_name_hashes
+
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu.AppResource,
+                                                     simtpu.ResourceTypes)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        return smoke.plan_record(plan_capacity(cluster, apps, template))
+    finally:
+        seed_name_hashes(None)
+
+
 def test_committed_golden_is_whole():
     golden = smoke.load_record()
     assert len(golden["nodes"]) == smoke.N_NODES
@@ -65,6 +86,52 @@ def test_committed_extended_golden_is_whole():
     assert set(golden["gpu_index"]) <= set(golden["placed"])
 
 
+def test_committed_capacity_golden_is_whole():
+    golden = smoke.load_record(smoke.CAP_GOLDEN)
+    n_burst = sum(replicas for _, replicas, _, _ in smoke.CAP_BURST)
+    added = golden["nodes_added"]
+    assert golden["success"] is True and golden["message"] == "Success!"
+    assert 8 <= added <= 90
+    probes = {int(k): v for k, v in golden["probes"].items()}
+    # the doubling ran past the answer and the bisection closed on it
+    assert probes[added] == 0 and probes[added - 1] > 0 and probes[0] > 0
+    assert len(probes) >= 8 and all(k < AUTO_ENGINE_NODES - smoke.CAP_NODES for k in probes)
+    record = golden["record"]
+    assert len(record["nodes"]) == smoke.CAP_NODES + added
+    assert record["nodes"][smoke.CAP_NODES:] == [f"simon-{i:02d}" for i in range(added)]
+    assert len(record["placed"]) == smoke.N_PODS + n_burst and not record["failed"]
+    assert smoke.N_PODS + n_burst < AUTO_ENGINE_PODS
+    assert golden["audit"] == {"ok": True, "checked": smoke.N_PODS + n_burst,
+                               "violations": 0, "by_class": {}}
+
+
+def test_capacity_config_round_trips(tmp_path):
+    """The capacity problem written as a simon Config loads back, through the
+    port's apply front door, as the same objects (the loader only adds its
+    source-file key), under the auto-bulk thresholds."""
+    import simtpu_torch
+    from simtpu_torch import synth
+    from simtpu_torch.plan.capacity import Applier, ApplierOptions, _resolve_engines
+
+    burst = tuple((name, 7, cpu, mem) for name, _, cpu, mem in smoke.CAP_BURST)
+    cluster, apps, template = smoke.capacity_problem(
+        synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes, n_nodes=30, n_pods=300,
+        burst=burst)
+    applier = Applier(ApplierOptions(simon_config=smoke.write_capacity_config(
+        tmp_path, cluster, apps, template), device="cpu"))
+
+    def plain(objs):
+        return [{k: v for k, v in o.items() if k != "__simtpu_source__"} for o in objs]
+
+    loaded = applier.load_apps()
+    assert [a.name for a in loaded] == ["synthetic", "burst"]
+    for got, want in zip(loaded, apps):
+        assert plain(got.resource.deployments) == want.resource.deployments
+    assert plain(applier.load_cluster().nodes) == cluster.nodes
+    assert plain([applier.load_new_node()]) == [template]
+    assert _resolve_engines(applier.opts, cluster, apps) == ("binary", False)
+
+
 @pytest.mark.slow
 def test_golden_matches_a_fresh_jax_run():
     assert smoke.record_differences(compute_golden(), smoke.load_record()) == []
@@ -76,7 +143,16 @@ def test_extended_golden_matches_a_fresh_jax_run():
     assert smoke.record_differences(compute_extended_golden(), want) == []
 
 
+@pytest.mark.slow
+def test_capacity_golden_matches_a_fresh_jax_run(monkeypatch):
+    monkeypatch.setenv("SIMTPU_AUDIT_JIT", "0")
+    want = smoke.load_record(smoke.CAP_GOLDEN)
+    assert smoke.plan_differences(compute_capacity_golden(), want) == []
+
+
 if __name__ == "__main__" and "--write" in sys.argv:
-    smoke.save_record(compute_golden())
-    smoke.save_record(compute_extended_golden(), smoke.EXT_GOLDEN)
-    print("wrote", smoke.GOLDEN, smoke.EXT_GOLDEN)
+    if "--capacity-only" not in sys.argv:
+        smoke.save_record(compute_golden())
+        smoke.save_record(compute_extended_golden(), smoke.EXT_GOLDEN)
+    smoke.save_record(compute_capacity_golden(), smoke.CAP_GOLDEN)
+    print("wrote", smoke.GOLDEN, smoke.EXT_GOLDEN, smoke.CAP_GOLDEN)

@@ -351,17 +351,19 @@ def test_statics_carried_across_expand_collapsed_planes(problem):
 
 def test_ctypes_step_ctx_mirrors_the_cuda_header():
     """The kernels' argument blocks are passed by value: each ctypes
-    structure (StepCtx of K1-K6, DeltaCtx of K7) must list the header's
-    fields in the header's order."""
+    structure (StepCtx of K1-K6, DeltaCtx of K7, AuditCtx of K8) must list
+    the header's fields in the header's order."""
     import re
 
     from simtpu_torch.kernels import cuda
 
-    header = (cuda.CSRC / "step_ctx.cuh").read_text()
-    for struct, int_fields, ptr_fields, mirror in (
-        ("StepCtx", cuda._INT_FIELDS, cuda._PTR_FIELDS, cuda.StepCtx),
-        ("DeltaCtx", cuda._DELTA_INT_FIELDS, cuda._DELTA_PTR_FIELDS, cuda.DeltaCtx),
+    for source, struct, int_fields, ptr_fields, mirror in (
+        ("step_ctx.cuh", "StepCtx", cuda._INT_FIELDS, cuda._PTR_FIELDS, cuda.StepCtx),
+        ("step_ctx.cuh", "DeltaCtx", cuda._DELTA_INT_FIELDS, cuda._DELTA_PTR_FIELDS, cuda.DeltaCtx),
+        ("audit_bulk.cu", "AuditCtx", cuda._AUDIT_INT_FIELDS,
+         cuda._AUDIT_PTR_FIELDS + (("acc",), ("flags",)), cuda.AuditCtx),
     ):
+        header = (cuda.CSRC / source).read_text()
         body = header[header.index(f"struct {struct} {{"):]
         body = body[: body.index("};")]
         ints = re.search(r"int ([\w, ]+);", body).group(1).replace(" ", "").split(",")
@@ -385,7 +387,7 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
     before_plain, before_launch = dict(cuda.PLAIN_CALLS), dict(cuda.LAUNCHES)
     tscan.run_batch(buf)
     calls = {"storage_pod": int(buf.storage_live.sum()), "gpu_pod": int(buf.gpu_live.sum()),
-             "delta_apply": 0}
+             "delta_apply": 0, "audit_bulk": 0}
     for name in cuda.KERNELS:
         want = calls.get(name, buf.n_pods)
         assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == want

@@ -261,15 +261,21 @@ def test_default_device_is_cuda_and_refuses_without_a_card(monkeypatch):
         simtpu_torch.simulate(cluster, apps)
 
 
-@pytest.mark.parametrize("module", ["simtpu_torch", "chip_smoke"])
+@pytest.mark.parametrize("module", ["simtpu_torch", "chip_smoke", "simtpu_torch.cli"])
 def test_port_imports_neither_jax_nor_simtpu(module):
-    # the import reaches every module of the port's main path, the new
-    # kernels' wrappers included, so the check covers them
+    # the import reaches every module of the port's main paths — simulate()
+    # and the apply front door, the kernels' wrappers included — so the
+    # check covers them
     ported = ("simtpu_torch.api", "simtpu_torch.engine.scan", "simtpu_torch.engine.state",
               "simtpu_torch.kernels.cuda", "simtpu_torch.kernels.storage",
-              "simtpu_torch.kernels.gpushare", "simtpu_torch.smoke")
+              "simtpu_torch.kernels.gpushare", "simtpu_torch.smoke",
+              "simtpu_torch.cli", "simtpu_torch.plan.capacity", "simtpu_torch.audit.checker",
+              "simtpu_torch.audit.fuzz", "simtpu_torch.kernels.audit", "simtpu_torch.chart",
+              "simtpu_torch.report", "simtpu_torch.config")
     code = (
-        f"import sys; import {module}; import simtpu_torch.smoke; "
+        f"import sys; import {module}; import simtpu_torch.smoke, simtpu_torch.cli, "
+        "simtpu_torch.plan.capacity, simtpu_torch.audit.checker, simtpu_torch.audit.fuzz, "
+        "simtpu_torch.chart; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'simtpu' or m.startswith('simtpu.')]; "
         f"bad += [m for m in {ported!r} if m not in sys.modules]; "
