@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the eight CUDA
+1. the card's name and power limit (nvidia-smi); build the ten CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -21,20 +21,31 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    `simtpu_torch/audit/fuzz.py` run on the card — clean, with the optional
    families cut to width 0, under every mutation class and every bulk
    corruption (forced and pinned entries, an exact fill included): the flag
-   words must be equal. Then each kernel's time per launch, its plain
-   version's and the bytes bound, and the device time per kernel
-   (torch.profiler);
+   words must be equal. K9 and K10 (the wave kernels) on runs of the wave
+   plans of the serial smoke and extended problems — a lean run, one with
+   the inter-pod preference carry, a hard-spread run, a required
+   anti-affinity run, a storage run, a GPU run — on the rack problem's
+   runs (a key of 400 small domains) and on the keys problem's runs (22
+   topology keys: lean, preference and hard-spread runs), the pods
+   between the runs through K1-K6: nodes, reasons, plans and every
+   state plane equal to the plain versions'. Then each kernel's time per
+   launch, its plain version's and the bytes bound, and the device time
+   per kernel (torch.profiler), K9/K10 per launch and per pod step;
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
-   serial smoke problem. K1-K4 must have launched once per pod, no plain
-   version may have run, and the record (placements, reasons, preempted
-   pods, annotations) must equal the golden file the JAX package produced
-   on the CPU;
+   serial smoke problem, the speculative wavefront on (the default). K9
+   and K10 must have launched once per wave of the batches' wave plans,
+   K1-K4 once per pod outside the waves, no plain version may have run,
+   and the record (placements, reasons, preempted pods, annotations) must
+   equal the golden file the JAX package produced on the CPU;
 3b. the extended main path: the same on the extended problem (Open-Local
    storage, GPU-share, a priority tier that preempts), against its golden
-   file. K1-K4 must have launched once per pod step (preemptor retries
-   included), K5 once per storage-pod step and K6 once per GPU-pod step
-   (counted on the host from the batches), K7 at least once; no plain
-   version may have run;
+   file. K9/K10 once per planned wave, K1-K4 once per pod step outside the
+   waves (preemptor retries included), K5 once per storage-pod step and K6
+   once per GPU-pod step outside the waves (counted on the host from the
+   batches), K7 at least once; no plain version may have run;
+3d. the serial and extended main paths once more with the wavefront off
+   (`Engine.speculate = False`): the same golden records, K1-K4 once per
+   pod step, no wave launched — the end-to-end reading beside phase 3's;
 3c. K8 against its plain version on the placement logs of phases 3 and 3b,
    clean and under the same corruptions;
 4. the demo example (examples/cluster/demo + application/web): every pod
@@ -51,12 +62,15 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    simon Config and planned by `Applier.run` on the card. The plan — count,
    probes, the winning candidate's placements, reasons and annotations, a
    clean audit — must equal the golden record the JAX package produced; K8
-   must have launched once per candidate and K1-K4 once per pod step of
-   every candidate. Prints the plan's wall, each candidate's wall and the
-   audit's split (upload, K8, host interpod/spread checks);
+   must have launched once per candidate, K9/K10 once per planned wave and
+   K1-K4 once per pod step outside the waves of every candidate. Prints
+   the plan's wall, each candidate's wall and the audit's split (upload,
+   K8, host interpod/spread checks);
 5b. the divergence fallback: a cut of the capacity problem planned clean
    and with the audit's view corrupted (`_audit_inject`): the injected plan
-   ships the certified re-run, with the clean plan's count;
+   ships the certified re-run, with the clean plan's count, and the re-run
+   places with the wavefront off (no wave pod) while the primary
+   candidates ran waves;
 Last, K8's time at the capacity winner's log (device time from the
 profiler, back-to-back launches from Python, the plain version's).
 
@@ -93,11 +107,13 @@ from simtpu_torch.core.objects import set_label
 from simtpu_torch.core.tensorize import Tensorizer
 from simtpu_torch.device import configure_numerics
 from simtpu_torch.engine import scan
+from simtpu_torch.engine import wavefront
 from simtpu_torch.engine import state as sstate
 from simtpu_torch.io.cluster import create_cluster_resource_from_cluster_config
 from simtpu_torch.io.yaml_loader import load_resources
 from simtpu_torch.kernels import audit as kaudit
 from simtpu_torch.kernels import cuda
+from simtpu_torch.plan import capacity as tcap
 from simtpu_torch.plan.capacity import Applier, ApplierOptions, plan_capacity
 from simtpu_torch.synth import make_deployment, synth_apps, synth_cluster
 from simtpu_torch.workloads.expand import get_valid_pods_exclude_daemonset, seed_name_hashes
@@ -114,7 +130,10 @@ KERNELS = {
     "gpu_pod": "simtpu/kernels/gpushare.py:25",
     "delta_apply": "simtpu/engine/state.py:339",
     "audit_bulk": "simtpu/audit/checker.py:388",
+    "wave_lean": "simtpu/engine/scan.py:2422",
+    "wave_hard": "simtpu/engine/scan.py:2035",
 }
+WAVES = ("wave_lean", "wave_hard")
 STEP = ("filter_pod", "topology_pod", "score_argmax_pod", "commit_pod")
 WRAPPERS = {
     "filter_pod": (scan.filter_pod, scan.filter_pod_plain),
@@ -309,6 +328,166 @@ def extended_sample(kbuf, rng, per_kind: int = 8):
     return np.unique(np.concatenate(picks)), {k: int(v.sum()) for k, v in kinds.items()}
 
 
+def rack_batch(device):
+    """The rack problem (1000 nodes, a rack key of 400 small domains), 3000
+    logged placements."""
+    return tensorized_batch(*smoke.rack_problem(synth, simtpu_torch.AppResource,
+                                                simtpu_torch.ResourceTypes), device, 3000)
+
+
+def keys_batch(device):
+    """The keys problem (1000 nodes, 22 topology keys), 3000 logged
+    placements."""
+    return tensorized_batch(*smoke.keys_problem(synth, simtpu_torch.AppResource,
+                                                simtpu_torch.ResourceTypes), device, 3000)
+
+
+def wave_kind(tensors, g: int, hard: bool, pref: bool, heavy: int) -> str:
+    """The phase-2 class of a planned wave."""
+    if heavy & wavefront.WAVE_HEAVY_STORAGE:
+        return "storage"
+    if heavy & wavefront.WAVE_HEAVY_GPU:
+        return "gpu"
+    if heavy:
+        return "heavy-other"
+    if hard:
+        if (tensors.spread_hard[g] > 0).any():
+            return "hard-spread"
+        return "anti-req" if tensors.a_anti_req[g].any() else "hard-other"
+    return "lean-pref" if pref else "lean"
+
+
+def wave_pair(hard_or_heavy: bool):
+    """(name, kernel wrapper, plain version) of the wave kernel of a run."""
+    if hard_or_heavy:
+        return "wave_hard", wavefront.wave_hard, wavefront.wave_hard_plain
+    return "wave_lean", wavefront.wave_lean, wavefront.wave_lean_plain
+
+
+def phase_waves(label, tensors, batch, statics, state, pods, flags, wanted, err, per_kind: int = 2):
+    """K9 and K10 against their plain versions on the runs of the batch's
+    wave plan, until every kind in `wanted` has been compared `per_kind`
+    times. The pods between runs go through K1-K6 and the runs not compared
+    through the wave kernels, so each compared run starts from the state the
+    main path would give it. Returns ({kind: runs compared}, [(kind, a, b,
+    mode, the run's start state)], the kernel side's buffers)."""
+    groups = np.asarray(batch.group)
+    ok = wavefront.wave_eligibility(pods, groups, tensors)
+    kbuf = scan.StepBuffers(statics, clone_state(state), pods, flags)
+    pbuf = scan.StepBuffers(statics, clone_state(state), pods, flags)
+    done = dict.fromkeys(wanted, 0)
+    runs = []
+    segments = [seg for c0, c1, waves in wavefront.plan_waves(groups, tensors, flags, ok)
+                for seg in wavefront.flatten_wave_segments(c0, c1, waves)]
+    for kind, a, b, mode in segments:
+        if min(done.values()) >= per_kind:
+            break
+        if kind == "scan":
+            scan.run_pods(kbuf, a, b)
+            continue
+        hard, pref, heavy = mode
+        k = wave_kind(tensors, int(groups[a]), hard, pref, heavy)
+        name, kernel, plain = wave_pair(hard or heavy)
+        if done.get(k, per_kind) >= per_kind:
+            kernel(kbuf, a, b, mode)
+            continue
+        start = clone_state(kbuf.state)
+        copy_state(pbuf.state, start)
+        kernel(kbuf, a, b, mode)
+        plain(pbuf, a, b, mode)
+        torch.cuda.synchronize()
+        for field in ("out_node", "reason", "out_lvm", "out_take", "out_gpu"):
+            err[name] = max(err[name], tensor_diff(getattr(kbuf, field)[a:b], getattr(pbuf, field)[a:b]))
+        err[name] = max(err[name], state_diff(kbuf.state, pbuf.state))
+        if err[name]:
+            bad = [n for n, x, y in zip(kbuf.state._fields, kbuf.state, pbuf.state) if tensor_diff(x, y)]
+            raise AssertionError(f"{name}: {label} {k} run [{a}, {b}) differs from the plain version "
+                                 f"(state planes {bad})")
+        done[k] += 1
+        runs.append((k, a, b, mode, start))
+    missing = [k for k, v in done.items() if v < per_kind]
+    if missing:
+        raise AssertionError(f"phase 2: the {label} has too few waves of kinds {missing}")
+    return done, runs, kbuf
+
+
+def wave_bytes(buf, a: int, b: int) -> int:
+    """Bytes a wave kernel must move for the run [a, b) (each input read
+    once, each output written once), from this run's shapes and result:
+    the per-node planes the flags keep (free, alloc, the occupancy planes,
+    the group's six rows, the domain rows), the group's count and own-plane
+    rows read and written, the storage and GPU planes where the run's pods
+    demand them, the pods' inputs and outputs, and the free rows of the
+    nodes the run chose."""
+    st, s, f = buf.statics, buf.state, buf.flags
+    n, r = st.alloc.shape
+    p, w, c = st.ports_req.shape[1], st.vol_rw_req.shape[1], st.vol_class_mask.shape[0]
+    v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], s.gpu_free.shape[1]
+    k = st.node_dom.shape[0]
+    g = int(buf.group[a])
+    terms = st.g_terms[g]
+    terms = terms[terms >= 0]
+    tv = int(terms.numel())
+    ti = int((st.ip_of[terms.long()] >= 0).sum()) if tv else 0
+    f4 = 4
+    node_b = n * (2 * r * f4 + 4 * f4 + 3 + 2 * k * f4)
+    if f.ports:
+        node_b += n * p * f4
+    if f.vols or f.attach:
+        node_b += n * (2 * w * f4 + c * f4)
+    count_b = 2 * (tv + 4 * ti) * n * f4 + 2 * tv * f4
+    live = buf.ext_live[a:b].cpu().numpy()
+    ext_b = 0
+    if (live & 1).any():
+        ext_b += n * (2 * v * f4 + 2 * v * 4 + 2 * sd + sd * 8 + 1) + (b - a) * (v * f4 + sd)
+    if (live & 2).any():
+        ext_b += n * (2 * gd * f4 + gd + f4) + (b - a) * gd * f4
+    pod_b = (b - a) * (r * f4 + 4 + 1 + 4 * 4 + 1)
+    chosen = buf.out_node[a:b]
+    rows_b = int(torch.unique(chosen[chosen >= 0]).numel()) * r * f4
+    return int(node_b + count_b + ext_b + pod_b + rows_b)
+
+
+def time_wave(kbuf, run, iters: int):
+    """One compared run's wave kernel, relaunched from the run's start
+    state: device time per launch (profiler), host time to enqueue one
+    launch, the plain version's time per call (CUDA events) and the bytes
+    bound. Leaves the run's result in `kbuf`."""
+    kind, a, b, mode, start = run
+    name, kernel, plain = wave_pair(mode[0] or mode[2])
+
+    def once():
+        copy_state(kbuf.state, start)
+        kernel(kbuf, a, b, mode)
+
+    once()
+    torch.cuda.synchronize()
+    per, _, _ = profile_kernels(lambda: [once() for _ in range(iters)])
+    host = 0.0
+    for _ in range(iters):
+        copy_state(kbuf.state, start)
+        t0 = time.perf_counter()
+        kernel(kbuf, a, b, mode)
+        host += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    plain_ms = time_call(lambda: copy_state(kbuf.state, start) or plain(kbuf, a, b, mode), 2)
+    once()
+    torch.cuda.synchronize()
+    return {"name": name, "kind": kind, "pods": b - a, "device_us": per[name][0],
+            "host_us": host / iters * 1e6, "plain_ms": plain_ms, "bytes": wave_bytes(kbuf, a, b)}
+
+
+def profile_waves(tensors, batch, statics, state, pods, flags, n_pods: int):
+    """The wave dispatcher over the batch's first `n_pods` pods under the
+    profiler: K9/K10 device µs per launch, the pods they placed, the busy
+    share and the wall."""
+    cut = tuple(x[:n_pods] for x in pods)
+    groups = np.asarray(batch.group)[:n_pods]
+    buf = scan.StepBuffers(statics, clone_state(state), cut, flags)
+    per, busy, wall = profile_kernels(lambda: wavefront.run_batch_waves(buf, tensors, groups, cut))
+    return per, busy, wall
+
+
 def delta_entries(kbuf, placed_pods, rng, k: int):
     """`k` seeded placements of a kernel run as remove_placements-style
     records, half of them storage or GPU pods."""
@@ -478,59 +657,101 @@ def profile_kernels(fn):
     return per, busy_us / 1e6 / wall, wall
 
 
-class CountingEngine(scan.Engine):
-    """The engine, counting on the host the pod steps of every batch and
-    how many of them need K5 (storage) and K6 (GPU)."""
+def new_steps() -> dict:
+    return dict.fromkeys(("pods", "wave_pods", "storage", "gpu", "wave_lean", "wave_hard"), 0)
 
-    steps = {"pods": 0, "storage": 0, "gpu": 0}
+
+class CountingEngine(scan.Engine):
+    """The engine, counting on the host from each batch and its wave plan
+    (`engine/wavefront.py plan_waves`): the pod steps outside the waves
+    and how many of them need K5 (storage) and K6 (GPU), the pods inside
+    the waves, and the waves that take K9 and K10."""
+
+    steps = new_steps()
+    speculate_default = True
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.speculate = CountingEngine.speculate_default
 
     def place(self, batch):
-        flags = scan.flags_from(self.tensorizer.freeze(), batch.ext)
-        ext = batch.ext
-        storage = (np.asarray(ext["lvm_size"]) > 0).any(axis=1) | (np.asarray(ext["dev_size"]) > 0).any(axis=1)
-        CountingEngine.steps["pods"] += len(batch.group)
-        CountingEngine.steps["storage"] += int(storage.sum()) if flags.storage else 0
-        CountingEngine.steps["gpu"] += int((np.asarray(ext["gpu_mem"]) > 0).sum()) if flags.gpu else 0
+        tensors = self.tensorizer.freeze()
+        flags = scan.flags_from(tensors, batch.ext)
+        _, pods = scan.build_pod_arrays(batch, tensors.alloc.shape[1])
+        groups = np.asarray(batch.group)
+        in_wave = np.zeros(len(groups), bool)
+        steps = CountingEngine.steps
+        if self.speculate and len(groups):
+            ok = wavefront.wave_eligibility(pods, groups, tensors)
+            for _, _, waves in wavefront.plan_waves(groups, tensors, flags, ok):
+                for a, b, hard, _, heavy in waves:
+                    in_wave[a:b] = True
+                    steps["wave_hard" if hard or heavy else "wave_lean"] += 1
+        out = ~in_wave
+        steps["pods"] += int(out.sum())
+        steps["wave_pods"] += int(in_wave.sum())
+        steps["storage"] += int((scan.storage_demand(pods[4], pods[6]) & out).sum()) if flags.storage else 0
+        steps["gpu"] += int(((np.asarray(pods[8]) > 0) & out).sum()) if flags.gpu else 0
         return super().place(batch)
 
 
-def run_main_path(problem, golden, card: str, label: str):
+def check_launches(label: str, launches: dict, steps: dict, plain_calls: int, speculate: bool) -> None:
+    """K1-K4 once per pod step outside the waves, K5/K6 once per storage /
+    GPU step outside them, K9/K10 once per planned wave, no plain call."""
+    short = [k for k in STEP if launches.get(k, 0) != steps["pods"]]
+    waves = [k for k in WAVES if launches.get(k, 0) != steps[k]]
+    if short or waves or plain_calls:
+        raise AssertionError(f"{label}: launches {launches} for {steps}, plain calls {plain_calls}")
+    if launches.get("storage_pod", 0) != steps["storage"] or launches.get("gpu_pod", 0) != steps["gpu"]:
+        raise AssertionError(f"{label}: K5/K6 launches {launches} != host-counted steps {steps}")
+    if speculate and not all(launches.get(k, 0) for k in WAVES):
+        raise AssertionError(f"{label}: the wavefront is on but K9 or K10 never launched ({launches})")
+    if not speculate and steps["wave_pods"]:
+        raise AssertionError(f"{label}: the wavefront is off but {steps['wave_pods']} pods rode waves")
+
+
+def run_main_path(problem, golden, card: str, label: str, speculate: bool = True):
     """`simulate(device="cuda")` on a smoke problem with every count set to
-    0 just before and read just after; the record must equal the golden
-    file. Returns (launches, host step counts, wall s, pods, record, the
-    closed simulator's copy)."""
+    0 just before and read just after, the wavefront on or off; the record
+    must equal the golden file. Returns (launches, host step counts, wall
+    s, pods, record, the closed simulator's copy, wave counters)."""
     cluster, apps = problem
-    CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
-    tapi.Engine = CountingEngine
+    CountingEngine.steps = new_steps()
+    CountingEngine.speculate_default = speculate
+    tapi.Engine = tcap.Engine = CountingEngine
     cuda.reset_counts()
+    waves0 = wavefront.wave_counts()
     tapi.Simulator = CapturingSimulator
     seed_name_hashes(smoke.NAME_SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = simtpu_torch.simulate(cluster, apps, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    seed_name_hashes(None)
-    tapi.Engine = scan.Engine
-    tapi.Simulator = Simulator
+    try:
+        result = simtpu_torch.simulate(cluster, apps, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        seed_name_hashes(None)
+        tapi.Engine = tcap.Engine = scan.Engine
+        tapi.Simulator = Simulator
+        CountingEngine.speculate_default = True
     launches, steps = dict(cuda.LAUNCHES), dict(CountingEngine.steps)
+    waves = {k: v - waves0[k] for k, v in wavefront.wave_counts().items()}
     plain_calls = sum(cuda.PLAIN_CALLS.values())
     record = smoke.placement_record(result)
     n_pods = len(record["placed"]) + len(record["failed"]) + len(record["preempted"])
-    short = [k for k in STEP if launches.get(k, 0) != steps["pods"]]
-    if short or plain_calls or steps["pods"] < n_pods:
-        raise AssertionError(f"{label}: launches {launches} for {steps} pod steps "
-                             f"({n_pods} pods), plain calls {plain_calls}")
-    if launches.get("storage_pod", 0) != steps["storage"] or launches.get("gpu_pod", 0) != steps["gpu"]:
-        raise AssertionError(f"{label}: K5/K6 launches {launches} != host-counted steps {steps}")
+    check_launches(label, launches, steps, plain_calls, speculate)
+    if steps["pods"] + steps["wave_pods"] < n_pods or waves["pods"] != steps["wave_pods"]:
+        raise AssertionError(f"{label}: {steps} pod steps for {n_pods} pods, wave counters {waves}")
     diffs = smoke.record_differences(record, smoke.load_record(golden))
     if diffs:
         raise AssertionError(f"{label} differs from the golden record:\n" + "\n".join(diffs))
-    log(f"{label}: simulate(device='cuda') {len(record['nodes'])} nodes x {n_pods} pods "
-        f"({steps['pods']} pod steps, {steps['storage']} storage, {steps['gpu']} GPU): {wall:.2f} s, "
-        f"{n_pods / wall:.0f} pods/s, {len(record['failed'])} unscheduled, "
-        f"{len(record['preempted'])} preempted, record == golden; launches {launches} [{card}]")
-    return launches, steps, wall, n_pods, record, CapturingSimulator.last
+    log(f"{label}: simulate(device='cuda'), wavefront {'on' if speculate else 'off'}, "
+        f"{len(record['nodes'])} nodes x {n_pods} pods ({steps['pods']} pod steps outside waves, "
+        f"{steps['wave_pods']} in {steps['wave_lean']} + {steps['wave_hard']} waves, {steps['storage']} "
+        f"storage, {steps['gpu']} GPU): {wall:.2f} s, {n_pods / wall:.0f} pods/s, "
+        f"{len(record['failed'])} unscheduled, {len(record['preempted'])} preempted, record == golden; "
+        f"launches {launches}; wave counters {waves} [{card}]")
+    return launches, steps, wall, n_pods, record, CapturingSimulator.last, waves
 
 
 class CapturingSimulator(tapi.Simulator):
@@ -596,15 +817,15 @@ def audit_bytes(x) -> int:
 def plan_on_card(cluster, apps, template, **kw):
     """plan_capacity on the card with the counts set to 0 just before and
     read just after, pod names seeded as in the golden run."""
-    CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
-    tapi.Engine = CountingEngine
+    CountingEngine.steps = new_steps()
+    tapi.Engine = tcap.Engine = CountingEngine
     cuda.reset_counts()
     seed_name_hashes(smoke.NAME_SEED)
     try:
         plan = plan_capacity(cluster, apps, template, device="cuda", **kw)
     finally:
         seed_name_hashes(None)
-        tapi.Engine = scan.Engine
+        tapi.Engine = tcap.Engine = scan.Engine
     return plan, dict(cuda.LAUNCHES), dict(CountingEngine.steps), sum(cuda.PLAIN_CALLS.values())
 
 
@@ -617,8 +838,8 @@ def run_capacity(card: str):
     with tempfile.TemporaryDirectory() as tmp:
         cfg = smoke.write_capacity_config(tmp, cluster, apps, template)
         applier = Applier(ApplierOptions(simon_config=cfg, device="cuda"))
-        CountingEngine.steps = {"pods": 0, "storage": 0, "gpu": 0}
-        tapi.Engine = CountingEngine
+        CountingEngine.steps = new_steps()
+        tapi.Engine = tcap.Engine = CountingEngine
         tapi.Simulator = CapturingSimulator
         cuda.reset_counts()
         seed_name_hashes(smoke.NAME_SEED)
@@ -629,7 +850,7 @@ def run_capacity(card: str):
             torch.cuda.synchronize()
         finally:
             seed_name_hashes(None)
-            tapi.Engine = scan.Engine
+            tapi.Engine = tcap.Engine = scan.Engine
             tapi.Simulator = Simulator
         wall = time.perf_counter() - t0
     launches, steps = dict(cuda.LAUNCHES), dict(CountingEngine.steps)
@@ -641,8 +862,8 @@ def run_capacity(card: str):
     if launches.get("audit_bulk", 0) != n_cand or plain_calls:
         raise AssertionError(f"phase 5: K8 launched {launches.get('audit_bulk', 0)} times for "
                              f"{n_cand} candidates; plain calls {plain_calls}")
-    short = [k for k in STEP if launches.get(k, 0) != steps["pods"]]
-    if short or steps["pods"] < n_cand * (smoke.N_PODS + sum(b[1] for b in smoke.CAP_BURST)):
+    check_launches("phase 5", launches, steps, plain_calls, True)
+    if steps["pods"] + steps["wave_pods"] < n_cand * (smoke.N_PODS + sum(b[1] for b in smoke.CAP_BURST)):
         raise AssertionError(f"phase 5: launches {launches} for {steps} pod steps over {n_cand} candidates")
     if plan.engine["audit"].get("fallback") or not plan.engine["audit"].get("ok"):
         raise AssertionError(f"phase 5: the audit is not clean: {plan.engine['audit']}")
@@ -653,7 +874,8 @@ def run_capacity(card: str):
     log(f"phase 5: apply (Applier.run, {plan.engine['search']} search) on the capacity problem: "
         f"{plan.nodes_added} nodes added, {n_cand} candidates, plan {plan.timings['plan']:.2f} s "
         f"(ingest {plan.timings['ingest']:.2f} s, wall {wall:.2f} s); plan == golden, audit clean "
-        f"({plan.audit['checked']} placements); launches {launches} [{card}]")
+        f"({plan.audit['checked']} placements); launches {launches}; wave counters "
+        f"{plan.engine['wavefront']} [{card}]")
     for c in plan.candidates:
         sp = c["audit_split"]
         log(f"  candidate +{c['count']}: {c['wall_s']:.3f} s, audit {c['audit_wall_s'] * 1e3:.1f} ms "
@@ -670,19 +892,39 @@ def run_injected(card: str):
     problem = smoke.capacity_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes,
                                      n_nodes=90, n_pods=1000, burst=burst)
     clean, _, _, _ = plan_on_card(*problem)
-    injected, launches, _, plain_calls = plan_on_card(*problem, _audit_inject=True)
+    # the wave pods of each simulation of the injected plan
+    sims = []
+    orig = tcap.simulate
+
+    def recording(*a, **kw):
+        before = wavefront.wave_counts()["pods"]
+        out = orig(*a, **kw)
+        sims.append(wavefront.wave_counts()["pods"] - before)
+        return out
+
+    tcap.simulate = recording
+    try:
+        injected, launches, _, plain_calls = plan_on_card(*problem, _audit_inject=True)
+    finally:
+        tcap.simulate = orig
     doc = injected.audit
-    if not (injected.success and clean.success and injected.nodes_added == clean.nodes_added
+    cands = injected.candidates
+    fallback = [n for n, c in zip(sims, cands) if c["fallback"]]
+    primary = [n for n, c in zip(sims, cands) if not c["fallback"]]
+    if not (len(sims) == len(cands) and all(c["speculate"] != c["fallback"] for c in cands)
+            and injected.success and clean.success and injected.nodes_added == clean.nodes_added
             and doc.get("fallback") is True and doc.get("ok") is True
             and doc["fallback_audit"]["ok"] and doc["violations"] >= 1
             and injected.candidates[-1]["fallback"] and not plain_calls
-            and launches.get("audit_bulk", 0) == len(injected.candidates)):
+            and launches.get("audit_bulk", 0) == len(injected.candidates)
+            and fallback == [0] and primary and all(primary)):
         raise AssertionError(f"phase 5b: injected plan {injected.nodes_added} (clean {clean.nodes_added}), "
-                             f"audit {doc}, launches {launches}")
+                             f"audit {doc}, launches {launches}, wave pods per simulation {sims}")
     log(f"phase 5b: injected divergence on a cut (90 nodes, {1000 + sum(b[1] for b in burst)} pods): "
         f"the audit caught {doc['violations']} violation(s) {doc['by_class']}, the certified re-run "
         f"shipped {injected.nodes_added} nodes added == the clean plan's; "
-        f"{len(injected.candidates)} audits, K8 launched {launches.get('audit_bulk', 0)} times [{card}]")
+        f"{len(injected.candidates)} audits, K8 launched {launches.get('audit_bulk', 0)} times; wave pods "
+        f"per primary candidate {primary}, in the re-run {fallback[0]} (wavefront off) [{card}]")
     return injected
 
 
@@ -816,6 +1058,23 @@ def main() -> int:
         f_sim.close()
         log(f"phase 2: K8 equal to its plain version on the {label} ({len(f_e.n)} entries) "
             f"in {len(flagged)} cases; entries flagged {flagged}")
+    # K9/K10 on runs of the wave plans, from the state the main path gives them
+    s_done, s_runs, s_wbuf = phase_waves("serial smoke problem", tensors, batch, statics, state, pods, flags,
+                                         ("lean", "lean-pref", "hard-spread", "anti-req"), err)
+    x_done, x_runs, x_wbuf = phase_waves("extended problem", x_tensors, x_batch, x_statics, x_state, x_pods,
+                                         x_flags, ("storage", "gpu"), err)
+    r_tensors, r_batch, r_statics, r_state, r_pods = rack_batch(device)
+    r_flags = scan.flags_from(r_tensors, r_batch.ext)
+    r_done, _, _ = phase_waves("rack problem", r_tensors, r_batch, r_statics, r_state, r_pods, r_flags,
+                               ("lean", "lean-pref"), err, per_kind=1)
+    k_tensors, k_batch, k_statics, k_state, k_pods = keys_batch(device)
+    k_flags = scan.flags_from(k_tensors, k_batch.ext)
+    k_done, _, _ = phase_waves("keys problem", k_tensors, k_batch, k_statics, k_state, k_pods, k_flags,
+                               ("lean", "lean-pref", "hard-spread"), err)
+    log(f"phase 2: K9/K10 equal to their plain versions (nodes, reasons, plans, every state plane) on "
+        f"runs of the serial smoke problem {s_done}, the extended problem {x_done}, the rack problem "
+        f"({r_tensors.n_domains} domains over {r_tensors.node_dom.shape[0]} keys) {r_done} and the keys "
+        f"problem ({k_tensors.node_dom.shape[0]} keys) {k_done}")
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -858,17 +1117,42 @@ def main() -> int:
     d_per, _, _ = profile_kernels(lambda: [delta_pair() for _ in range(20)])
     x_per.update(d_per)
     log(f"  profiler, delta_apply: {d_per['delta_apply'][0]:.2f} us x {d_per['delta_apply'][1]}")
+    # K9/K10: one run of each kind relaunched from its start state, and the
+    # wave dispatcher over the first 2000 pods of the two problems
+    wave_times = {}
+    for buf, run in ((s_wbuf, next(r for r in s_runs if r[0] == "lean")),
+                     (s_wbuf, next(r for r in s_runs if r[0] == "lean-pref")),
+                     (s_wbuf, next(r for r in s_runs if r[0] == "hard-spread")),
+                     (x_wbuf, next(r for r in x_runs if r[0] == "storage"))):
+        t = time_wave(buf, run, 50)
+        wave_times.setdefault(t["name"], t)
+        log(f"  {t['name']} ({t['kind']} run of {t['pods']} pods): {t['device_us']:.2f} us device per launch "
+            f"(profiler), {t['device_us'] / t['pods']:.2f} us per pod step, {t['host_us']:.2f} us to enqueue "
+            f"a launch, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B")
+    w_per, w_busy, w_wall = profile_waves(tensors, batch, statics, state, pods, flags, 2000)
+    xw_per, xw_busy, xw_wall = profile_waves(x_tensors, x_batch, x_statics, x_state, x_pods, x_flags, 2000)
+    for label, pr, bz, wl in (("serial smoke", w_per, w_busy, w_wall), ("extended", xw_per, xw_busy, xw_wall)):
+        log(f"  profiler, {label} wave dispatcher over 2000 pods: {wl:.3f} s wall, device busy {bz:.3f} "
+            "of it; " + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in pr.items()))
 
     # -- phase 3: the serial main path -------------------------------------
-    launches, _, wall, n_pods, _, s_sim = run_main_path(
+    launches, s_steps, wall, n_pods, _, s_sim, s_waves = run_main_path(
         smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3")
 
     # -- phase 3b: the extended main path ----------------------------------
-    x_launches, x_steps, x_wall3, x_pods_n, x_record, x_sim = run_main_path(
+    x_launches, x_steps, x_wall3, x_pods_n, x_record, x_sim, x_waves = run_main_path(
         smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes),
         smoke.EXT_GOLDEN, card, "phase 3b")
     if x_launches.get("delta_apply", 0) < 1 or not x_record["preempted"]:
         raise AssertionError(f"phase 3b: no preemption delta ran ({x_launches})")
+
+    # -- phase 3d: both main paths with the wavefront off ------------------
+    _, _, off_wall, _, _, _, _ = run_main_path(
+        smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3d serial",
+        speculate=False)
+    _, off_x_steps, off_x_wall, _, _, _, _ = run_main_path(
+        smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes),
+        smoke.EXT_GOLDEN, card, "phase 3d extended", speculate=False)
 
     # -- phase 3c: K8 on the main paths' placement logs --------------------
     for label, sim in (("serial log", s_sim), ("extended log", x_sim)):
@@ -919,6 +1203,33 @@ def main() -> int:
                  "delta_apply": d_bytes, "audit_bulk": k8_bytes}
     main_launches = {**x_launches, "audit_bulk": c_launches.get("audit_bulk", 0)}
     for name, replaces in KERNELS.items():
+        if name in WAVES:
+            t = wave_times[name]
+            mean_us = xw_per[name][0] if name in xw_per else w_per[name][0]
+            busy_s += mean_us / 1e6 * x_launches.get(name, 0)
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"simtpu_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": main_launches.get(name, 0),
+                "max_abs_err": err[name],
+                # the timed run's own device time (profiler) and its bound
+                "ms": t["device_us"] / 1e3,
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": None,
+                "host_ms": t["host_us"] / 1e3,
+                "launch_ms": launch_ms,
+                "ms_from": "profiler",
+                "run": {"kind": t["kind"], "pods": t["pods"], "us_per_pod_step": t["device_us"] / t["pods"]},
+                "main_path_us_per_launch": {"serial": w_per.get(name, (None,))[0],
+                                            "extended": xw_per.get(name, (None,))[0]},
+                "launches_serial_path": launches.get(name, 0),
+                "launches_capacity_path": c_launches.get(name, 0),
+            })
+            continue
         host_ms, plain_ms = all_times[name]
         # the kernel's own time on the card (profiler; K1-K4 at the serial
         # smoke shape, K5-K7 at the extended one); the back-to-back launch
@@ -947,15 +1258,22 @@ def main() -> int:
             "host_ms_extended": s_times[name][0] if name in s_times else None,
         })
     print(json.dumps({"kernels": rows, "card": card,
-                      "serial": {"wall_s": wall, "pods": n_pods, "pods_per_s": n_pods / wall},
+                      "serial": {"wall_s": wall, "pods": n_pods, "pods_per_s": n_pods / wall,
+                                 "steps": s_steps, "waves": s_waves, "wall_s_wavefront_off": off_wall,
+                                 "pods_per_s_wavefront_off": n_pods / off_wall},
                       "extended": {"wall_s": x_wall3, "pods": x_pods_n, "pods_per_s": x_pods_n / x_wall3,
-                                   "pod_steps": x_steps, "preempted": len(x_record["preempted"]),
-                                   "device_busy": busy_s / x_wall3},
-                      "loop_device_busy": {"serial": busy, "extended": x_busy},
+                                   "pod_steps": x_steps, "waves": x_waves,
+                                   "preempted": len(x_record["preempted"]),
+                                   "device_busy": busy_s / x_wall3, "wall_s_wavefront_off": off_x_wall,
+                                   "pods_per_s_wavefront_off": x_pods_n / off_x_wall,
+                                   "pod_steps_wavefront_off": off_x_steps},
+                      "loop_device_busy": {"serial": busy, "extended": x_busy,
+                                           "serial_waves": w_busy, "extended_waves": xw_busy},
                       "capacity": {"nodes_added": plan.nodes_added, "candidates": len(plan.candidates),
                                    "plan_s": plan.timings["plan"], "ingest_s": plan.timings["ingest"],
                                    "wall_s": c_wall, "pod_steps": c_steps["pods"],
                                    "candidate_wall_s": [c["wall_s"] for c in plan.candidates],
+                                   "waves": plan.engine["wavefront"],
                                    "audit_split_mean_s": c_split}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

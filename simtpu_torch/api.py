@@ -157,8 +157,11 @@ class Simulator:
         use_greed: bool = False,
         sched_config=None,
         device=None,
+        engine_factory=None,
     ):
         self._extra_resources = extra_resources
+        #: engine_factory(tensorizer, device) -> engine (None = Engine)
+        self._engine_factory = engine_factory or Engine
         self._use_greed = use_greed
         self._sched_config = sched_config
         self._device = resolve_device(device)
@@ -187,7 +190,7 @@ class Simulator:
             pvcs=list(cluster.persistent_volume_claims),
             pvs=list(cluster.persistent_volumes),
         )
-        self._engine = Engine(self._tensorizer, self._device)
+        self._engine = self._engine_factory(self._tensorizer, self._device)
         self._engine.sched_config = self._sched_config
         self._schedule_pods(cluster.pods)
         return self._result()
@@ -1025,6 +1028,7 @@ def simulate(
     cluster: ResourceTypes,
     apps: Sequence[AppResource] = (),
     extended_resources: Sequence[str] = (),
+    engine_factory=None,
     use_greed: bool = False,
     sched_config=None,
     device=None,
@@ -1036,7 +1040,9 @@ def simulate(
     cluster and every app; node status reflects the final cluster.
 
     `device=None` runs on the CUDA card (RuntimeError without one);
-    `device="cpu"` runs the plain PyTorch path.
+    `device="cpu"` runs the plain PyTorch path. `engine_factory(tensorizer,
+    device)` builds the engine (None = `Engine`, the speculative wavefront
+    on), e.g. one with `speculate = False`.
 
     With `audit=True` the independent placement auditor (`audit/checker.py`)
     certifies the final state — engine placement log, preemption legality —
@@ -1049,6 +1055,7 @@ def simulate(
         use_greed=use_greed,
         sched_config=sched_config,
         device=device,
+        engine_factory=engine_factory,
     )
     cluster = ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
     try:

@@ -46,6 +46,12 @@ bit 6 & storage & GPU, `m_all` = bit 7 & storage & GPU).
 `Engine.remove_placements` / `restore_placements` apply signed log deltas
 to the carried state (preemption), through K7 `delta_apply` on the card
 (`engine/state.py apply_placement_deltas`).
+
+With `Engine.speculate` (the default) `Engine.place` hands the batch to the
+speculative wavefront (`engine/wavefront.py`): each planned same-group run
+of pods is placed by one launch of K9 `wave_lean` or K10 `wave_hard`, and
+only the pods between runs take the per-pod kernels (`run_pods`). The
+placements are the same either way.
 """
 
 from __future__ import annotations
@@ -188,7 +194,8 @@ _STATIC_DTYPES = {
     "alloc": np.float32, "static_mask": bool, "vol_mask": bool,
     "node_pref": np.float32, "taint_intol": np.float32,
     "static_score": np.float32, "avoid_pen": np.float32,
-    "node_dom": np.int32, "term_topo": np.int32, "ip_of": np.int32,
+    "node_dom": np.int32,
+    "term_topo": np.int32, "ip_of": np.int32,
     "g_terms": np.int32, "s_match": bool, "a_aff_req": bool,
     "a_anti_req": bool, "w_aff_pref": np.float32, "w_anti_pref": np.float32,
     "spread_hard": np.float32, "spread_soft": np.float32, "ss_host": bool,
@@ -823,6 +830,10 @@ class StepBuffers:
         self.out_lvm = torch.zeros((p, v), dtype=torch.float32, device=dev)
         self.out_take = torch.zeros((p, sd), dtype=torch.bool, device=dev)
         self.out_gpu = torch.zeros((p, gd), dtype=torch.float32, device=dev)
+        # the wave kernels' per-node scratch (engine/wavefront.py): stage
+        # bits that stay constant over a run, and K9's carried rows
+        self.wave_bits = torch.zeros(n, dtype=torch.uint8, device=dev)
+        self.wave_rows = torch.zeros((cuda.WAVE_ROWS, n), dtype=torch.float32, device=dev)
         self.ctx = None  # the kernels' argument struct, built at first launch
 
     def pod_ext(self, i: int) -> PodExt:
@@ -992,7 +1003,12 @@ def commit_pod(buf: StepBuffers, i: int) -> None:
 def run_batch(buf: StepBuffers) -> None:
     """The per-pod kernels for every pod of the batch, in order, with no
     host sync; K5/K6 only for the pods whose demands need them."""
-    for i in range(buf.n_pods):
+    run_pods(buf, 0, buf.n_pods)
+
+
+def run_pods(buf: StepBuffers, a: int, b: int) -> None:
+    """The per-pod kernels for the pods [a, b) of the batch, in order."""
+    for i in range(a, b):
         filter_pod(buf, i)
         if buf.storage_live[i]:
             storage_pod(buf, i)
@@ -1017,6 +1033,9 @@ class Engine:
         self.device = torch.device(device)
         #: optional schedconfig.SchedulerConfig (score-weight overrides)
         self.sched_config = None
+        #: place same-group runs through the speculative wavefront (K9/K10,
+        #: engine/wavefront.py); placements are equal either way
+        self.speculate = True
         #: optional [N] host bool mask — False rows are out of this cluster
         self.node_valid = None
         self.placed_group: List[int] = []
@@ -1098,8 +1117,15 @@ class Engine:
         # inconsistent with the log until the batch completes
         self.last_state = state
         self._state_dirty = True
-        run_batch(buf)
+        if self.speculate:
+            from . import wavefront
+
+            waves = wavefront.run_batch_waves(buf, tensors, np.asarray(batch.group), pods)
+        else:
+            run_batch(buf)
         nodes = buf.out_node.cpu().numpy().astype(np.int64)
+        if self.speculate:
+            wavefront.count_waves(waves, nodes)
         reasons = buf.reason.cpu().numpy()
         lvm_alloc = buf.out_lvm.cpu().numpy()
         dev_take = buf.out_take.cpu().numpy()

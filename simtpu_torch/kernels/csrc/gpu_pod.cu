@@ -20,56 +20,14 @@
 // Bound: bytes — gpu_free and gpu_dev_exists [N,GD] and gpu_total [N]
 // are read once and the shares written once; at N <= 1024 the launch
 // latency dominates.
-#include "step_ctx.cuh"
+//
+// The per-node plan lives in ext_plans.cuh (shared with K10).
+#include "ext_plans.cuh"
 
 __global__ void gpu_pod_kernel(StepCtx x, int i) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= x.n) return;
-  const int GD = x.gd;
-  const size_t ng = static_cast<size_t>(n) * GD;
-  const float mem = x.gpu_mem[i];
-  const int count = x.gpu_count[i];
-  const int* preset = x.gpu_preset + static_cast<size_t>(i) * GD;
-  const bool is_gpu_pod = mem > 0.0f;
-  const bool valid_req = count > 0;
-  const float count_f = static_cast<float>(count);
-
-  float fr[MAX_EXT];
-  bool has_dev = false, any_fit = false;
-  int tight_idx = 0;
-  float tight_key = BIG;
-  for (int d = 0; d < GD; ++d) {
-    const bool exists = x.gpu_dev_exists[ng + d] != 0;
-    has_dev = has_dev || exists;
-    fr[d] = exists ? x.gpu_free[ng + d] : -1.0f;
-    const bool fit1 = fr[d] >= mem;
-    any_fit = any_fit || fit1;
-    const float key = fit1 ? fr[d] : BIG;
-    if (d == 0 || key < tight_key) { tight_key = key; tight_idx = d; }
-  }
-  float shares[MAX_EXT];
-  float cum = 0.0f, total = 0.0f;
-  for (int d = 0; d < GD; ++d) {
-    const float per_dev = fr[d] >= mem ? floorf(__fdiv_rn(fr[d], fmaxf(mem, TINY))) : 0.0f;
-    cum = cum + per_dev;
-    const float prev = cum - per_dev;
-    const float greedy = fminf(fmaxf(fminf(cum, count_f) - prev, 0.0f), per_dev);
-    const float tight = (d == tight_idx && any_fit) ? 1.0f : 0.0f;
-    shares[d] = count == 1 ? tight : greedy;
-    total = total + shares[d];
-  }
-  const bool node_total_ok = x.gpu_total[n] >= mem;
-  bool fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req && total >= count_f) : true;
-  int preset_sum = 0;
-  for (int d = 0; d < GD; ++d) preset_sum += preset[d];
-  if (preset_sum > 0) {
-    fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req) : true;
-    for (int d = 0; d < GD; ++d)
-      x.gpu_sh[ng + d] = (is_gpu_pod && fits) ? static_cast<float>(preset[d]) : 0.0f;
-  } else {
-    for (int d = 0; d < GD; ++d) x.gpu_sh[ng + d] = (is_gpu_pod && fits) ? shares[d] : 0.0f;
-  }
-  x.gpu_ok[n] = fits ? 1 : 0;
+  gpu_node(x, i, n);
 }
 
 extern "C" int simtpu_gpu_pod(const StepCtx* ctx, int i, void* stream) {

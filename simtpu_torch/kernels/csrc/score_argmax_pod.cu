@@ -28,209 +28,12 @@
 // Bound: bytes — stage [N], raw [4,N], alloc and free [N,R], the group's
 // four [N] score rows and the storage/GPU verdicts and raw score are read
 // once, score [N] written once; at N <= 1024 the launch latency dominates.
-#include "step_ctx.cuh"
+//
+// The score terms, the block passes and the argmax live in scores.cuh
+// (shared with K9/K10).
+#include "scores.cuh"
 
-namespace {
-
-constexpr int N_MIN = 4;  // simon, node_pref, soft spread, open-local
-constexpr int N_MAX = 8;  // simon, node_pref, taint, |ipa|, soft spread, ss host, ss zone, open-local
-constexpr float ZW = 0.666666687f;  // f32(2/3), SelectorSpread zone weighting
-
-// Simon's dominant share before the x100 (scores.py _dominant_share)
-__device__ float dominant_share(const StepCtx& x, int n, const float* req) {
-  const float* al = x.alloc + static_cast<size_t>(n) * x.r;
-  float best = -INFINITY;
-  for (int r = 0; r < x.r; ++r) {
-    const float a = al[r], q = req[r];
-    const float denom = a - q;
-    float share = denom == 0.0f ? (q == 0.0f ? 0.0f : 1.0f) : __fdiv_rn(q, denom);
-    if (!(a > 0.0f)) share = 0.0f;
-    best = fmaxf(best, share);
-  }
-  return fmaxf(best, 0.0f);
-}
-
-// w0 * least_allocated + w1 * balanced_allocation as the compiled
-// reference computes it (scores.py resource_base_score):
-// (frac_cpu + frac_mem) * (w0 * 50) + (1 - |bcpu - bmem|) * (w1 * 100),
-// each product rounded
-__device__ float resource_base(const StepCtx& x, int n, const float* req, float w0, float w1) {
-  const float* al = x.alloc + static_cast<size_t>(n) * x.r;
-  const float* fr = x.free + static_cast<size_t>(n) * x.r;
-  float frac[2], bfrac[2];
-  const int cols[2] = {RES_CPU, RES_MEMORY};
-  for (int k = 0; k < 2; ++k) {
-    const float a = al[cols[k]];
-    const float fa = fr[cols[k]] - req[cols[k]];
-    frac[k] = a > 0.0f ? __fdiv_rn(fmaxf(fa, 0.0f), fmaxf(a, TINY)) : 0.0f;
-    const float used = (a - fr[cols[k]]) + req[cols[k]];
-    bfrac[k] = a > 0.0f ? __fdiv_rn(used, fmaxf(a, TINY)) : 1.0f;
-  }
-  const float balanced = (1.0f - fabsf(bfrac[0] - bfrac[1])) * (w1 * MAX_NODE_SCORE);
-  return (frac[0] + frac[1]) * (w0 * 50.0f) + balanced;
-}
-
-__device__ float minmax_norm(float v, float lo, float hi) {
-  const float rng = hi - lo;
-  return rng > 0.0f ? __fdiv_rn((v - lo) * MAX_NODE_SCORE, fmaxf(rng, TINY)) : 0.0f;
-}
-
-__device__ float inv_minmax(float v, float lo, float hi) {
-  const float rng = hi - lo;
-  return rng > 0.0f ? __fdiv_rn(MAX_NODE_SCORE * (hi - v), fmaxf(rng, TINY)) : MAX_NODE_SCORE;
-}
-
-__device__ float inv_max(float v, float hi) {
-  return hi > 0.0f ? __fdiv_rn(MAX_NODE_SCORE * (hi - v), fmaxf(hi, TINY)) : MAX_NODE_SCORE;
-}
-
-}  // namespace
-
-__global__ void score_argmax_pod_kernel(StepCtx x, int i) {
-  __shared__ float sh_min[32][N_MIN];
-  __shared__ float sh_max[32][N_MAX];
-  __shared__ float sh_bv[32];
-  __shared__ int sh_bi[32];
-  __shared__ unsigned any_bits;
-  const int N = x.n;
-  const int g = x.group[i];
-  const float* req = x.req + static_cast<size_t>(i) * x.r;
-  const size_t gn = static_cast<size_t>(g) * N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const unsigned live = x.ext_live[i];
-  const bool st_live = live & LIVE_STORAGE, gpu_live = live & LIVE_GPU;
-  if (threadIdx.x == 0) any_bits = 0u;
-  __syncthreads();
-
-  // the cascade of node n: stage bits 0-5, then bit 6 storage, 7 GPU,
-  // 8 spread, 9 all (K2's bits 6-7 ANDed with the storage/GPU verdicts)
-  auto cascade = [&](int n) -> unsigned {
-    const unsigned s = x.stage[n];
-    const bool ext_ok = (!st_live || x.st_ok[n]) && (!gpu_live || x.gpu_ok[n]);
-    const bool st = ((s >> 5) & 1u) && (!st_live || x.st_ok[n]);
-    const bool gp = st && (!gpu_live || x.gpu_ok[n]);
-    return (s & 0x3Fu) | (st ? 1u << 6 : 0u) | (gp ? 1u << 7 : 0u) |
-           (((s >> 6) & 1u) && ext_ok ? 1u << 8 : 0u) | (((s >> 7) & 1u) && ext_ok ? 1u << 9 : 0u);
-  };
-  constexpr unsigned ALL = 1u << 9;
-
-  // pass 1: stage OR + masked normalizers
-  float lo[N_MIN], hi[N_MAX];
-  for (int k = 0; k < N_MIN; ++k) lo[k] = BIG;
-  hi[0] = -BIG; hi[1] = -BIG; hi[2] = 0.0f; hi[3] = 0.0f; hi[4] = -BIG; hi[5] = 0.0f; hi[6] = 0.0f;
-  hi[7] = -BIG;
-  unsigned bits = 0u;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const unsigned s = cascade(n);
-    bits |= s;
-    if (!(s & ALL)) continue;
-    const float sim = dominant_share(x, n, req) * MAX_NODE_SCORE;
-    lo[0] = fminf(lo[0], sim); hi[0] = fmaxf(hi[0], sim);
-    const float np_ = x.node_pref[gn + n];
-    lo[1] = fminf(lo[1], np_); hi[1] = fmaxf(hi[1], np_);
-    hi[2] = fmaxf(hi[2], x.taint_intol[gn + n]);
-    hi[3] = fmaxf(hi[3], fabsf(x.raw[n]));
-    const float sp = x.raw[N + n];
-    lo[2] = fminf(lo[2], sp); hi[4] = fmaxf(hi[4], sp);
-    hi[5] = fmaxf(hi[5], x.raw[2 * N + n]);
-    hi[6] = fmaxf(hi[6], x.raw[3 * N + n]);
-    const float ol = st_live ? x.st_raw[n] : 0.0f;
-    lo[3] = fminf(lo[3], ol); hi[7] = fmaxf(hi[7], ol);
-  }
-  atomicOr(&any_bits, bits);
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int k = 0; k < N_MIN; ++k) lo[k] = fminf(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off));
-    for (int k = 0; k < N_MAX; ++k) hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off));
-  }
-  if (lane == 0) {
-    for (int k = 0; k < N_MIN; ++k) sh_min[warp][k] = lo[k];
-    for (int k = 0; k < N_MAX; ++k) sh_max[warp][k] = hi[k];
-  }
-  __syncthreads();
-  for (int k = 0; k < N_MIN; ++k) {
-    lo[k] = sh_min[0][k];
-    for (int w = 1; w < n_warps; ++w) lo[k] = fminf(lo[k], sh_min[w][k]);
-  }
-  for (int k = 0; k < N_MAX; ++k) {
-    hi[k] = sh_max[0][k];
-    for (int w = 1; w < n_warps; ++w) hi[k] = fmaxf(hi[k], sh_max[w][k]);
-  }
-
-  // pass 2: weighted score in the reference's term order, then argmax
-  const float* w_ = x.score_w;
-  const int f = x.flags;
-  const bool terms = x.tc > 0;
-  bool any_zone = false;
-  for (int t = 0; t < x.tc; ++t) any_zone = any_zone || x.ss_zone[static_cast<size_t>(g) * x.tc + t];
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float s = resource_base(x, n, req, w_[0], w_[1]);
-    {
-      // Simon min-max with the reference's contracted numerator share*100 - lo
-      const float rng = hi[0] - lo[0];
-      const float num = __fmaf_rn(dominant_share(x, n, req), MAX_NODE_SCORE, -lo[0]);
-      const float simon = rng > 0.0f ? __fdiv_rn(num * MAX_NODE_SCORE, fmaxf(rng, TINY)) : 0.0f;
-      // one FMA, except when the node-affinity term follows (scores.py)
-      s = (f & F_NODE_PREF) ? s + (w_[2] + w_[3]) * simon : __fmaf_rn(w_[2] + w_[3], simon, s);
-    }
-    if (f & F_NODE_PREF) s = __fmaf_rn(w_[4], minmax_norm(x.node_pref[gn + n], lo[1], hi[1]), s);
-    if (f & F_TAINT_PREF) {
-      const float t = hi[2] > 0.0f
-          ? MAX_NODE_SCORE * (1.0f - __fdiv_rn(x.taint_intol[gn + n], fmaxf(hi[2], TINY)))
-          : MAX_NODE_SCORE;
-      s = __fmaf_rn(w_[5], t, s);
-    }
-    if (terms && (f & (F_INTERPOD_PREF | F_INTERPOD_REQ))) {
-      const float m = hi[3];
-      s = __fmaf_rn(w_[6], m > 0.0f ? __fdiv_rn(x.raw[n] * MAX_NODE_SCORE, fmaxf(m, TINY)) : 0.0f, s);
-    }
-    if (terms && (f & F_SPREAD_SOFT)) s = __fmaf_rn(w_[7], inv_minmax(x.raw[N + n], lo[2], hi[4]), s);
-    if (terms && (f & F_SELECTOR_SPREAD)) {
-      const float node = inv_max(x.raw[2 * N + n], hi[5]);
-      const float zone = inv_max(x.raw[3 * N + n], hi[6]);
-      // the zone blend carries the compiled reference's FMA contraction
-      const float ss = (any_zone && hi[6] > 0.0f) ? __fmaf_rn(ZW, zone, (1.0f - ZW) * node) : node;
-      s = __fmaf_rn(w_[8], ss, s);
-    }
-    if (f & F_STATIC_SCORE) s = s + __fmaf_rn(w_[9], x.static_score[gn + n], w_[11] * x.avoid_pen[gn + n]);
-    if (!(cascade(n) & ALL)) s = -INFINITY;
-    // Open-Local: w10 * minmax(raw) over the feasible nodes, added after
-    // the mask (a pod that skipped K5 has raw 0, which normalizes to 0)
-    if (f & F_STORAGE) s = __fmaf_rn(w_[10], minmax_norm(st_live ? x.st_raw[n] : 0.0f, lo[3], hi[7]), s);
-    x.score[n] = s;
-    if (s > bv || (s == bv && n < bi)) { bv = s; bi = n; }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-  }
-  if (lane == 0) { sh_bv[warp] = bv; sh_bi[warp] = bi; }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int w = 1; w < n_warps; ++w) {
-    if (sh_bv[w] > bv || (sh_bv[w] == bv && sh_bi[w] < bi)) { bv = sh_bv[w]; bi = sh_bi[w]; }
-  }
-  const unsigned any = any_bits;
-  // first stage (FILTER_CASCADE order) that no node passes
-  const int stage_bit[9] = {0, 1, 2, 3, 4, 5, 6, 7, 8};
-  const int stage_code[9] = {FAIL_STATIC, FAIL_PORTS, FAIL_RESOURCES, FAIL_VOLUME, FAIL_ATTACH,
-                             FAIL_VOLUME_BIND, FAIL_STORAGE, FAIL_GPU, FAIL_SPREAD};
-  int fail = FAIL_INTERPOD;
-  for (int k = 8; k >= 0; --k)
-    if (!((any >> stage_bit[k]) & 1u)) fail = stage_code[k];
-  const bool forced = x.forced[i];
-  const int pin = x.pin[i];
-  const int pin_c = pin < 0 ? 0 : (pin >= N ? N - 1 : pin);
-  const int chosen = forced ? pin : bi;
-  const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any & ALL) != 0u);
-  x.chosen[i] = chosen;
-  x.placed[i] = placed ? 1 : 0;
-  x.reason[i] = placed ? OK : (forced ? FAIL_NO_NODE : fail);
-  x.out_node[i] = placed ? chosen : -1;
-}
+__global__ void score_argmax_pod_kernel(StepCtx x, int i) { score_argmax_block(x, i); }
 
 extern "C" int simtpu_score_argmax_pod(const StepCtx* ctx, int i, void* stream) {
   int threads = ((ctx->n + 31) / 32) * 32;

@@ -1,7 +1,8 @@
 // The argument blocks of the hand-written kernels: `StepCtx`, shared by
-// the six per-pod kernels (K1-K6) of the serial scheduling step, and
-// `DeltaCtx`, the signed log-delta kernel's (K7). Mirrored field for
-// field by the ctypes structures of the same names in
+// the six per-pod kernels (K1-K6) of the serial scheduling step and the
+// two wave kernels (K9, K10), `WaveCtx`, the wave kernels' run and
+// scratch, and `DeltaCtx`, the signed log-delta kernel's (K7). Mirrored
+// field for field by the ctypes structures of the same names in
 // simtpu_torch/kernels/cuda.py; passed to every kernel by value.
 //
 // Numerics: built with -fmad=false and IEEE division, so every a*b+c is
@@ -136,6 +137,28 @@ struct StepCtx {
   float* out_lvm;  // [P, V] the pod's LVM allocation at its node
   uint8_t* out_take; // [P, SD]
   float* out_gpu;  // [P, GD]
+};
+
+// K9's carried [N] rows in WaveCtx.carry: the resource score pair, the
+// normalized static terms and K2's four count raws (bumped in place)
+enum : int {
+  ROW_FSCORE = 0, ROW_SIMON = 1, ROW_NODE_PREF = 2, ROW_TAINT = 3, ROW_IPA = 4,
+  ROW_RAW = 5,  // + RAW_IPA, RAW_SOFT, RAW_SS_HOST, RAW_SS_ZONE (K2's raw order)
+  WAVE_ROWS = 9,
+};
+enum : int { RAW_IPA = 0, RAW_SOFT = 1, RAW_SS_HOST = 2, RAW_SS_ZONE = 3, N_RAWS = 4 };
+// WaveCtx.mode: K9's inter-pod preference carry; the run's heavy stage
+// bits (engine/wavefront.py WAVE_HEAVY_*) shifted
+constexpr int WAVE_PREF = 1;
+constexpr int WAVE_HEAVY_SHIFT = 4;
+enum : int { HEAVY_PORTS = 1, HEAVY_VOLS = 2, HEAVY_STORAGE = 4, HEAVY_GPU = 8 };
+// threads of a wave block (fixed at the launch)
+constexpr int WAVE_THREADS = 512;
+
+struct WaveCtx {
+  int a, b, mode, k;  // the run [a, b) of the batch, mode bits, topology keys
+  uint8_t* bits;      // [N] the run-constant stage bits (+ K9's fit / all bits)
+  float* carry;       // [WAVE_ROWS, N] K9's carried rows
 };
 
 struct DeltaCtx {

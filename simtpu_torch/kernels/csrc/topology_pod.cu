@@ -19,86 +19,13 @@
 // Bound: bytes — each touched [Tc, N] row is read once (domain, count and
 // own rows), the raw rows written once; at N <= 1024 the launch latency
 // dominates.
-#include "step_ctx.cuh"
+//
+// The per-node work lives in topology.cuh (shared with K9/K10).
+#include "topology.cuh"
 
 __global__ void topology_pod_kernel(StepCtx x, int i) {
   extern __shared__ int min_bits[];  // [tc] per-term eligible minimum
-  const int g = x.group[i];
-  const int tc = x.tc;
-  const int N = x.n;
-  const int* terms = x.g_terms + static_cast<size_t>(g) * tc;
-  const size_t g0 = static_cast<size_t>(g) * tc;
-  const bool do_spread = (x.flags & F_SPREAD_HARD) && tc > 0;
-  const bool do_ip = (x.flags & F_INTERPOD_REQ) && tc > 0;
-  for (int t = threadIdx.x; t < tc; t += blockDim.x) min_bits[t] = __float_as_int(BIG);
-  __syncthreads();
-  if (do_spread) {
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      if (!(x.stage[n] & 1u)) continue;  // eligible = m_static
-      for (int t = 0; t < tc; ++t) {
-        const int term = terms[t];
-        if (term < 0 || !(x.spread_hard[g0 + t] > 0.0f)) continue;
-        if (x.node_dom[static_cast<size_t>(x.term_topo[term]) * N + n] < 0) continue;
-        // counts are >= 0: int order == float order (+0.0f folds -0)
-        const float c = x.cnt_match[static_cast<size_t>(term) * N + n] + 0.0f;
-        atomicMin(&min_bits[t], __float_as_int(c));
-      }
-    }
-  }
-  __syncthreads();
-  // per-pod scalars of the inter-pod first-pod-in-series escape
-  float total_match = 0.0f;
-  bool any_aff = false, all_s = true;
-  for (int t = 0; t < tc; ++t) {
-    if (!x.a_aff_req[g0 + t]) continue;
-    any_aff = true;
-    if (terms[t] >= 0) total_match += x.cnt_total[terms[t]];
-    if (!x.s_match[g0 + t]) all_s = false;
-  }
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    bool spread_ok = true, anti = false, sym = false, aff_ok = true, aff_keys = true;
-    float ipa_in = 0.0f, ipa_sym = 0.0f, sp = 0.0f, ssh = 0.0f, ssz = 0.0f;
-    for (int t = 0; t < tc; ++t) {
-      const int term = terms[t];
-      if (term < 0) continue;  // pad column: zero row, all coefficients 0
-      const size_t gt = g0 + t;
-      const bool valid = x.node_dom[static_cast<size_t>(x.term_topo[term]) * N + n] >= 0;
-      const float c = x.cnt_match[static_cast<size_t>(term) * N + n];
-      const int ip = x.ip_of[term];
-      const size_t ipn = static_cast<size_t>(ip) * N + n;
-      const float ms = x.spread_hard[gt];
-      if (do_spread && ms > 0.0f) {
-        float mn = __int_as_float(min_bits[t]);
-        if (mn >= BIG) mn = 0.0f;
-        if (!(valid && (c + 1.0f) - mn <= ms)) spread_ok = false;
-      }
-      if (x.a_anti_req[gt] && c > 0.0f) anti = true;
-      if (x.s_match[gt] && ip >= 0 && x.cnt_own_anti[ipn] > 0.0f) sym = true;
-      if (x.a_aff_req[gt]) {
-        if (!(valid && c > 0.0f)) aff_ok = false;
-        if (!valid) aff_keys = false;
-      }
-      ipa_in += (x.w_aff_pref[gt] - x.w_anti_pref[gt]) * c;
-      if (x.s_match[gt] && ip >= 0)
-        ipa_sym += (x.w_own_aff_pref[ipn] - x.w_own_anti_pref[ipn]) + x.cnt_own_aff[ipn];
-      sp += x.spread_soft[gt] * c;
-      if (x.ss_host[gt]) ssh += c;
-      if (x.ss_zone[gt]) ssz += c;
-    }
-    bool ip_ok = true;
-    if (do_ip) {
-      const bool self_ok = total_match == 0.0f && all_s && aff_keys;
-      ip_ok = (aff_ok || (any_aff && self_ok)) && !anti && !sym;
-    }
-    const unsigned s = x.stage[n] & 0x3Fu;
-    const bool m6 = ((s >> 5) & 1u) && spread_ok;
-    const bool m7 = m6 && ip_ok;
-    x.stage[n] = static_cast<uint8_t>(s | (m6 ? 0x40u : 0u) | (m7 ? 0x80u : 0u));
-    x.raw[n] = ipa_in + ipa_sym;
-    x.raw[N + n] = sp;
-    x.raw[2 * N + n] = ssh;
-    x.raw[3 * N + n] = ssz;
-  }
+  topology_block(x, i, min_bits);
 }
 
 extern "C" int simtpu_topology_pod(const StepCtx* ctx, int i, void* stream) {

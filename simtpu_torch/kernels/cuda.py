@@ -2,8 +2,11 @@
 
 K1-K6 make up the per-pod scheduling step (`engine/scan.py`), K7 applies
 signed placement-log deltas (`engine/state.py`), K8 is the placement
-auditor's bulk pass (`kernels/audit.py`). The sources live in
-`kernels/csrc/` (one `.cu` per kernel plus the shared `step_ctx.cuh`). On first use each source is compiled by `nvcc` for
+auditor's bulk pass (`kernels/audit.py`), K9/K10 place a whole same-group
+run of pods in one launch (`engine/wavefront.py`). The sources live in
+`kernels/csrc/` (one `.cu` per kernel; the argument blocks in
+`step_ctx.cuh`, the per-node device code that K1-K6 and K9/K10 share in
+the other `.cuh` headers). On first use each source is compiled by `nvcc` for
 `sm_90a` into its own shared library with a plain C interface under
 `kernels/_build/` — all sources at once, one `nvcc` process each — and
 loaded with ctypes. Nothing is built or imported at module import: the CPU
@@ -33,12 +36,16 @@ import torch
 
 KERNELS = (
     "filter_pod", "topology_pod", "score_argmax_pod", "commit_pod",
-    "storage_pod", "gpu_pod", "delta_apply", "audit_bulk",
+    "storage_pod", "gpu_pod", "delta_apply", "audit_bulk", "wave_lean", "wave_hard",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
+#: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
+WAVE_KERNELS = KERNELS[8:]
 #: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
 MAX_EXT = 32
+#: K9's carried [N] rows (step_ctx.cuh WAVE_ROWS)
+WAVE_ROWS = 9
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -74,7 +81,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "step_ctx.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -112,6 +119,8 @@ def build() -> dict:
         fn = getattr(lib, f"simtpu_{name}")
         if name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        elif name in WAVE_KERNELS:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -276,6 +285,62 @@ def launch(name: str, buf, i: int) -> None:
         buf.ctx = make_ctx(buf)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), i, stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+_WAVE_INT_FIELDS = ("a", "b", "mode", "k")
+# (field, attribute of the StepBuffers, dtype) in step_ctx.cuh WaveCtx order
+_WAVE_PTR_FIELDS = (
+    ("bits", "wave_bits", torch.uint8),
+    ("carry", "wave_rows", torch.float32),
+)
+# WaveCtx.mode bits (step_ctx.cuh): K9's inter-pod preference carry; the
+# run's heavy stage bits from WAVE_HEAVY_SHIFT up
+WAVE_PREF = 1
+WAVE_HEAVY_SHIFT = 4
+
+
+class WaveCtx(ctypes.Structure):
+    """ctypes mirror of `struct WaveCtx` in csrc/step_ctx.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in _WAVE_INT_FIELDS] + [
+        (f, ctypes.c_void_p) for f, _, _ in _WAVE_PTR_FIELDS
+    ]
+
+
+def make_wave_ctx(buf, a: int, b: int, mode) -> WaveCtx:
+    """The wave kernels' argument block for the run [a, b) of `buf` under
+    the wave's `mode` (hard, pref, heavy bits; engine/wavefront.py
+    plan_waves): checks the range and every tensor as make_ctx does. Any
+    number of topology keys: K9 sizes its per-key table at the launch."""
+    if not 0 <= a < b <= buf.n_pods:
+        raise IndexError(f"run [{a}, {b}) outside the batch of {buf.n_pods}")
+    _, pref, heavy = mode
+    tensors = {
+        field: _checked(f"buf.{attr}", getattr(buf, attr), buf.device, dtype)
+        for field, attr, dtype in _WAVE_PTR_FIELDS
+    }
+    n = buf.statics.alloc.shape[0]
+    _check_shapes(tensors, {"bits": (n,), "carry": (WAVE_ROWS, n)})
+    k, n_dom = buf.statics.node_dom.shape
+    if n_dom != n:
+        raise ValueError(f"node_dom: shape {(k, n_dom)}, want {(k, n)}")
+    bits = (WAVE_PREF if pref else 0) | int(heavy) << WAVE_HEAVY_SHIFT
+    return WaveCtx(a=a, b=b, mode=bits, k=k, **{f: t.data_ptr() for f, t in tensors.items()})
+
+
+def launch_wave(name: str, buf, a: int, b: int, mode) -> None:
+    """Launch wave kernel `name` for the run [a, b) of `buf` on the current
+    CUDA stream; raises if the launch is refused. No synchronization."""
+    libs = build()
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    ctx = make_wave_ctx(buf, a, b, mode)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")

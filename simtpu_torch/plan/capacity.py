@@ -24,10 +24,11 @@ alone (everything scheduled, rate over the cap); probes already known
 unschedulable are skipped in the fallback. With the caps at their default
 100 the fallback can never trigger.
 
-Every candidate is one `simulate(audit=True)` on the serial engine, on the
-plan's device. The auditor gates the winner: an audit-dirty winner is
-re-simulated (a clean audit, the same serial engine) and the certified
-re-run ships with the divergence record. The bulk rounds engine and the
+Every candidate is one `simulate(audit=True)` on the serial engine (the
+speculative wavefront on), on the plan's device. The auditor gates the
+winner: an audit-dirty winner is re-simulated with the wavefront off —
+never the engine config whose answer just failed its audit — and the
+certified re-run ships with the divergence record. The bulk rounds engine and the
 incremental planner, which the JAX package selects for large problems, are
 not ported yet: such problems raise NotImplementedError rather than plan
 with another engine's tie-breaks.
@@ -57,6 +58,8 @@ from ..core.objects import (
 )
 from ..core.quantity import parse_quantity
 from ..device import resolve_device
+from ..engine import wavefront
+from ..engine.scan import Engine
 from ..io.cluster import (
     create_cluster_resource_from_client,
     create_cluster_resource_from_cluster_config,
@@ -92,8 +95,9 @@ class PlanResult:
     # {} = audit not run (audit=False)
     audit: Dict[str, object] = field(default_factory=dict)
     # one record per simulation the plan ran, in order: the clone count,
-    # whether it was the fallback's re-run, its wall seconds and, when
-    # audited, the audit's wall and split (upload / bulk / host seconds)
+    # whether it was the fallback's re-run, its wall seconds, whether its
+    # engine ran the speculative wavefront and, when audited, the audit's
+    # wall and split (upload / bulk / host seconds)
     candidates: List[Dict[str, object]] = field(default_factory=list)
 
 
@@ -216,6 +220,13 @@ def meet_resource_requests(
     return pvc_sum <= vg_max
 
 
+def _pod_at_a_time(tensorizer, device) -> Engine:
+    """The audit fallback's engine: the per-pod kernels only."""
+    eng = Engine(tensorizer, device)
+    eng.speculate = False
+    return eng
+
+
 def plan_capacity(
     cluster: ResourceTypes,
     apps: Sequence[AppResource],
@@ -264,10 +275,20 @@ def plan_capacity(
         t0 = time.perf_counter()
         trial = ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
         trial.nodes = list(cluster.nodes) + new_fake_nodes(new_node, i)
+        # the divergence-safe fallback's engine: pod-at-a-time, the
+        # wavefront off
+        factory = _pod_at_a_time if serial_exact else Engine
+        built: List[Engine] = []
+
+        def build(tz, dev) -> Engine:
+            built.append(factory(tz, dev))
+            return built[-1]
+
         result = simulate(
             trial,
             apps,
             extended_resources=extended_resources,
+            engine_factory=build,
             sched_config=sched_config,
             device=device,
             audit=audit_on or serial_exact,
@@ -275,6 +296,7 @@ def plan_capacity(
         )
         rec: Dict[str, object] = {
             "count": i, "fallback": serial_exact, "wall_s": time.perf_counter() - t0,
+            "speculate": all(e.speculate for e in built),
         }
         if result.audit is not None:
             rec["audit_wall_s"] = result.audit.wall_s
@@ -613,6 +635,7 @@ class Applier:
         search, bulk = _resolve_engines(self.opts, cluster, apps)
         device = resolve_device(self.opts.device)
         t0 = time.perf_counter()
+        waves0 = wavefront.wave_counts()
         plan = plan_capacity(
             cluster,
             apps,
@@ -627,10 +650,19 @@ class Applier:
         )
         timings["plan"] = time.perf_counter() - t0
         plan.timings = timings
+        speculated = all(c["speculate"] for c in plan.candidates)
         plan.engine = {
             "search": search,
             "bulk": False,
             "device": device.type,
+            # the speculative wavefront over this plan's simulations, as
+            # their engines ran it (False once the audit fallback re-ran a
+            # candidate with it off; heavy runs are drafted whenever it is
+            # on): placements are equal either way, so this is
+            # observability — acceptance rate and rollback volume
+            "speculate": speculated,
+            "wave_heavy": speculated,
+            "wavefront": {k: v - waves0[k] for k, v in wavefront.wave_counts().items()},
             # the independent placement audit of the shipped candidate:
             # counters, plus fallback/divergence records when the primary
             # answer failed certification; {"enabled": False} = --no-audit

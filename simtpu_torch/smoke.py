@@ -37,6 +37,21 @@ candidate audited, the winner's 12 340 placements certified clean. The
 golden file keeps the verdict, the probes, the audit counters and the
 winner's placement record.
 
+**Rack problem** (`RACK_*`) — the lean wave kernel's count carry on a key
+of many small domains, at the serial path's width: the smoke cluster's
+1000 nodes with a `rack` label of 400 racks (2-3 nodes each: more than
+DOM_SMALL domains and not unique per node, the JAX package's lean
+verifier's generic route), and Deployments with soft spread and
+preferred anti-affinity on `rack` and soft spread on the zone.
+
+**Keys problem** (`KEYS_*`) — more topology keys than a fixed per-key
+table would hold: the smoke cluster's 1000 nodes with 20 extra labels
+`topo-k` (node i in domain i mod (2 + 3k)), and one Deployment per key
+with, in turn, soft spread, preferred anti-affinity and hard spread on
+it (22 topology keys with hostname and zone). No golden file for these
+two: `chip_smoke.py` holds the wave kernels against their plain versions
+on their runs.
+
 Pod-name suffixes are seeded (`seed_name_hashes`), so a placement record
 keyed by pod name compares across runs and packages.
 """
@@ -116,6 +131,45 @@ def extended_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, n_pods=N_PO
         ]
     )
     return cluster, apps + [app_cls(name="tier", resource=tier)]
+
+
+RACKS = 400
+#: the rack problem's apps: (name, replicas, make_deployment keywords)
+RACK_APPS = (
+    ("rack-spread", 400, dict(cpu_milli=500, mem_mib=512, spread_topo="rack")),
+    ("rack-shy", 300, dict(cpu_milli=700, mem_mib=256, anti_affinity_topo="rack")),
+    ("zonal", 300, dict(cpu_milli=300, mem_mib=128, spread_topo="topology.kubernetes.io/zone")),
+)
+
+
+def rack_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, racks=RACKS):
+    """(cluster, apps) of the rack problem from a package's own synth
+    module, AppResource and ResourceTypes."""
+    cluster = synth.synth_cluster(n_nodes, **CLUSTER_KW)
+    for i, node in enumerate(cluster.nodes):
+        node["metadata"]["labels"]["rack"] = f"rack-{i * racks // n_nodes}"
+    res = resources_cls(deployments=[synth.make_deployment(name, replicas, **kw)
+                                     for name, replicas, kw in RACK_APPS])
+    return cluster, [app_cls(name="racks", resource=res)]
+
+
+KEYS = 20
+KEYS_REPLICAS = 60
+
+
+def keys_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, keys=KEYS, replicas=KEYS_REPLICAS):
+    """(cluster, apps) of the keys problem from a package's own synth
+    module, AppResource and ResourceTypes."""
+    cluster = synth.synth_cluster(n_nodes, **CLUSTER_KW)
+    for i, node in enumerate(cluster.nodes):
+        for k in range(keys):
+            node["metadata"]["labels"][f"topo-{k}"] = f"d{i % (2 + 3 * k)}"
+    shapes = (dict(spread_topo="{}"), dict(anti_affinity_topo="{}"), dict(spread_topo="{}", spread_hard=True))
+    deps = []
+    for k in range(keys):
+        kw = {key: (v.format(f"topo-{k}") if isinstance(v, str) else v) for key, v in shapes[k % 3].items()}
+        deps.append(synth.make_deployment(f"key-{k}", replicas, 300, 256, **kw))
+    return cluster, [app_cls(name="keys", resource=resources_cls(deployments=deps))]
 
 
 def capacity_problem(synth, app_cls, resources_cls, n_nodes=CAP_NODES, n_pods=N_PODS, burst=CAP_BURST):

@@ -387,7 +387,7 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
     before_plain, before_launch = dict(cuda.PLAIN_CALLS), dict(cuda.LAUNCHES)
     tscan.run_batch(buf)
     calls = {"storage_pod": int(buf.storage_live.sum()), "gpu_pod": int(buf.gpu_live.sum()),
-             "delta_apply": 0, "audit_bulk": 0}
+             "delta_apply": 0, "audit_bulk": 0, "wave_lean": 0, "wave_hard": 0}
     for name in cuda.KERNELS:
         want = calls.get(name, buf.n_pods)
         assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == want
