@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the ten CUDA
+1. the card's name and power limit (nvidia-smi); build the thirteen CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -28,24 +28,41 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    runs (a key of 400 small domains) and on the keys problem's runs (22
    topology keys: lean, preference and hard-spread runs), the pods
    between the runs through K1-K6: nodes, reasons, plans and every
-   state plane equal to the plain versions'. Then each kernel's time per
-   launch, its plain version's and the bytes bound, and the device time
-   per kernel (torch.profiler), K9/K10 per launch and per pod step;
+   state plane equal to the plain versions'. K11 and K12 (the compact
+   carried state's compression and expansion) on the states those wave
+   runs left on the serial smoke, extended, rack and keys problems: every
+   compact field equal to the plain version's, the expansion equal to the
+   state compressed (state_diff 0) and sharing no storage with the carry;
+   K13 (the direct compact delta) on K7's eviction and restore batches:
+   equal to its plain version and to the expand -> K7 -> compress route
+   after each, the round trip back to the carry bit for bit. Then each
+   kernel's time per launch, its plain version's and the bytes bound, and
+   the device time per kernel (torch.profiler), K9/K10 per launch and per
+   pod step;
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
-   serial smoke problem, the speculative wavefront on (the default). K9
-   and K10 must have launched once per wave of the batches' wave plans,
-   K1-K4 once per pod outside the waves, no plain version may have run,
-   and the record (placements, reasons, preempted pods, annotations) must
-   equal the golden file the JAX package produced on the CPU;
+   serial smoke problem, the speculative wavefront and the compact carry
+   on (the defaults). K9 and K10 must have launched once per wave of the
+   batches' wave plans, K1-K4 once per pod outside the waves, K11/K12/K13
+   exactly as often as the JAX package's state.compress / state.expand /
+   state.delta_direct counters on the same path (smoke.COMPACT_CARRY), the
+   carried-state gauge must equal the JAX package's, no plain version may
+   have run, and the record (placements, reasons, preempted pods,
+   annotations) must equal the golden file the JAX package produced on the
+   CPU;
 3b. the extended main path: the same on the extended problem (Open-Local
    storage, GPU-share, a priority tier that preempts), against its golden
    file. K9/K10 once per planned wave, K1-K4 once per pod step outside the
    waves (preemptor retries included), K5 once per storage-pod step and K6
    once per GPU-pod step outside the waves (counted on the host from the
-   batches), K7 at least once; no plain version may have run;
-3d. the serial and extended main paths once more with the wavefront off
-   (`Engine.speculate = False`): the same golden records, K1-K4 once per
-   pod step, no wave launched — the end-to-end reading beside phase 3's;
+   batches), K11/K12/K13 as the JAX counters (K13 at least once: the
+   preemption deltas go straight into the compact carry) and K7 never; no
+   plain version may have run;
+3d. the serial and extended main paths once more in the JAX package's
+   serial-exact engine configuration, the wavefront and the compact carry
+   off (`Engine.speculate = Engine.compact = False`): the same golden
+   records, K1-K4 once per pod step, no wave and no K11-K13 launched, K7
+   at least once on the extended path — the end-to-end reading beside
+   phase 3's;
 3c. K8 against its plain version on the placement logs of phases 3 and 3b,
    clean and under the same corruptions;
 4. the demo example (examples/cluster/demo + application/web): every pod
@@ -62,10 +79,14 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    simon Config and planned by `Applier.run` on the card. The plan — count,
    probes, the winning candidate's placements, reasons and annotations, a
    clean audit — must equal the golden record the JAX package produced; K8
-   must have launched once per candidate, K9/K10 once per planned wave and
-   K1-K4 once per pod step outside the waves of every candidate. Prints
-   the plan's wall, each candidate's wall and the audit's split (upload,
-   K8, host interpod/spread checks);
+   must have launched once per candidate, K9/K10 once per planned wave,
+   K1-K4 once per pod step outside the waves of every candidate and
+   K11/K12 as the JAX package's counters on the same plan. Prints the
+   plan's wall, each candidate's wall, the audit's split (upload, K8, host
+   interpod/spread checks), and one candidate (the winner) simulated again
+   with its wall split on the host around the port's own functions
+   (expansion and sorting, tensorize, statics and state, the place loop,
+   K11/K12, results and annotations, the audit);
 5b. the divergence fallback: a cut of the capacity problem planned clean
    and with the audit's view corrupted (`_audit_inject`): the injected plan
    ships the certified re-run, with the clean plan's count, and the re-run
@@ -132,8 +153,15 @@ KERNELS = {
     "audit_bulk": "simtpu/audit/checker.py:388",
     "wave_lean": "simtpu/engine/scan.py:2422",
     "wave_hard": "simtpu/engine/scan.py:2035",
+    "compact_compress": "simtpu/engine/state.py:1027",
+    "compact_expand": "simtpu/engine/state.py:1061",
+    "compact_delta": "simtpu/engine/state.py:1205",
 }
 WAVES = ("wave_lean", "wave_hard")
+COMPACT = ("compact_compress", "compact_expand", "compact_delta")
+#: the JAX package's counter behind each compact kernel
+COMPACT_COUNTER = {"compact_compress": "compress", "compact_expand": "expand",
+                   "compact_delta": "delta_direct"}
 STEP = ("filter_pod", "topology_pod", "score_argmax_pod", "commit_pod")
 WRAPPERS = {
     "filter_pod": (scan.filter_pod, scan.filter_pod_plain),
@@ -532,6 +560,157 @@ def phase_delta(statics, state, entries, tensors, err):
     return packed
 
 
+def compact_diff(a, b) -> float:
+    """The largest difference between two compact states, every field."""
+    return max(tensor_diff(x, y) for x, y in zip(a, b))
+
+
+def compact_maps(tensors, device):
+    """(CompactSpecDev, node_dom_small) of `tensors` on `device`."""
+    return (sstate.compact_spec_dev(tensors, device),
+            sstate.node_dom_small_for(tensors, tensors.n_nodes, device))
+
+
+def phase_compact(label, tensors, state, device, err):
+    """K11 and K12 against their plain versions on a placed state: every
+    compact field equal, the expansion equal to the state it came from
+    (state_diff 0) and sharing no storage with the carry. Returns the
+    kernel's compact state and the problem's partition."""
+    spec = sstate.compact_spec(tensors)
+    if not spec.enabled:
+        raise AssertionError(f"phase 2: the {label} has no tabular count row")
+    dev, nds = compact_maps(tensors, device)
+    got = sstate.compress_state(dev, clone_state(state))
+    want = sstate.compress_state_plain(dev, clone_state(state))
+    torch.cuda.synchronize()
+    err["compact_compress"] = max(err["compact_compress"], compact_diff(got, want))
+    if err["compact_compress"]:
+        bad = [f for f, x, y in zip(got._fields, got, want) if tensor_diff(x, y)]
+        raise AssertionError(f"compact_compress: {label}: fields {bad} differ from the plain version")
+    back = sstate.expand_state(dev, got, nds)
+    plain_back = sstate.expand_state_plain(dev, want, nds)
+    torch.cuda.synchronize()
+    err["compact_expand"] = max(err["compact_expand"], state_diff(back, plain_back), state_diff(back, state))
+    if err["compact_expand"]:
+        bad = [f for f, x, y in zip(back._fields, back, state) if tensor_diff(x, y)]
+        raise AssertionError(f"compact_expand: {label}: planes {bad} differ from the state compressed")
+    shared = {t.untyped_storage().data_ptr() for t in got if t.numel()}
+    if any(t.untyped_storage().data_ptr() in shared for t in back if t.numel()):
+        raise AssertionError(f"compact_expand: {label}: the expansion shares storage with the carry")
+    part = {"Rt": int(dev.t_tab.shape[0]), "Rd": int(dev.t_dense.shape[0]),
+            "Rti": int(dev.ip_tab.shape[0]), "Rdi": int(dev.ip_dense.shape[0]), "D": spec.d,
+            "tab_keys": int(torch.unique(dev.t_keys).numel()),
+            "carried_bytes": sum(sstate.state_nbytes(got).values()),
+            "dense_bytes": sum(sstate.state_nbytes(state).values())}
+    return got, part
+
+
+def phase_compact_delta(tensors, statics, state, packed, device, err):
+    """K13 against its plain version and against the expand -> K7 ->
+    compress route: evict (the packed w = -1 entries), then restore them.
+    Every compact field must be equal after each step, and equal to the
+    compressed start after the round trip."""
+    dev, nds = compact_maps(tensors, device)
+    n = tensors.n_nodes
+    dspec = sstate.compact_delta_spec_dev(tensors, device)
+    ndom = sstate.node_dom_for(tensors, n, device)
+    start = sstate.compress_state_plain(dev, clone_state(state))
+    kstate = sstate.compress_state_plain(dev, clone_state(state))
+    pstate = sstate.compress_state_plain(dev, clone_state(state))
+    dense = clone_state(state)
+    for sign in (-1.0, 1.0):
+        sstate.apply_placement_deltas_compact(statics, dspec, ndom, nds, kstate, packed[sign])
+        sstate.apply_placement_deltas_compact_plain(statics, dspec, ndom, nds, pstate, packed[sign])
+        sstate.apply_placement_deltas(statics, dense, packed[sign])
+        route = sstate.compress_state_plain(dev, clone_state(dense))
+        torch.cuda.synchronize()
+        err["compact_delta"] = max(err["compact_delta"], compact_diff(kstate, pstate),
+                                   compact_diff(kstate, route))
+        if err["compact_delta"]:
+            bad = [f for f, x, y, z in zip(kstate._fields, kstate, pstate, route)
+                   if tensor_diff(x, y) or tensor_diff(x, z)]
+            raise AssertionError(f"compact_delta (w = {sign:+.0f}): fields {bad} differ from the plain "
+                                 "version or the expand -> K7 -> compress route")
+        if sign < 0:
+            moved = [f for f, a, b in zip(start._fields, kstate, start) if not torch.equal(a, b)]
+            if not {"free", "vg_free", "sdev_free", "gpu_free", "cm_tab", "cnt_total"} <= set(moved):
+                raise AssertionError(f"compact_delta: the eviction left planes unchanged: moved {moved}")
+    off = [f for f, a, b in zip(start._fields, kstate, start) if not torch.equal(a, b)]
+    if off:
+        raise AssertionError(f"compact_delta round trip differs from the carry before: {off}")
+    return start
+
+
+def compact_bytes(tensors, state, cstate) -> dict:
+    """Bytes K11, K12 and K13's inputs and outputs must move at this carry
+    (each input read once, each output written once): K11 reads the dense
+    elements it narrows (the representative nodes of the tabular rows, the
+    dense rows, the cast planes) with the representative ids and writes
+    the narrowed planes (free, vg_free and gpu_free move without a copy);
+    K12 reads the compact carry and the node_dom_small rows of the tabular
+    keys and writes the dense state."""
+    spec = sstate.compact_spec(tensors).dev
+    n = tensors.n_nodes
+    planes = sstate.state_nbytes(cstate)
+    moved = planes["free"] + planes["vg_free"] + planes["gpu_free"]
+    reps = sum(int((r >= 0).sum()) for r in (spec.t_rep, spec.ip_rep, spec.ip_rep, spec.ip_rep,
+                                                 spec.ip_rep))
+    k11 = (sum(planes.values()) - moved) + reps * 4 + (spec.t_rep.numel() + spec.ip_rep.numel()) * 4
+    for name in ("cm_dense", "oa_dense", "of_dense", "wa_dense", "wn_dense", "cnt_total", "ports_used",
+                 "vols_any", "vols_rw"):
+        k11 += getattr(cstate, name).numel() * 4
+    k11 += cstate.sdev_free.numel()
+    keys = torch.unique(torch.cat([spec.t_keys, spec.ip_keys])).numel()
+    k12 = sum(planes.values()) + keys * n * 4 + sum(sstate.state_nbytes(state).values())
+    return {"compact_compress": int(k11), "compact_expand": int(k12)}
+
+
+def compact_delta_bytes(statics, state, cstate, packed, tensors) -> int:
+    """Bytes K13 must move for these entries: the entries read once, the
+    chosen nodes' rows read and written, each tabular bucket and cnt_total
+    entry the entries touch read and written, and the dense count rows'
+    elements they touch read and written."""
+    g, node, wgt, req, vg, sd, gp = (np.asarray(x) for x in packed)
+    live = wgt != 0
+    e, r = req.shape
+    entry_bytes = e * (12 + 4 * r + 4 * vg.shape[1] + sd.shape[1] + 4 * gp.shape[1])
+    rows = np.unique(node[live])
+    row_bytes = len(rows) * (4 * r + 4 * cstate.ports_used.shape[1] + 8 * cstate.vols_any.shape[1]
+                             + 4 * cstate.vg_free.shape[1] + cstate.sdev_free.shape[1]
+                             + 4 * cstate.gpu_free.shape[1])
+    g_terms = statics.g_terms.cpu().numpy()
+    node_dom = statics.node_dom.cpu().numpy()
+    term_topo = statics.term_topo.cpu().numpy()
+    ip_of = statics.ip_of.cpu().numpy()
+    dspec = sstate.compact_delta_spec(tensors)
+    t_tab_of, t_dense_of = dspec.t_tab_of.numpy(), dspec.t_dense_of.numpy()
+    ip_tab_of, ip_dense_of = dspec.ip_tab_of.numpy(), dspec.ip_dense_of.numpy()
+    nds = tensors.node_dom_small
+    n = tensors.n_nodes
+    buckets, ip_buckets, totals = set(), set(), set()
+    dense = np.zeros((cstate.cm_dense.shape[0], n), bool)
+    ip_dense = np.zeros((cstate.oa_dense.shape[0], n), bool)
+    for gi, c in zip(g[live], node[live]):
+        for term in g_terms[gi]:
+            if term < 0 or node_dom[term_topo[term], c] < 0:
+                continue
+            key = term_topo[term]
+            totals.add(term)
+            ip = ip_of[term]
+            if t_tab_of[term] >= 0:
+                buckets.add((term, nds[key, c]))
+                if ip >= 0 and ip_tab_of[ip] >= 0:
+                    ip_buckets.add((ip, nds[key, c]))
+                continue
+            same = node_dom[key] == node_dom[key, c]
+            dense[t_dense_of[term]] |= same
+            if ip >= 0 and ip_dense_of[ip] >= 0:
+                ip_dense[ip_dense_of[ip]] |= same
+    count_bytes = 2 * 4 * (len(buckets) + 4 * len(ip_buckets) + len(totals) + int(dense.sum())
+                           + 4 * int(ip_dense.sum()))
+    return int(entry_bytes + 2 * row_bytes + count_bytes)
+
+
 def time_call(fn, iters: int) -> float:
     """Milliseconds per call: CUDA events around `iters` calls after a warm-up."""
     fn()
@@ -669,10 +848,12 @@ class CountingEngine(scan.Engine):
 
     steps = new_steps()
     speculate_default = True
+    compact_default = True
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.speculate = CountingEngine.speculate_default
+        self.compact = CountingEngine.compact_default
 
     def place(self, batch):
         tensors = self.tensorizer.freeze()
@@ -710,14 +891,41 @@ def check_launches(label: str, launches: dict, steps: dict, plain_calls: int, sp
         raise AssertionError(f"{label}: the wavefront is off but {steps['wave_pods']} pods rode waves")
 
 
-def run_main_path(problem, golden, card: str, label: str, speculate: bool = True):
+def check_compact(label: str, launches: dict, want) -> None:
+    """K11/K12/K13 launched exactly as often as the JAX package's
+    state.compress / state.expand / state.delta_direct counted on the same
+    path (`want`, smoke.COMPACT_CARRY), or never (`want` None: the carry
+    is dense)."""
+    got = {k: launches.get(k, 0) for k in COMPACT}
+    expect = {k: (want[COMPACT_COUNTER[k]] if want else 0) for k in COMPACT}
+    if got != expect:
+        raise AssertionError(f"{label}: compact kernels launched {got}, the JAX package's counts {expect}")
+
+
+def check_gauge(label: str, want) -> dict:
+    """The port's carried-state gauge after a main path: equal to the JAX
+    package's (`want`, smoke.COMPACT_CARRY) with the compact carry on."""
+    gauge = {k: sstate.STATE_GAUGE[k] for k in ("carried_bytes", "dense_bytes", "compact")}
+    if want is not None and (not gauge["compact"] or gauge["carried_bytes"] != want["carried_bytes"]
+                             or gauge["dense_bytes"] != want["dense_bytes"]):
+        raise AssertionError(f"{label}: carried-state gauge {gauge}, the JAX package's {want}")
+    if want is None and gauge["compact"]:
+        raise AssertionError(f"{label}: the compact carry is off but the carry stored is compact")
+    return gauge
+
+
+def run_main_path(problem, golden, card: str, label: str, path: str, speculate: bool = True,
+                  compact: bool = True):
     """`simulate(device="cuda")` on a smoke problem with every count set to
-    0 just before and read just after, the wavefront on or off; the record
-    must equal the golden file. Returns (launches, host step counts, wall
-    s, pods, record, the closed simulator's copy, wave counters)."""
+    0 just before and read just after, the wavefront and the compact carry
+    on or off; the record must equal the golden file, K11/K12/K13 must
+    have launched as often as the JAX package's counters on `path`. Returns
+    (launches, host step counts, wall s, pods, record, the closed
+    simulator's copy, wave counters, the carried-state gauge)."""
     cluster, apps = problem
     CountingEngine.steps = new_steps()
     CountingEngine.speculate_default = speculate
+    CountingEngine.compact_default = compact
     tapi.Engine = tcap.Engine = CountingEngine
     cuda.reset_counts()
     waves0 = wavefront.wave_counts()
@@ -734,24 +942,29 @@ def run_main_path(problem, golden, card: str, label: str, speculate: bool = True
         tapi.Engine = tcap.Engine = scan.Engine
         tapi.Simulator = Simulator
         CountingEngine.speculate_default = True
+        CountingEngine.compact_default = True
     launches, steps = dict(cuda.LAUNCHES), dict(CountingEngine.steps)
     waves = {k: v - waves0[k] for k, v in wavefront.wave_counts().items()}
     plain_calls = sum(cuda.PLAIN_CALLS.values())
     record = smoke.placement_record(result)
     n_pods = len(record["placed"]) + len(record["failed"]) + len(record["preempted"])
     check_launches(label, launches, steps, plain_calls, speculate)
+    check_compact(label, launches, smoke.COMPACT_CARRY[path] if compact else None)
+    gauge = check_gauge(label, smoke.COMPACT_CARRY[path] if compact else None)
     if steps["pods"] + steps["wave_pods"] < n_pods or waves["pods"] != steps["wave_pods"]:
         raise AssertionError(f"{label}: {steps} pod steps for {n_pods} pods, wave counters {waves}")
     diffs = smoke.record_differences(record, smoke.load_record(golden))
     if diffs:
         raise AssertionError(f"{label} differs from the golden record:\n" + "\n".join(diffs))
     log(f"{label}: simulate(device='cuda'), wavefront {'on' if speculate else 'off'}, "
+        f"compact carry {'on' if compact else 'off'} (carried {gauge['carried_bytes']} B, dense "
+        f"{gauge['dense_bytes']} B), "
         f"{len(record['nodes'])} nodes x {n_pods} pods ({steps['pods']} pod steps outside waves, "
         f"{steps['wave_pods']} in {steps['wave_lean']} + {steps['wave_hard']} waves, {steps['storage']} "
         f"storage, {steps['gpu']} GPU): {wall:.2f} s, {n_pods / wall:.0f} pods/s, "
         f"{len(record['failed'])} unscheduled, {len(record['preempted'])} preempted, record == golden; "
         f"launches {launches}; wave counters {waves} [{card}]")
-    return launches, steps, wall, n_pods, record, CapturingSimulator.last, waves
+    return launches, steps, wall, n_pods, record, CapturingSimulator.last, waves, gauge
 
 
 class CapturingSimulator(tapi.Simulator):
@@ -863,6 +1076,13 @@ def run_capacity(card: str):
         raise AssertionError(f"phase 5: K8 launched {launches.get('audit_bulk', 0)} times for "
                              f"{n_cand} candidates; plain calls {plain_calls}")
     check_launches("phase 5", launches, steps, plain_calls, True)
+    check_compact("phase 5", launches, smoke.COMPACT_CARRY["capacity"])
+    gauge = check_gauge("phase 5", smoke.COMPACT_CARRY["capacity"])
+    dd = plan.engine["delta_direct"]
+    if (dd["compress"], dd["expand"], dd["applied"]) != tuple(launches.get(k, 0) for k in COMPACT):
+        raise AssertionError(f"phase 5: plan.engine delta_direct {dd} != launches {launches}")
+    if not (plan.engine["compact"] and all(c["compact"] for c in plan.candidates)):
+        raise AssertionError(f"phase 5: a candidate ran without the compact carry: {plan.candidates}")
     if steps["pods"] + steps["wave_pods"] < n_cand * (smoke.N_PODS + sum(b[1] for b in smoke.CAP_BURST)):
         raise AssertionError(f"phase 5: launches {launches} for {steps} pod steps over {n_cand} candidates")
     if plan.engine["audit"].get("fallback") or not plan.engine["audit"].get("ok"):
@@ -875,13 +1095,104 @@ def run_capacity(card: str):
         f"{plan.nodes_added} nodes added, {n_cand} candidates, plan {plan.timings['plan']:.2f} s "
         f"(ingest {plan.timings['ingest']:.2f} s, wall {wall:.2f} s); plan == golden, audit clean "
         f"({plan.audit['checked']} placements); launches {launches}; wave counters "
-        f"{plan.engine['wavefront']} [{card}]")
+        f"{plan.engine['wavefront']}; compact carry {plan.engine['delta_direct']}, final carry "
+        f"{gauge['carried_bytes']} B (dense {gauge['dense_bytes']} B) [{card}]")
     for c in plan.candidates:
         sp = c["audit_split"]
         log(f"  candidate +{c['count']}: {c['wall_s']:.3f} s, audit {c['audit_wall_s'] * 1e3:.1f} ms "
             f"(upload {sp['upload'] * 1e3:.2f}, K8 {sp['bulk'] * 1e3:.2f}, host {sp['host'] * 1e3:.2f} ms)")
     log("  audit split, mean per candidate: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in mean.items()))
-    return plan, launches, steps, wall, winner, mean
+    return plan, launches, steps, wall, winner, mean, gauge
+
+
+class HostSplit:
+    """Exclusive host wall time per part of one simulation: each wrapped
+    function's time less that of the wrapped functions it calls (host
+    clock, no synchronization: a part that waits for the card, as the
+    batch's fetch at the end of Engine.place does, carries that wait)."""
+
+    def __init__(self):
+        self.parts: dict = {}
+        self._stack = [0.0]
+        self._undo = []
+
+    def wrap(self, owner, name: str, part: str) -> None:
+        fn = getattr(owner, name)
+        split = self
+
+        def timed(*a, **kw):
+            split._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                took = time.perf_counter() - t0
+                inner = split._stack.pop()
+                split.parts[part] = split.parts.get(part, 0.0) + took - inner
+                split._stack[-1] += took
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def restore(self) -> None:
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo.clear()
+
+
+def capacity_host_split(card: str, count: int) -> dict:
+    """One capacity candidate (the plan's winner: `count` template nodes
+    added) simulated and audited on the card, its wall time split on the
+    host around the port's own functions: workload expansion and sorting,
+    the node copies, the Tensorizer (its node tensors, add_pods, freeze),
+    statics_from and build_state, Engine.place's loop (the wave and per-pod
+    launches and the batch's fetch), K11/K12's wrappers, results and
+    annotations, preemption, the audit, and the rest of simulate()."""
+    from simtpu_torch.core import tensorize as ttz
+
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu_torch.AppResource,
+                                                     simtpu_torch.ResourceTypes)
+    trial = simtpu_torch.ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
+    trial.nodes = list(cluster.nodes) + tcap.new_fake_nodes(template, count)
+    split = HostSplit()
+    for owner, name, part in (
+            (tapi, "get_valid_pods_exclude_daemonset", "expansion and sorting"),
+            (tapi, "make_valid_pods_by_daemonset", "expansion and sorting"),
+            (tapi, "_sort_app_pods", "expansion and sorting"),
+            (tapi, "deep_copy", "node copies"),
+            (ttz.Tensorizer, "__init__", "Tensorizer() / add_pods / freeze"),
+            (ttz.Tensorizer, "add_pods", "Tensorizer() / add_pods / freeze"),
+            (ttz.Tensorizer, "freeze", "Tensorizer() / add_pods / freeze"),
+            (scan, "statics_from", "statics_from / build_state"),
+            (scan, "build_state", "statics_from / build_state"),
+            (scan.Engine, "place", "Engine.place loop"),
+            (scan, "compress_state", "K11/K12"),
+            (scan, "expand_state", "K11/K12"),
+            (Simulator, "_schedule_pods", "results and annotations"),
+            (Simulator, "_result", "results and annotations"),
+            (Simulator, "_preempt_failed_batch", "preemption"),
+            (checker, "audit_simulation", "audit")):
+        split.wrap(owner, name, part)
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = simtpu_torch.simulate(trial, apps, device="cuda", audit=True)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        seed_name_hashes(None)
+        split.restore()
+    if result.unscheduled_pods or not result.audit.ok:
+        raise AssertionError(f"phase 5: the split candidate (+{count}) left "
+                             f"{len(result.unscheduled_pods)} pods or failed its audit")
+    parts = dict(split.parts)
+    parts["other"] = wall - sum(parts.values())
+    log(f"phase 5: host split of one candidate (+{count} nodes, simulate + audit on the card): "
+        f"{wall:.3f} s; " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+        + f"; launches {dict(cuda.LAUNCHES)} [{card}]")
+    return {"wall_s": wall, "parts_s": parts}
 
 
 def run_injected(card: str):
@@ -1065,16 +1376,32 @@ def main() -> int:
                                          x_flags, ("storage", "gpu"), err)
     r_tensors, r_batch, r_statics, r_state, r_pods = rack_batch(device)
     r_flags = scan.flags_from(r_tensors, r_batch.ext)
-    r_done, _, _ = phase_waves("rack problem", r_tensors, r_batch, r_statics, r_state, r_pods, r_flags,
-                               ("lean", "lean-pref"), err, per_kind=1)
+    r_done, _, r_wbuf = phase_waves("rack problem", r_tensors, r_batch, r_statics, r_state, r_pods, r_flags,
+                                    ("lean", "lean-pref"), err, per_kind=1)
     k_tensors, k_batch, k_statics, k_state, k_pods = keys_batch(device)
     k_flags = scan.flags_from(k_tensors, k_batch.ext)
-    k_done, _, _ = phase_waves("keys problem", k_tensors, k_batch, k_statics, k_state, k_pods, k_flags,
-                               ("lean", "lean-pref", "hard-spread"), err)
+    k_done, _, k_wbuf = phase_waves("keys problem", k_tensors, k_batch, k_statics, k_state, k_pods, k_flags,
+                                    ("lean", "lean-pref", "hard-spread"), err)
     log(f"phase 2: K9/K10 equal to their plain versions (nodes, reasons, plans, every state plane) on "
         f"runs of the serial smoke problem {s_done}, the extended problem {x_done}, the rack problem "
         f"({r_tensors.n_domains} domains over {r_tensors.node_dom.shape[0]} keys) {r_done} and the keys "
         f"problem ({k_tensors.node_dom.shape[0]} keys) {k_done}")
+
+    # K11/K12 on the states the wave runs above left (written by K1-K4 and
+    # K9/K10), K13 on K7's eviction and restore batches
+    parts = {}
+    for label, c_tensors, c_state in (("serial smoke problem", tensors, s_wbuf.state),
+                                      ("extended problem", x_tensors, x_wbuf.state),
+                                      ("rack problem", r_tensors, r_wbuf.state),
+                                      ("keys problem", k_tensors, k_wbuf.state)):
+        _, parts[label] = phase_compact(label, c_tensors, c_state, device, err)
+    log("phase 2: K11/K12 equal to their plain versions (every compact field; the expansion equal to "
+        "the state compressed, state_diff 0, no storage shared) on " + "; ".join(
+            f"the {k} {v}" for k, v in parts.items()))
+    x_start = phase_compact_delta(x_tensors, x_statics, run.state, packed, device, err)
+    log(f"phase 2: K13 equal to its plain version and to the expand -> K7 -> compress route evicting "
+        f"and restoring {len(entries)} placements on the extended carry; the round trip restores "
+        "every compact field bit for bit")
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -1117,6 +1444,40 @@ def main() -> int:
     d_per, _, _ = profile_kernels(lambda: [delta_pair() for _ in range(20)])
     x_per.update(d_per)
     log(f"  profiler, delta_apply: {d_per['delta_apply'][0]:.2f} us x {d_per['delta_apply'][1]}")
+    # K11/K12 at the serial smoke carry, K13 on K7's batches at the extended one
+    c_dev, c_nds = compact_maps(tensors, device)
+    c_state = clone_state(s_wbuf.state)
+    c_carry = sstate.compress_state(c_dev, clone_state(c_state))
+    compact_times = {
+        "compact_compress": (time_call(lambda: sstate.compress_state(c_dev, c_state), 200),
+                             time_call(lambda: sstate.compress_state_plain(c_dev, c_state), 5)),
+        "compact_expand": (time_call(lambda: sstate.expand_state(c_dev, c_carry, c_nds), 200),
+                           time_call(lambda: sstate.expand_state_plain(c_dev, c_carry, c_nds), 5)),
+    }
+    c_bytes = compact_bytes(tensors, c_state, c_carry)
+    x_dev, x_nds = compact_maps(x_tensors, device)
+    x_dspec = sstate.compact_delta_spec_dev(x_tensors, device)
+    x_ndom = sstate.node_dom_for(x_tensors, x_tensors.n_nodes, device)
+    d_carry = type(x_start)(*(t.clone() for t in x_start))
+
+    def compact_delta_pair(apply=sstate.apply_placement_deltas_compact):
+        apply(x_statics, x_dspec, x_ndom, x_nds, d_carry, packed[-1.0])
+        apply(x_statics, x_dspec, x_ndom, x_nds, d_carry, packed[1.0])
+
+    compact_times["compact_delta"] = (
+        time_call(compact_delta_pair, 200) / 2,
+        time_call(lambda: compact_delta_pair(sstate.apply_placement_deltas_compact_plain), 2) / 2)
+    c_bytes["compact_delta"] = compact_delta_bytes(x_statics, run.state, x_start, packed[-1.0], x_tensors)
+    c_per, _, _ = profile_kernels(lambda: [(sstate.compress_state(c_dev, c_state),
+                                            sstate.expand_state(c_dev, c_carry, c_nds),
+                                            compact_delta_pair()) for _ in range(20)])
+    x_per.update(c_per)
+    for name, (host_ms, plain_ms) in compact_times.items():
+        log(f"  {name}: {c_per[name][0]:.2f} us device (profiler), {host_ms * 1e3:.2f} us per "
+            f"back-to-back call from Python, plain {plain_ms * 1e3:.1f} us, {c_bytes[name]} B, bound "
+            f"{c_bytes[name] / HBM_BYTES_PER_S * 1e6:.3f} us "
+            + ("(serial smoke carry)" if name != "compact_delta" else f"({len(entries)} entries, extended carry)"))
+
     # K9/K10: one run of each kind relaunched from its start state, and the
     # wave dispatcher over the first 2000 pods of the two problems
     wave_times = {}
@@ -1136,23 +1497,27 @@ def main() -> int:
             "of it; " + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in pr.items()))
 
     # -- phase 3: the serial main path -------------------------------------
-    launches, s_steps, wall, n_pods, _, s_sim, s_waves = run_main_path(
-        smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3")
+    launches, s_steps, wall, n_pods, _, s_sim, s_waves, s_gauge = run_main_path(
+        smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3", "serial")
 
     # -- phase 3b: the extended main path ----------------------------------
-    x_launches, x_steps, x_wall3, x_pods_n, x_record, x_sim, x_waves = run_main_path(
+    x_launches, x_steps, x_wall3, x_pods_n, x_record, x_sim, x_waves, x_gauge = run_main_path(
         smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes),
-        smoke.EXT_GOLDEN, card, "phase 3b")
-    if x_launches.get("delta_apply", 0) < 1 or not x_record["preempted"]:
-        raise AssertionError(f"phase 3b: no preemption delta ran ({x_launches})")
+        smoke.EXT_GOLDEN, card, "phase 3b", "extended")
+    if x_launches.get("compact_delta", 0) < 1 or x_launches.get("delta_apply", 0) or not x_record["preempted"]:
+        raise AssertionError(f"phase 3b: the preemption deltas did not go through K13 alone ({x_launches})")
 
-    # -- phase 3d: both main paths with the wavefront off ------------------
-    _, _, off_wall, _, _, _, _ = run_main_path(
-        smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3d serial",
-        speculate=False)
-    _, off_x_steps, off_x_wall, _, _, _, _ = run_main_path(
+    # -- phase 3d: both main paths in the serial-exact configuration -------
+    # (the wavefront and the compact carry off, the JAX package's audit
+    # fallback engine)
+    _, _, off_wall, _, _, _, _, _ = run_main_path(
+        smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3d serial", "serial",
+        speculate=False, compact=False)
+    off_x_launches, off_x_steps, off_x_wall, _, _, _, _, _ = run_main_path(
         smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes),
-        smoke.EXT_GOLDEN, card, "phase 3d extended", speculate=False)
+        smoke.EXT_GOLDEN, card, "phase 3d extended", "extended", speculate=False, compact=False)
+    if off_x_launches.get("delta_apply", 0) < 1:
+        raise AssertionError(f"phase 3d: no preemption delta ran through K7 ({off_x_launches})")
 
     # -- phase 3c: K8 on the main paths' placement logs --------------------
     for label, sim in (("serial log", s_sim), ("extended log", x_sim)):
@@ -1177,7 +1542,8 @@ def main() -> int:
     run_cli_examples(card)
 
     # -- phase 5: the capacity main path ------------------------------------
-    plan, c_launches, c_steps, c_wall, winner, c_split = run_capacity(card)
+    plan, c_launches, c_steps, c_wall, winner, c_split, c_gauge = run_capacity(card)
+    host_split = capacity_host_split(card, plan.nodes_added)
 
     # -- phase 5b: the divergence fallback ----------------------------------
     run_injected(card)
@@ -1198,9 +1564,10 @@ def main() -> int:
     rows = []
     busy_s = 0.0
     all_times = {**times, **{k: v for k, v in s_times.items() if k not in times}, **g_times,
-                 "delta_apply": (delta_ms, delta_plain_ms), "audit_bulk": (k8_ms, k8_plain_ms)}
+                 "delta_apply": (delta_ms, delta_plain_ms), "audit_bulk": (k8_ms, k8_plain_ms),
+                 **compact_times}
     all_bytes = {**nbytes, "storage_pod": s_bytes["storage_pod"], "gpu_pod": g_bytes["gpu_pod"],
-                 "delta_apply": d_bytes, "audit_bulk": k8_bytes}
+                 "delta_apply": d_bytes, "audit_bulk": k8_bytes, **c_bytes}
     main_launches = {**x_launches, "audit_bulk": c_launches.get("audit_bulk", 0)}
     for name, replaces in KERNELS.items():
         if name in WAVES:
@@ -1231,9 +1598,10 @@ def main() -> int:
             })
             continue
         host_ms, plain_ms = all_times[name]
-        # the kernel's own time on the card (profiler; K1-K4 at the serial
-        # smoke shape, K5-K7 at the extended one); the back-to-back launch
-        # time from Python (host_ms) is bound by the launch path
+        # the kernel's own time on the card (profiler; K1-K4 and K11/K12 at
+        # the serial smoke shape, K5-K7 and K13 at the extended one); the
+        # back-to-back launch time from Python (host_ms) is bound by the
+        # launch path
         prof = per.get(name) if name in STEP else x_per.get(name)
         ms = prof[0] / 1e3 if prof else host_ms
         busy_s += ms / 1e3 * x_launches.get(name, 0)
@@ -1258,6 +1626,8 @@ def main() -> int:
             "host_ms_extended": s_times[name][0] if name in s_times else None,
         })
     print(json.dumps({"kernels": rows, "card": card,
+                      "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
+                                        "partitions": parts},
                       "serial": {"wall_s": wall, "pods": n_pods, "pods_per_s": n_pods / wall,
                                  "steps": s_steps, "waves": s_waves, "wall_s_wavefront_off": off_wall,
                                  "pods_per_s_wavefront_off": n_pods / off_wall},
@@ -1274,7 +1644,8 @@ def main() -> int:
                                    "wall_s": c_wall, "pod_steps": c_steps["pods"],
                                    "candidate_wall_s": [c["wall_s"] for c in plan.candidates],
                                    "waves": plan.engine["wavefront"],
-                                   "audit_split_mean_s": c_split}}))
+                                   "audit_split_mean_s": c_split,
+                                   "candidate_host_split": host_split}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -52,6 +52,14 @@ speculative wavefront (`engine/wavefront.py`): each planned same-group run
 of pods is placed by one launch of K9 `wave_lean` or K10 `wave_hard`, and
 only the pods between runs take the per-pod kernels (`run_pods`). The
 placements are the same either way.
+
+With `Engine.compact` (the default) the state carried between batches is
+the compact layout (`engine/state.py CompactState`): `place()` stores the
+final state through K11 `compact_compress` and expands a reused carry
+through K12 `compact_expand` into fresh dense planes for the kernels;
+preemption's deltas go straight into the compact carry through K13
+`compact_delta`. A dense carry (the switch off, or no topology key with
+few enough domains) keeps K7. The placements are the same either way.
 """
 
 from __future__ import annotations
@@ -85,14 +93,26 @@ from ..kernels.scores import (
     taint_toleration_score,
 )
 from .state import (
+    STATE_COUNTS,
+    CompactState,
     SchedState,
     add_rows,
     apply_placement_deltas,
+    apply_placement_deltas_compact,
     build_state,
+    compact_delta_spec_dev,
+    compact_spec,
+    compact_spec_dev,
+    compress_state,
+    expand_state,
     interpod_term_index,
+    node_dom_for,
+    node_dom_small_for,
     pack_delta_entries,
+    state_nbytes,
     take_rows,
     take_rows_i32,
+    update_state_gauge,
 )
 
 # Failure-reason codes (the host maps them to the scheduler's
@@ -1025,8 +1045,8 @@ class Engine:
 
     The placement log is the functional analog of the scheduler cache:
     evicting a victim deletes its log entry (`remove_placements`), and the
-    carried state follows through a signed log delta (K7) instead of a
-    rebuild from the whole log."""
+    carried state follows through a signed log delta (K13 on a compact
+    carry, K7 on a dense one) instead of a rebuild from the whole log."""
 
     def __init__(self, tensorizer, device):
         self.tensorizer = tensorizer
@@ -1036,6 +1056,9 @@ class Engine:
         #: place same-group runs through the speculative wavefront (K9/K10,
         #: engine/wavefront.py); placements are equal either way
         self.speculate = True
+        #: carry the state between batches in the compact layout
+        #: (engine/state.py CompactState); placements are equal either way
+        self.compact = True
         #: optional [N] host bool mask — False rows are out of this cluster
         self.node_valid = None
         self.placed_group: List[int] = []
@@ -1043,7 +1066,9 @@ class Engine:
         self.placed_req: List[np.ndarray] = []
         # extended-resource placement log, keyed parallel to placed_node
         self.ext_log = {"node": [], "vg_alloc": [], "sdev_take": [], "gpu_shares": [], "gpu_mem": []}
-        self.last_state: SchedState = None
+        #: the carried state: a CompactState, or a dense SchedState when
+        #: the compact layout is off or has no tabular row
+        self.last_state = None
         self._last_vocab = None
         #: the carried state no longer reflects the log (a batch or a delta
         #: failed part-way, or a delta had no carry to apply to): the next
@@ -1070,21 +1095,53 @@ class Engine:
             tensors.alloc.shape[0],
         )
 
+    # -- compact carried-state plumbing ----------------------------------
+
+    def _active_compact_spec(self, tensors):
+        """The compaction plan when this engine carries compact state (None
+        = carry dense: the switch is off, or no topology key is tabular)."""
+        if not self.compact:
+            return None
+        spec = compact_spec(tensors)
+        return spec if spec.enabled else None
+
+    def _expand_carry(self, tensors, cstate: CompactState) -> SchedState:
+        """The dense view of a compact carry, in fresh tensors (K12)."""
+        STATE_COUNTS["expand"] += 1
+        return expand_state(compact_spec_dev(tensors, self.device), cstate,
+                            node_dom_small_for(tensors, cstate.free.shape[0], self.device))
+
+    def _store_state(self, tensors, final_state: SchedState):
+        """The carry place() stores: compressed (K11) when the compact
+        layout is active, and gauged."""
+        dense_bytes = sum(state_nbytes(final_state).values())
+        stored = final_state
+        if self._active_compact_spec(tensors) is not None:
+            STATE_COUNTS["compress"] += 1
+            stored = compress_state(compact_spec_dev(tensors, self.device), final_state)
+        update_state_gauge(stored, dense_bytes)
+        return stored
+
     def carried_state(self) -> SchedState:
-        """The engine's carried state (dense; None before the first batch)."""
-        if self.last_state is not None and self._state_dirty:
+        """The engine's carried state as a dense SchedState (None before the
+        first batch); a compact carry is expanded into fresh tensors."""
+        state = self.last_state
+        if state is not None and self._state_dirty:
             raise ValueError(
                 "carried_state(): the carry no longer reflects the placement log; "
                 "place() again (which rebuilds it from the log) before reading it"
             )
-        if self.last_state is not None and self._last_vocab != self.state_vocab(
-            self.tensorizer.freeze()
-        ):
+        if state is None:
+            return state
+        tensors = self.tensorizer.freeze()
+        if self._last_vocab != self.state_vocab(tensors):
             raise ValueError(
                 "carried_state(): the carry predates a vocabulary change; place() the "
                 "pending batch first, or rebuild from the placement log"
             )
-        return self.last_state
+        if isinstance(state, CompactState):
+            state = self._expand_carry(tensors, state)
+        return state
 
     def place(self, batch: PodBatch):
         """Schedule one batch. Returns (node index per pod [-1 = failed],
@@ -1097,7 +1154,12 @@ class Engine:
         req, pods = build_pod_arrays(batch, r)
         vocab = self.state_vocab(tensors)
         state = self.last_state
-        if state is None or self._state_dirty or self._last_vocab != vocab:
+        if state is not None and not self._state_dirty and self._last_vocab == vocab:
+            if isinstance(state, CompactState):
+                # fresh dense planes: the carry itself stays as it is until
+                # the batch has run through
+                state = self._expand_carry(tensors, state)
+        else:
             state = build_state(
                 tensors,
                 np.asarray(self.placed_group, np.int32),
@@ -1113,9 +1175,10 @@ class Engine:
                 & torch.as_tensor(np.asarray(self.node_valid, bool), device=self.device)
             )
         buf = StepBuffers(statics, state, pods, flags_from(tensors, ext))
-        # the batch updates the state in place: a failure part-way leaves it
-        # inconsistent with the log until the batch completes
-        self.last_state = state
+        # the batch updates `state` in place: a failure part-way leaves a
+        # reused dense carry inconsistent with the log (a compact carry
+        # stays intact, its expansion being fresh planes); either way the
+        # next place() rebuilds from the log, as the JAX package does
         self._state_dirty = True
         if self.speculate:
             from . import wavefront
@@ -1123,6 +1186,7 @@ class Engine:
             waves = wavefront.run_batch_waves(buf, tensors, np.asarray(batch.group), pods)
         else:
             run_batch(buf)
+        self.last_state = self._store_state(tensors, buf.state)
         nodes = buf.out_node.cpu().numpy().astype(np.int64)
         if self.speculate:
             wavefront.count_waves(waves, nodes)
@@ -1152,9 +1216,10 @@ class Engine:
     def _apply_saved_delta(self, saved: dict, sign: float) -> None:
         """Apply an eviction (sign=-1) or its undo (sign=+1) to the carried
         state in place, so preemption does not force a rebuild from the
-        placement log. With no carry to apply to (none yet, a dirty one, or
-        one of an older vocabulary) the state is marked dirty instead and
-        the next place() rebuilds it."""
+        placement log: K13 straight into a compact carry, K7 into a dense
+        one. With no carry to apply to (none yet, a dirty one, or one of an
+        older vocabulary) the state is marked dirty instead and the next
+        place() rebuilds it."""
         entries = saved["entries"]
         if self.last_state is None or self._state_dirty or not entries:
             self._state_dirty = True
@@ -1172,9 +1237,20 @@ class Engine:
             ext.gpu_dev_total.shape[1],
             sign,
         )
+        statics = statics_from(tensors, self.sched_config, self.device)
+        state = self.last_state
+        # a delta that fails part-way leaves the carry half-applied
         self._state_dirty = True
-        apply_placement_deltas(statics_from(tensors, self.sched_config, self.device),
-                               self.last_state, packed)
+        if isinstance(state, CompactState):
+            n_carry = state.free.shape[0]
+            apply_placement_deltas_compact(
+                statics, compact_delta_spec_dev(tensors, self.device),
+                node_dom_for(tensors, n_carry, self.device),
+                node_dom_small_for(tensors, n_carry, self.device), state, packed)
+            STATE_COUNTS["delta_direct"] += 1
+        else:
+            apply_placement_deltas(statics, state, packed)
+            self.last_state = self._store_state(tensors, state)
         self._state_dirty = False
 
     def remove_placements(self, indices: List[int]) -> dict:

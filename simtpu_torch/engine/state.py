@@ -15,15 +15,24 @@ by `kernels/csrc/delta_apply.cu` (K7).
 `state_from_numpy` / `state_to_numpy` carry the JAX package's `SchedState`
 fields, as numpy arrays, into the port and back — the tests feed identical
 state to both packages through them.
+
+Between batches the engine carries the state in the COMPACT layout
+(`CompactState`, the section at the end): the count rows of topology keys
+with at most DOM_SMALL domains as per-domain histograms, the other count
+rows as int32, masks as bool. K11 `compact_compress` and K12
+`compact_expand` convert between the two layouts, K13 `compact_delta`
+applies signed log deltas straight to the compact carry.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from collections import Counter
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core.tensorize import COUNT_DTYPE, MASK_DTYPE
 from ..kernels import cuda
 
 
@@ -361,3 +370,472 @@ def pack_delta_entries(entries, n_resources: int, vg_w: int, sd_w: int, gd_w: in
         sd_a[i] = sdev
         gp_a[i] = np.asarray(gpu_sh) * gpu_mem
     return (g_a, n_a, w_a, req_a, vg_a, sd_a, gp_a)
+
+
+# -- compact carried state ---------------------------------------------------
+#
+# The carried count planes are [T, N] / [Ti, N] f32, but for every topology
+# key with a small domain cardinality (key_kind == 1: zone / rack / region
+# sized keys, <= DOM_SMALL compact ids in node_dom_small) the per-node value
+# is CONSTANT within a domain: cnt[t, n] is "matching pods in node n's
+# domain", the same number for every node of the domain and 0 where the key
+# is absent. Between batches those rows travel as [Rt, D] histograms indexed
+# by node_dom_small; the other rows (kind 2, unique per node, and kind 0)
+# travel as [Rd, N] rows; integer planes are narrowed to COUNT_DTYPE and
+# masks to MASK_DTYPE (core/tensorize.py). Compression gathers one
+# representative node per (key, domain) — no reduction, so it is exact for
+# domain-constant rows, which every state update (K4, K7, K9/K10, K13)
+# keeps them; expansion is one gather through node_dom_small. Both are
+# integer-valued casts, so expand(compress(s)) == s bit for bit.
+#
+# Unlike the JAX package's functional carry, the port's kernels update the
+# dense state in place: expansion therefore writes FRESH planes, the
+# continuous ones (free, vg_free, gpu_free, sdev_free) included, so a batch
+# that fails part-way leaves the compact carry as it was.
+
+#: compact-carry events of this process (read through `state_counts()`),
+#: kept as the JAX package keeps its `state.compress` / `state.expand` /
+#: `state.delta_direct` counters
+STATE_COUNTS: Counter = Counter()
+STATE_COUNT_KEYS = ("compress", "expand", "delta_direct")
+#: the carried-state byte gauge, refreshed each time an engine stores a
+#: carry (the JAX package's `state.*` gauges)
+STATE_GAUGE: dict = {"carried_bytes": 0, "dense_bytes": 0, "compact": False, "planes": {}}
+
+
+def state_counts() -> dict:
+    """The compact-carry counters, one entry per STATE_COUNT_KEYS key."""
+    return {k: STATE_COUNTS[k] for k in STATE_COUNT_KEYS}
+
+
+def _memo(tensors, attr: str, key, build):
+    """`build()` memoized under `key` in a dict kept on the frozen tensors."""
+    cache = getattr(tensors, attr, None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(tensors, attr, cache)
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
+def _on(nt, device):
+    """A NamedTuple of tensors moved to `device`."""
+    return type(nt)(*(t.to(device) for t in nt))
+
+
+class CompactSpecDev(NamedTuple):
+    """The index arrays driving compress/expand (int32 tensors, constant per
+    tensors; `compact_spec` holds them on the CPU, `compact_spec_dev` on a
+    device)."""
+
+    t_tab: torch.Tensor  # [Rt] cnt_match rows with a kind-1 (tabular) key
+    t_dense: torch.Tensor  # [Rd] the rest (kind 0/2) — Rt + Rd == T
+    t_keys: torch.Tensor  # [Rt] topology key per tabular row
+    t_rep: torch.Tensor  # [Rt, D] representative node per domain (-1 none)
+    ip_tab: torch.Tensor  # [Rti] interpod-plane rows with a kind-1 key
+    ip_dense: torch.Tensor  # [Rdi] — Rti + Rdi == Ti
+    ip_keys: torch.Tensor  # [Rti]
+    ip_rep: torch.Tensor  # [Rti, D]
+
+
+class CompactSpec(NamedTuple):
+    """Host-side compaction plan for one frozen tensors object."""
+
+    enabled: bool  # any tabular row exists (else carry dense SchedState)
+    d: int  # histogram width (max small-domain count over kind-1 keys)
+    dev: Optional[CompactSpecDev]
+
+
+def compact_spec(tensors) -> CompactSpec:
+    """The (memoized) compaction plan: partition the cnt_match and interpod
+    plane rows by their topology key's reduction kind, and precompute one
+    representative node — the FIRST node carrying the domain id — per
+    (kind-1 key, domain) for the representative-gather compression."""
+    cached = getattr(tensors, "_compact_spec_cache", None)
+    if cached is not None:
+        return cached
+    t = int(tensors.n_terms)
+    kinds = tensors.key_kind if tensors.key_kind is not None else np.zeros(0, np.int32)
+    nds = tensors.node_dom_small
+    spec = CompactSpec(False, 1, None)
+    if t and kinds.shape[0]:
+        term_keys = np.asarray(tensors.term_topo_key[:t], np.int32)
+        tab_mask = kinds[term_keys] == 1
+        t_tab = np.flatnonzero(tab_mask).astype(np.int32)
+        t_dense = np.flatnonzero(~tab_mask).astype(np.int32)
+        if len(t_tab):
+            d = 1
+            for k in np.unique(term_keys[tab_mask]):
+                d = max(d, int(nds[k].max(initial=-1)) + 1)
+            rep = np.full((kinds.shape[0], d), -1, np.int32)
+            for k in range(kinds.shape[0]):
+                if kinds[k] != 1:
+                    continue
+                ids = nds[k]
+                valid = np.flatnonzero(ids >= 0)
+                # reversed, so the first node of each domain is written last
+                rep[k, ids[valid][::-1]] = valid[::-1].astype(np.int32)
+            ip_of = interpod_term_index(tensors)
+            ip_terms = np.flatnonzero(ip_of >= 0)  # ascending = plane row order
+            ip_tabm = tab_mask[ip_terms]
+            ip_tab = np.flatnonzero(ip_tabm).astype(np.int32)
+            ip_dense = np.flatnonzero(~ip_tabm).astype(np.int32)
+            t_keys = term_keys[t_tab]
+            ip_keys = term_keys[ip_terms[ip_tab]]
+            dev = CompactSpecDev(*(torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+                t_tab, t_dense, t_keys, rep[t_keys], ip_tab, ip_dense, ip_keys, rep[ip_keys])))
+            spec = CompactSpec(True, d, dev)
+    object.__setattr__(tensors, "_compact_spec_cache", spec)
+    return spec
+
+
+def compact_spec_dev(tensors, device) -> CompactSpecDev:
+    """compact_spec(tensors).dev on `device` (memoized per device)."""
+    return _memo(tensors, "_compact_spec_dev_cache", str(torch.device(device)),
+                 lambda: _on(compact_spec(tensors).dev, device))
+
+
+def _padded_map(plane: np.ndarray, n: int, device, min_rows: int = 0) -> torch.Tensor:
+    plane = np.asarray(plane, np.int32)
+    if plane.shape[0] < min_rows:
+        plane = np.full((min_rows, plane.shape[1]), -1, np.int32)
+    pad = n - plane.shape[1]
+    if pad:
+        plane = np.pad(plane, ((0, 0), (0, pad)), constant_values=-1)
+    return torch.from_numpy(np.ascontiguousarray(plane)).to(device)
+
+
+def node_dom_small_for(tensors, n: int, device) -> torch.Tensor:
+    """tensors.node_dom_small as an int32 tensor on `device` whose node axis
+    is padded to `n` with -1 (absent); memoized per width and device."""
+    return _memo(tensors, "_nds_pad_cache", (n, str(torch.device(device))),
+                 lambda: _padded_map(tensors.node_dom_small, n, device))
+
+
+def node_dom_for(tensors, n: int, device) -> torch.Tensor:
+    """tensors.node_dom the same way (one all -1 row when there is no key),
+    the full-domain-id companion the direct delta reads at the chosen
+    node; memoized per width and device."""
+    return _memo(tensors, "_ndom_pad_cache", (n, str(torch.device(device))),
+                 lambda: _padded_map(tensors.node_dom, n, device, min_rows=1))
+
+
+class CompactState(NamedTuple):
+    """SchedState's between-batch form: domain-tabular count planes,
+    COUNT_DTYPE integers, MASK_DTYPE masks. Field pairs (`*_tab`, `*_dense`)
+    partition the corresponding SchedState plane's rows; the continuous
+    planes (free, vg_free, gpu_free) keep their f32 form."""
+
+    free: torch.Tensor  # [N, R] f32
+    cm_tab: torch.Tensor  # [Rt, D] cnt_match tabular rows
+    cm_dense: torch.Tensor  # [Rd, N] cnt_match dense rows
+    cnt_total: torch.Tensor  # [T]
+    oa_tab: torch.Tensor  # cnt_own_anti
+    oa_dense: torch.Tensor
+    of_tab: torch.Tensor  # cnt_own_aff
+    of_dense: torch.Tensor
+    wa_tab: torch.Tensor  # w_own_aff_pref
+    wa_dense: torch.Tensor
+    wn_tab: torch.Tensor  # w_own_anti_pref
+    wn_dense: torch.Tensor
+    vg_free: torch.Tensor  # [N, V] f32
+    sdev_free: torch.Tensor  # [N, SD] bool
+    gpu_free: torch.Tensor  # [N, GD] f32
+    ports_used: torch.Tensor  # [N, P]
+    vols_any: torch.Tensor  # [N, W]
+    vols_rw: torch.Tensor  # [N, W]
+
+
+#: COUNT_DTYPE and MASK_DTYPE as torch dtypes
+_COUNT = torch.from_numpy(np.zeros(0, COUNT_DTYPE)).dtype
+_MASK = torch.from_numpy(np.zeros(0, MASK_DTYPE)).dtype
+#: (CompactState tab field, dense field, SchedState plane) of the narrowed
+#: count planes, in the order the kernels walk them
+COMPACT_PLANES = (
+    ("cm_tab", "cm_dense", "cnt_match"),
+    ("oa_tab", "oa_dense", "cnt_own_anti"),
+    ("of_tab", "of_dense", "cnt_own_aff"),
+    ("wa_tab", "wa_dense", "w_own_aff_pref"),
+    ("wn_tab", "wn_dense", "w_own_anti_pref"),
+)
+
+
+def _compress_rows(full, ids_tab, ids_dense, rep):
+    """One [rows, N] f32 plane as its ([Rt, D] histogram, [Rd, N] rows)
+    pair: a representative-node gather (domains without a node read 0) and
+    a row gather, both cast to COUNT_DTYPE (truncating, exact for counts)."""
+    tab = full.index_select(0, ids_tab.long()).gather(1, rep.clamp(min=0).long())
+    tab = torch.where(rep >= 0, tab, torch.zeros((), dtype=full.dtype, device=full.device))
+    return tab.to(_COUNT), full.index_select(0, ids_dense.long()).to(_COUNT)
+
+
+def compress_state_plain(spec: CompactSpecDev, state: SchedState) -> CompactState:
+    """Plain version of K11: the dense state in the compact layout. The
+    continuous planes move over without a copy (the dense state is dropped
+    after compression)."""
+    cuda.count_plain("compact_compress")
+    rows = {"cnt_match": (spec.t_tab, spec.t_dense, spec.t_rep)}
+    out = {}
+    for tab_f, dense_f, plane in COMPACT_PLANES:
+        ids_tab, ids_dense, rep = rows.get(plane, (spec.ip_tab, spec.ip_dense, spec.ip_rep))
+        out[tab_f], out[dense_f] = _compress_rows(getattr(state, plane), ids_tab, ids_dense, rep)
+    return CompactState(
+        free=state.free,
+        cnt_total=state.cnt_total.to(_COUNT),
+        vg_free=state.vg_free,
+        sdev_free=state.sdev_free.to(_MASK, copy=True),
+        gpu_free=state.gpu_free,
+        ports_used=state.ports_used.to(_COUNT),
+        vols_any=state.vols_any.to(_COUNT),
+        vols_rw=state.vols_rw.to(_COUNT),
+        **out,
+    )
+
+
+def _expand_rows(tab, dense, ids_tab, ids_dense, keys, nds):
+    """The [rows, N] f32 plane: one gather of each histogram row through
+    its key's node_dom_small ids (0 where the node misses the key), the
+    dense rows cast back."""
+    rows = tab.shape[0] + dense.shape[0]
+    full = torch.zeros((rows, nds.shape[1]), dtype=torch.float32, device=nds.device)
+    if tab.shape[0]:
+        idx = nds.index_select(0, keys.long())  # [Rt, N]
+        vals = tab.to(torch.float32).gather(1, idx.clamp(min=0).long())
+        full[ids_tab.long()] = torch.where(idx >= 0, vals, torch.zeros((), device=nds.device))
+    if dense.shape[0]:
+        full[ids_dense.long()] = dense.to(torch.float32)
+    return full
+
+
+def expand_state_plain(spec: CompactSpecDev, cstate: CompactState, nds: torch.Tensor) -> SchedState:
+    """Plain version of K12: the dense SchedState of a compact carry, every
+    plane a fresh tensor (the engine's kernels update it in place, and the
+    carry must survive a batch that fails part-way)."""
+    cuda.count_plain("compact_expand")
+    rows = {"cnt_match": (spec.t_tab, spec.t_dense, spec.t_keys)}
+    out = {}
+    for tab_f, dense_f, plane in COMPACT_PLANES:
+        ids_tab, ids_dense, keys = rows.get(plane, (spec.ip_tab, spec.ip_dense, spec.ip_keys))
+        out[plane] = _expand_rows(getattr(cstate, tab_f), getattr(cstate, dense_f), ids_tab,
+                                  ids_dense, keys, nds)
+    f32 = torch.float32
+    return SchedState(
+        free=cstate.free.clone(),
+        cnt_total=cstate.cnt_total.to(f32),
+        vg_free=cstate.vg_free.clone(),
+        sdev_free=cstate.sdev_free.clone(),
+        gpu_free=cstate.gpu_free.clone(),
+        ports_used=cstate.ports_used.to(f32),
+        vols_any=cstate.vols_any.to(f32),
+        vols_rw=cstate.vols_rw.to(f32),
+        **out,
+    )
+
+
+def compress_state(spec: CompactSpecDev, state: SchedState) -> CompactState:
+    """The dense state in the compact layout: K11 (`kernels/csrc/
+    compact_compress.cu`) in one launch for a state on the card, the plain
+    version for a state on the CPU."""
+    if state.free.device.type == "cpu":
+        return compress_state_plain(spec, state)
+    return CompactState(**cuda.launch_compact_compress(spec, state))
+
+
+def expand_state(spec: CompactSpecDev, cstate: CompactState, nds: torch.Tensor) -> SchedState:
+    """The dense SchedState of a compact carry, in fresh tensors: K12
+    (`kernels/csrc/compact_expand.cu`) in one launch for a carry on the
+    card, the plain version for a carry on the CPU."""
+    if cstate.free.device.type == "cpu":
+        return expand_state_plain(spec, cstate, nds)
+    return SchedState(**cuda.launch_compact_expand(spec, cstate, nds))
+
+
+# -- direct compact-delta apply ----------------------------------------------
+#
+# Preemption's evictions and restores replay small packed delta batches
+# against the carry. On a compact carry they go STRAIGHT into it, with no
+# expand -> K7 -> compress round trip: a kind-1 row is domain-constant, so
+# the dense update (add the value on every node of the chosen node's
+# domain) is ONE histogram bucket add at [row, node_dom_small[key, node]];
+# dense rows and the continuous planes take placement_delta_step's per-row
+# updates, routed through the inverse row maps below. Every count delta is
+# an integer-valued f32, so accumulating in COUNT_DTYPE equals the dense
+# f32 accumulate followed by the truncating compress cast.
+
+
+class CompactDeltaSpec(NamedTuple):
+    """Inverse row maps for scattering deltas into a CompactState: term axis
+    -> carried-plane row, -1 when the term has no row on that plane."""
+
+    t_tab_of: torch.Tensor  # [T] -> row in cm_tab, -1 if dense
+    t_dense_of: torch.Tensor  # [T] -> row in cm_dense, -1 if tabular
+    ip_tab_of: torch.Tensor  # [Ti] -> row in the *_tab interpod planes
+    ip_dense_of: torch.Tensor  # [Ti] -> row in the *_dense interpod planes
+
+
+def compact_delta_spec(tensors) -> CompactDeltaSpec:
+    """The (memoized) inverse of compact_spec's row partition, on the CPU."""
+    cached = getattr(tensors, "_compact_delta_spec_cache", None)
+    if cached is not None:
+        return cached
+    dev = compact_spec(tensors).dev
+    t = int(tensors.n_terms)
+
+    def inverse(ids, size):
+        ids = ids.numpy()
+        of = np.full(size, -1, np.int32)
+        of[ids] = np.arange(len(ids), dtype=np.int32)
+        return torch.from_numpy(of)
+
+    ti = int(dev.ip_tab.shape[0] + dev.ip_dense.shape[0])
+    spec = CompactDeltaSpec(
+        t_tab_of=inverse(dev.t_tab, t),
+        t_dense_of=inverse(dev.t_dense, t),
+        ip_tab_of=inverse(dev.ip_tab, ti),
+        ip_dense_of=inverse(dev.ip_dense, ti),
+    )
+    object.__setattr__(tensors, "_compact_delta_spec_cache", spec)
+    return spec
+
+
+def compact_delta_spec_dev(tensors, device) -> CompactDeltaSpec:
+    """compact_delta_spec(tensors) on `device` (memoized per device)."""
+    return _memo(tensors, "_compact_delta_spec_dev_cache", str(torch.device(device)),
+                 lambda: _on(compact_delta_spec(tensors), device))
+
+
+def compact_delta_step(statics, dspec: CompactDeltaSpec, ndom, nds, cstate: CompactState, entry) -> None:
+    """placement_delta_step retargeted at the compact carry, IN PLACE: the
+    same continuous-plane updates (cast to the narrowed dtypes), topology
+    counts as one histogram bucket add per tabular row and same-domain row
+    adds for dense rows. `ndom` / `nds` are node_dom / node_dom_small at
+    the carry's node width."""
+    g, node, w, req, vg_alloc, sdev_take, gpu_vec = entry
+    g, safe, w = int(g), max(int(node), 0), float(w)
+    f32, cd = torch.float32, _COUNT
+    cstate.free[safe] += -req * w
+    if cstate.ports_used.shape[1]:
+        cstate.ports_used[safe] += (statics.ports_req[g].to(f32) * w).to(cd)
+    if cstate.vols_any.shape[1]:
+        v_rw = statics.vol_rw_req[g]
+        v_present = v_rw | statics.vol_ro_req[g] | statics.vol_att_req[g]
+        cstate.vols_any[safe] += (v_present.to(f32) * w).to(cd)
+        cstate.vols_rw[safe] += (v_rw.to(f32) * w).to(cd)
+    if cstate.vg_free.shape[1]:
+        cstate.vg_free[safe] += -vg_alloc * w
+    if cstate.sdev_free.shape[1]:
+        row = cstate.sdev_free[safe]
+        cstate.sdev_free[safe] = row & ~sdev_take if w > 0 else row | sdev_take
+    if cstate.gpu_free.shape[1]:
+        cstate.gpu_free[safe] += -gpu_vec * w
+    if not statics.g_terms.shape[1] or w == 0:
+        return
+    terms_g = statics.g_terms[g]
+    tvalid = terms_g >= 0
+    tsafe = terms_g.clamp(min=0).long()
+    keys = torch.where(tvalid, statics.term_topo[tsafe], 0).clamp(min=0).long()
+    # the chosen node's domain under each term's key, in the full (node_dom)
+    # and the small (node_dom_small) numbering: the small id is the bucket
+    dom_ch = torch.where(tvalid, ndom[keys, safe], -1)
+    ds_ch = torch.where(tvalid, nds[keys, safe], -1)
+    valid_ch = dom_ch >= 0
+    wv = torch.where(valid_ch, w, 0.0)
+    s_val = statics.s_match[g].to(f32) * wv
+    cstate.cnt_total.index_add_(0, tsafe, s_val.to(cd))
+    ip_eff = torch.where(tvalid, statics.ip_of[tsafe], -1)
+    ip_vals = (
+        ("oa_tab", "oa_dense", statics.a_anti_req[g].to(f32)),
+        ("of_tab", "of_dense", statics.a_aff_req[g].to(f32)),
+        ("wa_tab", "wa_dense", statics.w_aff_pref[g]),
+        ("wn_tab", "wn_dense", statics.w_anti_pref[g]),
+    )
+    bucket = ds_ch.clamp(min=0).long()
+    if cstate.cm_tab.shape[0]:
+        t_row = torch.where(tvalid, dspec.t_tab_of[tsafe], -1)
+        ok = (t_row >= 0) & (ds_ch >= 0) & valid_ch
+        cstate.cm_tab.index_put_((t_row.clamp(min=0).long(), bucket),
+                                 torch.where(ok, s_val, 0.0).to(cd), accumulate=True)
+    if cstate.oa_tab.shape[0]:
+        ip_row = torch.where(ip_eff >= 0, dspec.ip_tab_of[ip_eff.clamp(min=0).long()], -1)
+        ok = (ip_row >= 0) & (ds_ch >= 0) & valid_ch
+        for tab_f, _, vals in ip_vals:
+            getattr(cstate, tab_f).index_put_((ip_row.clamp(min=0).long(), bucket),
+                                              torch.where(ok, vals * wv, 0.0).to(cd), accumulate=True)
+    if cstate.cm_dense.shape[0] or cstate.oa_dense.shape[0]:
+        # dense rows keep placement_delta_step's same-domain compare
+        dom_sub = ndom.index_select(0, keys)  # [Tc, N]
+        same = (dom_sub >= 0) & tvalid[:, None] & (dom_sub == dom_ch[:, None]) & valid_ch[:, None]
+        inc = torch.where(same, w, 0.0)
+        if cstate.cm_dense.shape[0]:
+            d_row = torch.where(tvalid, dspec.t_dense_of[tsafe], -1)
+            add_rows(cstate.cm_dense, d_row, statics.s_match[g].to(f32)[:, None] * inc)
+        if cstate.oa_dense.shape[0]:
+            ipd_row = torch.where(ip_eff >= 0, dspec.ip_dense_of[ip_eff.clamp(min=0).long()], -1)
+            for _, dense_f, vals in ip_vals:
+                add_rows(getattr(cstate, dense_f), ipd_row, vals[:, None] * inc)
+
+
+def apply_placement_deltas_compact_plain(statics, dspec, ndom, nds, cstate: CompactState,
+                                         entries) -> None:
+    """Plain version of K13: `compact_delta_step` over the packed entries,
+    in order (w = 0 rows are exact no-ops)."""
+    cuda.count_plain("compact_delta")
+    dev = cstate.free.device
+    g_a, n_a, w_a, req_a, vg_a, sd_a, gp_a = (torch.as_tensor(np.asarray(x), device=dev)
+                                              for x in entries)
+    for e in range(len(g_a)):
+        if float(w_a[e]) == 0.0:
+            continue
+        compact_delta_step(statics, dspec, ndom, nds, cstate,
+                           (g_a[e], n_a[e], w_a[e], req_a[e], vg_a[e], sd_a[e], gp_a[e]))
+
+
+def apply_placement_deltas_compact(statics, dspec, ndom, nds, cstate: CompactState, entries) -> None:
+    """Fold packed entries (`pack_delta_entries`) into a compact carry IN
+    PLACE: K13 (`kernels/csrc/compact_delta.cu`) in one launch for a carry
+    on the card, the plain version for a carry on the CPU."""
+    if cstate.free.device.type == "cpu":
+        apply_placement_deltas_compact_plain(statics, dspec, ndom, nds, cstate, entries)
+    else:
+        cuda.launch_compact_delta(statics, dspec, ndom, nds, cstate, entries)
+
+
+def ensure_dense(state, tensors):
+    """The dense SchedState view of a free-standing carried state (a
+    CompactState is expanded through the memoized spec; a dense state
+    passes through). For an engine's carry use `Engine.carried_state()`,
+    which also checks that the carry is current."""
+    if not isinstance(state, CompactState):
+        return state
+    device = state.free.device
+    return expand_state(compact_spec_dev(tensors, device), state,
+                        node_dom_small_for(tensors, state.free.shape[0], device))
+
+
+def diff_state_planes(a, b) -> list:
+    """Names of the planes whose values differ between two DENSE states,
+    each tagged with its max absolute difference (or the shape mismatch)."""
+    out = []
+    for name, x, y in zip(a._fields, a, b):
+        x = np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+        y = np.asarray(y.detach().cpu() if isinstance(y, torch.Tensor) else y)
+        if x.shape != y.shape:
+            out.append(f"{name}: shape {x.shape} vs {y.shape}")
+        elif x.size and not np.array_equal(x, y):
+            delta = np.max(np.abs(x.astype(np.float64) - y.astype(np.float64)))
+            out.append(f"{name}: max|d|={float(delta):g}")
+    return out
+
+
+def state_nbytes(state) -> dict:
+    """Per-plane byte sizes of a carried state (SchedState or CompactState),
+    from shapes and dtypes only."""
+    return {name: int(t.numel()) * t.element_size() for name, t in zip(state._fields, state)}
+
+
+def update_state_gauge(stored, dense_bytes: int) -> None:
+    """Refresh STATE_GAUGE for the carry an engine just stored."""
+    planes = state_nbytes(stored)
+    STATE_GAUGE.update(carried_bytes=sum(planes.values()), dense_bytes=int(dense_bytes),
+                       compact=isinstance(stored, CompactState), planes=planes)

@@ -14,12 +14,14 @@
 // vg_free, sdev_free and gpu_free, and its entry of every [T,N] count and
 // own-plane row — and walks the entries in order. The [T] cnt_total is
 // owned by thread 0 of one extra block, which walks the entries in order
-// too. Each plane element has one writer: no atomics.
+// too. Each plane element has one writer: no atomics. The chosen node's
+// rows take delta_rows.cuh's update (shared with K13 compact_delta).
 // sdev_free is boolean: w > 0 clears the taken devices, w < 0 sets them.
 //
 // Bound: bytes — each entry's rows and the touched plane columns are read
 // and written once; a preemption wave applies a few hundred entries, so
 // one launch's latency dominates.
+#include "delta_rows.cuh"
 #include "step_ctx.cuh"
 
 __global__ void delta_apply_kernel(DeltaCtx x) {
@@ -44,44 +46,16 @@ __global__ void delta_apply_kernel(DeltaCtx x) {
     return;
   }
   if (n >= N) return;
+  const DeltaRows<float> rows{x.r, x.p_ports, x.w, x.v, x.sd, x.gd, x.req, x.vg, x.sd_take, x.gp,
+                              x.ports_req, x.vol_rw_req, x.vol_ro_req, x.vol_att_req, x.free,
+                              x.ports_used, x.vols_any, x.vols_rw, x.vg_free, x.sdev_free,
+                              x.gpu_free};
   for (int e = 0; e < x.e; ++e) {
     const float w = x.wgt[e];
     if (w == 0.0f) continue;
     const int g = x.g[e];
     const int c = x.node[e] < 0 ? 0 : x.node[e];
-    if (n == c) {
-      const size_t er = static_cast<size_t>(e);
-      for (int r = 0; r < x.r; ++r) {
-        float& f = x.free[static_cast<size_t>(c) * x.r + r];
-        f = f + (-x.req[er * x.r + r]) * w;
-      }
-      for (int p = 0; p < x.p_ports; ++p) {
-        float& u = x.ports_used[static_cast<size_t>(c) * x.p_ports + p];
-        u = u + (x.ports_req[static_cast<size_t>(g) * x.p_ports + p] ? 1.0f : 0.0f) * w;
-      }
-      for (int v = 0; v < x.w; ++v) {
-        const size_t gw = static_cast<size_t>(g) * x.w + v;
-        const bool rw = x.vol_rw_req[gw];
-        const bool present = rw || x.vol_ro_req[gw] || x.vol_att_req[gw];
-        float& any = x.vols_any[static_cast<size_t>(c) * x.w + v];
-        float& rws = x.vols_rw[static_cast<size_t>(c) * x.w + v];
-        any = any + (present ? 1.0f : 0.0f) * w;
-        rws = rws + (rw ? 1.0f : 0.0f) * w;
-      }
-      for (int v = 0; v < x.v; ++v) {
-        float& f = x.vg_free[static_cast<size_t>(c) * x.v + v];
-        f = f + (-x.vg[er * x.v + v]) * w;
-      }
-      for (int d = 0; d < x.sd; ++d) {
-        uint8_t& f = x.sdev_free[static_cast<size_t>(c) * x.sd + d];
-        const bool take = x.sd_take[er * x.sd + d] != 0;
-        f = (w > 0.0f ? (f && !take) : (f || take)) ? 1 : 0;
-      }
-      for (int d = 0; d < x.gd; ++d) {
-        float& f = x.gpu_free[static_cast<size_t>(c) * x.gd + d];
-        f = f + (-x.gp[er * x.gd + d]) * w;
-      }
-    }
+    if (n == c) delta_node_rows(rows, e, g, c, w);
     // same-domain counts: node n gains the entry's incidence on each of
     // the group's terms whose domain it shares with the entry's node
     for (int t = 0; t < x.tc; ++t) {

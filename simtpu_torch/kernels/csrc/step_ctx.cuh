@@ -1,7 +1,8 @@
 // The argument blocks of the hand-written kernels: `StepCtx`, shared by
 // the six per-pod kernels (K1-K6) of the serial scheduling step and the
 // two wave kernels (K9, K10), `WaveCtx`, the wave kernels' run and
-// scratch, and `DeltaCtx`, the signed log-delta kernel's (K7). Mirrored
+// scratch, `DeltaCtx`, the signed log-delta kernel's (K7), and
+// `CompactCtx`, the compact carried state's kernels' (K11-K13). Mirrored
 // field for field by the ctypes structures of the same names in
 // simtpu_torch/kernels/cuda.py; passed to every kernel by value.
 //
@@ -200,5 +201,107 @@ struct DeltaCtx {
   float* vols_any;        // [N, W]
   float* vols_rw;         // [N, W]
 };
+
+// The compact carried state's kernels (K11 compact_compress, K12
+// compact_expand, K13 compact_delta): one block for the three, each
+// reading the fields it needs (the others are null). The compact layout is
+// engine/state.py CompactState: [Rt, D] histograms for the count rows of
+// topology keys with at most DOM_SMALL domains, [Rd, N] rows for the rest,
+// count planes in int32.
+struct CompactCtx {
+  int n, t, ti, rt, rd, rti, rdi, d, k, r, p, w, v, sd, gd, tc, e, pad_;
+  // the row partition (engine/state.py CompactSpecDev) and node_dom_small
+  const int* t_tab;     // [Rt] cnt_match rows with a tabular key
+  const int* t_dense;   // [Rd] the other cnt_match rows
+  const int* t_keys;    // [Rt] topology key per tabular row
+  const int* t_rep;     // [Rt, D] representative node per domain, -1 none
+  const int* ip_tab;    // [Rti] own-plane rows with a tabular key
+  const int* ip_dense;  // [Rdi]
+  const int* ip_keys;   // [Rti]
+  const int* ip_rep;    // [Rti, D]
+  const int* nds;       // [K, N] node_dom_small, -1 where the node misses the key
+  // K13: the inverse row maps (CompactDeltaSpec) and node_dom
+  const int* t_tab_of;     // [T] row in cm_tab, -1 if dense
+  const int* t_dense_of;   // [T] row in cm_dense, -1 if tabular
+  const int* ip_tab_of;    // [Ti]
+  const int* ip_dense_of;  // [Ti]
+  const int* node_dom;     // [K, N]
+  // K13: packed log entries [E] and the group statics, as DeltaCtx
+  const int* g;
+  const int* node;
+  const float* wgt;
+  const float* req;           // [E, R]
+  const float* vg;            // [E, V]
+  const uint8_t* sd_take;     // [E, SD]
+  const float* gp;            // [E, GD]
+  const uint8_t* ports_req;   // [G, P]
+  const uint8_t* vol_rw_req;  // [G, W]
+  const uint8_t* vol_ro_req;  // [G, W]
+  const uint8_t* vol_att_req; // [G, W]
+  const int* term_topo;       // [T]
+  const int* ip_of;           // [T]
+  const int* g_terms;         // [G, Tc]
+  const uint8_t* s_match;     // [G, Tc]
+  const uint8_t* a_aff_req;   // [G, Tc]
+  const uint8_t* a_anti_req;  // [G, Tc]
+  const float* w_aff_pref;    // [G, Tc]
+  const float* w_anti_pref;   // [G, Tc]
+  // the dense planes (SchedState): K11 reads them, K12 writes them
+  float* free;            // [N, R]
+  float* cnt_match;       // [T, N]
+  float* cnt_total;       // [T]
+  float* cnt_own_anti;    // [Ti, N]
+  float* cnt_own_aff;     // [Ti, N]
+  float* w_own_aff_pref;  // [Ti, N]
+  float* w_own_anti_pref; // [Ti, N]
+  float* vg_free;         // [N, V]
+  uint8_t* sdev_free;     // [N, SD]
+  float* gpu_free;        // [N, GD]
+  float* ports_used;      // [N, P]
+  float* vols_any;        // [N, W]
+  float* vols_rw;         // [N, W]
+  // the compact planes (CompactState): K11 writes them, K12 reads them,
+  // K13 updates them in place
+  float* c_free;          // [N, R]
+  int* cm_tab;            // [Rt, D]
+  int* cm_dense;          // [Rd, N]
+  int* c_cnt_total;       // [T]
+  int* oa_tab;            // [Rti, D] cnt_own_anti
+  int* oa_dense;          // [Rdi, N]
+  int* of_tab;            // cnt_own_aff
+  int* of_dense;
+  int* wa_tab;            // w_own_aff_pref
+  int* wa_dense;
+  int* wn_tab;            // w_own_anti_pref
+  int* wn_dense;
+  float* c_vg_free;       // [N, V]
+  uint8_t* c_sdev_free;   // [N, SD]
+  float* c_gpu_free;      // [N, GD]
+  int* c_ports_used;      // [N, P]
+  int* c_vols_any;        // [N, W]
+  int* c_vols_rw;         // [N, W]
+};
+
+// The five count planes of both layouts, in CompactState order (cnt_match,
+// cnt_own_anti, cnt_own_aff, w_own_aff_pref, w_own_anti_pref), with the
+// row partition each one follows.
+struct CountPlane {
+  float* full;
+  int* tab;
+  int* dense;
+  int rt, rd;
+  const int* ids_tab;
+  const int* ids_dense;
+  const int* keys;
+  const int* rep;
+};
+
+__device__ inline CountPlane count_plane(const CompactCtx& x, int q) {
+  float* full[5] = {x.cnt_match, x.cnt_own_anti, x.cnt_own_aff, x.w_own_aff_pref, x.w_own_anti_pref};
+  int* tab[5] = {x.cm_tab, x.oa_tab, x.of_tab, x.wa_tab, x.wn_tab};
+  int* dense[5] = {x.cm_dense, x.oa_dense, x.of_dense, x.wa_dense, x.wn_dense};
+  if (q == 0) return {full[0], tab[0], dense[0], x.rt, x.rd, x.t_tab, x.t_dense, x.t_keys, x.t_rep};
+  return {full[q], tab[q], dense[q], x.rti, x.rdi, x.ip_tab, x.ip_dense, x.ip_keys, x.ip_rep};
+}
 
 static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

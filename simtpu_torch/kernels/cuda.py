@@ -3,7 +3,9 @@
 K1-K6 make up the per-pod scheduling step (`engine/scan.py`), K7 applies
 signed placement-log deltas (`engine/state.py`), K8 is the placement
 auditor's bulk pass (`kernels/audit.py`), K9/K10 place a whole same-group
-run of pods in one launch (`engine/wavefront.py`). The sources live in
+run of pods in one launch (`engine/wavefront.py`), K11-K13 compress,
+expand and update the compact carried state (`engine/state.py`). The
+sources live in
 `kernels/csrc/` (one `.cu` per kernel; the argument blocks in
 `step_ctx.cuh`, the per-node device code that K1-K6 and K9/K10 share in
 the other `.cuh` headers). On first use each source is compiled by `nvcc` for
@@ -37,11 +39,12 @@ import torch
 KERNELS = (
     "filter_pod", "topology_pod", "score_argmax_pod", "commit_pod",
     "storage_pod", "gpu_pod", "delta_apply", "audit_bulk", "wave_lean", "wave_hard",
+    "compact_compress", "compact_expand", "compact_delta",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
-WAVE_KERNELS = KERNELS[8:]
+WAVE_KERNELS = KERNELS[8:10]
 #: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
 MAX_EXT = 32
 #: K9's carried [N] rows (step_ctx.cuh WAVE_ROWS)
@@ -433,6 +436,223 @@ def launch_delta(statics, state, packed) -> None:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel delta_apply failed to launch: {msg} ({err})")
     LAUNCHES["delta_apply"] += 1
+
+
+_COMPACT_INT_FIELDS = ("n", "t", "ti", "rt", "rd", "rti", "rdi", "d", "k", "r", "p", "w", "v",
+                       "sd", "gd", "tc", "e", "pad_")
+# (field, owner, attribute, dtype) in step_ctx.cuh CompactCtx order; a
+# launch fills the fields of the owners it is given and leaves the rest null
+_COMPACT_PTR_FIELDS = (
+    *((f, "spec", f, torch.int32) for f in ("t_tab", "t_dense", "t_keys", "t_rep", "ip_tab",
+                                             "ip_dense", "ip_keys", "ip_rep")),
+    ("nds", "nds", "nds", torch.int32),
+    *((f, "dspec", f, torch.int32) for f in ("t_tab_of", "t_dense_of", "ip_tab_of", "ip_dense_of")),
+    ("node_dom", "ndom", "node_dom", torch.int32),
+    *((f, "entries", f, dt) for f, _, dt in _DELTA_PTR_FIELDS[:7]),
+    *((f, "statics", f, dt) for f, _, dt in _DELTA_PTR_FIELDS[7:11]),
+    *((f, "statics", f, dt) for f, _, dt in _DELTA_PTR_FIELDS[12:20]),
+    ("free", "dense", "free", torch.float32),
+    ("cnt_match", "dense", "cnt_match", torch.float32),
+    ("cnt_total", "dense", "cnt_total", torch.float32),
+    ("cnt_own_anti", "dense", "cnt_own_anti", torch.float32),
+    ("cnt_own_aff", "dense", "cnt_own_aff", torch.float32),
+    ("w_own_aff_pref", "dense", "w_own_aff_pref", torch.float32),
+    ("w_own_anti_pref", "dense", "w_own_anti_pref", torch.float32),
+    ("vg_free", "dense", "vg_free", torch.float32),
+    ("sdev_free", "dense", "sdev_free", torch.bool),
+    ("gpu_free", "dense", "gpu_free", torch.float32),
+    ("ports_used", "dense", "ports_used", torch.float32),
+    ("vols_any", "dense", "vols_any", torch.float32),
+    ("vols_rw", "dense", "vols_rw", torch.float32),
+    ("c_free", "compact", "free", torch.float32),
+    ("cm_tab", "compact", "cm_tab", torch.int32),
+    ("cm_dense", "compact", "cm_dense", torch.int32),
+    ("c_cnt_total", "compact", "cnt_total", torch.int32),
+    *((f, "compact", f, torch.int32) for f in ("oa_tab", "oa_dense", "of_tab", "of_dense", "wa_tab",
+                                                "wa_dense", "wn_tab", "wn_dense")),
+    ("c_vg_free", "compact", "vg_free", torch.float32),
+    ("c_sdev_free", "compact", "sdev_free", torch.bool),
+    ("c_gpu_free", "compact", "gpu_free", torch.float32),
+    ("c_ports_used", "compact", "ports_used", torch.int32),
+    ("c_vols_any", "compact", "vols_any", torch.int32),
+    ("c_vols_rw", "compact", "vols_rw", torch.int32),
+)
+#: SchedState's fields (engine/state.py), in order
+DENSE_FIELDS = ("free", "cnt_match", "cnt_total", "cnt_own_anti", "cnt_own_aff", "w_own_aff_pref",
+                "w_own_anti_pref", "vg_free", "sdev_free", "gpu_free", "ports_used", "vols_any",
+                "vols_rw")
+
+
+class CompactCtx(ctypes.Structure):
+    """ctypes mirror of `struct CompactCtx` in csrc/step_ctx.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in _COMPACT_INT_FIELDS] + [
+        (f, ctypes.c_void_p) for f, _, _, _ in _COMPACT_PTR_FIELDS
+    ]
+
+
+def make_compact_ctx(device, owners: dict, dims: dict, want: dict) -> CompactCtx:
+    """The compact kernels' argument block: `owners` maps an owner name of
+    _COMPACT_PTR_FIELDS to a mapping of its tensors (owners not given stay
+    null); every tensor's device, dtype and contiguity is checked, and the
+    shapes in `want` (field -> shape)."""
+    tensors = {
+        f: _checked(f"{owner}.{attr}", owners[owner][attr], device, dtype)
+        for f, owner, attr, dtype in _COMPACT_PTR_FIELDS if owner in owners
+    }
+    _check_shapes(tensors, want)
+    return CompactCtx(**dims, **{f: t.data_ptr() for f, t in tensors.items()})
+
+
+def _compact_dims(spec, n: int, d: int, t: int, ti: int, widths) -> dict:
+    r, p, w, v, sd, gd = widths
+    return dict(n=n, t=t, ti=ti, rt=spec.t_tab.shape[0], rd=spec.t_dense.shape[0],
+                rti=spec.ip_tab.shape[0], rdi=spec.ip_dense.shape[0], d=d, r=r, p=p, w=w, v=v,
+                sd=sd, gd=gd)
+
+
+def _spec_shapes(spec, d: int) -> dict:
+    rt, rd, rti, rdi = (x.shape[0] for x in (spec.t_tab, spec.t_dense, spec.ip_tab, spec.ip_dense))
+    return {"t_dense": (rd,), "t_keys": (rt,), "t_rep": (rt, d), "ip_dense": (rdi,),
+            "ip_keys": (rti,), "ip_rep": (rti, d)}
+
+
+def _compact_shapes(dims: dict) -> dict:
+    n, d = dims["n"], dims["d"]
+    return {"c_free": (n, dims["r"]), "cm_tab": (dims["rt"], d), "cm_dense": (dims["rd"], n),
+            "c_cnt_total": (dims["t"],),
+            **{f: (dims["rti"], d) for f in ("oa_tab", "of_tab", "wa_tab", "wn_tab")},
+            **{f: (dims["rdi"], n) for f in ("oa_dense", "of_dense", "wa_dense", "wn_dense")},
+            "c_vg_free": (n, dims["v"]), "c_sdev_free": (n, dims["sd"]),
+            "c_gpu_free": (n, dims["gd"]), "c_ports_used": (n, dims["p"]),
+            "c_vols_any": (n, dims["w"]), "c_vols_rw": (n, dims["w"])}
+
+
+def _dense_shapes(dims: dict) -> dict:
+    n = dims["n"]
+    return {"free": (n, dims["r"]), "cnt_match": (dims["t"], n), "cnt_total": (dims["t"],),
+            **{f: (dims["ti"], n) for f in ("cnt_own_anti", "cnt_own_aff", "w_own_aff_pref",
+                                            "w_own_anti_pref")},
+            "vg_free": (n, dims["v"]), "sdev_free": (n, dims["sd"]), "gpu_free": (n, dims["gd"]),
+            "ports_used": (n, dims["p"]), "vols_any": (n, dims["w"]), "vols_rw": (n, dims["w"])}
+
+
+def _launch_compact(name: str, ctx: CompactCtx, device) -> None:
+    libs = build()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+def compress_ctx(spec, state):
+    """K11's argument block for the dense `state` (an engine/state.py
+    SchedState) under `spec` (a CompactSpecDev on the same device), and
+    CompactState's fields: the narrowed planes allocated here for the
+    kernel to write, free / vg_free / gpu_free the dense tensors themselves."""
+    device = state.free.device
+    n = state.free.shape[0]
+    d = spec.t_rep.shape[1]
+    widths = (state.free.shape[1], state.ports_used.shape[1], state.vols_any.shape[1],
+              state.vg_free.shape[1], state.sdev_free.shape[1], state.gpu_free.shape[1])
+    dims = _compact_dims(spec, n, d, state.cnt_match.shape[0], state.cnt_own_anti.shape[0], widths)
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    out = {
+        "free": state.free, "cm_tab": empty(dims["rt"], d), "cm_dense": empty(dims["rd"], n),
+        "cnt_total": empty(dims["t"]),
+        **{f: empty(dims["rti"], d) for f in ("oa_tab", "of_tab", "wa_tab", "wn_tab")},
+        **{f: empty(dims["rdi"], n) for f in ("oa_dense", "of_dense", "wa_dense", "wn_dense")},
+        "vg_free": state.vg_free, "sdev_free": empty(n, dims["sd"], dtype=torch.bool),
+        "gpu_free": state.gpu_free, "ports_used": empty(n, dims["p"]),
+        "vols_any": empty(n, dims["w"]), "vols_rw": empty(n, dims["w"]),
+    }
+    ctx = make_compact_ctx(device, {"spec": spec._asdict(), "dense": state._asdict(), "compact": out},
+                           dims, {**_spec_shapes(spec, d), **_dense_shapes(dims), **_compact_shapes(dims)})
+    return ctx, out
+
+
+def expand_ctx(spec, cstate, nds):
+    """K12's argument block for the compact carry `cstate` under `spec`,
+    node_dom_small `nds` [K, N], and SchedState's fields, every plane
+    allocated here for the kernel to write."""
+    device = cstate.free.device
+    n = cstate.free.shape[0]
+    d = spec.t_rep.shape[1]
+    t = cstate.cnt_total.shape[0]
+    ti = cstate.oa_tab.shape[0] + cstate.oa_dense.shape[0]
+    widths = (cstate.free.shape[1], cstate.ports_used.shape[1], cstate.vols_any.shape[1],
+              cstate.vg_free.shape[1], cstate.sdev_free.shape[1], cstate.gpu_free.shape[1])
+    dims = _compact_dims(spec, n, d, t, ti, widths)
+    dims["k"] = nds.shape[0]
+    shapes = _dense_shapes(dims)
+    out = {f: torch.empty(shapes[f], dtype=torch.bool if f == "sdev_free" else torch.float32,
+                          device=device) for f in DENSE_FIELDS}
+    ctx = make_compact_ctx(device, {"spec": spec._asdict(), "nds": {"nds": nds},
+                                    "compact": cstate._asdict(), "dense": out}, dims,
+                           {**_spec_shapes(spec, d), "nds": (dims["k"], n), **shapes,
+                            **_compact_shapes(dims)})
+    return ctx, out
+
+
+def delta_ctx(statics, dspec, ndom, nds, cstate, packed):
+    """K13's argument block for folding the packed entries
+    (`engine/state.py pack_delta_entries`) into the compact carry `cstate`;
+    `dspec` is its CompactDeltaSpec, `ndom` / `nds` node_dom and
+    node_dom_small at the carry's width. Returns (block, the entries on the
+    device), which the caller keeps alive until the launch is enqueued."""
+    device = cstate.free.device
+    names = ("g", "node", "wgt", "req", "vg", "sd_take", "gp")
+    entries = {
+        name: torch.as_tensor(np.ascontiguousarray(arr), device=device)
+        for name, arr in zip(names, packed)
+    }
+    n, r = cstate.free.shape
+    t = cstate.cnt_total.shape[0]
+    e = entries["g"].shape[0]
+    dims = dict(n=n, t=t, ti=dspec.ip_tab_of.shape[0], rt=cstate.cm_tab.shape[0],
+                rd=cstate.cm_dense.shape[0], rti=cstate.oa_tab.shape[0], rdi=cstate.oa_dense.shape[0],
+                d=cstate.cm_tab.shape[1], k=ndom.shape[0], r=r, p=cstate.ports_used.shape[1],
+                w=cstate.vols_any.shape[1], v=cstate.vg_free.shape[1], sd=cstate.sdev_free.shape[1],
+                gd=cstate.gpu_free.shape[1], tc=statics.g_terms.shape[1], e=e)
+    ctx = make_compact_ctx(
+        device,
+        {"dspec": dspec._asdict(), "nds": {"nds": nds}, "ndom": {"node_dom": ndom}, "entries": entries,
+         "statics": statics._asdict(), "compact": cstate._asdict()},
+        dims,
+        {"nds": (dims["k"], n), "node_dom": (dims["k"], n), "t_tab_of": (t,), "t_dense_of": (t,),
+         "ip_dense_of": (dims["ti"],), "node": (e,), "wgt": (e,), "req": (e, r),
+         "vg": (e, dims["v"]), "sd_take": (e, dims["sd"]), "gp": (e, dims["gd"]),
+         **_compact_shapes(dims)},
+    )
+    return ctx, entries
+
+
+def launch_compact_compress(spec, state) -> dict:
+    """K11 (see compress_ctx) in one launch on the current stream; returns
+    CompactState's fields."""
+    ctx, out = compress_ctx(spec, state)
+    _launch_compact("compact_compress", ctx, state.free.device)
+    return out
+
+
+def launch_compact_expand(spec, cstate, nds) -> dict:
+    """K12 (see expand_ctx) in one launch on the current stream; returns
+    SchedState's fields, every plane a fresh tensor."""
+    ctx, out = expand_ctx(spec, cstate, nds)
+    _launch_compact("compact_expand", ctx, cstate.free.device)
+    return out
+
+
+def launch_compact_delta(statics, dspec, ndom, nds, cstate, packed) -> None:
+    """K13 (see delta_ctx): the entries folded into `cstate` in place, in
+    one launch on the current stream."""
+    ctx, entries = delta_ctx(statics, dspec, ndom, nds, cstate, packed)
+    _launch_compact("compact_delta", ctx, cstate.free.device)
 
 
 def launch_noop(device) -> None:

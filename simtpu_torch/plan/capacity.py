@@ -25,8 +25,9 @@ unschedulable are skipped in the fallback. With the caps at their default
 100 the fallback can never trigger.
 
 Every candidate is one `simulate(audit=True)` on the serial engine (the
-speculative wavefront on), on the plan's device. The auditor gates the
-winner: an audit-dirty winner is re-simulated with the wavefront off —
+speculative wavefront and the compact carry on), on the plan's device. The
+auditor gates the winner: an audit-dirty winner is re-simulated with the
+wavefront and the compact carry off —
 never the engine config whose answer just failed its audit — and the
 certified re-run ships with the divergence record. The bulk rounds engine and the
 incremental planner, which the JAX package selects for large problems, are
@@ -60,6 +61,7 @@ from ..core.quantity import parse_quantity
 from ..device import resolve_device
 from ..engine import wavefront
 from ..engine.scan import Engine
+from ..engine.state import STATE_GAUGE, state_counts
 from ..io.cluster import (
     create_cluster_resource_from_client,
     create_cluster_resource_from_cluster_config,
@@ -221,9 +223,11 @@ def meet_resource_requests(
 
 
 def _pod_at_a_time(tensorizer, device) -> Engine:
-    """The audit fallback's engine: the per-pod kernels only."""
+    """The audit fallback's engine: the per-pod kernels only, the wavefront
+    off and the dense carry."""
     eng = Engine(tensorizer, device)
     eng.speculate = False
+    eng.compact = False
     return eng
 
 
@@ -276,7 +280,7 @@ def plan_capacity(
         trial = ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
         trial.nodes = list(cluster.nodes) + new_fake_nodes(new_node, i)
         # the divergence-safe fallback's engine: pod-at-a-time, the
-        # wavefront off
+        # wavefront off, the dense carry
         factory = _pod_at_a_time if serial_exact else Engine
         built: List[Engine] = []
 
@@ -297,6 +301,7 @@ def plan_capacity(
         rec: Dict[str, object] = {
             "count": i, "fallback": serial_exact, "wall_s": time.perf_counter() - t0,
             "speculate": all(e.speculate for e in built),
+            "compact": all(e.compact for e in built),
         }
         if result.audit is not None:
             rec["audit_wall_s"] = result.audit.wall_s
@@ -636,6 +641,7 @@ class Applier:
         device = resolve_device(self.opts.device)
         t0 = time.perf_counter()
         waves0 = wavefront.wave_counts()
+        counts0 = state_counts()
         plan = plan_capacity(
             cluster,
             apps,
@@ -651,6 +657,7 @@ class Applier:
         timings["plan"] = time.perf_counter() - t0
         plan.timings = timings
         speculated = all(c["speculate"] for c in plan.candidates)
+        counts = state_counts()
         plan.engine = {
             "search": search,
             "bulk": False,
@@ -663,6 +670,21 @@ class Applier:
             "speculate": speculated,
             "wave_heavy": speculated,
             "wavefront": {k: v - waves0[k] for k, v in wavefront.wave_counts().items()},
+            # the carried state: `compact` is what the final carry was (not
+            # the engines' switch, which a problem with no tabular key
+            # overrides); the compact-carry counts over this plan; the
+            # final carry's bytes beside the dense layout's
+            "compact": STATE_GAUGE["compact"],
+            "delta_direct": {
+                "applied": counts["delta_direct"] - counts0["delta_direct"],
+                "expand": counts["expand"] - counts0["expand"],
+                "compress": counts["compress"] - counts0["compress"],
+            },
+            "state_bytes": {
+                "carried_bytes": STATE_GAUGE["carried_bytes"],
+                "dense_bytes": STATE_GAUGE["dense_bytes"],
+                "planes": dict(STATE_GAUGE["planes"]),
+            },
             # the independent placement audit of the shipped candidate:
             # counters, plus fallback/divergence records when the primary
             # answer failed certification; {"enabled": False} = --no-audit

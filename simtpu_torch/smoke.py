@@ -112,6 +112,16 @@ CAP_TEMPLATE = dict(name="simon-template", cpu_milli=64000, mem_gib=256)
 CAP_ZONE = "zone-0"
 CAP_GOLDEN = DATA / "torch_capacity_smoke.json.gz"
 
+#: the JAX package's compact carry on each main path, its default: the
+#: state.compress / state.expand / state.delta_direct counts over the run
+#: and the final carry's bytes beside the dense layout's (written by
+#: tests/test_torch_golden.py compute_compact_carry, on the CPU)
+COMPACT_CARRY = {
+    "serial": dict(compress=1, expand=0, delta_direct=0, carried_bytes=1719452, dense_bytes=2731004),
+    "extended": dict(compress=3, expand=1, delta_direct=1, carried_bytes=1865964, dense_bytes=3637164),
+    "capacity": dict(compress=26, expand=0, delta_direct=0, carried_bytes=1634027, dense_bytes=2598107),
+}
+
 
 def smoke_problem(synth_cluster, synth_apps, n_nodes=N_NODES, n_pods=N_PODS):
     """(cluster, apps) from a package's own synth module functions."""

@@ -13,6 +13,10 @@ candidate's placement record.
 `tests/data/torch_capacity_smoke.json.gz` are those records, which
 `chip_smoke.py` holds the port's on-card runs against. Regenerate them with
 `JAX_PLATFORMS=cpu SIMTPU_WAVEFRONT=0 SIMTPU_AUDIT_JIT=0 python tests/test_torch_golden.py --write`.
+`compute_compact_carry()` (`--compact-carry`, the same environment) runs
+the three with the JAX package's compact carry on and returns its
+compress / expand / direct-delta counts and final carried bytes, which
+`smoke.COMPACT_CARRY` holds.
 
 A full recompute takes tens of seconds (the plan: minutes) on the CPU, so
 it is marked slow; the fast tier checks the committed files' shape.
@@ -132,6 +136,33 @@ def test_capacity_config_round_trips(tmp_path):
     assert _resolve_engines(applier.opts, cluster, apps) == ("binary", False)
 
 
+def _compact_carry(run) -> dict:
+    """The JAX package's `state.compress`, `state.expand` and
+    `state.delta_direct` counters over `run()`, and its carried-state
+    gauge's carried and dense bytes after it."""
+    from simtpu.obs.metrics import REGISTRY
+
+    keys = ("state.compress", "state.expand", "state.delta_direct")
+    before = REGISTRY.snapshot("state.")
+    run()
+    after = REGISTRY.snapshot("state.")
+    out = {k.split(".", 1)[1]: after.get(k, 0) - before.get(k, 0) for k in keys}
+    out.update(carried_bytes=after["state.carried_bytes"], dense_bytes=after["state.dense_bytes"])
+    return out
+
+
+def compute_compact_carry() -> dict:
+    """The JAX package's compact carry on each main path, with the carry on
+    (its default): the compress / expand / direct-delta counts and the
+    final carry's bytes that `chip_smoke.py` holds the port's K11/K12/K13
+    launches and byte gauge against (`smoke.COMPACT_CARRY`)."""
+    return {
+        "serial": _compact_carry(compute_golden),
+        "extended": _compact_carry(compute_extended_golden),
+        "capacity": _compact_carry(compute_capacity_golden),
+    }
+
+
 @pytest.mark.slow
 def test_golden_matches_a_fresh_jax_run():
     assert smoke.record_differences(compute_golden(), smoke.load_record()) == []
@@ -150,6 +181,15 @@ def test_capacity_golden_matches_a_fresh_jax_run(monkeypatch):
     assert smoke.plan_differences(compute_capacity_golden(), want) == []
 
 
+@pytest.mark.slow
+def test_compact_carry_matches_a_fresh_jax_run(monkeypatch):
+    monkeypatch.setenv("SIMTPU_AUDIT_JIT", "0")
+    monkeypatch.setenv("SIMTPU_COMPACT", "1")
+    assert compute_compact_carry() == smoke.COMPACT_CARRY
+
+
+if __name__ == "__main__" and "--compact-carry" in sys.argv:
+    print(compute_compact_carry())
 if __name__ == "__main__" and "--write" in sys.argv:
     if "--capacity-only" not in sys.argv:
         smoke.save_record(compute_golden())

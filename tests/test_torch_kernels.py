@@ -351,8 +351,9 @@ def test_statics_carried_across_expand_collapsed_planes(problem):
 
 def test_ctypes_step_ctx_mirrors_the_cuda_header():
     """The kernels' argument blocks are passed by value: each ctypes
-    structure (StepCtx of K1-K6, DeltaCtx of K7, AuditCtx of K8) must list
-    the header's fields in the header's order."""
+    structure (StepCtx of K1-K6, DeltaCtx of K7, AuditCtx of K8,
+    CompactCtx of K11-K13) must list the header's fields in the header's
+    order."""
     import re
 
     from simtpu_torch.kernels import cuda
@@ -362,6 +363,8 @@ def test_ctypes_step_ctx_mirrors_the_cuda_header():
         ("step_ctx.cuh", "DeltaCtx", cuda._DELTA_INT_FIELDS, cuda._DELTA_PTR_FIELDS, cuda.DeltaCtx),
         ("audit_bulk.cu", "AuditCtx", cuda._AUDIT_INT_FIELDS,
          cuda._AUDIT_PTR_FIELDS + (("acc",), ("flags",)), cuda.AuditCtx),
+        ("step_ctx.cuh", "CompactCtx", cuda._COMPACT_INT_FIELDS, cuda._COMPACT_PTR_FIELDS,
+         cuda.CompactCtx),
     ):
         header = (cuda.CSRC / source).read_text()
         body = header[header.index(f"struct {struct} {{"):]
@@ -387,7 +390,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
     before_plain, before_launch = dict(cuda.PLAIN_CALLS), dict(cuda.LAUNCHES)
     tscan.run_batch(buf)
     calls = {"storage_pod": int(buf.storage_live.sum()), "gpu_pod": int(buf.gpu_live.sum()),
-             "delta_apply": 0, "audit_bulk": 0, "wave_lean": 0, "wave_hard": 0}
+             "delta_apply": 0, "audit_bulk": 0, "wave_lean": 0, "wave_hard": 0,
+             "compact_compress": 0, "compact_expand": 0, "compact_delta": 0}
     for name in cuda.KERNELS:
         want = calls.get(name, buf.n_pods)
         assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == want
