@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the thirteen CUDA
+1. the card's name and power limit (nvidia-smi); build the seventeen CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -92,6 +92,29 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    ships the certified re-run, with the clean plan's count, and the re-run
    places with the wavefront off (no wave pod) while the primary
    candidates ran waves;
+6. the bulk main path: `simulate(bulk=True, device="cuda")` on the bulk
+   problem (smoke.py: 5000 nodes x 150 000 pods, bench.py's "hard" mix)
+   under the profiler, with every count set to 0 just before. The record
+   (per-node counts, per-reason counts, digests of every placement and of
+   the annotations) must equal the golden file; K14-K16 must have launched
+   once per round of the JAX segment plan (149), K3/K4 once per serial pod
+   step outside the waves and per leftover probe, K1/K2 once per such step
+   and once per round, K5/K6 once per storage / GPU step or round, K9/K10
+   once per planned wave, K11/K12 as the JAX package's compact-carry
+   counters (smoke.COMPACT_CARRY); no plain version. Prints the wall,
+   pods/s, the rounds and their device share;
+7. the large capacity problem (smoke.py: 2000 nodes, 43 300 pods) written
+   as a simon Config and planned by `Applier.run` on the card: the auto-
+   selection must print the JAX package's notice (bulk + incremental), the
+   plan (38 nodes, the probes, the verify, a clean audit, the winner's
+   record) must equal the golden record, K17 must have launched once per
+   probe's snapshot copy, K11/K12 as the JAX package's counters, and no
+   plain version may run. Prints the plan's phase timings.
+Phase 2 also holds K14-K16 against their plain versions on rounds of the
+bulk problem (plain, storage, quota-spread, quota-anti) and of the matrix
+cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
+GPU rounds), each from the state the earlier rounds left, and K17 on the
+bulk carry, dense and compact; then their times at named rounds.
 Last, K8's time at the capacity winner's log (device time from the
 profiler, back-to-back launches from Python, the plain version's).
 
@@ -127,7 +150,7 @@ from simtpu_torch.constants import LABEL_APP_NAME
 from simtpu_torch.core.objects import set_label
 from simtpu_torch.core.tensorize import Tensorizer
 from simtpu_torch.device import configure_numerics
-from simtpu_torch.engine import scan
+from simtpu_torch.engine import rounds, scan
 from simtpu_torch.engine import wavefront
 from simtpu_torch.engine import state as sstate
 from simtpu_torch.io.cluster import create_cluster_resource_from_cluster_config
@@ -135,6 +158,7 @@ from simtpu_torch.io.yaml_loader import load_resources
 from simtpu_torch.kernels import audit as kaudit
 from simtpu_torch.kernels import cuda
 from simtpu_torch.plan import capacity as tcap
+from simtpu_torch.plan import incremental as tinc
 from simtpu_torch.plan.capacity import Applier, ApplierOptions, plan_capacity
 from simtpu_torch.synth import make_deployment, synth_apps, synth_cluster
 from simtpu_torch.workloads.expand import get_valid_pods_exclude_daemonset, seed_name_hashes
@@ -156,7 +180,15 @@ KERNELS = {
     "compact_compress": "simtpu/engine/state.py:1027",
     "compact_expand": "simtpu/engine/state.py:1061",
     "compact_delta": "simtpu/engine/state.py:1205",
+    "round_score": "simtpu/engine/rounds.py:363",
+    "round_pick": "simtpu/engine/rounds.py:525",
+    "round_commit": "simtpu/engine/rounds.py:565",
+    "carry_copy": "simtpu/plan/incremental.py:119",
 }
+ROUND_KERNELS = ("round_score", "round_pick", "round_commit")
+#: the K1/K2/K5/K6 scratch a round's K14 reads
+ROUND_SCRATCH = ("stage", "raw", "st_ok", "st_alloc", "st_take", "st_raw", "gpu_ok", "gpu_sh")
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet)
 WAVES = ("wave_lean", "wave_hard")
 COMPACT = ("compact_compress", "compact_expand", "compact_delta")
 #: the JAX package's counter behind each compact kernel
@@ -1294,6 +1326,429 @@ def run_example(cluster_dir: str, app_dir: str, name: str, extended=()):
     return got
 
 
+# -- the bulk rounds (K14-K16) and the carry copy (K17) ------------------------
+
+
+def problem_batch(cluster, apps, device):
+    """A problem's app pods tensorized (names seeded), its statics and an
+    empty state on `device`."""
+    tensors, batch, statics, _, pods = tensorized_batch(cluster, apps, device, 0)
+    state = sstate.build_state(tensors, np.zeros(0, np.int32), np.zeros(0, np.int32),
+                               np.zeros((0, tensors.alloc.shape[1]), np.float32), None, device)
+    return tensors, batch, statics, state, pods
+
+
+def round_class(tensors, pods, seg) -> str:
+    """The phase-2 class of a bulk segment: plain, storage, gpu (plain
+    rounds by demand), quota-spread / quota-anti (by t*'s term), or the
+    segment kind itself (bulkm, bulka, ...)."""
+    kind, a, _ = seg
+    if kind == "bulkq":
+        g = int(pods[0][a])
+        s_match = tensors.s_match[g]
+        spread = s_match & (tensors.spread_hard[g] > 0)
+        return "quota-spread" if spread.any() else "quota-anti"
+    if kind != "bulk":
+        return kind
+    if float(pods[8][a]) > 0:
+        return "gpu"
+    if scan.storage_demand(pods[4][a], pods[6][a]):
+        return "storage"
+    return "plain"
+
+
+def round_diff(krb, prb, fields) -> float:
+    return max(tensor_diff(getattr(krb, f), getattr(prb, f)) for f in fields)
+
+
+def phase_rounds(label, tensors, batch, statics, state, pods, flags, wanted, err, per_kind: int = 1):
+    """K14-K16 against their plain versions on rounds of the problem's JAX
+    segment plan: the plan is walked with the kernels (serial segments
+    through the wave path), and at the first `per_kind` rounds of each
+    wanted class the plain versions run from the same state and scratch
+    (K1/K5/K6/K2's, handed over from the kernel side): caps, m_all, s0,
+    slope, the fill orders, m_n, every state plane and the slot outputs
+    must be equal. Returns ({class: rounds compared}, the first compared
+    round of each class as (pod, k, mode, state before), the walk's
+    buffers)."""
+    eng = rounds.RoundsEngine.__new__(rounds.RoundsEngine)
+    segments = eng._segments(batch, tensors)
+    groups = np.asarray(batch.group)
+    kbuf = scan.StepBuffers(statics, clone_state(state), pods, flags)
+    pbuf = scan.StepBuffers(statics, clone_state(state), pods, flags)
+    krb, prb = rounds.RoundBuffers(kbuf, tensors), rounds.RoundBuffers(pbuf, tensors)
+    done, first = {}, {}
+    ext_fields = []
+    if flags.storage:
+        ext_fields += ["ord_vg", "cs_vg", "cum_vg", "ord_dev", "cs_dev", "cum_dev"]
+    if flags.gpu:
+        ext_fields += ["ord_gpu", "cs_gpu", "cum_gpu"]
+    for seg in segments:
+        kind, a, b = seg
+        if kind == "scan":
+            wavefront.run_batch_waves(kbuf, tensors, groups, pods, a, b)
+            continue
+        quota, self_aff, mats = eng._kind_flags(kind)
+        mode = rounds.variant_mode(quota, self_aff, mats)
+        k = b - a
+        k_cap = rounds._pow2(k)
+        krb.alloc_outputs(1, k_cap)
+        cls = round_class(tensors, pods, seg)
+        if cls not in wanted or done.get(cls, 0) >= per_kind:
+            rounds.run_round(krb, a, k, mode, 0)
+            continue
+        copy_state(pbuf.state, kbuf.state)
+        first.setdefault(cls, (a, k, mode, clone_state(kbuf.state)))
+        scan.filter_pod(kbuf, a)
+        if kbuf.storage_live[a]:
+            scan.storage_pod(kbuf, a)
+        if kbuf.gpu_live[a]:
+            scan.gpu_pod(kbuf, a)
+        scan.topology_pod(kbuf, a)
+        for f in ROUND_SCRATCH:
+            getattr(pbuf, f).copy_(getattr(kbuf, f))
+        prb.alloc_outputs(1, k_cap)
+        rounds.round_score(krb, a, mode)
+        rounds.round_score_plain(prb, a, mode)
+        torch.cuda.synchronize()
+        fields = ["cap", "m_all"] + ext_fields + (["c_gpu", "cum_gidx"] if mats and flags.gpu else [])
+        if not quota:
+            fields += ["s0", "slope"]
+        e14 = round_diff(krb, prb, fields)
+        rounds.round_pick(krb, a, k, mode)
+        rounds.round_pick_plain(prb, a, k, mode)
+        torch.cuda.synchronize()
+        e15 = tensor_diff(krb.m_n, prb.m_n)
+        rounds.round_commit(krb, a, k, mode, 0)
+        rounds.round_commit_plain(prb, a, k, mode, 0)
+        torch.cuda.synchronize()
+        outs = ("assign", "dev_idx", "lvm_mat", "gpu_mat") if mats else ("assign", "vg_idx", "dev_idx", "gpu_idx")
+        e16 = max(state_diff(kbuf.state, pbuf.state), round_diff(krb, prb, outs))
+        err["round_score"] = max(err["round_score"], e14)
+        err["round_pick"] = max(err["round_pick"], e15)
+        err["round_commit"] = max(err["round_commit"], e16)
+        if e14 or e15 or e16:
+            bad = [f for f in fields if tensor_diff(getattr(krb, f), getattr(prb, f))]
+            raise AssertionError(f"phase 2: the {label}'s {cls} round at pod {a} (k={k}) differs from the "
+                                 f"plain versions: K14 {e14} {bad}, K15 {e15}, K16 {e16}")
+        done[cls] = done.get(cls, 0) + 1
+    missing = [w for w in wanted if not done.get(w)]
+    if missing:
+        raise AssertionError(f"phase 2: the {label} has no round of classes {missing}")
+    return done, first, kbuf
+
+
+def round_bytes(buf, rb, i: int, mode: int) -> dict:
+    """Bytes K14-K16 must move for the round of pod i (each input read once,
+    each output written once), and the float operations of K15's search."""
+    st, s = buf.statics, buf.state
+    n, r = st.alloc.shape
+    v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], s.gpu_free.shape[1]
+    f = buf.flags
+    g = int(buf.group[i])
+    terms = st.g_terms[g]
+    terms = terms[terms >= 0]
+    tv = int(terms.numel()) if scan.uses_topology(f) else 0
+    ti = int((st.ip_of[terms.long()] >= 0).sum()) if tv else 0
+    live = int(buf.ext_live[i])
+    f4 = 4
+    ext_in = (f.storage * n * (v * 2 * f4 + sd * (1 + 2 * f4) + (live & 1) * v * f4)
+              + f.gpu * n * gd * (f4 + 1))
+    ext_orders = f.storage * n * 3 * (v + sd) * f4 + f.gpu * n * 3 * gd * f4
+    k14 = (n + 4 * n * f4 + 2 * n + n * f4 + 2 * n * r * f4 + 4 * n * f4 + ext_in
+           + tv * n * 2 * f4 + ti * 3 * n * f4 + 3 * n * f4 + n + ext_orders)
+    quota = mode & rounds.V_QUOTA
+    k15 = 3 * n * f4 + n + n * f4 + (quota and (n + 2 * n + tv * n * 2 * f4 + ti * n * f4))
+    k16 = (n * f4 + 2 * n * r * f4 + tv * n * (f4 + 2 * f4) + ti * 4 * 2 * n * f4
+           + ext_orders + f.storage * n * (2 * v * f4 + 2 * sd) + f.gpu * n * 2 * gd * f4
+           + rb.k_cap * 4 * 4)
+    ops15 = (rounds.BISECT_STEPS + 3) * n * 6
+    return {"round_score": k14, "round_pick": k15, "round_commit": k16, "ops_round_pick": ops15}
+
+
+def time_rounds(tensors, statics, pods, flags, at, label: str) -> dict:
+    """K14-K16 at a named round: the device time per launch (profiler), the
+    back-to-back launch time from Python, the plain versions' time and the
+    bound, from the round's start state."""
+    i, k, mode, start = at
+    buf = scan.StepBuffers(statics, clone_state(start), pods, flags)
+    rb = rounds.RoundBuffers(buf, tensors)
+    rb.alloc_outputs(1, rounds._pow2(k))
+    scan.filter_pod(buf, i)
+    if buf.storage_live[i]:
+        scan.storage_pod(buf, i)
+    if buf.gpu_live[i]:
+        scan.gpu_pod(buf, i)
+    scan.topology_pod(buf, i)
+    rounds.round_score(rb, i, mode)
+    rounds.round_pick(rb, i, k, mode)
+    torch.cuda.synchronize()
+    calls = {
+        "round_score": (lambda: rounds.round_score(rb, i, mode), lambda: rounds.round_score_plain(rb, i, mode)),
+        "round_pick": (lambda: rounds.round_pick(rb, i, k, mode), lambda: rounds.round_pick_plain(rb, i, k, mode)),
+        "round_commit": (lambda: rounds.round_commit(rb, i, k, mode, 0),
+                         lambda: rounds.round_commit_plain(rb, i, k, mode, 0)),
+    }
+    per, _, _ = profile_kernels(lambda: [(calls["round_score"][0](), calls["round_pick"][0](),
+                                          calls["round_commit"][0]()) for _ in range(20)])
+    nbytes = round_bytes(buf, rb, i, mode)
+    out = {}
+    for name, (kern, plain) in calls.items():
+        host_ms = time_call(kern, 200)
+        plain_ms = time_call(plain, 3)
+        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = nbytes.get(f"ops_{name}", 0) / FP32_OPS_PER_S * 1e3
+        out[name] = {"ms": per[name][0] / 1e3, "host_ms": host_ms, "plain_ms": plain_ms,
+                     "bytes": nbytes[name], "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "round": label}
+        log(f"  {name} at the {label} round (pod {i}, k={k}, N={tensors.n_nodes}): {out[name]['ms'] * 1e3:.2f} us "
+            f"device (profiler), {host_ms * 1e3:.2f} us per back-to-back launch from Python, plain "
+            f"{plain_ms * 1e3:.1f} us, {nbytes[name]} B, bound {out[name]['bound_ms'] * 1e3:.3f} us "
+            f"({out[name]['bound_by']})")
+    return out
+
+
+def phase_carry_copy(tensors, state, device, err) -> dict:
+    """K17 against its plain version on a dense and a compact carry: every
+    plane equal, fresh storage, and the source untouched when the copy is
+    written. Returns its time and bound at the compact carry."""
+    spec = sstate.compact_spec_dev(tensors, device)
+    dense = clone_state(state)
+    compact = sstate.compress_state(spec, clone_state(state))
+    out = {}
+    for label, carry in (("dense", dense), ("compact", compact)):
+        before = type(carry)(*(t.clone() for t in carry))
+        got = tinc._copy_state(carry)
+        want = tinc.copy_carry_plain(carry)
+        torch.cuda.synchronize()
+        e = max(tensor_diff(a, b) for a, b in zip(got, want) if a.numel())
+        err["carry_copy"] = max(err["carry_copy"], e)
+        ptrs = {t.untyped_storage().data_ptr() for t in carry if t.numel()}
+        if e or any(t.untyped_storage().data_ptr() in ptrs for t in got if t.numel()):
+            raise AssertionError(f"phase 2: K17 on the {label} carry differs or shares storage ({e})")
+        for t in got:
+            if t.numel() and t.dtype != torch.bool:
+                t.add_(1)
+        torch.cuda.synchronize()
+        if any(tensor_diff(a, b) for a, b in zip(carry, before) if a.numel()):
+            raise AssertionError(f"phase 2: writing K17's copy moved the {label} snapshot")
+        nbytes = 2 * sum(t.numel() * t.element_size() for t in carry)
+        per, _, _ = profile_kernels(lambda: [tinc._copy_state(carry) for _ in range(20)])
+        out[label] = {"ms": per["carry_copy"][0] / 1e3,
+                      "host_ms": time_call(lambda: tinc._copy_state(carry), 200),
+                      "plain_ms": time_call(lambda: tinc.copy_carry_plain(carry), 20),
+                      "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log(f"  carry_copy ({label} carry, {len(carry)} planes): {out[label]['ms'] * 1e3:.2f} us device "
+            f"(profiler), {out[label]['host_ms'] * 1e3:.2f} us per back-to-back call from Python, plain "
+            f"{out[label]['plain_ms'] * 1e3:.1f} us, {nbytes} B, bound {out[label]['bound_ms'] * 1e3:.3f} us")
+    return out
+
+
+def new_round_steps() -> dict:
+    return dict(new_steps(), rounds=0, round_storage=0, round_gpu=0, probe_pods=0, place_s=0.0)
+
+
+class CountingRoundsEngine(rounds.RoundsEngine):
+    """The rounds engine, counting on the host: the rounds it dispatches
+    (and how many need K5 / K6), and the pod steps of its serial ranges
+    (their wave plans, as CountingEngine) and of its leftover probes."""
+
+    steps = new_round_steps()
+
+    def _run_range(self, buf, pods, a, b):
+        steps = CountingRoundsEngine.steps
+        groups = np.asarray(self._current_batch.group)[a:b]
+        sub = tuple(np.asarray(x)[a:b] for x in pods)
+        in_wave = np.zeros(b - a, bool)
+        if self.speculate and b > a:
+            ok = wavefront.wave_eligibility(sub, groups, self._current_tensors)
+            for _, _, waves in wavefront.plan_waves(groups, self._current_tensors, buf.flags, ok):
+                for wa, wb, hard, _, heavy in waves:
+                    in_wave[wa:wb] = True
+                    steps["wave_hard" if hard or heavy else "wave_lean"] += 1
+        self._count_pods(buf, np.arange(a, b)[~in_wave])
+        steps["wave_pods"] += int(in_wave.sum())
+        return super()._run_range(buf, pods, a, b)
+
+    def _run_scan_segment_idx(self, buf, pods, idx):
+        CountingRoundsEngine.steps["probe_pods"] += len(idx)
+        self._count_pods(buf, np.asarray(idx))
+        return super()._run_scan_segment_idx(buf, pods, idx)
+
+    @staticmethod
+    def _count_pods(buf, idx) -> None:
+        steps = CountingRoundsEngine.steps
+        steps["pods"] += len(idx)
+        steps["storage"] += int(buf.storage_live[idx].sum())
+        steps["gpu"] += int(buf.gpu_live[idx].sum())
+
+    def place(self, batch):
+        t0 = time.perf_counter()
+        try:
+            return super().place(batch)
+        finally:
+            CountingRoundsEngine.steps["place_s"] += time.perf_counter() - t0
+
+    def _bulk_chunk(self, rb, chunk, quota, self_aff, ext_mats):
+        steps = CountingRoundsEngine.steps
+        firsts = np.array([i0 for _, i0, _ in chunk])
+        steps["rounds"] += len(chunk)
+        steps["round_storage"] += int(rb.buf.storage_live[firsts].sum())
+        steps["round_gpu"] += int(rb.buf.gpu_live[firsts].sum())
+        return super()._bulk_chunk(rb, chunk, quota, self_aff, ext_mats)
+
+
+def check_round_launches(label: str, launches: dict, steps: dict, plain_calls: int) -> None:
+    """K14-K16 once per round; K3/K4 once per serial pod step outside the
+    waves and per probe; K1/K2 once per such step and once per round; K5
+    / K6 once per storage / GPU step or round; K9/K10 once per planned
+    wave; no plain call."""
+    want = {"round_score": steps["rounds"], "round_pick": steps["rounds"], "round_commit": steps["rounds"],
+            "score_argmax_pod": steps["pods"], "commit_pod": steps["pods"],
+            "filter_pod": steps["pods"] + steps["rounds"], "topology_pod": steps["pods"] + steps["rounds"],
+            "storage_pod": steps["storage"] + steps["round_storage"],
+            "gpu_pod": steps["gpu"] + steps["round_gpu"],
+            "wave_lean": steps["wave_lean"], "wave_hard": steps["wave_hard"]}
+    bad = {k: (launches.get(k, 0), v) for k, v in want.items() if launches.get(k, 0) != v}
+    if bad or plain_calls:
+        raise AssertionError(f"{label}: launches (got, want) {bad}, plain calls {plain_calls}; steps {steps}")
+
+
+def run_bulk(card: str):
+    """The bulk main path: `simulate(bulk=True, device="cuda")` on the bulk
+    problem with every count set to 0 just before and read just after,
+    under the profiler. The record must equal the golden file, K14-K16
+    must have launched once per round of the JAX segment plan, the serial
+    kernels only on the serial segments and the probes, no plain version.
+    Returns (launches, steps, wall, pods, device busy per kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cluster, apps = smoke.bulk_problem(synth)
+    CountingRoundsEngine.steps = new_round_steps()
+    real = rounds.RoundsEngine
+    rounds.RoundsEngine = CountingRoundsEngine
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = simtpu_torch.simulate(cluster, apps, bulk=True, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        seed_name_hashes(None)
+        rounds.RoundsEngine = real
+    launches, steps = dict(cuda.LAUNCHES), dict(CountingRoundsEngine.steps)
+    plain_calls = sum(cuda.PLAIN_CALLS.values())
+    check_round_launches("phase 6", launches, steps, plain_calls)
+    check_compact("phase 6", launches, smoke.COMPACT_CARRY["bulk"])
+    gauge = check_gauge("phase 6", smoke.COMPACT_CARRY["bulk"])
+    want_rounds = sum(r for kind, (r, _) in smoke.BULK_SEGMENTS.items() if kind != "scan")
+    if steps["rounds"] != want_rounds:
+        raise AssertionError(f"phase 6: {steps['rounds']} rounds, the JAX segment plan has {want_rounds}")
+    record = smoke.bulk_record(result)
+    diffs = smoke.bulk_differences(record, smoke.load_record(smoke.BULK_GOLDEN))
+    if diffs:
+        raise AssertionError("phase 6: the bulk run differs from the golden record:\n" + "\n".join(diffs))
+    dev = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        for name in KERNELS:
+            if ev.key.startswith(f"{name}_kernel"):
+                dev[name] = dev_us / 1e6
+    round_s = sum(dev.get(k, 0.0) for k in ROUND_KERNELS)
+    busy_s = sum(dev.values())
+    n_pods = record["pods"]
+    log(f"phase 6: simulate(bulk=True, device='cuda') on the bulk problem, {len(record['nodes'])} nodes x "
+        f"{n_pods} pods: {wall:.2f} s under the profiler, {n_pods / wall:.0f} pods/s "
+        f"({steps['place_s']:.3f} s in Engine.place, the rest expansion, tensorize and results on the host), "
+        f"{steps['rounds']} rounds "
+        f"({round_s:.4f} s of device time in K14-K16, {round_s / wall:.4f} of the wall; all kernels "
+        f"{busy_s:.4f} s, {busy_s / wall:.4f}), {steps['pods']} serial pod steps ({steps['probe_pods']} in "
+        f"leftover probes), {steps['wave_pods']} pods in {steps['wave_lean']} + {steps['wave_hard']} waves, "
+        f"{sum(record['reasons'].values())} unscheduled, record == golden; carried {gauge['carried_bytes']} B "
+        f"(dense {gauge['dense_bytes']} B); launches {launches} [{card}]")
+    return launches, steps, wall, n_pods, {"rounds_device_s": round_s, "device_s": busy_s}
+
+
+def run_large_capacity(card: str):
+    """The large capacity problem through the apply front door on the card:
+    the auto-selection must pick bulk placement and the incremental search
+    with the JAX package's notice, the plan must equal the golden record,
+    K17 must have launched once per probe's snapshot copy, and no plain
+    version may run. Returns (plan, launches, wall)."""
+    cluster, apps, template = smoke.large_capacity_problem(synth, simtpu_torch.AppResource,
+                                                           simtpu_torch.ResourceTypes)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke.write_capacity_config(tmp, cluster, apps, template)
+        applier = Applier(ApplierOptions(simon_config=cfg, device="cuda"))
+        cuda.reset_counts()
+        seed_name_hashes(smoke.NAME_SEED)
+        err_text = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err_text):
+                plan = applier.run()
+            torch.cuda.synchronize()
+        finally:
+            seed_name_hashes(None)
+        wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    plain_calls = sum(cuda.PLAIN_CALLS.values())
+    if smoke.LCAP_AUTO_LINE not in err_text.getvalue().splitlines():
+        raise AssertionError(f"phase 7: the auto-selection notice differs: {err_text.getvalue()!r}")
+    diffs = smoke.plan_differences(smoke.plan_record(plan), smoke.load_record(smoke.LCAP_GOLDEN))
+    if diffs:
+        raise AssertionError("phase 7: the plan differs from the golden record:\n" + "\n".join(diffs))
+    check_compact("phase 7", launches, smoke.COMPACT_CARRY["large_capacity"])
+    check_gauge("phase 7", smoke.COMPACT_CARRY["large_capacity"])
+    n_probes = sum(c["phase"] == "probes" for c in plan.candidates)
+    if (plan.engine["search"], plan.engine["bulk"]) != ("incremental", True) or plain_calls \
+            or launches.get("carry_copy", 0) != n_probes or not all(launches.get(k, 0) for k in ROUND_KERNELS):
+        raise AssertionError(f"phase 7: engine {plan.engine['search']}/{plan.engine['bulk']}, launches "
+                             f"{launches} for {n_probes} probes, plain calls {plain_calls}")
+    phases = " ".join(f"{k}={v:.3f}s" for k, v in plan.timings.items())
+    runs = ", ".join("%s +%d %.3fs" % (c["phase"], c["count"], c["wall_s"]) for c in plan.candidates)
+    n_all = smoke.LCAP_PODS + sum(b[1] for b in smoke.LCAP_BURST)
+    log(f"phase 7: apply (Applier.run, auto: {plan.engine['search']} search, bulk) on the large capacity "
+        f"problem ({len(cluster.nodes)} nodes, {n_all} pods): {plan.nodes_added} nodes added, probes "
+        f"{plan.probes}, audit {plan.audit.get('ok')}, plan == golden; {wall:.2f} s; phases {phases}; "
+        f"{len(plan.candidates)} placements ({runs}); launches {launches} [{card}]")
+    return plan, launches, wall
+
+
+def phase_bulk_kernels(device, err):
+    """Phase 2 for K14-K17: the rounds of the bulk problem (plain,
+    quota-spread, quota-anti, storage) and of the matrix cut (matrix, self-
+    affinity, GPU rounds) against their plain versions, K17 on the bulk
+    carry, dense and compact; then their times at named rounds."""
+    b_tensors, b_batch, b_statics, b_state, b_pods = problem_batch(*smoke.bulk_problem(synth), device)
+    b_flags = scan.flags_from(b_tensors, b_batch.ext)
+    log(f"phase 2: bulk shape N={b_tensors.n_nodes} T={b_tensors.n_terms} G={len(b_tensors.groups)} "
+        f"Tc={b_statics.g_terms.shape[1]} domains={b_tensors.n_domains} pods={len(b_pods[0])} flags={b_flags}")
+    b_done, b_first, b_buf = phase_rounds("bulk problem", b_tensors, b_batch, b_statics, b_state, b_pods,
+                                          b_flags, ("plain", "quota-spread", "quota-anti", "storage"), err)
+    m_tensors, m_batch, m_statics, m_state, m_pods = problem_batch(*smoke.matrix_problem(synth), device)
+    m_flags = scan.flags_from(m_tensors, m_batch.ext)
+    log(f"phase 2: matrix cut N={m_tensors.n_nodes} V={m_statics.vg_cap.shape[1]} "
+        f"GD={m_state.gpu_free.shape[1]} pods={len(m_pods[0])} flags={m_flags}")
+    m_done, m_first, _ = phase_rounds("matrix cut", m_tensors, m_batch, m_statics, m_state, m_pods, m_flags,
+                                      ("bulkm", "bulka", "gpu"), err)
+    log(f"phase 2: K14-K16 equal to their plain versions (caps, s0, slope, fill orders, m_n, every state "
+        f"plane, the slot outputs) on rounds of the bulk problem {b_done} and the matrix cut {m_done}")
+    copy_times = phase_carry_copy(b_tensors, b_buf.state, device, err)
+    log("phase 2: K17 equal to its plain version on the bulk carry, dense and compact: fresh storage, "
+        "the snapshot untouched when the copy is written")
+    times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["plain"], "bulk plain")
+    q_times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["quota-spread"], "bulk quota-spread")
+    x_times = time_rounds(m_tensors, m_statics, m_pods, m_flags, m_first["bulkm"], "matrix bulkm")
+    return times, q_times, x_times, copy_times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1402,6 +1857,7 @@ def main() -> int:
     log(f"phase 2: K13 equal to its plain version and to the expand -> K7 -> compress route evicting "
         f"and restoring {len(entries)} placements on the extended carry; the round trip restores "
         "every compact field bit for bit")
+    round_times, q_round_times, m_round_times, copy_times = phase_bulk_kernels(device, err)
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -1548,6 +2004,12 @@ def main() -> int:
     # -- phase 5b: the divergence fallback ----------------------------------
     run_injected(card)
 
+    # -- phase 6: the bulk main path ------------------------------------------
+    b_launches, b_steps, b_wall, b_pods, b_dev = run_bulk(card)
+
+    # -- phase 7: the large capacity plan (bulk + incremental) ---------------
+    l_plan, l_launches, l_wall = run_large_capacity(card)
+
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
     w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
@@ -1568,8 +2030,35 @@ def main() -> int:
                  **compact_times}
     all_bytes = {**nbytes, "storage_pod": s_bytes["storage_pod"], "gpu_pod": g_bytes["gpu_pod"],
                  "delta_apply": d_bytes, "audit_bulk": k8_bytes, **c_bytes}
-    main_launches = {**x_launches, "audit_bulk": c_launches.get("audit_bulk", 0)}
+    main_launches = {**x_launches, "audit_bulk": c_launches.get("audit_bulk", 0),
+                     **{k: b_launches.get(k, 0) for k in ROUND_KERNELS},
+                     "carry_copy": l_launches.get("carry_copy", 0)}
     for name, replaces in KERNELS.items():
+        if name in ROUND_KERNELS or name == "carry_copy":
+            t = round_times[name] if name in ROUND_KERNELS else copy_times["compact"]
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"simtpu_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": main_launches.get(name, 0),
+                "max_abs_err": err[name],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": None,
+                "host_ms": t["host_ms"],
+                "launch_ms": launch_ms,
+                "ms_from": "profiler",
+                "at": t.get("round", "the bulk problem's compact carry"),
+                "bytes": t["bytes"],
+                "launches_bulk_path": b_launches.get(name, 0),
+                "launches_large_capacity_path": l_launches.get(name, 0),
+                **({"quota_round": q_round_times[name], "matrix_round": m_round_times[name]}
+                   if name in ROUND_KERNELS else {"dense_carry": copy_times["dense"]}),
+            })
+            continue
         if name in WAVES:
             t = wave_times[name]
             mean_us = xw_per[name][0] if name in xw_per else w_per[name][0]
@@ -1645,7 +2134,17 @@ def main() -> int:
                                    "candidate_wall_s": [c["wall_s"] for c in plan.candidates],
                                    "waves": plan.engine["wavefront"],
                                    "audit_split_mean_s": c_split,
-                                   "candidate_host_split": host_split}}))
+                                   "candidate_host_split": host_split},
+                      "bulk": {"wall_s": b_wall, "pods": b_pods, "pods_per_s": b_pods / b_wall,
+                               "rounds": b_steps["rounds"], "serial_pod_steps": b_steps["pods"],
+                               "wave_pods": b_steps["wave_pods"], "place_s": b_steps["place_s"], **b_dev,
+                               "rounds_device_share": b_dev["rounds_device_s"] / b_wall,
+                               "device_busy": b_dev["device_s"] / b_wall, "profiled": True},
+                      "large_capacity": {"nodes_added": l_plan.nodes_added, "wall_s": l_wall,
+                                         "probes": {str(k): v for k, v in l_plan.probes.items()},
+                                         "timings": l_plan.timings,
+                                         "placements": [{k: c[k] for k in ("phase", "count", "wall_s")}
+                                                        for c in l_plan.candidates]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1034,6 +1034,7 @@ def simulate(
     device=None,
     audit: bool = False,
     _audit_inject: bool = False,
+    bulk: bool = False,
 ) -> SimulateResult:
     """One-shot simulation: expand cluster workloads, run the cluster, then
     schedule each app in order. Unscheduled pods accumulate across the
@@ -1049,7 +1050,17 @@ def simulate(
     on the same device and attaches its `AuditReport` as `result.audit`
     before the simulator closes. `_audit_inject` corrupts the audit's VIEW
     (never the result), so the planner's divergence fallback can be driven
-    end to end."""
+    end to end.
+
+    `bulk=True` places eligible same-spec pod runs in bulk rounds
+    (`engine/rounds.py RoundsEngine`, the JAX package's bulk tie-breaks);
+    it excludes `engine_factory`."""
+    if bulk:
+        if engine_factory is not None:
+            raise ValueError("bulk=True and engine_factory are mutually exclusive")
+        from .engine.rounds import RoundsEngine
+
+        engine_factory = RoundsEngine
     sim = Simulator(
         extra_resources=extended_resources,
         use_greed=use_greed,

@@ -762,6 +762,32 @@ def audit_simulation(sim, inject: bool = False) -> AuditReport:
 # ---------------------------------------------------------------------------
 
 
+def divergence_diagnostic(tensors, batch, bad_nodes, serial_nodes, report: AuditReport,
+                          planes: Optional[List[str]] = None) -> Dict[str, object]:
+    """The structured record of one caught divergence: the first pod whose
+    audited placement differs from the serial-exact answer, the two
+    landing nodes, the violation classes that tripped the audit, and (when
+    the caller compared carries) the differing state planes."""
+    bad = np.asarray(bad_nodes)
+    good = np.asarray(serial_nodes)
+    diff = np.flatnonzero(bad != good)
+    first = int(diff[0]) if len(diff) else -1
+    doc: Dict[str, object] = {
+        "divergent_pods": int(len(diff)),
+        "first_divergent_row": first,
+        "violations": dict(report.by_class),
+    }
+    if first >= 0:
+        if batch is not None and batch.pods:
+            doc["first_divergent_pod"] = (batch.pods[first].get("metadata") or {}).get("name", "")
+        bn, gn = int(bad[first]), int(good[first])
+        doc["audited_node"] = tensors.node_names[bn] if bn >= 0 else "<unplaced>"
+        doc["serial_node"] = tensors.node_names[gn] if gn >= 0 else "<unplaced>"
+    if planes:
+        doc["state_planes"] = list(planes)
+    return doc
+
+
 def inject_divergence(tensors, batch, nodes: np.ndarray) -> np.ndarray:
     """Corrupt one placement: move the first non-forced placed pod onto a
     node its static mask rejects (or, when every node passes, onto the

@@ -83,6 +83,7 @@ def cmd_apply(args: argparse.Namespace) -> int:
         extended_resources=args.extended_resources or [],
         search=args.search,
         bulk=args.bulk,
+        corrected_ds_overhead=args.corrected_ds_overhead,
         audit=args.audit,
         device=args.device,
     )
@@ -187,18 +188,34 @@ def build_parser() -> argparse.ArgumentParser:
     )
     apply_p.add_argument(
         "--search",
-        choices=["binary", "linear"],
+        choices=["binary", "linear", "incremental"],
         default=None,
-        help="min-node-add search strategy (default: binary below the "
-        "auto-bulk threshold; linear = the reference-exact walk)",
+        help="min-node-add search strategy (default: auto by problem size; "
+        "linear = reference-exact walk; incremental = one tensorization + "
+        "completion probes + fresh verification, the fast path for large "
+        "clusters)",
+    )
+    apply_p.add_argument(
+        "--bulk",
+        dest="bulk",
+        action="store_true",
+        default=None,
+        help="place replica runs with the bulk rounds engine (default: auto "
+        "by problem size; faster on large app lists; tie-breaking may "
+        "differ from the serial scan)",
     )
     apply_p.add_argument(
         "--no-bulk",
         dest="bulk",
         action="store_false",
-        default=None,
-        help="force the serial scan engine even at scale (the bulk rounds "
-        "engine is not ported)",
+        help="force the serial scan engine even at scale",
+    )
+    apply_p.add_argument(
+        "--corrected-ds-overhead",
+        action="store_true",
+        help="account daemonset overhead on the template node in the "
+        "can-ever-fit diagnostic (the reference pins its probe pod to a node "
+        "named 'simon', so the overhead silently contributes nothing)",
     )
     apply_p.add_argument(
         "--json",

@@ -558,14 +558,17 @@ def topology_masks(statics: StaticArrays, state: SchedState, g: int, m_static, f
     return spread_ok, ip_ok
 
 
-def topology_raws(statics: StaticArrays, state: SchedState, g: int) -> TopoRaws:
-    """K2's raw count vectors over the group's term rows."""
+def topology_raws(statics: StaticArrays, state: SchedState, g: int, cnt_sub=None) -> TopoRaws:
+    """K2's raw count vectors over the group's term rows; `cnt_sub`
+    overrides the group's [Tc, N] cnt_match rows (the rounds engine's
+    one-more-pod re-score)."""
     n = statics.alloc.shape[0]
     if not statics.g_terms.shape[1]:
         z = torch.zeros(n, dtype=torch.float32, device=statics.alloc.device)
         return TopoRaws(z, z, z, z)
     terms_g, _, _, _, _, ip_eff = _term_rows(statics, g)
-    cnt_sub = take_rows(state.cnt_match, terms_g)
+    if cnt_sub is None:
+        cnt_sub = take_rows(state.cnt_match, terms_g)
     ipa = interpod_score(
         cnt_sub,
         take_rows(state.cnt_own_aff, ip_eff),
@@ -591,6 +594,8 @@ def score_pod(
     m_all,
     flags: StepFlags,
     raws: TopoRaws = None,
+    free=None,
+    cnt_sub=None,
 ) -> torch.Tensor:
     """The combined score sum for one pod over all nodes, -inf outside
     `m_all`, in the JAX package's term order and with the arithmetic of its
@@ -600,13 +605,18 @@ def score_pod(
     follows it —, every later term added as one FMA `fma(w, term, score)`,
     the static pair as one FMA added with two roundings. A term whose flag is False is not added; the per-pod skips
     of the JAX package (a pod with no terms of a family) are evaluated
-    live, which gives the same constants."""
+    live, which gives the same constants.
+
+    `free` / `cnt_sub` override `state.free` and the group's [Tc, N]
+    cnt_match rows, as in the JAX package: the rounds engine scores a
+    hypothetical one-more-pod-per-node state (`engine/rounds.py`)."""
     f = flags
     t_cap = statics.g_terms.shape[1]
     if raws is None:
-        raws = topology_raws(statics, state, g)
+        raws = topology_raws(statics, state, g, cnt_sub)
     w_ = statics.score_w
-    score = resource_base_score(state.free, statics.alloc, req, w_[0], w_[1])
+    fr = state.free if free is None else free
+    score = resource_base_score(fr, statics.alloc, req, w_[0], w_[1])
     # Simon score + the GPU-share score, the same dominant-share formula:
     # computed once, counted twice
     simon = simon_minmax(statics.alloc, req, m_all)
@@ -1180,20 +1190,11 @@ class Engine:
         # stays intact, its expansion being fresh planes); either way the
         # next place() rebuilds from the log, as the JAX package does
         self._state_dirty = True
-        if self.speculate:
-            from . import wavefront
-
-            waves = wavefront.run_batch_waves(buf, tensors, np.asarray(batch.group), pods)
-        else:
-            run_batch(buf)
+        # batch context for _dispatch overrides (the rounds engine segments
+        # the batch by group and spec)
+        self._current_batch, self._current_tensors = batch, tensors
+        nodes, reasons, lvm_alloc, dev_take, gpu_shares = self._dispatch(buf, pods)
         self.last_state = self._store_state(tensors, buf.state)
-        nodes = buf.out_node.cpu().numpy().astype(np.int64)
-        if self.speculate:
-            wavefront.count_waves(waves, nodes)
-        reasons = buf.reason.cpu().numpy()
-        lvm_alloc = buf.out_lvm.cpu().numpy()
-        dev_take = buf.out_take.cpu().numpy()
-        gpu_shares = buf.out_gpu.cpu().numpy()
         self._last_vocab = vocab
         self._state_dirty = False
         ok = np.flatnonzero(nodes >= 0)
@@ -1210,6 +1211,41 @@ class Engine:
             "dev_take": dev_take,
             "gpu_shares": gpu_shares,
         }
+
+    def _dispatch(self, buf: StepBuffers, pods):
+        """Place every pod of the batch on `buf`'s state, in place; returns
+        the host outputs (nodes, reasons, lvm_alloc, dev_take, gpu_shares).
+        The rounds engine (`engine/rounds.py`) overrides it, as the JAX
+        package's `Engine._dispatch` is overridden."""
+        waves = self._run_range(buf, pods, 0, buf.n_pods)
+        return self._fetch_range(buf, 0, buf.n_pods, waves)
+
+    def _run_range(self, buf: StepBuffers, pods, a: int, b: int) -> list:
+        """The pods [a, b) of the batch on `buf`'s shared state: through the
+        speculative wavefront (its chunk plan cut from a) when `speculate`
+        is on, else the per-pod kernels. Returns the waves launched."""
+        if not self.speculate:
+            if (a, b) == (0, buf.n_pods):
+                run_batch(buf)
+            else:
+                run_pods(buf, a, b)
+            return []
+        from . import wavefront
+
+        return wavefront.run_batch_waves(
+            buf, self._current_tensors, np.asarray(self._current_batch.group), pods, a, b)
+
+    @staticmethod
+    def _fetch_range(buf: StepBuffers, a: int, b: int, waves=()):
+        """The host outputs of pods [a, b) (one sync), with the wavefront
+        counters of the waves launched over them."""
+        nodes = buf.out_node[a:b].cpu().numpy().astype(np.int64)
+        if waves:
+            from . import wavefront
+
+            wavefront.count_waves(waves, nodes, a)
+        return (nodes, buf.reason[a:b].cpu().numpy(), buf.out_lvm[a:b].cpu().numpy(),
+                buf.out_take[a:b].cpu().numpy(), buf.out_gpu[a:b].cpu().numpy())
 
     # -- preemption support -------------------------------------------------
 

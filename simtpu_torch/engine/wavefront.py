@@ -272,18 +272,22 @@ def flatten_wave_segments(c0: int, c1: int, waves):
 # -- the dispatcher -------------------------------------------------------------
 
 
-def run_batch_waves(buf, tensors, groups: np.ndarray, pods) -> list:
-    """Every pod of the batch in order: each planned wave in one K9 or K10
-    launch (heavy runs drafted), the pods between waves through the per-pod
-    kernels, no host sync. Returns the waves launched, [(a, b, hard)], for
-    `count_waves`."""
+def run_batch_waves(buf, tensors, groups: np.ndarray, pods, a0: int = 0, b0: int = None) -> list:
+    """The pods [a0, b0) of the batch (default all) in order: each planned
+    wave in one K9 or K10 launch (heavy runs drafted), the pods between
+    waves through the per-pod kernels, no host sync. The plan is cut from
+    a0, as the JAX package plans a segment's slice of the batch. Returns
+    the waves launched, [(a, b, hard)] absolute, for `count_waves`."""
     groups = np.asarray(groups)
-    if not len(groups):
+    b0 = len(groups) if b0 is None else b0
+    if b0 <= a0:
         return []
-    wave_ok = wave_eligibility(pods, groups, tensors)
+    sub = groups[a0:b0]
+    wave_ok = wave_eligibility(tuple(np.asarray(x)[a0:b0] for x in pods), sub, tensors)
     launched = []
-    for c0, c1, waves in plan_waves(groups, tensors, buf.flags, wave_ok):
-        for kind, a, b, mode in flatten_wave_segments(c0, c1, waves):
+    for c0, c1, waves in plan_waves(sub, tensors, buf.flags, wave_ok):
+        for kind, a, b, mode in flatten_wave_segments(c0 + a0, c1 + a0,
+                                                      [(wa + a0, wb + a0, *m) for wa, wb, *m in waves]):
             if kind == "scan":
                 run_pods(buf, a, b)
                 continue
@@ -295,11 +299,12 @@ def run_batch_waves(buf, tensors, groups: np.ndarray, pods) -> list:
     return launched
 
 
-def count_waves(launched, nodes: np.ndarray) -> None:
-    """The counters of a batch's waves, from its fetched nodes."""
+def count_waves(launched, nodes: np.ndarray, base: int = 0) -> None:
+    """The counters of a batch's waves, from its fetched nodes (`nodes[0]`
+    is pod `base` of the batch)."""
     for a, b, _ in launched:
         real = b - a
-        acc = nodes[a:b] == nodes[a]
+        acc = nodes[a - base:b - base] == nodes[a - base]
         prefix = real if acc.all() else int(acc.argmin())
         WAVE_COUNTS["wavefronts"] += 1
         WAVE_COUNTS["pods"] += real

@@ -60,10 +60,13 @@ __device__ inline void spread_min_pass(const StepCtx& x, int g, int* min_bits, b
 
 // Node n's spread and inter-pod verdicts and its four raw counts (inter-
 // pod, soft spread, SelectorSpread host, zone) for group g; `min_bits` is
-// read only when `do_spread`.
+// read only when `do_spread`. With `bump` every term row the group's pod
+// matches counts one more pod where the node carries the key: the state
+// one pod further on, which the bulk round's re-score reads (K14).
 __device__ inline void topology_node(const StepCtx& x, int g, int n, const int* min_bits,
                                      bool do_spread, bool do_ip, const TopoScalars& sc,
-                                     bool& spread_ok_out, bool& ip_ok_out, float raw[N_RAWS]) {
+                                     bool& spread_ok_out, bool& ip_ok_out, float raw[N_RAWS],
+                                     bool bump = false) {
   const int tc = x.tc;
   const int N = x.n;
   const int* terms = x.g_terms + static_cast<size_t>(g) * tc;
@@ -75,7 +78,8 @@ __device__ inline void topology_node(const StepCtx& x, int g, int n, const int* 
     if (term < 0) continue;  // pad column: zero row, all coefficients 0
     const size_t gt = g0 + t;
     const bool valid = x.node_dom[static_cast<size_t>(x.term_topo[term]) * N + n] >= 0;
-    const float c = x.cnt_match[static_cast<size_t>(term) * N + n];
+    float c = x.cnt_match[static_cast<size_t>(term) * N + n];
+    if (bump && valid && x.s_match[gt]) c += 1.0f;
     const int ip = x.ip_of[term];
     const size_t ipn = static_cast<size_t>(ip) * N + n;
     const float ms = x.spread_hard[gt];

@@ -4,7 +4,10 @@ K1-K6 make up the per-pod scheduling step (`engine/scan.py`), K7 applies
 signed placement-log deltas (`engine/state.py`), K8 is the placement
 auditor's bulk pass (`kernels/audit.py`), K9/K10 place a whole same-group
 run of pods in one launch (`engine/wavefront.py`), K11-K13 compress,
-expand and update the compact carried state (`engine/state.py`). The
+expand and update the compact carried state (`engine/state.py`), K14-K16
+score, pick and commit one bulk round (`engine/rounds.py`), K17 copies a
+carried state for the incremental planner's probes
+(`plan/incremental.py`). The
 sources live in
 `kernels/csrc/` (one `.cu` per kernel; the argument blocks in
 `step_ctx.cuh`, the per-node device code that K1-K6 and K9/K10 share in
@@ -40,11 +43,14 @@ KERNELS = (
     "filter_pod", "topology_pod", "score_argmax_pod", "commit_pod",
     "storage_pod", "gpu_pod", "delta_apply", "audit_bulk", "wave_lean", "wave_hard",
     "compact_compress", "compact_expand", "compact_delta",
+    "round_score", "round_pick", "round_commit", "carry_copy",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
 WAVE_KERNELS = KERNELS[8:10]
+#: the round kernels, launched as simtpu_<name>(StepCtx*, RoundCtx*, stream)
+ROUND_KERNELS = KERNELS[13:16]
 #: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
 MAX_EXT = 32
 #: K9's carried [N] rows (step_ctx.cuh WAVE_ROWS)
@@ -122,7 +128,7 @@ def build() -> dict:
         fn = getattr(lib, f"simtpu_{name}")
         if name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        elif name in WAVE_KERNELS:
+        elif name in WAVE_KERNELS or name in ROUND_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -733,3 +739,136 @@ def launch_audit(x) -> torch.Tensor:
         raise RuntimeError(f"CUDA kernel audit_bulk failed to launch: {msg} ({err})")
     LAUNCHES["audit_bulk"] += 1
     return flags
+
+
+_ROUND_INT_FIELDS = ("i", "k", "mode", "row", "n_dom", "k_cap")
+# (field, attribute of the RoundBuffers, dtype) in rounds.cuh RoundCtx order
+_ROUND_PTR_FIELDS = (
+    ("cap", "cap", torch.float32),
+    ("s0", "s0", torch.float32),
+    ("slope", "slope", torch.float32),
+    ("m_n", "m_n", torch.float32),
+    ("m_all", "m_all", torch.bool),
+    ("ord_vg", "ord_vg", torch.int32),
+    ("cs_vg", "cs_vg", torch.float32),
+    ("cum_vg", "cum_vg", torch.float32),
+    ("ord_dev", "ord_dev", torch.int32),
+    ("cs_dev", "cs_dev", torch.float32),
+    ("cum_dev", "cum_dev", torch.float32),
+    ("ord_gpu", "ord_gpu", torch.int32),
+    ("cs_gpu", "cs_gpu", torch.float32),
+    ("cum_gpu", "cum_gpu", torch.float32),
+    ("c_gpu", "c_gpu", torch.float32),
+    ("cum_gidx", "cum_gidx", torch.float32),
+    ("dom_sums", "dom_sums", torch.float32),
+    ("key_kind", "key_kind", torch.int32),
+    ("node_dom_small", "node_dom_small", torch.int32),
+    ("scr", "scr", torch.float32),
+    ("dscr", "dscr", torch.float32),
+    ("iscr", "iscr", torch.int32),
+    ("assign", "assign", torch.int32),
+    ("vg_idx", "vg_idx", torch.int32),
+    ("dev_idx", "dev_idx", torch.int32),
+    ("gpu_idx", "gpu_idx", torch.int32),
+    ("lvm_mat", "lvm_mat", torch.float32),
+    ("gpu_mat", "gpu_mat", torch.float32),
+)
+#: rows of RoundBuffers.scr / .dscr (rounds.cuh SCR_ROWS / DSCR_ROWS)
+ROUND_SCR_ROWS = 8
+ROUND_DSCR_ROWS = 6
+
+
+class RoundCtx(ctypes.Structure):
+    """ctypes mirror of `struct RoundCtx` in csrc/rounds.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in _ROUND_INT_FIELDS] + [
+        (f, ctypes.c_void_p) for f, _, _ in _ROUND_PTR_FIELDS
+    ]
+
+
+def _round_pointers(rb) -> dict:
+    """RoundCtx's pointer fields for a RoundBuffers (engine/rounds.py):
+    every tensor's device, dtype, contiguity and shape checked."""
+    buf = rb.buf
+    tensors = {
+        field: _checked(f"rb.{attr}", getattr(rb, attr), rb.device, dtype)
+        for field, attr, dtype in _ROUND_PTR_FIELDS
+    }
+    st = buf.statics
+    n = st.alloc.shape[0]
+    v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], buf.state.gpu_free.shape[1]
+    rows, k_cap = rb.assign.shape
+    d = rb.n_domains
+    k_n = st.node_dom.shape[0]
+    _check_shapes(tensors, {
+        **{f: (n,) for f in ("cap", "s0", "slope", "m_n", "m_all")},
+        **{f: (n, v) for f in ("ord_vg", "cs_vg", "cum_vg")},
+        **{f: (n, sd) for f in ("ord_dev", "cs_dev", "cum_dev")},
+        **{f: (n, gd) for f in ("ord_gpu", "cs_gpu", "cum_gpu", "c_gpu", "cum_gidx")},
+        "dom_sums": (max(st.g_terms.shape[1], 1), d), "key_kind": (k_n,), "node_dom_small": (k_n, n),
+        "scr": (ROUND_SCR_ROWS, n), "dscr": (ROUND_DSCR_ROWS, d + 1), "iscr": (2 * n + d + 2,),
+        **{f: (rows, k_cap) for f in ("assign", "vg_idx", "dev_idx", "gpu_idx")},
+        "lvm_mat": (rows, k_cap, v), "gpu_mat": (rows, k_cap, gd),
+    })
+    return {f: t.data_ptr() for f, t in tensors.items()}
+
+
+def launch_round(name: str, rb, i: int, k: int, mode: int, row: int) -> None:
+    """Launch round kernel `name` (K14-K16) for the round of pod i of the
+    batch, run length k, variant `mode` (engine/rounds.py V_*), output row
+    `row`, on the current CUDA stream; raises if the launch is refused. No
+    synchronization."""
+    buf = rb.buf
+    if not 0 <= i < buf.n_pods:
+        raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
+    if not 0 <= row < rb.assign.shape[0]:
+        raise IndexError(f"output row {row} outside {rb.assign.shape[0]} rows")
+    libs = build()
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    if rb.ctx is None:
+        rb.ctx = _round_pointers(rb)
+    ctx = RoundCtx(i=i, k=k, mode=mode, row=row, n_dom=rb.n_domains, k_cap=rb.assign.shape[1], **rb.ctx)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+class CopyCtx(ctypes.Structure):
+    """ctypes mirror of `struct CopyCtx` in csrc/carry_copy.cu."""
+
+    _fields_ = [("n_seg", ctypes.c_int), ("pad_", ctypes.c_int), ("segs", ctypes.c_void_p)]
+
+
+def launch_carry_copy(planes) -> list:
+    """K17 over `planes` (the fields of a SchedState or CompactState on one
+    CUDA device, in order): fresh tensors of the same shapes and dtypes,
+    filled in one launch on the current stream. Raises if a plane is not a
+    contiguous tensor on that device or the launch is refused."""
+    device = planes[0].device
+    out = []
+    segs = []
+    for j, t in enumerate(planes):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"plane {j}: need a contiguous tensor on {device}, got {t.device}")
+        dst = torch.empty_like(t)
+        out.append(dst)
+        nbytes = t.numel() * t.element_size()
+        if nbytes:
+            segs.append((t.data_ptr(), dst.data_ptr(), nbytes))
+    libs = build()
+    table = torch.as_tensor(np.asarray(segs, np.int64).reshape(-1, 3), device=device)
+    ctx = CopyCtx(n_seg=len(segs), pad_=0, segs=table.data_ptr())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = libs["carry_copy"].simtpu_carry_copy(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel carry_copy failed to launch: {msg} ({err})")
+    LAUNCHES["carry_copy"] += 1
+    # the table's storage is released to the caching allocator only after
+    # the copy is enqueued; the stream orders any reuse after the kernel
+    del table
+    return out

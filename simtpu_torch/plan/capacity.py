@@ -29,10 +29,10 @@ speculative wavefront and the compact carry on), on the plan's device. The
 auditor gates the winner: an audit-dirty winner is re-simulated with the
 wavefront and the compact carry off —
 never the engine config whose answer just failed its audit — and the
-certified re-run ships with the divergence record. The bulk rounds engine and the
-incremental planner, which the JAX package selects for large problems, are
-not ported yet: such problems raise NotImplementedError rather than plan
-with another engine's tie-breaks.
+certified re-run ships with the divergence record. With `bulk=True` every
+candidate runs the bulk rounds engine (`engine/rounds.py`); the incremental
+search lives in `plan/incremental.py`. `Applier.run` auto-selects both for
+large problems, as the JAX package does (`_resolve_engines`).
 """
 
 from __future__ import annotations
@@ -70,11 +70,8 @@ from ..io.cluster import (
 from ..io.yaml_loader import get_objects_from_yaml_content, get_yaml_content_from_directory
 from ..workloads.expand import make_valid_node_by_node, new_daemon_pod
 
-#: what the planner cannot run yet, named where it refuses
-NOT_PORTED = (
-    "the bulk rounds engine and the incremental planner are not ported to "
-    "simtpu_torch yet (ROADMAP queue 1 #4)"
-)
+#: what the port cannot run yet, named where it refuses
+NOT_PORTED_SHARD = "node-axis sharding over a device mesh is not ported (ROADMAP queue 1 #10)"
 
 
 @dataclass
@@ -87,8 +84,8 @@ class PlanResult:
     probes: Dict[int, int] = field(default_factory=dict)
     # per-phase wall-clock seconds (ingest, plan)
     timings: Dict[str, float] = field(default_factory=dict)
-    # the engines that ran: search strategy, bulk (always False here),
-    # device, and the audit record of the shipped candidate
+    # the engines that ran: search strategy, bulk placement, device, and
+    # the audit record of the shipped candidate
     engine: Dict[str, object] = field(default_factory=dict)
     # the independent placement audit of the shipped candidate
     # (audit/checker.py): AuditReport.counters() plus — when the winner's
@@ -258,10 +255,10 @@ def plan_capacity(
     `_audit_inject` corrupts the audit's view of every primary candidate
     (never of the re-run), which drives that fallback end to end.
 
-    Every simulation runs on `device` (None = the CUDA card). `bulk=True`
-    and `search="incremental"` raise NotImplementedError."""
-    if bulk or search == "incremental":
-        raise NotImplementedError(NOT_PORTED)
+    Every simulation runs on `device` (None = the CUDA card); with
+    `bulk=True` on the bulk rounds engine (the audit fallback stays on the
+    pod-at-a-time engine). `search="incremental"` is
+    `plan/incremental.py plan_capacity_incremental`."""
     if search not in ("binary", "linear"):
         raise ValueError(f"unknown search strategy {search!r}")
     device = resolve_device(device)
@@ -281,7 +278,14 @@ def plan_capacity(
         trial.nodes = list(cluster.nodes) + new_fake_nodes(new_node, i)
         # the divergence-safe fallback's engine: pod-at-a-time, the
         # wavefront off, the dense carry
-        factory = _pod_at_a_time if serial_exact else Engine
+        if serial_exact:
+            factory = _pod_at_a_time
+        elif bulk:
+            from ..engine.rounds import RoundsEngine
+
+            factory = RoundsEngine
+        else:
+            factory = Engine
         built: List[Engine] = []
 
         def build(tz, dev) -> Engine:
@@ -496,9 +500,9 @@ def plan_capacity(
 class ApplierOptions:
     """CLI options (`pkg/apply/apply.go:32-38`), cut to what the port's
     planner honours. `search` / `bulk` default to None = scale-aware auto:
-    the serial scan + binary search below the size thresholds; above them
-    the JAX package picks the bulk rounds engine and the incremental
-    planner, which the port refuses (`_resolve_engines`)."""
+    the serial scan + binary search below the size thresholds, the bulk
+    rounds engine + the incremental planner above them
+    (`_resolve_engines`)."""
 
     simon_config: str = ""
     default_scheduler_config: str = ""
@@ -507,8 +511,14 @@ class ApplierOptions:
     use_greed: bool = False
     interactive: bool = False
     extended_resources: Sequence[str] = ()
-    search: Optional[str] = None  # None = auto; binary | linear
-    bulk: Optional[bool] = None  # None = auto; only False runs here
+    search: Optional[str] = None  # None = auto; binary | linear | incremental
+    bulk: Optional[bool] = None  # None = auto; place replica runs in bulk rounds
+    # DaemonSet overhead in the can-never-help diagnosis: the reference's
+    # sum (False) or the corrected per-node overhead (True)
+    corrected_ds_overhead: bool = False
+    # node-axis sharding of the incremental plan: None = auto (one card:
+    # never), True = required (not ported), False = off
+    shard: Optional[bool] = None
     # None = on: audit the accepted candidate and fall back on failure;
     # False = --no-audit
     audit: Optional[bool] = None
@@ -517,9 +527,9 @@ class ApplierOptions:
 
 
 # Auto-engine thresholds: below both, the serial scan keeps its per-pod
-# reference-exact tie-breaks; above either, the JAX package switches to
-# the bulk rounds engine and the incremental planner.  Declared pods, not
-# expanded: the estimate runs before workload expansion.
+# reference-exact tie-breaks; above either, the bulk rounds engine and the
+# incremental planner take over, as in the JAX package.  Declared pods,
+# not expanded: the estimate runs before workload expansion.
 AUTO_ENGINE_NODES = 1024
 AUTO_ENGINE_PODS = 16384
 
@@ -549,30 +559,27 @@ def _resolve_engines(
     opts: ApplierOptions,
     cluster: ResourceTypes,
     apps: Sequence[AppResource],
-) -> Tuple[str, bool]:
-    """Fill in auto (None) search/bulk choices from the problem size, as the
-    JAX package does. Returns (search, bulk) when they name the serial
-    planner; raises NotImplementedError where the JAX package would run the
-    bulk rounds engine or the incremental planner — auto-selected for a
-    large problem or asked for — since planning with the serial engine
-    instead would be a different answer (bulk tie-breaks differ)."""
+) -> Tuple[str, bool, None]:
+    """Fill in auto (None) search/bulk choices from the problem size and say
+    so on stderr, as the JAX package does. Returns (search, bulk, mesh);
+    with one card the mesh is always None, and `shard=True` raises
+    NotImplementedError."""
     n_nodes = len(cluster.nodes)
     est_pods = _declared_pod_estimate(cluster, apps)
     large = n_nodes >= AUTO_ENGINE_NODES or est_pods >= AUTO_ENGINE_PODS
     search = opts.search if opts.search is not None else ("incremental" if large else "binary")
     bulk = opts.bulk if opts.bulk is not None else large
-    if search == "incremental" or bulk:
-        why = (
-            f"large problem ({n_nodes} nodes, ~{est_pods} declared pods): the JAX "
-            "package auto-selects bulk placement + incremental search here"
-            if large and (opts.search is None or opts.bulk is None)
-            else f"search={search!r}, bulk={bulk}"
+    if large and (opts.search is None or opts.bulk is None):
+        print(
+            f"simtpu: large problem ({n_nodes} nodes, ~{est_pods} declared "
+            f"pods) — auto-selected {'bulk' if bulk else 'serial'} placement"
+            f" + {search} search; pass --search binary/linear or --no-bulk "
+            "for the serial reference-exact engines",
+            file=sys.stderr,
         )
-        raise NotImplementedError(
-            f"{why}; {NOT_PORTED}. Pass --search binary/linear --no-bulk for the "
-            "serial reference-exact planner"
-        )
-    return search, bulk
+    if opts.shard is True:
+        raise NotImplementedError(NOT_PORTED_SHARD)
+    return search, bulk, None
 
 
 class Applier:
@@ -637,30 +644,52 @@ class Applier:
         new_node = self.load_new_node()
         timings["ingest"] = timings.get("ingest", 0.0) + time.perf_counter() - t0
 
-        search, bulk = _resolve_engines(self.opts, cluster, apps)
+        search, bulk, _ = _resolve_engines(self.opts, cluster, apps)
         device = resolve_device(self.opts.device)
         t0 = time.perf_counter()
         waves0 = wavefront.wave_counts()
         counts0 = state_counts()
-        plan = plan_capacity(
-            cluster,
-            apps,
-            new_node,
-            extended_resources=self.opts.extended_resources,
-            search=search,
-            progress=progress,
-            bulk=bulk,
-            sched_config=self._sched_config(),
-            audit=self.opts.audit,
-            device=device,
-        )
+        if search == "incremental":
+            from .incremental import plan_capacity_incremental
+
+            plan = plan_capacity_incremental(
+                cluster,
+                apps,
+                new_node,
+                extended_resources=self.opts.extended_resources,
+                progress=progress,
+                sched_config=self._sched_config(),
+                corrected_ds_overhead=self.opts.corrected_ds_overhead,
+                audit=self.opts.audit,
+                device=device,
+            )
+        else:
+            plan = plan_capacity(
+                cluster,
+                apps,
+                new_node,
+                extended_resources=self.opts.extended_resources,
+                search=search,
+                progress=progress,
+                bulk=bulk,
+                sched_config=self._sched_config(),
+                corrected_ds_overhead=self.opts.corrected_ds_overhead,
+                audit=self.opts.audit,
+                device=device,
+            )
         timings["plan"] = time.perf_counter() - t0
-        plan.timings = timings
+        # the incremental planner's phase breakdown rides beside the
+        # ingest / plan walls
+        plan.timings = {**plan.timings, **timings}
         speculated = all(c["speculate"] for c in plan.candidates)
         counts = state_counts()
         plan.engine = {
             "search": search,
-            "bulk": False,
+            "bulk": bool(bulk) if search != "incremental" else True,
+            "shards": 0,
+            "auto_search": self.opts.search is None,
+            "auto_bulk": self.opts.bulk is None,
+            "reference_exact": search == "linear" and not bulk,
             "device": device.type,
             # the speculative wavefront over this plan's simulations, as
             # their engines ran it (False once the audit fallback re-ran a
@@ -689,5 +718,8 @@ class Applier:
             # counters, plus fallback/divergence records when the primary
             # answer failed certification; {"enabled": False} = --no-audit
             "audit": plan.audit if plan.audit else {"enabled": False},
+            # the incremental planner's probes never run preemption; True
+            # when this plan's specs carried priorities that were ignored
+            "preemption_ignored": bool(getattr(plan, "preemption_ignored", False)),
         }
         return plan

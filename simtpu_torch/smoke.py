@@ -52,6 +52,34 @@ it (22 topology keys with hostname and zone). No golden file for these
 two: `chip_smoke.py` holds the wave kernels against their plain versions
 on their runs.
 
+**Bulk problem** (`BULK_*`) — the bulk rounds engine at the size of a
+large cluster: `bench.py build_problem`'s "hard" mix as it stands there
+(16 zones, 30% of the nodes with Open-Local VGs; 1000-replica
+Deployments, zone spread with half of it DoNotSchedule, preferred and
+required pod anti-affinity, node selectors, tolerations, 20% Open-Local
+pods, 30% of those on an exclusive device) at 5000 nodes × 150 000 pods,
+the limits Kubernetes documents a cluster for ("Considerations for large
+clusters", kubernetes.io/docs/setup/best-practices/cluster-large/).
+`simulate(bulk=True)` plans 150 runs: 124 plain rounds (124 000 pods),
+25 domain-quota rounds (25 000 pods) and one serial segment (1000 pods).
+The golden record (`bulk_record`) keeps per-node placed counts, per-reason
+counts, sha256 digests of every (pod, node, reason) and of the
+annotations, and the first `BULK_HEAD` entries in key order.
+
+**Matrix cut** (`MATRIX_*`) — bench.py's "matrix" mix (multi-GPU shares,
+multi-claim LVM, required colocate-with-self) at 2000 nodes × 20 000 pods:
+`chip_smoke.py` holds the matrix and self-affinity rounds against their
+plain versions on it. No golden file.
+
+**Large capacity problem** (`LCAP_*`) — the `apply` front door above the
+serial planner's range, where the JAX package auto-selects bulk placement
+and the incremental search: the soft ("north") mix without storage pods
+on 2000 nodes (30% with VGs) × 40 000 pods, a burst app of 3 × 1100 plain
+pods (8 cores, 32 GiB) and the capacity template (64 cores, 256 GiB,
+zone-0). On the JAX package (the CPU, numpy audit twin, pod names seeded)
+the plan adds 38 nodes: probes {0: 300, 37: 4, 38: 0}, then the fresh
+verify run at 38, audited clean. The golden file keeps the plan record.
+
 Pod-name suffixes are seeded (`seed_name_hashes`), so a placement record
 keyed by pod name compares across runs and packages.
 """
@@ -59,6 +87,7 @@ keyed by pod name compares across runs and packages.
 from __future__ import annotations
 
 import gzip
+import hashlib
 import json
 from pathlib import Path
 
@@ -120,7 +149,90 @@ COMPACT_CARRY = {
     "serial": dict(compress=1, expand=0, delta_direct=0, carried_bytes=1719452, dense_bytes=2731004),
     "extended": dict(compress=3, expand=1, delta_direct=1, carried_bytes=1865964, dense_bytes=3637164),
     "capacity": dict(compress=26, expand=0, delta_direct=0, carried_bytes=1634027, dense_bytes=2598107),
+    "bulk": dict(compress=1, expand=0, delta_direct=0, carried_bytes=6149184, dense_bytes=10096512),
+    "large_capacity": dict(compress=4, expand=2, delta_direct=0, carried_bytes=715297, dense_bytes=1148561),
 }
+
+
+BULK_NODES = 5000
+BULK_PODS = 150000
+BULK_CLUSTER_KW = dict(seed=3, zones=16, taint_frac=0.1, storage_frac=0.3, gpu_frac=0.0)
+BULK_APPS_KW = dict(
+    seed=4,
+    zones=16,
+    pods_per_deployment=1000,
+    selector_frac=0.2,
+    toleration_frac=0.1,
+    anti_affinity_frac=0.2,
+    anti_affinity_hard_frac=0.34,
+    spread_frac=0.3,
+    spread_hard_frac=0.5,
+    gpu_frac=0.0,
+    gpu_multi_frac=0.0,
+    storage_frac=0.2,
+    storage_device_frac=0.3,
+    lvm_multi_frac=0.0,
+    affinity_frac=0.0,
+)
+#: entries of the bulk record kept in full (the first in key order)
+BULK_HEAD = 200
+BULK_GOLDEN = DATA / "torch_bulk_smoke.json.gz"
+#: the JAX package's segment plan of the bulk problem (kind: (runs, pods))
+BULK_SEGMENTS = {"bulk": (124, 124000), "bulkq": (25, 25000), "scan": (1, 1000)}
+
+MATRIX_NODES = 2000
+MATRIX_PODS = 20000
+MATRIX_CLUSTER_KW = dict(BULK_CLUSTER_KW, gpu_frac=0.4)
+MATRIX_APPS_KW = dict(
+    BULK_APPS_KW,
+    anti_affinity_hard_frac=0.0,
+    spread_hard_frac=0.0,
+    gpu_frac=0.25,
+    gpu_multi_frac=0.6,
+    storage_frac=0.25,
+    storage_device_frac=0.0,
+    lvm_multi_frac=0.6,
+    affinity_frac=0.15,
+)
+
+LCAP_NODES = 2000
+LCAP_PODS = 40000
+LCAP_APPS_KW = dict(BULK_APPS_KW, anti_affinity_hard_frac=0.0, spread_hard_frac=0.0,
+                    storage_frac=0.0, storage_device_frac=0.0)
+LCAP_BURST = tuple((f"burst-{k}", 1100, 8000, 32768) for k in "abc")
+LCAP_GOLDEN = DATA / "torch_large_capacity_smoke.json.gz"
+#: the JAX package's auto-selection notice on the large capacity problem
+#: (simtpu/plan/capacity.py _resolve_engines, on stderr)
+LCAP_AUTO_LINE = (
+    "simtpu: large problem (2000 nodes, ~43300 declared pods) — auto-selected bulk placement + "
+    "incremental search; pass --search binary/linear or --no-bulk for the serial reference-exact engines"
+)
+
+
+def bulk_problem(synth, n_nodes=BULK_NODES, n_pods=BULK_PODS):
+    """(cluster, apps) of the bulk problem from a package's own synth module."""
+    return synth.synth_cluster(n_nodes, **BULK_CLUSTER_KW), synth.synth_apps(n_pods, **BULK_APPS_KW)
+
+
+def matrix_problem(synth, n_nodes=MATRIX_NODES, n_pods=MATRIX_PODS):
+    """(cluster, apps) of the matrix cut from a package's own synth module."""
+    return (synth.synth_cluster(n_nodes, **MATRIX_CLUSTER_KW),
+            synth.synth_apps(n_pods, **MATRIX_APPS_KW))
+
+
+def large_capacity_problem(synth, app_cls, resources_cls, n_nodes=LCAP_NODES, n_pods=LCAP_PODS,
+                           burst=LCAP_BURST):
+    """(cluster, apps, new_node) of the large capacity problem from a
+    package's own synth module, AppResource and ResourceTypes."""
+    cluster = synth.synth_cluster(n_nodes, **BULK_CLUSTER_KW)
+    apps = synth.synth_apps(n_pods, **LCAP_APPS_KW)
+    res = resources_cls(deployments=[synth.make_deployment(name, replicas, cpu, mem)
+                                     for name, replicas, cpu, mem in burst])
+    template = synth.make_node(
+        CAP_TEMPLATE["name"], CAP_TEMPLATE["cpu_milli"], CAP_TEMPLATE["mem_gib"],
+        labels={"topology.kubernetes.io/zone": CAP_ZONE,
+                "kubernetes.io/hostname": CAP_TEMPLATE["name"]})
+    return cluster, apps + [app_cls(name="burst", resource=res)], template
 
 
 def smoke_problem(synth_cluster, synth_apps, n_nodes=N_NODES, n_pods=N_PODS):
@@ -310,6 +422,63 @@ def record_differences(got: dict, want: dict, limit: int = 5) -> list:
             a, b = got[field].get(key), want[field].get(key)
             if a != b:
                 out.append(f"{field} {key}: {a!r} != golden {b!r}")
+    return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
+
+
+def _digest(rows) -> str:
+    h = hashlib.sha256()
+    for row in rows:
+        h.update(json.dumps(row, separators=(",", ":")).encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+def bulk_record(result, head: int = BULK_HEAD) -> dict:
+    """A large SimulateResult (either package's) as compact plain data: the
+    node names, per-node placed counts, failure counts per reason text (the
+    scheduler's message without the pod name), the
+    number of preempted pods, a sha256 of every (pod, node index, reason)
+    sorted by pod key (node -1 and the reason string for a failed pod, ""
+    for a placed one), a sha256 of the annotations written (the pods' GPU
+    assignments and the nodes' extended annotations, sorted by key), and
+    the first `head` entries in key order in full."""
+    entries = {}
+    for i, st in enumerate(result.node_status):
+        for pod in st.pods:
+            entries[_key(pod)] = (i, "")
+    for u in result.unscheduled_pods:
+        entries[_key(u.pod)] = (-1, u.reason)
+    rows = [[k, n, r] for k, (n, r) in sorted(entries.items())]
+    full = placement_record(result)
+    annos = sorted(full["gpu_index"].items()) + sorted(
+        (k, sorted(v.items())) for k, v in full["node_ext"].items())
+    reasons = {}
+    for u in result.unscheduled_pods:
+        why = u.reason.split("are available: ", 1)[-1]
+        reasons[why] = reasons.get(why, 0) + 1
+    return {
+        "nodes": full["nodes"],
+        "per_node": [len(st.pods) for st in result.node_status],
+        "reasons": dict(sorted(reasons.items())),
+        "preempted": len(result.preempted_pods),
+        "pods": len(rows),
+        "digest": _digest(rows),
+        "annotations": _digest(annos),
+        "head": rows[:head],
+    }
+
+
+def bulk_differences(got: dict, want: dict, limit: int = 5) -> list:
+    """Human-readable differences between two bulk records (empty = equal)."""
+    out = [f"{k}: {got[k]!r} != golden {want[k]!r}"
+           for k in ("nodes", "reasons", "preempted", "pods", "digest", "annotations") if got[k] != want[k]]
+    diff_nodes = [i for i, (a, b) in enumerate(zip(got["per_node"], want["per_node"])) if a != b]
+    if diff_nodes or len(got["per_node"]) != len(want["per_node"]):
+        out.append(f"per-node counts differ on {len(diff_nodes)} nodes, first {diff_nodes[:5]}")
+    for a, b in zip(got["head"], want["head"]):
+        if a != b:
+            out.append(f"first differing entry: {a!r} != golden {b!r}")
+            break
     return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
 
 

@@ -13,8 +13,15 @@ candidate's placement record.
 `tests/data/torch_capacity_smoke.json.gz` are those records, which
 `chip_smoke.py` holds the port's on-card runs against. Regenerate them with
 `JAX_PLATFORMS=cpu SIMTPU_WAVEFRONT=0 SIMTPU_AUDIT_JIT=0 python tests/test_torch_golden.py --write`.
+`compute_bulk_golden()` runs the JAX package's `simulate(bulk=True)` on the
+bulk problem (5000 nodes x 150 000 pods) and returns its bulk record
+(`smoke.bulk_record`); `compute_large_capacity_golden()` runs its
+incremental planner on the large capacity problem and returns the plan
+record: `tests/data/torch_bulk_smoke.json.gz` and
+`tests/data/torch_large_capacity_smoke.json.gz`, written alone by
+`--write --bulk-only` in the same environment.
 `compute_compact_carry()` (`--compact-carry`, the same environment) runs
-the three with the JAX package's compact carry on and returns its
+the five with the JAX package's compact carry on and returns its
 compress / expand / direct-delta counts and final carried bytes, which
 `smoke.COMPACT_CARRY` holds.
 
@@ -109,6 +116,52 @@ def test_committed_capacity_golden_is_whole():
                                "violations": 0, "by_class": {}}
 
 
+def test_committed_bulk_golden_is_whole():
+    golden = smoke.load_record(smoke.BULK_GOLDEN)
+    assert len(golden["nodes"]) == smoke.BULK_NODES == len(golden["per_node"])
+    assert golden["pods"] == smoke.BULK_PODS
+    assert sum(golden["per_node"]) + sum(golden["reasons"].values()) == smoke.BULK_PODS
+    assert golden["preempted"] == 0 and len(golden["head"]) == smoke.BULK_HEAD
+    assert [row[0] for row in golden["head"]] == sorted(row[0] for row in golden["head"])
+    assert len(golden["digest"]) == len(golden["annotations"]) == 64
+    # the JAX package's segment plan of the problem: rounds above the
+    # auto-bulk thresholds
+    assert sum(n for n, _ in smoke.BULK_SEGMENTS.values()) == 150
+    assert sum(p for _, p in smoke.BULK_SEGMENTS.values()) == smoke.BULK_PODS
+    assert smoke.BULK_NODES >= AUTO_ENGINE_NODES and smoke.BULK_PODS >= AUTO_ENGINE_PODS
+
+
+def test_committed_large_capacity_golden_is_whole():
+    golden = smoke.load_record(smoke.LCAP_GOLDEN)
+    n_all = smoke.LCAP_PODS + sum(b[1] for b in smoke.LCAP_BURST)
+    assert golden["success"] is True and golden["nodes_added"] == 38
+    assert golden["probes"] == {"0": 300, "37": 4, "38": 0}
+    assert golden["audit"] == {"ok": True, "checked": n_all, "violations": 0, "by_class": {}}
+    record = golden["record"]
+    assert len(record["nodes"]) == smoke.LCAP_NODES + 38 and not record["failed"]
+    assert len(record["placed"]) == n_all and n_all >= AUTO_ENGINE_PODS
+
+
+def test_bulk_record_keys_and_digests():
+    """`bulk_record` on a small result: the head in key order, the digests
+    moved by one placement, the reason counts keyed without pod names."""
+    import simtpu_torch
+    from simtpu_torch import synth
+
+    cluster = synth.synth_cluster(4, seed=1, zones=2)
+    apps = [simtpu_torch.AppResource(name="a", resource=simtpu_torch.ResourceTypes(
+        deployments=[synth.make_deployment("big", 40, 16000, 1024)]))]
+    res = simtpu_torch.simulate(cluster, apps, device="cpu")
+    rec = smoke.bulk_record(res, head=5)
+    assert rec["pods"] == 40 and len(rec["head"]) == 5
+    assert list(rec["reasons"]) == ["insufficient cpu/memory/extended resources on every feasible node"]
+    assert sum(rec["per_node"]) + sum(rec["reasons"].values()) == 40
+    moved = res.node_status[0].pods.pop()
+    res.node_status[1].pods.append(moved)
+    other = smoke.bulk_record(res, head=5)
+    assert other["digest"] != rec["digest"] and smoke.bulk_differences(other, rec)
+
+
 def test_capacity_config_round_trips(tmp_path):
     """The capacity problem written as a simon Config loads back, through the
     port's apply front door, as the same objects (the loader only adds its
@@ -133,7 +186,39 @@ def test_capacity_config_round_trips(tmp_path):
         assert plain(got.resource.deployments) == want.resource.deployments
     assert plain(applier.load_cluster().nodes) == cluster.nodes
     assert plain([applier.load_new_node()]) == [template]
-    assert _resolve_engines(applier.opts, cluster, apps) == ("binary", False)
+    assert _resolve_engines(applier.opts, cluster, apps) == ("binary", False, None)
+
+
+def compute_bulk_golden() -> dict:
+    """The JAX package's `simulate(bulk=True)` on the bulk problem, as a
+    bulk record."""
+    import simtpu
+    from simtpu import synth
+    from simtpu.workloads.expand import seed_name_hashes
+
+    cluster, apps = smoke.bulk_problem(synth)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        return smoke.bulk_record(simtpu.simulate(cluster, apps, bulk=True))
+    finally:
+        seed_name_hashes(None)
+
+
+def compute_large_capacity_golden() -> dict:
+    """The JAX package's incremental planner on the large capacity problem
+    (auto-selected: bulk placement + incremental search), as a plan record."""
+    import simtpu
+    from simtpu import synth
+    from simtpu.plan.incremental import plan_capacity_incremental
+    from simtpu.workloads.expand import seed_name_hashes
+
+    cluster, apps, template = smoke.large_capacity_problem(synth, simtpu.AppResource,
+                                                           simtpu.ResourceTypes)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        return smoke.plan_record(plan_capacity_incremental(cluster, apps, template))
+    finally:
+        seed_name_hashes(None)
 
 
 def _compact_carry(run) -> dict:
@@ -160,6 +245,16 @@ def compute_compact_carry() -> dict:
         "serial": _compact_carry(compute_golden),
         "extended": _compact_carry(compute_extended_golden),
         "capacity": _compact_carry(compute_capacity_golden),
+        **compute_bulk_compact_carry(),
+    }
+
+
+def compute_bulk_compact_carry() -> dict:
+    """The JAX package's compact-carry counts and bytes on the bulk and the
+    large capacity paths (`smoke.COMPACT_CARRY["bulk"]`, `["large_capacity"]`)."""
+    return {
+        "bulk": _compact_carry(compute_bulk_golden),
+        "large_capacity": _compact_carry(compute_large_capacity_golden),
     }
 
 
@@ -182,6 +277,19 @@ def test_capacity_golden_matches_a_fresh_jax_run(monkeypatch):
 
 
 @pytest.mark.slow
+def test_bulk_golden_matches_a_fresh_jax_run():
+    want = smoke.load_record(smoke.BULK_GOLDEN)
+    assert smoke.bulk_differences(compute_bulk_golden(), want) == []
+
+
+@pytest.mark.slow
+def test_large_capacity_golden_matches_a_fresh_jax_run(monkeypatch):
+    monkeypatch.setenv("SIMTPU_AUDIT_JIT", "0")
+    want = smoke.load_record(smoke.LCAP_GOLDEN)
+    assert smoke.plan_differences(compute_large_capacity_golden(), want) == []
+
+
+@pytest.mark.slow
 def test_compact_carry_matches_a_fresh_jax_run(monkeypatch):
     monkeypatch.setenv("SIMTPU_AUDIT_JIT", "0")
     monkeypatch.setenv("SIMTPU_COMPACT", "1")
@@ -190,9 +298,16 @@ def test_compact_carry_matches_a_fresh_jax_run(monkeypatch):
 
 if __name__ == "__main__" and "--compact-carry" in sys.argv:
     print(compute_compact_carry())
-if __name__ == "__main__" and "--write" in sys.argv:
+if __name__ == "__main__" and "--write" in sys.argv and "--bulk-only" in sys.argv:
+    smoke.save_record(compute_bulk_golden(), smoke.BULK_GOLDEN)
+    smoke.save_record(compute_large_capacity_golden(), smoke.LCAP_GOLDEN)
+    print("wrote", smoke.BULK_GOLDEN, smoke.LCAP_GOLDEN)
+elif __name__ == "__main__" and "--write" in sys.argv:
     if "--capacity-only" not in sys.argv:
         smoke.save_record(compute_golden())
         smoke.save_record(compute_extended_golden(), smoke.EXT_GOLDEN)
     smoke.save_record(compute_capacity_golden(), smoke.CAP_GOLDEN)
-    print("wrote", smoke.GOLDEN, smoke.EXT_GOLDEN, smoke.CAP_GOLDEN)
+    if "--capacity-only" not in sys.argv:
+        smoke.save_record(compute_bulk_golden(), smoke.BULK_GOLDEN)
+        smoke.save_record(compute_large_capacity_golden(), smoke.LCAP_GOLDEN)
+    print("wrote", smoke.GOLDEN, smoke.EXT_GOLDEN, smoke.CAP_GOLDEN, smoke.BULK_GOLDEN, smoke.LCAP_GOLDEN)

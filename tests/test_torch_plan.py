@@ -7,9 +7,10 @@ tainted template), `TestResourceSetting`, `TestMeetResourceRequests`,
 `TestBinarySearchCapNonMonotone` and `TestAutoEngines` — with each case
 built once per package and planned by both, pod-name suffixes seeded
 alike: the PlanResults' verdict, count, message, probes and audit counters
-and the winning candidate's placement record must be equal. Where the JAX
-package would plan with the bulk rounds engine or the incremental planner,
-the port raises NotImplementedError. Also here: the injected-divergence
+and the winning candidate's placement record must be equal. The engine
+selection (`_resolve_engines`) must equal the JAX package's, the bulk and
+incremental choices included (their plans: tests/test_torch_incremental.py).
+Also here: the injected-divergence
 fallback (tests/test_audit.py's serial case) and the repo's three example
 configs through both CLIs (exit code, report tables, `--json` plan).
 
@@ -261,25 +262,33 @@ def test_small_problem_keeps_serial_engines(capsys):
     want = jcap._resolve_engines(jcap.ApplierOptions(), *args)
     got = tcap._resolve_engines(tcap.ApplierOptions(), _small_cluster(simtpu_torch),
                                 [_app(simtpu_torch, 3)])
-    assert got == want[:2] == ("binary", False)
+    assert got == want == ("binary", False, None)
     assert capsys.readouterr().err == ""
 
 
-def test_large_node_count_refuses():
+def test_large_node_count_refuses(capsys):
+    """Formerly a refusal: the port now auto-selects the bulk engine and the
+    incremental search with the JAX package's notice."""
     cluster = simtpu_torch.ResourceTypes()
     cluster.nodes = [make_fake_node(f"n{i}", "4", "8Gi") for i in range(tcap.AUTO_ENGINE_NODES)]
-    with pytest.raises(NotImplementedError, match="queue 1 #4"):
-        tcap._resolve_engines(tcap.ApplierOptions(), cluster, [_app(simtpu_torch, 3)])
-    # the JAX package would auto-select the engines the port lacks
+    got = tcap._resolve_engines(tcap.ApplierOptions(), cluster, [_app(simtpu_torch, 3)])
+    got_err = capsys.readouterr().err
     jcluster = simtpu.ResourceTypes(nodes=cluster.nodes)
-    assert jcap._resolve_engines(jcap.ApplierOptions(), jcluster, [_app(simtpu, 3)])[:2] == (
-        "incremental", True)
+    want = jcap._resolve_engines(jcap.ApplierOptions(), jcluster, [_app(simtpu, 3)])
+    assert got == want == ("incremental", True, None)
+    assert got_err == capsys.readouterr().err and "auto-selected" in got_err
 
 
-def test_large_declared_pod_count_refuses():
-    with pytest.raises(NotImplementedError, match="large problem"):
-        tcap._resolve_engines(tcap.ApplierOptions(), _small_cluster(simtpu_torch),
-                              [_app(simtpu_torch, tcap.AUTO_ENGINE_PODS)])
+def test_large_declared_pod_count_refuses(capsys):
+    """Formerly a refusal: the declared-pod threshold selects the fast
+    engines, as in the JAX package."""
+    got = tcap._resolve_engines(tcap.ApplierOptions(), _small_cluster(simtpu_torch),
+                                [_app(simtpu_torch, tcap.AUTO_ENGINE_PODS)])
+    got_err = capsys.readouterr().err
+    want = jcap._resolve_engines(jcap.ApplierOptions(), _small_cluster(simtpu),
+                                 [_app(simtpu, jcap.AUTO_ENGINE_PODS)])
+    assert got == want == ("incremental", True, None)
+    assert got_err == capsys.readouterr().err
 
 
 @pytest.mark.parametrize("search", ["linear", "binary"])
@@ -289,20 +298,27 @@ def test_explicit_flags_override_auto(search, capsys):
                                 [_app(simtpu_torch, tcap.AUTO_ENGINE_PODS)])
     want = jcap._resolve_engines(jcap.ApplierOptions(search=search, bulk=False),
                                  _small_cluster(simtpu), [_app(simtpu, jcap.AUTO_ENGINE_PODS)])
-    assert got == want[:2] == (search, False)
+    assert got == want == (search, False, None)
     assert capsys.readouterr().err == ""
 
 
 @pytest.mark.parametrize("opts", [dict(search="incremental"), dict(bulk=True),
                                   dict(search="binary")])
-def test_bulk_and_incremental_refuse(opts):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcap._resolve_engines(tcap.ApplierOptions(**opts), _small_cluster(simtpu_torch),
-                              [_app(simtpu_torch, tcap.AUTO_ENGINE_PODS)])
-    if "bulk" in opts or opts["search"] == "incremental":
-        with pytest.raises(NotImplementedError):
-            tcap.plan_capacity(_small_cluster(simtpu_torch), [_app(simtpu_torch, 1)], TEMPLATE,
-                               device="cpu", **opts)
+def test_bulk_and_incremental_refuse(opts, capsys):
+    """Formerly a refusal: the asked-for engines resolve as the JAX
+    package's, and a bulk plan equals the JAX package's; only `shard=True`
+    is refused (ROADMAP queue 1 #10)."""
+    got = tcap._resolve_engines(tcap.ApplierOptions(**opts), _small_cluster(simtpu_torch),
+                                [_app(simtpu_torch, tcap.AUTO_ENGINE_PODS)])
+    want = jcap._resolve_engines(jcap.ApplierOptions(**opts), _small_cluster(simtpu),
+                                 [_app(simtpu, jcap.AUTO_ENGINE_PODS)])
+    assert got == want
+    if opts.get("bulk"):
+        _, plan = assert_same_plan(_small(4, "3", "6Gi"), bulk=True)
+        assert plan.success and plan.nodes_added == 3
+    with pytest.raises(NotImplementedError, match="queue 1 #10"):
+        tcap._resolve_engines(tcap.ApplierOptions(shard=True, **opts), _small_cluster(simtpu_torch),
+                              [_app(simtpu_torch, 3)])
 
 
 def test_default_device_refuses_without_a_card(monkeypatch):
@@ -376,7 +392,7 @@ def test_cli_rejects_unported_flags_and_refuses_without_a_card(monkeypatch, caps
     from simtpu_torch.cli import main
 
     monkeypatch.chdir(REPO)
-    for flag in ("--bulk", "--faults", "--explain", "--checkpoint"):
+    for flag in ("--shard", "--faults", "--explain", "--checkpoint"):
         with pytest.raises(SystemExit):
             main(["apply", "-f", "examples/simtpu-config.yaml", flag])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
