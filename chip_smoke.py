@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the seventeen CUDA
+1. the card's name and power limit (nvidia-smi); build the nineteen CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -110,11 +110,36 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    record) must equal the golden record, K17 must have launched once per
    probe's snapshot copy, K11/K12 as the JAX package's counters, and no
    plain version may run. Prints the plan's phase timings.
+8. the fault sweep's main path: the serial smoke problem written as a
+   simon Config, `simtpu_torch.cli resilience --faults zone --json` (bulk
+   placement, the audit and its serial-exact fallback, 16 zone outages),
+   then a k=1 sweep (1000 scenarios) over the same PlacedCluster: the CLI
+   document (without timings), the per-scenario counts and the digests of
+   every requeue row, landing node and reason must equal the golden record
+   the JAX package produced; K18 and K19 once per chunk of each sweep, no
+   plain version. Prints scenarios/s, the chunk count and K18/K19's
+   device share;
+9. `place_cluster` + a k=2:256 sweep on the bulk problem (5000 nodes x
+   150 000 pods): the base placement's digest and the sweep record equal
+   to the golden record, K18/K19 once per chunk, the engine's carry
+   unchanged by the sweep;
+10. `plan_capacity_batched` on the capacity problem (all 100 candidates in
+   one K18 + K19 pair): the count and the winner's record equal the
+   capacity golden record (43 nodes), the failures at six candidates the
+   JAX package's batched sweep's;
+11. `simtpu_torch.cli resilience --plan --faults k=2:64 --seed 0 --json` on
+   the capacity problem's config: the plan document equal to the golden
+   record (count, probes, the winner's sweep counters and worst list, the
+   audit with its fallback), K18/K19 once per candidate sweep.
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread, quota-anti) and of the matrix
 cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
 GPU rounds), each from the state the earlier rounds left, and K17 on the
-bulk carry, dense and compact; then their times at named rounds.
+bulk carry, dense and compact; then their times at named rounds. And
+K18/K19 against their plain versions on the extended problem's
+`place_cluster` (a chunk of 16 single-node scenarios and one of 4 zone
+outages, storage and GPU pods in the requeue): every replica plane,
+nodes and reasons; then their times on the single-node chunk.
 Last, K8's time at the capacity winner's log (device time from the
 profiler, back-to-back launches from Python, the plain version's).
 
@@ -151,14 +176,18 @@ from simtpu_torch.core.objects import set_label
 from simtpu_torch.core.tensorize import Tensorizer
 from simtpu_torch.device import configure_numerics
 from simtpu_torch.engine import rounds, scan
-from simtpu_torch.engine import wavefront
+from simtpu_torch.engine import batched, wavefront
 from simtpu_torch.engine import state as sstate
 from simtpu_torch.io.cluster import create_cluster_resource_from_cluster_config
 from simtpu_torch.io.yaml_loader import load_resources
 from simtpu_torch.kernels import audit as kaudit
 from simtpu_torch.kernels import cuda
+from simtpu_torch import faults as tfaults
+from simtpu_torch.faults import sweep as tsweep
+from simtpu_torch.parallel import sweep as tpsweep
 from simtpu_torch.plan import capacity as tcap
 from simtpu_torch.plan import incremental as tinc
+from simtpu_torch.plan import resilience as tresil
 from simtpu_torch.plan.capacity import Applier, ApplierOptions, plan_capacity
 from simtpu_torch.synth import make_deployment, synth_apps, synth_cluster
 from simtpu_torch.workloads.expand import get_valid_pods_exclude_daemonset, seed_name_hashes
@@ -184,7 +213,13 @@ KERNELS = {
     "round_pick": "simtpu/engine/rounds.py:525",
     "round_commit": "simtpu/engine/rounds.py:565",
     "carry_copy": "simtpu/plan/incremental.py:119",
+    "sweep_drain": "simtpu/faults/sweep.py:61",
+    "sweep_place": "simtpu/faults/sweep.py:61",
 }
+SWEEP_KERNELS = ("sweep_drain", "sweep_place")
+#: requeue rows per scenario in phase 9's comparison (the plain K19's time
+#: grows with rows, not with N)
+BULK_COMPARE_ROWS = 8
 ROUND_KERNELS = ("round_score", "round_pick", "round_commit")
 #: the K1/K2/K5/K6 scratch a round's K14 reads
 ROUND_SCRATCH = ("stage", "raw", "st_ok", "st_alloc", "st_take", "st_raw", "gpu_ok", "gpu_sh")
@@ -1749,6 +1784,400 @@ def phase_bulk_kernels(device, err):
     return times, q_times, x_times, copy_times
 
 
+# -- the batched sweeps (K18 sweep_drain, K19 sweep_place) --------------------
+
+
+def sweep_bytes(inp, valid, ev_idx, rq_idx) -> dict:
+    """Bytes K18 and K19 must move for one chunk (each input read once,
+    each output written once): K18 reads the base carry and its entries'
+    log rows and writes S replicas; K19 reads the S replicas, the statics,
+    the masks, its index rows and their pod arrays, and writes two words
+    per row. K19's commits update the replicas in place and nothing reads
+    them after the chunk, so the replicas count once, as reads."""
+    s = valid.shape[0]
+    dense = sum(t.numel() * t.element_size() for t in inp.state)
+    ev = ev_idx[ev_idx >= 0].long()
+    log_row = sum(t[0].numel() * t.element_size() for t in inp.log.values() if t.shape[0]) if ev.numel() else 0
+    rows = rq_idx[rq_idx >= 0].long()
+    buf = inp.batch_buf
+    pod_row = sum(getattr(buf, f)[0].numel() * getattr(buf, f).element_size() for f in batched.POD_FIELDS)
+    statics = sum(t.numel() * t.element_size() for t in inp.statics)
+    return {
+        "sweep_drain": dense + s * dense + int(ev.numel()) * (log_row + 4),
+        "sweep_place": s * dense + statics + valid.numel() + int(rows.numel()) * (pod_row + 4 + 8),
+    }
+
+
+def compare_sweep_chunk(phase, label, inp, s0, s1, err, rq_cols=None, sb=None):
+    """K18 and K19 against their plain versions on scenarios [s0, s1) of
+    `inp` (an faults/sweep.py SweepInputs on the card), the pod lists cut
+    to their first `rq_cols` rows, in a chunk of `sb` rows (default: just
+    those scenarios): every replica plane after the drain and
+    after the requeue, the landing nodes and the reasons. The base carry
+    must be untouched. Returns (chunk tensors, requeue rows compared, the
+    kernel's landing nodes, the plain versions' seconds)."""
+    valid, ev_idx, rq_idx, _ = inp.chunk(s0, s1, sb or s1 - s0)
+    if rq_cols is not None:
+        rq_idx = rq_idx[:, :rq_cols].contiguous()
+    base = clone_state(inp.state)
+    reps_k = batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reps_p = batched.sweep_drain_plain(inp.statics, inp.state, inp.log, ev_idx)
+    torch.cuda.synchronize()
+    plain = {"sweep_drain": time.perf_counter() - t}
+    d = state_diff(reps_k, reps_p)
+    err["sweep_drain"] = max(err["sweep_drain"], d)
+    if d:
+        raise AssertionError(f"{phase}: K18 on the {label} differs from its plain version by {d}")
+    sb_k = batched.SweepBuffers(inp.batch_buf, inp.pods, inp.statics, reps_k, valid, rq_idx)
+    sb_p = batched.SweepBuffers(inp.batch_buf, inp.pods, inp.statics, reps_p, valid, rq_idx)
+    batched.sweep_place(sb_k)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batched.sweep_place_plain(sb_p)
+    torch.cuda.synchronize()
+    plain["sweep_place"] = time.perf_counter() - t
+    (nk, rk), (np_, rp) = sb_k.outputs(), sb_p.outputs()
+    d = state_diff(sb_k.reps, sb_p.reps)
+    err["sweep_place"] = max(err["sweep_place"], d)
+    if d or not np.array_equal(nk, np_) or not np.array_equal(rk, rp):
+        raise AssertionError(f"{phase}: K19 on the {label} differs from its plain version "
+                             f"(planes {d}, nodes {int((nk != np_).sum())}, reasons {int((rk != rp).sum())})")
+    if state_diff(base, inp.state):
+        raise AssertionError(f"{phase}: K18/K19 on the {label} wrote into the base carry")
+    return (valid, ev_idx, rq_idx), int((rq_idx >= 0).sum()), nk, plain
+
+
+def phase_sweep_kernels(device, err) -> dict:
+    """K18/K19 against their plain versions on the extended problem's
+    `place_cluster` (storage and GPU pods in the requeue): a chunk of 16
+    single-node scenarios and a chunk of 4 zone outages (pod lists cut to
+    48 rows, the plain version's time); then their times on the k=1 chunk
+    (the profiler's device time, the host's enqueue, the plain versions')
+    and the bytes bound."""
+    cluster, apps = smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        t0 = time.perf_counter()
+        pc = tfaults.place_cluster(cluster, apps, device="cuda")
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+    finally:
+        seed_name_hashes(None)
+    inp = tsweep.SweepInputs(pc, tfaults.generate_scenarios(cluster.nodes, "k=1"))
+    # the 16 single-node scenarios that evict the most pods
+    order = np.argsort([-len(v) for v in inp.rq_lists], kind="stable")[:16]
+    keep = np.zeros(len(inp.masks), bool)
+    keep[order] = True
+    inp = tsweep.SweepInputs(pc, tfaults.ScenarioSet(masks=inp.masks[keep], labels=tuple(
+        f"node:{i}" for i in np.flatnonzero(keep))))
+    (valid, ev_idx, rq_idx), k_rows, nodes, plain = compare_sweep_chunk(
+        "phase 2", "extended problem's k=1 chunk", inp, 0, 16, err)
+    live = inp.batch_buf.ext_live.cpu().numpy()[rq_idx[rq_idx >= 0].cpu().numpy()]
+    z_inp = tsweep.SweepInputs(pc, tfaults.generate_scenarios(cluster.nodes, "zone"))
+    (_, _, z_rq), z_rows, _, _ = compare_sweep_chunk("phase 2", "extended problem's zone chunk", z_inp, 0, 4,
+                                                     err, rq_cols=48)
+    z_idx = z_rq.cpu().numpy().ravel()
+    z_live = z_inp.batch_buf.ext_live.cpu().numpy()[z_idx[z_idx >= 0]]
+    n_storage = int((live & 1).sum() + (z_live & 1).sum())
+    n_gpu = int((live & 2).sum() + (z_live & 2).sum())
+    if not (n_storage and n_gpu):
+        raise AssertionError(f"phase 2: the sweep chunks requeue {n_storage} storage and {n_gpu} GPU pods")
+    log(f"phase 2: K18/K19 equal to their plain versions (every replica plane after the drain and the "
+        f"requeue, nodes, reasons; the base carry untouched) on the extended problem's place_cluster "
+        f"({place_s:.2f} s): 16 single-node scenarios ({k_rows} requeue rows, {int((nodes >= 0).sum())} "
+        f"re-placed) and 4 zone outages ({z_rows} rows), {n_storage} storage and {n_gpu} GPU pods requeued")
+
+    # times on the k=1 chunk
+    per, _, _ = profile_kernels(lambda: [inp.run(valid, ev_idx, rq_idx) for _ in range(5)])
+    host = {"sweep_drain": [], "sweep_place": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reps = batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx)
+        host["sweep_drain"].append(time.perf_counter() - t)
+        sb = batched.SweepBuffers(inp.batch_buf, inp.pods, inp.statics, reps, valid, rq_idx)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batched.sweep_place(sb)
+        host["sweep_place"].append(time.perf_counter() - t)
+    nbytes = sweep_bytes(inp, valid, ev_idx, rq_idx)
+    steps = int((rq_idx >= 0).sum(dim=1).max())
+    out = {}
+    for name in SWEEP_KERNELS:
+        dev_us = per[name][0]
+        out[name] = {"ms": dev_us / 1e3, "plain_ms": plain[name] * 1e3,
+                     "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                     "host_ms": float(np.median(host[name])) * 1e3, "bytes": nbytes[name],
+                     "at": f"16 single-node scenarios of the extended problem, {k_rows} requeue rows",
+                     "scenarios": 16, "rows": k_rows, "longest_list": steps,
+                     "us_per_pod_step": dev_us / max(steps, 1)}
+        log(f"  {name}: {dev_us:.2f} us device per launch (profiler, 16 blocks"
+            + (f", {dev_us / max(steps, 1):.2f} us per pod step of the longest list of {steps}" if name == "sweep_place" else "")
+            + f"), {out[name]['host_ms'] * 1e3:.2f} us to enqueue, plain {plain[name] * 1e3:.1f} ms, "
+            f"{nbytes[name]} B, bound {out[name]['bound_ms'] * 1e3:.3f} us")
+    return out
+
+
+def check_sweep_launches(label, launches: dict, plain: dict, chunks: int) -> None:
+    """K18 and K19 once per chunk of the sweep, no plain version."""
+    got = {k: launches.get(k, 0) for k in SWEEP_KERNELS}
+    if got != dict.fromkeys(SWEEP_KERNELS, chunks) or any(plain.values()):
+        raise AssertionError(f"{label}: sweep launches {got} for {chunks} chunks, plain calls {dict(plain)}")
+
+
+def profiled_sweep(pc, scen):
+    """`sweep_scenarios` on the card under the profiler, every count set to
+    0 just before and read just after. Returns (sweep, launches, plain
+    calls, wall s, K18/K19 device s)."""
+    cuda.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    per, _, _ = profile_kernels(lambda: out.append(tfaults.sweep_scenarios(pc, scen)))
+    wall = time.perf_counter() - t0
+    dev_s = sum(per[k][0] * per[k][1] for k in SWEEP_KERNELS if k in per) / 1e6
+    return out[0], dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS), wall, dev_s, per
+
+
+def sweep_summary(sw, wall, dev_s, launches, per) -> dict:
+    """A main-path sweep's numbers: `scenarios_per_s` is SweepResult's
+    (scenarios over the kernels' chunk calls, outputs to the host
+    included), `wall_scenarios_per_s` over the whole `sweep_scenarios`
+    call (the host assembly too); `sweep_host_s` is the part of the chunk
+    calls that is not K18/K19 device time."""
+    t = sw.timings
+    return {"wall_s": wall, "scenarios": len(sw.scenarios), "chunks": t["chunks"], "sweep_s": t["sweep_s"],
+            "scenarios_per_s": t["scenarios_per_s"], "assemble_s": t["assemble_s"], "total_s": t["total_s"],
+            "wall_scenarios_per_s": len(sw.scenarios) / t["total_s"], "sweep_device_s": dev_s,
+            "sweep_host_s": t["sweep_s"] - dev_s, "sweep_device_share": dev_s / wall, "launches": launches,
+            "us_per_launch": {k: per[k][0] for k in SWEEP_KERNELS if k in per}}
+
+
+def sweep_rates(o: dict) -> str:
+    return (f"{o['scenarios_per_s']:.1f} scenarios/s over the chunk calls ({o['sweep_s']:.4f} s: "
+            f"{o['sweep_device_s']:.4f} s K18/K19 device, {o['sweep_host_s']:.4f} s the rest), "
+            f"{o['wall_scenarios_per_s']:.1f} scenarios/s over the whole call ({o['total_s']:.4f} s, assembly "
+            f"{o['assemble_s']:.4f} s; {o['wall_s']:.3f} s under the profiler)")
+
+
+def compare_main_chunk(phase, label, pc, scen, err, rq_cols=None) -> dict:
+    """K18 and K19 against their plain versions on the first chunk that the
+    main path's sweep of `scen` over `pc` launched, at its shape (s_chunk
+    scenarios, the sweep's e_pad and r_pad; the pod lists cut to `rq_cols`
+    rows where given): every replica plane, nodes, reasons, the base carry
+    untouched. Run after the main path's counts are read."""
+    inp = tsweep.SweepInputs(pc, scen)
+    s_chunk = tsweep._chunk_default(inp.state, len(scen))
+    (_, ev_idx, rq_idx), rows, nodes, plain = compare_sweep_chunk(phase, label, inp, 0, min(s_chunk, len(scen)),
+                                                                  err, rq_cols, sb=s_chunk)
+    out = {"scenarios": s_chunk, "e_pad": inp.e_pad, "r_pad": inp.r_pad, "cols": int(rq_idx.shape[1]),
+           "entries": int((ev_idx >= 0).sum()), "rows": rows, "placed": int((nodes >= 0).sum()),
+           "plain_s": plain}
+    log(f"{phase}: K18/K19 equal to their plain versions on the {label} ({s_chunk} scenarios x "
+        f"N={pc.n_nodes}, e_pad {inp.e_pad} with {out['entries']} entries, r_pad {inp.r_pad}"
+        + (f" cut to {out['cols']}" if rq_cols is not None else "")
+        + f", {rows} requeue rows, {out['placed']} re-placed): every replica plane, nodes, reasons, the base "
+        f"carry untouched; plain K18 {plain['sweep_drain']:.1f} s, K19 {plain['sweep_place']:.1f} s")
+    return out
+
+
+def run_serial_faults(card: str, err) -> dict:
+    """Phase 8: `simtpu_torch.cli resilience --faults zone --json` on the
+    serial smoke problem written as a simon Config, and a k=1 sweep over
+    the same PlacedCluster, against their golden records."""
+    golden = smoke.load_record(smoke.FAULT_GOLDEN)
+    cluster, apps = smoke.smoke_problem(synth_cluster, synth_apps)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke.write_capacity_config(tmp, cluster, apps, smoke.template_node(synth))
+        cuda.reset_counts()
+        seed_name_hashes(smoke.NAME_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with smoke.capture_sweeps(tfaults) as got, contextlib.redirect_stderr(io.StringIO()):
+                rc, doc = smoke.run_cli_json(tcli.main, ["resilience", "-f", cfg, "--faults",
+                                                         smoke.FAULT_ZONE_SPEC, "--json"])
+        finally:
+            seed_name_hashes(None)
+        wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    pc, zone = got[0]
+    diffs = []
+    if rc != golden["rc"] or smoke.doc_record(doc) != golden["cli"]:
+        diffs.append(f"CLI exit {rc} (golden {golden['rc']}), document {smoke.doc_record(doc)} != "
+                     f"golden {golden['cli']}")
+    if smoke.placed_digest(pc.nodes) != golden["base"]:
+        diffs.append("the base placement differs")
+    diffs += smoke.sweep_differences(smoke.sweep_record(zone), golden["zone"])
+    if diffs:
+        raise AssertionError("phase 8: the zone sweep differs from the golden record:\n" + "\n".join(diffs))
+    check_sweep_launches("phase 8 zone", launches, plain, int(zone.timings["chunks"]))
+    out["zone"] = {"wall_s": wall, "rc": rc, "scenarios": len(zone.scenarios), "chunks": zone.timings["chunks"],
+                   "sweep_s": zone.timings["sweep_s"], "scenarios_per_s": zone.timings["scenarios_per_s"],
+                   "launches": launches, "audit_fallback": bool(doc.get("audit", {}).get("fallback"))}
+    log(f"phase 8: cli resilience --faults zone on the serial smoke problem ({len(cluster.nodes)} nodes x "
+        f"{len(pc.nodes)} pods): exit {rc}, audit fallback {out['zone']['audit_fallback']}, 16 scenarios in "
+        f"{int(zone.timings['chunks'])} chunk(s), unplaced max {int(zone.unplaced.max())}, "
+        f"{zone.timings['scenarios_per_s']:.1f} scenarios/s, {wall:.2f} s end to end; == golden; "
+        f"launches {launches} [{card}]")
+
+    scen = tfaults.generate_scenarios(cluster.nodes, smoke.FAULT_K1_SPEC)
+    k1, launches, plain, wall, dev_s, per = profiled_sweep(pc, scen)
+    diffs = smoke.sweep_differences(smoke.sweep_record(k1), golden["k1"])
+    if diffs:
+        raise AssertionError("phase 8: the k=1 sweep differs from the golden record:\n" + "\n".join(diffs))
+    check_sweep_launches("phase 8 k=1", launches, plain, int(k1.timings["chunks"]))
+    out["k1"] = sweep_summary(k1, wall, dev_s, launches, per)
+    log(f"phase 8: sweep_scenarios k=1 on the same PlacedCluster: {len(k1.scenarios)} scenarios in "
+        f"{int(k1.timings['chunks'])} chunks, {sweep_rates(out['k1'])}, K18/K19 device {dev_s:.4f} s = "
+        f"{dev_s / wall:.1%} of the wall, {out['k1']['us_per_launch']} us per launch; == golden")
+    out["k1"]["compare"] = compare_main_chunk("phase 8", "serial smoke problem's first k=1 chunk", pc, scen, err)
+    return out
+
+
+def run_bulk_faults(card: str, err) -> dict:
+    """Phase 9: `place_cluster` + `sweep_scenarios("k=2:256", seed=0)` on the
+    bulk problem against its golden record; the engine's carry unchanged."""
+    golden = smoke.load_record(smoke.BULK_FAULT_GOLDEN)
+    cluster, apps = smoke.bulk_problem(synth)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc = tfaults.place_cluster(cluster, apps, device="cuda")
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+    finally:
+        seed_name_hashes(None)
+    if smoke.placed_digest(pc.nodes) != golden["base"] or int((pc.nodes < 0).sum()) != golden["base_unplaced"]:
+        raise AssertionError(f"phase 9: the base placement differs from the golden record "
+                             f"({int((pc.nodes < 0).sum())} unplaced, golden {golden['base_unplaced']})")
+    carry = clone_state(pc.engine.last_state)
+    scen = tfaults.generate_scenarios(cluster.nodes, smoke.BULK_FAULT_SPEC, seed=0)
+    sweep, launches, plain, wall, dev_s, per = profiled_sweep(pc, scen)
+    diffs = smoke.sweep_differences(smoke.sweep_record(sweep), golden["sweep"])
+    if diffs:
+        raise AssertionError("phase 9: the sweep differs from the golden record:\n" + "\n".join(diffs))
+    check_sweep_launches("phase 9", launches, plain, int(sweep.timings["chunks"]))
+    if state_diff(carry, pc.engine.last_state):
+        raise AssertionError("phase 9: the sweep changed the engine's carry")
+    out = dict(sweep_summary(sweep, wall, dev_s, launches, per), place_s=place_s,
+               r_pad=int(sweep.requeue_rows.shape[1]))
+    log(f"phase 9: place_cluster on the bulk problem ({len(cluster.nodes)} nodes x {len(pc.nodes)} pods, "
+        f"{place_s:.2f} s) + sweep k=2:256: {int(sweep.timings['chunks'])} chunks, {sweep_rates(out)}, "
+        f"K18/K19 device {dev_s:.4f} s = {dev_s / wall:.1%}, {out['us_per_launch']} us per launch; == golden, "
+        f"the carry unchanged [{card}]")
+    out["compare"] = compare_main_chunk("phase 9", "bulk problem's first k=2:256 chunk", pc, scen, err,
+                                        rq_cols=BULK_COMPARE_ROWS)
+    return out
+
+
+def run_batched_capacity(card: str) -> dict:
+    """Phase 10: `plan_capacity_batched` on the capacity problem (all 100
+    candidates): the count against the capacity golden record (the serial
+    planner's), the failures at smoke.CAP_SWEEP_CANDIDATES and the
+    winner's record against the JAX package's batched sweep and the
+    simulation its planner runs next."""
+    want = smoke.load_record(smoke.CAP_GOLDEN)
+    sweep_golden = smoke.load_record(smoke.CAP_FAULT_GOLDEN)
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu_torch.AppResource,
+                                                     simtpu_torch.ResourceTypes)
+    walls = []
+    scan_fn = tpsweep.sweep_scan
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = scan_fn(*a, **kw)
+        walls.append(time.perf_counter() - t)
+        return res
+
+    cuda.reset_counts()
+    tpsweep.sweep_scan = timed
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        plan = tpsweep.plan_capacity_batched(cluster, apps, template, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        seed_name_hashes(None)
+        tpsweep.sweep_scan = scan_fn
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    failures = [plan.probes[c] for c in smoke.CAP_SWEEP_CANDIDATES]
+    diffs = []
+    if (plan.success, plan.nodes_added, plan.message) != (True, want["nodes_added"], want["message"]):
+        diffs.append(f"plan {plan.success} {plan.nodes_added} {plan.message!r}, golden {want['nodes_added']}")
+    if failures != sweep_golden["failures"]:
+        diffs.append(f"failures at {smoke.CAP_SWEEP_CANDIDATES}: {failures}, golden {sweep_golden['failures']}")
+    # the winner's simulation draws its pod names after the sweep's one
+    # expansion, as in the JAX package's batched planner (whose next step
+    # after the sweep the golden record ran)
+    diffs += smoke.record_differences(smoke.placement_record(plan.result), sweep_golden["winner"])
+    if diffs:
+        raise AssertionError("phase 10: the batched plan differs from the golden records:\n" + "\n".join(diffs))
+    check_sweep_launches("phase 10", launches, plain, 1)
+    n_pods = len(want["record"]["placed"]) + len(want["record"]["failed"])
+    out = {"wall_s": wall, "sweep_s": walls[0], "candidates": len(plan.probes), "nodes_added": plan.nodes_added,
+           "pod_steps": n_pods, "us_per_pod_step": walls[0] / n_pods * 1e6, "launches": launches}
+    log(f"phase 10: plan_capacity_batched on the capacity problem: {len(plan.probes)} candidates in one "
+        f"K18 + K19 launch pair, sweep {walls[0]:.3f} s wall ({out['us_per_pod_step']:.2f} us per pod step "
+        f"of {n_pods}), plan {wall:.2f} s, +{plan.nodes_added} nodes, failures {failures} == golden, "
+        f"winner record == golden [{card}]")
+    return out
+
+
+def run_resilience_plan(card: str) -> dict:
+    """Phase 11: `simtpu_torch.cli resilience --plan --faults k=2:64 --seed 0
+    --json` on the capacity problem's config against its golden record."""
+    golden = smoke.load_record(smoke.CAP_FAULT_GOLDEN)
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu_torch.AppResource,
+                                                     simtpu_torch.ResourceTypes)
+    sweep_walls = []
+    sweep_fn = tresil.sweep_scenarios
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = sweep_fn(*a, **kw)
+        sweep_walls.append(time.perf_counter() - t)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke.write_capacity_config(tmp, cluster, apps, template)
+        cuda.reset_counts()
+        tresil.sweep_scenarios = timed
+        seed_name_hashes(smoke.NAME_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc, doc = smoke.run_cli_json(tcli.main, ["resilience", "-f", cfg, "--plan", "--faults",
+                                                         smoke.CAP_RESIL_SPEC, "--seed", "0", "--json"])
+        finally:
+            seed_name_hashes(None)
+            tresil.sweep_scenarios = sweep_fn
+        wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if rc != golden["plan_rc"] or smoke.doc_record(doc) != golden["plan"]:
+        raise AssertionError(f"phase 11: exit {rc} (golden {golden['plan_rc']}), plan "
+                             f"{smoke.doc_record(doc)} != golden {golden['plan']}")
+    if launches.get("sweep_drain", 0) != len(sweep_walls) or launches.get("sweep_place", 0) != len(sweep_walls) \
+            or any(plain.values()):
+        raise AssertionError(f"phase 11: {len(sweep_walls)} sweeps, launches {launches}, plain {plain}")
+    out = {"wall_s": wall, "rc": rc, "nodes_added": doc["nodes_added"], "candidates": doc["candidates_probed"],
+           "sweeps": len(sweep_walls), "sweep_wall_s": sweep_walls, "launches": launches}
+    log(f"phase 11: cli resilience --plan --faults k=2:64 on the capacity problem: exit {rc}, "
+        f"+{doc['nodes_added']} nodes after {doc['candidates_probed']} candidates, audit fallback "
+        f"{bool(doc['audit'].get('fallback'))}; {wall:.2f} s, {len(sweep_walls)} sweeps of "
+        f"{np.mean(sweep_walls) * 1e3:.1f} ms mean; == golden [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1858,6 +2287,7 @@ def main() -> int:
         f"and restoring {len(entries)} placements on the extended carry; the round trip restores "
         "every compact field bit for bit")
     round_times, q_round_times, m_round_times, copy_times = phase_bulk_kernels(device, err)
+    sweep_times = phase_sweep_kernels(device, err)
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -2010,6 +2440,12 @@ def main() -> int:
     # -- phase 7: the large capacity plan (bulk + incremental) ---------------
     l_plan, l_launches, l_wall = run_large_capacity(card)
 
+    # -- phases 8-11: the batched what-if sweeps -------------------------------
+    serial_faults = run_serial_faults(card, err)
+    bulk_faults = run_bulk_faults(card, err)
+    batched_capacity = run_batched_capacity(card)
+    resilience_plan = run_resilience_plan(card)
+
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
     w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
@@ -2034,6 +2470,35 @@ def main() -> int:
                      **{k: b_launches.get(k, 0) for k in ROUND_KERNELS},
                      "carry_copy": l_launches.get("carry_copy", 0)}
     for name, replaces in KERNELS.items():
+        if name in SWEEP_KERNELS:
+            t = sweep_times[name]
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"simtpu_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces,
+                **({"also_replaces": "simtpu/parallel/sweep.py:49"} if name == "sweep_place" else {}),
+                # the main path: phase 8's zone and k=1 sweeps
+                "launches": sum(serial_faults[k]["launches"].get(name, 0) for k in ("zone", "k1")),
+                "max_abs_err": err[name],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": None,
+                "host_ms": t["host_ms"],
+                "launch_ms": launch_ms,
+                "ms_from": "profiler",
+                "at": t["at"],
+                "bytes": t["bytes"],
+                "us_per_pod_step": t["us_per_pod_step"] if name == "sweep_place" else None,
+                "main_path_us_per_launch": {"serial_k1": serial_faults["k1"]["us_per_launch"].get(name),
+                                            "bulk_k2": bulk_faults["us_per_launch"].get(name)},
+                "launches_bulk_faults_path": bulk_faults["launches"].get(name, 0),
+                "launches_batched_capacity_path": batched_capacity["launches"].get(name, 0),
+                "launches_resilience_plan_path": resilience_plan["launches"].get(name, 0),
+            })
+            continue
         if name in ROUND_KERNELS or name == "carry_copy":
             t = round_times[name] if name in ROUND_KERNELS else copy_times["compact"]
             rows.append({
@@ -2140,6 +2605,8 @@ def main() -> int:
                                "wave_pods": b_steps["wave_pods"], "place_s": b_steps["place_s"], **b_dev,
                                "rounds_device_share": b_dev["rounds_device_s"] / b_wall,
                                "device_busy": b_dev["device_s"] / b_wall, "profiled": True},
+                      "serial_faults": serial_faults, "bulk_faults": bulk_faults,
+                      "batched_capacity": batched_capacity, "resilience_plan": resilience_plan,
                       "large_capacity": {"nodes_added": l_plan.nodes_added, "wall_s": l_wall,
                                          "probes": {str(k): v for k, v in l_plan.probes.items()},
                                          "timings": l_plan.timings,

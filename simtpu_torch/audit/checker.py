@@ -757,6 +757,74 @@ def audit_simulation(sim, inject: bool = False) -> AuditReport:
     return report
 
 
+def extras_from_log(pc) -> Dict[str, np.ndarray]:
+    """Per-batch-row extras (`lvm_alloc`/`dev_take`/`gpu_shares`) rebuilt
+    from a `PlacedCluster`'s engine ext log — the shape `audit_placement`
+    consumes when the caller kept the log but not `place()`'s extras."""
+    t = pc.tensors
+    p = len(pc.nodes)
+    ext = {
+        "lvm_alloc": np.zeros((p, t.ext.vg_cap.shape[1])),
+        "dev_take": np.zeros((p, t.ext.sdev_cap.shape[1]), bool),
+        "gpu_shares": np.zeros((p, t.ext.gpu_dev_total.shape[1])),
+    }
+    rows = pc.log_row
+    if len(rows):
+        ext["lvm_alloc"][rows] = np.asarray(pc.engine.ext_log["vg_alloc"])
+        ext["dev_take"][rows] = np.asarray(pc.engine.ext_log["sdev_take"])
+        ext["gpu_shares"][rows] = np.asarray(pc.engine.ext_log["gpu_shares"])
+    return ext
+
+
+def audit_placed_cluster(pc, progress=None, inject: bool = False):
+    """Audit a `PlacedCluster`'s base placement (the fault sweep's
+    drain-from state) on its engine's device; on failure re-place through
+    the serial exact engine (pod at a time, the wavefront off, the dense
+    carry) and re-audit — the divergence-safe fallback at the sweep
+    boundary. `inject` corrupts the audit's view of the primary placement
+    (never the fallback's).
+
+    Returns `(pc, audit_doc, hard_failure_message_or_None)`: `pc` is the
+    certified cluster (the fallback's when the original failed its
+    audit), `audit_doc` the machine-readable record the CLI surfaces."""
+    from ..engine.scan import Engine
+    from ..faults.drain import PlacedCluster
+
+    say = progress or (lambda s: None)
+    tensors, batch = pc.tensors, pc.batch
+    device = pc.engine.device
+    nodes = np.asarray(pc.nodes)
+    nodes_aud = inject_divergence(tensors, batch, nodes) if inject else nodes
+    rep = audit_placement(tensors, batch, nodes_aud, extras_from_log(pc),
+                          node_valid=pc.engine.node_valid, device=device)
+    if rep.ok:
+        return pc, rep.counters(), None
+    say(f"audit FAILED on the base placement ({rep.summary()}) — re-placing through the serial "
+        "exact scan")
+    fb = Engine(pc.tz, device)
+    fb.node_valid = pc.engine.node_valid
+    fb.speculate = False
+    fb.compact = False
+    fb.sched_config = pc.engine.sched_config
+    nodes_f, reasons_f, _ = fb.place(batch)
+    pc_f = PlacedCluster(tz=pc.tz, tensors=tensors, batch=batch, engine=fb, nodes=nodes_f,
+                         reasons=reasons_f)
+    rep_f = audit_placement(tensors, batch, pc_f.nodes, extras_from_log(pc_f),
+                            node_valid=fb.node_valid, device=device)
+    audit_doc = {
+        **rep.counters(),
+        "fallback": True,
+        "fallback_audit": rep_f.counters(),
+        "divergence": divergence_diagnostic(tensors, batch, nodes_aud, pc_f.nodes, rep),
+    }
+    if not rep_f.ok:
+        return pc_f, audit_doc, (
+            "audit failure: the base placement violates its claimed constraints and the "
+            f"serial-exact fallback did not certify either ({rep_f.summary()})")
+    audit_doc["ok"] = True
+    return pc_f, audit_doc, None
+
+
 # ---------------------------------------------------------------------------
 # Test lever: injected divergence
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
-"""The port's command line: `python -m simtpu_torch.cli apply`.
+"""The port's command line: `python -m simtpu_torch.cli apply | resilience`.
 
-The `apply` command of the JAX package's `simtpu` CLI (which mirrors the
-reference's `simon apply`, `cmd/apply/apply.go:26-37`): plan the minimum
-number of template nodes that deploys the app list, print the report
-tables (or, with `--json`, the machine-readable plan), and exit 0 on a
-plan, 1 on failure, 4 when the auditor caught a divergence. Every
-simulation runs on `--device` (default `cuda`; `cpu` runs the plain
-PyTorch path). The JAX CLI's other commands and apply flags are not
-ported yet (ROADMAP queue 1); argparse rejects them.
+The `apply` and `resilience` commands of the JAX package's `simtpu` CLI.
+`apply` (the reference's `simon apply`, `cmd/apply/apply.go:26-37`) plans
+the minimum number of template nodes that deploys the app list, prints the
+report tables (or, with `--json`, the machine-readable plan) and, with
+`--faults`, sweeps failure scenarios over the winning cluster.
+`resilience` drains and requeues every generated failure scenario against
+the configured cluster, or with `--plan` searches the minimum clone count
+whose cluster survives them. Exit 0 on a plan (a surviving cluster), 1 on
+failure, 4 when the auditor caught a divergence. Every simulation runs on
+`--device` (default `cuda`; `cpu` runs the plain PyTorch path). The JAX
+CLI's other commands and flags are not ported yet (ROADMAP queue 1:
+`--checkpoint/--resume/--deadline` #8, `--solver` #7, `--explain` #6,
+`--trace/--profile` with the observability layer); argparse rejects them.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import List, Optional
 from . import constants as C
 from .device import resolve_device
 from .plan.capacity import Applier, ApplierOptions
-from .report import audit_report, report
+from .report import audit_report, report, resilience_report
 
 #: exit code for an audit failure: the independent placement auditor
 #: caught the primary answer violating its claimed constraints.  When the
@@ -47,10 +52,11 @@ def _interactive_select(names: List[str]) -> List[str]:
     return picked
 
 
-def _plan_json(plan) -> str:
+def _plan_json(plan, resilience: dict = None) -> str:
     """Machine-readable plan summary: the plan, its probes and timings, and
     the engine record (search, bulk, device, and the audit of the shipped
-    candidate under `engine.audit`)."""
+    candidate under `engine.audit`). `resilience` attaches the post-plan
+    fault sweep's counters (`--faults`)."""
     doc = {
         "success": plan.success,
         "nodes_added": plan.nodes_added,
@@ -64,6 +70,8 @@ def _plan_json(plan) -> str:
             len(plan.result.unscheduled_pods) if plan.result is not None else None
         ),
     }
+    if resilience is not None:
+        doc["resilience"] = resilience
     return json.dumps(doc)
 
 
@@ -72,6 +80,79 @@ def _audit_failed(doc: Optional[dict]) -> bool:
     primary answer failed certification (whether or not the re-simulation
     then certified)."""
     return bool(doc) and (bool(doc.get("fallback")) or not doc.get("ok", True))
+
+
+class _SweepAuditFailure(Exception):
+    """The --faults sweep's base placement failed its audit AND the
+    serial-exact fallback did not certify either — the hardest audit
+    outcome. Carries the audit doc so cmd_apply can surface the
+    violations/divergence record and return EXIT_AUDIT."""
+
+    def __init__(self, message: str, audit_doc: dict):
+        super().__init__(message)
+        self.audit_doc = audit_doc
+
+
+def _apply_faults_sweep(applier, plan, spec: str, samples: int, seed: int, progress):
+    """Post-plan survivability assessment for `apply --faults`: one batched
+    fault sweep over the WINNING cluster (base + the clones the plan
+    added). Placement for the sweep runs engine-level without preemption
+    (the capacity-sweep contract, plan/resilience.py).
+
+    Returns (sweep, base_unplaced, audit_doc): the sweep's drain-from
+    placement is independently audited unless opted out, with the
+    serial-exact fallback re-placing on failure — a corrupted base would
+    silently skew EVERY scenario's verdict."""
+    from .audit import checker
+    from .core.objects import ResourceTypes
+    from . import faults
+    from .plan.capacity import new_fake_nodes
+
+    cluster = applier.load_cluster()
+    apps = applier.load_apps()
+    if plan.nodes_added:
+        trial = ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
+        trial.nodes = list(cluster.nodes) + new_fake_nodes(applier.load_new_node(), plan.nodes_added)
+        cluster = trial
+    progress(f"fault sweep over the winning cluster ({len(cluster.nodes)} nodes, faults={spec})")
+    pc = faults.place_cluster(
+        cluster,
+        apps,
+        extended_resources=applier.opts.extended_resources,
+        sched_config=applier._sched_config(),
+        device=applier.opts.device,
+    )
+    audit_doc = None
+    if applier.opts.audit is not False:
+        pc, audit_doc, hard_fail = checker.audit_placed_cluster(pc, progress)
+        if hard_fail is not None:
+            raise _SweepAuditFailure(hard_fail, audit_doc)
+    # the sweep's own base placement can differ from the plan's (engine-
+    # level, simulate() pod order, no preemption) — pods it strands never
+    # enter a requeue, so the count MUST ride the output
+    base_unplaced = int((pc.nodes < 0).sum())
+    if base_unplaced:
+        progress(
+            f"{base_unplaced} pod(s) do not place in the sweep's base "
+            "placement — survivability is assessed over the placed set only"
+        )
+    scen = faults.generate_scenarios(cluster.nodes, spec, samples=samples, seed=seed)
+    return faults.sweep_scenarios(pc, scen), base_unplaced, audit_doc
+
+
+def _sweep_json_doc(sweep, spec: str, samples: int, seed: int) -> dict:
+    doc = dict(sweep.counters())
+    doc.update(
+        {
+            "spec": spec,
+            "samples": samples,
+            "seed": seed,
+            "worst": [[lbl, n] for lbl, n in sweep.worst()],
+            "critical_nodes": [[node, n] for node, n in sweep.critical_nodes()],
+            "timings": {k: round(v, 3) for k, v in sweep.timings.items()},
+        }
+    )
+    return doc
 
 
 def cmd_apply(args: argparse.Namespace) -> int:
@@ -102,6 +183,18 @@ def cmd_apply(args: argparse.Namespace) -> int:
         return fail_early(
             ValueError("--json and --interactive are mutually exclusive")
         )
+    if args.faults and opts.interactive:
+        # the post-plan fault sweep re-loads the app list from the config;
+        # an interactive selection would silently not apply to it
+        return fail_early(ValueError("--faults and --interactive are mutually exclusive"))
+    if args.faults:
+        # reject a malformed spec BEFORE the plan runs
+        from .faults import parse_fault_spec
+
+        try:
+            parse_fault_spec(args.faults)
+        except ValueError as exc:
+            return fail_early(exc)
     try:
         resolve_device(opts.device)
         applier = Applier(opts)
@@ -120,9 +213,36 @@ def cmd_apply(args: argparse.Namespace) -> int:
         plan = applier.run(select_apps=select, progress=progress)
     except (ValueError, FileNotFoundError, NotImplementedError) as exc:
         return fail_early(exc)
+    fault_sweep, fault_base_unplaced, fault_error, fault_audit = None, 0, None, None
+    if args.faults and plan.success:
+        try:
+            fault_sweep, fault_base_unplaced, fault_audit = _apply_faults_sweep(
+                applier, plan, args.faults, args.fault_samples, args.fault_seed, progress)
+        except _SweepAuditFailure as exc:
+            # neither the sweep's base placement nor the serial-exact
+            # fallback certified — keep the audit doc for the exit code
+            fault_error = str(exc)
+            fault_audit = exc.audit_doc
+            print(f"fault sweep audit failed: {exc}", file=sys.stderr)
+        except ValueError as exc:
+            # a failed post-plan sweep must not discard the successful
+            # plan: record the error alongside it instead
+            fault_error = str(exc)
+            print(f"fault sweep failed: {exc}", file=sys.stderr)
+    audit_failed = _audit_failed(plan.audit) or _audit_failed(fault_audit)
     if args.json:
-        print(_plan_json(plan))
-        if _audit_failed(plan.audit):
+        resilience = None
+        if fault_sweep is not None:
+            resilience = _sweep_json_doc(fault_sweep, args.faults, args.fault_samples, args.fault_seed)
+            resilience["base_unplaced"] = fault_base_unplaced
+            if fault_audit is not None:
+                resilience["audit"] = fault_audit
+        elif fault_error is not None:
+            resilience = {"error": fault_error}
+            if fault_audit is not None:
+                resilience["audit"] = fault_audit
+        print(_plan_json(plan, resilience=resilience))
+        if audit_failed:
             return EXIT_AUDIT
         return 0 if plan.success else 1
     if plan.success:
@@ -136,12 +256,22 @@ def cmd_apply(args: argparse.Namespace) -> int:
         if plan.timings:
             phases = "  ".join(f"{k}={v:.2f}s" for k, v in plan.timings.items())
             print(f"phase timings: {phases}")
+        if _audit_failed(fault_audit):
+            print(f"{C.COLOR_RED}{audit_report(fault_audit)}{C.COLOR_RESET}")
+        if fault_sweep is not None:
+            print(resilience_report(fault_sweep))
+            if fault_base_unplaced:
+                print(
+                    f"{C.COLOR_RED}warning: {fault_base_unplaced} pod(s) "
+                    "unplaced before any failure; survivability covers the "
+                    f"placed set only{C.COLOR_RESET}"
+                )
         if plan.engine:
             eng = " ".join(
                 f"{k}={v}" for k, v in plan.engine.items() if not isinstance(v, dict)
             )
             print(f"engine selection: {eng}")
-        return EXIT_AUDIT if _audit_failed(plan.audit) else 0
+        return EXIT_AUDIT if audit_failed else 0
     print(f"{C.COLOR_RED}{plan.message}{C.COLOR_RESET}")
     if _audit_failed(plan.audit):
         print(f"{C.COLOR_RED}{audit_report(plan.audit)}{C.COLOR_RESET}")
@@ -150,6 +280,172 @@ def cmd_apply(args: argparse.Namespace) -> int:
         print(report(plan.result.node_status, opts.extended_resources))
         print(C.COLOR_RESET, end="")
     return EXIT_AUDIT if _audit_failed(plan.audit) else 1
+
+
+def cmd_resilience(args: argparse.Namespace) -> int:
+    """Survivability assessment / N+k planning over the configured cluster
+    (faults/, plan/resilience.py). Default mode drains + requeues every
+    generated failure scenario against the as-is cluster; `--plan`
+    searches the minimum newNode clone count whose cluster survives them
+    (requires `newNode` in the Config CR)."""
+    opts = ApplierOptions(
+        simon_config=args.simon_config,
+        default_scheduler_config=args.default_scheduler_config or "",
+        extended_resources=args.extended_resources or [],
+        audit=args.audit,
+        device=args.device,
+    )
+
+    def fail_early(exc: Exception) -> int:
+        if args.json:
+            print(json.dumps({"success": False, "message": str(exc)}))
+        print(exc, file=sys.stderr)
+        return 1
+
+    try:
+        resolve_device(opts.device)
+        applier = Applier(opts)
+    except (ValueError, FileNotFoundError, RuntimeError) as exc:
+        return fail_early(exc)
+    progress_stream = sys.stderr if args.json else sys.stdout
+
+    def progress(msg: str) -> None:
+        print(f"{C.COLOR_YELLOW}{msg}{C.COLOR_RESET}", file=progress_stream)
+
+    try:
+        cluster = applier.load_cluster()
+        apps = applier.load_apps()
+        sched_config = applier._sched_config()
+        if args.plan:
+            from .plan.resilience import plan_resilience
+
+            plan = plan_resilience(
+                cluster,
+                apps,
+                applier.load_new_node(),
+                spec=args.faults,
+                quantile=args.quantile,
+                samples=args.samples,
+                seed=args.seed,
+                max_new_nodes=args.max_new_nodes,
+                extended_resources=opts.extended_resources,
+                progress=progress,
+                sched_config=sched_config,
+                audit=args.audit,
+                device=opts.device,
+            )
+            if args.json:
+                doc = plan.counters()
+                # the port's plans are never interrupted (no deadline)
+                doc["partial"] = False
+                doc["message"] = plan.message
+                doc["probes"] = {str(i): rec for i, rec in sorted(plan.probes.items())}
+                if plan.sweep is not None:
+                    doc["worst"] = [[lbl, n] for lbl, n in plan.sweep.worst()]
+                print(json.dumps(doc))
+            else:
+                color = C.COLOR_GREEN if plan.success else C.COLOR_RED
+                print(f"{color}{plan.message}{C.COLOR_RESET}")
+                if plan.success:
+                    print(f"minimum nodes added for survivability: {plan.nodes_added}")
+                if plan.audit:
+                    a_color = C.COLOR_RED if _audit_failed(plan.audit) else C.COLOR_GREEN
+                    print(f"{a_color}{audit_report(plan.audit)}{C.COLOR_RESET}")
+                if plan.sweep is not None:
+                    print(resilience_report(plan.sweep))
+            if _audit_failed(plan.audit):
+                return EXIT_AUDIT
+            return 0 if plan.success else 1
+
+        from . import faults
+        from .audit import checker
+
+        progress(
+            f"placing workloads ({len(cluster.nodes)} nodes), then sweeping "
+            f"faults={args.faults}"
+        )
+        pc = faults.place_cluster(
+            cluster,
+            apps,
+            extended_resources=opts.extended_resources,
+            bulk=not args.no_bulk,
+            sched_config=sched_config,
+            device=opts.device,
+        )
+        audit_doc = None
+        if args.audit is not False:
+            # the assessment's drain-from placement feeds EVERY scenario
+            # verdict — certify it (serial-exact fallback on failure)
+            pc, audit_doc, hard_fail = checker.audit_placed_cluster(pc, progress)
+            if hard_fail is not None:
+                if args.json:
+                    print(json.dumps({"success": False, "message": hard_fail, "audit": audit_doc}))
+                print(hard_fail, file=sys.stderr)
+                return EXIT_AUDIT
+        base_unplaced = int((pc.nodes < 0).sum())
+        if base_unplaced:
+            progress(
+                f"{base_unplaced} pod(s) do not place before any failure — "
+                "the sweep assesses only the placed set"
+            )
+        scen = faults.generate_scenarios(cluster.nodes, args.faults, samples=args.samples,
+                                         seed=args.seed)
+        sweep = faults.sweep_scenarios(pc, scen)
+    except (ValueError, FileNotFoundError, NotImplementedError) as exc:
+        return fail_early(exc)
+    survived_all = bool(sweep.survival_rate >= 1.0) and base_unplaced == 0
+    if args.json:
+        doc = _sweep_json_doc(sweep, args.faults, args.samples, args.seed)
+        doc["success"] = survived_all
+        doc["base_unplaced"] = base_unplaced
+        if audit_doc is not None:
+            doc["audit"] = audit_doc
+        print(json.dumps(doc))
+        if _audit_failed(audit_doc):
+            return EXIT_AUDIT
+        return 0 if survived_all else 1
+    color = C.COLOR_GREEN if survived_all else C.COLOR_RED
+    print(color, end="")
+    print(resilience_report(sweep))
+    print(C.COLOR_RESET, end="")
+    if _audit_failed(audit_doc):
+        print(f"{C.COLOR_RED}{audit_report(audit_doc)}{C.COLOR_RESET}")
+    rate = sweep.timings.get("scenarios_per_s", 0.0)
+    print(
+        f"{len(scen)} scenario(s), {int(sweep.survived.sum())} survived "
+        f"({rate:.0f} scenarios/s)"
+    )
+    if _audit_failed(audit_doc):
+        return EXIT_AUDIT
+    return 0 if survived_all else 1
+
+
+def _add_audit_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--audit",
+        dest="audit",
+        action="store_true",
+        default=None,
+        help="certify the accepted placement through the independent "
+        "auditor (default: on); an audit failure re-simulates, ships the "
+        f"certified answer, and exits with code {EXIT_AUDIT}",
+    )
+    p.add_argument(
+        "--no-audit",
+        dest="audit",
+        action="store_false",
+        help="skip the independent placement audit (the plan ships uncertified)",
+    )
+
+
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help="where every simulation runs (default: cuda, the hand-written "
+        "kernels on the card; cpu runs their plain PyTorch versions)",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -225,28 +521,113 @@ def build_parser() -> argparse.ArgumentParser:
         "report tables",
     )
     apply_p.add_argument(
-        "--audit",
-        dest="audit",
-        action="store_true",
+        "--faults",
+        metavar="SPEC",
         default=None,
-        help="certify the accepted placement through the independent "
-        "auditor (default: on); an audit failure re-simulates, ships the "
-        f"certified answer, and exits with code {EXIT_AUDIT}",
+        help="after a successful plan, sweep failure scenarios over the "
+        "winning cluster: comma-separated k=<int>[:<samples>] terms and "
+        "domain outages (zone, rack, host, label:<key>)",
     )
     apply_p.add_argument(
-        "--no-audit",
-        dest="audit",
-        action="store_false",
-        help="skip the independent placement audit (the plan ships uncertified)",
+        "--fault-samples",
+        type=int,
+        default=256,
+        metavar="N",
+        help="sample budget per k>=2 fault term (default 256)",
     )
     apply_p.add_argument(
-        "--device",
-        choices=["cuda", "cpu"],
-        default="cuda",
-        help="where every simulation runs (default: cuda, the hand-written "
-        "kernels on the card; cpu runs their plain PyTorch versions)",
+        "--fault-seed",
+        type=int,
+        default=0,
+        metavar="SEED",
+        help="deterministic seed for sampled fault scenarios (default 0)",
     )
+    _add_audit_flags(apply_p)
+    _add_device_flag(apply_p)
     apply_p.set_defaults(func=cmd_apply)
+
+    res_p = sub.add_parser(
+        "resilience",
+        help="fault-injection survivability: drain + requeue batched "
+        "failure scenarios (and optionally plan N+k capacity)",
+        description="Not ported yet: --checkpoint/--resume/--deadline "
+        "(ROADMAP queue 1 #8), --solver (#7), --explain (#6), --trace/--profile.",
+    )
+    res_p.add_argument(
+        "-f", "--simon-config", required=True, help="path of simon config (required)"
+    )
+    res_p.add_argument(
+        "-d",
+        "--default-scheduler-config",
+        help="path of scheduler-config overrides",
+    )
+    res_p.add_argument(
+        "-e",
+        "--extended-resources",
+        nargs="*",
+        choices=["open-local", "gpu"],
+        help="extended resources to model (open-local, gpu)",
+    )
+    res_p.add_argument(
+        "--faults",
+        metavar="SPEC",
+        default="k=1",
+        help="failure model: comma-separated k=<int>[:<samples>] terms and "
+        "domain outages (zone, rack, host, label:<key>); default k=1 = "
+        "every single-node outage",
+    )
+    res_p.add_argument(
+        "--samples",
+        type=int,
+        default=256,
+        metavar="N",
+        help="sample budget per k>=2 fault term (default 256; exhaustive "
+        "when the combination count fits)",
+    )
+    res_p.add_argument(
+        "--seed",
+        type=int,
+        default=0,
+        metavar="SEED",
+        help="deterministic seed for sampled scenarios (default 0)",
+    )
+    res_p.add_argument(
+        "--quantile",
+        type=float,
+        default=1.0,
+        metavar="Q",
+        help="with --plan: accept a candidate when at least this fraction "
+        "of scenarios fully re-places (default 1.0 = every scenario)",
+    )
+    res_p.add_argument(
+        "--plan",
+        action="store_true",
+        help="search the minimum newNode clone count whose cluster "
+        "survives the failure model (requires newNode in the Config CR)",
+    )
+    res_p.add_argument(
+        "--max-new-nodes",
+        type=int,
+        default=C.MAX_NUM_NEW_NODE,
+        metavar="N",
+        help=f"--plan search ceiling (default {C.MAX_NUM_NEW_NODE})",
+    )
+    res_p.add_argument(
+        "--no-bulk",
+        action="store_true",
+        help="place the base workloads with the serial scan engine instead "
+        "of the bulk rounds engine",
+    )
+    res_p.add_argument(
+        "--json",
+        action="store_true",
+        help="print machine-readable survivability counters (scenarios, "
+        "survived, fault_scenarios_per_s, worst scenarios, critical nodes) "
+        "instead of the report tables",
+    )
+    _add_audit_flags(res_p)
+    _add_device_flag(res_p)
+    res_p.set_defaults(func=cmd_resilience)
     return parser
 
 

@@ -91,11 +91,14 @@ __device__ inline unsigned filter_bits(const StepCtx& x, int i, int n) {
 // pod's extended allocations into its rows and bumps cnt_total; every
 // node's thread adds the group's incidence into its count and own-plane
 // entries of each term whose domain it shares with the chosen node. Each
-// (row, node) entry has one writer.
-__device__ inline void commit_node(const StepCtx& x, int i, int n) {
-  if (!x.placed[i]) return;
+// (row, node) entry has one writer. The per-pod outputs (chosen, placed
+// and the extended allocations) are at row `o` (default: the pod's row i;
+// the scenario sweep K19 writes row j of its requeue list).
+__device__ inline void commit_node(const StepCtx& x, int i, int n, int o = -1) {
+  if (o < 0) o = i;
+  if (!x.placed[o]) return;
   const int N = x.n;
-  const int c = x.chosen[i];
+  const int c = x.chosen[o];
   const int g = x.group[i];
   const int f = x.flags;
   if (n == c) {
@@ -119,13 +122,13 @@ __device__ inline void commit_node(const StepCtx& x, int i, int n) {
     }
     const unsigned live = x.ext_live[i];
     if ((f & F_STORAGE) && (live & LIVE_STORAGE)) {
-      const size_t cv = static_cast<size_t>(c) * x.v, iv = static_cast<size_t>(i) * x.v;
+      const size_t cv = static_cast<size_t>(c) * x.v, iv = static_cast<size_t>(o) * x.v;
       for (int v = 0; v < x.v; ++v) {
         const float a = x.st_alloc[cv + v];
         x.vg_free[cv + v] = x.vg_free[cv + v] + (-a);
         x.out_lvm[iv + v] = a;
       }
-      const size_t cs = static_cast<size_t>(c) * x.sd, is = static_cast<size_t>(i) * x.sd;
+      const size_t cs = static_cast<size_t>(c) * x.sd, is = static_cast<size_t>(o) * x.sd;
       for (int d = 0; d < x.sd; ++d) {
         const uint8_t take = x.st_take[cs + d];
         x.sdev_free[cs + d] = (x.sdev_free[cs + d] && !take) ? 1 : 0;
@@ -134,7 +137,7 @@ __device__ inline void commit_node(const StepCtx& x, int i, int n) {
     }
     if ((f & F_GPU) && (live & LIVE_GPU)) {
       const float mem = x.gpu_mem[i];
-      const size_t cg = static_cast<size_t>(c) * x.gd, ig = static_cast<size_t>(i) * x.gd;
+      const size_t cg = static_cast<size_t>(c) * x.gd, ig = static_cast<size_t>(o) * x.gd;
       for (int d = 0; d < x.gd; ++d) {
         const float sh = x.gpu_sh[cg + d];
         x.gpu_free[cg + d] = x.gpu_free[cg + d] + (-sh) * mem;

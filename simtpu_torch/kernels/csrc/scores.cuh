@@ -162,8 +162,8 @@ __device__ inline int fail_code(unsigned any) {
 //          Open-Local term w10 * minmax(raw), then the argmax with the
 //          lowest index on ties (all -inf gives 0).
 // Thread 0 applies the forced-pod override and writes chosen, placed,
-// reason and out_node for pod i.
-__device__ inline void score_argmax_block(const StepCtx& x, int i) {
+// reason and out_node for pod i, at row `o` of the outputs (default i).
+__device__ inline void score_argmax_block(const StepCtx& x, int i, int o = -1) {
   constexpr int N_MIN = 4;  // simon, node_pref, soft spread, open-local
   constexpr int N_MAX = 8;  // simon, node_pref, taint, |ipa|, soft spread, ss host, ss zone, open-local
   __shared__ float sh_min[32][N_MIN];
@@ -270,8 +270,9 @@ __device__ inline void score_argmax_block(const StepCtx& x, int i) {
   const int pin_c = pin < 0 ? 0 : (pin >= N ? N - 1 : pin);
   const int chosen = forced ? pin : bi;
   const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any & ALL) != 0u);
-  x.chosen[i] = chosen;
-  x.placed[i] = placed ? 1 : 0;
-  x.reason[i] = placed ? OK : (forced ? FAIL_NO_NODE : fail);
-  x.out_node[i] = placed ? chosen : -1;
+  if (o < 0) o = i;
+  x.chosen[o] = chosen;
+  x.placed[o] = placed ? 1 : 0;
+  x.reason[o] = placed ? OK : (forced ? FAIL_NO_NODE : fail);
+  x.out_node[o] = placed ? chosen : -1;
 }

@@ -202,6 +202,35 @@ struct DeltaCtx {
   float* vols_rw;         // [N, W]
 };
 
+// The scenario-batched sweep's kernels (K18 sweep_drain, K19 sweep_place):
+// one block per scenario. Each passes the single-scenario block of its
+// kernel family (DeltaCtx for K18, StepCtx for K19) with every state
+// plane, per-block scratch and output pointing at replica / block / row 0;
+// block s reads and writes replica s, s planes further on (sweep_replica,
+// sweep_block_ctx below).
+struct SweepCtx {
+  int s;     // scenarios (the grid)
+  int cols;  // columns of idx: K18 entries, K19 pod rows per scenario
+  int t, ti; // term rows T of cnt_match / cnt_total, interpod rows Ti
+  // [S, cols] K18: placement-log entries; K19: rows of the batch's pod
+  // arrays; -1 = padding, which only trails
+  const int* idx;
+  // K18: the base carry every replica starts from (read only)
+  const float* free;            // [N, R]
+  const float* cnt_match;       // [T, N]
+  const float* cnt_total;       // [T]
+  const float* cnt_own_anti;    // [Ti, N]
+  const float* cnt_own_aff;     // [Ti, N]
+  const float* w_own_aff_pref;  // [Ti, N]
+  const float* w_own_anti_pref; // [Ti, N]
+  const float* vg_free;         // [N, V]
+  const uint8_t* sdev_free;     // [N, SD]
+  const float* gpu_free;        // [N, GD]
+  const float* ports_used;      // [N, P]
+  const float* vols_any;        // [N, W]
+  const float* vols_rw;         // [N, W]
+};
+
 // The compact carried state's kernels (K11 compact_compress, K12
 // compact_expand, K13 compact_delta): one block for the three, each
 // reading the fields it needs (the others are null). The compact layout is

@@ -7,7 +7,8 @@ run of pods in one launch (`engine/wavefront.py`), K11-K13 compress,
 expand and update the compact carried state (`engine/state.py`), K14-K16
 score, pick and commit one bulk round (`engine/rounds.py`), K17 copies a
 carried state for the incremental planner's probes
-(`plan/incremental.py`). The
+(`plan/incremental.py`), K18/K19 drain and requeue every scenario of a
+batched sweep chunk, one block per scenario (`engine/batched.py`). The
 sources live in
 `kernels/csrc/` (one `.cu` per kernel; the argument blocks in
 `step_ctx.cuh`, the per-node device code that K1-K6 and K9/K10 share in
@@ -44,6 +45,7 @@ KERNELS = (
     "storage_pod", "gpu_pod", "delta_apply", "audit_bulk", "wave_lean", "wave_hard",
     "compact_compress", "compact_expand", "compact_delta",
     "round_score", "round_pick", "round_commit", "carry_copy",
+    "sweep_drain", "sweep_place",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
@@ -51,6 +53,9 @@ STEP_KERNELS = KERNELS[:6]
 WAVE_KERNELS = KERNELS[8:10]
 #: the round kernels, launched as simtpu_<name>(StepCtx*, RoundCtx*, stream)
 ROUND_KERNELS = KERNELS[13:16]
+#: the sweep kernels, launched as simtpu_<name>(DeltaCtx* or StepCtx*,
+#: SweepCtx*, stream)
+SWEEP_KERNELS = KERNELS[17:19]
 #: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
 MAX_EXT = 32
 #: K9's carried [N] rows (step_ctx.cuh WAVE_ROWS)
@@ -128,7 +133,7 @@ def build() -> dict:
         fn = getattr(lib, f"simtpu_{name}")
         if name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        elif name in WAVE_KERNELS or name in ROUND_KERNELS:
+        elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -247,10 +252,12 @@ def _check_shapes(tensors: dict, want: dict) -> None:
             raise ValueError(f"{field}: shape {tuple(tensors[field].shape)}, want {shape}")
 
 
-def make_ctx(buf) -> StepCtx:
+def make_ctx(buf, out_rows: int = None) -> StepCtx:
     """The kernels' argument block for a StepBuffers: checks every tensor's
     device, dtype, contiguity and shape, then takes its address. The
-    buffers keep the tensors alive as long as the block is in use."""
+    buffers keep the tensors alive as long as the block is in use.
+    `out_rows` is the per-pod outputs' row count when it is not the
+    batch's (the sweep's output rows follow its pod lists)."""
     owners = {"buf": buf, "statics": buf.statics, "state": buf.state}
     tensors = {
         field: _checked(f"{owner}.{attr}", getattr(owners[owner], attr), buf.device, dtype)
@@ -265,6 +272,7 @@ def make_ctx(buf) -> StepCtx:
     if max(v, sd, gd) > MAX_EXT:
         raise ValueError(f"VG/device/GPU axes ({v}, {sd}, {gd}) wider than {MAX_EXT}")
     pods = buf.n_pods
+    rows = pods if out_rows is None else out_rows
     _check_shapes(tensors, {
         "req": (pods, r), "free": (n, r), "ports_used": (n, p), "vols_any": (n, w),
         "vols_rw": (n, w), "attach_limits": (n, c), "stage": (n,), "raw": (4, n),
@@ -272,7 +280,7 @@ def make_ctx(buf) -> StepCtx:
         "gpu_preset": (pods, gd), "vg_name_id": (n, v), "vg_free": (n, v), "sdev_free": (n, sd),
         "sdev_media": (n, sd), "gpu_dev_exists": (n, gd), "gpu_free": (n, gd),
         "st_alloc": (n, v), "st_take": (n, sd), "gpu_sh": (n, gd),
-        "out_lvm": (pods, v), "out_take": (pods, sd), "out_gpu": (pods, gd),
+        "out_lvm": (rows, v), "out_take": (rows, sd), "out_gpu": (rows, gd),
         **{f: (g, n) for f in ("static_mask", "vol_mask", "node_pref", "taint_intol",
                                 "static_score", "avoid_pen")},
         **{f: (g, tc) for f in ("s_match", "a_aff_req", "a_anti_req", "w_aff_pref",
@@ -872,3 +880,70 @@ def launch_carry_copy(planes) -> list:
     # the copy is enqueued; the stream orders any reuse after the kernel
     del table
     return out
+
+
+class SweepCtx(ctypes.Structure):
+    """ctypes mirror of `struct SweepCtx` in csrc/step_ctx.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("s", "cols", "t", "ti")] + [
+        (f, ctypes.c_void_p) for f in ("idx",) + DENSE_FIELDS
+    ]
+
+
+def _replica_dims(base, reps, s: int) -> tuple:
+    """(T, Ti) of a replicated state `reps` ([S, ...] planes) whose replica
+    shapes must equal `base`'s (a SchedState, or None to skip that check)."""
+    for f, r in zip(DENSE_FIELDS, reps):
+        if r.shape[0] != s or not r.is_contiguous():
+            raise ValueError(f"replicas.{f}: need a contiguous [{s}, ...] tensor, got {tuple(r.shape)}")
+    if base is not None:
+        for f, b, r in zip(DENSE_FIELDS, base, reps):
+            if tuple(r.shape[1:]) != tuple(b.shape):
+                raise ValueError(f"replicas.{f}: replica shape {tuple(r.shape[1:])} != base {tuple(b.shape)}")
+    return reps[2].shape[1], reps[3].shape[1]
+
+
+def launch_sweep_drain(statics, base, reps, log: dict, idx: torch.Tensor) -> None:
+    """K18 on the current stream, in one launch of idx.shape[0] blocks:
+    replica s of `reps` (a SchedState of [S, ...] planes, written here)
+    becomes `base` (a SchedState, read only) with the placement-log entries
+    of row s of `idx` ([S, E] int32, -1 = trailing padding) applied in
+    order; `log` maps g, node, wgt, req, vg, sd_take, gp to the packed
+    whole log on the device. Raises if an input is malformed or the launch
+    is refused."""
+    libs = build()
+    device = base.free.device
+    s, cols = idx.shape
+    _checked("idx", idx, device, torch.int32)
+    t, ti = _replica_dims(base, reps, s)
+    rep0 = type(base)(*(r[0] for r in reps))
+    ctx = make_delta_ctx(statics, rep0, log)
+    planes = {f: _checked(f"base.{f}", b, device, b.dtype).data_ptr() for f, b in zip(DENSE_FIELDS, base)}
+    sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=idx.data_ptr(), **planes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = libs["sweep_drain"].simtpu_sweep_drain(ctypes.byref(ctx), ctypes.byref(sw), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel sweep_drain failed to launch: {msg} ({err})")
+    LAUNCHES["sweep_drain"] += 1
+
+
+def launch_sweep_place(sb) -> None:
+    """K19 on the current stream, in one launch of one block per scenario
+    of `sb` (an engine/batched.py SweepBuffers): block s places the batch
+    rows of row s of `sb.rows` on replica s of `sb.reps` under row s of
+    `sb.valid_s`, writing output row j for pod list entry j. Raises if an
+    input is malformed or the launch is refused."""
+    libs = build()
+    s, cols = sb.rows.shape
+    _checked("rows", sb.rows, sb.device, torch.int32)
+    t, ti = _replica_dims(None, sb.reps, s)
+    if sb.ctx is None:
+        sb.ctx = make_ctx(sb, out_rows=cols)
+    sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=sb.rows.data_ptr())
+    stream = torch.cuda.current_stream(sb.device).cuda_stream
+    err = libs["sweep_place"].simtpu_sweep_place(ctypes.byref(sb.ctx), ctypes.byref(sw), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel sweep_place failed to launch: {msg} ({err})")
+    LAUNCHES["sweep_place"] += 1

@@ -49,14 +49,13 @@ from ..core.objects import (
     name_of,
     namespace_of,
     pod_priority,
-    set_label,
 )
-from ..core.tensorize import PodBatch, Tensorizer, slice_batch
+from ..core.tensorize import PodBatch, slice_batch
 from ..device import resolve_device
 from ..engine.rounds import RoundsEngine
 from ..engine.scan import REASON_TEXT, Engine, statics_from
 from ..kernels import cuda
-from ..workloads.expand import get_valid_pods_exclude_daemonset, make_valid_pods_by_daemonset
+from ..parallel.sweep import assemble_planning_problem  # noqa: F401  (re-exported)
 from .capacity import PlanResult, _env_cap, meet_resource_requests, new_fake_nodes
 
 
@@ -121,43 +120,6 @@ def _caps_satisfied(tensors, placed_req_sum: np.ndarray, node_valid: np.ndarray,
             return False, (f"the average occupancy rate({vg_rate}%) of vg goes beyond "
                            f"the env setting({max_vg}%)\n")
     return True, ""
-
-
-def assemble_planning_problem(cluster: ResourceTypes, apps: Sequence[AppResource], new_node: dict,
-                              max_new: int, extended_resources: Sequence[str] = ()):
-    """One tensorization covering the base cluster plus `max_new` template
-    clones, with the ordered pod sequence exactly as simulate() submits it
-    (cluster pods + DaemonSet expansion over ALL nodes incl. clones, then
-    each app's sorted pods). Returns (tensorizer, all_nodes, n_base,
-    ordered_pods). The JAX package's `parallel/sweep.py` function."""
-    from ..api import _sort_app_pods
-
-    base_nodes = list(cluster.nodes)
-    n_base = len(base_nodes)
-    all_nodes = base_nodes + new_fake_nodes(new_node, max_new)
-    ordered: List[dict] = []
-    work = ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
-    work.nodes = all_nodes
-    cluster_pods = get_valid_pods_exclude_daemonset(work)
-    for ds in work.daemon_sets:
-        cluster_pods.extend(make_valid_pods_by_daemonset(ds, all_nodes))
-    ordered.extend(cluster_pods)
-    for app in apps:
-        pods = get_valid_pods_exclude_daemonset(app.resource)
-        for ds in app.resource.daemon_sets:
-            pods.extend(make_valid_pods_by_daemonset(ds, all_nodes))
-        for pod in pods:
-            set_label(pod, C.LABEL_APP_NAME, app.name)
-        ordered.extend(_sort_app_pods(pods))
-    tensorizer = Tensorizer(
-        all_nodes,
-        extended_resources,
-        storage_classes=list(cluster.storage_classes),
-        services=list(cluster.services),
-        pvcs=list(cluster.persistent_volume_claims),
-        pvs=list(cluster.persistent_volumes),
-    )
-    return tensorizer, all_nodes, n_base, ordered
 
 
 def plan_capacity_incremental(

@@ -2,7 +2,8 @@
 
 Mirrors `report()` (`pkg/apply/apply.go:306-578`): Pod Info and Node Info
 tables, plus Node Local Storage / GPU tables when the matching extended
-resource is enabled, and the audit section `apply` prints under them.
+resource is enabled, the audit section `apply` prints under them, and the
+survivability tables of a fault sweep (`resilience`, `apply --faults`).
 Rendered with a small built-in grid writer standing in for tablewriter.
 """
 
@@ -58,6 +59,53 @@ def render_table(header: List[str], rows: List[List[str]], merge_col0: bool = Tr
 
 def _pct(num: float, den: float) -> int:
     return int(num / den * 100) if den else 0
+
+
+def resilience_report(sweep, top: int = 10) -> str:
+    """Survivability tables for one fault sweep (`faults.sweep.SweepResult`):
+    the per-kind scenario tally, the worst scenarios, and the single-node
+    criticality ranking — the section `simtpu resilience` (and
+    `simtpu apply --faults`) prints under the placement report."""
+    out = ["Resilience"]
+    by_kind: dict = {}
+    for s in range(len(sweep.scenarios)):
+        kind = sweep.scenarios.labels[s].split(":", 1)[0]
+        rec = by_kind.setdefault(kind, [0, 0, 0])
+        rec[0] += 1
+        rec[1] += int(sweep.unplaced[s] == 0)
+        rec[2] = max(rec[2], int(sweep.unplaced[s]))
+    rows = [
+        [kind, str(total), str(ok), f"{_pct(ok, total)}%", str(worst)]
+        for kind, (total, ok, worst) in sorted(by_kind.items())
+    ]
+    out.append(
+        render_table(
+            ["Failure Kind", "Scenarios", "Survived", "Survival", "Max Unplaced"],
+            rows,
+            merge_col0=False,
+        )
+    )
+    worst = sweep.worst(top)
+    if worst:
+        out.append("\nWorst Scenarios")
+        out.append(
+            render_table(
+                ["Scenario", "Unplaced Pods"],
+                [[lbl, str(n)] for lbl, n in worst],
+                merge_col0=False,
+            )
+        )
+    crit = sweep.critical_nodes(top)
+    if crit:
+        out.append("\nMost Critical Nodes")
+        out.append(
+            render_table(
+                ["Node", "Pods Stranded By Its Loss"],
+                [[node, str(n)] for node, n in crit],
+                merge_col0=False,
+            )
+        )
+    return "\n".join(out)
 
 
 def audit_report(doc: dict) -> str:

@@ -209,6 +209,15 @@ LCAP_AUTO_LINE = (
 )
 
 
+def template_node(synth) -> dict:
+    """The capacity template node (CAP_TEMPLATE in CAP_ZONE) from a
+    package's own synth module."""
+    return synth.make_node(
+        CAP_TEMPLATE["name"], CAP_TEMPLATE["cpu_milli"], CAP_TEMPLATE["mem_gib"],
+        labels={"topology.kubernetes.io/zone": CAP_ZONE,
+                "kubernetes.io/hostname": CAP_TEMPLATE["name"]})
+
+
 def bulk_problem(synth, n_nodes=BULK_NODES, n_pods=BULK_PODS):
     """(cluster, apps) of the bulk problem from a package's own synth module."""
     return synth.synth_cluster(n_nodes, **BULK_CLUSTER_KW), synth.synth_apps(n_pods, **BULK_APPS_KW)
@@ -228,10 +237,7 @@ def large_capacity_problem(synth, app_cls, resources_cls, n_nodes=LCAP_NODES, n_
     apps = synth.synth_apps(n_pods, **LCAP_APPS_KW)
     res = resources_cls(deployments=[synth.make_deployment(name, replicas, cpu, mem)
                                      for name, replicas, cpu, mem in burst])
-    template = synth.make_node(
-        CAP_TEMPLATE["name"], CAP_TEMPLATE["cpu_milli"], CAP_TEMPLATE["mem_gib"],
-        labels={"topology.kubernetes.io/zone": CAP_ZONE,
-                "kubernetes.io/hostname": CAP_TEMPLATE["name"]})
+    template = template_node(synth)
     return cluster, apps + [app_cls(name="burst", resource=res)], template
 
 
@@ -302,10 +308,7 @@ def capacity_problem(synth, app_cls, resources_cls, n_nodes=CAP_NODES, n_pods=N_
     apps = synth.synth_apps(n_pods, **APPS_KW)
     res = resources_cls(deployments=[synth.make_deployment(name, replicas, cpu, mem)
                                      for name, replicas, cpu, mem in burst])
-    template = synth.make_node(
-        CAP_TEMPLATE["name"], CAP_TEMPLATE["cpu_milli"], CAP_TEMPLATE["mem_gib"],
-        labels={"topology.kubernetes.io/zone": CAP_ZONE,
-                "kubernetes.io/hostname": CAP_TEMPLATE["name"]})
+    template = template_node(synth)
     return cluster, apps + [app_cls(name="burst", resource=res)], template
 
 
@@ -480,6 +483,129 @@ def bulk_differences(got: dict, want: dict, limit: int = 5) -> list:
             out.append(f"first differing entry: {a!r} != golden {b!r}")
             break
     return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
+
+
+def _array_digest(arr) -> str:
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(arr), dtype="<i8").tobytes()).hexdigest()
+
+
+#: keys of a fault sweep's or resilience plan's JSON document that time the
+#: run (dropped from its record)
+TIMING_KEYS = ("timings", "fault_scenarios_per_s", "plan_resilience_s")
+
+
+def sweep_record(sweep) -> dict:
+    """A fault sweep's SweepResult (either package's) as plain data: the
+    counters without the rate, the worst scenarios, the critical nodes,
+    the per-scenario evicted / lost / requeued / unplaced counts, and
+    sha256 digests of the scenario labels and of the [S, Rq] requeue rows,
+    landing nodes and reasons."""
+    counters = {k: v for k, v in sweep.counters().items() if k not in TIMING_KEYS}
+    return {
+        "counters": counters,
+        "worst": [[lbl, n] for lbl, n in sweep.worst()],
+        "critical_nodes": [[node, n] for node, n in sweep.critical_nodes()],
+        **{k: [int(x) for x in getattr(sweep, k)] for k in ("evicted", "lost", "requeued", "unplaced")},
+        "labels": _digest(list(sweep.scenarios.labels)),
+        "rq_shape": list(sweep.requeue_rows.shape),
+        "requeue_rows": _array_digest(sweep.requeue_rows),
+        "requeue_nodes": _array_digest(sweep.requeue_nodes),
+        "requeue_reasons": _array_digest(sweep.requeue_reasons),
+    }
+
+
+def sweep_differences(got: dict, want: dict, limit: int = 5) -> list:
+    """Human-readable differences between two sweep records (empty = equal)."""
+    out = []
+    for key in sorted(set(got) | set(want)):
+        a, b = got.get(key), want.get(key)
+        if a == b:
+            continue
+        if isinstance(a, list) and isinstance(b, list) and len(a) == len(b) and key != "worst":
+            bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            out.append(f"{key}: {len(bad)} entries differ, first {[(i, a[i], b[i]) for i in bad[:3]]}")
+        else:
+            out.append(f"{key}: {a!r} != golden {b!r}")
+    return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
+
+
+def audit_doc_record(doc: dict) -> dict:
+    """An audit document cut to AUDIT_KEYS, the fallback flag and the
+    divergence record (the fallback's own audit cut the same way)."""
+    out = {k: doc[k] for k in AUDIT_KEYS + ("fallback", "divergence") if k in doc}
+    if isinstance(doc.get("fallback_audit"), dict):
+        out["fallback_audit"] = {k: doc["fallback_audit"][k] for k in AUDIT_KEYS
+                                 if k in doc["fallback_audit"]}
+    return out
+
+
+def doc_record(doc: dict) -> dict:
+    """A `resilience` (or `apply --faults`) JSON document without its
+    timings, its audit records cut by `audit_doc_record`."""
+    out = {k: v for k, v in doc.items() if k not in TIMING_KEYS}
+    if isinstance(out.get("audit"), dict):
+        out["audit"] = audit_doc_record(out["audit"])
+    if isinstance(out.get("resilience"), dict):
+        out["resilience"] = doc_record(out["resilience"])
+    return out
+
+
+def placed_digest(nodes) -> str:
+    """sha256 of a base placement's [P] landing-node vector."""
+    return _array_digest(nodes)
+
+
+#: the fault sweeps of chip_smoke.py phases 8-11 and their golden records,
+#: written by tests/test_torch_golden.py --write --faults-only from the JAX
+#: package on the CPU
+FAULT_GOLDEN = DATA / "torch_serial_faults.json.gz"
+FAULT_ZONE_SPEC = "zone"
+FAULT_K1_SPEC = "k=1"
+BULK_FAULT_SPEC = "k=2:256"
+BULK_FAULT_GOLDEN = DATA / "torch_bulk_faults.json.gz"
+#: the batched capacity sweep's candidates whose failure counts the golden
+#: record keeps (each candidate's row is independent of the others)
+CAP_SWEEP_CANDIDATES = (0, 21, 42, 43, 64, 99)
+CAP_RESIL_SPEC = "k=2:64"
+CAP_FAULT_GOLDEN = DATA / "torch_capacity_faults.json.gz"
+
+
+def run_cli_json(main, argv) -> tuple:
+    """(exit code, the JSON document on the last line of stdout) of a CLI
+    `main(argv)` run with --json."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+class capture_sweeps:
+    """Context manager: while it is open, `module.sweep_scenarios` (a
+    package's `faults` module) also records each (PlacedCluster,
+    SweepResult) it returns into the list the manager yields."""
+
+    def __init__(self, module):
+        self.module = module
+        self.orig = module.sweep_scenarios
+        self.got = []
+
+    def __enter__(self):
+        def recording(pc, scenarios, *a, **kw):
+            out = self.orig(pc, scenarios, *a, **kw)
+            self.got.append((pc, out))
+            return out
+
+        self.module.sweep_scenarios = recording
+        return self.got
+
+    def __exit__(self, *exc):
+        self.module.sweep_scenarios = self.orig
+        return False
 
 
 def save_record(record: dict, path: Path = GOLDEN) -> None:

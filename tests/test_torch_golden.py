@@ -162,6 +162,23 @@ def test_bulk_record_keys_and_digests():
     assert other["digest"] != rec["digest"] and smoke.bulk_differences(other, rec)
 
 
+def test_sweep_record_digests_the_requeue():
+    """`sweep_record` keeps the counters without the rate and digests the
+    requeue tables: one moved landing node shows."""
+    from simtpu_torch import faults, synth
+
+    cluster = synth.synth_cluster(6, seed=2, zones=2)
+    apps = synth.synth_apps(30, seed=3, zones=2, pods_per_deployment=5)
+    pc = faults.place_cluster(cluster, apps, device="cpu")
+    sweep = faults.sweep_scenarios(pc, faults.generate_scenarios(cluster.nodes, "k=1"))
+    rec = smoke.sweep_record(sweep)
+    assert "fault_scenarios_per_s" not in rec["counters"] and rec["counters"]["scenarios"] == 6
+    assert rec["rq_shape"] == list(sweep.requeue_rows.shape) and len(rec["requeue_nodes"]) == 64
+    sweep.requeue_nodes[0, 0] += 1
+    assert smoke.sweep_differences(smoke.sweep_record(sweep), rec) == [
+        "requeue_nodes: " + f"{smoke.sweep_record(sweep)['requeue_nodes']!r} != golden {rec['requeue_nodes']!r}"]
+
+
 def test_capacity_config_round_trips(tmp_path):
     """The capacity problem written as a simon Config loads back, through the
     port's apply front door, as the same objects (the loader only adds its
@@ -187,6 +204,36 @@ def test_capacity_config_round_trips(tmp_path):
     assert plain(applier.load_cluster().nodes) == cluster.nodes
     assert plain([applier.load_new_node()]) == [template]
     assert _resolve_engines(applier.opts, cluster, apps) == ("binary", False, None)
+
+
+def test_committed_fault_goldens_are_whole():
+    """The fault sweeps' records (chip_smoke.py phases 8-11): the zone sweep
+    of the serial smoke problem (16 zones, every pod evicted once, up to 250
+    stranded) and its k=1 sweep (1000 scenarios, all survive), the bulk
+    problem's k=2:256 sweep, the capacity problem's batched feasibility at
+    six candidates and its resilience plan."""
+    serial = smoke.load_record(smoke.FAULT_GOLDEN)
+    zone, k1 = serial["zone"], serial["k1"]
+    assert zone["counters"]["scenarios"] == 16 and zone["counters"]["evicted_total"] == smoke.N_PODS
+    assert len(zone["unplaced"]) == 16 and max(zone["unplaced"]) == zone["counters"]["unplaced_max"]
+    assert k1["counters"]["scenarios"] == smoke.N_NODES == len(k1["unplaced"])
+    assert serial["cli"]["scenarios"] == 16 and serial["cli"]["worst"] == zone["worst"]
+    assert serial["rc"] in (0, 1, 4) and serial["base_unplaced"] == serial["cli"]["base_unplaced"]
+    for rec in (zone, k1):
+        assert sum(rec["requeued"]) + sum(rec["lost"]) == sum(rec["evicted"])
+        assert all(len(rec[k]) == 64 for k in ("requeue_rows", "requeue_nodes", "requeue_reasons"))
+    bulk = smoke.load_record(smoke.BULK_FAULT_GOLDEN)["sweep"]
+    assert bulk["counters"]["scenarios"] == 256 == len(bulk["unplaced"])
+    cap = smoke.load_record(smoke.CAP_FAULT_GOLDEN)
+    assert cap["candidates"] == list(smoke.CAP_SWEEP_CANDIDATES) and len(cap["failures"]) == 6
+    added = smoke.load_record(smoke.CAP_GOLDEN)["nodes_added"]
+    feasible = [c for c, f in zip(cap["candidates"], cap["failures"]) if f == 0]
+    assert feasible and feasible[0] == added
+    winner = cap["winner"]
+    assert len(winner["nodes"]) == smoke.CAP_NODES + added and not winner["failed"]
+    plan = cap["plan"]
+    assert plan["success"] is True and plan["nodes_added"] >= added
+    assert plan["probes"][str(plan["nodes_added"])]["survived"] == plan["scenarios"] == 64
 
 
 def compute_bulk_golden() -> dict:
@@ -296,6 +343,113 @@ def test_compact_carry_matches_a_fresh_jax_run(monkeypatch):
     assert compute_compact_carry() == smoke.COMPACT_CARRY
 
 
+def compute_fault_golden(root) -> dict:
+    """The JAX package's `simtpu resilience --faults zone --json` on the
+    serial smoke problem written as a simon Config under `root`, and a
+    `k=1` sweep over the same PlacedCluster: the CLI document (without
+    timings), both sweeps' records and the base placement's digest."""
+    import simtpu.faults as jf
+    from simtpu import synth
+    from simtpu.cli import main
+    from simtpu.workloads.expand import seed_name_hashes
+
+    cluster, apps = smoke.smoke_problem(synth.synth_cluster, synth.synth_apps)
+    cfg = smoke.write_capacity_config(root, cluster, apps, smoke.template_node(synth))
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        with smoke.capture_sweeps(jf) as got:
+            rc, doc = smoke.run_cli_json(main, ["resilience", "-f", cfg, "--faults",
+                                                smoke.FAULT_ZONE_SPEC, "--json"])
+        pc, zone = got[0]
+        k1 = jf.sweep_scenarios(pc, jf.generate_scenarios(cluster.nodes, smoke.FAULT_K1_SPEC))
+    finally:
+        seed_name_hashes(None)
+    return {"rc": rc, "cli": smoke.doc_record(doc), "base": smoke.placed_digest(pc.nodes),
+            "base_unplaced": int((pc.nodes < 0).sum()), "zone": smoke.sweep_record(zone),
+            "k1": smoke.sweep_record(k1)}
+
+
+def compute_bulk_fault_golden() -> dict:
+    """The JAX package's `place_cluster` on the bulk problem and a
+    `k=2:256` sweep (seed 0) over it."""
+    import simtpu.faults as jf
+    from simtpu import synth
+    from simtpu.workloads.expand import seed_name_hashes
+
+    cluster, apps = smoke.bulk_problem(synth)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        pc = jf.place_cluster(cluster, apps)
+        sweep = jf.sweep_scenarios(pc, jf.generate_scenarios(cluster.nodes, smoke.BULK_FAULT_SPEC, seed=0))
+    finally:
+        seed_name_hashes(None)
+    return {"base": smoke.placed_digest(pc.nodes), "base_unplaced": int((pc.nodes < 0).sum()),
+            "sweep": smoke.sweep_record(sweep)}
+
+
+def compute_capacity_fault_golden(root) -> dict:
+    """On the capacity problem: the JAX package's batched `sweep_feasibility`
+    at smoke.CAP_SWEEP_CANDIDATES and the placement record of the
+    simulation `plan_capacity_batched` runs next at the first feasible
+    count (its pod names continue the seeded stream after the sweep's
+    expansion, as in the batched planner), and `simtpu resilience --plan
+    --faults k=2:64 --seed 0 --json` on the problem written as a simon
+    Config under `root` (the document without timings)."""
+    import simtpu
+    from simtpu import synth
+    from simtpu.cli import main
+    from simtpu.parallel.sweep import sweep_feasibility
+    from simtpu.plan.capacity import new_fake_nodes
+    from simtpu.workloads.expand import seed_name_hashes
+
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu.AppResource, simtpu.ResourceTypes)
+    cfg = smoke.write_capacity_config(root, cluster, apps, template)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        failures, _, _ = sweep_feasibility(cluster, apps, template, smoke.CAP_SWEEP_CANDIDATES)
+        best = next(c for c, f in zip(smoke.CAP_SWEEP_CANDIDATES, failures) if f == 0)
+        trial = simtpu.ResourceTypes(**{k: list(v) for k, v in vars(cluster).items()})
+        trial.nodes = list(cluster.nodes) + new_fake_nodes(template, best)
+        winner = smoke.placement_record(simtpu.simulate(trial, apps))
+        seed_name_hashes(smoke.NAME_SEED)
+        rc, doc = smoke.run_cli_json(main, ["resilience", "-f", cfg, "--plan", "--faults",
+                                            smoke.CAP_RESIL_SPEC, "--seed", "0", "--json"])
+    finally:
+        seed_name_hashes(None)
+    return {"candidates": list(smoke.CAP_SWEEP_CANDIDATES), "failures": [int(f) for f in failures],
+            "winner": winner, "plan_rc": rc, "plan": smoke.doc_record(doc)}
+
+
+def _write_fault_goldens(only=()) -> None:
+    """Write the three fault golden records (those named in `only`:
+    serial, capacity, bulk), printing each one's CPU time."""
+    import tempfile
+    import time
+
+    for name, path, fn in (("serial", smoke.FAULT_GOLDEN, compute_fault_golden),
+                           ("capacity", smoke.CAP_FAULT_GOLDEN, compute_capacity_fault_golden),
+                           ("bulk", smoke.BULK_FAULT_GOLDEN, compute_bulk_fault_golden)):
+        if only and name not in only:
+            continue
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            record = fn(root) if fn is not compute_bulk_fault_golden else fn()
+        smoke.save_record(record, path)
+        print(f"wrote {path} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+@pytest.mark.slow
+def test_fault_goldens_match_a_fresh_jax_run(monkeypatch, tmp_path):
+    monkeypatch.setenv("SIMTPU_AUDIT_JIT", "0")
+    monkeypatch.chdir(tmp_path)
+    assert compute_fault_golden(tmp_path / "serial") == smoke.load_record(smoke.FAULT_GOLDEN)
+    assert compute_capacity_fault_golden(tmp_path / "capacity") == smoke.load_record(smoke.CAP_FAULT_GOLDEN)
+    assert compute_bulk_fault_golden() == smoke.load_record(smoke.BULK_FAULT_GOLDEN)
+
+
+if __name__ == "__main__" and "--write" in sys.argv and "--faults-only" in sys.argv:
+    _write_fault_goldens([a.split("=", 1)[1] for a in sys.argv if a.startswith("--only=")])
+    sys.exit(0)
 if __name__ == "__main__" and "--compact-carry" in sys.argv:
     print(compute_compact_carry())
 if __name__ == "__main__" and "--write" in sys.argv and "--bulk-only" in sys.argv:

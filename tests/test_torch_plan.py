@@ -392,7 +392,7 @@ def test_cli_rejects_unported_flags_and_refuses_without_a_card(monkeypatch, caps
     from simtpu_torch.cli import main
 
     monkeypatch.chdir(REPO)
-    for flag in ("--shard", "--faults", "--explain", "--checkpoint"):
+    for flag in ("--shard", "--solver", "--explain", "--checkpoint"):
         with pytest.raises(SystemExit):
             main(["apply", "-f", "examples/simtpu-config.yaml", flag])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
