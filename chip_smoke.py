@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the nineteen CUDA
+1. the card's name and power limit (nvidia-smi); build the twenty-one CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -130,7 +130,26 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
 11. `simtpu_torch.cli resilience --plan --faults k=2:64 --seed 0 --json` on
    the capacity problem's config: the plan document equal to the golden
    record (count, probes, the winner's sweep counters and worst list, the
-   audit with its fallback), K18/K19 once per candidate sweep.
+   audit with its fallback), K18/K19 once per candidate sweep;
+12. decision observability against `tests/data/torch_explain.json.gz`,
+   each path with every count set to 0 just before and read just after:
+   (a) `simulate(explain=True, device="cuda")` on the extended problem
+   (521 unscheduled pods explained; K20 once per chunk of 64 runnable
+   unplaced pods, K12 as the carry is read), (b) `build_explain_doc` over
+   every unplaced pod of phase 9's bulk placement (the document and the
+   per-pod counts, feasible counts, witnesses and fail codes), (c) `cli
+   explain --scores 8 --json --no-bulk` on the serial smoke config (K21
+   once per attributed pod, every attribution consistent; margins and
+   terms to the stated tolerances), (d) `plan_capacity(max_new_nodes=20,
+   explain=True)` on the capacity problem, which fails and carries the
+   block; no plain version on any of them. Then K20 against its plain
+   version on the first chunk of (a) and of (b), K21 against its plain
+   version (and its score against K3's) on each of (c)'s pods, and their
+   times; each path's explain wall split into the device pass and the host
+   assembly;
+13. `cli fuzz --cases 4 --json` (every case bit-identical across the
+   wavefront / compact / both cells and audit-clean, K8 once per audit)
+   and `cli fuzz --mutation-kill --json` against the golden counters.
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread, quota-anti) and of the matrix
 cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
@@ -178,6 +197,8 @@ from simtpu_torch.device import configure_numerics
 from simtpu_torch.engine import rounds, scan
 from simtpu_torch.engine import batched, wavefront
 from simtpu_torch.engine import state as sstate
+from simtpu_torch.explain import breakdown as tbd
+from simtpu_torch.explain import scores as tscores
 from simtpu_torch.io.cluster import create_cluster_resource_from_cluster_config
 from simtpu_torch.io.yaml_loader import load_resources
 from simtpu_torch.kernels import audit as kaudit
@@ -215,7 +236,10 @@ KERNELS = {
     "carry_copy": "simtpu/plan/incremental.py:119",
     "sweep_drain": "simtpu/faults/sweep.py:61",
     "sweep_place": "simtpu/faults/sweep.py:61",
+    "explain_pass": "simtpu/explain/breakdown.py:94",
+    "pod_terms": "simtpu/explain/scores.py:95",
 }
+EXPLAIN_KERNELS = ("explain_pass", "pod_terms")
 SWEEP_KERNELS = ("sweep_drain", "sweep_place")
 #: requeue rows per scenario in phase 9's comparison (the plain K19's time
 #: grows with rows, not with N)
@@ -2072,7 +2096,7 @@ def run_bulk_faults(card: str, err) -> dict:
         f"the carry unchanged [{card}]")
     out["compare"] = compare_main_chunk("phase 9", "bulk problem's first k=2:256 chunk", pc, scen, err,
                                         rq_cols=BULK_COMPARE_ROWS)
-    return out
+    return out, pc
 
 
 def run_batched_capacity(card: str) -> dict:
@@ -2175,6 +2199,382 @@ def run_resilience_plan(card: str) -> dict:
         f"+{doc['nodes_added']} nodes after {doc['candidates_probed']} candidates, audit fallback "
         f"{bool(doc['audit'].get('fallback'))}; {wall:.2f} s, {len(sweep_walls)} sweeps of "
         f"{np.mean(sweep_walls) * 1e3:.1f} ms mean; == golden [{card}]")
+    return out
+
+
+# -- phases 12-13: decision observability and the fuzz harness ----------------
+
+
+class ExplainCapture:
+    """Context manager: while open, every K20 call (`breakdown.explain_pass`)
+    is timed on the host with the card synchronized (the device pass of the
+    explain wall), the first one's inputs are kept, every breakdown
+    `explain_failures` returns is kept, every `scores.eval_pod_terms` call
+    (the K1 -> (K5) -> (K6) -> K2 -> K21 chain) is timed and its inputs
+    kept, and every `Simulator.explain_result` is timed (the explain wall
+    of a simulation)."""
+
+    def __enter__(self):
+        self.orig = (tbd.explain_pass, tbd.explain_failures, tscores.eval_pod_terms,
+                     tapi.Simulator.explain_result)
+        self.first_pass, self.breakdowns, self.terms = None, [], []
+        self.pass_s, self.passes, self.terms_s, self.result_s = 0.0, 0, 0.0, 0.0
+
+        def explain_pass(statics, state, pods, flags, k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = self.orig[0](statics, state, pods, flags, k)
+            self.pass_s += time.perf_counter() - t
+            self.passes += 1
+            if self.first_pass is None:
+                self.first_pass = (statics, state, pods, flags, k)
+            return res
+
+        def explain_failures(*a, **kw):
+            self.breakdowns.append(self.orig[1](*a, **kw))
+            return self.breakdowns[-1]
+
+        def eval_pod_terms(statics, state, pod, flags):
+            self.terms.append((statics, state, pod, flags))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = self.orig[2](statics, state, pod, flags)
+            torch.cuda.synchronize()
+            self.terms_s += time.perf_counter() - t
+            return res
+
+        def explain_result(sim, opts=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            doc = self.orig[3](sim, opts)
+            self.result_s += time.perf_counter() - t
+            return doc
+
+        tbd.explain_pass, tbd.explain_failures, tscores.eval_pod_terms = (
+            explain_pass, explain_failures, eval_pod_terms)
+        tapi.Simulator.explain_result = explain_result
+        return self
+
+    def __exit__(self, *exc):
+        tbd.explain_pass, tbd.explain_failures, tscores.eval_pod_terms, tapi.Simulator.explain_result = self.orig
+        return False
+
+
+def runnable_chunks(breakdowns) -> int:
+    """K20 launches a breakdown's pods need: one per EXPLAIN_CHUNK of the
+    pods that run the cascade (forced pods, FAIL_NO_NODE, never do)."""
+    return sum(-(-int((bd.fail_code != scan.FAIL_NO_NODE).sum()) // tbd.EXPLAIN_CHUNK) for bd in breakdowns)
+
+
+def check_explain_launches(label: str, launches: dict, plain: dict, cap: ExplainCapture, terms: int = 0) -> None:
+    """K20 once per chunk of runnable unplaced pods, K21 once per attributed
+    pod, no plain version."""
+    want = runnable_chunks(cap.breakdowns)
+    got = (launches.get("explain_pass", 0), launches.get("pod_terms", 0))
+    if got != (want, terms) or cap.passes != want or not want or any(plain.values()):
+        raise AssertionError(f"{label}: K20/K21 launched {got}, want ({want}, {terms}) for "
+                             f"{[len(b) for b in cap.breakdowns]} pods; plain calls {plain}")
+
+
+def explain_bytes(eb) -> int:
+    """Bytes K20 must move for one chunk: the state planes and statics rows
+    its stages read (each once: every block reads the one state), the
+    chunk's pod arrays, and the outputs written once."""
+    buf = eb.buf
+    st, s, f = buf.statics, buf.state, buf.flags
+    n, r = st.alloc.shape
+    p, w, c = st.ports_req.shape[1], st.vol_rw_req.shape[1], st.vol_class_mask.shape[0]
+    v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], s.gpu_free.shape[1]
+    f4 = 4
+    groups = np.unique(buf.group.cpu().numpy())
+    terms = st.g_terms[torch.as_tensor(groups, device=st.g_terms.device).long()].flatten()
+    terms = torch.unique(terms[terms >= 0])
+    keys = int(torch.unique(st.term_topo[terms.long()]).numel()) if terms.numel() else 0
+    own = int((st.ip_of[terms.long()] >= 0).sum()) if terms.numel() else 0
+    node = n * r * f4 + n + (n * p * f4 if f.ports else 0) + (2 * n * w * f4 + n * c * f4 if (f.vols or f.attach) else 0)
+    rows = len(groups) * 2 * n + int(terms.numel()) * n * f4 + keys * n * f4 + (own * n * f4 if f.interpod_req else 0)
+    ext = (n * (v * 8 + sd * 9 + 1) if buf.storage_live.any() else 0) + (
+        n * (gd * 5 + 4) if buf.gpu_live.any() else 0)
+    k = eb.k
+    pods = buf.n_pods * (4 * r + 16 + 8 * (buf.lvm_size.shape[1] + buf.dev_size.shape[1]) + 4 * gd)
+    outs = buf.n_pods * (10 + 1 + 1 + 10 * k) * f4
+    return int(node + rows + ext + pods + outs)
+
+
+def compare_explain_chunk(label: str, inputs, err) -> dict:
+    """K20 against its plain version on `inputs` (a path's first chunk: its
+    statics, state, pod rows, flags and k), on the card: every output
+    equal. Returns the chunk's shape, the plain version's seconds and the
+    ExplainBuffers the timing relaunches."""
+    statics, state, pods, flags, k = inputs
+    got = tbd.explain_pass(statics, state, pods, flags, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tbd.explain_pass_plain(statics, state, pods, flags, k)
+    plain_s = time.perf_counter() - t0
+    for name, a, b in zip(("counts", "feasible", "witnesses", "fail_code"), got, want):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"phase 12: K20 differs from its plain version on the {label} ({name})")
+    eb = tbd.ExplainBuffers(statics, state, pods, flags, k)
+    log(f"phase 12: K20 equal to its plain version on the {label} ({len(pods[0])} pods x "
+        f"N={statics.alloc.shape[0]}: counts, feasible, witnesses, fail codes; "
+        f"{int(np.asarray(got[0]).sum())} eliminations); plain {plain_s:.2f} s")
+    return {"pods": len(pods[0]), "n": int(statics.alloc.shape[0]), "plain_s": plain_s, "eb": eb}
+
+
+def compare_pod_terms(inputs, err) -> dict:
+    """K21 against its plain version and K3 on each attributed pod's prefix
+    state: the score bit for bit (both), the 12 term rows to the tolerance
+    (NaN where the plain version has NaN). Returns the largest term
+    difference, whether every row came out exact, and the last pod's
+    buffer for the timing."""
+    worst, exact, buf = 0.0, True, None
+    for statics, state, pod, flags in inputs:
+        buf = tscores.TermsBuffers(statics, state, tuple(np.asarray(a)[None] for a in pod), flags)
+        scan.filter_pod(buf, 0)
+        if buf.storage_live[0]:
+            scan.storage_pod(buf, 0)
+        if buf.gpu_live[0]:
+            scan.gpu_pod(buf, 0)
+        scan.topology_pod(buf, 0)
+        tscores.pod_terms(buf, 0)
+        s1, t1 = buf.score.clone(), buf.terms.clone()
+        tscores.pod_terms_plain(buf, 0)
+        s2, t2 = buf.score.clone(), buf.terms.clone()
+        scan.score_argmax_pod(buf, 0)
+        if not (torch.equal(s1, s2) and torch.equal(s1, buf.score)):
+            raise AssertionError("phase 12: K21's score differs from its plain version's or K3's")
+        nan1, nan2 = torch.isnan(t1), torch.isnan(t2)
+        fin = ~nan2
+        if not torch.equal(nan1, nan2) or not torch.allclose(t1[fin], t2[fin], rtol=smoke.TERMS_RTOL,
+                                                               atol=smoke.TERMS_ATOL):
+            raise AssertionError("phase 12: K21's term rows differ from its plain version's")
+        d = float((t1[fin] - t2[fin]).abs().max()) if fin.any() else 0.0
+        worst = max(worst, d)
+        exact = exact and torch.equal(t1[fin], t2[fin])
+        # rebuild the chain's scratch for the timing (K3 wrote the score)
+        scan.topology_pod(buf, 0)
+    err["pod_terms"] = max(err["pod_terms"], worst)
+    return {"max_term_diff": worst, "terms_exact": exact, "buf": buf}
+
+
+def explain_split(cap: ExplainCapture, wall: float) -> dict:
+    return {"explain_wall_s": wall, "device_pass_s": cap.pass_s, "host_assembly_s": wall - cap.pass_s,
+            "k20_launches": cap.passes}
+
+
+def run_explain(card: str, bulk_pc, err) -> dict:
+    """Phase 12: the decision-observability paths on the card against the
+    golden record (`smoke.EXPLAIN_GOLDEN`), each with every count set to 0
+    just before and read just after: (a) `simulate(explain=True)` on the
+    extended problem, (b) `build_explain_doc` over every unplaced pod of
+    phase 9's bulk placement, (c) `cli explain --scores 8 --json --no-bulk`
+    on the serial smoke config, (d) the capacity plan capped at 20 nodes;
+    then K20 and K21 against their plain versions on those paths' inputs,
+    and their times."""
+    golden = smoke.load_record(smoke.EXPLAIN_GOLDEN)
+    out = {}
+
+    # (a) the extended problem through simulate(explain=True)
+    cluster, apps = smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with ExplainCapture() as cap:
+            result = simtpu_torch.simulate(cluster, apps, device="cuda", explain=True)
+            torch.cuda.synchronize()
+    finally:
+        seed_name_hashes(None)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    want = golden["extended"]
+    diffs = smoke.explain_differences(result.explain, want["doc"])
+    if len(result.unscheduled_pods) != want["unscheduled"] or diffs:
+        raise AssertionError("phase 12 (a): the extended problem's explain block differs from the golden "
+                             "record:\n" + "\n".join(diffs))
+    check_explain_launches("phase 12 (a)", launches, plain, cap)
+    out["extended"] = {"wall_s": wall, "unscheduled": want["unscheduled"], "launches": launches,
+                       "k12_launches": launches.get("compact_expand", 0), **explain_split(cap, cap.result_s)}
+    log(f"phase 12 (a): simulate(explain=True, device='cuda') on the extended problem: "
+        f"{want['unscheduled']} unscheduled pods explained, doc == golden; K20 {launches['explain_pass']} "
+        f"launches (one per chunk of {tbd.EXPLAIN_CHUNK}), K12 {launches.get('compact_expand', 0)} "
+        f"(the carry's expansions, carried_state() included); explain wall {cap.result_s:.4f} s = device pass "
+        f"{cap.pass_s:.4f} s + host assembly {cap.result_s - cap.pass_s:.4f} s; simulate {wall:.2f} s [{card}]")
+    a_first = cap.first_pass
+
+    # (b) the bulk problem's unplaced pods, on phase 9's placement
+    rows = np.flatnonzero(bulk_pc.nodes < 0)
+    cuda.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ExplainCapture() as cap:
+        doc = tbd.build_explain_doc(bulk_pc.tensors, bulk_pc.batch, rows, bulk_pc.engine.carried_state(),
+                                    bulk_pc.nodes, bulk_pc.reasons)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    want = golden["bulk"]
+    diffs = smoke.explain_differences(doc, want["doc"])
+    rec = smoke.breakdown_record(cap.breakdowns[0], bulk_pc.nodes)
+    diffs += [f"{k}: {rec[k]} != golden {want[k]}" for k in rec if rec[k] != want[k]]
+    if diffs:
+        raise AssertionError("phase 12 (b): the bulk problem's breakdown differs from the golden record:\n"
+                             + "\n".join(diffs))
+    check_explain_launches("phase 12 (b)", launches, plain, cap)
+    out["bulk"] = {"unplaced": int(len(rows)), "launches": launches,
+                   "k12_launches": launches.get("compact_expand", 0), **explain_split(cap, wall)}
+    log(f"phase 12 (b): build_explain_doc over the bulk problem's {len(rows)} unplaced pods "
+        f"(N={bulk_pc.n_nodes}): doc and the per-pod counts, feasible, witnesses and fail codes == golden; "
+        f"K20 {launches['explain_pass']} launches, K12 {launches.get('compact_expand', 0)}; explain wall "
+        f"{wall:.4f} s = device pass {cap.pass_s:.4f} s + host assembly {wall - cap.pass_s:.4f} s [{card}]")
+    b_first = cap.first_pass
+
+    # (c) score attribution through the CLI on the serial smoke config
+    cl, ap = smoke.smoke_problem(synth_cluster, synth_apps)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke.write_capacity_config(tmp, cl, ap, smoke.template_node(synth))
+        cuda.reset_counts()
+        seed_name_hashes(smoke.NAME_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with ExplainCapture() as cap, contextlib.redirect_stderr(io.StringIO()):
+                rc, doc = smoke.run_cli_json(tcli.main, ["explain", "-f", cfg, "--scores",
+                                                         str(smoke.EXPLAIN_SCORES), "--json", "--no-bulk"])
+        finally:
+            seed_name_hashes(None)
+        wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    want = golden["scores"]
+    diffs = smoke.explain_differences(doc, want["doc"])
+    if rc != want["rc"] or diffs or not all(x["consistent"] for x in doc["scores"]):
+        raise AssertionError(f"phase 12 (c): explain --scores exit {rc}, differs from the golden record:\n"
+                             + "\n".join(diffs))
+    if cap.breakdowns:
+        check_explain_launches("phase 12 (c)", launches, plain, cap, terms=smoke.EXPLAIN_SCORES)
+    elif launches.get("pod_terms", 0) != smoke.EXPLAIN_SCORES or any(plain.values()):
+        raise AssertionError(f"phase 12 (c): K21 launched {launches.get('pod_terms', 0)} times, plain {plain}")
+    out["scores"] = {"wall_s": wall, "rc": rc, "placed": doc["placed"], "unplaced": doc["unplaced"],
+                     "launches": launches, "attribution_s": cap.terms_s,
+                     "device_pass_s": cap.pass_s, "k20_launches": cap.passes}
+    log(f"phase 12 (c): cli explain --scores {smoke.EXPLAIN_SCORES} --json --no-bulk on the serial smoke "
+        f"problem: exit {rc}, {doc['placed']}/{doc['pods']} placed, every attribution consistent, doc == "
+        f"golden (margins and terms to the stated tolerances); K21 {launches.get('pod_terms', 0)} launches, "
+        f"K20 {launches.get('explain_pass', 0)}; the {len(cap.terms)} evaluations (K1-K2, K21, the prefix "
+        f"states) {cap.terms_s:.4f} s; {wall:.2f} s end to end [{card}]")
+    c_terms = cap.terms
+
+    # (d) the failing capped plan
+    cluster, apps, template = smoke.capacity_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with ExplainCapture() as cap:
+            plan = plan_capacity(cluster, apps, template, max_new_nodes=smoke.EXPLAIN_MAX_NEW, explain=True,
+                                 device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        seed_name_hashes(None)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    want = golden["plan"]
+    got = {"success": plan.success, "nodes_added": plan.nodes_added, "message": plan.message,
+           "probes": {str(k): v for k, v in sorted(plan.probes.items())}}
+    diffs = [f"{k}: {got[k]!r} != golden {want[k]!r}" for k in got if got[k] != want[k]]
+    diffs += smoke.explain_differences(plan.explain, want["explain"])
+    if diffs:
+        raise AssertionError("phase 12 (d): the capped plan differs from the golden record:\n" + "\n".join(diffs))
+    check_explain_launches("phase 12 (d)", launches, plain, cap)
+    out["plan"] = {"wall_s": wall, "candidates": len(plan.candidates), "launches": launches,
+                   **explain_split(cap, cap.result_s)}
+    log(f"phase 12 (d): plan_capacity(max_new_nodes={smoke.EXPLAIN_MAX_NEW}, explain=True) on the capacity "
+        f"problem: fails as the golden record ({plan.message!r}), {len(plan.candidates)} candidates, the "
+        f"block == golden; K20 {launches['explain_pass']} launches over {len(cap.breakdowns)} explained "
+        f"candidates; explain wall {cap.result_s:.3f} s = device pass {cap.pass_s:.3f} s + host assembly "
+        f"{cap.result_s - cap.pass_s:.3f} s; plan {wall:.2f} s [{card}]")
+
+    # K20 and K21 against their plain versions, on the paths' own inputs
+    a_cmp = compare_explain_chunk("extended problem's first chunk", a_first, err)
+    b_cmp = compare_explain_chunk("bulk problem's first chunk", b_first, err)
+    t_cmp = compare_pod_terms(c_terms, err)
+    log(f"phase 12: K21 equal to its plain version on each of (c)'s {len(c_terms)} pods: score bit for bit "
+        f"(and equal to K3's), terms {'exact' if t_cmp['terms_exact'] else 'within the tolerance'} (largest "
+        f"difference {t_cmp['max_term_diff']})")
+
+    # times: K20 at (b)'s and (a)'s first chunk, K21 at (c)'s last pod
+    def device_time(name, launch, iters: int) -> dict:
+        """The kernel's device µs per launch from the profiler, or from CUDA
+        events around back-to-back launches when the profiler's window
+        shows no device time for it; and the back-to-back launch time."""
+        per, _, _ = profile_kernels(lambda: [launch() for _ in range(iters)])
+        host_ms = time_call(launch, 5 * iters)
+        got = per.get(name)
+        return {"device_us": got[0] if got else host_ms * 1e3, "ms_from": "profiler" if got else "cuda events",
+                "host_us": host_ms * 1e3}
+
+    def k20_times(cmp):
+        eb = cmp["eb"]
+        nbytes = explain_bytes(eb)
+        return {**device_time("explain_pass", lambda: cuda.launch_explain_pass(eb), 20),
+                "plain_ms": cmp["plain_s"] * 1e3, "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+                "pods": cmp["pods"], "n": cmp["n"]}
+
+    times = {"explain_pass": k20_times(b_cmp), "explain_pass_extended": k20_times(a_cmp)}
+    buf = t_cmp["buf"]
+    plain_ms = time_call(lambda: tscores.pod_terms_plain(buf, 0), 5)
+    nbytes = kernel_bytes(buf, 0)["score_argmax_pod"] + len(tscores.PLUGIN_TERMS) * buf.statics.alloc.shape[0] * 4
+    times["pod_terms"] = {**device_time("pod_terms", lambda: tscores.pod_terms(buf, 0), 40), "plain_ms": plain_ms,
+                          "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6, "pods": 1,
+                          "n": int(buf.statics.alloc.shape[0]), "terms_exact": t_cmp["terms_exact"]}
+    for name, t in times.items():
+        log(f"  {name}: {t['device_us']:.2f} us device per launch ({t['ms_from']}), {t['host_us']:.2f} us per "
+            f"back-to-back launch from Python, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B, bound "
+            f"{t['bound_us']:.4f} us ({t['pods']} pod(s) x N={t['n']}) [{card}]")
+    out["times"] = times
+    out["launches"] = {k: sum(out[p]["launches"].get(k, 0) for p in ("extended", "bulk", "scores", "plan"))
+                       for k in ("explain_pass", "pod_terms")}
+    return out
+
+
+def run_fuzz(card: str) -> dict:
+    """Phase 13: `cli fuzz --cases 4 --json` on the card (every case
+    bit-identical across the wavefront / compact / both cells and
+    audit-clean, K8 on every audit), then `cli fuzz --mutation-kill --json`
+    against the golden counters."""
+    cuda.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc, doc = smoke.run_cli_json(tcli.main, ["fuzz", "--cases", "4", "--json"])
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    runs = 4 * (1 + len(fuzz.engine_configs()))
+    if (rc, doc["ok"], doc["failures"], doc["configs_run"], doc["audits_clean"]) != (0, True, [], runs, runs):
+        raise AssertionError(f"phase 13: fuzz exit {rc}, {doc}")
+    if launches.get("audit_bulk", 0) != runs or any(plain.values()) or not (
+            launches.get("wave_lean", 0) + launches.get("wave_hard", 0)) or not launches.get("compact_compress"):
+        raise AssertionError(f"phase 13: fuzz launches {launches}, plain {plain}")
+    out = {"wall_s": wall, "configs_run": runs, "launches": launches}
+    log(f"phase 13: cli fuzz --cases 4 --json: exit {rc}, {runs} engine-config runs, every case bit-identical "
+        f"and audit-clean; K8 {launches['audit_bulk']} launches; {wall:.2f} s [{card}]")
+    want = smoke.load_record(smoke.EXPLAIN_GOLDEN)["mutation_kill"]
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc, mk = smoke.run_cli_json(tcli.main, ["fuzz", "--mutation-kill", "--json"])
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    ok = mk.pop("ok")
+    if rc != 0 or not ok or mk != want or not launches.get("audit_bulk") or any(plain.values()):
+        raise AssertionError(f"phase 13: mutation-kill exit {rc}, {mk} != golden {want}, launches {launches}")
+    out["mutation_kill"] = {"wall_s": wall, "tried": mk["tried"], "killed": mk["killed"], "launches": launches}
+    log(f"phase 13: cli fuzz --mutation-kill --json: exit {rc}, {mk['killed']}/{mk['tried']} corruptions "
+        f"killed over {mk['classes']} classes == golden; K8 {launches['audit_bulk']} launches; {wall:.2f} s "
+        f"[{card}]")
     return out
 
 
@@ -2442,9 +2842,14 @@ def main() -> int:
 
     # -- phases 8-11: the batched what-if sweeps -------------------------------
     serial_faults = run_serial_faults(card, err)
-    bulk_faults = run_bulk_faults(card, err)
+    bulk_faults, bulk_pc = run_bulk_faults(card, err)
     batched_capacity = run_batched_capacity(card)
     resilience_plan = run_resilience_plan(card)
+
+    # -- phases 12-13: decision observability, the fuzz harness ---------------
+    explain = run_explain(card, bulk_pc, err)
+    del bulk_pc
+    fuzz_run = run_fuzz(card)
 
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
@@ -2470,6 +2875,32 @@ def main() -> int:
                      **{k: b_launches.get(k, 0) for k in ROUND_KERNELS},
                      "carry_copy": l_launches.get("carry_copy", 0)}
     for name, replaces in KERNELS.items():
+        if name in EXPLAIN_KERNELS:
+            t = explain["times"][name]
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"simtpu_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces,
+                # the main paths: phase 12 (a)-(d)
+                "launches": explain["launches"][name],
+                "max_abs_err": err[name],
+                "ms": t["device_us"] / 1e3,
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_us"] / 1e3,
+                "bound_by": "bytes",
+                "library_ms": None,
+                "host_ms": t["host_us"] / 1e3,
+                "launch_ms": launch_ms,
+                "ms_from": t["ms_from"],
+                "at": f"{t['pods']} pod(s) x N={t['n']}",
+                "bytes": t["bytes"],
+                **({"extended_chunk": explain["times"]["explain_pass_extended"]} if name == "explain_pass"
+                   else {"terms_exact": t["terms_exact"]}),
+                "launches_by_path": {p: explain[p]["launches"].get(name, 0)
+                                     for p in ("extended", "bulk", "scores", "plan")},
+            })
+            continue
         if name in SWEEP_KERNELS:
             t = sweep_times[name]
             rows.append({
@@ -2607,6 +3038,7 @@ def main() -> int:
                                "device_busy": b_dev["device_s"] / b_wall, "profiled": True},
                       "serial_faults": serial_faults, "bulk_faults": bulk_faults,
                       "batched_capacity": batched_capacity, "resilience_plan": resilience_plan,
+                      "explain": {k: v for k, v in explain.items() if k != "times"}, "fuzz": fuzz_run,
                       "large_capacity": {"nodes_added": l_plan.nodes_added, "wall_s": l_wall,
                                          "probes": {str(k): v for k, v in l_plan.probes.items()},
                                          "timings": l_plan.timings,

@@ -7,10 +7,11 @@ one-shot `simulate()`. The engine runs on `device` (default `cuda`;
 `device="cpu"` selects the plain PyTorch path explicitly).
 
 `simulate(audit=True)` runs the independent placement auditor
-(`audit/checker.py`) over the final state before the simulator closes.
-Not in this port yet (ROADMAP queue 1): the bulk rounds engine, the
-compact carry, precompile, explain and tracing options of the JAX
-package's `simulate()`.
+(`audit/checker.py`) over the final state before the simulator closes;
+`simulate(explain=True)` attaches the decision-observability block
+(`explain/`: per-stage failure breakdowns through K20, the bottleneck
+analysis). Not in this port yet (ROADMAP queue 1): precompile (#10) and
+the tracing and profiling options (#9) of the JAX package's `simulate()`.
 """
 
 from __future__ import annotations
@@ -175,6 +176,8 @@ class Simulator:
         self._placed_forced: List[bool] = []
         self._preempted: List[PreemptedPod] = []
         self._unscheduled: List[UnscheduledPod] = []
+        #: the fail code of each unscheduled pod, parallel to _unscheduled
+        self._unscheduled_codes: List[int] = []
         self._pdbs: List[dict] = []
 
     def run_cluster(self, cluster: ResourceTypes) -> SimulateResult:
@@ -231,6 +234,7 @@ class Simulator:
                 ),
             )
         )
+        self._unscheduled_codes.append(int(reason))
 
     def _schedule_pods(self, pods: Sequence[dict]) -> None:
         # only default-scheduler pods enter the scheduling path; pods bound
@@ -947,6 +951,66 @@ class Simulator:
         )
 
 
+    # -- decision observability (explain/) ---------------------------------
+
+    def explain_result(self, opts: Optional[dict] = None) -> dict:
+        """The versioned explain block for this simulation's unscheduled
+        pods: the per-stage failure breakdown (against the end-of-run
+        carried state, through K20 on the card) plus the binding-constraint
+        bottleneck analysis.
+
+        `opts` keys (all optional): `top` — failure-shape groups kept
+        (default 10); `new_node`/`daemon_sets`/`corrected` — the capacity
+        planners' template context, folded into the bottleneck's
+        can-another-node-ever-help verdict. Pure read: re-adding the
+        already-interned unscheduled pods grows no vocabulary and the
+        carried state is only read (`Engine.carried_state`, a compact carry
+        expanded through K12 into fresh planes)."""
+        from .explain import build_explain_doc
+
+        opts = opts or {}
+        if not self._unscheduled or self._engine is None:
+            # nothing to explain: a FALSY doc, so callers' `if explain:`
+            # guards skip it
+            return {}
+        pods = [u.pod for u in self._unscheduled]
+        codes = np.asarray(self._unscheduled_codes, np.int32)
+        batch = self._tensorizer.add_pods(pods)
+        tensors = self._tensorizer.freeze()
+        node_valid = (
+            np.asarray(self._engine.node_valid, bool)
+            if self._engine.node_valid is not None
+            else None
+        )
+        try:
+            state = self._engine.carried_state()
+        except ValueError:
+            # a preemption fallback left the carry dirty (rebuilt on the
+            # next place) — the placement log is still authoritative
+            state = None
+        if state is None:
+            from .engine.state import build_state
+
+            r = tensors.alloc.shape[1]
+            state = build_state(
+                tensors,
+                np.asarray(self._engine.placed_group, np.int32),
+                np.asarray(self._engine.placed_node, np.int32),
+                self._engine.log_req_matrix(r),
+                self._engine.ext_log,
+                self._device,
+            )
+        return build_explain_doc(
+            tensors, batch, np.arange(len(pods)), state,
+            np.full(len(pods), -1, np.int64), codes,
+            node_valid=node_valid, sched_config=self._sched_config,
+            new_node=opts.get("new_node"),
+            daemon_sets=opts.get("daemon_sets") or (),
+            corrected_ds_overhead=bool(opts.get("corrected", False)),
+            top=int(opts.get("top", 10)),
+        )
+
+
 def record_placed_pod(pod: dict, node_name: str, gpu_shares) -> dict:
     """The placed copy of `pod`: nodeName bound, phase Running, and the GPU
     device-assignment annotation the reference's GpuSharePlugin.Bind
@@ -1035,6 +1099,7 @@ def simulate(
     audit: bool = False,
     _audit_inject: bool = False,
     bulk: bool = False,
+    explain=False,
 ) -> SimulateResult:
     """One-shot simulation: expand cluster workloads, run the cluster, then
     schedule each app in order. Unscheduled pods accumulate across the
@@ -1054,7 +1119,14 @@ def simulate(
 
     `bulk=True` places eligible same-spec pod runs in bulk rounds
     (`engine/rounds.py RoundsEngine`, the JAX package's bulk tie-breaks);
-    it excludes `engine_factory`."""
+    it excludes `engine_factory`.
+
+    With `explain=True` (or an options dict — `{"top", "new_node",
+    "daemon_sets", "corrected"}`) the decision-observability block
+    (`explain/`: per-stage failure breakdowns against the end-of-run state,
+    K20 on the card, and the binding-constraint bottleneck analysis) is
+    attached as `result.explain` before the simulator closes. Off (the
+    default) imports no explain module and launches nothing more."""
     if bulk:
         if engine_factory is not None:
             raise ValueError("bulk=True and engine_factory are mutually exclusive")
@@ -1081,6 +1153,8 @@ def simulate(
             from .audit.checker import audit_simulation
 
             result.audit = audit_simulation(sim, inject=_audit_inject)
+        if explain:
+            result.explain = sim.explain_result(explain if isinstance(explain, dict) else None)
         return result
     finally:
         sim.close()

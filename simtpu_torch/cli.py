@@ -1,18 +1,27 @@
-"""The port's command line: `python -m simtpu_torch.cli apply | resilience`.
+"""The port's command line: `python -m simtpu_torch.cli apply | resilience |
+explain | fuzz`.
 
-The `apply` and `resilience` commands of the JAX package's `simtpu` CLI.
+The `apply`, `resilience`, `explain` and `fuzz` commands of the JAX
+package's `simtpu` CLI.
 `apply` (the reference's `simon apply`, `cmd/apply/apply.go:26-37`) plans
 the minimum number of template nodes that deploys the app list, prints the
 report tables (or, with `--json`, the machine-readable plan) and, with
 `--faults`, sweeps failure scenarios over the winning cluster.
 `resilience` drains and requeues every generated failure scenario against
 the configured cluster, or with `--plan` searches the minimum clone count
-whose cluster survives them. Exit 0 on a plan (a surviving cluster), 1 on
-failure, 4 when the auditor caught a divergence. Every simulation runs on
-`--device` (default `cuda`; `cpu` runs the plain PyTorch path). The JAX
-CLI's other commands and flags are not ported yet (ROADMAP queue 1:
-`--checkpoint/--resume/--deadline` #8, `--solver` #7, `--explain` #6,
-`--trace/--profile` with the observability layer); argparse rejects them.
+whose cluster survives them. `--explain` on both attaches the
+decision-observability block (failure breakdowns, bottleneck analysis) to
+a failing plan. `explain` places the configured problem through one engine
+and explains the outcome (`--scores N` decomposes placed pods' scores);
+`fuzz` replays seeded gnarly cases across the engine-config matrix
+(`--mutation-kill`: corrupts accepted placements and counts the auditor's
+detections). Exit 0 on a plan (a surviving cluster, a clean fuzz), 1 on
+failure, 4 when the auditor caught a divergence (or a fuzz finding). Every
+simulation runs on `--device` (default `cuda`; `cpu` runs the plain
+PyTorch path). The JAX CLI's other commands and flags are not ported yet
+(ROADMAP queue 1: `--checkpoint/--resume/--deadline`, `serve` and `replay`
+#8, `--solver` #7, `--trace/--profile` #9, `--shard` #10); argparse
+rejects them, and `fuzz --shard` says so.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import List, Optional
 from . import constants as C
 from .device import resolve_device
 from .plan.capacity import Applier, ApplierOptions
-from .report import audit_report, report, resilience_report
+from .report import audit_report, explain_report, report, resilience_report
 
 #: exit code for an audit failure: the independent placement auditor
 #: caught the primary answer violating its claimed constraints.  When the
@@ -70,6 +79,10 @@ def _plan_json(plan, resilience: dict = None) -> str:
             len(plan.result.unscheduled_pods) if plan.result is not None else None
         ),
     }
+    if plan.explain:
+        # the versioned decision-observability block (explain/, --explain):
+        # failure breakdowns + bottleneck analysis
+        doc["explain"] = plan.explain
     if resilience is not None:
         doc["resilience"] = resilience
     return json.dumps(doc)
@@ -167,6 +180,7 @@ def cmd_apply(args: argparse.Namespace) -> int:
         corrected_ds_overhead=args.corrected_ds_overhead,
         audit=args.audit,
         device=args.device,
+        explain=args.explain,
     )
 
     def fail_early(exc: Exception) -> int:
@@ -258,6 +272,8 @@ def cmd_apply(args: argparse.Namespace) -> int:
             print(f"phase timings: {phases}")
         if _audit_failed(fault_audit):
             print(f"{C.COLOR_RED}{audit_report(fault_audit)}{C.COLOR_RESET}")
+        if plan.explain:
+            print(explain_report(plan.explain))
         if fault_sweep is not None:
             print(resilience_report(fault_sweep))
             if fault_base_unplaced:
@@ -275,6 +291,8 @@ def cmd_apply(args: argparse.Namespace) -> int:
     print(f"{C.COLOR_RED}{plan.message}{C.COLOR_RESET}")
     if _audit_failed(plan.audit):
         print(f"{C.COLOR_RED}{audit_report(plan.audit)}{C.COLOR_RESET}")
+    if plan.explain:
+        print(explain_report(plan.explain))
     if plan.result is not None:
         print(C.COLOR_RED, end="")
         print(report(plan.result.node_status, opts.extended_resources))
@@ -333,6 +351,7 @@ def cmd_resilience(args: argparse.Namespace) -> int:
                 sched_config=sched_config,
                 audit=args.audit,
                 device=opts.device,
+                explain=args.explain,
             )
             if args.json:
                 doc = plan.counters()
@@ -351,6 +370,8 @@ def cmd_resilience(args: argparse.Namespace) -> int:
                 if plan.audit:
                     a_color = C.COLOR_RED if _audit_failed(plan.audit) else C.COLOR_GREEN
                     print(f"{a_color}{audit_report(plan.audit)}{C.COLOR_RESET}")
+                if plan.explain:
+                    print(explain_report(plan.explain))
                 if plan.sweep is not None:
                     print(resilience_report(plan.sweep))
             if _audit_failed(plan.audit):
@@ -420,6 +441,196 @@ def cmd_resilience(args: argparse.Namespace) -> int:
     return 0 if survived_all else 1
 
 
+def cmd_explain(args: argparse.Namespace) -> int:
+    """One engine-level placement of the configured problem, explained
+    (explain/). Engine-level deliberately: score attribution's log-prefix
+    exactness and the breakdown's end-state semantics both rest on the
+    un-surgered placement log (no preemption), the contract the planners'
+    probes run under."""
+    import numpy as np
+
+    opts = ApplierOptions(
+        simon_config=args.simon_config,
+        default_scheduler_config=args.default_scheduler_config or "",
+        extended_resources=args.extended_resources or [],
+        device=args.device,
+    )
+
+    def fail_early(exc: Exception) -> int:
+        if args.json:
+            print(json.dumps({"success": False, "message": str(exc)}))
+        print(exc, file=sys.stderr)
+        return 1
+
+    try:
+        device = resolve_device(opts.device)
+        applier = Applier(opts)
+    except (ValueError, FileNotFoundError, RuntimeError) as exc:
+        return fail_early(exc)
+    progress_stream = sys.stderr if args.json else sys.stdout
+
+    def progress(msg: str) -> None:
+        print(f"{C.COLOR_YELLOW}{msg}{C.COLOR_RESET}", file=progress_stream)
+
+    try:
+        cluster = applier.load_cluster()
+        apps = applier.load_apps()
+        sched_config = applier._sched_config()
+        new_node = None
+        try:
+            new_node = applier.load_new_node()
+        except (ValueError, FileNotFoundError, OSError):
+            # the template is optional here: without it the bottleneck block
+            # omits the can-another-node-help verdict
+            pass
+        from .explain import EXPLAIN_VERSION, attribute_scores, build_explain_doc, extras_from_log
+        from .faults import place_cluster
+
+        # score attribution's prefix-state exactness (recomputed argmax ==
+        # recorded node) is a SERIAL-scan contract — the bulk rounds engine
+        # tie-breaks differently — so --scores places with the serial
+        # engine (the wavefront keeps it fast and bit-identical)
+        use_bulk = not args.no_bulk and args.scores <= 0
+        if args.scores > 0 and not args.no_bulk:
+            progress("--scores: placing with the serial-equivalent engine "
+                     "(score attribution's exactness contract)")
+        progress(f"placing workloads ({len(cluster.nodes)} nodes), then explaining the outcome")
+        pc = place_cluster(
+            cluster,
+            apps,
+            extended_resources=opts.extended_resources,
+            bulk=use_bulk,
+            sched_config=sched_config,
+            device=device,
+        )
+        nodes = np.asarray(pc.nodes)
+        reasons = np.asarray(pc.reasons)
+        unplaced = np.flatnonzero(nodes < 0)
+        state = pc.engine.carried_state()
+        all_ds = list(cluster.daemon_sets)
+        for app in apps:
+            all_ds += app.resource.daemon_sets
+        doc = {
+            "version": EXPLAIN_VERSION,
+            "pods": int(len(nodes)),
+            "placed": int((nodes >= 0).sum()),
+            "unplaced": int(len(unplaced)),
+        }
+        doc.update(
+            build_explain_doc(
+                pc.tensors, pc.batch, unplaced, state, nodes, reasons,
+                sched_config=sched_config, new_node=new_node,
+                daemon_sets=all_ds, top=args.top,
+            )
+        )
+        if args.scores > 0:
+            extras = extras_from_log(pc.tensors, nodes, pc.engine.ext_log)
+            doc["scores"] = attribute_scores(
+                pc.tensors, pc.batch, nodes, extras,
+                max_pods=args.scores, sched_config=sched_config, device=device,
+            )
+    except (ValueError, FileNotFoundError) as exc:
+        return fail_early(exc)
+    if args.json:
+        print(json.dumps(doc))
+        return 0
+    print(
+        f"{C.COLOR_GREEN}{doc['placed']}/{doc['pods']} pods placed{C.COLOR_RESET}"
+        + (f" {C.COLOR_RED}({doc['unplaced']} unplaced){C.COLOR_RESET}" if doc["unplaced"] else "")
+    )
+    print(explain_report(doc))
+    return 0
+
+
+def cmd_fuzz(args: argparse.Namespace) -> int:
+    """Differential fuzz / mutation-kill driver (audit/fuzz.py).
+
+    Exit codes: 0 = every case bit-identical and audit-clean (or 100%
+    mutation kill); EXIT_AUDIT = a divergence, dirty audit, or missed
+    mutation — the finding IS the failure; 1 = the run could not start (a
+    reproducer that does not load, the sharded cell, no card)."""
+    from .audit import fuzz
+
+    progress_stream = sys.stderr if args.json else sys.stdout
+
+    def progress(msg: str) -> None:
+        print(f"{C.COLOR_YELLOW}{msg}{C.COLOR_RESET}", file=progress_stream)
+
+    def refuse(exc: Exception) -> int:
+        if args.json:
+            print(json.dumps({"ok": False, "message": str(exc)}))
+        print(exc, file=sys.stderr)
+        return 1
+
+    try:
+        device = resolve_device(args.device)
+        if args.shard:
+            raise NotImplementedError(fuzz.NOT_PORTED_SHARD)
+    except (RuntimeError, NotImplementedError) as exc:
+        return refuse(exc)
+
+    if args.mutation_kill:
+        counters = fuzz.run_mutation_kill(seed=args.seed, per_class=args.per_class, progress=progress,
+                                          device=device)
+        ok = (
+            counters["kill_rate"] >= 1.0
+            and counters["classes"] == counters["classes_total"]
+            and not counters["missed"]
+        )
+        if args.json:
+            print(json.dumps({"ok": ok, **counters}))
+        else:
+            color = C.COLOR_GREEN if ok else C.COLOR_RED
+            print(
+                f"{color}mutation-kill: {counters['killed']}/{counters['tried']} corruptions "
+                f"detected across {counters['classes']} classes{C.COLOR_RESET}"
+            )
+            if counters["missed"]:
+                print(f"{C.COLOR_RED}missed: {counters['missed']}{C.COLOR_RESET}")
+        return 0 if ok else EXIT_AUDIT
+
+    if args.replay:
+        try:
+            bad = fuzz.replay_case(args.replay, include_shard=args.shard, device=device)
+        except (ValueError, FileNotFoundError) as exc:
+            return refuse(exc)
+        if args.json:
+            doc = {"ok": bad is None, "replay": args.replay}
+            if bad is not None:
+                doc.update(config=bad[0], kind=bad[1], detail=bad[2])
+            print(json.dumps(doc))
+        elif bad is None:
+            print(f"{C.COLOR_GREEN}replay clean: every engine config bit-identical and "
+                  f"audit-clean{C.COLOR_RESET}")
+        else:
+            print(f"{C.COLOR_RED}replay FAILED on config {bad[0]} ({bad[1]}): {bad[2]}{C.COLOR_RESET}")
+        return 0 if bad is None else EXIT_AUDIT
+
+    result = fuzz.run_differential(
+        cases=args.cases,
+        seed=args.seed,
+        n_nodes=args.nodes,
+        n_pods=args.pods,
+        out_dir=args.out,
+        include_shard=args.shard,
+        progress=progress,
+        device=device,
+    )
+    if args.json:
+        print(json.dumps(result.counters()))
+    elif result.ok:
+        print(
+            f"{C.COLOR_GREEN}fuzz clean: {result.cases} case(s), {result.configs_run} engine-config "
+            f"runs, all bit-identical and audit-clean{C.COLOR_RESET}"
+        )
+    else:
+        for f in result.failures:
+            repro = f" reproducer={f.reproducer}" if f.reproducer else ""
+            print(f"{C.COLOR_RED}seed {f.seed} config {f.config}: {f.kind} — {f.detail}{repro}"
+                  f"{C.COLOR_RESET}")
+    return 0 if result.ok else EXIT_AUDIT
+
+
 def _add_audit_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--audit",
@@ -445,6 +656,19 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
         default="cuda",
         help="where every simulation runs (default: cuda, the hand-written "
         "kernels on the card; cpu runs their plain PyTorch versions)",
+    )
+
+
+def _add_explain_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--explain",
+        action="store_true",
+        help="attach the decision-observability block to the result: "
+        "kube-scheduler-style per-stage failure breakdowns for every "
+        "unplaced pod ('0/N nodes are available: 3 insufficient ..., 5 "
+        "node(s) didn't match ...') and a binding-constraint bottleneck "
+        "analysis (what to buy) for infeasible plans; rides --json under "
+        "'explain' and the report as extra tables (off = no extra launch)",
     )
 
 
@@ -544,6 +768,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_audit_flags(apply_p)
     _add_device_flag(apply_p)
+    _add_explain_flag(apply_p)
     apply_p.set_defaults(func=cmd_apply)
 
     res_p = sub.add_parser(
@@ -551,7 +776,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="fault-injection survivability: drain + requeue batched "
         "failure scenarios (and optionally plan N+k capacity)",
         description="Not ported yet: --checkpoint/--resume/--deadline "
-        "(ROADMAP queue 1 #8), --solver (#7), --explain (#6), --trace/--profile.",
+        "(ROADMAP queue 1 #8), --solver (#7), --trace/--profile (#9).",
     )
     res_p.add_argument(
         "-f", "--simon-config", required=True, help="path of simon config (required)"
@@ -627,7 +852,104 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_audit_flags(res_p)
     _add_device_flag(res_p)
+    _add_explain_flag(res_p)
     res_p.set_defaults(func=cmd_resilience)
+
+    exp_p = sub.add_parser(
+        "explain",
+        help="explain one placement: per-stage failure breakdowns, "
+        "per-plugin score attribution, bottleneck analysis",
+        description="Decision observability: place the configured cluster + "
+        "apps through ONE engine (no capacity search, no preemption) and "
+        "explain the outcome. Every unplaced pod gets the kube-scheduler-"
+        "style status string with per-stage node-elimination counts and "
+        "witness nodes; --scores N additionally decomposes the first N "
+        "placed pods' winning scores into per-plugin terms with the "
+        "runner-up node and margin; the bottleneck section names the "
+        "binding resource and whether another template node can ever help.",
+    )
+    exp_p.add_argument("-f", "--simon-config", required=True, help="path of simon config (required)")
+    exp_p.add_argument("-d", "--default-scheduler-config", help="path of scheduler-config overrides")
+    exp_p.add_argument(
+        "-e",
+        "--extended-resources",
+        nargs="*",
+        choices=["open-local", "gpu"],
+        help="extended resources to model (open-local, gpu)",
+    )
+    exp_p.add_argument(
+        "--scores",
+        type=int,
+        default=0,
+        metavar="N",
+        help="attribute the first N placed pods' scores (per-plugin "
+        "decomposition, runner-up, margin; default 0 = off — each pod costs "
+        "one log-prefix state rebuild; forces the serial-equivalent engine: "
+        "attribution exactness is a serial-scan contract)",
+    )
+    exp_p.add_argument(
+        "--top",
+        type=int,
+        default=10,
+        metavar="K",
+        help="distinct failure shapes kept in the breakdown (default 10; "
+        "truncation is reported, never silent)",
+    )
+    exp_p.add_argument(
+        "--no-bulk",
+        action="store_true",
+        help="place with the serial scan engine instead of the bulk rounds engine",
+    )
+    exp_p.add_argument(
+        "--json",
+        action="store_true",
+        help="print the versioned explain document (the same block apply "
+        "--explain --json embeds) instead of the report tables",
+    )
+    _add_device_flag(exp_p)
+    exp_p.set_defaults(func=cmd_explain)
+
+    fuzz_p = sub.add_parser(
+        "fuzz",
+        help="differential fuzz the engine-config matrix against the serial "
+        "baseline + the independent auditor",
+        description="Seeded differential fuzzing: generate gnarly "
+        "spec/cluster cases, place each across the engine-config matrix "
+        "(wavefront on/off x compact carry on/off) and assert bit-identical, "
+        "audit-clean placements. Failing cases shrink to a minimal "
+        "reproducer YAML under --out. --mutation-kill instead corrupts "
+        "accepted placements across every corruption class and asserts the "
+        "auditor flags 100% of them. Not ported: the injected-OOM backoff "
+        "cell (ROADMAP queue 1 #8) and the sharded cell, --shard (#10).",
+    )
+    fuzz_p.add_argument("--cases", type=int, default=16, metavar="N",
+                        help="generated cases for the differential mode (default 16)")
+    fuzz_p.add_argument("--seed", type=int, default=0, metavar="SEED",
+                        help="base seed; case i draws from seed + 1000*i (default 0)")
+    fuzz_p.add_argument("--nodes", type=int, default=32, metavar="N",
+                        help="synthetic cluster size per case (default 32)")
+    fuzz_p.add_argument("--pods", type=int, default=160, metavar="N",
+                        help="pods per case (default 160)")
+    fuzz_p.add_argument("--out", metavar="DIR", default="",
+                        help="write auto-shrunk minimal reproducer YAMLs for failing cases under "
+                        "DIR (skipping shrink when unset)")
+    fuzz_p.add_argument("--replay", metavar="FILE",
+                        help="re-run one reproducer YAML (written by --out) across the "
+                        "engine-config matrix instead of generating cases")
+    fuzz_p.add_argument("--mutation-kill", action="store_true",
+                        help="corrupt accepted placements across every corruption class "
+                        "(invalid node, overcommit, affinity/anti-affinity/spread breaks, port "
+                        "conflicts, illegal evictions) and assert the auditor flags every one")
+    fuzz_p.add_argument("--per-class", type=int, default=4, metavar="N",
+                        help="mutation trials per corruption class (default 4)")
+    fuzz_p.add_argument("--shard", dest="shard", action="store_true", default=None,
+                        help="the sharded matrix cell: not ported (ROADMAP queue 1 #10), refused")
+    fuzz_p.add_argument("--no-shard", dest="shard", action="store_false",
+                        help="skip the sharded matrix cell (one card never runs it)")
+    fuzz_p.add_argument("--json", action="store_true",
+                        help="print machine-readable counters instead of progress text")
+    _add_device_flag(fuzz_p)
+    fuzz_p.set_defaults(func=cmd_fuzz)
     return parser
 
 

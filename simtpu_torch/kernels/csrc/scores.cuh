@@ -149,27 +149,45 @@ __device__ inline int fail_code(unsigned any) {
   return fail;
 }
 
-// K3 for pod i, block-wide. For a pod that ran K5 (K6) the storage (GPU)
-// verdict is ANDed into the cascade after the bind stage, so the stages
-// are static, ports, resources, volumes, attach, bind, storage, GPU,
-// spread, all (FILTER_CASCADE). Two passes over the nodes:
-//   pass 1 reduces the stage bits (OR) and the masked normalizers — Simon
-//          share min/max, node-affinity min/max, taint max, inter-pod
-//          max |raw|, soft-spread min/max, SelectorSpread host/zone max,
-//          Open-Local raw min/max — over the feasible nodes (min/max are
-//          order-free: bit-exact);
-//   pass 2 forms each node's score (compose_score), the mask, then the
-//          Open-Local term w10 * minmax(raw), then the argmax with the
-//          lowest index on ties (all -inf gives 0).
-// Thread 0 applies the forced-pod override and writes chosen, placed,
-// reason and out_node for pod i, at row `o` of the outputs (default i).
-__device__ inline void score_argmax_block(const StepCtx& x, int i, int o = -1) {
-  constexpr int N_MIN = 4;  // simon, node_pref, soft spread, open-local
-  constexpr int N_MAX = 8;  // simon, node_pref, taint, |ipa|, soft spread, ss host, ss zone, open-local
+// The ten cumulative cascade bits of node n, in FILTER_CASCADE order:
+// 0 static, 1 ports, 2 resources, 3 volumes, 4 attach, 5 bind (the stage
+// byte's bits 0-5), 6 storage, 7 GPU (bit 5 ANDed with the K5 / K6
+// verdicts of a pod that ran them), 8 spread, 9 all (the byte's bits 6-7
+// ANDed with both verdicts: AND commutes). The one map from the stage
+// byte to StepEval's ten masks, shared by K3, K20 and K21.
+constexpr unsigned CASCADE_ALL = 1u << 9;
+constexpr int N_CASCADE = 10;
+
+__device__ inline unsigned cascade_bits(const StepCtx& x, int n, bool st_live, bool gpu_live) {
+  const unsigned s = x.stage[n];
+  const bool ext_ok = (!st_live || x.st_ok[n]) && (!gpu_live || x.gpu_ok[n]);
+  const bool st = ((s >> 5) & 1u) && (!st_live || x.st_ok[n]);
+  const bool gp = st && (!gpu_live || x.gpu_ok[n]);
+  return (s & 0x3Fu) | (st ? 1u << 6 : 0u) | (gp ? 1u << 7 : 0u) |
+         (((s >> 6) & 1u) && ext_ok ? 1u << 8 : 0u) | (((s >> 7) & 1u) && ext_ok ? 1u << 9 : 0u);
+}
+
+// The masked normalizers of pod i's score over the feasible nodes and the
+// OR of every node's cascade bits (score_norms_block).
+struct ScoreNorms {
+  static constexpr int N_MIN = 4;  // simon, node_pref, soft spread, open-local
+  static constexpr int N_MAX = 8;  // simon, node_pref, taint, |ipa|, soft spread, ss host, ss zone, open-local
+  float lo[N_MIN], hi[N_MAX];
+  unsigned any;   // OR of the cascade bits of every node
+  bool any_zone;  // the group has a SelectorSpread zone term
+};
+
+// Pass 1 of K3 for pod i, block-wide: the stage bits' OR and the masked
+// normalizers — Simon share min/max, node-affinity min/max, taint max,
+// inter-pod max |raw|, soft-spread min/max, SelectorSpread host/zone max,
+// Open-Local raw min/max — over the feasible nodes (min/max are
+// order-free: bit-exact). Every thread gets the result; ends with a
+// barrier.
+__device__ inline void score_norms_block(const StepCtx& x, int i, ScoreNorms& nm) {
+  constexpr int N_MIN = ScoreNorms::N_MIN;
+  constexpr int N_MAX = ScoreNorms::N_MAX;
   __shared__ float sh_min[32][N_MIN];
   __shared__ float sh_max[32][N_MAX];
-  __shared__ float sh_bv[32];
-  __shared__ int sh_bi[32];
   __shared__ unsigned any_bits;
   const int N = x.n;
   const int g = x.group[i];
@@ -181,29 +199,16 @@ __device__ inline void score_argmax_block(const StepCtx& x, int i, int o = -1) {
   const bool st_live = live & LIVE_STORAGE, gpu_live = live & LIVE_GPU;
   if (threadIdx.x == 0) any_bits = 0u;
   __syncthreads();
-
-  // the cascade of node n: stage bits 0-5, then bit 6 storage, 7 GPU,
-  // 8 spread, 9 all (K2's bits 6-7 ANDed with the storage/GPU verdicts)
-  auto cascade = [&](int n) -> unsigned {
-    const unsigned s = x.stage[n];
-    const bool ext_ok = (!st_live || x.st_ok[n]) && (!gpu_live || x.gpu_ok[n]);
-    const bool st = ((s >> 5) & 1u) && (!st_live || x.st_ok[n]);
-    const bool gp = st && (!gpu_live || x.gpu_ok[n]);
-    return (s & 0x3Fu) | (st ? 1u << 6 : 0u) | (gp ? 1u << 7 : 0u) |
-           (((s >> 6) & 1u) && ext_ok ? 1u << 8 : 0u) | (((s >> 7) & 1u) && ext_ok ? 1u << 9 : 0u);
-  };
-  constexpr unsigned ALL = 1u << 9;
-
-  // pass 1: stage OR + masked normalizers
-  float lo[N_MIN], hi[N_MAX];
+  float* lo = nm.lo;
+  float* hi = nm.hi;
   for (int k = 0; k < N_MIN; ++k) lo[k] = BIG;
   hi[0] = -BIG; hi[1] = -BIG; hi[2] = 0.0f; hi[3] = 0.0f; hi[4] = -BIG; hi[5] = 0.0f; hi[6] = 0.0f;
   hi[7] = -BIG;
   unsigned bits = 0u;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const unsigned s = cascade(n);
+    const unsigned s = cascade_bits(x, n, st_live, gpu_live);
     bits |= s;
-    if (!(s & ALL)) continue;
+    if (!(s & CASCADE_ALL)) continue;
     const float sim = dominant_share(x, n, req) * MAX_NODE_SCORE;
     lo[0] = fminf(lo[0], sim); hi[0] = fmaxf(hi[0], sim);
     const float np_ = x.node_pref[gn + n];
@@ -235,41 +240,78 @@ __device__ inline void score_argmax_block(const StepCtx& x, int i, int o = -1) {
     hi[k] = sh_max[0][k];
     for (int w = 1; w < n_warps; ++w) hi[k] = fmaxf(hi[k], sh_max[w][k]);
   }
-
-  // pass 2: weighted score in the reference's term order, then argmax
-  const float* w_ = x.score_w;
-  const int f = x.flags;
-  const bool terms = x.tc > 0;
+  nm.any = any_bits;
   bool any_zone = false;
   for (int t = 0; t < x.tc; ++t) any_zone = any_zone || x.ss_zone[static_cast<size_t>(g) * x.tc + t];
+  nm.any_zone = any_zone;
+  __syncthreads();
+}
+
+// Pass 2 of K3 at node n for pod i: the weighted score in the reference's
+// term order (compose_score), the mask, then the Open-Local term
+// w10 * minmax(raw) (a pod that skipped K5 has raw 0, which normalizes to
+// 0). `t_out` / `s_nos` (optional) receive the normalized terms and the
+// score before the Open-Local term.
+__device__ inline float node_score(const StepCtx& x, int i, int n, const ScoreNorms& nm,
+                                   ScoreTerms* t_out = nullptr, float* s_nos = nullptr) {
+  const int N = x.n;
+  const int g = x.group[i];
+  const float* req = x.req + static_cast<size_t>(i) * x.r;
+  const size_t gn = static_cast<size_t>(g) * N;
+  const unsigned live = x.ext_live[i];
+  const bool st_live = live & LIVE_STORAGE, gpu_live = live & LIVE_GPU;
+  const float* lo = nm.lo;
+  const float* hi = nm.hi;
+  const float* w_ = x.score_w;
+  const int f = x.flags;
+  ScoreTerms t;
+  t.simon = simon_term(dominant_share(x, n, req), lo[0], hi[0]);
+  t.node_pref = minmax_norm(x.node_pref[gn + n], lo[1], hi[1]);
+  t.taint = taint_term(x.taint_intol[gn + n], hi[2]);
+  t.ipa = maxabs_term(x.raw[n], hi[3]);
+  t.soft = inv_minmax(x.raw[N + n], lo[2], hi[4]);
+  t.ss = ss_term(x.raw[2 * N + n], x.raw[3 * N + n], hi[5], hi[6], nm.any_zone);
+  float s = compose_score(w_, f, x.tc > 0, resource_base(x, n, req, w_[0], w_[1]), t,
+                          x.static_score[gn + n], x.avoid_pen[gn + n]);
+  if (!(cascade_bits(x, n, st_live, gpu_live) & CASCADE_ALL)) s = -INFINITY;
+  if (s_nos) *s_nos = s;
+  if (t_out) *t_out = t;
+  if (f & F_STORAGE) s = __fmaf_rn(w_[10], minmax_norm(st_live ? x.st_raw[n] : 0.0f, lo[3], hi[7]), s);
+  return s;
+}
+
+// K3 for pod i, block-wide. For a pod that ran K5 (K6) the storage (GPU)
+// verdict is ANDed into the cascade after the bind stage, so the stages
+// are static, ports, resources, volumes, attach, bind, storage, GPU,
+// spread, all (FILTER_CASCADE). Two passes over the nodes:
+//   pass 1 (score_norms_block) reduces the stage bits (OR) and the masked
+//          normalizers over the feasible nodes;
+//   pass 2 (node_score) forms each node's score, then the argmax with the
+//          lowest index on ties (all -inf gives 0).
+// Thread 0 applies the forced-pod override and writes chosen, placed,
+// reason and out_node for pod i, at row `o` of the outputs (default i).
+__device__ inline void score_argmax_block(const StepCtx& x, int i, int o = -1) {
+  __shared__ float sh_bv[32];
+  __shared__ int sh_bi[32];
+  const int N = x.n;
+  ScoreNorms nm;
+  score_norms_block(x, i, nm);
   float bv = -INFINITY;
   int bi = 0x7fffffff;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    ScoreTerms t;
-    t.simon = simon_term(dominant_share(x, n, req), lo[0], hi[0]);
-    t.node_pref = minmax_norm(x.node_pref[gn + n], lo[1], hi[1]);
-    t.taint = taint_term(x.taint_intol[gn + n], hi[2]);
-    t.ipa = maxabs_term(x.raw[n], hi[3]);
-    t.soft = inv_minmax(x.raw[N + n], lo[2], hi[4]);
-    t.ss = ss_term(x.raw[2 * N + n], x.raw[3 * N + n], hi[5], hi[6], any_zone);
-    float s = compose_score(w_, f, terms, resource_base(x, n, req, w_[0], w_[1]), t,
-                            x.static_score[gn + n], x.avoid_pen[gn + n]);
-    if (!(cascade(n) & ALL)) s = -INFINITY;
-    // Open-Local: w10 * minmax(raw) over the feasible nodes, added after
-    // the mask (a pod that skipped K5 has raw 0, which normalizes to 0)
-    if (f & F_STORAGE) s = __fmaf_rn(w_[10], minmax_norm(st_live ? x.st_raw[n] : 0.0f, lo[3], hi[7]), s);
+    const float s = node_score(x, i, n, nm);
     x.score[n] = s;
     argmax_merge(bv, bi, s, n);
   }
   block_argmax(bv, bi, sh_bv, sh_bi);
   if (threadIdx.x != 0) return;
-  const unsigned any = any_bits;
+  const unsigned any = nm.any;
   const int fail = fail_code(any);
   const bool forced = x.forced[i];
   const int pin = x.pin[i];
   const int pin_c = pin < 0 ? 0 : (pin >= N ? N - 1 : pin);
   const int chosen = forced ? pin : bi;
-  const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any & ALL) != 0u);
+  const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any & CASCADE_ALL) != 0u);
   if (o < 0) o = i;
   x.chosen[o] = chosen;
   x.placed[o] = placed ? 1 : 0;

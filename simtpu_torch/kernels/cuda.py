@@ -8,8 +8,10 @@ expand and update the compact carried state (`engine/state.py`), K14-K16
 score, pick and commit one bulk round (`engine/rounds.py`), K17 copies a
 carried state for the incremental planner's probes
 (`plan/incremental.py`), K18/K19 drain and requeue every scenario of a
-batched sweep chunk, one block per scenario (`engine/batched.py`). The
-sources live in
+batched sweep chunk, one block per scenario (`engine/batched.py`), K20
+explains a chunk of unplaced pods' failures, one block per pod
+(`explain/breakdown.py`), and K21 decomposes one pod's score into its
+plugin terms (`explain/scores.py`). The sources live in
 `kernels/csrc/` (one `.cu` per kernel; the argument blocks in
 `step_ctx.cuh`, the per-node device code that K1-K6 and K9/K10 share in
 the other `.cuh` headers). On first use each source is compiled by `nvcc` for
@@ -45,7 +47,7 @@ KERNELS = (
     "storage_pod", "gpu_pod", "delta_apply", "audit_bulk", "wave_lean", "wave_hard",
     "compact_compress", "compact_expand", "compact_delta",
     "round_score", "round_pick", "round_commit", "carry_copy",
-    "sweep_drain", "sweep_place",
+    "sweep_drain", "sweep_place", "explain_pass", "pod_terms",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
@@ -56,6 +58,9 @@ ROUND_KERNELS = KERNELS[13:16]
 #: the sweep kernels, launched as simtpu_<name>(DeltaCtx* or StepCtx*,
 #: SweepCtx*, stream)
 SWEEP_KERNELS = KERNELS[17:19]
+#: the explain pass, launched as simtpu_explain_pass(StepCtx*, ExplainCtx*,
+#: stream); the score terms as simtpu_pod_terms(StepCtx*, pod, terms, stream)
+EXPLAIN_KERNELS = KERNELS[19:21]
 #: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
 MAX_EXT = 32
 #: K9's carried [N] rows (step_ctx.cuh WAVE_ROWS)
@@ -135,6 +140,10 @@ def build() -> dict:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        elif name == "explain_pass":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        elif name == "pod_terms":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -947,3 +956,63 @@ def launch_sweep_place(sb) -> None:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel sweep_place failed to launch: {msg} ({err})")
     LAUNCHES["sweep_place"] += 1
+
+
+class ExplainCtx(ctypes.Structure):
+    """ctypes mirror of `struct ExplainCtx` in csrc/explain_pass.cu."""
+
+    _fields_ = [("p", ctypes.c_int), ("k", ctypes.c_int)] + [
+        (f, ctypes.c_void_p) for f in ("counts", "feasible", "witnesses", "fail_code")
+    ]
+
+
+def launch_explain_pass(eb) -> None:
+    """K20 on the current stream, in one launch of one block per pod of
+    `eb` (an explain/breakdown.py ExplainBuffers): block p explains pod p
+    of the chunk against the shared state, in its own scratch, and writes
+    row p of the counts, feasible, witnesses and fail codes. Raises if an
+    input is malformed or the launch is refused."""
+    libs = build()
+    buf = eb.buf
+    p, n = buf.n_pods, buf.statics.alloc.shape[0]
+    v, sd, gd = buf.statics.vg_cap.shape[1], buf.statics.sdev_cap.shape[1], buf.state.gpu_free.shape[1]
+    outs = {f: _checked(f"eb.{f}", getattr(eb, f), eb.device, torch.int32)
+            for f in ("counts", "feasible", "witnesses", "fail_code")}
+    planes = {f: _checked(f"eb.{f}", getattr(eb, f), eb.device, getattr(eb, f).dtype)
+              for f in ("stage_s", "raw_s", "st_ok_s", "st_alloc_s", "st_take_s", "st_raw_s",
+                        "gpu_ok_s", "gpu_sh_s")}
+    s_n = eb.counts.shape[1]
+    _check_shapes({**outs, **planes}, {
+        "counts": (p, s_n), "feasible": (p,), "witnesses": (p, s_n, eb.k), "fail_code": (p,),
+        "stage_s": (p, n), "raw_s": (p, 4, n), "st_ok_s": (p, n), "st_alloc_s": (p, n, v),
+        "st_take_s": (p, n, sd), "st_raw_s": (p, n), "gpu_ok_s": (p, n), "gpu_sh_s": (p, n, gd),
+    })
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    ctx = ExplainCtx(p=p, k=eb.k, **{f: t.data_ptr() for f, t in outs.items()})
+    stream = torch.cuda.current_stream(eb.device).cuda_stream
+    err = libs["explain_pass"].simtpu_explain_pass(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel explain_pass failed to launch: {msg} ({err})")
+    LAUNCHES["explain_pass"] += 1
+
+
+def launch_pod_terms(buf, i: int) -> None:
+    """K21 for pod i of `buf` (an explain/scores.py TermsBuffers, after K1
+    -> (K5) -> (K6) -> K2 for the pod) on the current stream: the score
+    into `buf.score`, the 12 raw term rows into `buf.terms`. Raises if an
+    input is malformed or the launch is refused. No synchronization."""
+    if not 0 <= i < buf.n_pods:
+        raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
+    libs = build()
+    terms = _checked("buf.terms", buf.terms, buf.device, torch.float32)
+    _check_shapes({"terms": terms}, {"terms": (12, buf.statics.alloc.shape[0])})
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = libs["pod_terms"].simtpu_pod_terms(ctypes.byref(buf.ctx), i, terms.data_ptr(), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel pod_terms failed to launch: {msg} ({err})")
+    LAUNCHES["pod_terms"] += 1

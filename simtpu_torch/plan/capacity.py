@@ -98,6 +98,12 @@ class PlanResult:
     # engine ran the speculative wavefront and, when audited, the audit's
     # wall and split (upload / bulk / host seconds)
     candidates: List[Dict[str, object]] = field(default_factory=list)
+    # decision-observability block (explain/, `--explain`): the failure
+    # breakdown + bottleneck analysis of the reported candidate's unplaced
+    # pods; {} = not requested, or nothing unplaced. Carries the
+    # "version" stamp (explain.EXPLAIN_VERSION) and rides --json as
+    # "explain"
+    explain: Dict[str, object] = field(default_factory=dict)
 
 
 def new_fake_nodes(template: dict, count: int) -> List[dict]:
@@ -242,6 +248,7 @@ def plan_capacity(
     audit: Optional[bool] = None,
     device=None,
     _audit_inject: bool = False,
+    explain: bool = False,
 ) -> PlanResult:
     """Find the minimum clone count of `new_node` that deploys everything.
 
@@ -258,7 +265,15 @@ def plan_capacity(
     Every simulation runs on `device` (None = the CUDA card); with
     `bulk=True` on the bulk rounds engine (the audit fallback stays on the
     pod-at-a-time engine). `search="incremental"` is
-    `plan/incremental.py plan_capacity_incremental`."""
+    `plan/incremental.py plan_capacity_incremental`.
+
+    `explain` (off by default: the off path launches nothing more)
+    attaches the decision-observability block (explain/) to the result:
+    every candidate simulation computes the failure breakdown (K20) and
+    bottleneck analysis of its unplaced pods, and the reported
+    candidate's block rides `PlanResult.explain` — so an infeasible plan
+    reports *what to buy* (binding resource, template-node hint), not just
+    *how many*. Fully placed candidates pay nothing."""
     if search not in ("binary", "linear"):
         raise ValueError(f"unknown search strategy {search!r}")
     device = resolve_device(device)
@@ -270,6 +285,17 @@ def plan_capacity(
         all_daemon_sets += app.resource.daemon_sets
     last_result: list = [None]  # most recent live SimulateResult
     audit_on = True if audit is None else bool(audit)
+    # the template context folds the can-another-node-ever-help verdict
+    # into the bottleneck block
+    explain_opts = (
+        {"new_node": new_node, "daemon_sets": all_daemon_sets, "corrected": corrected_ds_overhead}
+        if explain
+        else False
+    )
+
+    def with_explain(out: PlanResult, result) -> PlanResult:
+        out.explain = getattr(result, "explain", None) or {}
+        return out
 
     def run(i: int, serial_exact: bool = False) -> SimulateResult:
         say(f"add {i} node(s)")
@@ -301,6 +327,7 @@ def plan_capacity(
             device=device,
             audit=audit_on or serial_exact,
             _audit_inject=audit_on and _audit_inject and not serial_exact,
+            explain=explain_opts,
         )
         rec: Dict[str, object] = {
             "count": i, "fallback": serial_exact, "wall_s": time.perf_counter() - t0,
@@ -362,7 +389,7 @@ def plan_capacity(
         return ok, probes[i], msg, result
 
     def final_success(i: int, result) -> PlanResult:
-        out = PlanResult(True, i, result, "Success!", probes)
+        out = with_explain(PlanResult(True, i, result, "Success!", probes), result)
         rep = result.audit
         if not audit_on or rep is None:
             return out
@@ -384,17 +411,18 @@ def plan_capacity(
             "divergence": _result_divergence(result, fb, rep),
         }
         if not rep_f.ok or fb.unscheduled_pods:
-            out = PlanResult(
+            out = with_explain(PlanResult(
                 False, i, fb,
                 "audit failure: the winning candidate violates its claimed "
                 "constraints and the serial-exact fallback did not certify "
                 f"either ({rep_f.summary()})",
                 probes,
-            )
+            ), fb)
             out.audit = audit_doc
             return out
         audit_doc["ok"] = True
         out.result = fb
+        out.explain = getattr(fb, "explain", None) or {}
         out.audit = audit_doc
         return out
 
@@ -426,8 +454,9 @@ def plan_capacity(
             if ok:
                 return final_success(i, result)
             if unsched and msg:
-                return PlanResult(False, i, result, msg, probes)
-        return PlanResult(False, max_new_nodes, last_result[0], fail_msg, probes)
+                return with_explain(PlanResult(False, i, result, msg, probes), result)
+        return with_explain(PlanResult(False, max_new_nodes, last_result[0], fail_msg, probes),
+                            last_result[0])
 
     def cap_fallback() -> PlanResult:
         """A cap rejection makes feasibility potentially non-monotone —
@@ -448,7 +477,7 @@ def plan_capacity(
         if ok:
             return final_success(0, result)
         if unsched and msg:
-            return PlanResult(False, 0, result, msg, probes)
+            return with_explain(PlanResult(False, 0, result, msg, probes), result)
         # the reference's loop is `for i := 0; i < MaxNumNewNode; i++`
         # (apply.go:183) — the largest candidate ever tried is
         # max_new_nodes-1
@@ -466,17 +495,18 @@ def plan_capacity(
                 hi, hi_result = probe, result
                 break
             if unsched and msg:
-                return PlanResult(False, probe, result, msg, probes)
+                return with_explain(PlanResult(False, probe, result, msg, probes), result)
             probe *= 2
         if hi is None:
             probe = max_new_nodes - 1
             if probe in probes:  # already tried as the last doubling step
-                return PlanResult(False, max_new_nodes, last_result[0], fail_msg, probes)
+                return with_explain(PlanResult(False, max_new_nodes, last_result[0], fail_msg, probes),
+                                    last_result[0])
             ok, unsched, msg, result = evaluate(probe)
             if cap_rejected:
                 return cap_fallback()
             if not ok:
-                return PlanResult(False, max_new_nodes, result, fail_msg, probes)
+                return with_explain(PlanResult(False, max_new_nodes, result, fail_msg, probes), result)
             hi, hi_result = probe, result
         # lowest infeasible known is hi//2 (probed by the doubling, or 0)
         lo = hi // 2
@@ -524,6 +554,10 @@ class ApplierOptions:
     audit: Optional[bool] = None
     # the device every simulation runs on (None = the CUDA card)
     device: Optional[str] = None
+    # decision observability (explain/, --explain): attach failure
+    # breakdowns + bottleneck analysis to a failing plan; off = no explain
+    # import, no extra launch
+    explain: bool = False
 
 
 # Auto-engine thresholds: below both, the serial scan keeps its per-pod
@@ -662,6 +696,7 @@ class Applier:
                 corrected_ds_overhead=self.opts.corrected_ds_overhead,
                 audit=self.opts.audit,
                 device=device,
+                explain=self.opts.explain,
             )
         else:
             plan = plan_capacity(
@@ -676,6 +711,7 @@ class Applier:
                 corrected_ds_overhead=self.opts.corrected_ds_overhead,
                 audit=self.opts.audit,
                 device=device,
+                explain=self.opts.explain,
             )
         timings["plan"] = time.perf_counter() - t0
         # the incremental planner's phase breakdown rides beside the

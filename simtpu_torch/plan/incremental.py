@@ -24,9 +24,10 @@ would corrupt it. The JAX package skips the copy for a compact snapshot
 the snapshot stays untouched by construction.
 
 Preemption does not run inside probes, as in the JAX package: a loud notice
-says so when specs carry priorities. `explain`, `solver`, `checkpoint`,
-`mesh` and `precompile` raise NotImplementedError (ROADMAP queue 1 #6, #7,
-#8, #10).
+says so when specs carry priorities. `explain` attaches the failing
+candidate's breakdown (K20) and bottleneck block; `solver`, `checkpoint`,
+`mesh` and `precompile` raise NotImplementedError (ROADMAP queue 1 #7, #8,
+#10).
 """
 
 from __future__ import annotations
@@ -155,8 +156,14 @@ def plan_capacity_incremental(
     engine and ships with the divergence record. `_audit_inject` corrupts
     the audit's view of the primary placement (never the fallback's), which
     drives that path end to end. Every placement runs on `device` (None =
-    the CUDA card)."""
-    for name, on, item in (("explain", explain, 6), ("solver", solver, 7),
+    the CUDA card).
+
+    `explain` (off by default: the off path launches nothing more)
+    attaches the decision-observability block (explain/) to terminal
+    failure results: the per-stage breakdown (K20) of the failing
+    candidate's unplaced pods against its carried state, plus the
+    binding-constraint bottleneck with the template verdict."""
+    for name, on, item in (("solver", solver, 7),
                            ("checkpoint", checkpoint is not None, 8), ("mesh", mesh is not None, 10),
                            ("precompile", precompile, 10)):
         if on:
@@ -223,6 +230,50 @@ def plan_capacity_incremental(
         return fb
 
     r_res = tensors.alloc.shape[1]
+    req_pad = batch.req
+    if req_pad.shape[1] < r_res:
+        req_pad = np.pad(req_pad, ((0, 0), (0, r_res - req_pad.shape[1])))
+
+    def mk_explain(eng, ebatch, erows, enodes, ereasons, i, base_nodes=None):
+        """Decision-observability block for a failing candidate (explain/):
+        per-stage breakdown against the engine's carried state + the
+        bottleneck analysis with the template verdict. {} when explain was
+        not requested. An engine with no carried state explains with the
+        bottleneck block alone, its free capacity rebuilt from EVERY
+        visible placement: probe call sites hand in `base_nodes`, because
+        their `enodes`/`ebatch` cover only the unplaced-from-base slice."""
+        if not explain or not len(erows):
+            return {}
+        from ..explain import build_explain_doc
+
+        all_ds = list(cluster.daemon_sets)
+        for app in apps:
+            all_ds += app.resource.daemon_sets
+        try:
+            state = eng.carried_state()
+        except ValueError:
+            state = None
+        free = None
+        if state is None:
+            used = np.zeros(tensors.alloc.shape, np.float32)
+            enodes_np = np.asarray(enodes)
+            ereq = np.asarray(ebatch.req, np.float32)
+            if ereq.shape[1] < r_res:
+                ereq = np.pad(ereq, ((0, 0), (0, r_res - ereq.shape[1])))
+            placed = np.flatnonzero(enodes_np >= 0)
+            np.add.at(used, enodes_np[placed], ereq[placed])
+            if base_nodes is not None:
+                base_np = np.asarray(base_nodes)
+                bplaced = np.flatnonzero(base_np >= 0)
+                np.add.at(used, base_np[bplaced], req_pad[bplaced])
+            free = tensors.alloc - used
+        return build_explain_doc(
+            tensors, ebatch, erows, state, np.asarray(enodes),
+            np.asarray(ereasons), node_valid=valid_mask(i),
+            sched_config=sched_config, new_node=new_node,
+            daemon_sets=all_ds, corrected_ds_overhead=corrected_ds_overhead,
+            free=free,
+        )
 
     def _plane_diff(a_eng, b_eng):
         """Which carried-state planes the two engines' logs disagree on."""
@@ -340,9 +391,15 @@ def plan_capacity_incremental(
 
     msg = diagnose(u0)
     if msg:
-        return finalize(PlanResult(False, 0, None, msg, probes))
+        out = PlanResult(False, 0, None, msg, probes)
+        out.explain = mk_explain(base_eng, batch, u0, base_nodes_arr, base_reasons, 0)
+        return finalize(out)
     if max_new == 0:
-        return finalize(PlanResult(False, max_new_nodes, None, fail_msg, probes))
+        # no candidate beyond 0 exists (max_new_nodes <= 1) — the base
+        # failure is terminal
+        out = PlanResult(False, max_new_nodes, None, fail_msg, probes)
+        out.explain = mk_explain(base_eng, batch, u0, base_nodes_arr, base_reasons, 0)
+        return finalize(out)
 
     # -- snapshot + cheap probes
     t0 = time.perf_counter()
@@ -392,10 +449,16 @@ def plan_capacity_incremental(
             lo = max(lo, cand)
             msg = diagnose(idx_i[failed_i])
             if msg:
-                return finalize(PlanResult(False, cand, None, msg, probes))
+                out = PlanResult(False, cand, None, msg, probes)
+                out.explain = mk_explain(eng_i, slice_batch(batch, idx_i), np.flatnonzero(failed_i),
+                                         nodes_i, reasons_i, cand, base_nodes=base_nodes_arr)
+                return finalize(out)
         if hi is None:
             if cand >= max_new:
-                return finalize(PlanResult(False, max_new_nodes, None, fail_msg, probes))
+                out = PlanResult(False, max_new_nodes, None, fail_msg, probes)
+                out.explain = mk_explain(eng_i, slice_batch(batch, idx_i), np.flatnonzero(np.asarray(failed_i)),
+                                         nodes_i, reasons_i, cand, base_nodes=base_nodes_arr)
+                return finalize(out)
             cand = min(cand * 2, max_new)
         elif hi == first_cand and lo == 0 and hi - 1 > lo:
             cand = hi - 1  # tight-bound fast path
@@ -421,9 +484,14 @@ def plan_capacity_incremental(
                 continue
             msg = diagnose(np.flatnonzero(failed_v))
             if msg:
-                return finalize(PlanResult(False, i, None, msg, probes))
+                out = PlanResult(False, i, None, msg, probes)
+                out.explain = mk_explain(eng_v, batch, np.flatnonzero(failed_v), nodes_v, reasons_v, i)
+                return finalize(out)
             i += 1
-        return finalize(PlanResult(False, max_new_nodes, None, fail_msg, probes))
+        out = PlanResult(False, max_new_nodes, None, fail_msg, probes)
+        out.explain = mk_explain(eng_v, batch, np.flatnonzero(failed_v), nodes_v, reasons_v,
+                                 max_new_nodes - 1)
+        return finalize(out)
 
     # -- incremental result: base placements + winning probe
     eng_w, idx_w, nodes_w, gpu_w = hi_run

@@ -31,9 +31,10 @@ near the boundary by sampling noise.
 Preemption does not run inside the sweep (the capacity-planning
 contract); `faults.drain_simulator` is the eviction-semantics path.
 
-Not ported: `checkpoint` and `control` (ROADMAP queue 1 #8), `solver`
-(#7), `explain` (#6), `mesh` and `pipeline` (#10) raise
-NotImplementedError; the JAX package's shared bulk-shape registry has no
+With `explain` a failed search carries the decision-observability block
+(explain/) of its last failing candidate. Not ported: `checkpoint` and
+`control` (ROADMAP queue 1 #8), `solver` (#7), `mesh` and `pipeline` (#10)
+raise NotImplementedError; the JAX package's shared bulk-shape registry has no
 counterpart here (the port compiles no shapes).
 """
 
@@ -73,6 +74,11 @@ class ResiliencePlan:
     #: divergence records when the bulk engine's answer failed its audit
     #: and the serial-exact fallback shipped instead.  {} = not audited
     audit: Dict[str, object] = field(default_factory=dict)
+    #: decision-observability block (explain/, `--explain`): for a failed
+    #: search, the last failing candidate's failure breakdown (base
+    #: placement strands) or the worst scenario's binding-constraint
+    #: bottleneck — *what to buy*, not just *how many*. {} = not requested
+    explain: Dict[str, object] = field(default_factory=dict)
 
     def counters(self) -> Dict[str, object]:
         """Machine-readable summary (CLI --json, bench)."""
@@ -86,6 +92,8 @@ class ResiliencePlan:
         }
         if self.audit:
             out["audit"] = dict(self.audit)
+        if self.explain:
+            out["explain"] = dict(self.explain)
         if self.sweep is not None:
             out.update(self.sweep.counters())
         return out
@@ -177,9 +185,14 @@ def plan_resilience(
     placement, with the divergence record under `ResiliencePlan.audit`.
     `_audit_inject` corrupts the audit's view of the primary placement
     (never the fallback's), which drives that path end to end. Every
-    placement and sweep runs on `device` (None = the CUDA card)."""
+    placement and sweep runs on `device` (None = the CUDA card).
+
+    `explain` attaches, to a failed search, the last failing candidate's
+    failure breakdown (K20) + bottleneck when its base placement stranded
+    pods, or the worst scenario's bottleneck over its stranded set when a
+    sweep failed."""
     for name, on, item in (("checkpoint", checkpoint is not None, 8), ("control", control is not None, 8),
-                           ("solver", bool(solver), 7), ("explain", explain, 6),
+                           ("solver", bool(solver), 7),
                            ("mesh", mesh is not None, 10), ("pipeline", pipeline is not None, 10)):
         if on:
             raise NotImplementedError(f"plan_resilience({name}=...) is not ported (ROADMAP queue 1 #{item})")
@@ -229,6 +242,9 @@ def plan_resilience(
     # what the winner audit certifies (one slot: worse candidates are
     # dropped)
     best_run: Dict[str, object] = {}
+    # the last candidate a probe found FAILING — what a failed search's
+    # explain block describes
+    last_fail: Dict[str, object] = {}
     audit_on = True if audit is None else bool(audit)
 
     def probe(i: int) -> bool:
@@ -244,6 +260,10 @@ def plan_resilience(
         rec = {"scenarios": 0, "survived": 0, "base_unplaced": base_unplaced}
         probes[i] = rec
         if base_unplaced:
+            if explain:
+                # retained ONLY under explain: the engine keeps its carried
+                # device state alive for the rest of the search
+                last_fail.update(i=i, eng=eng, nodes=nodes, reasons=np.asarray(reasons))
             return False
         pc = PlacedCluster(
             tz=tz, tensors=tensors, batch=batch, engine=eng,
@@ -263,6 +283,8 @@ def plan_resilience(
             )
             if doomed and (len(scen) - doomed) / len(scen) < quantile - 1e-12:
                 raise _Doomed(msg)
+        if not ok and explain:
+            last_fail.update(i=i, eng=eng, nodes=nodes, reasons=np.asarray(reasons))
         if ok and (not best_run or i <= best_run["i"]):
             best_run.update(
                 i=i, eng=eng, nodes=nodes, reasons=np.asarray(reasons),
@@ -375,12 +397,72 @@ def plan_resilience(
         out.audit = audit_doc
         return out
 
+    def mk_explain() -> Dict[str, object]:
+        """The failed search's decision-observability block (explain/):
+        when the last failing candidate's BASE placement stranded pods, the
+        full per-stage breakdown + bottleneck; when its base placed clean
+        but a scenario sweep failed, the worst scenario's binding-constraint
+        bottleneck over its stranded set (free capacity = the drained
+        surviving cluster)."""
+        if not explain or not last_fail:
+            return {}
+        from ..explain import EXPLAIN_VERSION, bottleneck_analysis, build_explain_doc
+
+        i = int(last_fail["i"])
+        eng = last_fail["eng"]
+        nodes = np.asarray(last_fail["nodes"])
+        reasons_a = np.asarray(last_fail["reasons"])
+        valid = valid_mask(i)
+        phantom = clone_of >= i
+        doc: Dict[str, object] = {"version": EXPLAIN_VERSION}
+        unp = np.flatnonzero((nodes < 0) & ~phantom)
+        if len(unp):
+            try:
+                state = eng.carried_state()
+            except ValueError:
+                state = None
+            return build_explain_doc(
+                tensors, batch, unp, state, nodes, reasons_a,
+                node_valid=valid, sched_config=sched_config,
+                new_node=new_node, daemon_sets=all_ds,
+                corrected_ds_overhead=corrected_ds_overhead,
+            )
+        sweep = sweeps.get(i)
+        if sweep is None:
+            return doc
+        s_idx = int(np.argmax(sweep.unplaced))
+        rows_s = np.asarray(sweep.requeue_rows[s_idx])
+        nodes_s = np.asarray(sweep.requeue_nodes[s_idx])
+        reasons_s = np.asarray(sweep.requeue_reasons[s_idx])
+        live = rows_s >= 0
+        stranded = rows_s[live & (nodes_s < 0)]
+        if not len(stranded):
+            return doc
+        # the drained cluster's final placement: requeued pods move to
+        # their landing nodes, pods that died with a failed node vacate
+        alive = valid & ~np.asarray(sweep.scenarios.masks[s_idx], bool)
+        nodes_final = nodes.copy()
+        nodes_final[rows_s[live]] = nodes_s[live]
+        on_failed = (nodes_final >= 0) & ~alive[np.clip(nodes_final, 0, None)]
+        nodes_final[on_failed] = -1
+        reasons_full = np.zeros(len(nodes), np.int32)
+        reasons_full[rows_s[live]] = reasons_s[live]
+        doc["worst_scenario"] = sweep.scenarios.labels[s_idx]
+        doc["bottleneck"] = bottleneck_analysis(
+            tensors, batch, nodes_final, reasons_full, rows=stranded,
+            node_valid=alive, new_node=new_node, daemon_sets=all_ds,
+            corrected_ds_overhead=corrected_ds_overhead,
+        )
+        return doc
+
     def fail(msg: str) -> ResiliencePlan:
         timings["total_s"] = time.perf_counter() - t_start
-        return ResiliencePlan(
+        out = ResiliencePlan(
             False, max_new_nodes, k, quantile, msg, probes=probes,
             sweep=None, timings=timings,
         )
+        out.explain = mk_explain()
+        return out
 
     fail_msg = (
         f"we have added {max_new_nodes} nodes but the workloads still do "

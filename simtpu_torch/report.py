@@ -379,3 +379,169 @@ def report(node_statuses, extended_resources: Sequence[str] = ()) -> str:
             )
         )
     return "\n".join(out)
+
+
+def _fmt_res(name: str, val: float) -> str:
+    if name == "cpu":
+        return format_quantity(val, "cpu")
+    if name in ("memory", "ephemeral-storage"):
+        return format_quantity(val, "mem")
+    return f"{val:g}"
+
+
+def explain_report(doc: dict) -> str:
+    """Render one decision-observability record (explain/ — the versioned
+    `explain` block of `--json`) as the section the `explain` subcommand
+    and `--explain` print under the placement report.
+
+    Three sub-sections, each present only when its data is: the per-pod
+    failure breakdown (kube-scheduler-style status strings, grouped by
+    identical failure shape), the binding-constraint bottleneck table,
+    and the per-plugin score attribution rows."""
+    if not doc:
+        return "Explain: nothing to explain (no unplaced pods selected)"
+    out: List[str] = []
+    failures = doc.get("failures") or {}
+    groups = failures.get("groups") or []
+    if groups:
+        out.append(
+            f"Why Unschedulable ({failures.get('unplaced', 0)} pod(s), "
+            f"{failures.get('n_nodes', 0)} node(s), "
+            f"{failures.get('mode', '?')} pass)"
+        )
+        rows = []
+        for g in groups:
+            lines = [
+                f"{cnt} {stage}"
+                for stage, cnt in (g.get("stages") or {}).items()
+            ]
+            wit = g.get("witnesses") or {}
+            wit_lines = [
+                f"{stage}: {', '.join(names)}"
+                for stage, names in wit.items()
+                if names
+            ]
+            rows.append(
+                [
+                    str(g.get("pods", 0)),
+                    g.get("example", ""),
+                    g.get("status", ""),
+                    "\n".join(lines),
+                    "\n".join(wit_lines),
+                ]
+            )
+        out.append(
+            render_table(
+                ["Pods", "Example", "Status", "Stage Counts", "Witness Nodes"],
+                rows,
+                merge_col0=False,
+            )
+        )
+        if failures.get("truncated_groups"):
+            out.append(
+                f"... {failures['truncated_groups']} more failure shape(s) "
+                "truncated (raise --top to see them)"
+            )
+    bottleneck = doc.get("bottleneck") or {}
+    if bottleneck:
+        scope = (
+            f" — worst scenario {doc['worst_scenario']!r}"
+            if doc.get("worst_scenario")
+            else ""
+        )
+        out.append(
+            "\nBottleneck (binding constraints over the unplaced set"
+            f"{scope})"
+        )
+        by_reason = bottleneck.get("by_reason") or {}
+        if by_reason:
+            out.append(
+                render_table(
+                    ["Failure Reason", "Pods"],
+                    [[r, str(n)] for r, n in by_reason.items()],
+                    merge_col0=False,
+                )
+            )
+        rows = [
+            [
+                r.get("resource", ""),
+                _fmt_res(r.get("resource", ""), r.get("requested", 0.0)),
+                _fmt_res(r.get("resource", ""), r.get("free", 0.0)),
+                f"{r.get('share', 0.0):g}",
+                "√" if r.get("fragmented") else "",
+            ]
+            for r in bottleneck.get("resources") or []
+        ]
+        if rows:
+            out.append(
+                render_table(
+                    ["Resource", "Requested (unplaced)", "Free", "Share", "Fragmented"],
+                    rows,
+                    merge_col0=False,
+                )
+            )
+        binding = bottleneck.get("binding")
+        if binding:
+            out.append(
+                f"binding constraint: {binding.get('resource')} — unplaced "
+                f"pods request "
+                f"{_fmt_res(binding.get('resource', ''), binding.get('requested', 0.0))} "
+                f"against "
+                f"{_fmt_res(binding.get('resource', ''), binding.get('free', 0.0))} free"
+            )
+        out.append(
+            f"failure shapes: {bottleneck.get('capacity_shaped', 0)} "
+            "capacity-shaped (more/larger nodes can help), "
+            f"{bottleneck.get('constraint_shaped', 0)} constraint-shaped "
+            "(capacity alone cannot)"
+        )
+        template = bottleneck.get("template") or {}
+        if template:
+            line = (
+                f"template verdict: {template.get('helpable', 0)} of "
+                f"{template.get('probed', 0)} probed pod(s) could land on "
+                "another template node"
+            )
+            if template.get("never_helpable"):
+                line += (
+                    f"; {template['never_helpable']} never can "
+                    f"({template.get('never_reason', '')})"
+                )
+            if template.get("template_nodes_hint"):
+                line += (
+                    f"; resource deficit ≈ "
+                    f"{template['template_nodes_hint']} template node(s)"
+                )
+            out.append(line)
+    scores = doc.get("scores") or []
+    if scores:
+        out.append("\nScore Attribution (per-plugin decomposition)")
+        rows = []
+        for s in scores:
+            top_terms = sorted(
+                (t for t in s.get("terms") or [] if t.get("delta")),
+                key=lambda t: -abs(t.get("delta") or 0.0),
+            )[:3]
+            rows.append(
+                [
+                    s.get("pod", ""),
+                    s.get("node", ""),
+                    s.get("runner_up", ""),
+                    "" if s.get("margin") is None else f"{s['margin']:g}",
+                    "\n".join(
+                        f"{t['plugin']}: {t['delta']:+g} (w={t['weight']:g})"
+                        for t in top_terms
+                    ),
+                    "" if s.get("consistent", True) else "recompute diverged",
+                ]
+            )
+        out.append(
+            render_table(
+                ["Pod", "Node", "Runner-Up", "Margin", "Deciding Terms", "Note"],
+                rows,
+                merge_col0=False,
+            )
+        )
+    if not out:
+        return "Explain: nothing to explain (no unplaced pods selected)"
+    return "\n".join(out)

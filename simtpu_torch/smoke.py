@@ -608,6 +608,82 @@ class capture_sweeps:
         return False
 
 
+#: the decision-observability records of chip_smoke.py phases 12 and 13
+#: (`tests/test_torch_golden.py compute_explain_golden`): the extended
+#: problem's `simulate(explain=True)`, the bulk problem's breakdown, score
+#: attribution of EXPLAIN_SCORES pods on the serial smoke config, the
+#: capacity problem's plan capped at EXPLAIN_MAX_NEW nodes, and the
+#: mutation-kill counters
+EXPLAIN_GOLDEN = DATA / "torch_explain.json.gz"
+EXPLAIN_SCORES = 8
+EXPLAIN_MAX_NEW = 20
+#: the attribution's tolerances: raw terms to rtol/atol (they follow the
+#: standalone plugin functions, whose last bits XLA's fusion may move);
+#: margins to two f32 ulps at scores below 2048 (the JAX package's own
+#: evaluation may sit one ulp off the engine's score)
+TERMS_RTOL, TERMS_ATOL, MARGIN_ATOL = 1e-6, 1e-5, 2.5e-4
+
+
+def explain_doc_record(doc: dict) -> dict:
+    """An explain document (or any document holding one) without what the
+    port records differently — the pass's `mode` — and the `wall_s`
+    timings."""
+    doc = json.loads(json.dumps(doc))
+
+    def walk(d):
+        if isinstance(d, dict):
+            d.pop("mode", None)
+            d.pop("wall_s", None)
+            for v in d.values():
+                walk(v)
+        elif isinstance(d, list):
+            for v in d:
+                walk(v)
+
+    walk(doc)
+    return doc
+
+
+def breakdown_record(bd, nodes) -> dict:
+    """A FailureBreakdown (either package's) of a placement's unplaced pods
+    as digests of its rows, per-stage counts, feasible counts, witnesses
+    and fail codes, with the placement's digest."""
+    return {"unplaced": int(len(bd.rows)), "base": placed_digest(nodes),
+            **{k: _array_digest(getattr(bd, k)) for k in ("rows", "counts", "feasible", "witnesses",
+                                                           "fail_code")}}
+
+
+def _close(a, b, rtol: float, atol: float) -> bool:
+    if a is None or b is None:
+        return a is b
+    return abs(a - b) <= atol + rtol * abs(b)
+
+
+def explain_differences(got: dict, want: dict, limit: int = 5) -> list:
+    """Human-readable differences between two explain documents (empty =
+    equal): equal apart from `mode` and the timings, and — in a `scores`
+    list — pod, row, node, winner, runner-up, consistent, plugins and
+    weights exactly, margins and raw terms to the stated tolerances."""
+    got, want = explain_doc_record(got), explain_doc_record(want)
+    gs, ws = got.pop("scores", None), want.pop("scores", None)
+    out = [] if got == want else [f"document {json.dumps(got)[:400]} != golden {json.dumps(want)[:400]}"]
+    if (gs is None) != (ws is None) or (gs is not None and len(gs) != len(ws)):
+        out.append(f"scores: {gs!r} != golden {ws!r}")
+        gs = ws = None
+    for a, b in zip(gs or (), ws or ()):
+        exact = ("pod", "row", "node", "winner", "runner_up", "consistent")
+        if any(a[k] != b[k] for k in exact) or not _close(a["margin"], b["margin"], TERMS_RTOL, MARGIN_ATOL):
+            out.append(f"score of {b['pod']}: {[a[k] for k in exact + ('margin',)]} != golden "
+                       f"{[b[k] for k in exact + ('margin',)]}")
+            continue
+        for ta, tb in zip(a["terms"], b["terms"]):
+            if (ta["plugin"], ta["weight"]) != (tb["plugin"], tb["weight"]) or not all(
+                    _close(ta[k], tb[k], TERMS_RTOL, TERMS_ATOL if k != "delta" else MARGIN_ATOL)
+                    for k in ("winner_raw", "runner_up_raw", "delta")):
+                out.append(f"term of {b['pod']}: {ta} != golden {tb}")
+    return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
+
+
 def save_record(record: dict, path: Path = GOLDEN) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     with gzip.open(path, "wt", encoding="utf-8", compresslevel=9) as f:

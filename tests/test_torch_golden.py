@@ -20,6 +20,9 @@ incremental planner on the large capacity problem and returns the plan
 record: `tests/data/torch_bulk_smoke.json.gz` and
 `tests/data/torch_large_capacity_smoke.json.gz`, written alone by
 `--write --bulk-only` in the same environment.
+`compute_explain_golden()` (`--write --explain-only`, the same environment)
+writes `tests/data/torch_explain.json.gz`: the decision-observability
+records of `chip_smoke.py` phases 12 and 13 (`smoke.EXPLAIN_GOLDEN`).
 `compute_compact_carry()` (`--compact-carry`, the same environment) runs
 the five with the JAX package's compact carry on and returns its
 compress / expand / direct-delta counts and final carried bytes, which
@@ -31,6 +34,7 @@ it is marked slow; the fast tier checks the committed files' shape.
 
 import sys
 
+import numpy as np
 import pytest
 
 from simtpu_torch import smoke
@@ -447,6 +451,110 @@ def test_fault_goldens_match_a_fresh_jax_run(monkeypatch, tmp_path):
     assert compute_bulk_fault_golden() == smoke.load_record(smoke.BULK_FAULT_GOLDEN)
 
 
+def compute_explain_golden(root) -> dict:
+    """The JAX package's decision observability on the smoke problems, each
+    run with pod names seeded: (a) `simulate(explain=True)`'s document on
+    the extended problem; (b) `place_cluster(bulk=True)` on the bulk problem
+    and `build_explain_doc` over every unplaced pod — the document, and the
+    breakdown's per-pod rows, counts, feasible counts, witnesses and fail
+    codes as digests; (c) `simtpu explain --scores 8 --json --no-bulk` on
+    the serial smoke problem written as a simon Config under `root`; (d)
+    `plan_capacity(max_new_nodes=20, explain=True)` on the capacity
+    problem, which fails (43 nodes are needed) and carries the block; (e)
+    `run_mutation_kill(seed=0, per_class=4)`'s counters."""
+    import simtpu
+    import simtpu.faults as jf
+    from simtpu import synth
+    from simtpu.audit.fuzz import run_mutation_kill
+    from simtpu.cli import main
+    from simtpu.explain import breakdown as jbd
+    from simtpu.plan.capacity import plan_capacity
+    from simtpu.workloads.expand import seed_name_hashes
+
+    out = {}
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        cluster, apps = smoke.extended_problem(synth, simtpu.AppResource, simtpu.ResourceTypes)
+        result = simtpu.simulate(cluster, apps, explain=True)
+        out["extended"] = {"unscheduled": len(result.unscheduled_pods),
+                           "doc": smoke.explain_doc_record(result.explain)}
+        seed_name_hashes(smoke.NAME_SEED)
+        cluster, apps = smoke.bulk_problem(synth)
+        pc = jf.place_cluster(cluster, apps, bulk=True)
+        unplaced = np.flatnonzero(pc.nodes < 0)
+        got = []
+        orig = jbd.explain_failures
+
+        def capture(*a, **kw):
+            got.append(orig(*a, **kw))
+            return got[-1]
+
+        jbd.explain_failures = capture
+        try:
+            doc = jbd.build_explain_doc(pc.tensors, pc.batch, unplaced, pc.engine.carried_state(), pc.nodes,
+                                        pc.reasons)
+        finally:
+            jbd.explain_failures = orig
+        out["bulk"] = {**smoke.breakdown_record(got[0], pc.nodes), "doc": smoke.explain_doc_record(doc)}
+        cl, ap = smoke.smoke_problem(synth.synth_cluster, synth.synth_apps)
+        cfg = smoke.write_capacity_config(root, cl, ap, smoke.template_node(synth))
+        seed_name_hashes(smoke.NAME_SEED)
+        rc, doc = smoke.run_cli_json(main, ["explain", "-f", cfg, "--scores", str(smoke.EXPLAIN_SCORES),
+                                            "--json", "--no-bulk"])
+        out["scores"] = {"rc": rc, "doc": smoke.explain_doc_record(doc)}
+        seed_name_hashes(smoke.NAME_SEED)
+        cluster, apps, template = smoke.capacity_problem(synth, simtpu.AppResource, simtpu.ResourceTypes)
+        plan = plan_capacity(cluster, apps, template, max_new_nodes=smoke.EXPLAIN_MAX_NEW, explain=True)
+        out["plan"] = {"success": plan.success, "nodes_added": plan.nodes_added, "message": plan.message,
+                       "probes": {str(k): v for k, v in sorted(plan.probes.items())},
+                       "explain": smoke.explain_doc_record(plan.explain)}
+    finally:
+        seed_name_hashes(None)
+    out["mutation_kill"] = run_mutation_kill(seed=0, per_class=4)
+    return out
+
+
+def test_committed_explain_golden_is_whole():
+    """The explain records chip_smoke.py phases 12 and 13 hold the port
+    against: the extended problem's 521 unscheduled pods explained, the
+    bulk problem's breakdown over every unplaced pod, eight consistent
+    attributions, a failing capped plan that carries the block, and a
+    mutation kill of every corruption."""
+    g = smoke.load_record(smoke.EXPLAIN_GOLDEN)
+    ext = g["extended"]
+    assert ext["unscheduled"] == ext["doc"]["failures"]["unplaced"] == ext["doc"]["bottleneck"]["unplaced"] > 0
+    assert ext["doc"]["version"] == 1 and ext["doc"]["failures"]["groups"]
+    bulk = g["bulk"]
+    assert bulk["unplaced"] == bulk["doc"]["failures"]["unplaced"] > 64
+    assert all(len(bulk[k]) == 64 for k in ("base", "rows", "counts", "feasible", "witnesses", "fail_code"))
+    sc = g["scores"]
+    assert sc["rc"] == 0 and len(sc["doc"]["scores"]) == smoke.EXPLAIN_SCORES
+    assert all(s["consistent"] for s in sc["doc"]["scores"])
+    assert sc["doc"]["placed"] + sc["doc"]["unplaced"] == sc["doc"]["pods"] == smoke.N_PODS
+    plan = g["plan"]
+    assert plan["success"] is False and plan["nodes_added"] == smoke.EXPLAIN_MAX_NEW
+    assert plan["explain"]["failures"]["unplaced"] > 0 and "template" in plan["explain"]["bottleneck"]
+    mk = g["mutation_kill"]
+    assert mk["kill_rate"] == 1.0 and not mk["missed"] and mk["classes"] == mk["classes_total"]
+    for rec in (ext["doc"], bulk["doc"], plan["explain"]):
+        assert "mode" not in rec["failures"] and "wall_s" not in rec["failures"]
+
+
+@pytest.mark.slow
+def test_explain_golden_matches_a_fresh_jax_run(monkeypatch, tmp_path):
+    monkeypatch.setenv("SIMTPU_AUDIT_JIT", "0")
+    assert compute_explain_golden(tmp_path) == smoke.load_record(smoke.EXPLAIN_GOLDEN)
+
+
+if __name__ == "__main__" and "--write" in sys.argv and "--explain-only" in sys.argv:
+    import tempfile
+    import time
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        smoke.save_record(compute_explain_golden(root), smoke.EXPLAIN_GOLDEN)
+    print(f"wrote {smoke.EXPLAIN_GOLDEN} in {time.perf_counter() - t0:.1f} s", flush=True)
+    sys.exit(0)
 if __name__ == "__main__" and "--write" in sys.argv and "--faults-only" in sys.argv:
     _write_fault_goldens([a.split("=", 1)[1] for a in sys.argv if a.startswith("--only=")])
     sys.exit(0)
@@ -462,6 +570,11 @@ elif __name__ == "__main__" and "--write" in sys.argv:
         smoke.save_record(compute_extended_golden(), smoke.EXT_GOLDEN)
     smoke.save_record(compute_capacity_golden(), smoke.CAP_GOLDEN)
     if "--capacity-only" not in sys.argv:
+        import tempfile
+
         smoke.save_record(compute_bulk_golden(), smoke.BULK_GOLDEN)
         smoke.save_record(compute_large_capacity_golden(), smoke.LCAP_GOLDEN)
-    print("wrote", smoke.GOLDEN, smoke.EXT_GOLDEN, smoke.CAP_GOLDEN, smoke.BULK_GOLDEN, smoke.LCAP_GOLDEN)
+        with tempfile.TemporaryDirectory() as root:
+            smoke.save_record(compute_explain_golden(root), smoke.EXPLAIN_GOLDEN)
+    print("wrote", smoke.GOLDEN, smoke.EXT_GOLDEN, smoke.CAP_GOLDEN, smoke.BULK_GOLDEN, smoke.LCAP_GOLDEN,
+          smoke.EXPLAIN_GOLDEN)

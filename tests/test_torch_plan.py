@@ -392,7 +392,8 @@ def test_cli_rejects_unported_flags_and_refuses_without_a_card(monkeypatch, caps
     from simtpu_torch.cli import main
 
     monkeypatch.chdir(REPO)
-    for flag in ("--shard", "--solver", "--explain", "--checkpoint"):
+    # --explain is ported (it attaches the explain block); --trace is not
+    for flag in ("--shard", "--solver", "--trace", "--checkpoint"):
         with pytest.raises(SystemExit):
             main(["apply", "-f", "examples/simtpu-config.yaml", flag])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
