@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
-1. the card's name and power limit (nvidia-smi); build the twenty-one CUDA
+1. the card's name and power limit (nvidia-smi); build the twenty-five CUDA
    kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
@@ -149,7 +149,28 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    assembly;
 13. `cli fuzz --cases 4 --json` (every case bit-identical across the
    wavefront / compact / both cells and audit-clean, K8 once per audit)
-   and `cli fuzz --mutation-kill --json` against the golden counters.
+   and `cli fuzz --mutation-kill --json` against the golden counters;
+14. the solver paths, each with the counts zeroed just before, against
+   `tests/data/torch_solve.json.gz` (the JAX package's, on the CPU): (a)
+   `cli apply --solver --json` on the capacity problem's config (the
+   consult rejected at k = 0 after the fallback, then the exact search),
+   (b) the same on the large capacity problem's (accepted at k = 0), (c)
+   `cli resilience --plan --faults k=2:64 --seed 0 --solver --json` on the
+   capacity config (the relax-only lower bound): each document without
+   timings and `wall_s` equal, the relaxation's per-candidate residuals
+   and the fetched y to smoke.SOLVE_RES_ATOL / SOLVE_Y_ATOL with the
+   feasible sets equal, the rounded counts and the shipped plan exactly;
+   K22 and K23 iters + 1 times per relaxation, no plain version; the relax
+   wall and the rounding / audit / fallback split beside phases 5, 7 and
+   11's solver-off walls;
+15. the grow problem (`smoke.run_grow`: the serial smoke problem's pods in
+   four waves, two template clones before the last) on
+   `Engine(device="cuda")` in grow mode, counts zeroed just before: the
+   placements per wave and digests of every final plane equal to
+   `tests/data/torch_grow.json.gz` and to a non-grow engine's run on the
+   card, the grow counts equal the JAX package's, K24 once on entry and
+   once per term extension, K25 once per node growth, no K11/K12 and no
+   plain version.
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread, quota-anti) and of the matrix
 cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
@@ -158,7 +179,13 @@ bulk carry, dense and compact; then their times at named rounds. And
 K18/K19 against their plain versions on the extended problem's
 `place_cluster` (a chunk of 16 single-node scenarios and one of 4 zone
 outages, storage and GPU pods in the requeue): every replica plane,
-nodes and reasons; then their times on the single-node chunk.
+nodes and reasons; then their times on the single-node chunk. And K22/K23
+against their plain versions on the relaxations of the capacity and the
+large capacity problems (100 candidates, 400 iterations; the first 5
+iterations step by step, then y and the residual to the stated tolerances
+and the feasible sets equal), K24/K25 against theirs on every growth of
+the grow problem's carry (entry, extension, promotions, node growth), bit
+for bit; then their times.
 Last, K8's time at the capacity winner's log (device time from the
 profiler, back-to-back launches from Python, the plain version's).
 
@@ -210,6 +237,8 @@ from simtpu_torch.plan import capacity as tcap
 from simtpu_torch.plan import incremental as tinc
 from simtpu_torch.plan import resilience as tresil
 from simtpu_torch.plan.capacity import Applier, ApplierOptions, plan_capacity
+from simtpu_torch.solve import planner as tplanner
+from simtpu_torch.solve import relax as trelax
 from simtpu_torch.synth import make_deployment, synth_apps, synth_cluster
 from simtpu_torch.workloads.expand import get_valid_pods_exclude_daemonset, seed_name_hashes
 
@@ -238,7 +267,13 @@ KERNELS = {
     "sweep_place": "simtpu/faults/sweep.py:61",
     "explain_pass": "simtpu/explain/breakdown.py:94",
     "pod_terms": "simtpu/explain/scores.py:95",
+    "relax_load": "simtpu/solve/relax.py:218",
+    "relax_project": "simtpu/solve/relax.py:200",
+    "grow_terms": "simtpu/engine/state.py:543",
+    "grow_nodes": "simtpu/engine/state.py:585",
 }
+RELAX_KERNELS = ("relax_load", "relax_project")
+GROW_KERNELS = ("grow_terms", "grow_nodes")
 EXPLAIN_KERNELS = ("explain_pass", "pod_terms")
 SWEEP_KERNELS = ("sweep_drain", "sweep_place")
 #: requeue rows per scenario in phase 9's comparison (the plain K19's time
@@ -2578,6 +2613,410 @@ def run_fuzz(card: str) -> dict:
     return out
 
 
+# -- the solve backend and grow mode: K22-K25 -----------------------------------
+
+
+def relax_problem_of(problem_fn):
+    """(RelaxProblem, [100, N] candidate masks) of a capacity problem,
+    tensorized as the solver consult of `apply` tensorizes it."""
+    cluster, apps, template = problem_fn(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    max_new = simtpu_torch.constants.MAX_NUM_NEW_NODE - 1
+    tz, all_nodes, n_base, ordered = tpsweep.assemble_planning_problem(cluster, apps, template, max_new, ())
+    batch = tz.add_pods(ordered)
+    prob = trelax.build_relax_problem(tz.freeze(), batch)
+    return prob, tplanner._candidate_masks(len(all_nodes), n_base, max_new)
+
+
+def relax_bound(rb) -> dict:
+    """K22's and K23's work for one launch on `rb`: the bytes each must
+    move (each input read once, each output written once) and the f32
+    operations each does (K22 the load's multiply-adds; K23 the gradient's
+    and the step's, and the bitonic sort's compare-exchanges of its
+    power-of-two rows), and the bound: the larger of bytes over the memory
+    rate and operations over the f32 rate."""
+    s, c, n = rb.y.shape
+    r = rb.req.shape[1]
+    np2 = max(32, 1 << max(n - 1, 0).bit_length())
+    lg = np2.bit_length() - 1
+    y_b, over_b, valid_b = 4 * s * c * n, 4 * s * n * r, s * n
+    work = {
+        "relax_load": (y_b + over_b + 4 * (2 * n * r + c * r) + valid_b + 4 * s,
+                       2 * s * c * n * r),
+        "relax_project": (2 * y_b + over_b + 4 * (c * r + c) + c * n + valid_b,
+                          2 * s * c * n * r + 2 * s * c * n + s * c * (np2 // 2) * lg * (lg + 1) // 2),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        out[name] = {"bytes": int(nbytes), "ops": int(ops), "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+def phase_relax_kernels(device, err) -> dict:
+    """Phase 2: K22/K23 against their plain versions on the card, on the
+    relaxations of the capacity and the large capacity problems (every
+    candidate, smoke.SOLVE_ITERS iterations): the first 5 iterations step by
+    step (over and y), then y and the residual to the stated tolerances and
+    the feasible sets equal; then their times at the capacity shape."""
+    out = {}
+    for label, fn in (("capacity", smoke.capacity_problem), ("large_capacity", smoke.large_capacity_problem)):
+        prob, valid = relax_problem_of(fn)
+        args = (prob.feas, prob.req, prob.cnt, prob.fixed, prob.cap, valid, np.float32(prob.lr), device)
+        a, b = trelax.relax_buffers(*args), trelax.relax_buffers(*args)
+        trelax.relax_project_plain(a, init=True)
+        cuda.launch_relax_project(b, init=True)
+        steps = [float((a.y - b.y).abs().max())]
+        over_err = 0.0
+        for it in range(smoke.SOLVE_ITERS):
+            trelax.relax_load_plain(a)
+            cuda.launch_relax_load(b)
+            if it < 5:
+                over_err = max(over_err, float((a.over - b.over).abs().max()))
+            trelax.relax_project_plain(a)
+            cuda.launch_relax_project(b)
+            if it < 5:
+                steps.append(float((a.y - b.y).abs().max()))
+        trelax.relax_load_plain(a, residual=True)
+        cuda.launch_relax_load(b, residual=True)
+        torch.cuda.synchronize()
+        y_err = float((a.y - b.y).abs().max())
+        ra, rb_ = a.residual.cpu().numpy(), b.residual.cpu().numpy()
+        fin = np.isfinite(ra)
+        res_err = float(np.abs(ra[fin] - rb_[fin]).max()) if fin.any() else 0.0
+        feas_a, feas_b = ra <= trelax.RESIDUAL_TOL, rb_ <= trelax.RESIDUAL_TOL
+        if (max(steps) > smoke.SOLVE_Y_ATOL or y_err > smoke.SOLVE_Y_ATOL or res_err > smoke.SOLVE_RES_ATOL
+                or not np.array_equal(fin, np.isfinite(rb_)) or not np.array_equal(feas_a, feas_b)
+                or not torch.equal(a.stuck, b.stuck)):
+            raise AssertionError(f"phase 2: K22/K23 on the {label} relaxation differ from their plain versions: "
+                                 f"steps {steps}, over {over_err}, y {y_err}, residual {res_err}, feasible "
+                                 f"{int(feas_a.sum())} vs {int(feas_b.sum())}")
+        err["relax_load"] = max(err["relax_load"], over_err, res_err)
+        err["relax_project"] = max(err["relax_project"], y_err, max(steps))
+        s_, c_, n_ = b.y.shape
+        out[label] = {"shape": [s_, c_, n_, b.req.shape[1]], "steps_max_abs": steps, "over_max_abs": over_err,
+                      "y_max_abs": y_err, "residual_max_abs": res_err, "feasible": int(feas_b.sum())}
+        log(f"phase 2: K22/K23 equal to their plain versions on the {label} relaxation (S, C, N, R) = "
+            f"{tuple(out[label]['shape'])}, {smoke.SOLVE_ITERS} iterations: first 5 steps max |dy| "
+            f"{max(steps):.3g}, over {over_err:.3g}; final y {y_err:.3g} (tolerance {smoke.SOLVE_Y_ATOL}), "
+            f"residual {res_err:.3g} ({smoke.SOLVE_RES_ATOL}); {int(feas_b.sum())} candidates relax-feasible "
+            "in both")
+        if label == "capacity":
+            timed_a, timed_b = a, b
+    bound = relax_bound(timed_b)
+    times = {}
+    for name, launch, plain in (("relax_load", cuda.launch_relax_load, trelax.relax_load_plain),
+                                ("relax_project", cuda.launch_relax_project, trelax.relax_project_plain)):
+        times[name] = {"host_ms": time_call(lambda: launch(timed_b), 200),
+                       "plain_ms": time_call(lambda: plain(timed_a), 3), **bound[name]}
+    per, _, _ = profile_kernels(lambda: [(cuda.launch_relax_load(timed_b), cuda.launch_relax_project(timed_b))
+                                         for _ in range(20)])
+    run_ms = time_call(lambda: trelax.relax_run(timed_b, smoke.SOLVE_ITERS), 2)
+    for name in RELAX_KERNELS:
+        t = times[name]
+        t["ms"] = per[name][0] / 1e3
+        log(f"  {name}: {per[name][0]:.2f} us device (profiler), {t['host_ms'] * 1e3:.2f} us per back-to-back "
+            f"launch from Python, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B, {t['ops']} ops, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}) at the capacity relaxation "
+            f"{tuple(out['capacity']['shape'])}")
+    log(f"  relax_run ({smoke.SOLVE_ITERS} iterations, {2 * smoke.SOLVE_ITERS + 2} launches) at the capacity "
+        f"relaxation: {run_ms:.2f} ms")
+    return {"problems": out, "times": times, "run_ms": run_ms}
+
+
+class GrowCompare:
+    """Context manager: while open, every K24 / K25 launch is followed by
+    its plain version on the same inputs, each output plane compared bit
+    for bit; the inputs of each kind of growth are kept for the timing."""
+
+    def __enter__(self):
+        self.orig = (cuda.launch_grow_terms, cuda.launch_grow_nodes)
+        self.calls = []
+
+        def grow_terms(state, g):
+            got = self.orig[0](state, g)
+            want = sstate.grow_terms_plain(state, g)
+            kind = ("entry" if not self.calls else
+                    "promotion" if g.t_cap > state.cnt_match.shape[0] else "extend")
+            self._check("grow_terms", kind, got, want)
+            self.calls.append(("grow_terms", kind, state, g))
+            return got
+
+        def grow_nodes(state, add, a):
+            got = self.orig[1](state, add, a)
+            want = sstate.grow_nodes_plain(state, add, a)
+            self._check("grow_nodes", "nodes", got, want)
+            self.calls.append(("grow_nodes", "nodes", state, (add, a)))
+            return got
+
+        cuda.launch_grow_terms, cuda.launch_grow_nodes = grow_terms, grow_nodes
+        return self
+
+    @staticmethod
+    def _check(name, kind, got, want):
+        bad = [k for k in want if got[k].shape != want[k].shape or not torch.equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"phase 2: {name} ({kind}) differs from its plain version on planes {bad}")
+
+    def __exit__(self, *exc):
+        cuda.launch_grow_terms, cuda.launch_grow_nodes = self.orig
+        return False
+
+
+def grow_bytes(name: str, state, arg) -> int:
+    """Bytes K24 / K25 must move for one growth: every old plane it reads,
+    the host plan's new rows or columns, every plane it writes."""
+    if name == "grow_terms":
+        g = arg
+        n = state.free.shape[0]
+        old = sum(getattr(state, f).numel() for f in ("cnt_match", "cnt_total") + sstate.OWN_PLANES)
+        new = (g.t_cap * (n + 1) + 4 * g.ti_cap * n)
+        return int(4 * (old + new + g.rows.numel() + g.tot.numel() + g.inv.numel() + g.perm.numel()))
+    add, a = arg
+    total = 0
+    for f, _kind in sstate.NODE_GROWTH:
+        t = getattr(state, f)
+        extra = add[f]
+        total += t.numel() * t.element_size() * 2
+        total += 2 * extra.numel() * extra.element_size() if extra is not None else 0
+        if extra is None:
+            total += a * t.shape[1] * t.element_size()
+    return int(total)
+
+
+def phase_grow_kernels(device) -> dict:
+    """Phase 2: K24/K25 against their plain versions on the grow problem's
+    carry on the card — the entry padding, the in-bucket extension, the
+    bucket promotions and the node growth — bit for bit; then their times
+    at the promotion and at the node growth."""
+    with GrowCompare() as cmp:
+        smoke.run_grow(simtpu_torch, lambda tz: scan.Engine(tz, device))
+    kinds = [k for _, k, _, _ in cmp.calls]
+    if "promotion" not in kinds or "nodes" not in kinds:
+        raise AssertionError(f"phase 2: the grow problem grew by {kinds}: no promotion or node growth")
+    log(f"phase 2: K24/K25 equal to their plain versions bit for bit on the grow problem's carry "
+        f"({', '.join(kinds)})")
+    times = {}
+    for name, kind in (("grow_terms", "promotion"), ("grow_nodes", "nodes")):
+        _, _, st, arg = next(c for c in reversed(cmp.calls) if c[1] == kind)
+        if name == "grow_terms":
+            launch = lambda: cuda.launch_grow_terms(st, arg)  # noqa: E731
+            plain = lambda: sstate.grow_terms_plain(st, arg)  # noqa: E731
+        else:
+            launch = lambda: cuda.launch_grow_nodes(st, *arg)  # noqa: E731
+            plain = lambda: sstate.grow_nodes_plain(st, *arg)  # noqa: E731
+        host_ms = time_call(launch, 100)
+        plain_ms = time_call(plain, 20)
+        per, _, _ = profile_kernels(lambda: [launch() for _ in range(20)])
+        nbytes = grow_bytes(name, st, arg)
+        at = (f"t {st.cnt_match.shape[0]} -> {arg.t_cap}, ti {st.cnt_own_anti.shape[0]} -> {arg.ti_cap}, "
+              f"N={st.free.shape[0]}" if name == "grow_terms" else f"N={st.free.shape[0]} + {arg[1]}")
+        times[name] = {"ms": per[name][0] / 1e3, "host_ms": host_ms, "plain_ms": plain_ms, "bytes": nbytes,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "at": at}
+        log(f"  {name}: {per[name][0]:.2f} us device (profiler), {host_ms * 1e3:.2f} us per back-to-back call "
+            f"from Python, plain {plain_ms * 1e3:.1f} us, {nbytes} B, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us ({kind}: {at})")
+    return times
+
+
+class SolveSplit:
+    """Context manager: while open, the host wall of each solver consult
+    (`attempt_solve` / `solve_lower_bound`) and of its parts — the
+    relaxation (K22/K23, synchronized by the residuals' copy), the
+    certificate, the rounding, the audits and the fallback's placement
+    inside it — is summed per part."""
+
+    PARTS = (("relax_candidates", "relax"), ("infeasibility_certificate", "certificate"),
+             ("round_candidate", "rounding"))
+
+    def __enter__(self):
+        self.parts = {}
+        self.inside = False
+        self.undo = []
+
+        def timed(owner, attr, part, only_inside=False, outer=False):
+            fn = getattr(owner, attr)
+
+            def wrapper(*a, **kw):
+                if only_inside and not self.inside:
+                    return fn(*a, **kw)
+                if outer:
+                    self.inside = True
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.parts[part] = self.parts.get(part, 0.0) + time.perf_counter() - t
+                    if outer:
+                        self.inside = False
+
+            setattr(owner, attr, wrapper)
+            self.undo.append((owner, attr, fn))
+
+        for attr, part in self.PARTS:
+            timed(tplanner, attr, part)
+        timed(checker, "audit_placement", "audit", only_inside=True)
+        timed(scan.Engine, "place", "fallback", only_inside=True)
+        # the planners reach the consult through the solve package
+        import simtpu_torch.solve as tsolve
+
+        # (the facade planner's consult calls the planner module's own
+        # attempt_solve; the others import it from the package)
+        timed(tplanner, "attempt_solve", "consult", outer=True)
+        for attr in ("attempt_solve", "solve_lower_bound"):
+            timed(tsolve, attr, "consult", outer=True)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.undo):
+            setattr(owner, attr, fn)
+        return False
+
+
+def run_solver_path(label: str, cfg: str, argv: list, golden: dict) -> dict:
+    """One solver CLI run on the card, counts zeroed just before, against
+    its golden record: the document, the relaxation's residuals and
+    fetched y to the stated tolerances (the feasible sets equal), the
+    rounded counts and the shipped plan exactly; K22 and K23 iters + 1
+    times per relaxation, no plain version."""
+    sstate.GROW_COUNTS.clear()  # a one-shot CLI process starts with none
+    cuda.reset_counts()
+    seed_name_hashes(smoke.NAME_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with SolveSplit() as split, smoke.record_solver(tplanner) as got, smoke.capture_plans(tcap) as plans, \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc, doc = smoke.run_cli_json(tcli.main, [argv[0], "-f", cfg, *argv[1:]])
+    finally:
+        seed_name_hashes(None)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    diffs = []
+    if rc != golden["rc"]:
+        diffs.append(f"exit {rc} != golden {golden['rc']}")
+    if smoke.solve_doc_record(doc) != golden["doc"]:
+        diffs.append(f"document {json.dumps(smoke.solve_doc_record(doc))[:900]} != golden "
+                     f"{json.dumps(golden['doc'])[:900]}")
+    want = golden["solver"]
+    res_err, y_err = 0.0, 0.0
+    if len(got["relax"]) != len(want["relax"]):
+        diffs.append(f"{len(got['relax'])} relaxations, golden {len(want['relax'])}")
+    for a, b in zip(got["relax"], want["relax"]):
+        if [a[k] for k in ("s", "c", "n", "r", "cnt")] != [b[k] for k in ("s", "c", "n", "r", "cnt")] \
+                or np.float32(a["lr"]) != np.float32(b["lr"]):
+            diffs.append("the relaxation's problem differs from the golden one")
+        ra, rb_ = np.asarray(a["residual"]), np.asarray(b["residual"])
+        fin = np.isfinite(rb_)
+        if not np.array_equal(np.isfinite(ra), fin) or not np.array_equal(ra <= trelax.RESIDUAL_TOL,
+                                                                             rb_ <= trelax.RESIDUAL_TOL):
+            diffs.append("the relax-feasible candidates differ from the golden ones")
+        res_err = max(res_err, float(np.abs(ra[fin] - rb_[fin]).max()) if fin.any() else 0.0)
+    if set(got["y"]) != set(want["y"]):
+        diffs.append(f"fetched candidates {sorted(got['y'])} != golden {sorted(want['y'])}")
+    for k in set(got["y"]) & set(want["y"]):
+        y_err = max(y_err, float(np.abs(smoke.unpack_array(got["y"][k]) - smoke.unpack_array(want["y"][k])).max()))
+    if [r["m"] and r["m"]["sha256"] for r in got["round"]] != [r["m"] and r["m"]["sha256"] for r in want["round"]]:
+        diffs.append("the rounded counts differ from the golden ones")
+    if "plan" in golden and (not plans or smoke.plan_digest(plans[-1]) != golden["plan"]):
+        diffs.append(f"the shipped plan {plans and smoke.plan_digest(plans[-1])} != golden {golden['plan']}")
+    if res_err > smoke.SOLVE_RES_ATOL or y_err > smoke.SOLVE_Y_ATOL:
+        diffs.append(f"residual {res_err} / y {y_err} beyond {smoke.SOLVE_RES_ATOL} / {smoke.SOLVE_Y_ATOL}")
+    n_relax = len(got["relax"])
+    want_launches = (smoke.SOLVE_ITERS + 1) * n_relax
+    if launches.get("relax_load", 0) != want_launches or launches.get("relax_project", 0) != want_launches:
+        diffs.append(f"K22/K23 launched {launches.get('relax_load', 0)}/{launches.get('relax_project', 0)} "
+                     f"times for {n_relax} relaxation(s)")
+    if any(plain.values()):
+        diffs.append(f"plain versions ran: {plain}")
+    if diffs:
+        raise AssertionError(f"phase 14 {label}: " + "; ".join(diffs))
+    solve = doc["engine"]["solve"] if "engine" in doc else doc.get("solve", {})
+    return {"rc": rc, "wall_s": wall, "launches": launches, "split_s": split.parts,
+            "residual_max_abs": res_err, "y_max_abs": y_err, "status": solve.get("status"),
+            "k": solve.get("k"), "lower_bound": solve.get("lower_bound"),
+            "nodes_added": doc.get("nodes_added"), "relaxations": n_relax,
+            "plan_s": (plans[-1].timings.get("plan") if plans else None)}
+
+
+def run_solver_paths(card: str, walls: dict) -> dict:
+    """Phase 14: (a) `cli apply --solver --json` on the capacity problem's
+    config, (b) the same on the large capacity problem's, (c) `cli
+    resilience --plan --faults k=2:64 --seed 0 --solver --json` on the
+    capacity config (the relax-only lower bound), each against
+    tests/data/torch_solve.json.gz."""
+    golden = smoke.load_record(smoke.SOLVE_GOLDEN)
+    if golden["iters"] != smoke.SOLVE_ITERS:
+        raise AssertionError(f"phase 14: the golden relaxations ran {golden['iters']} iterations")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = smoke.capacity_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+        cap_cfg = smoke.write_capacity_config(f"{tmp}/capacity", *cap)
+        lcap = smoke.large_capacity_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+        lcap_cfg = smoke.write_capacity_config(f"{tmp}/large", *lcap)
+        for key, cfg, argv in (
+                ("capacity", cap_cfg, ["apply", "--solver", "--json"]),
+                ("large_capacity", lcap_cfg, ["apply", "--solver", "--json"]),
+                ("resilience", cap_cfg, ["resilience", "--plan", "--faults", smoke.CAP_RESIL_SPEC, "--seed", "0",
+                                         "--solver", "--json"])):
+            o = out[key] = run_solver_path(key, cfg, argv, golden[key])
+            split = ", ".join(f"{k} {v:.3f} s" for k, v in o["split_s"].items())
+            beside = {"capacity": f"; phase 5's solver-off plan {walls['capacity']:.2f} s",
+                      "large_capacity": f"; phase 7's solver-off plan {walls['large_capacity']:.2f} s",
+                      "resilience": f"; phase 11's solver-off run {walls['resilience']:.2f} s"}[key]
+            log(f"phase 14 ({key}): cli {' '.join(argv)}: exit {o['rc']}, solve {o['status']} k={o['k']} "
+                f"lower bound {o['lower_bound']}, +{o['nodes_added']} nodes; == golden (document, residuals "
+                f"to {o['residual_max_abs']:.3g}, y to {o['y_max_abs']:.3g}, rounded counts, plan); K22/K23 "
+                f"{o['launches'].get('relax_load', 0)}/{o['launches'].get('relax_project', 0)} launches, no "
+                f"plain version; wall {o['wall_s']:.2f} s (plan {o['plan_s'] or 0.0:.2f} s): {split}{beside} "
+                f"[{card}]")
+    return out
+
+
+def run_grow_path(card: str, device) -> dict:
+    """Phase 15: the grow problem on `Engine(device="cuda")` in grow mode,
+    counts zeroed just before, against tests/data/torch_grow.json.gz and
+    against a non-grow engine's run on the same card: K24 once on entry and
+    once per term extension, K25 once per node growth, no K11/K12 and no
+    plain version."""
+    golden = smoke.load_record(smoke.GROW_GOLDEN)
+    keys = ("grow.extends", "grow.bucket_promotions", "grow.node_extends", "grow.rebuilds")
+    before = {k: sstate.GROW_COUNTS[k] for k in keys}
+    cuda.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = smoke.run_grow(simtpu_torch, lambda tz: scan.Engine(tz, device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    rec = smoke.grow_record(run, {k: sstate.GROW_COUNTS[k] - before[k] for k in keys})
+    diffs = smoke.grow_differences(rec, golden)
+    if diffs:
+        raise AssertionError("phase 15: the grow run differs from the golden record:\n" + "\n".join(diffs))
+    want_k24 = 1 + golden["grow"]["grow.extends"]
+    want_k25 = golden["grow"]["grow.node_extends"]
+    if launches.get("grow_terms", 0) != want_k24 or launches.get("grow_nodes", 0) != want_k25 \
+            or launches.get("compact_compress", 0) or launches.get("compact_expand", 0) or any(plain.values()):
+        raise AssertionError(f"phase 15: launches {launches} (want K24 {want_k24}, K25 {want_k25}, no K11/K12), "
+                             f"plain {plain}")
+    t1 = time.perf_counter()
+    flat = smoke.run_grow(simtpu_torch, lambda tz: scan.Engine(tz, device), grow=False)
+    torch.cuda.synchronize()
+    flat_wall = time.perf_counter() - t1
+    flat_rec = smoke.grow_record(flat, rec["grow"])
+    if flat_rec != rec:
+        raise AssertionError("phase 15: the grow run differs from the non-grow engine's: "
+                             + "; ".join(smoke.grow_differences(flat_rec, rec)))
+    eng = run["engine"]
+    log(f"phase 15: the grow problem on Engine(device='cuda') in grow mode: {len(rec['waves'])} waves of "
+        f"{[w['pods'] for w in rec['waves']]} pods, {smoke.GROW_CLONES} clones before the last; placements and "
+        f"every final plane == golden == the non-grow engine's; grow counts {rec['grow']}; K24 "
+        f"{launches.get('grow_terms', 0)}, K25 {launches.get('grow_nodes', 0)}, K11/K12 0, no plain version; "
+        f"final buckets t {eng._grow_ref['t']}/{eng._grow_ref['t_cap']}, ti {eng._grow_ref['ti']}/"
+        f"{eng._grow_ref['ti_cap']}; {wall:.2f} s (non-grow engine {flat_wall:.2f} s) [{card}]")
+    return {"wall_s": wall, "wall_s_no_grow": flat_wall, "launches": launches, "grow": rec["grow"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2688,6 +3127,8 @@ def main() -> int:
         "every compact field bit for bit")
     round_times, q_round_times, m_round_times, copy_times = phase_bulk_kernels(device, err)
     sweep_times = phase_sweep_kernels(device, err)
+    relax_kernels = phase_relax_kernels(device, err)
+    grow_times = phase_grow_kernels(device)
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -2851,6 +3292,11 @@ def main() -> int:
     del bulk_pc
     fuzz_run = run_fuzz(card)
 
+    # -- phases 14-15: the solver paths, the grow path --------------------------
+    solver_paths = run_solver_paths(card, {"capacity": plan.timings["plan"], "large_capacity": l_wall,
+                                           "resilience": resilience_plan["wall_s"]})
+    grow_path = run_grow_path(card, device)
+
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
     w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
@@ -2875,6 +3321,35 @@ def main() -> int:
                      **{k: b_launches.get(k, 0) for k in ROUND_KERNELS},
                      "carry_copy": l_launches.get("carry_copy", 0)}
     for name, replaces in KERNELS.items():
+        if name in RELAX_KERNELS or name in GROW_KERNELS:
+            t = relax_kernels["times"][name] if name in RELAX_KERNELS else grow_times[name]
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"simtpu_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces,
+                **({"also_replaces": "simtpu/solve/relax.py:218"} if name == "relax_project" else {}),
+                **({"also_replaces": "simtpu/engine/state.py:517"} if name == "grow_terms" else {}),
+                # the main paths: phase 14 (a)-(c) for K22/K23, phase 15 for K24/K25
+                "launches": (sum(o["launches"].get(name, 0) for o in solver_paths.values())
+                             if name in RELAX_KERNELS else grow_path["launches"].get(name, 0)),
+                "max_abs_err": err[name],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t.get("bound_by", "bytes"),
+                "library_ms": None,
+                "host_ms": t["host_ms"],
+                "launch_ms": launch_ms,
+                "ms_from": "profiler",
+                "at": (f"the capacity relaxation {tuple(relax_kernels['problems']['capacity']['shape'])}"
+                       if name in RELAX_KERNELS else t["at"]),
+                "bytes": t["bytes"],
+                **({"ops": t["ops"]} if name in RELAX_KERNELS else {}),
+                **({"launches_by_path": {k: o["launches"].get(name, 0) for k, o in solver_paths.items()}}
+                   if name in RELAX_KERNELS else {}),
+            })
+            continue
         if name in EXPLAIN_KERNELS:
             t = explain["times"][name]
             rows.append({
@@ -3039,6 +3514,8 @@ def main() -> int:
                       "serial_faults": serial_faults, "bulk_faults": bulk_faults,
                       "batched_capacity": batched_capacity, "resilience_plan": resilience_plan,
                       "explain": {k: v for k, v in explain.items() if k != "times"}, "fuzz": fuzz_run,
+                      "relax_kernels": {"problems": relax_kernels["problems"], "run_ms": relax_kernels["run_ms"]},
+                      "solver_paths": solver_paths, "grow_path": grow_path,
                       "large_capacity": {"nodes_added": l_plan.nodes_added, "wall_s": l_wall,
                                          "probes": {str(k): v for k, v in l_plan.probes.items()},
                                          "timings": l_plan.timings,

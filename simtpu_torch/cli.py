@@ -20,8 +20,10 @@ failure, 4 when the auditor caught a divergence (or a fuzz finding). Every
 simulation runs on `--device` (default `cuda`; `cpu` runs the plain
 PyTorch path). The JAX CLI's other commands and flags are not ported yet
 (ROADMAP queue 1: `--checkpoint/--resume/--deadline`, `serve` and `replay`
-#8, `--solver` #7, `--trace/--profile` #9, `--shard` #10); argparse
-rejects them, and `fuzz --shard` says so.
+#8, `--trace/--profile` #9, `--shard` #10); argparse rejects them, and
+`fuzz --shard` says so. `--solver` on `apply` and `resilience` consults the
+global-solver backend (solve/) first; `apply --json` carries its record
+under `engine.solve` and the grow-mode counters under `engine.grow`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from typing import List, Optional
 from . import constants as C
 from .device import resolve_device
 from .plan.capacity import Applier, ApplierOptions
-from .report import audit_report, explain_report, report, resilience_report
+from .report import audit_report, explain_report, report, resilience_report, solve_report
 
 #: exit code for an audit failure: the independent placement auditor
 #: caught the primary answer violating its claimed constraints.  When the
@@ -66,13 +68,18 @@ def _plan_json(plan, resilience: dict = None) -> str:
     the engine record (search, bulk, device, and the audit of the shipped
     candidate under `engine.audit`). `resilience` attaches the post-plan
     fault sweep's counters (`--faults`)."""
+    from .engine.state import grow_counters_doc
+
     doc = {
         "success": plan.success,
         "nodes_added": plan.nodes_added,
         "message": plan.message,
         # the port's plans are never interrupted (no deadline or checkpoint)
         "partial": False,
-        "engine": plan.engine,
+        # grow.* counters (append-only growth): zero for a one-shot apply,
+        # but the block is ALWAYS present so consumers need no feature probe
+        "engine": {**plan.engine, "grow": grow_counters_doc()} if isinstance(plan.engine, dict)
+        else plan.engine,
         "probes": {str(k): v for k, v in sorted(plan.probes.items())},
         "timings": {k: round(v, 3) for k, v in plan.timings.items()},
         "unscheduled": (
@@ -181,6 +188,7 @@ def cmd_apply(args: argparse.Namespace) -> int:
         audit=args.audit,
         device=args.device,
         explain=args.explain,
+        solver=args.solver,
     )
 
     def fail_early(exc: Exception) -> int:
@@ -267,6 +275,8 @@ def cmd_apply(args: argparse.Namespace) -> int:
         if plan.audit:
             color = C.COLOR_RED if _audit_failed(plan.audit) else C.COLOR_GREEN
             print(f"{color}{audit_report(plan.audit)}{C.COLOR_RESET}")
+        if plan.solve:
+            print(solve_report(plan.solve))
         if plan.timings:
             phases = "  ".join(f"{k}={v:.2f}s" for k, v in plan.timings.items())
             print(f"phase timings: {phases}")
@@ -352,6 +362,7 @@ def cmd_resilience(args: argparse.Namespace) -> int:
                 audit=args.audit,
                 device=opts.device,
                 explain=args.explain,
+                solver=args.solver,
             )
             if args.json:
                 doc = plan.counters()
@@ -370,6 +381,8 @@ def cmd_resilience(args: argparse.Namespace) -> int:
                 if plan.audit:
                     a_color = C.COLOR_RED if _audit_failed(plan.audit) else C.COLOR_GREEN
                     print(f"{a_color}{audit_report(plan.audit)}{C.COLOR_RESET}")
+                if plan.solve:
+                    print(solve_report(plan.solve))
                 if plan.explain:
                     print(explain_report(plan.explain))
                 if plan.sweep is not None:
@@ -659,6 +672,33 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_solver_flags(p: argparse.ArgumentParser) -> None:
+    """Global-solver backend opt-in shared by the planning commands
+    (solve/). Advisory mode: the solver PROPOSES a placement at a
+    certified-minimal node count, the independent auditor DISPOSES — any
+    rejected or uncertified answer falls back to the exact search with at
+    most a warm-start lower bound."""
+    p.add_argument(
+        "--solver",
+        dest="solver",
+        action="store_true",
+        default=None,
+        help="consult the global-solver planning backend first: one convex "
+        "relaxation over ALL candidate node counts replaces the "
+        "doubling+bisection capacity search; the rounded placement ships "
+        "only when the independent auditor certifies it AND minimality is "
+        "proven by an infeasibility certificate at the count below "
+        "(default: off; the '--json' engine block records which backend "
+        "answered)",
+    )
+    p.add_argument(
+        "--no-solver",
+        dest="solver",
+        action="store_false",
+        help="never consult the global-solver backend (exact search only)",
+    )
+
+
 def _add_explain_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--explain",
@@ -769,6 +809,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_audit_flags(apply_p)
     _add_device_flag(apply_p)
     _add_explain_flag(apply_p)
+    _add_solver_flags(apply_p)
     apply_p.set_defaults(func=cmd_apply)
 
     res_p = sub.add_parser(
@@ -776,7 +817,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="fault-injection survivability: drain + requeue batched "
         "failure scenarios (and optionally plan N+k capacity)",
         description="Not ported yet: --checkpoint/--resume/--deadline "
-        "(ROADMAP queue 1 #8), --solver (#7), --trace/--profile (#9).",
+        "(ROADMAP queue 1 #8), --trace/--profile (#9).",
     )
     res_p.add_argument(
         "-f", "--simon-config", required=True, help="path of simon config (required)"
@@ -853,6 +894,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_audit_flags(res_p)
     _add_device_flag(res_p)
     _add_explain_flag(res_p)
+    _add_solver_flags(res_p)
     res_p.set_defaults(func=cmd_resilience)
 
     exp_p = sub.add_parser(

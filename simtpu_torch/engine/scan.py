@@ -93,6 +93,7 @@ from ..kernels.scores import (
     taint_toleration_score,
 )
 from .state import (
+    GROW_COUNTS,
     STATE_COUNTS,
     CompactState,
     SchedState,
@@ -105,6 +106,13 @@ from .state import (
     compact_spec_dev,
     compress_state,
     expand_state,
+    extend_state,
+    extend_state_nodes,
+    grow_plan_nodes,
+    grow_plan_terms,
+    pad_terms,
+    snap_pow2,
+    strip_term_padding,
     interpod_term_index,
     node_dom_for,
     node_dom_small_for,
@@ -1084,6 +1092,11 @@ class Engine:
         #: failed part-way, or a delta had no carry to apply to): the next
         #: place() rebuilds it from the log
         self._state_dirty = False
+        #: grow mode (`enable_grow`): a dense carry with bucket-padded term
+        #: axes, extended in place as the vocabulary or the node axis grows
+        self.grow = False
+        #: the bucket layout of the grow-mode carry (`_grow_layout`)
+        self._grow_ref = None
 
     def log_req_matrix(self, r: int) -> np.ndarray:
         """The placement log's request rows padded to r resource columns."""
@@ -1151,7 +1164,100 @@ class Engine:
             )
         if isinstance(state, CompactState):
             state = self._expand_carry(tensors, state)
+        if self.grow and self._grow_ref is not None:
+            # grow-mode carries are bucket-padded; consumers get the
+            # exact-shape view: row slices of the LIVE carry, which they
+            # read and must not write through
+            state = strip_term_padding(state, self._grow_ref["t"], self._grow_ref["ti"])
         return state
+
+    # -- append-only vocabulary growth (grow mode) ---------------------------
+
+    def enable_grow(self) -> None:
+        """Switch this engine to grow mode: the carried state stays DENSE
+        with its term axes padded to pow2 buckets, and a vocabulary growth
+        extends it in place (K24) instead of rebuilding it from the log;
+        `grow_nodes` widens it after `Tensorizer.add_clone_nodes` (K25).
+        The compact carry is off: its plan is keyed to the exact term
+        partition. Placements are bit-identical either way."""
+        self.grow = True
+        self.compact = False
+
+    def _grow_layout(self, tensors) -> dict:
+        """The bucket layout of a grow-mode carry built over `tensors`."""
+        ip_terms = np.flatnonzero(interpod_term_index(tensors) >= 0)
+        t, ti = tensors.n_terms, len(ip_terms)
+        return {"t": t, "ti": ti, "ip_terms": ip_terms, "t_cap": snap_pow2(t) if t else 0,
+                "ti_cap": snap_pow2(ti) if ti else 0, "n": tensors.alloc.shape[0]}
+
+    def _enter_grow_buckets(self, tensors, dense_state: SchedState) -> SchedState:
+        """Copy a freshly built exact-shape state into its term buckets
+        (K24) and record the carried layout."""
+        ref = self._grow_layout(tensors)
+        state = pad_terms(dense_state, ref["t_cap"], ref["ti_cap"])
+        self._grow_ref = ref
+        return state
+
+    def _try_extend_carry(self, tensors, vocab):
+        """Extend the carried (bucket-padded) state to a grown vocabulary
+        (K24); None when the change is not an in-place append
+        (resource/port/volume axes or the node axis moved — rebuild
+        instead)."""
+        old = self._last_vocab
+        ref = self._grow_ref
+        if old is None or ref is None:
+            return None
+        r1, t1, p1, w1, _ti1, n1 = vocab
+        r0, _t0, p0, w0, _ti0, n0 = old
+        if (r1, p1, w1, n1) != (r0, p0, w0, n0) or n1 != ref["n"]:
+            return None
+        if t1 < ref["t"]:
+            return None
+        plan = grow_plan_terms(tensors, ref["t"], ref["ip_terms"], np.asarray(self.placed_group, np.int32),
+                               np.asarray(self.placed_node, np.int32))
+        promoted = plan["t_cap"] != ref["t_cap"] or plan["ti_cap"] != ref["ti_cap"]
+        self._state_dirty = True
+        state = extend_state(self.last_state, plan)
+        self._state_dirty = False
+        self._grow_ref = {"t": plan["t"], "ti": plan["ti"], "ip_terms": plan["ip_terms"],
+                          "t_cap": plan["t_cap"], "ti_cap": plan["ti_cap"], "n": n1}
+        GROW_COUNTS["grow.extends"] += 1
+        if promoted:
+            GROW_COUNTS["grow.bucket_promotions"] += 1
+        return state
+
+    def grow_nodes(self) -> bool:
+        """Extend the carried state to the tensorizer's grown node axis
+        (after `Tensorizer.add_clone_nodes`, K25): counts of pods already
+        placed in a domain a clone joins appear on the clone's columns.
+        Returns False (carry invalidated, the next place() rebuilds from
+        the log) when no extendable grow-mode carry exists."""
+        tensors = self.tensorizer.freeze()
+        vocab = self.state_vocab(tensors)
+        if self._last_vocab == vocab and not self._state_dirty:
+            return True  # the node axis did not actually move
+        ref = self._grow_ref
+        if (
+            not self.grow
+            or ref is None
+            or self.last_state is None
+            or self._state_dirty
+            or isinstance(self.last_state, CompactState)
+            or self._last_vocab is None
+            or self._last_vocab[:5] != vocab[:5]
+            or tensors.alloc.shape[0] < ref["n"]
+        ):
+            self._last_vocab = None
+            return False
+        plan = grow_plan_nodes(tensors, ref["n"], np.asarray(self.placed_group, np.int32),
+                               np.asarray(self.placed_node, np.int32), ref["t_cap"], ref["ti_cap"])
+        self._state_dirty = True
+        self.last_state = extend_state_nodes(self.last_state, plan)
+        self._state_dirty = False
+        self._grow_ref = dict(ref, n=plan["n"])
+        self._last_vocab = vocab
+        GROW_COUNTS["grow.node_extends"] += 1
+        return True
 
     def place(self, batch: PodBatch):
         """Schedule one batch. Returns (node index per pod [-1 = failed],
@@ -1170,14 +1276,25 @@ class Engine:
                 # the batch has run through
                 state = self._expand_carry(tensors, state)
         else:
-            state = build_state(
-                tensors,
-                np.asarray(self.placed_group, np.int32),
-                np.asarray(self.placed_node, np.int32),
-                self.log_req_matrix(r),
-                self.ext_log,
-                self.device,
-            )
+            state = None
+            if (self.grow and self.last_state is not None and not self._state_dirty
+                    and not isinstance(self.last_state, CompactState)):
+                # append-only vocabulary growth: extend the carried planes
+                # instead of rebuilding them from the log
+                state = self._try_extend_carry(tensors, vocab)
+            if state is None:
+                if self.grow and self._grow_ref is not None:
+                    GROW_COUNTS["grow.rebuilds"] += 1
+                state = build_state(
+                    tensors,
+                    np.asarray(self.placed_group, np.int32),
+                    np.asarray(self.placed_node, np.int32),
+                    self.log_req_matrix(r),
+                    self.ext_log,
+                    self.device,
+                )
+                if self.grow:
+                    state = self._enter_grow_buckets(tensors, state)
         statics = statics_from(tensors, self.sched_config, self.device)
         if self.node_valid is not None:
             statics = statics._replace(

@@ -839,3 +839,371 @@ def update_state_gauge(stored, dense_bytes: int) -> None:
     planes = state_nbytes(stored)
     STATE_GAUGE.update(carried_bytes=sum(planes.values()), dense_bytes=int(dense_bytes),
                        compact=isinstance(stored, CompactState), planes=planes)
+
+
+# -- grow mode: append-only growth of a dense carry ---------------------------
+#
+# A grow-mode engine (`Engine.enable_grow`) carries a DENSE state whose term
+# axes are padded to power-of-two buckets: cnt_match / cnt_total to t_cap
+# rows, the four own planes to ti_cap rows, zero above the live counts.
+# Every kernel indexes those planes by term id with a row stride of N, so
+# the padding changes nothing they compute. A vocabulary growth extends
+# the carry (K24 `grow_terms`: promote the buckets, add the appended term
+# rows, re-gather the own planes through the new interpod layout) and a
+# node growth widens it (K25 `grow_nodes`) instead of rebuilding it from
+# the placement log. The host planners (`grow_plan_terms`,
+# `grow_plan_nodes`) are the JAX package's, copied. K24/K25 write fresh
+# planes (the JAX package donates the carry); the planes a growth does not
+# touch are shared with the old carry, which the engine drops.
+
+
+def snap_pow2(x: int, floor: int = 1) -> int:
+    """Next power of two >= x (at least `floor`): the shape bucket of a
+    grow-mode plane and of an appended-row batch."""
+    return max(floor, 1 << max(int(x) - 1, 0).bit_length())
+
+
+#: the `engine.grow` counter block's names (the JAX package's registry
+#: family; `compile.grow` stays 0: the port has no per-shape executables,
+#: and `grow.retensorize_fallbacks` belongs to the serve sessions, not
+#: ported)
+GROW_COUNTERS = (
+    "grow.extends",
+    "grow.bucket_promotions",
+    "grow.node_extends",
+    "grow.rebuilds",
+    "grow.retensorize_fallbacks",
+    "compile.grow",
+)
+#: grow-mode events of this process, keyed by GROW_COUNTERS names
+GROW_COUNTS: Counter = Counter()
+
+
+def grow_counters_doc() -> dict:
+    """The append-only-growth counter block (process-lifetime counts),
+    `grow.` prefix stripped, as `apply --json` carries it under
+    `engine.grow`."""
+    return {
+        name.split("grow.", 1)[-1] if name.startswith("grow.") else name: int(GROW_COUNTS[name])
+        for name in GROW_COUNTERS
+    }
+
+
+def _grow_aggregates(tensors, placed_group, placed_node, keys):
+    """The per-key [D, G] domain aggregates build_state derives its count
+    rows from, restricted to the topology keys a growth event touches."""
+    n = tensors.alloc.shape[0]
+    g_n = len(tensors.groups)
+    d = tensors.n_domains
+    key_valid = tensors.node_dom >= 0
+    flat = placed_group.astype(np.int64) * n + placed_node
+    cnt_gn = np.bincount(flat, minlength=g_n * n).reshape(g_n, n).astype(np.float32)
+    cnt_dg, safe_k = {}, {}
+    for k in keys:
+        safe_k[k] = np.where(key_valid[k], tensors.node_dom[k], 0)
+        src = np.where(key_valid[k][None, :], cnt_gn, 0.0).T.copy()
+        buf = np.zeros((d, g_n), np.float32)
+        _add_at_rows(buf, safe_k[k], src)
+        cnt_dg[k] = buf
+    return cnt_dg, safe_k, key_valid
+
+
+def _term_rows_subset(tensors, placed_group, placed_node, term_ids):
+    """Count rows + cluster totals for a SUBSET of terms, by the same
+    aggregation build_state runs for all terms (integer-valued counts and
+    the same ascending-group accumulation keep the rows bit-identical to a
+    from-scratch rebuild's)."""
+    n = tensors.alloc.shape[0]
+    rows = np.zeros((len(term_ids), n), np.float32)
+    tot = np.zeros(len(term_ids), np.float32)
+    if not len(placed_group) or not len(term_ids):
+        return rows, tot
+    term_topo = tensors.term_topo_key
+    keys = {int(term_topo[tid]) for tid in term_ids}
+    cnt_dg, safe_k, key_valid = _grow_aggregates(tensors, placed_group, placed_node, keys)
+    tot_kg = {k: buf.sum(axis=0) for k, buf in cnt_dg.items()}
+    row_cache = {}
+
+    def group_row(k, g_i):
+        got = row_cache.get((k, g_i))
+        if got is None:
+            got = np.where(key_valid[k], cnt_dg[k][safe_k[k], g_i], 0.0)
+            row_cache[(k, g_i)] = got
+        return got
+
+    sub = tensors.s_match[:, term_ids]
+    for g_i, t_i in zip(*np.nonzero(sub)):
+        tid = int(term_ids[t_i])
+        k = int(term_topo[tid])
+        w = float(sub[g_i, t_i])
+        rows[t_i] += w * group_row(k, g_i)
+        tot[t_i] += w * tot_kg[k][g_i]
+    return rows, tot
+
+
+def _node_cols_subset(tensors, placed_group, placed_node, node_ids):
+    """Count-plane COLUMNS for appended nodes: cnt_match [T, a] plus the
+    four own planes [Ti, a] evaluated at the new nodes' domains — a pod
+    already placed in a zone a clone joins is counted on the clone."""
+    t = tensors.n_terms
+    ip_of = interpod_term_index(tensors)
+    ip_terms = np.flatnonzero(ip_of >= 0)
+    a = len(node_ids)
+    cnt_cols = np.zeros((t, a), np.float32)
+    own_cols = np.zeros((4, len(ip_terms), a), np.float32)
+    if not len(placed_group) or not t:
+        return cnt_cols, own_cols
+    term_topo = tensors.term_topo_key
+    keys = {int(x) for x in term_topo[:t]}
+    cnt_dg, safe_k, key_valid = _grow_aggregates(tensors, placed_group, placed_node, keys)
+    row_cache = {}
+
+    def group_cols(k, g_i):
+        got = row_cache.get((k, g_i))
+        if got is None:
+            got = np.where(key_valid[k][node_ids], cnt_dg[k][safe_k[k][node_ids], g_i], 0.0)
+            row_cache[(k, g_i)] = got
+        return got
+
+    def fill(dst, term_ids, incid):
+        sub = incid if term_ids is None else incid[:, term_ids]
+        for g_i, t_i in zip(*np.nonzero(sub)):
+            tid = t_i if term_ids is None else term_ids[t_i]
+            k = int(term_topo[tid])
+            dst[t_i] += float(sub[g_i, t_i]) * group_cols(k, g_i)
+
+    fill(cnt_cols, None, tensors.s_match)
+    for s_i, mat in enumerate((tensors.a_anti_req, tensors.a_aff_req, tensors.w_aff_pref,
+                               tensors.w_anti_pref)):
+        fill(own_cols[s_i], ip_terms, mat)
+    return cnt_cols, own_cols
+
+
+def grow_plan_terms(tensors, t_old: int, ip_terms_old, placed_group, placed_node):
+    """Host-side plan for a term-axis growth event: appended term rows and
+    totals (bucket-padded, ids -1 above the live count), the own-plane
+    re-layout gather, and the target buckets. `ip_terms_old` is the
+    ascending term-id layout the carried own planes were built under."""
+    t_new = tensors.n_terms
+    ip_of = interpod_term_index(tensors)
+    ip_terms_new = np.flatnonzero(ip_of >= 0)
+    ti_new = len(ip_terms_new)
+    m = t_new - t_old
+    m_cap = snap_pow2(m) if m else 0
+    ids = np.full(m_cap, -1, np.int32)
+    rows = np.zeros((m_cap, tensors.alloc.shape[0]), np.float32)
+    tot = np.zeros(m_cap, np.float32)
+    if m:
+        new_ids = np.arange(t_old, t_new, dtype=np.int32)
+        ids[:m] = new_ids
+        rows[:m], tot[:m] = _term_rows_subset(tensors, placed_group, placed_node, new_ids)
+    ti_cap = snap_pow2(ti_new) if ti_new else 0
+    perm = np.full(max(ti_cap, 1), -1, np.int32)[:ti_cap]
+    pos_old = {int(tid): i for i, tid in enumerate(np.asarray(ip_terms_old))}
+    for j, tid in enumerate(ip_terms_new):
+        perm[j] = pos_old.get(int(tid), -1)
+    return {
+        "ids": ids,
+        "rows": rows,
+        "tot": tot,
+        "perm": perm,
+        "t": t_new,
+        "ti": ti_new,
+        "t_cap": snap_pow2(t_new) if t_new else 0,
+        "ti_cap": ti_cap,
+        "ip_terms": ip_terms_new,
+    }
+
+
+def grow_plan_nodes(tensors, n_old: int, placed_group, placed_node, t_cap: int, ti_cap: int):
+    """Host-side plan for a node-axis growth event (Tensorizer.add_clone_nodes
+    appended rows [n_old:]): the new nodes' free/storage rows and the
+    count-plane columns at the carried bucket heights."""
+    n_new = tensors.alloc.shape[0]
+    node_ids = np.arange(n_old, n_new)
+    ext = tensors.ext
+    cnt_cols, own_cols = _node_cols_subset(tensors, placed_group, placed_node, node_ids)
+    t, ti = cnt_cols.shape[0], own_cols.shape[1]
+    cnt_p = np.zeros((t_cap, len(node_ids)), np.float32)
+    cnt_p[:t] = cnt_cols
+    own_p = np.zeros((4, ti_cap, len(node_ids)), np.float32)
+    own_p[:, :ti] = own_cols
+    return {
+        "free": tensors.alloc[n_old:].astype(np.float32),
+        "cnt_cols": cnt_p,
+        "own_cols": own_p,
+        "vg": (ext.vg_cap[n_old:] - ext.vg_req0[n_old:]).astype(np.float32),
+        "sdev": (ext.sdev_cap[n_old:] > 0) & ~ext.sdev_alloc0[n_old:],
+        "gpu": ext.gpu_dev_total[n_old:].astype(np.float32),
+        "n": n_new,
+    }
+
+
+#: the four interpod ("own") planes of a SchedState, in order
+OWN_PLANES = ("cnt_own_anti", "cnt_own_aff", "w_own_aff_pref", "w_own_anti_pref")
+
+
+class GrowTerms(NamedTuple):
+    """K24's inputs beside the old planes, on the carry's device: `inv`
+    [t_cap] the appended row feeding each bucket row (-1 = none), `rows`
+    [M, N] / `tot` [M] the appended count rows and totals, `perm` [ti_cap]
+    the old own-plane row feeding each new row (-1 = a zero row)."""
+
+    inv: torch.Tensor
+    rows: torch.Tensor
+    tot: torch.Tensor
+    perm: torch.Tensor
+    t_cap: int
+    ti_cap: int
+
+
+def grow_terms_plain(state: SchedState, g: GrowTerms) -> dict:
+    """K24's function: the six term planes in their buckets — cnt_match
+    [t_cap, N] and cnt_total [t_cap] with the old rows (zero above them)
+    plus each appended row at its id, the own planes [ti_cap, N] gathered
+    through `perm`. Returns {plane name: fresh tensor}."""
+    cuda.count_plain("grow_terms")
+    n = state.free.shape[0]
+    device = state.free.device
+    t_old = state.cnt_match.shape[0]
+    cm = torch.zeros((g.t_cap, n), dtype=torch.float32, device=device)
+    ct = torch.zeros(g.t_cap, dtype=torch.float32, device=device)
+    cm[:t_old] = state.cnt_match
+    ct[:t_old] = state.cnt_total
+    hit = torch.nonzero(g.inv >= 0).reshape(-1)
+    src = g.inv[hit].long()
+    cm[hit] = cm[hit] + g.rows[src]
+    ct[hit] = ct[hit] + g.tot[src]
+    out = {"cnt_match": cm, "cnt_total": ct}
+    live = g.perm >= 0
+    for name in OWN_PLANES:
+        plane = getattr(state, name)
+        new = torch.zeros((g.ti_cap, n), dtype=torch.float32, device=device)
+        if plane.shape[0] and g.ti_cap:
+            new[live] = plane[g.perm[live].long()]
+        out[name] = new
+    return out
+
+
+def grow_terms(state: SchedState, g: GrowTerms) -> SchedState:
+    """K24 in one launch for a carry on the card, its plain version for a
+    carry on the CPU: the state with its six term planes replaced by fresh
+    bucketed ones (the other planes shared)."""
+    if state.free.device.type == "cpu":
+        planes = grow_terms_plain(state, g)
+    else:
+        planes = cuda.launch_grow_terms(state, g)
+    return state._replace(**planes)
+
+
+def _grow_terms_inputs(state: SchedState, ids, rows, tot, perm, t_cap: int, ti_cap: int) -> GrowTerms:
+    """GrowTerms on the carry's device from a host plan's ids / rows / tot
+    / perm (the appended ids are distinct, so each bucket row has at most
+    one appended row)."""
+    device = state.free.device
+    ids = np.asarray(ids, np.int64)
+    inv = np.full(t_cap, -1, np.int32)
+    live = np.flatnonzero(ids >= 0)
+    inv[ids[live]] = live
+    n = state.free.shape[0]
+    rows = np.asarray(rows, np.float32).reshape(-1, n)
+    return GrowTerms(
+        inv=torch.as_tensor(inv, device=device),
+        rows=torch.as_tensor(np.ascontiguousarray(rows), device=device),
+        tot=torch.as_tensor(np.asarray(tot, np.float32), device=device),
+        perm=torch.as_tensor(np.asarray(perm, np.int32), device=device),
+        t_cap=int(t_cap), ti_cap=int(ti_cap))
+
+
+def pad_terms(state: SchedState, t_cap: int, ti_cap: int) -> SchedState:
+    """A freshly built exact-shape state copied into its term buckets
+    (zero rows above the live counts): the JAX package's
+    `_pad_terms_kernel`, K24 with no appended rows and the identity
+    own-plane layout."""
+    ti = state.cnt_own_anti.shape[0]
+    perm = np.full(ti_cap, -1, np.int32)
+    perm[: min(ti, ti_cap)] = np.arange(min(ti, ti_cap), dtype=np.int32)
+    n = state.free.shape[0]
+    return grow_terms(state, _grow_terms_inputs(state, np.zeros(0, np.int32), np.zeros((0, n), np.float32),
+                                                np.zeros(0, np.float32), perm, t_cap, ti_cap))
+
+
+def extend_state(state: SchedState, plan: dict) -> SchedState:
+    """Apply a `grow_plan_terms` plan to a grow-mode carry (the JAX
+    package's `_extend_terms_kernel`, through K24)."""
+    return grow_terms(state, _grow_terms_inputs(state, plan["ids"], plan["rows"], plan["tot"], plan["perm"],
+                                                plan["t_cap"], plan["ti_cap"]))
+
+
+#: the planes K25 widens and what fills the new nodes' part: "rows" (the
+#: plan's rows), "cols" (the plan's columns) or "zeros"
+NODE_GROWTH = (
+    ("free", "rows"), ("cnt_match", "cols"), ("cnt_own_anti", "cols"), ("cnt_own_aff", "cols"),
+    ("w_own_aff_pref", "cols"), ("w_own_anti_pref", "cols"), ("vg_free", "rows"),
+    ("sdev_free", "rows"), ("gpu_free", "rows"), ("ports_used", "zeros"), ("vols_any", "zeros"),
+    ("vols_rw", "zeros"),
+)
+
+
+def node_growth_inputs(state: SchedState, plan: dict) -> dict:
+    """{plane name: the new nodes' part} of a `grow_plan_nodes` plan, on the
+    carry's device in the planes' dtypes (None = zeros)."""
+    device = state.free.device
+
+    def on(x, like):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device).to(like.dtype)
+
+    add = {"free": on(plan["free"], state.free), "cnt_match": on(plan["cnt_cols"], state.cnt_match),
+           "vg_free": on(plan["vg"], state.vg_free), "sdev_free": on(plan["sdev"], state.sdev_free),
+           "gpu_free": on(plan["gpu"], state.gpu_free)}
+    for i, name in enumerate(OWN_PLANES):
+        add[name] = on(plan["own_cols"][i], getattr(state, name))
+    return {name: add.get(name) for name, _ in NODE_GROWTH}
+
+
+def grow_nodes_plain(state: SchedState, add: dict, a: int) -> dict:
+    """K25's function: every plane but cnt_total widened from N to N + a
+    nodes — the old values, then the new nodes' rows or columns from `add`
+    (zeros where `add` has none). Returns {plane name: fresh tensor}."""
+    cuda.count_plain("grow_nodes")
+    out = {}
+    for name, kind in NODE_GROWTH:
+        plane = getattr(state, name)
+        extra = add[name]
+        if kind == "cols":
+            out[name] = torch.cat([plane, extra], dim=1)
+        else:
+            if extra is None:
+                extra = torch.zeros((a, plane.shape[1]), dtype=plane.dtype, device=plane.device)
+            out[name] = torch.cat([plane, extra], dim=0)
+    return out
+
+
+def extend_state_nodes(state: SchedState, plan: dict) -> SchedState:
+    """Apply a `grow_plan_nodes` plan (the JAX package's
+    `_extend_nodes_kernel`): K25 in one launch for a carry on the card, its
+    plain version for a carry on the CPU. cnt_total is shared."""
+    a = plan["n"] - state.free.shape[0]
+    add = node_growth_inputs(state, plan)
+    if state.free.device.type == "cpu":
+        planes = grow_nodes_plain(state, add, a)
+    else:
+        planes = cuda.launch_grow_nodes(state, add, a)
+    return state._replace(**planes)
+
+
+def strip_term_padding(state: SchedState, t: int, ti: int) -> SchedState:
+    """Exact-shape dense view of a grow-mode (bucket-padded) carry: what
+    carried_state() hands to consumers expecting [T, N] / [Ti, N] planes.
+    The planes are row slices of the live carry (views, no copy): a
+    consumer reads them and must not write through them."""
+    if state.cnt_match.shape[0] == t and state.cnt_own_anti.shape[0] == ti:
+        return state
+    return state._replace(
+        cnt_match=state.cnt_match[:t],
+        cnt_total=state.cnt_total[:t],
+        cnt_own_anti=state.cnt_own_anti[:ti],
+        cnt_own_aff=state.cnt_own_aff[:ti],
+        w_own_aff_pref=state.w_own_aff_pref[:ti],
+        w_own_anti_pref=state.w_own_anti_pref[:ti],
+    )

@@ -10,8 +10,11 @@ carried state for the incremental planner's probes
 (`plan/incremental.py`), K18/K19 drain and requeue every scenario of a
 batched sweep chunk, one block per scenario (`engine/batched.py`), K20
 explains a chunk of unplaced pods' failures, one block per pod
-(`explain/breakdown.py`), and K21 decomposes one pod's score into its
-plugin terms (`explain/scores.py`). The sources live in
+(`explain/breakdown.py`), K21 decomposes one pod's score into its
+plugin terms (`explain/scores.py`), K22/K23 run the solve backend's
+relaxation, one load pass and one projection pass per iteration
+(`solve/relax.py`), and K24/K25 grow a grow-mode carry along its term and
+node axes (`engine/state.py`). The sources live in
 `kernels/csrc/` (one `.cu` per kernel; the argument blocks in
 `step_ctx.cuh`, the per-node device code that K1-K6 and K9/K10 share in
 the other `.cuh` headers). On first use each source is compiled by `nvcc` for
@@ -48,6 +51,7 @@ KERNELS = (
     "compact_compress", "compact_expand", "compact_delta",
     "round_score", "round_pick", "round_commit", "carry_copy",
     "sweep_drain", "sweep_place", "explain_pass", "pod_terms",
+    "relax_load", "relax_project", "grow_terms", "grow_nodes",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
 STEP_KERNELS = KERNELS[:6]
@@ -1016,3 +1020,177 @@ def launch_pod_terms(buf, i: int) -> None:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel pod_terms failed to launch: {msg} ({err})")
     LAUNCHES["pod_terms"] += 1
+
+
+class RelaxCtx(ctypes.Structure):
+    """ctypes mirror of `struct RelaxCtx` in csrc/relax.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("s", "c", "n", "r", "mode", "np2")] + [
+        ("lr", ctypes.c_float), ("pad_", ctypes.c_int)] + [
+        (f, ctypes.c_void_p) for f in ("feas", "req", "cnt", "fixed", "cap", "valid", "y", "over",
+                                       "residual", "stuck")
+    ]
+
+
+#: widest node row K23 sorts in one block (csrc/relax.cuh RELAX_MAX_ROW):
+#: the keys and their f64 prefix sums of the next power of two >= N fill
+#: 12 bytes each of the block's shared memory (227 KB)
+RELAX_MAX_ROW = 16384
+
+
+def relax_ctx(rb) -> RelaxCtx:
+    """K22/K23's argument block for a solve/relax.py RelaxBuffers on one
+    CUDA device: every tensor's device, dtype, contiguity and shape
+    checked. Raises ValueError for a node row wider than RELAX_MAX_ROW."""
+    device = rb.y.device
+    s, c, n = rb.y.shape
+    r = rb.req.shape[1]
+    if n > RELAX_MAX_ROW:
+        raise ValueError(f"relax_project sorts a node row in one block: N={n} exceeds {RELAX_MAX_ROW}")
+    fields = {"feas": torch.bool, "req": torch.float32, "cnt": torch.float32, "fixed": torch.float32,
+              "cap": torch.float32, "valid": torch.bool, "y": torch.float32, "over": torch.float32,
+              "residual": torch.float32, "stuck": torch.int32}
+    tensors = {f: _checked(f"relax.{f}", getattr(rb, f), device, dt) for f, dt in fields.items()}
+    _check_shapes(tensors, {"feas": (c, n), "req": (c, r), "cnt": (c,), "fixed": (n, r), "cap": (n, r),
+                            "valid": (s, n), "over": (s, n, r), "residual": (s,), "stuck": (s,)})
+    np2 = max(32, 1 << max(n - 1, 0).bit_length())
+    return RelaxCtx(s=s, c=c, n=n, r=r, mode=0, np2=np2, lr=float(rb.lr), pad_=0,
+                    **{f: t.data_ptr() for f, t in tensors.items()})
+
+
+def _launch_relax(name: str, rb, mode: int) -> None:
+    libs = build()
+    ctx = rb.cache.get("ctx")
+    if ctx is None:
+        ctx = rb.cache["ctx"] = relax_ctx(rb)
+    ctx.mode = mode
+    stream = torch.cuda.current_stream(rb.y.device).cuda_stream
+    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+def launch_relax_load(rb, residual: bool = False) -> None:
+    """K22 on the current stream, one launch over every (candidate, node)
+    of `rb` (a solve/relax.py RelaxBuffers): rb.over from rb.y, and in
+    residual mode rb.residual. No synchronization."""
+    _launch_relax("relax_load", rb, 1 if residual else 0)
+
+
+def launch_relax_project(rb, init: bool = False) -> None:
+    """K23 on the current stream, one launch of one block per (class,
+    candidate) row of `rb`: the projected-gradient step of rb.y in place,
+    or in init mode its start point and rb.stuck. No synchronization."""
+    _launch_relax("relax_project", rb, 1 if init else 0)
+
+
+class GrowTermsCtx(ctypes.Structure):
+    """ctypes mirror of `struct GrowTermsCtx` in csrc/grow_terms.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("n", "t_old", "t_cap", "ti_old", "ti_cap", "pad_")] + [
+        ("cm", ctypes.c_void_p), ("ct", ctypes.c_void_p), ("own", ctypes.c_void_p * 4),
+        ("inv", ctypes.c_void_p), ("rows", ctypes.c_void_p), ("tot", ctypes.c_void_p),
+        ("perm", ctypes.c_void_p), ("out_cm", ctypes.c_void_p), ("out_ct", ctypes.c_void_p),
+        ("out_own", ctypes.c_void_p * 4),
+    ]
+
+
+_OWN_PLANES = ("cnt_own_anti", "cnt_own_aff", "w_own_aff_pref", "w_own_anti_pref")
+
+
+def launch_grow_terms(state, g) -> dict:
+    """K24 on the current stream, in one launch: the six term planes of
+    `state` (a SchedState on one CUDA device) written into fresh bucketed
+    planes from `g` (an engine/state.py GrowTerms). Returns {plane name:
+    fresh tensor}. Raises if an input is malformed or the launch is
+    refused."""
+    device = state.free.device
+    n = state.free.shape[0]
+    t_old, ti_old = state.cnt_match.shape[0], state.cnt_own_anti.shape[0]
+    planes = {f: _checked(f"state.{f}", getattr(state, f), device, torch.float32)
+              for f in ("cnt_match", "cnt_total") + _OWN_PLANES}
+    ins = {f: _checked(f"grow.{f}", getattr(g, f), device, dt)
+           for f, dt in (("inv", torch.int32), ("rows", torch.float32), ("tot", torch.float32),
+                         ("perm", torch.int32))}
+    m = ins["rows"].shape[0]
+    _check_shapes({**planes, **ins}, {
+        "cnt_match": (t_old, n), "cnt_total": (t_old,), **{f: (ti_old, n) for f in _OWN_PLANES},
+        "inv": (g.t_cap,), "rows": (m, n), "tot": (m,), "perm": (g.ti_cap,)})
+    if g.t_cap < t_old:
+        raise ValueError(f"grow_terms: bucket {g.t_cap} below the carried {t_old} term rows")
+    out = {"cnt_match": torch.empty((g.t_cap, n), dtype=torch.float32, device=device),
+           "cnt_total": torch.empty(g.t_cap, dtype=torch.float32, device=device),
+           **{f: torch.empty((g.ti_cap, n), dtype=torch.float32, device=device) for f in _OWN_PLANES}}
+    ctx = GrowTermsCtx(
+        n=n, t_old=t_old, t_cap=g.t_cap, ti_old=ti_old, ti_cap=g.ti_cap, pad_=0,
+        cm=planes["cnt_match"].data_ptr(), ct=planes["cnt_total"].data_ptr(),
+        own=(ctypes.c_void_p * 4)(*(planes[f].data_ptr() for f in _OWN_PLANES)),
+        inv=ins["inv"].data_ptr(), rows=ins["rows"].data_ptr(), tot=ins["tot"].data_ptr(),
+        perm=ins["perm"].data_ptr(), out_cm=out["cnt_match"].data_ptr(),
+        out_ct=out["cnt_total"].data_ptr(),
+        out_own=(ctypes.c_void_p * 4)(*(out[f].data_ptr() for f in _OWN_PLANES)))
+    libs = build()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = libs["grow_terms"].simtpu_grow_terms(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel grow_terms failed to launch: {msg} ({err})")
+    LAUNCHES["grow_terms"] += 1
+    return out
+
+
+class GrowNodesCtx(ctypes.Structure):
+    """ctypes mirror of `struct GrowNodesCtx` in csrc/grow_nodes.cu."""
+
+    _fields_ = [("n_planes", ctypes.c_int), ("pad_", ctypes.c_int), ("planes", ctypes.c_void_p)]
+
+
+def launch_grow_nodes(state, add: dict, a: int) -> dict:
+    """K25 on the current stream, in one launch: every plane of `state` (a
+    SchedState on one CUDA device) but cnt_total widened from N to N + a
+    nodes in fresh storage — [N, X] planes along their rows, the [T, N]
+    count planes along their columns — with the new nodes' part from `add`
+    ({plane name: tensor, or None = zeros}). Returns {plane name: fresh
+    tensor}. Raises if an input is malformed or the launch is refused."""
+    from ..engine.state import NODE_GROWTH
+
+    device = state.free.device
+    n = state.free.shape[0]
+    out, table, keep = {}, [], []
+    for name, kind in NODE_GROWTH:
+        plane = _checked(f"state.{name}", getattr(state, name), device, getattr(state, name).dtype)
+        extra = add[name]
+        if plane.element_size() not in (1, 4):
+            raise ValueError(f"grow_nodes: {name} has {plane.element_size()}-byte elements")
+        if kind == "cols":
+            want = (plane.shape[0], a)
+            dst = torch.empty((plane.shape[0], n + a), dtype=plane.dtype, device=device)
+        else:
+            want = (a, plane.shape[1])
+            dst = torch.empty((n + a, plane.shape[1]), dtype=plane.dtype, device=device)
+        if kind == "cols" and plane.shape[1] != n or kind != "cols" and plane.shape[0] != n:
+            raise ValueError(f"grow_nodes: {name} shape {tuple(plane.shape)} is not on the {n}-node axis")
+        if extra is not None:
+            _checked(f"grow.{name}", extra, device, plane.dtype)
+            _check_shapes({name: extra}, {name: want})
+            keep.append(extra)
+        rows, cols = plane.shape
+        table.append((plane.data_ptr(), 0 if extra is None else extra.data_ptr(), dst.data_ptr(),
+                      rows | (cols << 32), (a if kind != "cols" else 0) | ((a if kind == "cols" else 0) << 32),
+                      plane.element_size()))
+        out[name] = dst
+    libs = build()
+    packed = torch.as_tensor(np.asarray(table, np.int64).reshape(-1, 6), device=device)
+    ctx = GrowNodesCtx(n_planes=len(table), pad_=0, planes=packed.data_ptr())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = libs["grow_nodes"].simtpu_grow_nodes(ctypes.byref(ctx), stream)
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel grow_nodes failed to launch: {msg} ({err})")
+    LAUNCHES["grow_nodes"] += 1
+    # the table's and the new parts' storage return to the caching
+    # allocator only after the launch is enqueued; the stream orders reuse
+    del packed, keep
+    return out

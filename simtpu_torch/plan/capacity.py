@@ -104,6 +104,11 @@ class PlanResult:
     # "version" stamp (explain.EXPLAIN_VERSION) and rides --json as
     # "explain"
     explain: Dict[str, object] = field(default_factory=dict)
+    # the global-solver backend's record (solve/): status, the candidate
+    # the relaxation found, the certified lower bound, the reason it
+    # stepped aside, and the fallback trail when its answer shipped.
+    # {} = solver not consulted; rides --json under engine.solve
+    solve: Dict[str, object] = field(default_factory=dict)
 
 
 def new_fake_nodes(template: dict, count: int) -> List[dict]:
@@ -249,6 +254,7 @@ def plan_capacity(
     device=None,
     _audit_inject: bool = False,
     explain: bool = False,
+    solver: Optional[bool] = None,
 ) -> PlanResult:
     """Find the minimum clone count of `new_node` that deploys everything.
 
@@ -273,12 +279,37 @@ def plan_capacity(
     bottleneck analysis of its unplaced pods, and the reported
     candidate's block rides `PlanResult.explain` — so an infeasible plan
     reports *what to buy* (binding resource, template-node hint), not just
-    *how many*. Fully placed candidates pay nothing."""
+    *how many*. Fully placed candidates pay nothing.
+
+    `solver` (None = off) consults the global solve backend (solve/)
+    FIRST: one relaxation over every candidate count (K22/K23) replaces
+    the whole doubling + bisection when its rounded answer is
+    audit-certified at a count whose predecessor carries an infeasibility
+    proof. A rejected or uncertified solve falls through to the exact
+    search below, warm-started with the solver's certified lower bound
+    when one exists; the answer is then the solver-off run's."""
     if search not in ("binary", "linear"):
         raise ValueError(f"unknown search strategy {search!r}")
     device = resolve_device(device)
     say = progress or (lambda s: None)
     probes: Dict[int, int] = {}
+    # -- global-solver consult (solve/): the solver proposes, the auditor
+    # disposes. An accepted attempt IS the plan (no simulate() at all);
+    # anything else warm-starts the exact search below
+    solve_doc: Dict[str, object] = {}
+    lb_hint = 0
+    if solver:
+        from ..solve import solve_capacity_plan
+
+        plan_s, att = solve_capacity_plan(cluster, apps, new_node, max_new_nodes, extended_resources,
+                                          progress=say, sched_config=sched_config, device=device,
+                                          _audit_inject=_audit_inject)
+        if plan_s is not None:
+            return plan_s
+        solve_doc = att.doc
+        if att.certified and att.lower_bound > 0:
+            lb_hint = min(att.lower_bound, max_new_nodes - 1)
+            say(f"solver: certified lower bound {att.lower_bound} — warm-starting the exact search")
     candidates: List[Dict[str, object]] = []
     all_daemon_sets = list(cluster.daemon_sets)
     for app in apps:
@@ -473,20 +504,25 @@ def plan_capacity(
         return linear_from(1)
 
     def search_candidates() -> PlanResult:
-        ok, unsched, msg, result = evaluate(0)
-        if ok:
-            return final_success(0, result)
-        if unsched and msg:
-            return with_explain(PlanResult(False, 0, result, msg, probes), result)
+        if lb_hint < 1:
+            ok, unsched, msg, result = evaluate(0)
+            if ok:
+                return final_success(0, result)
+            if unsched and msg:
+                return with_explain(PlanResult(False, 0, result, msg, probes), result)
+        # else: the solver PROVED candidate 0 (and everything below
+        # lb_hint) infeasible — skip straight to the bound
+
         # the reference's loop is `for i := 0; i < MaxNumNewNode; i++`
         # (apply.go:183) — the largest candidate ever tried is
         # max_new_nodes-1
         if search == "linear":
-            return linear_from(1)
+            return linear_from(max(1, lb_hint))
         # doubling probe then binary search (feasibility monotone in
-        # clone count)
+        # clone count); a certified solver lower bound starts the doubling
+        # at the bound instead of 1
         hi, hi_result = None, None
-        probe = 1
+        probe = max(1, lb_hint)
         while probe < max_new_nodes:
             ok, unsched, msg, result = evaluate(probe)
             if cap_rejected:
@@ -509,7 +545,8 @@ def plan_capacity(
                 return with_explain(PlanResult(False, max_new_nodes, result, fail_msg, probes), result)
             hi, hi_result = probe, result
         # lowest infeasible known is hi//2 (probed by the doubling, or 0)
-        lo = hi // 2
+        # — unless the solver certified everything below lb_hint
+        lo = max(hi // 2, lb_hint - 1)
         while hi - lo > 1:
             mid = (lo + hi) // 2
             ok, _, _, result = evaluate(mid)
@@ -523,6 +560,10 @@ def plan_capacity(
 
     out = search_candidates()
     out.candidates = candidates
+    # a rejected/uncertified solver consult still rides the result —
+    # --json consumers see WHY the exact search answered
+    if solve_doc and not out.solve:
+        out.solve = dict(solve_doc)
     return out
 
 
@@ -558,6 +599,10 @@ class ApplierOptions:
     # breakdowns + bottleneck analysis to a failing plan; off = no explain
     # import, no extra launch
     explain: bool = False
+    # None/False = off: consult the global solve backend (solve/) before
+    # the exact search — advisory mode, the auditor gates everything it
+    # proposes; --solver turns it on, --no-solver off
+    solver: Optional[bool] = None
 
 
 # Auto-engine thresholds: below both, the serial scan keeps its per-pod
@@ -697,6 +742,7 @@ class Applier:
                 audit=self.opts.audit,
                 device=device,
                 explain=self.opts.explain,
+                solver=self.opts.solver,
             )
         else:
             plan = plan_capacity(
@@ -712,6 +758,7 @@ class Applier:
                 audit=self.opts.audit,
                 device=device,
                 explain=self.opts.explain,
+                solver=self.opts.solver,
             )
         timings["plan"] = time.perf_counter() - t0
         # the incremental planner's phase breakdown rides beside the
@@ -754,6 +801,12 @@ class Applier:
             # counters, plus fallback/divergence records when the primary
             # answer failed certification; {"enabled": False} = --no-audit
             "audit": plan.audit if plan.audit else {"enabled": False},
+            # the global-solver backend's record (solve/): which engine
+            # ANSWERED — an accepted status means the relaxation produced
+            # the shipped plan; rejected/ineligible means the exact search
+            # did (with the solver's certified lower bound when one
+            # existed). {"enabled": False} = solver not consulted
+            "solve": plan.solve if plan.solve else {"enabled": False},
             # the incremental planner's probes never run preemption; True
             # when this plan's specs carried priorities that were ignored
             "preemption_ignored": bool(getattr(plan, "preemption_ignored", False)),

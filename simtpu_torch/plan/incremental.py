@@ -25,9 +25,10 @@ the snapshot stays untouched by construction.
 
 Preemption does not run inside probes, as in the JAX package: a loud notice
 says so when specs carry priorities. `explain` attaches the failing
-candidate's breakdown (K20) and bottleneck block; `solver`, `checkpoint`,
-`mesh` and `precompile` raise NotImplementedError (ROADMAP queue 1 #7, #8,
-#10).
+candidate's breakdown (K20) and bottleneck block; `solver` consults the
+solve backend first (solve/: an audited answer ships, a rejected one floors
+the probe search with its certified bound); `checkpoint`, `mesh` and
+`precompile` raise NotImplementedError (ROADMAP queue 1 #8, #10).
 """
 
 from __future__ import annotations
@@ -163,8 +164,7 @@ def plan_capacity_incremental(
     failure results: the per-stage breakdown (K20) of the failing
     candidate's unplaced pods against its carried state, plus the
     binding-constraint bottleneck with the template verdict."""
-    for name, on, item in (("solver", solver, 7),
-                           ("checkpoint", checkpoint is not None, 8), ("mesh", mesh is not None, 10),
+    for name, on, item in (("checkpoint", checkpoint is not None, 8), ("mesh", mesh is not None, 10),
                            ("precompile", precompile, 10)):
         if on:
             raise NotImplementedError(
@@ -178,11 +178,16 @@ def plan_capacity_incremental(
     probes: Dict[int, int] = {}
     candidates: List[Dict[str, object]] = []
     preempt_flag = [False]
+    # the global-solver consult's record, attached to EVERY result this
+    # plan returns (finalize)
+    solve_doc: Dict[str, object] = {}
     fail_msg = f"we have added {max_new_nodes} nodes but it still failed!!"
 
     def finalize(out: PlanResult) -> PlanResult:
         out.timings = timings
         out.candidates = candidates
+        if solve_doc and not out.solve:
+            out.solve = dict(solve_doc)
         out.preemption_ignored = preempt_flag[0]
         return out
 
@@ -206,6 +211,35 @@ def plan_capacity_incremental(
                   "preemption path)")
         print(notice, file=sys.stderr)
         say(notice)
+
+    # -- global-solver consult (solve/): one relaxation over every
+    # candidate count, on the SAME tensorization the probes use. Accepted
+    # => the plan ships here (no base placement, no probes); rejected =>
+    # its certified LP bound floors the resource lower bound below
+    lb_solve = 0
+    if solver:
+        from ..solve import attempt_solve
+
+        t_s = time.perf_counter()
+        att = attempt_solve(tz, tensors, batch, all_nodes, n_base, max_new, sched_config, say,
+                            device=device, _audit_inject=_audit_inject)
+        timings["solve"] = time.perf_counter() - t_s
+        solve_doc.update(att.doc)
+        if att.accepted:
+            probes[att.k] = 0
+            result = None
+            if materialize:
+                t1 = time.perf_counter()
+                result = _materialize(tz, all_nodes, n_base + att.k, batch, att.nodes_arr, att.reasons,
+                                      clone_of, att.k, att.ext_log, att.gpu_arr)
+                timings["materialize"] = time.perf_counter() - t1
+            out = PlanResult(True, att.k, result, "Success!", probes)
+            out.audit = att.audit_doc
+            return finalize(out)
+        if att.certified:
+            lb_solve = att.lower_bound
+            if lb_solve > 0:
+                say(f"solver: certified lower bound {lb_solve} — flooring the probe search")
 
     def make_engine(node_valid: np.ndarray):
         eng = MaskedRoundsEngine(tz, device, node_valid)
@@ -434,6 +468,10 @@ def plan_capacity_incremental(
             lb = max_new
         else:
             lb = max(1, int(math.ceil(need_max - 1e-9)))
+    # the solver's certified LP bound floors the resource bound — LP
+    # feasibility is necessary for ANY placement, so probes below it are
+    # wasted
+    lb = max(lb, lb_solve)
     # doubling from the bound, then bisection on the open interval; when the
     # first probe (the bound) is feasible, try bound-1 next
     hi = None

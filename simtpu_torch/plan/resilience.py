@@ -32,9 +32,10 @@ Preemption does not run inside the sweep (the capacity-planning
 contract); `faults.drain_simulator` is the eviction-semantics path.
 
 With `explain` a failed search carries the decision-observability block
-(explain/) of its last failing candidate. Not ported: `checkpoint` and
-`control` (ROADMAP queue 1 #8), `solver` (#7), `mesh` and `pipeline` (#10)
-raise NotImplementedError; the JAX package's shared bulk-shape registry has no
+(explain/) of its last failing candidate; `solver` floors the search with
+the solve backend's certified no-failure lower bound. Not ported:
+`checkpoint` and `control` (ROADMAP queue 1 #8), `mesh` and `pipeline`
+(#10) raise NotImplementedError; the JAX package's shared bulk-shape registry has no
 counterpart here (the port compiles no shapes).
 """
 
@@ -79,6 +80,10 @@ class ResiliencePlan:
     #: placement strands) or the worst scenario's binding-constraint
     #: bottleneck — *what to buy*, not just *how many*. {} = not requested
     explain: Dict[str, object] = field(default_factory=dict)
+    #: the global-solver backend's relax-only lower-bound record
+    #: (solve/ `solve_lower_bound`): the no-failure LP bound the doubling
+    #: started from. {} = solver not consulted
+    solve: Dict[str, object] = field(default_factory=dict)
 
     def counters(self) -> Dict[str, object]:
         """Machine-readable summary (CLI --json, bench)."""
@@ -94,6 +99,8 @@ class ResiliencePlan:
             out["audit"] = dict(self.audit)
         if self.explain:
             out["explain"] = dict(self.explain)
+        if self.solve:
+            out["solve"] = dict(self.solve)
         if self.sweep is not None:
             out.update(self.sweep.counters())
         return out
@@ -190,9 +197,14 @@ def plan_resilience(
     `explain` attaches, to a failed search, the last failing candidate's
     failure breakdown (K20) + bottleneck when its base placement stranded
     pods, or the worst scenario's bottleneck over its stranded set when a
-    sweep failed."""
+    sweep failed.
+
+    `solver` (None = off) consults the solve backend's relax-only lower
+    bound (solve/ `solve_lower_bound`, K22/K23): the no-failure fit is
+    necessary for survivability — failures only remove capacity — so a
+    certified LP infeasibility proof at count j rules out every candidate
+    <= j, and the doubling starts at the bound instead of 1."""
     for name, on, item in (("checkpoint", checkpoint is not None, 8), ("control", control is not None, 8),
-                           ("solver", bool(solver), 7),
                            ("mesh", mesh is not None, 10), ("pipeline", pipeline is not None, 10)):
         if on:
             raise NotImplementedError(f"plan_resilience({name}=...) is not ported (ROADMAP queue 1 #{item})")
@@ -222,6 +234,21 @@ def plan_resilience(
     pin = np.asarray(batch.pin)
     clone_of = pin - n_base  # >= 0 for clone-pinned (DaemonSet) pods
     timings["tensorize"] = time.perf_counter() - t0
+
+    # relax-only solver consult: a certified no-failure LP bound floors
+    # the candidate search (survivability requires the base fit)
+    solve_doc: Dict[str, object] = {}
+    lb_solve = 0
+    if solver and new_node is not None and max_new > 0:
+        from ..solve import solve_lower_bound
+
+        t_s = time.perf_counter()
+        lb_solve, solve_doc = solve_lower_bound(tensors, batch, n_base, len(all_nodes), max_new,
+                                                device=device)
+        solve_doc["wall_s"] = round(time.perf_counter() - t_s, 4)
+        lb_solve = min(lb_solve, max_new)
+        if lb_solve > 0:
+            say(f"solver: certified no-failure lower bound {lb_solve} — starting the candidate search there")
 
     probes: Dict[int, Dict[str, int]] = {}
     sweeps: Dict[int, SweepResult] = {}
@@ -388,6 +415,7 @@ def plan_resilience(
                     probes=probes, sweep=sweeps.get(i), timings=timings,
                 )
                 out.audit = audit_doc
+                out.solve = solve_doc
                 return out
         timings["total_s"] = time.perf_counter() - t_start
         out = ResiliencePlan(
@@ -395,6 +423,7 @@ def plan_resilience(
             probes=probes, sweep=sweeps.get(i), timings=timings,
         )
         out.audit = audit_doc
+        out.solve = solve_doc
         return out
 
     def mk_explain() -> Dict[str, object]:
@@ -462,6 +491,7 @@ def plan_resilience(
             sweep=None, timings=timings,
         )
         out.explain = mk_explain()
+        out.solve = solve_doc
         return out
 
     fail_msg = (
@@ -470,7 +500,9 @@ def plan_resilience(
     )
     t0 = time.perf_counter()
     try:
-        if probe(0):
+        # a certified solver bound >= 1 proves candidate 0's base fit
+        # impossible — its probe is a wasted placement
+        if lb_solve < 1 and probe(0):
             timings["search"] = time.perf_counter() - t0
             return finish(0)
         if new_node is None:
@@ -483,7 +515,7 @@ def plan_resilience(
             )
 
         if search == "linear":
-            for i in range(1, max_new + 1):
+            for i in range(max(1, lb_solve), max_new + 1):
                 if probe(i):
                     timings["search"] = time.perf_counter() - t0
                     return finish(i)
@@ -494,7 +526,7 @@ def plan_resilience(
         # the plan_capacity scaffolding; see the module docstring's
         # sampling caveat)
         hi = None
-        cand = 1
+        cand = max(1, lb_solve)
         while cand <= max_new:
             if probe(cand):
                 hi = cand
@@ -508,7 +540,7 @@ def plan_resilience(
                 return fail(fail_msg)
         lo = max(
             [i for i in probes if i < hi and not _passed(probes[i], quantile)],
-            default=0,
+            default=max(0, lb_solve - 1),  # certified infeasible below
         )
         while hi - lo > 1:
             mid = (lo + hi) // 2

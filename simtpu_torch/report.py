@@ -178,6 +178,31 @@ def audit_report(doc: dict) -> str:
     return "\n".join(out)
 
 
+def solve_report(doc: dict) -> str:
+    """Render one global-solver consult record (`PlanResult.solve` /
+    `ResiliencePlan.solve`) as a one-to-two line section under the
+    placement report: accepted answers name the certified count,
+    everything else names why the exact search took over (and what warm
+    start, if any, it inherited)."""
+    if not doc or not doc.get("enabled"):
+        return "Solver: not consulted (--no-solver)"
+    status = doc.get("status", "?")
+    wall = doc.get("wall_s", 0.0)
+    if status == "accepted":
+        return (f"Solver: accepted — {doc.get('k', '?')} node(s), minimality certified at k-1, "
+                f"residual {doc.get('residual', 0.0):.2e}, {wall:.3f}s")
+    if status == "accepted_fallback":
+        return (f"Solver: audit rejected the rounded placement — serial exact engine re-placed at "
+                f"the certified count {doc.get('k', '?')} ({wall:.3f}s)")
+    if status == "certified":  # lower-bound-only mode (resilience)
+        return (f"Solver: certified lower bound {doc.get('lower_bound', 0)} "
+                f"(warm-started the survivability search, {wall:.3f}s)")
+    out = [f"Solver: {status} — exact search answered ({doc.get('reason', 'no reason recorded')}, {wall:.3f}s)"]
+    if doc.get("certified_lb") and doc.get("lower_bound"):
+        out.append(f"  certified lower bound {doc['lower_bound']} warm-started the exact search")
+    return "\n".join(out)
+
+
 def contain_local_storage(extended: Sequence[str]) -> bool:
     return "open-local" in extended
 

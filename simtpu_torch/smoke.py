@@ -684,6 +684,245 @@ def explain_differences(got: dict, want: dict, limit: int = 5) -> list:
     return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
 
 
+#: the solver paths of chip_smoke.py phase 14 and their golden record
+#: (`tests/test_torch_golden.py compute_solve_golden`): `apply --solver
+#: --json` on the capacity and the large capacity configs, and `resilience
+#: --plan --faults CAP_RESIL_SPEC --seed 0 --solver --json` on the capacity
+#: config (the relax-only lower bound), each with the relaxation's
+#: per-candidate residuals, the fractional assignments the planner fetched
+#: and the rounded counts
+SOLVE_GOLDEN = DATA / "torch_solve.json.gz"
+#: projected-gradient iterations of every relaxation on those paths
+SOLVE_ITERS = 400
+#: the relaxation's tolerances against the JAX package and between a
+#: kernel and its plain version: y (scaled units) and the residual, absolute
+SOLVE_Y_ATOL, SOLVE_RES_ATOL = 1e-4, 1e-5
+
+
+def pack_array(arr) -> dict:
+    """A numpy array as plain data: dtype, shape and its bytes, zlib'd and
+    base64'd (little-endian), with a sha256 of the bytes."""
+    import base64
+    import zlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(arr)
+    a = a.astype(a.dtype.newbyteorder("<"))
+    raw = a.tobytes()
+    return {"dtype": a.dtype.str, "shape": list(a.shape), "sha256": hashlib.sha256(raw).hexdigest(),
+            "data": base64.b64encode(zlib.compress(raw, 9)).decode()}
+
+
+def unpack_array(rec: dict):
+    """The numpy array `pack_array` recorded."""
+    import base64
+    import zlib
+
+    import numpy as np
+
+    raw = zlib.decompress(base64.b64decode(rec["data"]))
+    return np.frombuffer(raw, dtype=np.dtype(rec["dtype"])).reshape(rec["shape"])
+
+
+class record_solver:
+    """Context manager: while it is open, a package's `solve.planner`
+    module records each relaxation it runs (the problem's sizes, step and
+    per-candidate residuals), each fractional assignment it fetches (by
+    candidate) and each rounding (the counts `m`, or the reason it failed)
+    into the dict the manager yields."""
+
+    def __init__(self, planner):
+        self.planner = planner
+        self.orig = (planner.relax_candidates, planner.fetch_y, planner.round_candidate)
+        self.got = {"relax": [], "y": {}, "round": []}
+
+    def __enter__(self):
+        import numpy as np
+
+        relax0, fetch0, round0 = self.orig
+
+        def relax(prob, valid_s, *a, **kw):
+            v = relax0(prob, valid_s, *a, **kw)
+            self.got["relax"].append({
+                "s": int(len(v.residual)), "c": int(v.c), "n": int(v.n), "r": int(prob.cap.shape[1]),
+                "lr": float(np.float32(prob.lr)), "cnt": [int(x) for x in prob.cnt],
+                "residual": [float(x) for x in np.asarray(v.residual)]})
+            return v
+
+        def fetch(verd, s):
+            y = fetch0(verd, s)
+            self.got["y"][str(int(s))] = pack_array(np.asarray(y, np.float32))
+            return y
+
+        def rounding(prob, y, valid):
+            m, why = round0(prob, y, valid)
+            self.got["round"].append({"m": None if m is None else pack_array(np.asarray(m, np.int64)),
+                                      "why": why})
+            return m, why
+
+        self.planner.relax_candidates, self.planner.fetch_y, self.planner.round_candidate = (
+            relax, fetch, rounding)
+        return self.got
+
+    def __exit__(self, *exc):
+        self.planner.relax_candidates, self.planner.fetch_y, self.planner.round_candidate = self.orig
+        return False
+
+
+class capture_plans:
+    """Context manager: while it is open, a package's `plan.capacity`
+    `Applier.run` also records each PlanResult it returns into the list
+    the manager yields."""
+
+    def __init__(self, module):
+        self.cls = module.Applier
+        self.orig = module.Applier.run
+        self.got = []
+
+    def __enter__(self):
+        orig = self.orig
+
+        def recording(applier, *a, **kw):
+            out = orig(applier, *a, **kw)
+            self.got.append(out)
+            return out
+
+        self.cls.run = recording
+        return self.got
+
+    def __exit__(self, *exc):
+        self.cls.run = self.orig
+        return False
+
+
+def _without_wall(doc):
+    return {k: v for k, v in doc.items() if k != "wall_s"} if isinstance(doc, dict) else doc
+
+
+def solve_doc_record(doc: dict) -> dict:
+    """A solver run's `--json` document as the packages share it: for
+    `apply`, the verdict, probes and unscheduled count with the engine's
+    search, bulk, `solve` (without `wall_s`), `audit` (cut by
+    `audit_doc_record`) and `grow` records; for `resilience`, `doc_record`
+    with its `solve` record without `wall_s`."""
+    if "engine" not in doc:
+        out = doc_record(doc)
+        if "solve" in out:
+            out["solve"] = _without_wall(out["solve"])
+        return out
+    eng = doc["engine"]
+    out = {k: doc.get(k) for k in ("success", "nodes_added", "message", "partial", "probes", "unscheduled")}
+    out["engine"] = {"search": eng.get("search"), "bulk": eng.get("bulk"),
+                     "solve": _without_wall(eng.get("solve")),
+                     "audit": audit_doc_record(eng.get("audit") or {}), "grow": eng.get("grow")}
+    return out
+
+
+def plan_digest(plan) -> dict:
+    """A PlanResult's winning placement as counts and a sha256 of its
+    placement record (None when the plan carries no result)."""
+    if plan.result is None:
+        return {"placed": None, "failed": None, "digest": None}
+    rec = placement_record(plan.result)
+    return {"placed": len(rec["placed"]), "failed": len(rec["failed"]),
+            "digest": _digest(sorted((k, json.dumps(v, sort_keys=True)) for k, v in rec.items()))}
+
+
+#: the grow problem of chip_smoke.py phase 15 and its golden record
+#: (`tests/test_torch_golden.py compute_grow_golden`): the serial smoke
+#: problem's 200 Deployments cut at GROW_CUTS into four waves (122, 249,
+#: 377 and 501 terms: the second wave promotes the 128-term bucket to 256,
+#: the third crosses 256 into 512), placed wave by wave on one grow-mode
+#: engine, with GROW_CLONES clones of the capacity template joining the
+#: node axis before the last wave
+GROW_GOLDEN = DATA / "torch_grow.json.gz"
+GROW_CUTS = (50, 100, 150)
+GROW_CLONES = 2
+
+
+def grow_problem(synth, app_cls, resources_cls):
+    """(cluster, waves, template) of the grow problem from a package's own
+    synth module, AppResource and ResourceTypes: each wave one app named
+    like the serial smoke app, holding its slice of the Deployments."""
+    cluster, apps = smoke_problem(synth.synth_cluster, synth.synth_apps)
+    (app,) = apps
+    deps = app.resource.deployments
+    cuts = (0,) + GROW_CUTS + (len(deps),)
+    waves = [app_cls(name=app.name, resource=resources_cls(deployments=deps[a:b]))
+             for a, b in zip(cuts[:-1], cuts[1:])]
+    return cluster, waves, template_node(synth)
+
+
+def run_grow(pkg, make_engine, grow: bool = True) -> dict:
+    """Place the grow problem wave by wave with a package (`pkg`, the
+    simtpu or simtpu_torch module) on the engine `make_engine(tensorizer)`
+    returns (in grow mode when `grow`), growing the node axis by
+    GROW_CLONES template clones before the last wave. Returns
+    {"nodes": per-wave landing nodes, "state": the final dense carried
+    state's planes as numpy arrays, "engine": the engine}."""
+    import importlib
+
+    import numpy as np
+
+    mod = {name: importlib.import_module(f"{pkg.__name__}.{name}")
+           for name in ("synth", "api", "constants", "core.objects", "workloads.expand", "parallel.sweep",
+                        "plan.capacity", "engine.state")}
+    cluster, waves, template = grow_problem(mod["synth"], pkg.AppResource, pkg.ResourceTypes)
+
+    def expand(app, nodes):
+        pods = mod["workloads.expand"].get_valid_pods_exclude_daemonset(app.resource)
+        for ds in app.resource.daemon_sets:
+            pods.extend(mod["workloads.expand"].make_valid_pods_by_daemonset(ds, nodes))
+        for pod in pods:
+            mod["core.objects"].set_label(pod, mod["constants"].LABEL_APP_NAME, app.name)
+        return mod["api"]._sort_app_pods(pods)
+
+    tz, all_nodes, _nb, ordered = mod["parallel.sweep"].assemble_planning_problem(cluster, [waves[0]], template, 0)
+    eng = make_engine(tz)
+    if grow:
+        eng.enable_grow()
+    nodes = [np.asarray(eng.place(tz.add_pods(ordered))[0])]
+    for i, wave in enumerate(waves[1:], 1):
+        if i == len(waves) - 1:
+            clones = mod["plan.capacity"].new_fake_nodes(template, GROW_CLONES)
+            tz.add_clone_nodes(clones)
+            all_nodes = all_nodes + clones
+            if grow and not eng.grow_nodes():
+                raise AssertionError("grow_nodes() refused to extend the carry")
+        nodes.append(np.asarray(eng.place(tz.add_pods(expand(wave, all_nodes)))[0]))
+    state = mod["engine.state"].ensure_dense(eng.carried_state(), tz.freeze())
+    planes = {}
+    for name in state._fields:
+        x = getattr(state, name)
+        planes[name] = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    return {"nodes": nodes, "state": planes, "engine": eng}
+
+
+def grow_record(run: dict, counts: dict) -> dict:
+    """A grow run as plain data: per wave the pod count, placed count and a
+    sha256 of the landing nodes; per final plane its shape, dtype and a
+    sha256 of its bytes; and the grow counts the run added."""
+    def plane(x):
+        return {"shape": list(x.shape), "dtype": str(x.dtype),
+                "sha256": hashlib.sha256(x.tobytes()).hexdigest()}
+
+    return {"waves": [{"pods": int(len(n)), "placed": int((n >= 0).sum()), "digest": _array_digest(n)}
+                      for n in run["nodes"]],
+            "planes": {name: plane(x) for name, x in run["state"].items()},
+            "grow": {k: int(v) for k, v in sorted(counts.items())}}
+
+
+def grow_differences(got: dict, want: dict, limit: int = 5) -> list:
+    """Human-readable differences between two grow records (empty = equal)."""
+    out = [f"wave {i}: {a} != golden {b}" for i, (a, b) in enumerate(zip(got["waves"], want["waves"])) if a != b]
+    out += [f"plane {k}: {got['planes'].get(k)} != golden {v}" for k, v in want["planes"].items()
+            if got["planes"].get(k) != v]
+    if got["grow"] != want["grow"]:
+        out.append(f"grow counts {got['grow']} != golden {want['grow']}")
+    return out[:limit] + ([f"... {len(out) - limit} more"] if len(out) > limit else [])
+
+
 def save_record(record: dict, path: Path = GOLDEN) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     with gzip.open(path, "wt", encoding="utf-8", compresslevel=9) as f:

@@ -334,7 +334,7 @@ class TestPlanResilience:
 
         cluster, apps, template = _small_plan(simtpu_torch)
         for kw, item in (({"checkpoint": object()}, 8), ({"control": object()}, 8),
-                         ({"solver": True}, 7), ({"pipeline": object()}, 10), ({"mesh": object()}, 10)):
+                         ({"pipeline": object()}, 10), ({"mesh": object()}, 10)):
             with pytest.raises(NotImplementedError, match=f"#{item}"):
                 plan_resilience(cluster, apps, template, device="cpu", **kw)
 

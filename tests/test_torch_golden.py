@@ -546,6 +546,171 @@ def test_explain_golden_matches_a_fresh_jax_run(monkeypatch, tmp_path):
     assert compute_explain_golden(tmp_path) == smoke.load_record(smoke.EXPLAIN_GOLDEN)
 
 
+def _zero_extras_pgd(tensors, p: int) -> dict:
+    """The solver's zero extras with `gpu_shares` of the engine's [P, GD]
+    shape (the JAX package's own gives [P], which its audit broadcasts to
+    an [M, M] array: 14 GiB of zeros on the large capacity problem)."""
+    return {"lvm_alloc": np.zeros((p, tensors.ext.vg_cap.shape[1]), np.float32),
+            "dev_take": np.zeros((p, tensors.ext.sdev_cap.shape[1]), bool),
+            "gpu_shares": np.zeros((p, tensors.ext.gpu_dev_total.shape[1]), np.float32)}
+
+
+def _solver_cli(main, cfg, argv) -> dict:
+    """One solver CLI run with pod names seeded: exit code, the document's
+    solver record, the relaxation's record and the shipped plan's digest."""
+    import simtpu.plan.capacity as jcap
+    import simtpu.solve.planner as jplanner
+    from simtpu.workloads.expand import seed_name_hashes
+
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        with smoke.record_solver(jplanner) as relax, smoke.capture_plans(jcap) as plans:
+            rc, doc = smoke.run_cli_json(main, [argv[0], "-f", cfg, *argv[1:]])
+    finally:
+        seed_name_hashes(None)
+    out = {"rc": rc, "doc": smoke.solve_doc_record(doc), "solver": relax}
+    if plans:
+        out["plan"] = smoke.plan_digest(plans[-1])
+    return out
+
+
+def compute_solve_golden(root, only=()) -> dict:
+    """The JAX package's solver paths (`smoke.SOLVE_GOLDEN`): (a) `simtpu
+    apply --solver --json` on the capacity problem written as a simon Config
+    under `root`, (b) the same on the large capacity problem, with the
+    solver's zero extras of the [P, GD] shape (`_zero_extras_pgd`, replaced
+    at run time; the verdict is the same, the memory linear), (c) `simtpu
+    resilience --plan --faults CAP_RESIL_SPEC --seed 0 --solver --json` on
+    the capacity config, whose relaxation is (a)'s when the problem and the
+    candidates are equal. `only` picks "capacity" ((a) and (c)) or "large"."""
+    import hashlib
+
+    import simtpu
+    import simtpu.solve.planner as jplanner
+    from simtpu import synth
+    from simtpu.cli import main
+
+    assert jplanner.solver_iters() == smoke.SOLVE_ITERS
+    out = {}
+    if not only or "capacity" in only:
+        cluster, apps, template = smoke.capacity_problem(synth, simtpu.AppResource, simtpu.ResourceTypes)
+        cfg = smoke.write_capacity_config(f"{root}/capacity", cluster, apps, template)
+        cache, relax0 = {}, jplanner.relax_candidates
+
+        def cached(prob, valid_s, *a, **kw):
+            h = hashlib.sha256()
+            for arr in (prob.feas, prob.req, prob.cnt, prob.fixed, prob.cap, valid_s):
+                h.update(np.ascontiguousarray(arr).tobytes())
+            key = h.hexdigest()
+            if key not in cache:
+                cache[key] = relax0(prob, valid_s, *a, **kw)
+            return cache[key]
+
+        jplanner.relax_candidates = cached
+        try:
+            out["capacity"] = _solver_cli(main, cfg, ["apply", "--solver", "--json"])
+            out["resilience"] = _solver_cli(main, cfg, ["resilience", "--plan", "--faults", smoke.CAP_RESIL_SPEC,
+                                                        "--seed", "0", "--solver", "--json"])
+        finally:
+            jplanner.relax_candidates = relax0
+        out["resilience"]["relax_reused"] = len(cache) == 1
+    if not only or "large" in only:
+        cluster, apps, template = smoke.large_capacity_problem(synth, simtpu.AppResource, simtpu.ResourceTypes)
+        cfg = smoke.write_capacity_config(f"{root}/large", cluster, apps, template)
+        zero0 = jplanner._zero_extras
+        jplanner._zero_extras = _zero_extras_pgd
+        try:
+            out["large_capacity"] = _solver_cli(main, cfg, ["apply", "--solver", "--json"])
+        finally:
+            jplanner._zero_extras = zero0
+        out["large_capacity"]["zero_extras"] = "[P, GD], replaced at run time"
+    out["iters"] = smoke.SOLVE_ITERS
+    return out
+
+
+#: the grow counters a grow record keeps
+GROW_KEYS = ("grow.extends", "grow.bucket_promotions", "grow.node_extends", "grow.rebuilds")
+
+
+def compute_grow_golden() -> dict:
+    """The JAX package's grow run of the grow problem (`smoke.run_grow` on
+    its serial `Engine` in grow mode) as a grow record (`smoke.GROW_GOLDEN`),
+    its grow counts the registry's delta over the run."""
+    import simtpu
+    from simtpu.engine.scan import Engine
+    from simtpu.obs.metrics import REGISTRY
+
+    before = REGISTRY.snapshot()
+    run = smoke.run_grow(simtpu, Engine)
+    delta = REGISTRY.delta_since(before)
+    return smoke.grow_record(run, {k: delta.get(k, 0) for k in GROW_KEYS})
+
+
+def test_committed_grow_golden_is_whole():
+    """The grow record chip_smoke.py phase 15 holds the port against: four
+    waves of the serial smoke problem's pods, every final plane, and the
+    growth through the buckets (extends, a promotion, one node growth, no
+    rebuild)."""
+    g = smoke.load_record(smoke.GROW_GOLDEN)
+    assert [w["pods"] for w in g["waves"]] and sum(w["pods"] for w in g["waves"]) == smoke.N_PODS
+    assert set(g["planes"]) == {"free", "cnt_match", "cnt_total", "cnt_own_anti", "cnt_own_aff",
+                                "w_own_aff_pref", "w_own_anti_pref", "vg_free", "sdev_free", "gpu_free",
+                                "ports_used", "vols_any", "vols_rw"}
+    assert g["planes"]["free"]["shape"][0] == smoke.N_NODES + smoke.GROW_CLONES
+    gr = g["grow"]
+    assert gr["grow.extends"] == 3 and gr["grow.bucket_promotions"] >= 1
+    assert gr["grow.node_extends"] == 1 and gr["grow.rebuilds"] == 0
+
+
+def test_committed_solve_golden_is_whole():
+    """The solver records chip_smoke.py phase 14 holds the port against:
+    the capacity plan (the consult rejected at k=0 after the fallback, the
+    exact search's 43 nodes), the large capacity plan (accepted), the
+    resilience plan's lower bound, each with its relaxation over 100
+    candidates at SOLVE_ITERS iterations."""
+    g = smoke.load_record(smoke.SOLVE_GOLDEN)
+    assert g["iters"] == smoke.SOLVE_ITERS
+    for key in ("capacity", "large_capacity", "resilience"):
+        rec = g[key]
+        (rel,) = rec["solver"]["relax"]
+        assert rel["s"] == len(rel["residual"]) == 100
+    cap = g["capacity"]["doc"]
+    assert cap["nodes_added"] == 43 and cap["engine"]["solve"]["status"] == "rejected"
+    assert cap["engine"]["solve"]["fallback"] is True and "wall_s" not in cap["engine"]["solve"]
+    lcap = g["large_capacity"]
+    assert lcap["doc"]["engine"]["solve"]["status"] == "accepted" and lcap["plan"]["placed"] > 0
+    assert g["resilience"]["relax_reused"] and g["resilience"]["doc"]["solve"]["mode"] == "lower_bound"
+    for key in ("capacity", "large_capacity"):
+        (rnd,) = g[key]["solver"]["round"]
+        m = smoke.unpack_array(rnd["m"])
+        assert m.sum() > 0 and rnd["m"]["sha256"]
+
+
+@pytest.mark.slow
+def test_grow_golden_matches_a_fresh_jax_run():
+    assert compute_grow_golden() == smoke.load_record(smoke.GROW_GOLDEN)
+
+
+if __name__ == "__main__" and "--write" in sys.argv and "--grow-only" in sys.argv:
+    import time
+
+    t0 = time.perf_counter()
+    smoke.save_record(compute_grow_golden(), smoke.GROW_GOLDEN)
+    print(f"wrote {smoke.GROW_GOLDEN} in {time.perf_counter() - t0:.1f} s", flush=True)
+    sys.exit(0)
+if __name__ == "__main__" and "--write" in sys.argv and "--solve-only" in sys.argv:
+    import tempfile
+    import time
+
+    t0 = time.perf_counter()
+    only = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--only=")]
+    with tempfile.TemporaryDirectory() as root:
+        part = compute_solve_golden(root, only)
+    record = smoke.load_record(smoke.SOLVE_GOLDEN) if only and smoke.SOLVE_GOLDEN.exists() else {}
+    record.update(part)
+    smoke.save_record(record, smoke.SOLVE_GOLDEN)
+    print(f"wrote {sorted(part)} into {smoke.SOLVE_GOLDEN} in {time.perf_counter() - t0:.1f} s", flush=True)
+    sys.exit(0)
 if __name__ == "__main__" and "--write" in sys.argv and "--explain-only" in sys.argv:
     import tempfile
     import time

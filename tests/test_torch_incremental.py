@@ -214,7 +214,7 @@ def test_injected_divergence_ships_the_serial_exact_fallback():
 def test_unported_options_raise():
     cluster, apps = _small(simtpu_torch, 1)
     tmpl = make_fake_node("t", "4", "8Gi")
-    for kw, item in ((dict(solver=True), "#7"), (dict(checkpoint=object()), "#8"),
+    for kw, item in ((dict(checkpoint=object()), "#8"),
                      (dict(mesh=object()), "#10"), (dict(precompile=True), "#10")):
         with pytest.raises(NotImplementedError, match=item):
             tinc.plan_capacity_incremental(cluster, apps, tmpl, device="cpu", **kw)

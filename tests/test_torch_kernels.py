@@ -393,7 +393,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
              "delta_apply": 0, "audit_bulk": 0, "wave_lean": 0, "wave_hard": 0,
              "compact_compress": 0, "compact_expand": 0, "compact_delta": 0,
              "round_score": 0, "round_pick": 0, "round_commit": 0, "carry_copy": 0,
-             "sweep_drain": 0, "sweep_place": 0, "explain_pass": 0, "pod_terms": 0}
+             "sweep_drain": 0, "sweep_place": 0, "explain_pass": 0, "pod_terms": 0,
+             "relax_load": 0, "relax_project": 0, "grow_terms": 0, "grow_nodes": 0}
     for name in cuda.KERNELS:
         want = calls.get(name, buf.n_pods)
         assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == want

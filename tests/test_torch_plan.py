@@ -392,8 +392,8 @@ def test_cli_rejects_unported_flags_and_refuses_without_a_card(monkeypatch, caps
     from simtpu_torch.cli import main
 
     monkeypatch.chdir(REPO)
-    # --explain is ported (it attaches the explain block); --trace is not
-    for flag in ("--shard", "--solver", "--trace", "--checkpoint"):
+    # --explain and --solver are ported; --trace is not
+    for flag in ("--shard", "--profile", "--trace", "--checkpoint"):
         with pytest.raises(SystemExit):
             main(["apply", "-f", "examples/simtpu-config.yaml", flag])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -261,7 +261,8 @@ def test_default_device_is_cuda_and_refuses_without_a_card(monkeypatch):
         simtpu_torch.simulate(cluster, apps)
 
 
-@pytest.mark.parametrize("module", ["simtpu_torch", "chip_smoke", "simtpu_torch.cli", "simtpu_torch.explain"])
+@pytest.mark.parametrize("module", ["simtpu_torch", "chip_smoke", "simtpu_torch.cli", "simtpu_torch.explain",
+                                    "simtpu_torch.solve"])
 def test_port_imports_neither_jax_nor_simtpu(module):
     # the import reaches every module of the port's main paths — simulate()
     # and the apply front door, the kernels' wrappers included — so the
@@ -272,11 +273,12 @@ def test_port_imports_neither_jax_nor_simtpu(module):
               "simtpu_torch.cli", "simtpu_torch.plan.capacity", "simtpu_torch.audit.checker",
               "simtpu_torch.audit.fuzz", "simtpu_torch.kernels.audit", "simtpu_torch.chart",
               "simtpu_torch.report", "simtpu_torch.config", "simtpu_torch.explain.breakdown",
-              "simtpu_torch.explain.scores", "simtpu_torch.explain.bottleneck")
+              "simtpu_torch.explain.scores", "simtpu_torch.explain.bottleneck",
+              "simtpu_torch.solve.relax", "simtpu_torch.solve.rounding", "simtpu_torch.solve.planner")
     code = (
         f"import sys; import {module}; import simtpu_torch.smoke, simtpu_torch.cli, "
         "simtpu_torch.plan.capacity, simtpu_torch.audit.checker, simtpu_torch.audit.fuzz, "
-        "simtpu_torch.chart, simtpu_torch.explain; "
+        "simtpu_torch.chart, simtpu_torch.explain, simtpu_torch.solve; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'simtpu' or m.startswith('simtpu.')]; "
         f"bad += [m for m in {ported!r} if m not in sys.modules]; "
