@@ -26,7 +26,10 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    the inter-pod preference carry, a hard-spread run, a required
    anti-affinity run, a storage run, a GPU run — on the rack problem's
    runs (a key of 400 small domains) and on the keys problem's runs (22
-   topology keys: lean, preference and hard-spread runs), the pods
+   topology keys: lean, preference and hard-spread runs) and, above 1024
+   nodes, on the serial smoke workload at 2000, 3000 and 6000 nodes (two
+   and three nodes per thread in registers, then the carried rows in
+   global memory: lean, preference and hard-spread runs), the pods
    between the runs through K1-K6: nodes, reasons, plans and every
    state plane equal to the plain versions'. K11 and K12 (the compact
    carried state's compression and expansion) on the states those wave
@@ -38,7 +41,14 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    after each, the round trip back to the carry bit for bit. Then each
    kernel's time per launch, its plain version's and the bytes bound, and
    the device time per kernel (torch.profiler), K9/K10 per launch and per
-   pod step;
+   pod step; then K9/K10's step phase by phase on the 50-pod lean,
+   preference, hard-spread, required anti-affinity and storage runs: the
+   main build's time per launch and per pod step (CUDA events), the
+   profile build's (`cuda.build_wave_profile`: the same sources with
+   clock64() stamps around each phase, never the main path's build)
+   cycles per phase per step, the barriers per step and their floor (the
+   measured cost of one block barrier at the block's size), ptxas'
+   registers and spills per template instance;
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
    serial smoke problem, the speculative wavefront and the compact carry
    on (the defaults). K9 and K10 must have launched once per wave of the
@@ -170,7 +180,15 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    `tests/data/torch_grow.json.gz` and to a non-grow engine's run on the
    card, the grow counts equal the JAX package's, K24 once on entry and
    once per term extension, K25 once per node growth, no K11/K12 and no
-   plain version.
+   plain version;
+16. the wide problem (`smoke.wide_problem`: a node with 40 GPU devices,
+   one with 36 VGs and 36 SSDs, pods that reach past index 32 on each
+   axis) on the card against the CPU path, each with every count set to 0
+   just before: simulate with the wavefront on (K9/K10) and off (K1-K6),
+   simulate(bulk=True) (K14-K16), place_cluster + a k=1 sweep (K18/K19),
+   simulate(explain=True) (K20) and `cli explain --scores 4` (K21): every
+   record equal to the CPU path's, each of those kernels launched, no
+   plain version on the card.
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread, quota-anti) and of the matrix
 cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
@@ -183,7 +201,10 @@ nodes and reasons; then their times on the single-node chunk. And K22/K23
 against their plain versions on the relaxations of the capacity and the
 large capacity problems (100 candidates, 400 iterations; the first 5
 iterations step by step, then y and the residual to the stated tolerances
-and the feasible sets equal), K24/K25 against theirs on every growth of
+and the feasible sets equal), K23's wide-row path (rows past shared
+memory at N = 20 000: a persistent grid of global scratch slabs) against
+its plain version exactly at the start point and 5 steps, K24/K25
+against theirs on every growth of
 the grow problem's carry (entry, extension, promotions, node growth), bit
 for bit; then their times.
 Last, K8's time at the capacity winner's log (device time from the
@@ -196,6 +217,7 @@ no CUDA device is available.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import io
@@ -496,6 +518,21 @@ def keys_batch(device):
                                                 simtpu_torch.ResourceTypes), device, 3000)
 
 
+#: node counts above 1024 at which phase 2 holds K9/K10 to their plain
+#: versions: two and three nodes per thread (the 2- and 4-node register
+#: templates) and past what registers hold (the rows in global memory;
+#: csrc/wave.cuh), each on the serial smoke problem's workload
+WAVE_BIG_NODES = (2000, 3000, 6000)
+WAVE_BIG_PODS = 600
+
+
+def big_batch(device, n_nodes: int):
+    """The serial smoke problem's workload (WAVE_BIG_PODS pods) on
+    `n_nodes` nodes, 3000 logged placements."""
+    return tensorized_batch(*smoke.smoke_problem(synth_cluster, synth_apps, n_nodes=n_nodes,
+                                                 n_pods=WAVE_BIG_PODS), device, 3000)
+
+
 def wave_kind(tensors, g: int, hard: bool, pref: bool, heavy: int) -> str:
     """The phase-2 class of a planned wave."""
     if heavy & wavefront.WAVE_HEAVY_STORAGE:
@@ -600,6 +637,121 @@ def wave_bytes(buf, a: int, b: int) -> int:
     chosen = buf.out_node[a:b]
     rows_b = int(torch.unique(chosen[chosen >= 0]).numel()) * r * f4
     return int(node_b + count_b + ext_b + pod_b + rows_b)
+
+
+#: the breakdown phase's runs: phase 2's 50-pod runs at N = 1000, (batch, kind)
+BREAKDOWN_RUNS = (("serial", "lean"), ("serial", "lean-pref"), ("serial", "hard-spread"),
+                  ("serial", "anti-req"), ("extended", "storage"))
+#: the profile build's phases (csrc/wave_lean.cu, wave_hard.cu), by slot
+WAVE_PHASES = {
+    "wave_lean": ("score", "fold A: argmax + cascade OR", "commit", "fold B: extremes + flip", "refresh",
+                  "setup", "end"),
+    "wave_hard": ("stage, plans, term rows, normalizers", "fold B: normalizers + cascade OR", "score",
+                  "fold C: argmax", "commit", "fold A: spread minima", "setup", "end"),
+}
+#: K9's profile slot counting refreshes; the slot counting steps
+WAVE_PROF_REFRESHES, WAVE_PROF_STEPS = 7, 9
+
+
+def ptxas_entries(name: str) -> dict:
+    """{entry function: registers, spill bytes, stack} of kernel `name`'s
+    library as ptxas reported them when this process built it (each
+    template instantiation of K9/K10 is an entry)."""
+    out, cur = {}, None
+    for line in cuda.BUILD_INFO.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"), ("stack", r"(\d+) bytes stack frame")):
+            m = re.search(pat, line)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return {k: v for k, v in out.items() if "kernel" in k}
+
+
+def wave_barriers(name: str, buf, a: int, prof) -> float:
+    """Block barriers per step of a wave launch, counted from the code: K9
+    two (folds A and B) plus one per refresh; K10 two (folds B and C) plus
+    one where the flags keep hard spread and the run's group has a
+    DoNotSchedule column (fold A)."""
+    steps = max(prof[WAVE_PROF_STEPS], 1)
+    if name == "wave_lean":
+        return 2.0 + prof[WAVE_PROF_REFRESHES] / steps
+    g = int(buf.group[a])
+    spread = buf.flags.spread_hard and bool((buf.statics.spread_hard[g] > 0).any())
+    return 3.0 if spread else 2.0
+
+
+def events_per_launch(buf, run, launch, iters: int) -> float:
+    """Device ms per launch of `launch(buf, a, b, mode)` from the run's start
+    state: CUDA events around each launch alone, the median of `iters`."""
+    kind, a, b, mode, start = run
+    times = []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(iters + 1):
+        copy_state(buf.state, start)
+        e0.record()
+        launch(buf, a, b, mode)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times[1:]))
+
+
+def phase_wave_breakdown(runs_by_batch: dict) -> list:
+    """K9/K10's step, phase by phase, on BREAKDOWN_RUNS: the main build's
+    device time per launch and per pod step (CUDA events), the profile
+    build's cycles per phase per step (thread 0's clock64() stamps; the
+    cycles scaled to µs by the profile build's own time per launch), the
+    barriers per step and the floor they set (barriers x the measured cost
+    of one barrier at the block's size), beside the bytes bound. The
+    profile build's launches are measurements, not counted."""
+    cuda.build_wave_profile()
+    out = []
+    for batch_label, kind in BREAKDOWN_RUNS:
+        buf, runs = runs_by_batch[batch_label]
+        run = next(r for r in runs if r[0] == kind)
+        _, a, b, mode, start = run
+        name, kernel, _ = wave_pair(mode[0] or mode[2])
+        main_ms = events_per_launch(buf, run, kernel, 20)
+        prof_ms = events_per_launch(buf, run, lambda *r: cuda.launch_wave_profile(name, *r), 20)
+        copy_state(buf.state, start)
+        buf.wave_prof.zero_()
+        cuda.launch_wave_profile(name, buf, a, b, mode)
+        torch.cuda.synchronize()
+        prof = buf.wave_prof.tolist()
+        steps = max(prof[WAVE_PROF_STEPS], 1)
+        phases = WAVE_PHASES[name]
+        total = sum(prof[: len(phases)])
+        us_per_cycle = prof_ms * 1e3 / max(total, 1)
+        threads = min(1024, max(32, -(-int(buf.statics.alloc.shape[0]) // 32) * 32))
+        bar_cyc = cuda.barrier_cycles(threads)
+        bars = wave_barriers(name, buf, a, prof)
+        per_step = {ph: prof[q] / steps * us_per_cycle for q, ph in enumerate(phases) if ph not in ("setup", "end")}
+        row = {"name": name, "kind": kind, "pods": b - a, "steps": prof[WAVE_PROF_STEPS],
+               "ms_per_launch": main_ms, "us_per_pod_step": main_ms * 1e3 / (b - a),
+               "profile_build_ms_per_launch": prof_ms,
+               "phase_us_per_step": per_step,
+               "setup_us": prof[phases.index("setup")] * us_per_cycle,
+               "end_us": prof[phases.index("end")] * us_per_cycle,
+               "refreshes": prof[WAVE_PROF_REFRESHES] if name == "wave_lean" else 0,
+               "threads": threads, "barriers_per_step": bars, "barrier_cycles": bar_cyc,
+               "barrier_us": bar_cyc * us_per_cycle,
+               "barrier_floor_us_per_step": bars * bar_cyc * us_per_cycle,
+               "bytes_bound_us": wave_bytes(buf, a, b) / HBM_BYTES_PER_S * 1e6}
+        out.append(row)
+        log(f"  breakdown {name} ({kind} run of {b - a} pods, {threads} threads): {main_ms * 1e3:.2f} us per "
+            f"launch, {row['us_per_pod_step']:.3f} us per pod step (CUDA events; profile build "
+            f"{prof_ms * 1e3:.2f} us); per step " + ", ".join(f"{k} {v:.3f} us" for k, v in per_step.items())
+            + f"; setup {row['setup_us']:.2f} us, end {row['end_us']:.2f} us; {bars:.2f} barriers per step x "
+            f"{bar_cyc:.1f} cycles = floor {row['barrier_floor_us_per_step']:.3f} us per step; bytes bound "
+            f"{row['bytes_bound_us']:.3f} us per launch")
+    return out
 
 
 def time_wave(kbuf, run, iters: int):
@@ -955,11 +1107,32 @@ def profile_kernels(fn):
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = ev.cuda_time_total
+        # a template instance demangles as "void (anonymous namespace)::
+        # wave_lean_kernel<1>(...)", a plain kernel as "filter_pod_kernel(...)"
+        key = ev.key.removeprefix("void ").replace("(anonymous namespace)::", "")
         for name in KERNELS:
-            if ev.key.startswith(f"{name}_kernel"):
+            if key.startswith(f"{name}_kernel"):
                 per[name] = (dev_us / max(ev.count, 1), ev.count)
                 busy_us += dev_us
     return per, busy_us / 1e6 / wall, wall
+
+
+def device_ms_per_call(fn, iters: int) -> float:
+    """Device ms per call of `fn` (a PyTorch library call): the profiler's
+    duration of every CUDA kernel it launched, summed over `iters` calls
+    after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # a profiler window without device events: CUDA events around the calls
+    return us / iters / 1e3 if us else time_call(fn, iters)
 
 
 def new_steps() -> dict:
@@ -1628,13 +1801,20 @@ def phase_carry_copy(tensors, state, device, err) -> dict:
             raise AssertionError(f"phase 2: writing K17's copy moved the {label} snapshot")
         nbytes = 2 * sum(t.numel() * t.element_size() for t in carry)
         per, _, _ = profile_kernels(lambda: [tinc._copy_state(carry) for _ in range(20)])
+        # the one PyTorch call that computes the same copy (into planes
+        # allocated beforehand), timed here and used nowhere in the port
+        dst = [torch.empty_like(t) for t in carry]
         out[label] = {"ms": per["carry_copy"][0] / 1e3,
                       "host_ms": time_call(lambda: tinc._copy_state(carry), 200),
                       "plain_ms": time_call(lambda: tinc.copy_carry_plain(carry), 20),
+                      "library_ms": device_ms_per_call(lambda: torch._foreach_copy_(dst, list(carry)), 20),
+                      "library_host_ms": time_call(lambda: torch._foreach_copy_(dst, list(carry)), 200),
                       "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
         log(f"  carry_copy ({label} carry, {len(carry)} planes): {out[label]['ms'] * 1e3:.2f} us device "
             f"(profiler), {out[label]['host_ms'] * 1e3:.2f} us per back-to-back call from Python, plain "
-            f"{out[label]['plain_ms'] * 1e3:.1f} us, {nbytes} B, bound {out[label]['bound_ms'] * 1e3:.3f} us")
+            f"{out[label]['plain_ms'] * 1e3:.1f} us, torch._foreach_copy_ {out[label]['library_ms'] * 1e3:.2f} us "
+            f"device (profiler, every kernel it launched) and {out[label]['library_host_ms'] * 1e3:.2f} us per "
+            f"back-to-back call, {nbytes} B, bound {out[label]['bound_ms'] * 1e3:.3f} us")
     return out
 
 
@@ -1750,8 +1930,11 @@ def run_bulk(card: str):
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = ev.cuda_time_total
+        # a template instance demangles as "void (anonymous namespace)::
+        # wave_lean_kernel<1>(...)", a plain kernel as "filter_pod_kernel(...)"
+        key = ev.key.removeprefix("void ").replace("(anonymous namespace)::", "")
         for name in KERNELS:
-            if ev.key.startswith(f"{name}_kernel"):
+            if key.startswith(f"{name}_kernel"):
                 dev[name] = dev_us / 1e6
     round_s = sum(dev.get(k, 0.0) for k in ROUND_KERNELS)
     busy_s = sum(dev.values())
@@ -2724,6 +2907,156 @@ def phase_relax_kernels(device, err) -> dict:
     return {"problems": out, "times": times, "run_ms": run_ms}
 
 
+#: K23's wide-row check: a relaxation of (S, C, N, R) = RELAX_WIDE nodes
+#: past the shared-memory row (cuda.RELAX_SHARED_ROW), from a seed
+RELAX_WIDE = (4, 3, 20000, 3)
+
+
+def relax_wide_problem(device, seed: int = 5):
+    """Two equal RelaxBuffers (plain side, kernel side) of a seeded
+    relaxation of RELAX_WIDE's shape: classes feasible on ~80% of the
+    nodes, candidates valid on ~90%, capacities in [0.5, 1), a pinned load
+    up to 20% of them and per-pod requests that fill about 60% in all."""
+    s, c, n, r = RELAX_WIDE
+    rng = np.random.default_rng(seed)
+    feas = rng.random((c, n)) < 0.8
+    valid = rng.random((s, n)) < 0.9
+    cap = rng.uniform(0.5, 1.0, (n, r)).astype(np.float32)
+    fixed = (cap * rng.uniform(0.0, 0.2, (n, r))).astype(np.float32)
+    cnt = rng.integers(n // 4, n, c).astype(np.float32)
+    req = (0.6 * cap.sum(axis=0) / cnt.sum() * rng.uniform(0.5, 1.5, (c, r))).astype(np.float32)
+    args = (feas, req, cnt, fixed, cap, valid, np.float32(0.05), device)
+    return trelax.relax_buffers(*args), trelax.relax_buffers(*args)
+
+
+#: the wide phase's paths: (label, the kernels each must launch on the card)
+WIDE_PATHS = (
+    ("simulate, wavefront on", ("wave_lean", "wave_hard")),
+    ("simulate, wavefront off", STEP + ("storage_pod", "gpu_pod")),
+    ("simulate(bulk=True)", ROUND_KERNELS),
+    ("place_cluster + k=1 sweep", SWEEP_KERNELS),
+    ("simulate(explain=True)", ("explain_pass",)),
+    ("cli explain --scores", ("pod_terms",)),
+)
+
+
+def run_wide(card: str) -> dict:
+    """Phase 16: the wide problem (smoke.wide_problem: one node with 40 GPU
+    devices, one with 36 VGs and 36 SSDs, pods that reach past index 32 on
+    each axis) through every StepCtx kernel family on the card, each path
+    against the same call on the CPU path (`device="cpu"`, the plain
+    versions), every count set to 0 just before and read just after: the
+    records equal, each kernel of WIDE_PATHS launched, no plain version on
+    the card."""
+    build = lambda: smoke.wide_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+
+    def sim(dev, speculate=True, **kw):
+        cluster, apps = build()
+        CountingEngine.speculate_default = speculate
+        tapi.Engine = tcap.Engine = CountingEngine
+        try:
+            return smoke.placement_record(simtpu_torch.simulate(cluster, apps, device=dev, **kw))
+        finally:
+            tapi.Engine = tcap.Engine = scan.Engine
+            CountingEngine.speculate_default = True
+
+    def sweep(dev):
+        cluster, apps = build()
+        pc = tfaults.place_cluster(cluster, apps, device=dev)
+        return smoke.sweep_record(tfaults.sweep_scenarios(pc, tfaults.generate_scenarios(cluster.nodes, "k=1")))
+
+    def explained(dev):
+        cluster, apps = build()
+        return simtpu_torch.simulate(cluster, apps, device=dev, explain=True).explain
+
+    def scores(dev):
+        cluster, apps = build()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = smoke.write_capacity_config(tmp, cluster, apps, smoke.template_node(synth))
+            with contextlib.redirect_stderr(io.StringIO()):
+                return smoke.run_cli_json(tcli.main, ["explain", "-f", cfg, "--scores", "4", "--json",
+                                                      "--no-bulk", "--device", dev])
+
+    calls = (
+        (sim, smoke.record_differences),
+        (lambda dev: sim(dev, speculate=False), smoke.record_differences),
+        (lambda dev: sim(dev, bulk=True), smoke.record_differences),
+        (sweep, smoke.sweep_differences),
+        (explained, smoke.explain_differences),
+        (scores, lambda a, b: ([f"exit {a[0]} != {b[0]}"] if a[0] != b[0] else [])
+         + smoke.explain_differences(a[1], b[1])),
+    )
+    out = {}
+    for (label, kernels), (call, differ) in zip(WIDE_PATHS, calls):
+        recs = {}
+        for dev in ("cpu", "cuda"):
+            cuda.reset_counts()
+            seed_name_hashes(smoke.NAME_SEED)
+            try:
+                recs[dev] = call(dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+            finally:
+                seed_name_hashes(None)
+        launches, plain = dict(cuda.LAUNCHES), sum(cuda.PLAIN_CALLS.values())
+        missing = [k for k in kernels if not launches.get(k)]
+        diffs = differ(recs["cuda"], recs["cpu"])
+        if missing or plain or diffs:
+            raise AssertionError(f"phase 16: {label} on the wide problem: kernels not launched {missing}, "
+                                 f"{plain} plain calls on the card, differences from the CPU path:\n"
+                                 + "\n".join(diffs))
+        out[label] = {k: launches[k] for k in kernels}
+        log(f"phase 16: {label} on the wide problem (V = SD = {smoke.WIDE_VGS}, GD = {smoke.WIDE_GPUS}): "
+            f"equal to the CPU path; launches {out[label]} [{card}]")
+    return out
+
+
+def phase_relax_wide(device, err) -> dict:
+    """Phase 2: K23 on rows wider than shared memory holds (its wide-row
+    path: a persistent grid, one global scratch slab per block) against its
+    plain version on RELAX_WIDE: the start point, then 5 iterations, each
+    K23 step taken by both from the same y and the same overcommit (K22's,
+    itself compared with K22's plain version): y exactly equal after each;
+    then the residual; then K23's time per launch on this shape."""
+    a, b = relax_wide_problem(device)
+    trelax.relax_project_plain(a, init=True)
+    cuda.launch_relax_project(b, init=True)
+    torch.cuda.synchronize()
+    y_errs = [float((a.y - b.y).abs().max())]
+    over_err = 0.0
+    for _ in range(5):
+        trelax.relax_load_plain(a)
+        cuda.launch_relax_load(b)
+        torch.cuda.synchronize()
+        over_err = max(over_err, float((a.over - b.over).abs().max()))
+        a.over.copy_(b.over)
+        a.y.copy_(b.y)
+        trelax.relax_project_plain(a)
+        cuda.launch_relax_project(b)
+        torch.cuda.synchronize()
+        y_errs.append(float((a.y - b.y).abs().max()))
+    trelax.relax_load_plain(a, residual=True)
+    cuda.launch_relax_load(b, residual=True)
+    torch.cuda.synchronize()
+    res_err = float((a.residual - b.residual).abs().max())
+    if max(y_errs) or not torch.equal(a.stuck, b.stuck) or over_err > smoke.SOLVE_RES_ATOL or res_err > smoke.SOLVE_RES_ATOL:
+        raise AssertionError(f"phase 2: K23's wide-row path differs from its plain version on {RELAX_WIDE}: "
+                             f"y {y_errs}, over {over_err}, residual {res_err}")
+    err["relax_project"] = max(err["relax_project"], max(y_errs))
+    ctx = b.cache["ctx"]
+    bound = relax_bound(b)["relax_project"]
+    # a launch takes milliseconds: CUDA events around back-to-back launches
+    out = {"shape": list(RELAX_WIDE), "np2": ctx.np2, "slabs": ctx.slabs, "y_max_abs": max(y_errs),
+           "over_max_abs": over_err, "residual_max_abs": res_err,
+           "ms": time_call(lambda: cuda.launch_relax_project(b), 20),
+           "plain_ms": time_call(lambda: trelax.relax_project_plain(a), 3), **bound}
+    log(f"phase 2: K23's wide-row path equal to its plain version on (S, C, N, R) = {RELAX_WIDE} (np2 "
+        f"{ctx.np2}, {ctx.slabs} slabs): y exactly equal after the start point and 5 steps, K22's over "
+        f"{over_err:.3g}, residual {res_err:.3g}; {out['ms'] * 1e3:.2f} us per launch (CUDA events), "
+        f"plain {out['plain_ms'] * 1e3:.1f} us, bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    return out
+
+
 class GrowCompare:
     """Context manager: while open, every K24 / K25 launch is followed by
     its plain version on the same inputs, each output plane compared bit
@@ -3029,9 +3362,14 @@ def main() -> int:
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    cuda.build()
-    log(f"phase 1: built {len(cuda.KERNELS)} kernels in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {cuda.BUILD_INFO.get('seconds', 0.0):.1f} s)")
+    # the wave kernels' profile build (phase 2's breakdown) compiles beside
+    # the twenty-five libraries, every nvcc started together
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        profile_build = pool.submit(cuda.build_wave_profile)
+        cuda.build()
+        profile_build.result()
+    log(f"phase 1: built {len(cuda.KERNELS)} kernels and K9/K10's profile build in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {cuda.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for name in cuda.KERNELS:
         for line in cuda.BUILD_INFO.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -3110,6 +3448,17 @@ def main() -> int:
         f"({r_tensors.n_domains} domains over {r_tensors.node_dom.shape[0]} keys) {r_done} and the keys "
         f"problem ({k_tensors.node_dom.shape[0]} keys) {k_done}")
 
+    big_waves = {}
+    for n_big in WAVE_BIG_NODES:
+        b_tensors, b_batch, b_statics, b_state, b_pods = big_batch(device, n_big)
+        b_flags = scan.flags_from(b_tensors, b_batch.ext)
+        big_waves[n_big], _, _ = phase_waves(f"{n_big}-node problem", b_tensors, b_batch, b_statics, b_state,
+                                             b_pods, b_flags, ("lean", "lean-pref", "hard-spread"), err,
+                                             per_kind=1)
+        del b_tensors, b_batch, b_statics, b_state, b_pods
+    log(f"phase 2: K9/K10 equal to their plain versions above 1024 nodes (2 and 3 nodes per thread in "
+        f"registers, then the carried rows in global memory): {big_waves}")
+
     # K11/K12 on the states the wave runs above left (written by K1-K4 and
     # K9/K10), K13 on K7's eviction and restore batches
     parts = {}
@@ -3128,6 +3477,7 @@ def main() -> int:
     round_times, q_round_times, m_round_times, copy_times = phase_bulk_kernels(device, err)
     sweep_times = phase_sweep_kernels(device, err)
     relax_kernels = phase_relax_kernels(device, err)
+    relax_wide = phase_relax_wide(device, err)
     grow_times = phase_grow_kernels(device)
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
@@ -3217,6 +3567,11 @@ def main() -> int:
         log(f"  {t['name']} ({t['kind']} run of {t['pods']} pods): {t['device_us']:.2f} us device per launch "
             f"(profiler), {t['device_us'] / t['pods']:.2f} us per pod step, {t['host_us']:.2f} us to enqueue "
             f"a launch, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B")
+    breakdown = phase_wave_breakdown({"serial": (s_wbuf, s_runs), "extended": (x_wbuf, x_runs)})
+    wave_ptxas = {name: ptxas_entries(name) for name in WAVES}
+    for name, entries in wave_ptxas.items():
+        for fn, info in entries.items():
+            log(f"  ptxas {name} {fn}: {info}")
     w_per, w_busy, w_wall = profile_waves(tensors, batch, statics, state, pods, flags, 2000)
     xw_per, xw_busy, xw_wall = profile_waves(x_tensors, x_batch, x_statics, x_state, x_pods, x_flags, 2000)
     for label, pr, bz, wl in (("serial smoke", w_per, w_busy, w_wall), ("extended", xw_per, xw_busy, xw_wall)):
@@ -3297,6 +3652,9 @@ def main() -> int:
                                            "resilience": resilience_plan["wall_s"]})
     grow_path = run_grow_path(card, device)
 
+    # -- phase 16: the wide problem through every StepCtx kernel family ---------
+    wide_paths = run_wide(card)
+
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
     w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
@@ -3348,6 +3706,7 @@ def main() -> int:
                 **({"ops": t["ops"]} if name in RELAX_KERNELS else {}),
                 **({"launches_by_path": {k: o["launches"].get(name, 0) for k, o in solver_paths.items()}}
                    if name in RELAX_KERNELS else {}),
+                **({"wide_rows": relax_wide} if name == "relax_project" else {}),
             })
             continue
         if name in EXPLAIN_KERNELS:
@@ -3418,7 +3777,7 @@ def main() -> int:
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"],
-                "library_ms": None,
+                "library_ms": t.get("library_ms"),
                 "host_ms": t["host_ms"],
                 "launch_ms": launch_ms,
                 "ms_from": "profiler",
@@ -3451,6 +3810,9 @@ def main() -> int:
                 "launch_ms": launch_ms,
                 "ms_from": "profiler",
                 "run": {"kind": t["kind"], "pods": t["pods"], "us_per_pod_step": t["device_us"] / t["pods"]},
+                "ptxas": wave_ptxas[name],
+                "breakdown": [r for r in breakdown if r["name"] == name],
+                "above_1024_nodes": {str(k): v for k, v in big_waves.items()},
                 "main_path_us_per_launch": {"serial": w_per.get(name, (None,))[0],
                                             "extended": xw_per.get(name, (None,))[0]},
                 "launches_serial_path": launches.get(name, 0),
@@ -3515,7 +3877,7 @@ def main() -> int:
                       "batched_capacity": batched_capacity, "resilience_plan": resilience_plan,
                       "explain": {k: v for k, v in explain.items() if k != "times"}, "fuzz": fuzz_run,
                       "relax_kernels": {"problems": relax_kernels["problems"], "run_ms": relax_kernels["run_ms"]},
-                      "solver_paths": solver_paths, "grow_path": grow_path,
+                      "solver_paths": solver_paths, "grow_path": grow_path, "wide_paths": wide_paths,
                       "large_capacity": {"nodes_added": l_plan.nodes_added, "wall_s": l_wall,
                                          "probes": {str(k): v for k, v in l_plan.probes.items()},
                                          "timings": l_plan.timings,

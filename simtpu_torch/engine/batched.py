@@ -163,6 +163,7 @@ class SweepBuffers:
         self.score_s = z(n)
         self.st_ok_s = z(n, dtype=torch.bool, fill=1)
         self.st_alloc_s = z(n, v)
+        self.st_fr_s = z(n, v)
         self.st_take_s = z(n, sd, dtype=torch.bool)
         self.st_raw_s = z(n)
         self.gpu_ok_s = z(n, dtype=torch.bool, fill=1)
@@ -177,7 +178,7 @@ class SweepBuffers:
         # scenario 0's views: what the argument block points at
         self.statics = statics._replace(node_valid=self.valid_s[0])
         self.state = replica(reps, 0)
-        for name in ("stage", "raw", "score", "st_ok", "st_alloc", "st_take", "st_raw", "gpu_ok",
+        for name in ("stage", "raw", "score", "st_ok", "st_alloc", "st_fr", "st_take", "st_raw", "gpu_ok",
                      "gpu_sh", "chosen", "placed", "reason", "out_node", "out_lvm", "out_take",
                      "out_gpu"):
             setattr(self, name, getattr(self, name + "_s")[0])

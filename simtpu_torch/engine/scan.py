@@ -857,6 +857,7 @@ class StepBuffers:
         self.score = torch.zeros(n, dtype=torch.float32, device=dev)
         self.st_ok = torch.ones(n, dtype=torch.bool, device=dev)
         self.st_alloc = torch.zeros((n, v), dtype=torch.float32, device=dev)
+        self.st_fr = torch.zeros((n, v), dtype=torch.float32, device=dev)  # K5's running VG free space
         self.st_take = torch.zeros((n, sd), dtype=torch.bool, device=dev)
         self.st_raw = torch.zeros(n, dtype=torch.float32, device=dev)
         self.gpu_ok = torch.ones(n, dtype=torch.bool, device=dev)
@@ -868,10 +869,11 @@ class StepBuffers:
         self.out_lvm = torch.zeros((p, v), dtype=torch.float32, device=dev)
         self.out_take = torch.zeros((p, sd), dtype=torch.bool, device=dev)
         self.out_gpu = torch.zeros((p, gd), dtype=torch.float32, device=dev)
-        # the wave kernels' per-node scratch (engine/wavefront.py): stage
-        # bits that stay constant over a run, and K9's carried rows
-        self.wave_bits = torch.zeros(n, dtype=torch.uint8, device=dev)
+        # the wave kernels' (engine/wavefront.py) carried rows where a
+        # thread's nodes pass what registers hold, and the phase cycles the
+        # kernels' profile build adds up (kernels/csrc/wave.cuh)
         self.wave_rows = torch.zeros((cuda.WAVE_ROWS, n), dtype=torch.float32, device=dev)
+        self.wave_prof = torch.zeros(cuda.WAVE_PROF_SLOTS, dtype=torch.int64, device=dev)
         self.ctx = None  # the kernels' argument struct, built at first launch
 
     def pod_ext(self, i: int) -> PodExt:

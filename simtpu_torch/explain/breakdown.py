@@ -131,7 +131,7 @@ class ExplainBuffers:
 
         scratch = {
             "stage": z(n, dtype=torch.uint8), "raw": z(4, n), "st_ok": z(n, dtype=torch.bool, fill=1),
-            "st_alloc": z(n, v), "st_take": z(n, sd, dtype=torch.bool), "st_raw": z(n),
+            "st_alloc": z(n, v), "st_fr": z(n, v), "st_take": z(n, sd, dtype=torch.bool), "st_raw": z(n),
             "gpu_ok": z(n, dtype=torch.bool, fill=1), "gpu_sh": z(n, gd),
         }
         for name, plane in scratch.items():

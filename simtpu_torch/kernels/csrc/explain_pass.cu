@@ -57,6 +57,7 @@ __device__ inline StepCtx explain_block_ctx(StepCtx x, int p) {
   x.raw += sp * N * N_RAWS;
   x.st_ok += sp * N;
   x.st_alloc += sp * N * x.v;
+  x.st_fr += sp * N * x.v;
   x.st_take += sp * N * x.sd;
   x.st_raw += sp * N;
   x.gpu_ok += sp * N;

@@ -5,9 +5,11 @@
 // storage_node: the JAX package's simtpu/kernels/storage.py lvm_plan
 // (:25), device_plan (:66) and open_local_score (:100); gpu_node:
 // simtpu/kernels/gpushare.py gpu_plan (:25). The thread of node n walks
-// the pod's claims in order with the node's rows in registers, then
-// writes the node's verdict and plan into the StepCtx scratch (st_ok,
-// st_alloc, st_take, st_raw; gpu_ok, gpu_sh). See the two kernels' notes.
+// the pod's claims in order and builds the node's plan in place in the
+// StepCtx scratch rows (st_alloc, st_take; gpu_sh), the VGs' running free
+// space in st_fr, then writes the verdicts (st_ok, st_raw; gpu_ok). No
+// per-thread array: the VG, device and GPU axes may have any width. See
+// the two kernels' notes.
 #pragma once
 #include "step_ctx.cuh"
 
@@ -20,8 +22,10 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
   const size_t nv = static_cast<size_t>(n) * V;
   const size_t nsd = static_cast<size_t>(n) * SD;
 
-  // -- LVM plan (storage.py lvm_plan) --
-  float fr[MAX_EXT], alloc[MAX_EXT];
+  // -- LVM plan (storage.py lvm_plan): the running free space and the
+  // allocation in the node's scratch rows --
+  float* fr = x.st_fr + nv;
+  float* alloc = x.st_alloc + nv;
   bool has_any_vg = false;
   for (int v = 0; v < V; ++v) {
     fr[v] = x.vg_free[nv + v];
@@ -64,9 +68,10 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
     if (active) lvm_ok = lvm_ok && ok;
   }
 
-  // -- exclusive-device plan (storage.py device_plan) --
-  bool dfree[MAX_EXT], take[MAX_EXT];
-  for (int d = 0; d < SD; ++d) { dfree[d] = x.sdev_free[nsd + d] != 0; take[d] = false; }
+  // -- exclusive-device plan (storage.py device_plan): the take row in
+  // the node's scratch; a device is still free while free and not taken --
+  uint8_t* take = x.st_take + nsd;
+  for (int d = 0; d < SD; ++d) take[d] = 0;
   bool dev_ok = true;
   float tight = 0.0f;
   int n_dev = 0;
@@ -80,7 +85,8 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
     bool found = false;
     for (int d = 0; d < SD; ++d) {
       const float cap = x.sdev_cap[nsd + d];
-      const bool eligible = dfree[d] && x.sdev_media[nsd + d] == media && cap >= size;
+      const bool dfree = x.sdev_free[nsd + d] != 0 && !take[d];
+      const bool eligible = dfree && x.sdev_media[nsd + d] == media && cap >= size;
       found = found || eligible;
       const float key = eligible ? cap : BIG;
       if (d == 0 || key < best_key) { best_key = key; best = d; }
@@ -88,8 +94,7 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
     float cap_chosen = 0.0f;
     for (int d = 0; d < SD; ++d) {
       const bool sel = d == best && found && active;
-      take[d] = take[d] || sel;
-      dfree[d] = dfree[d] && !sel;
+      if (sel) take[d] = 1;
       cap_chosen = cap_chosen + (sel ? x.sdev_cap[nsd + d] : 0.0f);
     }
     tight = tight + ((found && active) ? __fdiv_rn(size, fmaxf(cap_chosen, TINY)) : 0.0f);
@@ -111,8 +116,6 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
       : lvm_score + 0.0f;
 
   x.st_ok[n] = (x.has_storage[n] && lvm_ok && dev_ok) ? 1 : 0;
-  for (int v = 0; v < V; ++v) x.st_alloc[nv + v] = alloc[v];
-  for (int d = 0; d < SD; ++d) x.st_take[nsd + d] = take[d] ? 1 : 0;
   x.st_raw[n] = raw;
 }
 
@@ -126,23 +129,26 @@ __device__ inline void gpu_node(const StepCtx& x, int i, int n) {
   const bool valid_req = count > 0;
   const float count_f = static_cast<float>(count);
 
-  float fr[MAX_EXT];
+  // a device's free memory (a missing device counts as -1), read afresh
+  // from the state row each time
+  auto fr = [&](int d) { return x.gpu_dev_exists[ng + d] ? x.gpu_free[ng + d] : -1.0f; };
   bool has_dev = false, any_fit = false;
   int tight_idx = 0;
   float tight_key = BIG;
   for (int d = 0; d < GD; ++d) {
-    const bool exists = x.gpu_dev_exists[ng + d] != 0;
-    has_dev = has_dev || exists;
-    fr[d] = exists ? x.gpu_free[ng + d] : -1.0f;
-    const bool fit1 = fr[d] >= mem;
+    const float f = fr(d);
+    has_dev = has_dev || x.gpu_dev_exists[ng + d] != 0;
+    const bool fit1 = f >= mem;
     any_fit = any_fit || fit1;
-    const float key = fit1 ? fr[d] : BIG;
+    const float key = fit1 ? f : BIG;
     if (d == 0 || key < tight_key) { tight_key = key; tight_idx = d; }
   }
-  float shares[MAX_EXT];
+  // the shares, built in place in the node's gpu_sh row
+  float* shares = x.gpu_sh + ng;
   float cum = 0.0f, total = 0.0f;
   for (int d = 0; d < GD; ++d) {
-    const float per_dev = fr[d] >= mem ? floorf(__fdiv_rn(fr[d], fmaxf(mem, TINY))) : 0.0f;
+    const float f = fr(d);
+    const float per_dev = f >= mem ? floorf(__fdiv_rn(f, fmaxf(mem, TINY))) : 0.0f;
     cum = cum + per_dev;
     const float prev = cum - per_dev;
     const float greedy = fminf(fmaxf(fminf(cum, count_f) - prev, 0.0f), per_dev);
@@ -156,10 +162,9 @@ __device__ inline void gpu_node(const StepCtx& x, int i, int n) {
   for (int d = 0; d < GD; ++d) preset_sum += preset[d];
   if (preset_sum > 0) {
     fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req) : true;
-    for (int d = 0; d < GD; ++d)
-      x.gpu_sh[ng + d] = (is_gpu_pod && fits) ? static_cast<float>(preset[d]) : 0.0f;
+    for (int d = 0; d < GD; ++d) shares[d] = (is_gpu_pod && fits) ? static_cast<float>(preset[d]) : 0.0f;
   } else {
-    for (int d = 0; d < GD; ++d) x.gpu_sh[ng + d] = (is_gpu_pod && fits) ? shares[d] : 0.0f;
+    for (int d = 0; d < GD; ++d) shares[d] = (is_gpu_pod && fits) ? shares[d] : 0.0f;
   }
   x.gpu_ok[n] = fits ? 1 : 0;
 }

@@ -8,14 +8,15 @@
 // RelaxCtx.mode bits: K22 writes residual[s]; K23 writes the start point
 constexpr int RELAX_RESIDUAL = 1;
 constexpr int RELAX_INIT = 1;
-// widest node row K23 sorts in one block: the keys (f32) and their prefix
-// sums (f64) of the next power of two >= N in dynamic shared memory
-constexpr int RELAX_MAX_ROW = 16384;
+// widest padded row (the next power of two >= N) whose keys (f32) and
+// prefix sums (f64) K23 keeps in dynamic shared memory (12 B each, 227 KB);
+// a wider row sorts in a slab of RelaxCtx.scratch
+constexpr int RELAX_SHARED_ROW = 16384;
 
 struct RelaxCtx {
   int s, c, n, r, mode, np2;
   float lr;
-  int pad_;
+  int slabs;            // blocks of the wide-row path, each with one slab (0: shared memory)
   const uint8_t* feas;  // [C, N] class feasibility
   const float* req;     // [C, R] scaled per-pod request
   const float* cnt;     // [C] pods per class
@@ -26,4 +27,5 @@ struct RelaxCtx {
   float* over;          // [S, N, R] overcommit of the current y
   float* residual;      // [S] max overcommit (zeroed by the caller)
   int* stuck;           // [S] a class with demand has no feasible valid node
+  unsigned char* scratch; // [slabs, np2] prefix sums (f64) then keys (f32), wide rows only
 };

@@ -18,10 +18,19 @@
 // 1) on the mask and flags stuck[s] when a class with demand has no
 // feasible valid node.
 //
+// Where the padded row does not fit in shared memory (np2 > 16 384: N >
+// 16 384 nodes in all), the same code runs on a slab of global scratch:
+// a persistent grid of RelaxCtx.slabs blocks (a few per SM), each owning
+// one slab of np2 keys and prefix sums and looping over the (class,
+// candidate) rows, so the scratch is slabs x np2 x 12 B (1.5 MB a slab at
+// N = 100 000), not one slab per row. The arithmetic and its order are
+// the shared-memory path's: the result does not depend on the path.
+//
 // Bound: bytes — y read and written once, over read once per class row
 // (the same [N, R] slab for every class of a candidate, from L2). The
-// sort's log^2 passes are shared-memory traffic, which makes this kernel
-// far from its bound at one block per row: the redesign's work.
+// sort's log^2 passes are shared-memory (or, on a wide row, L2) traffic,
+// which makes this kernel far from its bound at one block per row: the
+// redesign's work.
 #include "relax.cuh"
 
 __device__ __forceinline__ float step_value(const RelaxCtx& x, int s, int c, int n, float y) {
@@ -31,13 +40,12 @@ __device__ __forceinline__ float step_value(const RelaxCtx& x, int s, int c, int
   return __fsub_rn(y, __fmul_rn(x.lr, g));
 }
 
-__global__ void relax_project_kernel(RelaxCtx x) {
-  extern __shared__ unsigned char smem[];
-  double* pre = reinterpret_cast<double*>(smem);
-  float* keys = reinterpret_cast<float*>(pre + x.np2);
-  __shared__ double warp_sum[32];
-  __shared__ int count;
-  const int c = blockIdx.x, s = blockIdx.y;
+// one (class c, candidate s) row, the block's threads together; `keys`
+// and `pre` hold np2 entries in shared memory or in the block's slab
+// (inlined into each path, so the shared one keeps shared-memory loads)
+__device__ __forceinline__ void project_row(const RelaxCtx& x, int s, int c, float* keys, double* pre, int* count_,
+                            double* warp_sum) {
+  int& count = *count_;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float a = x.cnt[c];
   const uint8_t* feas = x.feas + static_cast<size_t>(c) * x.n;
@@ -130,10 +138,39 @@ __global__ void relax_project_kernel(RelaxCtx x) {
   }
 }
 
+__global__ void relax_project_kernel(RelaxCtx x) {
+  // one row per block, its keys and prefix sums in shared memory
+  extern __shared__ unsigned char smem[];
+  __shared__ double warp_sum[32];
+  __shared__ int count;
+  double* pre = reinterpret_cast<double*>(smem);
+  project_row(x, blockIdx.y, blockIdx.x, reinterpret_cast<float*>(pre + x.np2), pre, &count, warp_sum);
+}
+
+// the wide-row path (its own entry, so the shared-memory one keeps its
+// shared-memory loads): this block's slab, rows strided over the grid; the
+// barrier after a row keeps the next row's reset of `count` and of the
+// slab behind every thread's last read
+__global__ void relax_project_slab_kernel(RelaxCtx x) {
+  __shared__ double warp_sum[32];
+  __shared__ int count;
+  double* pre = reinterpret_cast<double*>(x.scratch + static_cast<size_t>(blockIdx.x) * x.np2 *
+                                                         (sizeof(double) + sizeof(float)));
+  float* keys = reinterpret_cast<float*>(pre + x.np2);
+  for (int row = blockIdx.x; row < x.s * x.c; row += gridDim.x) {
+    project_row(x, row / x.c, row % x.c, keys, pre, &count, warp_sum);
+    __syncthreads();
+  }
+}
+
 extern "C" int simtpu_relax_project(const RelaxCtx* ctx, void* stream) {
   // np2 is a power of two >= 32 (the wrapper's), so every thread owns a
   // whole run of np2 / threads keys
   const int threads = ctx->np2 < 1024 ? ctx->np2 : 1024;
+  if (ctx->slabs > 0) {
+    relax_project_slab_kernel<<<ctx->slabs, threads, 0, static_cast<cudaStream_t>(stream)>>>(*ctx);
+    return launch_status();
+  }
   const size_t shmem = static_cast<size_t>(ctx->np2) * (sizeof(double) + sizeof(float));
   // the dynamic shared memory beyond the default 48 KB (less the static
   // part) needs the opt-in; set it for every size

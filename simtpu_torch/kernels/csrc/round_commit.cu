@@ -138,41 +138,44 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, 
     }
     if (f & F_STORAGE) {
       const size_t nv = static_cast<size_t>(n) * V, nsd = static_cast<size_t>(n) * SD;
-      float take[MAX_EXT];
-      unsort_take(m, r.ord_vg + nv, r.cs_vg + nv, r.cum_vg + nv, V, take);
-      for (int v = 0; v < V; ++v) {
-        float& vf = x.vg_free[nv + v];
-        if (mats && p.multi_lvm) {
+      // each VG's row is updated once, from its own take: the visit order
+      // does not matter
+      if (mats && p.multi_lvm) {
+        for (int v = 0; v < V; ++v) {
+          float& vf = x.vg_free[nv + v];
           vf = vf - m * (p.st_live ? x.st_alloc[nv + v] : 0.0f);
-        } else if (mats) {
-          vf = vf - take[v] * p.l_size;
-        } else {
-          vf = __fmaf_rn(-take[v], p.l_size, vf);
         }
+      } else {
+        unsort_take(m, r.ord_vg + nv, r.cs_vg + nv, r.cum_vg + nv, V, [&](int v, float take) {
+          float& vf = x.vg_free[nv + v];
+          vf = mats ? vf - take * p.l_size : __fmaf_rn(-take, p.l_size, vf);
+        });
       }
-      unsort_take(m, r.ord_dev + nsd, r.cs_dev + nsd, r.cum_dev + nsd, SD, take);
-      for (int d = 0; d < SD; ++d)
-        if (take[d] > 0.0f) x.sdev_free[nsd + d] = 0;
+      unsort_take(m, r.ord_dev + nsd, r.cs_dev + nsd, r.cum_dev + nsd, SD, [&](int d, float take) {
+        if (take > 0.0f) x.sdev_free[nsd + d] = 0;
+      });
     }
     if (f & F_GPU) {
       const size_t ngd = static_cast<size_t>(n) * GD;
       const float gm = p.gpu_mem;
-      float take[MAX_EXT];
-      unsort_take(m, r.ord_gpu + ngd, r.cs_gpu + ngd, r.cum_gpu + ngd, GD, take);
       const float count_f = fmaxf(static_cast<float>(p.gpu_count), 1.0f);
-      for (int d = 0; d < GD; ++d) {
-        float& gf = x.gpu_free[ngd + d];
-        if (mats && p.has_preset) {
-          gf = gf - (m * static_cast<float>(p.preset[d])) * gm;
-        } else if (mats && p.gpu_count > 1) {
-          const float cg = r.c_gpu[ngd + d], cu = r.cum_gidx[ngd + d];
-          const float pool_take = jclip(jmin(cu, m * count_f) - (cu - cg), 0.0f, cg);
-          gf = gf - pool_take * gm;
-        } else if (mats) {
-          gf = gf - take[d] * gm;
-        } else {
-          gf = __fmaf_rn(-take[d], gm, gf);
+      if (mats && (p.has_preset || p.gpu_count > 1)) {
+        for (int d = 0; d < GD; ++d) {
+          float& gf = x.gpu_free[ngd + d];
+          if (p.has_preset) {
+            gf = gf - (m * static_cast<float>(p.preset[d])) * gm;
+          } else {
+            const float cg = r.c_gpu[ngd + d], cu = r.cum_gidx[ngd + d];
+            const float pool_take = jclip(jmin(cu, m * count_f) - (cu - cg), 0.0f, cg);
+            gf = gf - pool_take * gm;
+          }
         }
+      } else {
+        // each device's row is updated once, from its own take
+        unsort_take(m, r.ord_gpu + ngd, r.cs_gpu + ngd, r.cum_gpu + ngd, GD, [&](int d, float take) {
+          float& gf = x.gpu_free[ngd + d];
+          gf = mats ? gf - take * gm : __fmaf_rn(-take, gm, gf);
+        });
       }
     }
   }

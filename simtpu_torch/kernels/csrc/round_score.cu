@@ -129,16 +129,16 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_score_kernel(StepCtx x, R
     if (f & F_STORAGE) {
       const size_t nv = static_cast<size_t>(n) * V, nsd = static_cast<size_t>(n) * SD;
       const bool has_lvm = p.l_size > 0.0f;
-      float c_vg[MAX_EXT], key[MAX_EXT];
-      float cap_lvm = 0.0f;
-      for (int v = 0; v < V; ++v) {
+      // a VG's slots and sort key, from the node's rows
+      auto c_vg = [&](int v) {
         const int nid = x.vg_name_id[nv + v];
         const float vf = x.vg_free[nv + v];
         const bool elig = nid >= 0 && (p.l_vid < 0 || nid == p.l_vid);
-        c_vg[v] = (has_lvm && elig && vf >= p.l_size) ? floor_slots(vf, p.l_size) : 0.0f;
-        cap_lvm += c_vg[v];
-        key[v] = c_vg[v] > 0.0f ? vf : BIG;
-      }
+        return (has_lvm && elig && vf >= p.l_size) ? floor_slots(vf, p.l_size) : 0.0f;
+      };
+      auto key_vg = [&](int v) { return c_vg(v) > 0.0f ? x.vg_free[nv + v] : BIG; };
+      float cap_lvm = 0.0f;
+      for (int v = 0; v < V; ++v) cap_lvm += c_vg(v);
       if (mats && p.multi_lvm) {
         bool any_used = false;
         float m = BIG;
@@ -151,17 +151,16 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_score_kernel(StepCtx x, R
         cap_lvm = any_used ? m : 0.0f;
       }
       if (has_lvm) cap = jmin(cap, cap_lvm);
-      fill_order(c_vg, key, V, r.ord_vg + nv, r.cs_vg + nv, r.cum_vg + nv);
+      fill_order(c_vg, key_vg, V, r.ord_vg + nv, r.cs_vg + nv, r.cum_vg + nv);
       const bool has_dev = p.d_size > 0.0f;
-      float c_dev[MAX_EXT], dkey[MAX_EXT];
+      auto dev_ok = [&](int d) {
+        return has_dev && x.sdev_free[nsd + d] && x.sdev_media[nsd + d] == p.d_media &&
+               x.sdev_cap[nsd + d] >= p.d_size;
+      };
+      auto c_dev = [&](int d) { return dev_ok(d) ? 1.0f : 0.0f; };
+      auto dkey = [&](int d) { return dev_ok(d) ? x.sdev_cap[nsd + d] : BIG; };
       float n_dev = 0.0f;
-      for (int d = 0; d < SD; ++d) {
-        const bool ok = has_dev && x.sdev_free[nsd + d] && x.sdev_media[nsd + d] == p.d_media &&
-                        x.sdev_cap[nsd + d] >= p.d_size;
-        c_dev[d] = ok ? 1.0f : 0.0f;
-        n_dev += c_dev[d];
-        dkey[d] = ok ? x.sdev_cap[nsd + d] : BIG;
-      }
+      for (int d = 0; d < SD; ++d) n_dev += c_dev(d);
       if (has_dev) cap = jmin(cap, n_dev);
       fill_order(c_dev, dkey, SD, r.ord_dev + nsd, r.cs_dev + nsd, r.cum_dev + nsd);
     }
@@ -169,16 +168,16 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_score_kernel(StepCtx x, R
       const size_t ngd = static_cast<size_t>(n) * GD;
       const float gm = p.gpu_mem;
       const bool is_gpu = gm > 0.0f;
-      float c_gpu[MAX_EXT], key[MAX_EXT];
+      auto fg = [&](int d) { return x.gpu_dev_exists[ngd + d] ? x.gpu_free[ngd + d] : -1.0f; };
+      auto c_gpu = [&](int d) { return (is_gpu && fg(d) >= gm) ? floor_slots(fg(d), gm) : 0.0f; };
+      auto key_gpu = [&](int d) { return c_gpu(d) > 0.0f ? fg(d) : BIG; };
       float cap_gpu = 0.0f, run = 0.0f;
       for (int d = 0; d < GD; ++d) {
-        const float fg = x.gpu_dev_exists[ngd + d] ? x.gpu_free[ngd + d] : -1.0f;
-        c_gpu[d] = (is_gpu && fg >= gm) ? floor_slots(fg, gm) : 0.0f;
-        cap_gpu += c_gpu[d];
-        key[d] = c_gpu[d] > 0.0f ? fg : BIG;
+        const float cg = c_gpu(d);
+        cap_gpu += cg;
         if (mats) {
-          run += c_gpu[d];
-          r.c_gpu[ngd + d] = c_gpu[d];
+          run += cg;
+          r.c_gpu[ngd + d] = cg;
           r.cum_gidx[ngd + d] = run;
         }
       }
@@ -187,7 +186,7 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_score_kernel(StepCtx x, R
         if (p.has_preset) cap_gpu = BIG;
       }
       if (is_gpu) cap = jmin(cap, cap_gpu);
-      fill_order(c_gpu, key, GD, r.ord_gpu + ngd, r.cs_gpu + ngd, r.cum_gpu + ngd);
+      fill_order(c_gpu, key_gpu, GD, r.ord_gpu + ngd, r.cs_gpu + ngd, r.cum_gpu + ngd);
     }
     r.m_all[n] = m_all ? 1 : 0;
     if ((r.mode & RV_QUOTA) && topo) {

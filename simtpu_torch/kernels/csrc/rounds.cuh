@@ -206,29 +206,31 @@ __device__ inline bool node_m_gpu(const StepCtx& x, const RoundPod& p, int n) {
 }
 
 // Tightest-first visit order of X containers (ascending key, ties by
-// index: a stable insertion sort), their slots in that order and the
-// running sum, written to the node's rows.
-__device__ inline void fill_order(const float* c, const float* key, int X, int* ord, float* cs, float* cum) {
-  int o[MAX_EXT];
+// index: a stable insertion sort, in place in the node's `ord` row), their
+// slots in that order and the running sum, written to the node's rows.
+// `cap(v)` and `key(v)` give container v's slots and sort key.
+template <class Cap, class Key>
+__device__ inline void fill_order(Cap cap, Key key, int X, int* ord, float* cs, float* cum) {
   for (int v = 0; v < X; ++v) {
+    const float kv = key(v);
     int j = v;
-    while (j > 0 && key[o[j - 1]] > key[v]) { o[j] = o[j - 1]; --j; }
-    o[j] = v;
+    while (j > 0 && key(ord[j - 1]) > kv) { ord[j] = ord[j - 1]; --j; }
+    ord[j] = v;
   }
   float run = 0.0f;
   for (int j = 0; j < X; ++j) {
-    ord[j] = o[j];
-    cs[j] = c[o[j]];
-    run += c[o[j]];
+    const float c = cap(ord[j]);
+    cs[j] = c;
+    run += c;
     cum[j] = run;
   }
 }
 
-// pods per container of a node given m pods, back in container order
-// (rounds.py _unsort_take)
-__device__ inline void unsort_take(float m, const int* ord, const float* cs, const float* cum, int X,
-                                   float* out) {
-  for (int j = 0; j < X; ++j) out[ord[j]] = jclip(m - (cum[j] - cs[j]), 0.0f, cs[j]);
+// pods per container of a node given m pods (rounds.py _unsort_take):
+// `use(v, take)` is called once for each container v, in the fill order
+template <class Use>
+__device__ inline void unsort_take(float m, const int* ord, const float* cs, const float* cum, int X, Use use) {
+  for (int j = 0; j < X; ++j) use(ord[j], jclip(m - (cum[j] - cs[j]), 0.0f, cs[j]));
 }
 
 // `resource_base` of scores.cuh over an overriding free row `fr` [2]

@@ -49,9 +49,6 @@ constexpr int RES_MEMORY = 1;
 constexpr float BIG = 3.4e38f;
 constexpr float TINY = 1e-30f;
 constexpr float MAX_NODE_SCORE = 100.0f;
-// widest VG / exclusive-device / GPU-device axis a thread keeps in
-// registers (checked by the wrapper)
-constexpr int MAX_EXT = 32;
 // ext_live bits: the pod ran K5 (storage) / K6 (GPU) this step
 constexpr int LIVE_STORAGE = 1;
 constexpr int LIVE_GPU = 2;
@@ -127,6 +124,7 @@ struct StepCtx {
   float* score;    // [N]
   uint8_t* st_ok;  // [N] K5: storage verdict
   float* st_alloc; // [N, V] K5: LVM allocation
+  float* st_fr;    // [N, V] K5: the VGs' free space as the plan walks the claims
   uint8_t* st_take; // [N, SD] K5: exclusive devices taken
   float* st_raw;   // [N] K5: raw Open-Local score
   uint8_t* gpu_ok; // [N] K6: GPU verdict
@@ -140,12 +138,17 @@ struct StepCtx {
   float* out_gpu;  // [P, GD]
 };
 
-// K9's carried [N] rows in WaveCtx.carry: the resource score pair, the
-// normalized static terms and K2's four count raws (bumped in place)
+// K9's carried [N] rows per node (in registers; in WaveCtx.carry where
+// the nodes per thread pass what registers hold, wave.cuh): the resource
+// score pair, the normalized static terms, K2's four count raws (bumped
+// in place), the static score pair, the run-constant Simon share, node
+// affinity and taint raws, and the node's stage bits (as float bits)
 enum : int {
   ROW_FSCORE = 0, ROW_SIMON = 1, ROW_NODE_PREF = 2, ROW_TAINT = 3, ROW_IPA = 4,
   ROW_RAW = 5,  // + RAW_IPA, RAW_SOFT, RAW_SS_HOST, RAW_SS_ZONE (K2's raw order)
-  WAVE_ROWS = 9,
+  ROW_STATIC = 9, ROW_AVOID = 10, ROW_SHARE = 11, ROW_PREF_RAW = 12, ROW_TAINT_RAW = 13,
+  ROW_BITS = 14,
+  WAVE_ROWS = 15,
 };
 enum : int { RAW_IPA = 0, RAW_SOFT = 1, RAW_SS_HOST = 2, RAW_SS_ZONE = 3, N_RAWS = 4 };
 // WaveCtx.mode: K9's inter-pod preference carry; the run's heavy stage
@@ -153,13 +156,18 @@ enum : int { RAW_IPA = 0, RAW_SOFT = 1, RAW_SS_HOST = 2, RAW_SS_ZONE = 3, N_RAWS
 constexpr int WAVE_PREF = 1;
 constexpr int WAVE_HEAVY_SHIFT = 4;
 enum : int { HEAVY_PORTS = 1, HEAVY_VOLS = 2, HEAVY_STORAGE = 4, HEAVY_GPU = 8 };
-// threads of a wave block (fixed at the launch)
+// threads of a scenario (K19) or explain (K20) block (fixed at the
+// launch; the wave kernels' own block is planned in wave.cuh)
 constexpr int WAVE_THREADS = 512;
+// WaveCtx.prof: cycles per phase of a step, summed over the run's steps
+// by the profile build of K9/K10 (wave.cuh); the last slot counts steps
+constexpr int WAVE_PROF_SLOTS = 10;
+constexpr int WAVE_PROF_STEPS = WAVE_PROF_SLOTS - 1;
 
 struct WaveCtx {
   int a, b, mode, k;  // the run [a, b) of the batch, mode bits, topology keys
-  uint8_t* bits;      // [N] the run-constant stage bits (+ K9's fit / all bits)
-  float* carry;       // [WAVE_ROWS, N] K9's carried rows
+  float* carry;       // [WAVE_ROWS, N] the carried rows past the registers' nodes (wave.cuh)
+  long long* prof;    // [WAVE_PROF_SLOTS] the profile build's phase cycles
 };
 
 struct DeltaCtx {

@@ -61,6 +61,7 @@ __device__ inline StepCtx sweep_block_ctx(StepCtx x, const SweepCtx& w, int s) {
   x.score += sz * N;
   x.st_ok += sz * N;
   x.st_alloc += sz * N * x.v;
+  x.st_fr += sz * N * x.v;
   x.st_take += sz * N * x.sd;
   x.st_raw += sz * N;
   x.gpu_ok += sz * N;

@@ -65,10 +65,11 @@ SWEEP_KERNELS = KERNELS[17:19]
 #: the explain pass, launched as simtpu_explain_pass(StepCtx*, ExplainCtx*,
 #: stream); the score terms as simtpu_pod_terms(StepCtx*, pod, terms, stream)
 EXPLAIN_KERNELS = KERNELS[19:21]
-#: widest VG / device / GPU axis the kernels keep per thread (MAX_EXT)
-MAX_EXT = 32
-#: K9's carried [N] rows (step_ctx.cuh WAVE_ROWS)
-WAVE_ROWS = 9
+#: the wave kernels' carried [N] rows past what registers hold
+#: (step_ctx.cuh WAVE_ROWS)
+WAVE_ROWS = 15
+#: the profile build's phase-cycle slots of a wave launch (WAVE_PROF_SLOTS)
+WAVE_PROF_SLOTS = 10
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -160,6 +161,73 @@ def build() -> dict:
     return _LIBS
 
 
+#: the wave kernels' profile build: the same sources with the per-phase
+#: clock64() stamps of csrc/wave.cuh compiled in (SIMTPU_WAVE_PROFILE), in
+#: libraries of their own that the main path never loads
+PROFILE_FLAGS = ("-DSIMTPU_WAVE_PROFILE",)
+_PROFILE_LIBS: dict = {}
+
+
+def build_wave_profile() -> dict:
+    """Compile K9/K10's profile build (in parallel) and load it. Returns
+    {name: ctypes.CDLL}; wave_lean's library also exports
+    simtpu_wave_barrier_cycles."""
+    if _PROFILE_LIBS:
+        return _PROFILE_LIBS
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in WAVE_KERNELS:
+        out = _lib_path(name).with_name(_lib_path(name).stem + "-profile.so")
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, *PROFILE_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+        _PROFILE_LIBS[name] = out
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_INFO[f"{name}-profile"] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the profile build of {name}:\n{log}")
+        os.replace(tmp, _PROFILE_LIBS[name])
+    for name in WAVE_KERNELS:
+        lib = ctypes.CDLL(str(_PROFILE_LIBS[name]))
+        fn = getattr(lib, f"simtpu_{name}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _PROFILE_LIBS[name] = lib
+    bar = _PROFILE_LIBS["wave_lean"].simtpu_wave_barrier_cycles
+    bar.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    bar.restype = ctypes.c_int
+    return _PROFILE_LIBS
+
+
+def launch_wave_profile(name: str, buf, a: int, b: int, mode) -> None:
+    """Launch the profile build of wave kernel `name` for the run [a, b)
+    of `buf`, its phase cycles added into `buf.wave_prof` (zero it first).
+    A measurement launch: not counted in LAUNCHES. No synchronization."""
+    libs = build_wave_profile()
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    ctx = make_wave_ctx(buf, a, b, mode)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    if err:
+        msg = build()[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} (profile build) failed to launch: {msg} ({err})")
+
+
+def barrier_cycles(threads: int, iters: int = 4096) -> float:
+    """Cycles of one block-wide barrier (__syncthreads) in a block of
+    `threads` threads, the mean over `iters` back-to-back barriers, on the
+    current CUDA device (the profile build's micro-kernel)."""
+    out = torch.zeros(1, dtype=torch.int64, device="cuda")
+    err = build_wave_profile()["wave_lean"].simtpu_wave_barrier_cycles(
+        threads, iters, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"CUDA barrier micro-kernel failed to launch ({err})")
+    return float(out.item()) / iters
+
+
 _INT_FIELDS = ("n", "r", "p_ports", "w", "c", "tc", "flags", "v", "sd", "gd", "l", "k")
 # (field, owner, attribute, dtype) in step_ctx.cuh order
 _PTR_FIELDS = (
@@ -228,6 +296,7 @@ _PTR_FIELDS = (
     ("score", "buf", "score", torch.float32),
     ("st_ok", "buf", "st_ok", torch.bool),
     ("st_alloc", "buf", "st_alloc", torch.float32),
+    ("st_fr", "buf", "st_fr", torch.float32),
     ("st_take", "buf", "st_take", torch.bool),
     ("st_raw", "buf", "st_raw", torch.float32),
     ("gpu_ok", "buf", "gpu_ok", torch.bool),
@@ -282,8 +351,6 @@ def make_ctx(buf, out_rows: int = None) -> StepCtx:
     p, w, c = st.ports_req.shape[1], st.vol_rw_req.shape[1], st.vol_class_mask.shape[0]
     v, sd, gd = st.vg_cap.shape[1], st.sdev_cap.shape[1], buf.state.gpu_free.shape[1]
     l, k = buf.lvm_size.shape[1], buf.dev_size.shape[1]
-    if max(v, sd, gd) > MAX_EXT:
-        raise ValueError(f"VG/device/GPU axes ({v}, {sd}, {gd}) wider than {MAX_EXT}")
     pods = buf.n_pods
     rows = pods if out_rows is None else out_rows
     _check_shapes(tensors, {
@@ -292,7 +359,7 @@ def make_ctx(buf, out_rows: int = None) -> StepCtx:
         "lvm_size": (pods, l), "lvm_vg": (pods, l), "dev_size": (pods, k), "dev_media": (pods, k),
         "gpu_preset": (pods, gd), "vg_name_id": (n, v), "vg_free": (n, v), "sdev_free": (n, sd),
         "sdev_media": (n, sd), "gpu_dev_exists": (n, gd), "gpu_free": (n, gd),
-        "st_alloc": (n, v), "st_take": (n, sd), "gpu_sh": (n, gd),
+        "st_alloc": (n, v), "st_fr": (n, v), "st_take": (n, sd), "gpu_sh": (n, gd),
         "out_lvm": (rows, v), "out_take": (rows, sd), "out_gpu": (rows, gd),
         **{f: (g, n) for f in ("static_mask", "vol_mask", "node_pref", "taint_intol",
                                 "static_score", "avoid_pen")},
@@ -324,8 +391,8 @@ def launch(name: str, buf, i: int) -> None:
 _WAVE_INT_FIELDS = ("a", "b", "mode", "k")
 # (field, attribute of the StepBuffers, dtype) in step_ctx.cuh WaveCtx order
 _WAVE_PTR_FIELDS = (
-    ("bits", "wave_bits", torch.uint8),
     ("carry", "wave_rows", torch.float32),
+    ("prof", "wave_prof", torch.int64),
 )
 # WaveCtx.mode bits (step_ctx.cuh): K9's inter-pod preference carry; the
 # run's heavy stage bits from WAVE_HEAVY_SHIFT up
@@ -354,7 +421,7 @@ def make_wave_ctx(buf, a: int, b: int, mode) -> WaveCtx:
         for field, attr, dtype in _WAVE_PTR_FIELDS
     }
     n = buf.statics.alloc.shape[0]
-    _check_shapes(tensors, {"bits": (n,), "carry": (WAVE_ROWS, n)})
+    _check_shapes(tensors, {"carry": (WAVE_ROWS, n), "prof": (WAVE_PROF_SLOTS,)})
     k, n_dom = buf.statics.node_dom.shape
     if n_dom != n:
         raise ValueError(f"node_dom: shape {(k, n_dom)}, want {(k, n)}")
@@ -983,12 +1050,12 @@ def launch_explain_pass(eb) -> None:
     outs = {f: _checked(f"eb.{f}", getattr(eb, f), eb.device, torch.int32)
             for f in ("counts", "feasible", "witnesses", "fail_code")}
     planes = {f: _checked(f"eb.{f}", getattr(eb, f), eb.device, getattr(eb, f).dtype)
-              for f in ("stage_s", "raw_s", "st_ok_s", "st_alloc_s", "st_take_s", "st_raw_s",
+              for f in ("stage_s", "raw_s", "st_ok_s", "st_alloc_s", "st_fr_s", "st_take_s", "st_raw_s",
                         "gpu_ok_s", "gpu_sh_s")}
     s_n = eb.counts.shape[1]
     _check_shapes({**outs, **planes}, {
         "counts": (p, s_n), "feasible": (p,), "witnesses": (p, s_n, eb.k), "fail_code": (p,),
-        "stage_s": (p, n), "raw_s": (p, 4, n), "st_ok_s": (p, n), "st_alloc_s": (p, n, v),
+        "stage_s": (p, n), "raw_s": (p, 4, n), "st_ok_s": (p, n), "st_alloc_s": (p, n, v), "st_fr_s": (p, n, v),
         "st_take_s": (p, n, sd), "st_raw_s": (p, n), "gpu_ok_s": (p, n), "gpu_sh_s": (p, n, gd),
     })
     if buf.ctx is None:
@@ -1026,27 +1093,30 @@ class RelaxCtx(ctypes.Structure):
     """ctypes mirror of `struct RelaxCtx` in csrc/relax.cuh."""
 
     _fields_ = [(f, ctypes.c_int) for f in ("s", "c", "n", "r", "mode", "np2")] + [
-        ("lr", ctypes.c_float), ("pad_", ctypes.c_int)] + [
+        ("lr", ctypes.c_float), ("slabs", ctypes.c_int)] + [
         (f, ctypes.c_void_p) for f in ("feas", "req", "cnt", "fixed", "cap", "valid", "y", "over",
-                                       "residual", "stuck")
+                                       "residual", "stuck", "scratch")
     ]
 
 
-#: widest node row K23 sorts in one block (csrc/relax.cuh RELAX_MAX_ROW):
-#: the keys and their f64 prefix sums of the next power of two >= N fill
-#: 12 bytes each of the block's shared memory (227 KB)
-RELAX_MAX_ROW = 16384
+#: widest padded node row (the next power of two >= N) whose keys and f64
+#: prefix sums K23 keeps in shared memory, 12 bytes each of the block's
+#: 227 KB (csrc/relax.cuh RELAX_SHARED_ROW); a wider row sorts in a slab of
+#: global scratch
+RELAX_SHARED_ROW = 16384
+#: K23's wide-row path: persistent blocks per SM, one scratch slab each
+RELAX_SLABS_PER_SM = 2
 
 
 def relax_ctx(rb) -> RelaxCtx:
     """K22/K23's argument block for a solve/relax.py RelaxBuffers on one
-    CUDA device: every tensor's device, dtype, contiguity and shape
-    checked. Raises ValueError for a node row wider than RELAX_MAX_ROW."""
+    device: every tensor's device, dtype, contiguity and shape checked.
+    Rows wider than RELAX_SHARED_ROW get K23's wide-row path: a persistent
+    grid of RELAX_SLABS_PER_SM blocks per SM (of one block, for a block
+    built from CPU tensors), each with one slab of `rb.cache["scratch"]`."""
     device = rb.y.device
     s, c, n = rb.y.shape
     r = rb.req.shape[1]
-    if n > RELAX_MAX_ROW:
-        raise ValueError(f"relax_project sorts a node row in one block: N={n} exceeds {RELAX_MAX_ROW}")
     fields = {"feas": torch.bool, "req": torch.float32, "cnt": torch.float32, "fixed": torch.float32,
               "cap": torch.float32, "valid": torch.bool, "y": torch.float32, "over": torch.float32,
               "residual": torch.float32, "stuck": torch.int32}
@@ -1054,7 +1124,14 @@ def relax_ctx(rb) -> RelaxCtx:
     _check_shapes(tensors, {"feas": (c, n), "req": (c, r), "cnt": (c,), "fixed": (n, r), "cap": (n, r),
                             "valid": (s, n), "over": (s, n, r), "residual": (s,), "stuck": (s,)})
     np2 = max(32, 1 << max(n - 1, 0).bit_length())
-    return RelaxCtx(s=s, c=c, n=n, r=r, mode=0, np2=np2, lr=float(rb.lr), pad_=0,
+    slabs = 0
+    if np2 > RELAX_SHARED_ROW:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 1
+        slabs = min(s * c, RELAX_SLABS_PER_SM * sms)
+        # per slab: np2 f64 prefix sums, then np2 f32 keys
+        rb.cache["scratch"] = torch.empty(slabs * np2 * 12, dtype=torch.uint8, device=device)
+    scratch = rb.cache["scratch"].data_ptr() if slabs else 0
+    return RelaxCtx(s=s, c=c, n=n, r=r, mode=0, np2=np2, lr=float(rb.lr), slabs=slabs, scratch=scratch,
                     **{f: t.data_ptr() for f, t in tensors.items()})
 
 

@@ -261,6 +261,48 @@ def extended_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, n_pods=N_PO
     return cluster, apps + [app_cls(name="tier", resource=tier)]
 
 
+#: the wide problem: one node with WIDE_GPUS GPU devices and one with
+#: WIDE_VGS volume groups and as many SSDs, past 32 on every per-node axis
+#: (the JAX package caps none of them)
+WIDE_GPUS, WIDE_VGS = 40, 36
+WIDE_CLUSTER_KW = dict(seed=21, zones=2, taint_frac=0.0)
+#: (name, replicas, make_deployment keywords): a 36-GPU pod (one share on
+#: each of devices 0-35; the second replica fails), single-GPU pods on the
+#: devices left (two fail), 4 GiB pods into the leftovers, two-claim LVM
+#: pods into VGs 32-35 (the third fails), 345 GiB SSD claims on devices
+#: 34 and 35 (one fails), and plain pods
+WIDE_APPS = (
+    ("gpu-stack", 2, dict(cpu_milli=1000, mem_mib=1024, gpu_mem_mib=12288, gpu_count=WIDE_VGS)),
+    ("gpu-one", 6, dict(cpu_milli=500, mem_mib=512, gpu_mem_mib=15360)),
+    ("gpu-small", 10, dict(cpu_milli=200, mem_mib=256, gpu_mem_mib=4096)),
+    ("lvm-wide", 5, dict(cpu_milli=500, mem_mib=512, lvm_gib=(340, 330))),
+    ("ssd-wide", 3, dict(cpu_milli=500, mem_mib=512, device_gib=345)),
+    ("plain", 24, dict(cpu_milli=500, mem_mib=512)),
+)
+
+
+def wide_problem(synth, app_cls, resources_cls):
+    """(cluster, apps) of the wide problem from a package's own synth
+    module, AppResource and ResourceTypes: 8 plain nodes, `gpu-wide`
+    (WIDE_GPUS devices of 16 GiB) and `disk-wide` (WIDE_VGS VGs of 10, 20,
+    ..., 360 GiB and as many SSDs of the same sizes)."""
+    cluster = synth.synth_cluster(8, **WIDE_CLUSTER_KW)
+
+    def labels(name):
+        return {"kubernetes.io/hostname": name, "topology.kubernetes.io/zone": "zone-0"}
+
+    sizes = tuple(10 * (j + 1) for j in range(WIDE_VGS))
+    cluster.nodes.append(synth.make_node("gpu-wide", 96000, 512, labels("gpu-wide"), gpu=(WIDE_GPUS, 16384)))
+    cluster.nodes.append(synth.make_node("disk-wide", 64000, 256, labels("disk-wide"), storage_gib=sizes,
+                                         device_gib=tuple((g, "ssd") for g in sizes)))
+    cluster.storage_classes = [
+        {"kind": "StorageClass", "metadata": {"name": "open-local-device-ssd"}, "parameters": {"mediaType": "ssd"}},
+    ]
+    res = resources_cls(deployments=[synth.make_deployment(name, replicas, namespace="wide", **kw)
+                                     for name, replicas, kw in WIDE_APPS])
+    return cluster, [app_cls(name="wide", resource=res)]
+
+
 RACKS = 400
 #: the rack problem's apps: (name, replicas, make_deployment keywords)
 RACK_APPS = (
@@ -314,9 +356,9 @@ def capacity_problem(synth, app_cls, resources_cls, n_nodes=CAP_NODES, n_pods=N_
 
 def write_capacity_config(root, cluster, apps, template) -> str:
     """Write (cluster, apps, template) as a simon Config under `root` — one
-    multi-document YAML file per directory, objects in list order — so the
-    `apply` front door loads exactly these objects. Returns the config's
-    path."""
+    multi-document YAML file per kind and directory, objects in list order
+    (the cluster's storage classes beside its nodes) — so the `apply` front
+    door loads exactly these objects. Returns the config's path."""
     import yaml
 
     dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
@@ -329,6 +371,8 @@ def write_capacity_config(root, cluster, apps, template) -> str:
         return str(path.parent)
 
     cluster_dir = dump(root / "cluster" / "nodes.yaml", cluster.nodes)
+    if cluster.storage_classes:
+        dump(root / "cluster" / "storageclasses.yaml", cluster.storage_classes)
     app_list = [{"name": a.name, "path": dump(root / "apps" / a.name / "deployments.yaml",
                                               a.resource.deployments)} for a in apps]
     new_node = dump(root / "newnode" / "node.yaml", [template])
