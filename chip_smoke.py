@@ -48,7 +48,8 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    clock64() stamps around each phase, never the main path's build)
    cycles per phase per step, the barriers per step and their floor (the
    measured cost of one block barrier at the block's size), ptxas'
-   registers and spills per template instance;
+   registers and spills per template instance and path of K9, K10, K19
+   and K23;
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
    serial smoke problem, the speculative wavefront and the compact carry
    on (the defaults). K9 and K10 must have launched once per wave of the
@@ -196,14 +197,24 @@ GPU rounds), each from the state the earlier rounds left, and K17 on the
 bulk carry, dense and compact; then their times at named rounds. And
 K18/K19 against their plain versions on the extended problem's
 `place_cluster` (a chunk of 16 single-node scenarios and one of 4 zone
-outages, storage and GPU pods in the requeue): every replica plane,
-nodes and reasons; then their times on the single-node chunk. And K22/K23
-against their plain versions on the relaxations of the capacity and the
-large capacity problems (100 candidates, 400 iterations; the first 5
-iterations step by step, then y and the residual to the stated tolerances
-and the feasible sets equal), K23's wide-row path (rows past shared
-memory at N = 20 000: a persistent grid of global scratch slabs) against
-its plain version exactly at the start point and 5 steps, K24/K25
+outages, storage and GPU pods in the requeue) and on 16 single-node
+scenarios of the extended mix at 2000 and at 3000 nodes (K19's two- and
+four-nodes-per-thread templates): every replica plane, nodes and reasons; then their times
+(K19 per launch and per pod step of each chunk, CUDA events; phases 8
+and 9 hold the k=1 chunk (128 x 1000) and the bulk chunk (32 x 5000, the
+step rows in global memory) the same way, and phases 8-11 time every K19
+launch of their main paths). And K22/K23 against their plain versions on
+the relaxations of the capacity and the large capacity problems (100
+candidates, 400 iterations; the start point and the first 5 iterations
+step by step, y equal, then y and the residual to the stated tolerances
+and the feasible sets equal), K23 at each boundary of its launch plan
+(N = 1024, 1025, 4096, 4097, 16 384: the register path's keys per
+thread, the shared-memory path) and on rows of ties, -0.0 beside +0.0,
+a = 0 and all masked (N = 999, 2099, 5000, 20 000), equal; K23's
+wide-row path (rows past shared memory at N = 20 000: a persistent grid
+of global scratch slabs) against its plain version exactly at the start
+point and 5 steps; K23's time per launch at both relaxations and its
+rows resident per SM; K24/K25
 against theirs on every growth of
 the grow problem's carry (entry, extension, promotions, node growth), bit
 for bit; then their times.
@@ -1093,6 +1104,19 @@ def phase_profile(statics, state, pods, flags, n_pods: int):
     return profile_kernels(lambda: scan.run_batch(buf))
 
 
+def kernel_of(key: str):
+    """The KERNELS entry a profiler key is a kernel of: "<name>_kernel" or a
+    path of it, "<name>_<path>_kernel" (K23's register and slab paths),
+    template instances included. A template instance demangles as "void
+    (anonymous namespace)::wave_lean_kernel<1>(...)", a plain kernel as
+    "filter_pod_kernel(...)"."""
+    fn = key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    for name in KERNELS:
+        if fn == f"{name}_kernel" or (fn.startswith(f"{name}_") and fn.endswith("_kernel")):
+            return name
+    return None
+
+
 def profile_kernels(fn):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1101,19 +1125,18 @@ def profile_kernels(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per = {}
+    total = {}
     busy_us = 0.0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = ev.cuda_time_total
-        # a template instance demangles as "void (anonymous namespace)::
-        # wave_lean_kernel<1>(...)", a plain kernel as "filter_pod_kernel(...)"
-        key = ev.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-        for name in KERNELS:
-            if key.startswith(f"{name}_kernel"):
-                per[name] = (dev_us / max(ev.count, 1), ev.count)
-                busy_us += dev_us
+        name = kernel_of(ev.key)
+        if name is not None:
+            us, count = total.get(name, (0.0, 0))
+            total[name] = (us + dev_us, count + ev.count)
+            busy_us += dev_us
+    per = {name: (us / max(count, 1), count) for name, (us, count) in total.items()}
     return per, busy_us / 1e6 / wall, wall
 
 
@@ -2029,6 +2052,80 @@ def phase_bulk_kernels(device, err):
 # -- the batched sweeps (K18 sweep_drain, K19 sweep_place) --------------------
 
 
+class PlaceTimer:
+    """Context manager: while open, every K19 launch is bracketed by CUDA
+    events on its stream and its chunk's longest pod list is kept (K19's
+    block time follows the longest list of its chunk). `summary()` gives
+    the launches, their device ms, µs per launch and µs per pod step."""
+
+    def __enter__(self):
+        self.orig = cuda.launch_sweep_place
+        self.marks = []
+
+        def timed(sb):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            self.orig(sb)
+            e1.record()
+            self.marks.append((e0, e1, sb.rows))
+
+        cuda.launch_sweep_place = timed
+        return self
+
+    def __exit__(self, *exc):
+        cuda.launch_sweep_place = self.orig
+        return False
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [e0.elapsed_time(e1) for e0, e1, _ in self.marks]
+        steps = [int((rows >= 0).sum(dim=1).max()) for _, _, rows in self.marks]
+        total = sum(ms)
+        return {"launches": len(ms), "device_ms": total,
+                "us_per_launch": total / len(ms) * 1e3 if ms else None, "pod_steps": sum(steps),
+                "us_per_pod_step": total * 1e3 / sum(steps) if sum(steps) else None}
+
+
+def in_turns(launchers: dict, setup, per_turn: int = 2) -> dict:
+    """Median device ms per launch of each of `launchers` ({label: fn},
+    each launching one kernel on setup()'s argument): CUDA events around
+    each launch, three turns of `per_turn` launches a side, the sides'
+    order reversed every other turn (a, b, b, a, a, b)."""
+    sides = list(launchers)
+    order = [k for turn in range(3) for k in (sides if turn % 2 == 0 else sides[::-1])]
+    got = {k: [] for k in launchers}
+    for side in order:
+        for _ in range(per_turn):
+            arg = setup()
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            # the card kept busy (~0.5 ms) while the host builds the launch,
+            # so the events hold the kernel and not the host's call
+            torch.cuda._sleep(1_000_000)
+            e0.record()
+            launchers[side](arg)
+            e1.record()
+            torch.cuda.synchronize()
+            got[side].append(e0.elapsed_time(e1))
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def time_place(inp, valid, ev_idx, rq_idx) -> dict:
+    """K19's device time per launch on a chunk (CUDA events; each launch on
+    replicas freshly drained by K18), and per pod step of the chunk's
+    longest list."""
+    steps = int((rq_idx >= 0).sum(dim=1).max())
+    ms = in_turns({"K19": batched.sweep_place}, lambda: batched.SweepBuffers(
+        inp.batch_buf, inp.pods, inp.statics, batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx),
+        valid, rq_idx))["K19"]
+    return {"longest_list": steps, "us_per_launch": ms * 1e3, "us_per_pod_step": ms * 1e3 / max(steps, 1)}
+
+
+def place_rates(t: dict) -> str:
+    return (f"K19 {t['us_per_launch']:.2f} us per launch, {t['us_per_pod_step']:.2f} us per pod step of the longest "
+            f"list of {t['longest_list']} (CUDA events)")
+
+
 def sweep_bytes(inp, valid, ev_idx, rq_idx) -> dict:
     """Bytes K18 and K19 must move for one chunk (each input read once,
     each output written once): K18 reads the base carry and its entries'
@@ -2130,6 +2227,12 @@ def phase_sweep_kernels(device, err) -> dict:
         f"requeue, nodes, reasons; the base carry untouched) on the extended problem's place_cluster "
         f"({place_s:.2f} s): 16 single-node scenarios ({k_rows} requeue rows, {int((nodes >= 0).sum())} "
         f"re-placed) and 4 zone outages ({z_rows} rows), {n_storage} storage and {n_gpu} GPU pods requeued")
+    chunks = {"k1_16": time_place(inp, valid, ev_idx, rq_idx),
+              "zone_4": time_place(z_inp, *z_inp.chunk(0, 4, 4)[:3])}
+    log(f"  the 16-scenario chunk: {place_rates(chunks['k1_16'])}")
+    log(f"  the zone chunk (full lists): {place_rates(chunks['zone_4'])}")
+    for n_nodes, n_pods in MID_SWEEPS:
+        chunks[f"nodes_{n_nodes}"] = phase_sweep_mid(err, n_nodes, n_pods)
 
     # times on the k=1 chunk
     per, _, _ = profile_kernels(lambda: [inp.run(valid, ev_idx, rq_idx) for _ in range(5)])
@@ -2154,11 +2257,51 @@ def phase_sweep_kernels(device, err) -> dict:
                      "host_ms": float(np.median(host[name])) * 1e3, "bytes": nbytes[name],
                      "at": f"16 single-node scenarios of the extended problem, {k_rows} requeue rows",
                      "scenarios": 16, "rows": k_rows, "longest_list": steps,
-                     "us_per_pod_step": dev_us / max(steps, 1)}
+                     "us_per_pod_step": dev_us / max(steps, 1), **({"chunks": chunks} if name == "sweep_place" else {})}
         log(f"  {name}: {dev_us:.2f} us device per launch (profiler, 16 blocks"
             + (f", {dev_us / max(steps, 1):.2f} us per pod step of the longest list of {steps}" if name == "sweep_place" else "")
             + f"), {out[name]['host_ms'] * 1e3:.2f} us to enqueue, plain {plain[name] * 1e3:.1f} ms, "
             f"{nbytes[name]} B, bound {out[name]['bound_ms'] * 1e3:.3f} us")
+    return out
+
+
+#: the chunks between 1024 and 4096 nodes (K19's two- and
+#: four-nodes-per-thread templates): the extended problem's mix on (nodes,
+#: pods), five pods a node as at 1000 nodes
+MID_SWEEPS = ((2000, 10000), (3000, 15000))
+
+
+def phase_sweep_mid(err, n_nodes: int, n_pods: int) -> dict:
+    """Phase 2: K18/K19 against their plain versions on the extended
+    problem's mix at `n_nodes` nodes (`place_cluster` on the card): the 16
+    single-node scenarios that evict the most pods, the lists cut to 48
+    rows for the plain version; then K19's time on the full lists."""
+    cluster, apps = smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes,
+                                           n_nodes=n_nodes, n_pods=n_pods)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        pc = tfaults.place_cluster(cluster, apps, device="cuda")
+    finally:
+        seed_name_hashes(None)
+    inp = tsweep.SweepInputs(pc, tfaults.generate_scenarios(cluster.nodes, "k=1"))
+    order = np.argsort([-len(v) for v in inp.rq_lists], kind="stable")[:16]
+    keep = np.zeros(len(inp.masks), bool)
+    keep[order] = True
+    inp = tsweep.SweepInputs(pc, tfaults.ScenarioSet(masks=inp.masks[keep], labels=tuple(
+        f"node:{i}" for i in np.flatnonzero(keep))))
+    (_, _, rq_cut), rows, nodes, plain = compare_sweep_chunk(
+        "phase 2", f"{n_nodes}-node chunk", inp, 0, 16, err, rq_cols=48)
+    cut = rq_cut.cpu().numpy().ravel()
+    live = inp.batch_buf.ext_live.cpu().numpy()[cut[cut >= 0]]
+    valid, ev_idx, rq_idx, _ = inp.chunk(0, 16, 16)
+    out = dict(time_place(inp, valid, ev_idx, rq_idx), nodes=n_nodes, rows=rows,
+               placed=int((nodes >= 0).sum()), storage=int((live & 1).sum()), gpu=int((live & 2).sum()),
+               plan=cuda.sweep_place_plan(pc.n_nodes, pc.tensors.alloc.shape[1], inp.statics.g_terms.shape[1]),
+               plain_s=plain["sweep_place"])
+    log(f"phase 2: K18/K19 equal to their plain versions on 16 single-node scenarios of the extended mix at "
+        f"{n_nodes} nodes ({rows} requeue rows compared, {out['storage']} storage and {out['gpu']} GPU "
+        f"pods among them; K19's {out['plan']['template']}-node template, {out['plan']['threads']} threads); "
+        f"{place_rates(out)}")
     return out
 
 
@@ -2177,9 +2320,11 @@ def profiled_sweep(pc, scen):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = []
-    per, _, _ = profile_kernels(lambda: out.append(tfaults.sweep_scenarios(pc, scen)))
+    with PlaceTimer() as timer:
+        per, _, _ = profile_kernels(lambda: out.append(tfaults.sweep_scenarios(pc, scen)))
     wall = time.perf_counter() - t0
     dev_s = sum(per[k][0] * per[k][1] for k in SWEEP_KERNELS if k in per) / 1e6
+    per["sweep_place_events"] = timer.summary()
     return out[0], dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS), wall, dev_s, per
 
 
@@ -2194,7 +2339,14 @@ def sweep_summary(sw, wall, dev_s, launches, per) -> dict:
             "scenarios_per_s": t["scenarios_per_s"], "assemble_s": t["assemble_s"], "total_s": t["total_s"],
             "wall_scenarios_per_s": len(sw.scenarios) / t["total_s"], "sweep_device_s": dev_s,
             "sweep_host_s": t["sweep_s"] - dev_s, "sweep_device_share": dev_s / wall, "launches": launches,
-            "us_per_launch": {k: per[k][0] for k in SWEEP_KERNELS if k in per}}
+            "us_per_launch": {k: per[k][0] for k in SWEEP_KERNELS if k in per},
+            "sweep_place_events": per["sweep_place_events"]}
+
+
+def events_rates(t: dict) -> str:
+    return (f"{t['launches']} launches, {t['device_ms']:.3f} ms device (CUDA events), "
+            f"{t['us_per_launch']:.2f} us per launch, {t['us_per_pod_step']:.2f} us per pod step of "
+            f"{t['pod_steps']} (each chunk's longest list)")
 
 
 def sweep_rates(o: dict) -> str:
@@ -2214,14 +2366,16 @@ def compare_main_chunk(phase, label, pc, scen, err, rq_cols=None) -> dict:
     s_chunk = tsweep._chunk_default(inp.state, len(scen))
     (_, ev_idx, rq_idx), rows, nodes, plain = compare_sweep_chunk(phase, label, inp, 0, min(s_chunk, len(scen)),
                                                                   err, rq_cols, sb=s_chunk)
+    full = inp.chunk(0, min(s_chunk, len(scen)), s_chunk)
     out = {"scenarios": s_chunk, "e_pad": inp.e_pad, "r_pad": inp.r_pad, "cols": int(rq_idx.shape[1]),
            "entries": int((ev_idx >= 0).sum()), "rows": rows, "placed": int((nodes >= 0).sum()),
-           "plain_s": plain}
+           "plain_s": plain, "timed": time_place(inp, *full[:3])}
     log(f"{phase}: K18/K19 equal to their plain versions on the {label} ({s_chunk} scenarios x "
         f"N={pc.n_nodes}, e_pad {inp.e_pad} with {out['entries']} entries, r_pad {inp.r_pad}"
         + (f" cut to {out['cols']}" if rq_cols is not None else "")
         + f", {rows} requeue rows, {out['placed']} re-placed): every replica plane, nodes, reasons, the base "
-        f"carry untouched; plain K18 {plain['sweep_drain']:.1f} s, K19 {plain['sweep_place']:.1f} s")
+        f"carry untouched; plain K18 {plain['sweep_drain']:.1f} s, K19 {plain['sweep_place']:.1f} s; the "
+        f"chunk with its full lists: {place_rates(out['timed'])}")
     return out
 
 
@@ -2275,7 +2429,8 @@ def run_serial_faults(card: str, err) -> dict:
     out["k1"] = sweep_summary(k1, wall, dev_s, launches, per)
     log(f"phase 8: sweep_scenarios k=1 on the same PlacedCluster: {len(k1.scenarios)} scenarios in "
         f"{int(k1.timings['chunks'])} chunks, {sweep_rates(out['k1'])}, K18/K19 device {dev_s:.4f} s = "
-        f"{dev_s / wall:.1%} of the wall, {out['k1']['us_per_launch']} us per launch; == golden")
+        f"{dev_s / wall:.1%} of the wall, {out['k1']['us_per_launch']} us per launch; K19 "
+        f"{events_rates(out['k1']['sweep_place_events'])}; == golden")
     out["k1"]["compare"] = compare_main_chunk("phase 8", "serial smoke problem's first k=1 chunk", pc, scen, err)
     return out
 
@@ -2310,8 +2465,8 @@ def run_bulk_faults(card: str, err) -> dict:
                r_pad=int(sweep.requeue_rows.shape[1]))
     log(f"phase 9: place_cluster on the bulk problem ({len(cluster.nodes)} nodes x {len(pc.nodes)} pods, "
         f"{place_s:.2f} s) + sweep k=2:256: {int(sweep.timings['chunks'])} chunks, {sweep_rates(out)}, "
-        f"K18/K19 device {dev_s:.4f} s = {dev_s / wall:.1%}, {out['us_per_launch']} us per launch; == golden, "
-        f"the carry unchanged [{card}]")
+        f"K18/K19 device {dev_s:.4f} s = {dev_s / wall:.1%}, {out['us_per_launch']} us per launch; K19 "
+        f"{events_rates(out['sweep_place_events'])}; == golden, the carry unchanged [{card}]")
     out["compare"] = compare_main_chunk("phase 9", "bulk problem's first k=2:256 chunk", pc, scen, err,
                                         rq_cols=BULK_COMPARE_ROWS)
     return out, pc
@@ -2343,12 +2498,14 @@ def run_batched_capacity(card: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        plan = tpsweep.plan_capacity_batched(cluster, apps, template, device="cuda")
-        torch.cuda.synchronize()
+        with PlaceTimer() as timer:
+            plan = tpsweep.plan_capacity_batched(cluster, apps, template, device="cuda")
+            torch.cuda.synchronize()
     finally:
         seed_name_hashes(None)
         tpsweep.sweep_scan = scan_fn
     wall = time.perf_counter() - t0
+    k19 = timer.summary()
     launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
     failures = [plan.probes[c] for c in smoke.CAP_SWEEP_CANDIDATES]
     diffs = []
@@ -2365,11 +2522,12 @@ def run_batched_capacity(card: str) -> dict:
     check_sweep_launches("phase 10", launches, plain, 1)
     n_pods = len(want["record"]["placed"]) + len(want["record"]["failed"])
     out = {"wall_s": wall, "sweep_s": walls[0], "candidates": len(plan.probes), "nodes_added": plan.nodes_added,
-           "pod_steps": n_pods, "us_per_pod_step": walls[0] / n_pods * 1e6, "launches": launches}
+           "pod_steps": n_pods, "us_per_pod_step": walls[0] / n_pods * 1e6, "launches": launches,
+           "sweep_place_events": k19}
     log(f"phase 10: plan_capacity_batched on the capacity problem: {len(plan.probes)} candidates in one "
         f"K18 + K19 launch pair, sweep {walls[0]:.3f} s wall ({out['us_per_pod_step']:.2f} us per pod step "
-        f"of {n_pods}), plan {wall:.2f} s, +{plan.nodes_added} nodes, failures {failures} == golden, "
-        f"winner record == golden [{card}]")
+        f"of {n_pods}), K19 {events_rates(k19)}; plan {wall:.2f} s, +{plan.nodes_added} nodes, failures "
+        f"{failures} == golden, winner record == golden; launches {launches} [{card}]")
     return out
 
 
@@ -2397,13 +2555,14 @@ def run_resilience_plan(card: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stderr(io.StringIO()):
+            with contextlib.redirect_stderr(io.StringIO()), PlaceTimer() as timer:
                 rc, doc = smoke.run_cli_json(tcli.main, ["resilience", "-f", cfg, "--plan", "--faults",
                                                          smoke.CAP_RESIL_SPEC, "--seed", "0", "--json"])
         finally:
             seed_name_hashes(None)
             tresil.sweep_scenarios = sweep_fn
         wall = time.perf_counter() - t0
+    k19 = timer.summary()
     launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
     if rc != golden["plan_rc"] or smoke.doc_record(doc) != golden["plan"]:
         raise AssertionError(f"phase 11: exit {rc} (golden {golden['plan_rc']}), plan "
@@ -2412,11 +2571,13 @@ def run_resilience_plan(card: str) -> dict:
             or any(plain.values()):
         raise AssertionError(f"phase 11: {len(sweep_walls)} sweeps, launches {launches}, plain {plain}")
     out = {"wall_s": wall, "rc": rc, "nodes_added": doc["nodes_added"], "candidates": doc["candidates_probed"],
-           "sweeps": len(sweep_walls), "sweep_wall_s": sweep_walls, "launches": launches}
+           "sweeps": len(sweep_walls), "sweep_wall_s": sweep_walls, "launches": launches,
+           "sweep_place_events": k19}
     log(f"phase 11: cli resilience --plan --faults k=2:64 on the capacity problem: exit {rc}, "
         f"+{doc['nodes_added']} nodes after {doc['candidates_probed']} candidates, audit fallback "
         f"{bool(doc['audit'].get('fallback'))}; {wall:.2f} s, {len(sweep_walls)} sweeps of "
-        f"{np.mean(sweep_walls) * 1e3:.1f} ms mean; == golden [{card}]")
+        f"{np.mean(sweep_walls) * 1e3:.1f} ms mean; K19 {events_rates(k19)}; == golden; launches {launches} "
+        f"[{card}]")
     return out
 
 
@@ -2839,10 +3000,11 @@ def relax_bound(rb) -> dict:
 def phase_relax_kernels(device, err) -> dict:
     """Phase 2: K22/K23 against their plain versions on the card, on the
     relaxations of the capacity and the large capacity problems (every
-    candidate, smoke.SOLVE_ITERS iterations): the first 5 iterations step by
-    step (over and y), then y and the residual to the stated tolerances and
-    the feasible sets equal; then their times at the capacity shape."""
-    out = {}
+    candidate, smoke.SOLVE_ITERS iterations): the start point and the first
+    5 iterations step by step (y equal, over), then y and the residual to
+    the stated tolerances and the feasible sets equal; then their times
+    at both shapes, K23's launch plan and its rows resident per SM."""
+    out, pair = {}, {}
     for label, fn in (("capacity", smoke.capacity_problem), ("large_capacity", smoke.large_capacity_problem)):
         prob, valid = relax_problem_of(fn)
         args = (prob.feas, prob.req, prob.cnt, prob.fixed, prob.cap, valid, np.float32(prob.lr), device)
@@ -2868,7 +3030,10 @@ def phase_relax_kernels(device, err) -> dict:
         fin = np.isfinite(ra)
         res_err = float(np.abs(ra[fin] - rb_[fin]).max()) if fin.any() else 0.0
         feas_a, feas_b = ra <= trelax.RESIDUAL_TOL, rb_ <= trelax.RESIDUAL_TOL
-        if (max(steps) > smoke.SOLVE_Y_ATOL or y_err > smoke.SOLVE_Y_ATOL or res_err > smoke.SOLVE_RES_ATOL
+        # the start point and the first 5 launches from identical inputs:
+        # equal (a launch that differed would show here), then the runs to
+        # the stated tolerances
+        if (max(steps) > 0.0 or y_err > smoke.SOLVE_Y_ATOL or res_err > smoke.SOLVE_RES_ATOL
                 or not np.array_equal(fin, np.isfinite(rb_)) or not np.array_equal(feas_a, feas_b)
                 or not torch.equal(a.stuck, b.stuck)):
             raise AssertionError(f"phase 2: K22/K23 on the {label} relaxation differ from their plain versions: "
@@ -2884,40 +3049,60 @@ def phase_relax_kernels(device, err) -> dict:
             f"{max(steps):.3g}, over {over_err:.3g}; final y {y_err:.3g} (tolerance {smoke.SOLVE_Y_ATOL}), "
             f"residual {res_err:.3g} ({smoke.SOLVE_RES_ATOL}); {int(feas_b.sum())} candidates relax-feasible "
             "in both")
+        out[label]["exact_after_400"] = y_err == 0.0
+        pair[label] = (a, b)
+    # times at both shapes: the profiler's device time per launch, K23's
+    # rows resident per SM, the whole relaxation's wall
+    for label, (a, b) in pair.items():
+        bound = relax_bound(b)
+        per, _, _ = profile_kernels(lambda: [(cuda.launch_relax_load(b), cuda.launch_relax_project(b))
+                                             for _ in range(20)])
+        plan = cuda.relax_project_plan(b.y.shape[2], b.y.shape[0] * b.y.shape[1])
+        out[label].update({
+            "device_us": {k: per[k][0] for k in RELAX_KERNELS}, "bound": bound,
+            "relax_project_plan": plan, "rows_per_sm": cuda.relax_project_rows_per_sm(b),
+            "run_ms": time_call(lambda: trelax.relax_run(b, smoke.SOLVE_ITERS), 2)})
+        out[label]["events_us"] = in_turns({"K23": lambda _: cuda.launch_relax_project(b)}, lambda: None,
+                                           per_turn=8)["K23"] * 1e3
+        log(f"  {label} relaxation {tuple(out[label]['shape'])}: K22 {per['relax_load'][0]:.2f} us, K23 "
+            f"{per['relax_project'][0]:.2f} us device per launch (profiler; {out[label]['events_us']:.2f} us "
+            f"CUDA events; bound "
+            f"{bound['relax_project']['bound_ms'] * 1e3:.2f} us, {bound['relax_project']['bound_by']}); K23's "
+            f"{plan['path']} path, {plan['threads']} threads x {plan['keys_per_thread']} keys a row, "
+            f"{out[label]['rows_per_sm']} rows resident per SM; relax_run ({smoke.SOLVE_ITERS} iterations, "
+            f"{2 * smoke.SOLVE_ITERS + 2} launches) {out[label]['run_ms']:.2f} ms")
         if label == "capacity":
-            timed_a, timed_b = a, b
-    bound = relax_bound(timed_b)
-    times = {}
-    for name, launch, plain in (("relax_load", cuda.launch_relax_load, trelax.relax_load_plain),
-                                ("relax_project", cuda.launch_relax_project, trelax.relax_project_plain)):
-        times[name] = {"host_ms": time_call(lambda: launch(timed_b), 200),
-                       "plain_ms": time_call(lambda: plain(timed_a), 3), **bound[name]}
-    per, _, _ = profile_kernels(lambda: [(cuda.launch_relax_load(timed_b), cuda.launch_relax_project(timed_b))
-                                         for _ in range(20)])
-    run_ms = time_call(lambda: trelax.relax_run(timed_b, smoke.SOLVE_ITERS), 2)
-    for name in RELAX_KERNELS:
-        t = times[name]
-        t["ms"] = per[name][0] / 1e3
-        log(f"  {name}: {per[name][0]:.2f} us device (profiler), {t['host_ms'] * 1e3:.2f} us per back-to-back "
-            f"launch from Python, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B, {t['ops']} ops, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}) at the capacity relaxation "
-            f"{tuple(out['capacity']['shape'])}")
-    log(f"  relax_run ({smoke.SOLVE_ITERS} iterations, {2 * smoke.SOLVE_ITERS + 2} launches) at the capacity "
-        f"relaxation: {run_ms:.2f} ms")
-    return {"problems": out, "times": times, "run_ms": run_ms}
+            times = {}
+            for name, launch, plain in (("relax_load", cuda.launch_relax_load, trelax.relax_load_plain),
+                                        ("relax_project", cuda.launch_relax_project, trelax.relax_project_plain)):
+                times[name] = {"host_ms": time_call(lambda: launch(b), 200),
+                               "plain_ms": time_call(lambda: plain(a), 3), "ms": per[name][0] / 1e3,
+                               **bound[name]}
+                t = times[name]
+                log(f"  {name}: {per[name][0]:.2f} us device (profiler), {t['host_ms'] * 1e3:.2f} us per "
+                    f"back-to-back launch from Python, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B, "
+                    f"{t['ops']} ops, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}) at the capacity "
+                    f"relaxation {tuple(out['capacity']['shape'])}")
+    return {"problems": out, "times": times, "run_ms": out["capacity"]["run_ms"]}
 
 
 #: K23's wide-row check: a relaxation of (S, C, N, R) = RELAX_WIDE nodes
 #: past the shared-memory row (cuda.RELAX_SHARED_ROW), from a seed
 RELAX_WIDE = (4, 3, 20000, 3)
+#: K23's launch-plan boundaries (cuda.relax_project_plan): the register
+#: path's widest keys-per-thread steps, its last row, the shared-memory
+#: path's first and last
+RELAX_EDGES = (1024, 1025, 4096, 4097, 16384)
+#: the node counts of K23's edge-row set: each path and keys-per-thread step
+RELAX_EDGE_ROWS = (999, 2099, 5000, 20000)
 
 
-def relax_wide_problem(device, seed: int = 5):
+def relax_wide_problem(device, seed: int = 5, shape=RELAX_WIDE):
     """Two equal RelaxBuffers (plain side, kernel side) of a seeded
-    relaxation of RELAX_WIDE's shape: classes feasible on ~80% of the
+    relaxation of `shape` (S, C, N, R): classes feasible on ~80% of the
     nodes, candidates valid on ~90%, capacities in [0.5, 1), a pinned load
     up to 20% of them and per-pod requests that fill about 60% in all."""
-    s, c, n, r = RELAX_WIDE
+    s, c, n, r = shape
     rng = np.random.default_rng(seed)
     feas = rng.random((c, n)) < 0.8
     valid = rng.random((s, n)) < 0.9
@@ -3054,6 +3239,105 @@ def phase_relax_wide(device, err) -> dict:
         f"{ctx.np2}, {ctx.slabs} slabs): y exactly equal after the start point and 5 steps, K22's over "
         f"{over_err:.3g}, residual {res_err:.3g}; {out['ms'] * 1e3:.2f} us per launch (CUDA events), "
         f"plain {out['plain_ms'] * 1e3:.1f} us, bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    return out
+
+
+def relax_steps_equal(a, b, steps: int) -> tuple:
+    """K23 against its plain version from the same inputs: the start point,
+    then `steps` iterations, each K23 step taken by both from the same y and
+    the same overcommit (K22's on the card, itself compared with K22's
+    plain version). Returns (the largest |dy| after each launch — 0 when
+    every y is equal —, K22's largest |d over|)."""
+    trelax.relax_project_plain(a, init=True)
+    cuda.launch_relax_project(b, init=True)
+    torch.cuda.synchronize()
+    y_errs = [0.0 if torch.equal(a.y, b.y) and torch.equal(a.stuck, b.stuck)
+              else float((a.y - b.y).abs().max()) or float("nan")]
+    over_err = 0.0
+    for _ in range(steps):
+        trelax.relax_load_plain(a)
+        cuda.launch_relax_load(b)
+        torch.cuda.synchronize()
+        over_err = max(over_err, float((a.over - b.over).abs().max()))
+        a.over.copy_(b.over)
+        a.y.copy_(b.y)
+        trelax.relax_project_plain(a)
+        cuda.launch_relax_project(b)
+        torch.cuda.synchronize()
+        y_errs.append(0.0 if torch.equal(a.y, b.y) else float((a.y - b.y).abs().max()) or float("nan"))
+    return y_errs, over_err
+
+
+def relax_edge_rows(device, n: int, seed: int = 9):
+    """Two equal RelaxBuffers (plain side, kernel side) of (S, C) = (3, 6)
+    rows of N nodes whose step values hold the projection's edge cases
+    (the overcommit is 0, so the step value v is y itself): class 0 long
+    runs of ties (three values), class 1 -0.0 and +0.0 in one row beside a
+    few positives (a = 2: tau near 0), class 2 a = 0, class 3 one node on
+    the mask, class 4 one value in the whole row (a row of ties), class 5
+    normal values; candidate 2 has no valid node (every row all masked)."""
+    s, c, r = 3, 6, 3
+    rng = np.random.default_rng(seed)
+    feas = np.ones((c, n), bool)
+    feas[3] = False
+    feas[3, n // 2] = True
+    valid = rng.random((s, n)) < 0.9
+    valid[2] = False
+    y = np.zeros((s, c, n), np.float32)
+    y[:, 0] = rng.choice(np.float32([0.5, 0.25, 0.125]), (s, n))
+    y[:, 1] = np.where(rng.random((s, n)) < 0.5, np.float32(-0.0), np.float32(0.0))
+    y[:, 1, ::97] = 0.75
+    y[:, 2] = rng.random((s, n))
+    y[:, 3] = rng.random((s, n))
+    y[:, 4] = 0.375
+    y[:, 5] = rng.standard_normal((s, n))
+    cnt = np.float32([n / 8, 2.0, 0.0, 3.0, n / 3, n / 4])
+    cap = rng.uniform(0.5, 1.0, (n, r)).astype(np.float32)
+    req = rng.uniform(0.0, 0.01, (c, r)).astype(np.float32)
+    args = (feas, req, cnt, np.zeros((n, r), np.float32), cap, valid, np.float32(0.05), device)
+    pair = trelax.relax_buffers(*args), trelax.relax_buffers(*args)
+    for rb in pair:
+        rb.y.copy_(torch.as_tensor(y, device=device))
+    return pair
+
+
+def phase_relax_shapes(device, err) -> dict:
+    """Phase 2: K23 against its plain version at each launch-plan boundary
+    (RELAX_EDGES at (S, C, R) = (4, 3, 3): the start point and 3 steps
+    from the same inputs, y equal after each) and on the edge-row set
+    (RELAX_EDGE_ROWS: ties, -0.0 beside +0.0, a = 0, all-masked rows; one
+    step from the same y, equal); K23's path and its µs per launch (CUDA
+    events) at each."""
+    out = {"edges": {}, "edge_rows": {}}
+    for n in RELAX_EDGES:
+        a, b = relax_wide_problem(device, seed=n, shape=(4, 3, n, 3))
+        y_errs, over_err = relax_steps_equal(a, b, 3)
+        if max(y_errs) or over_err > smoke.SOLVE_RES_ATOL:
+            raise AssertionError(f"phase 2: K23 at N = {n} differs from its plain version: y {y_errs}, "
+                                 f"over {over_err}")
+        plan = cuda.relax_project_plan(n, 12)
+        out["edges"][n] = {"path": plan["path"], "threads": plan["threads"],
+                           "keys_per_thread": plan["keys_per_thread"],
+                           "us": time_call(lambda: cuda.launch_relax_project(b), 50) * 1e3}
+    for n in RELAX_EDGE_ROWS:
+        a, b = relax_edge_rows(device, n)
+        trelax.relax_project_plain(a)
+        cuda.launch_relax_project(b)
+        torch.cuda.synchronize()
+        if not torch.equal(a.y, b.y):
+            raise AssertionError(f"phase 2: K23 on the edge rows at N = {n} differs from its plain version by "
+                                 f"{float((a.y - b.y).abs().max())}")
+        # the edge cases held: a = 0 and all-masked rows zero, the ties' and
+        # the signed zeros' rows summing to a
+        sums = b.y.sum(dim=2).cpu().numpy()
+        if b.y[:, 2].any() or b.y[2].any() or abs(sums[0, 1] - 2.0) > 1e-3 or abs(sums[0, 0] / (n / 8) - 1) > 1e-4:
+            raise AssertionError(f"phase 2: K23's edge rows at N = {n}: sums {sums.tolist()}")
+        plan = cuda.relax_project_plan(n, 18)
+        out["edge_rows"][n] = {"path": plan["path"], "keys_per_thread": plan["keys_per_thread"]}
+    log("phase 2: K23 equal to its plain version at the launch-plan boundaries " + ", ".join(
+        f"N = {n} ({o['path']}, {o['threads']} x {o['keys_per_thread']}: {o['us']:.2f} us per launch of 12 rows)"
+        for n, o in out["edges"].items()) + "; and on the edge rows (ties, -0.0 beside +0.0, a = 0, all "
+        "masked) at N = " + ", ".join(f"{n} ({o['path']})" for n, o in out["edge_rows"].items()))
     return out
 
 
@@ -3478,6 +3762,7 @@ def main() -> int:
     sweep_times = phase_sweep_kernels(device, err)
     relax_kernels = phase_relax_kernels(device, err)
     relax_wide = phase_relax_wide(device, err)
+    relax_kernels["shapes"] = phase_relax_shapes(device, err)
     grow_times = phase_grow_kernels(device)
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
@@ -3568,8 +3853,9 @@ def main() -> int:
             f"(profiler), {t['device_us'] / t['pods']:.2f} us per pod step, {t['host_us']:.2f} us to enqueue "
             f"a launch, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B")
     breakdown = phase_wave_breakdown({"serial": (s_wbuf, s_runs), "extended": (x_wbuf, x_runs)})
-    wave_ptxas = {name: ptxas_entries(name) for name in WAVES}
-    for name, entries in wave_ptxas.items():
+    # every template instance and path of K9, K10, K19 and K23
+    ptxas = {name: ptxas_entries(name) for name in (*WAVES, "sweep_place", "relax_project")}
+    for name, entries in ptxas.items():
         for fn, info in entries.items():
             log(f"  ptxas {name} {fn}: {info}")
     w_per, w_busy, w_wall = profile_waves(tensors, batch, statics, state, pods, flags, 2000)
@@ -3706,7 +3992,10 @@ def main() -> int:
                 **({"ops": t["ops"]} if name in RELAX_KERNELS else {}),
                 **({"launches_by_path": {k: o["launches"].get(name, 0) for k, o in solver_paths.items()}}
                    if name in RELAX_KERNELS else {}),
-                **({"wide_rows": relax_wide} if name == "relax_project" else {}),
+                **({"ptxas": ptxas[name], "wide_rows": relax_wide,
+                    "large_capacity_us": relax_kernels["problems"]["large_capacity"]["device_us"][name],
+                    "rows_per_sm": {k: o["rows_per_sm"] for k, o in relax_kernels["problems"].items()}}
+                   if name == "relax_project" else {}),
             })
             continue
         if name in EXPLAIN_KERNELS:
@@ -3762,6 +4051,12 @@ def main() -> int:
                 "launches_bulk_faults_path": bulk_faults["launches"].get(name, 0),
                 "launches_batched_capacity_path": batched_capacity["launches"].get(name, 0),
                 "launches_resilience_plan_path": resilience_plan["launches"].get(name, 0),
+                **({"ptxas": ptxas[name], "events_by_path": {"serial_k1": serial_faults["k1"]["sweep_place_events"],
+                                       "bulk_k2": bulk_faults["sweep_place_events"],
+                                       "batched_capacity": batched_capacity["sweep_place_events"],
+                                       "resilience_plan": resilience_plan["sweep_place_events"]},
+                    "first_chunks": {"serial_k1": serial_faults["k1"]["compare"]["timed"],
+                                     "bulk_k2": bulk_faults["compare"]["timed"]}} if name == "sweep_place" else {}),
             })
             continue
         if name in ROUND_KERNELS or name == "carry_copy":
@@ -3810,7 +4105,7 @@ def main() -> int:
                 "launch_ms": launch_ms,
                 "ms_from": "profiler",
                 "run": {"kind": t["kind"], "pods": t["pods"], "us_per_pod_step": t["device_us"] / t["pods"]},
-                "ptxas": wave_ptxas[name],
+                "ptxas": ptxas[name],
                 "breakdown": [r for r in breakdown if r["name"] == name],
                 "above_1024_nodes": {str(k): v for k, v in big_waves.items()},
                 "main_path_us_per_launch": {"serial": w_per.get(name, (None,))[0],
@@ -3876,7 +4171,7 @@ def main() -> int:
                       "serial_faults": serial_faults, "bulk_faults": bulk_faults,
                       "batched_capacity": batched_capacity, "resilience_plan": resilience_plan,
                       "explain": {k: v for k, v in explain.items() if k != "times"}, "fuzz": fuzz_run,
-                      "relax_kernels": {"problems": relax_kernels["problems"], "run_ms": relax_kernels["run_ms"]},
+                      "relax_kernels": {k: relax_kernels[k] for k in ("problems", "run_ms", "shapes")},
                       "solver_paths": solver_paths, "grow_path": grow_path, "wide_paths": wide_paths,
                       "large_capacity": {"nodes_added": l_plan.nodes_added, "wall_s": l_wall,
                                          "probes": {str(k): v for k, v in l_plan.probes.items()},

@@ -129,7 +129,7 @@ class SweepBuffers:
     """What K19 reads and writes for one chunk of S scenarios: the whole
     batch's pod arrays (from a StepBuffers of the batch), the statics, the
     replicated state (updated in place), the [S, N] surviving masks, the
-    [S, R] batch rows, and per-scenario copies of K1-K6's scratch and of
+    [S, R] batch rows, and per-scenario copies of K5/K6's scratch and of
     the per-pod outputs (row j = entry j of the scenario's list).
 
     `statics`, `state` and every scratch and output attribute are the
@@ -158,9 +158,11 @@ class SweepBuffers:
         def z(*shape, dtype=torch.float32, fill=0):
             return torch.full((s,) + shape, fill, dtype=dtype, device=dev)
 
-        self.stage_s = z(n, dtype=torch.uint8)
-        self.raw_s = z(4, n)
-        self.score_s = z(n)
+        # K19 keeps each node's stage byte, raws and score on chip: one
+        # unused row each, which the argument block requires
+        self.stage = torch.zeros(n, dtype=torch.uint8, device=dev)
+        self.raw = torch.zeros((4, n), device=dev)
+        self.score = torch.zeros(n, device=dev)
         self.st_ok_s = z(n, dtype=torch.bool, fill=1)
         self.st_alloc_s = z(n, v)
         self.st_fr_s = z(n, v)
@@ -178,7 +180,7 @@ class SweepBuffers:
         # scenario 0's views: what the argument block points at
         self.statics = statics._replace(node_valid=self.valid_s[0])
         self.state = replica(reps, 0)
-        for name in ("stage", "raw", "score", "st_ok", "st_alloc", "st_fr", "st_take", "st_raw", "gpu_ok",
+        for name in ("st_ok", "st_alloc", "st_fr", "st_take", "st_raw", "gpu_ok",
                      "gpu_sh", "chosen", "placed", "reason", "out_node", "out_lvm", "out_take",
                      "out_gpu"):
             setattr(self, name, getattr(self, name + "_s")[0])

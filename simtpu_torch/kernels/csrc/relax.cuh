@@ -8,9 +8,15 @@
 // RelaxCtx.mode bits: K22 writes residual[s]; K23 writes the start point
 constexpr int RELAX_RESIDUAL = 1;
 constexpr int RELAX_INIT = 1;
-// widest padded row (the next power of two >= N) whose keys (f32) and
-// prefix sums (f64) K23 keeps in dynamic shared memory (12 B each, 227 KB);
+// K23's three paths by the padded row (the next power of two >= N):
+// up to RELAX_REG_ROW the row's keys sort in registers, one block of at
+// most RELAX_ROW_THREADS threads per row (RelaxCtx.threads x .kpt keys,
+// at most RELAX_REG_ROW of them);
+// up to RELAX_SHARED_ROW its keys (f32) and prefix sums (f64) sit in
+// dynamic shared memory (12 B each, 227 KB), one block of 1024 threads;
 // a wider row sorts in a slab of RelaxCtx.scratch
+constexpr int RELAX_REG_ROW = 4096;
+constexpr int RELAX_ROW_THREADS = 512;
 constexpr int RELAX_SHARED_ROW = 16384;
 
 struct RelaxCtx {
@@ -28,4 +34,7 @@ struct RelaxCtx {
   float* residual;      // [S] max overcommit (zeroed by the caller)
   int* stuck;           // [S] a class with demand has no feasible valid node
   unsigned char* scratch; // [slabs, np2] prefix sums (f64) then keys (f32), wide rows only
+  // K23's register path (np2 <= RELAX_REG_ROW): threads per row and keys
+  // per thread (kernels/cuda.py relax_project_plan)
+  int threads, kpt;
 };

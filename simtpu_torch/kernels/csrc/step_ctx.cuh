@@ -156,8 +156,8 @@ enum : int { RAW_IPA = 0, RAW_SOFT = 1, RAW_SS_HOST = 2, RAW_SS_ZONE = 3, N_RAWS
 constexpr int WAVE_PREF = 1;
 constexpr int WAVE_HEAVY_SHIFT = 4;
 enum : int { HEAVY_PORTS = 1, HEAVY_VOLS = 2, HEAVY_STORAGE = 4, HEAVY_GPU = 8 };
-// threads of a scenario (K19) or explain (K20) block (fixed at the
-// launch; the wave kernels' own block is planned in wave.cuh)
+// threads of an explain (K20) block (fixed at the launch; the wave
+// kernels' and K19's blocks are planned in wave.cuh)
 constexpr int WAVE_THREADS = 512;
 // WaveCtx.prof: cycles per phase of a step, summed over the run's steps
 // by the profile build of K9/K10 (wave.cuh); the last slot counts steps
@@ -237,6 +237,12 @@ struct SweepCtx {
   const float* ports_used;      // [N, P]
   const float* vols_any;        // [N, W]
   const float* vols_rw;         // [N, W]
+  // K19's launch plan (simtpu_torch/kernels/cuda.py sweep_place_plan):
+  // threads, nodes per thread (0: the step rows in `carry`), dynamic
+  // shared bytes, the words of one staged pod, and the byte offsets of the
+  // shared segments (off_free -1: the free rows stay in global memory)
+  int threads, npt, smem, pod_words, off_pod, off_min, off_free, pad_;
+  float* carry;  // [S, SWEEP_ROWS, N] the step rows past what registers hold (npt 0), else null
 };
 
 // The compact carried state's kernels (K11 compact_compress, K12

@@ -1,10 +1,10 @@
-// Device code of the two wave kernels alone (K9 wave_lean.cu, K10
-// wave_hard.cu): the launch plan (threads, nodes per thread, what is
+// Device code of the kernels that keep one thread per node and the step's
+// state on chip (K9 wave_lean.cu, K10 wave_hard.cu, and per scenario K19
+// sweep_place.cu): the launch plan (threads, nodes per thread, what is
 // staged in shared memory), the one-barrier block reductions and the
-// phase stamps of the profile build. The per-node code the wave kernels
+// phase stamps of the profile build. The per-node code these kernels
 // share with the per-pod step (node_stages.cuh, topology.cuh, scores.cuh,
-// ext_plans.cuh) is called from here unchanged; K19 sweep_place runs that
-// code per scenario and does not include this header.
+// ext_plans.cuh) is called from here unchanged.
 //
 // Layout: one block of up to WAVE_BLOCK threads, node n owned by thread
 // n % threads as its (n / threads)-th node. Up to WAVE_BLOCK nodes each
@@ -16,7 +16,9 @@
 // run's request rows, the free rows, the node_dom rows of the group's
 // keys, K10's count rows) is planned at the launch in the same priority
 // order for every size; what does not fit is read from global memory,
-// through the same code.
+// through the same code. K9/K10 plan here; K19's launch follows the plan
+// its wrapper computes by the same rules (kernels/cuda.py
+// sweep_place_plan).
 #pragma once
 #include "step_ctx.cuh"
 

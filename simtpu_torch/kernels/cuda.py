@@ -153,6 +153,9 @@ def build() -> dict:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
+    occupancy = _LIBS["relax_project"].simtpu_relax_project_rows_per_sm
+    occupancy.argtypes = [ctypes.c_void_p]
+    occupancy.restype = ctypes.c_int
     first = _LIBS[KERNELS[0]]
     first.simtpu_noop.argtypes = [ctypes.c_void_p]
     first.simtpu_noop.restype = ctypes.c_int
@@ -967,7 +970,65 @@ class SweepCtx(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_int) for f in ("s", "cols", "t", "ti")] + [
         (f, ctypes.c_void_p) for f in ("idx",) + DENSE_FIELDS
-    ]
+    ] + [(f, ctypes.c_int) for f in ("threads", "npt", "smem", "pod_words", "off_pod", "off_min", "off_free",
+                                     "pad_")] + [("carry", ctypes.c_void_p)]
+
+
+#: the one-thread-per-node layout of csrc/wave.cuh (K9, K10, K19): threads
+#: of a block at most, nodes per thread in registers at most, the dynamic
+#: shared memory a block plans with
+WAVE_BLOCK = 1024
+WAVE_REG_NPT = 4
+WAVE_SMEM = 200 * 1024
+#: K19's step rows per node past the register templates (csrc/sweep_place.cu
+#: SWEEP_ROWS) and the scalar words heading a staged pod (POD_HEAD)
+SWEEP_ROWS = 10
+SWEEP_POD_HEAD = 8
+
+
+def wave_threads(n: int) -> int:
+    """Threads of a one-thread-per-node block for N nodes (wave.cuh)."""
+    return min(max(-(-n // 32) * 32, 32), WAVE_BLOCK)
+
+
+def wave_npt(n: int) -> int:
+    """Nodes per thread of the register template for N nodes, 0 where the
+    step rows live in global memory (wave.cuh wave_npt)."""
+    per = -(-n // WAVE_BLOCK)
+    if per <= 1:
+        return 1
+    if per <= 2:
+        return 2
+    return WAVE_REG_NPT if per <= WAVE_REG_NPT else 0
+
+
+def sweep_place_plan(n: int, r: int, tc: int) -> dict:
+    """K19's launch plan for N nodes, R resources and Tc term columns: one
+    block per scenario of `threads` threads, `nodes_per_thread` nodes each
+    (the register template `template`, "global" where the step rows live
+    in `carry_rows` rows of global memory per scenario), and the dynamic
+    shared memory in wave.cuh's priority order — the two staged-pod
+    buffers and the hard-spread minima always, the replica's free rows
+    where they still fit in WAVE_SMEM (`off_free` -1 otherwise)."""
+    pod_words = SWEEP_POD_HEAD + r + 8 * tc
+    used = 0
+
+    def add(nbytes: int, required: bool) -> int:
+        nonlocal used
+        at = (used + 15) & ~15
+        if not required and at + nbytes > WAVE_SMEM:
+            return -1
+        used = at + nbytes
+        return at
+
+    off_pod = add(2 * pod_words * 4, True)
+    off_min = add(2 * 32 * tc * 4, True)
+    off_free = add(r * n * 4, False)
+    threads, npt = wave_threads(n), wave_npt(n)
+    return {"threads": threads, "npt": npt, "nodes_per_thread": npt or -(-n // threads),
+            "template": str(npt) if npt else "global", "pod_words": pod_words, "off_pod": off_pod,
+            "off_min": off_min, "off_free": off_free, "shared_bytes": used,
+            "carry_rows": 0 if npt else SWEEP_ROWS}
 
 
 def _replica_dims(base, reps, s: int) -> tuple:
@@ -1010,19 +1071,29 @@ def launch_sweep_drain(statics, base, reps, log: dict, idx: torch.Tensor) -> Non
 
 def launch_sweep_place(sb) -> None:
     """K19 on the current stream, in one launch of one block per scenario
-    of `sb` (an engine/batched.py SweepBuffers): block s places the batch
-    rows of row s of `sb.rows` on replica s of `sb.reps` under row s of
-    `sb.valid_s`, writing output row j for pod list entry j. Raises if an
-    input is malformed or the launch is refused."""
+    of `sb` (an engine/batched.py SweepBuffers; `sweep_place_plan`): block
+    s places the batch rows of row s of `sb.rows` on replica s of
+    `sb.reps` under row s of `sb.valid_s`, writing output row j for pod
+    list entry j. Past 4096 nodes the step rows' scratch `sb.carry_s` ([S,
+    SWEEP_ROWS, N]) is allocated here. Raises if an input is malformed or
+    the launch is refused."""
     libs = build()
     s, cols = sb.rows.shape
     _checked("rows", sb.rows, sb.device, torch.int32)
     t, ti = _replica_dims(None, sb.reps, s)
     if sb.ctx is None:
         sb.ctx = make_ctx(sb, out_rows=cols)
-    sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=sb.rows.data_ptr())
+    ctx = sb.ctx
+    plan = sweep_place_plan(ctx.n, ctx.r, ctx.tc)
+    carry = 0
+    if plan["carry_rows"]:
+        sb.carry_s = torch.empty((s, plan["carry_rows"], ctx.n), dtype=torch.float32, device=sb.device)
+        carry = sb.carry_s.data_ptr()
+    sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=sb.rows.data_ptr(), threads=plan["threads"], npt=plan["npt"],
+                  smem=plan["shared_bytes"], pod_words=plan["pod_words"], off_pod=plan["off_pod"],
+                  off_min=plan["off_min"], off_free=plan["off_free"], carry=carry)
     stream = torch.cuda.current_stream(sb.device).cuda_stream
-    err = libs["sweep_place"].simtpu_sweep_place(ctypes.byref(sb.ctx), ctypes.byref(sw), stream)
+    err = libs["sweep_place"].simtpu_sweep_place(ctypes.byref(ctx), ctypes.byref(sw), stream)
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel sweep_place failed to launch: {msg} ({err})")
@@ -1096,24 +1167,52 @@ class RelaxCtx(ctypes.Structure):
         ("lr", ctypes.c_float), ("slabs", ctypes.c_int)] + [
         (f, ctypes.c_void_p) for f in ("feas", "req", "cnt", "fixed", "cap", "valid", "y", "over",
                                        "residual", "stuck", "scratch")
-    ]
+    ] + [(f, ctypes.c_int) for f in ("threads", "kpt")]
 
 
-#: widest padded node row (the next power of two >= N) whose keys and f64
-#: prefix sums K23 keeps in shared memory, 12 bytes each of the block's
-#: 227 KB (csrc/relax.cuh RELAX_SHARED_ROW); a wider row sorts in a slab of
-#: global scratch
+#: K23's paths by the padded node row (the next power of two >= N,
+#: csrc/relax.cuh): up to RELAX_REG_ROW the row sorts in registers, one
+#: block of at most RELAX_ROW_THREADS threads per row; up to
+#: RELAX_SHARED_ROW its keys and f64 prefix sums sit in shared memory, 12
+#: bytes each of the block's 227 KB; a wider row sorts in a slab of global
+#: scratch
+RELAX_REG_ROW = 4096
+RELAX_ROW_THREADS = 512
 RELAX_SHARED_ROW = 16384
 #: K23's wide-row path: persistent blocks per SM, one scratch slab each
 RELAX_SLABS_PER_SM = 2
 
 
+def relax_project_plan(n: int, rows: int, sms: int = 1) -> dict:
+    """K23's launch plan for `rows` (class, candidate) rows of `n` nodes on
+    a card of `sms` SMs: the padded row `np2`, the path ("registers",
+    "shared" or "slab"), threads per row, keys per thread, the sorted
+    width (threads x keys, at least np2), rows per block, the dynamic
+    shared bytes of a block, and the wide-row path's slabs and scratch
+    bytes (0 on the other paths)."""
+    np2 = max(32, 1 << max(n - 1, 0).bit_length())
+    plan = {"np2": np2, "rows_per_block": 1, "slabs": 0, "scratch_bytes": 0}
+    if np2 <= RELAX_REG_ROW:
+        # 4 keys a thread up to 1024 padded nodes (256 threads), 8 above
+        kpt = 4 if np2 <= 1024 else 8
+        threads = max(32, np2 // kpt)
+        # two buffers of the cross-warp exchanges (the second holds t after the sort)
+        return {**plan, "path": "registers", "threads": threads, "keys_per_thread": kpt,
+                "width": threads * kpt, "shared_bytes": 2 * threads * kpt * 4}
+    if np2 <= RELAX_SHARED_ROW:
+        return {**plan, "path": "shared", "threads": 1024, "keys_per_thread": np2 // 1024, "width": np2,
+                "shared_bytes": np2 * 12}
+    slabs = min(rows, RELAX_SLABS_PER_SM * sms)
+    return {**plan, "path": "slab", "threads": 1024, "keys_per_thread": np2 // 1024, "width": np2,
+            "shared_bytes": 0, "slabs": slabs, "scratch_bytes": slabs * np2 * 12}
+
+
 def relax_ctx(rb) -> RelaxCtx:
     """K22/K23's argument block for a solve/relax.py RelaxBuffers on one
-    device: every tensor's device, dtype, contiguity and shape checked.
-    Rows wider than RELAX_SHARED_ROW get K23's wide-row path: a persistent
-    grid of RELAX_SLABS_PER_SM blocks per SM (of one block, for a block
-    built from CPU tensors), each with one slab of `rb.cache["scratch"]`."""
+    device: every tensor's device, dtype, contiguity and shape checked,
+    K23's launch plan (`relax_project_plan`; a block built from CPU
+    tensors plans for one SM). Rows wider than RELAX_SHARED_ROW get the
+    wide-row path, each slab in `rb.cache["scratch"]`."""
     device = rb.y.device
     s, c, n = rb.y.shape
     r = rb.req.shape[1]
@@ -1123,16 +1222,24 @@ def relax_ctx(rb) -> RelaxCtx:
     tensors = {f: _checked(f"relax.{f}", getattr(rb, f), device, dt) for f, dt in fields.items()}
     _check_shapes(tensors, {"feas": (c, n), "req": (c, r), "cnt": (c,), "fixed": (n, r), "cap": (n, r),
                             "valid": (s, n), "over": (s, n, r), "residual": (s,), "stuck": (s,)})
-    np2 = max(32, 1 << max(n - 1, 0).bit_length())
-    slabs = 0
-    if np2 > RELAX_SHARED_ROW:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 1
-        slabs = min(s * c, RELAX_SLABS_PER_SM * sms)
-        # per slab: np2 f64 prefix sums, then np2 f32 keys
-        rb.cache["scratch"] = torch.empty(slabs * np2 * 12, dtype=torch.uint8, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 1
+    plan = relax_project_plan(n, s * c, sms)
+    slabs = plan["slabs"]
+    if slabs:
+        rb.cache["scratch"] = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=device)
     scratch = rb.cache["scratch"].data_ptr() if slabs else 0
-    return RelaxCtx(s=s, c=c, n=n, r=r, mode=0, np2=np2, lr=float(rb.lr), slabs=slabs, scratch=scratch,
+    return RelaxCtx(s=s, c=c, n=n, r=r, mode=0, np2=plan["np2"], lr=float(rb.lr), slabs=slabs, scratch=scratch,
+                    threads=plan["threads"], kpt=plan["keys_per_thread"],
                     **{f: t.data_ptr() for f, t in tensors.items()})
+
+
+def relax_project_rows_per_sm(rb) -> int:
+    """(class, candidate) rows of K23's launch on `rb` resident on one SM
+    at once, from the card's occupancy calculator."""
+    ctx = rb.cache.get("ctx")
+    if ctx is None:
+        ctx = rb.cache["ctx"] = relax_ctx(rb)
+    return int(build()["relax_project"].simtpu_relax_project_rows_per_sm(ctypes.byref(ctx)))
 
 
 def _launch_relax(name: str, rb, mode: int) -> None:
@@ -1158,8 +1265,9 @@ def launch_relax_load(rb, residual: bool = False) -> None:
 
 def launch_relax_project(rb, init: bool = False) -> None:
     """K23 on the current stream, one launch of one block per (class,
-    candidate) row of `rb`: the projected-gradient step of rb.y in place,
-    or in init mode its start point and rb.stuck. No synchronization."""
+    candidate) row of `rb` (`relax_project_plan`): the projected-gradient
+    step of rb.y in place, or in init mode its start point and rb.stuck.
+    No synchronization."""
     _launch_relax("relax_project", rb, 1 if init else 0)
 
 

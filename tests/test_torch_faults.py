@@ -418,6 +418,32 @@ def test_fault_sweep_plain_equals_the_jax_fault_sweep(placed, spec):
     same numpy inputs: every drained replica plane bit-equal to the
     vmapped delta scan's, every real requeue row's landing node and reason
     equal."""
+    _check_fault_sweep(placed, spec)
+
+
+#: above K19's one-node-per-thread range (1024 nodes): its 2-node template
+WIDE_NODES, WIDE_PODS = 1100, 240
+
+
+@pytest.fixture(scope="module")
+def placed_wide():
+    """The mixed problem on WIDE_NODES nodes, placed by both packages."""
+    kw = dict(n_nodes=WIDE_NODES, n_pods=WIDE_PODS)
+    out = {"jax": _place(simtpu, **kw), "torch": _place(simtpu_torch, **kw)}
+    assert np.array_equal(out["jax"][1].nodes, out["torch"][1].nodes)
+    return out
+
+
+def test_fault_sweep_plain_equals_the_jax_fault_sweep_above_1024_nodes(placed_wide):
+    """As above on 1100 nodes, three zone outages whose requeue holds
+    storage and GPU pods."""
+    live = _check_fault_sweep(placed_wide, "zone")
+    assert (live & 1).any() and (live & 2).any(), "storage and GPU pods in the requeue"
+
+
+def _check_fault_sweep(placed, spec):
+    """The body of the two tests above; returns the ext_live bits of the
+    real requeue rows."""
     cluster, jpc = placed["jax"]
     tensors = jpc.tensors
     r = tensors.alloc.shape[1]
@@ -447,6 +473,7 @@ def test_fault_sweep_plain_equals_the_jax_fault_sweep(placed, spec):
     assert np.array_equal(nodes[real], j_nodes[real])
     assert np.array_equal(reasons[real], j_reasons[real])
     assert (nodes[~real] == -1).all()
+    return batch_buf.ext_live.numpy()[rq_idx.numpy()[real]]
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu(placed):

@@ -171,20 +171,27 @@ def test_relax_plain_equals_the_jax_relaxation(seed, iters):
     assert torch.equal(y, got.y_s) and np.array_equal(res.numpy(), got.residual)
 
 
+@pytest.mark.parametrize("n", [24, 1024, 1025])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_project_rows_plain_equals_the_jax_projection(seed):
+def test_project_rows_plain_equals_the_jax_projection(seed, n):
+    """Also at K23's launch-plan boundary (1024 / 1025 nodes), with -0.0
+    beside +0.0 in one row and long runs of ties."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(seed)
-    rows, n = 9, 24
+    rows = 9
     v = rng.standard_normal((rows, n)).astype(np.float32)
     v[1, 3] = v[1, 5] = v[1, 7]  # ties
     v[2] = 0.25  # a whole row of ties
+    v[5] = np.where(rng.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))  # signed zeros
+    v[5, ::5] = 0.75
+    v[6] = rng.choice(np.float32([0.5, 0.25, -0.125]), n)  # long runs of ties
     a = (rng.random(rows) * 4).astype(np.float32)
     a[4] = 0.0  # a = 0
     mask = rng.random((rows, n)) < 0.6
     mask[3] = False  # all masked
     mask[2] = True
+    mask[5, ::5] = True
     want = np.asarray(jrelax._project_rows(jnp.asarray(v), jnp.asarray(a), jnp.asarray(mask)))
     got = trelax.project_rows_plain(torch.tensor(v), torch.tensor(a), torch.tensor(mask)).numpy()
     assert np.abs(got - want).max() <= 1e-6
