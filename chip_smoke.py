@@ -6,8 +6,8 @@
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
 1. the card's name and power limit (nvidia-smi); build the twenty-five CUDA
-   kernels from `simtpu_torch/kernels/csrc/` (nvcc, sm_90a, one process
-   per source, all at once);
+   kernels from `simtpu_torch/kernels/csrc/` and the profile build of K9,
+   K10 and K15 (nvcc, sm_90a, one process per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
    K1-K4 on the tensorized serial smoke problem (1000 nodes x 10 000 pods,
    a seeded placement log) and a small edge problem; K1-K6 on the
@@ -44,12 +44,12 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    pod step; then K9/K10's step phase by phase on the 50-pod lean,
    preference, hard-spread, required anti-affinity and storage runs: the
    main build's time per launch and per pod step (CUDA events), the
-   profile build's (`cuda.build_wave_profile`: the same sources with
+   profile build's (`cuda.build_profile`: the same sources with
    clock64() stamps around each phase, never the main path's build)
    cycles per phase per step, the barriers per step and their floor (the
    measured cost of one block barrier at the block's size), ptxas'
-   registers and spills per template instance and path of K9, K10, K19
-   and K23;
+   registers and spills per template instance and path of K9, K10, K15,
+   K18, K19 and K23;
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
    serial smoke problem, the speculative wavefront and the compact carry
    on (the defaults). K9 and K10 must have launched once per wave of the
@@ -113,7 +113,11 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    and once per round, K5/K6 once per storage / GPU step or round, K9/K10
    once per planned wave, K11/K12 as the JAX package's compact-carry
    counters (smoke.COMPACT_CARRY); no plain version. Prints the wall,
-   pods/s, the rounds and their device share;
+   pods/s, the rounds and their device share; then K15 phase by phase at
+   the bulk problem's first plain, quota-spread and quota-anti rounds (the
+   main build's time per launch, CUDA events; the profile build's clock64()
+   cycles per phase, `cuda.launch_round_profile`, never the main path's
+   build);
 7. the large capacity problem (smoke.py: 2000 nodes, 43 300 pods) written
    as a simon Config and planned by `Applier.run` on the card: the auto-
    selection must print the JAX package's notice (bulk + incremental), the
@@ -191,18 +195,27 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    record equal to the CPU path's, each of those kernels launched, no
    plain version on the card.
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
-bulk problem (plain, storage, quota-spread, quota-anti) and of the matrix
+bulk problem (plain, storage, quota-spread with t*'s 16 zones — K15's
+one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
 cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
-GPU rounds), each from the state the earlier rounds left, and K17 on the
-bulk carry, dense and compact; then their times at named rounds. And
+GPU rounds) and of the bulk mix at 9000 nodes x 20 000 pods (plain,
+quota-spread, quota-anti: K15's nodes re-read from global memory, its
+ranking buffers in RoundCtx.iscr), each from the state the earlier rounds
+left, and K17 on the bulk carry, dense and compact; then their times at
+named rounds (K15 at the plain, quota-spread and quota-anti rounds). And
 K18/K19 against their plain versions on the extended problem's
 `place_cluster` (a chunk of 16 single-node scenarios and one of 4 zone
 outages, storage and GPU pods in the requeue) and on 16 single-node
 scenarios of the extended mix at 2000 and at 3000 nodes (K19's two- and
-four-nodes-per-thread templates): every replica plane, nodes and reasons; then their times
-(K19 per launch and per pod step of each chunk, CUDA events; phases 8
-and 9 hold the k=1 chunk (128 x 1000) and the bulk chunk (32 x 5000, the
-step rows in global memory) the same way, and phases 8-11 time every K19
+four-nodes-per-thread templates): every replica plane, nodes and reasons;
+K18 alone on the extended mix at 999 nodes (tiles and plane parts
+ragged): 16 scenarios, S = 1, and the broadcast alone on that carry and
+the extended one (no entry column, padding columns only), the u8
+sdev_free plane among the planes; then their times (K19 per launch and
+per pod step of each chunk, K18 per launch beside its bytes bound and the
+copy-only yardstick `replicas(fill=True)`, CUDA events; phases 8 and 9
+hold the k=1 chunk (128 x 1000) and the bulk chunk (32 x 5000, the step
+rows in global memory) the same way, and phases 8-11 time every K19
 launch of their main paths). And K22/K23 against their plain versions on
 the relaxations of the capacity and the large capacity problems (100
 candidates, 400 iterations; the start point and the first 5 iterations
@@ -722,7 +735,7 @@ def phase_wave_breakdown(runs_by_batch: dict) -> list:
     barriers per step and the floor they set (barriers x the measured cost
     of one barrier at the block's size), beside the bytes bound. The
     profile build's launches are measurements, not counted."""
-    cuda.build_wave_profile()
+    cuda.build_profile()
     out = []
     for batch_label, kind in BREAKDOWN_RUNS:
         buf, runs = runs_by_batch[batch_label]
@@ -779,7 +792,7 @@ def time_wave(kbuf, run, iters: int):
 
     once()
     torch.cuda.synchronize()
-    per, _, _ = profile_kernels(lambda: [once() for _ in range(iters)])
+    per, _, _ = profile_kernels(lambda: [once() for _ in range(iters)], {name: once})
     host = 0.0
     for _ in range(iters):
         copy_state(kbuf.state, start)
@@ -801,7 +814,7 @@ def profile_waves(tensors, batch, statics, state, pods, flags, n_pods: int):
     cut = tuple(x[:n_pods] for x in pods)
     groups = np.asarray(batch.group)[:n_pods]
     buf = scan.StepBuffers(statics, clone_state(state), cut, flags)
-    per, busy, wall = profile_kernels(lambda: wavefront.run_batch_waves(buf, tensors, groups, cut))
+    per, busy, wall = profile_kernels(lambda: wavefront.run_batch_waves(buf, tensors, groups, cut), tries=1)
     return per, busy, wall
 
 
@@ -1101,7 +1114,7 @@ def phase_profile(statics, state, pods, flags, n_pods: int):
     buf = scan.StepBuffers(statics, clone_state(state), tuple(x[:n_pods] for x in pods), flags)
     scan.run_batch(scan.StepBuffers(statics, clone_state(state), tuple(x[:8] for x in pods), flags))
     torch.cuda.synchronize()
-    return profile_kernels(lambda: scan.run_batch(buf))
+    return profile_kernels(lambda: scan.run_batch(buf), tries=1)
 
 
 def kernel_of(key: str):
@@ -1117,7 +1130,12 @@ def kernel_of(key: str):
     return None
 
 
-def profile_kernels(fn):
+# kernels whose device time came from CUDA events because the profiler's
+# windows lost their device events
+PROFILER_MISSED = set()
+
+
+def profile_window(fn):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1138,6 +1156,37 @@ def profile_kernels(fn):
             busy_us += dev_us
     per = {name: (us / max(count, 1), count) for name, (us, count) in total.items()}
     return per, busy_us / 1e6 / wall, wall
+
+
+def profile_kernels(fn, alone=None, tries: int = 3):
+    """Device µs per launch and launches of each kernel `fn` ran (profiler),
+    the device's busy share of the window, and its wall. The profiler's
+    CUPTI trace now and then comes back without some or all device events:
+    a window that shows no kernel, or none of a kernel named in `alone`, is
+    profiled again, up to `tries` windows. `alone` maps kernel names to a
+    callable that launches that kernel by itself, or to (callable, its
+    launches per call); a name still missing after the last window is timed
+    by CUDA events around 20 back-to-back calls of its callable (launches
+    0), and noted in PROFILER_MISSED. A window that drives a main path
+    under its counts takes `tries=1`."""
+    alone = alone or {}
+    for attempt in range(1, tries + 1):
+        per, busy, wall = profile_window(fn)
+        missing = [name for name in alone if name not in per]
+        if per and not missing:
+            return per, busy, wall
+        log(f"  the profiler's window {attempt} of {tries} shows no device time for "
+            f"{missing or 'any kernel'}")
+    for name in missing:
+        call, n = alone[name] if isinstance(alone[name], tuple) else (alone[name], 1)
+        per[name] = (time_call(call, 20) * 1e3 / n, 0)
+        PROFILER_MISSED.add(name)
+        log(f"  {name}: device time from CUDA events around back-to-back launches")
+    return per, busy, wall
+
+
+def ms_from(name: str) -> str:
+    return "cuda events" if name in PROFILER_MISSED else "profiler"
 
 
 def device_ms_per_call(fn, iters: int) -> float:
@@ -1780,7 +1829,8 @@ def time_rounds(tensors, statics, pods, flags, at, label: str) -> dict:
                          lambda: rounds.round_commit_plain(rb, i, k, mode, 0)),
     }
     per, _, _ = profile_kernels(lambda: [(calls["round_score"][0](), calls["round_pick"][0](),
-                                          calls["round_commit"][0]()) for _ in range(20)])
+                                          calls["round_commit"][0]()) for _ in range(20)],
+                                {name: kern for name, (kern, _) in calls.items()})
     nbytes = round_bytes(buf, rb, i, mode)
     out = {}
     for name, (kern, plain) in calls.items():
@@ -1823,7 +1873,8 @@ def phase_carry_copy(tensors, state, device, err) -> dict:
         if any(tensor_diff(a, b) for a, b in zip(carry, before) if a.numel()):
             raise AssertionError(f"phase 2: writing K17's copy moved the {label} snapshot")
         nbytes = 2 * sum(t.numel() * t.element_size() for t in carry)
-        per, _, _ = profile_kernels(lambda: [tinc._copy_state(carry) for _ in range(20)])
+        per, _, _ = profile_kernels(lambda: [tinc._copy_state(carry) for _ in range(20)],
+                                    {"carry_copy": lambda: tinc._copy_state(carry)})
         # the one PyTorch call that computes the same copy (into planes
         # allocated beforehand), timed here and used nowhere in the port
         dst = [torch.empty_like(t) for t in carry]
@@ -1953,12 +2004,9 @@ def run_bulk(card: str):
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = ev.cuda_time_total
-        # a template instance demangles as "void (anonymous namespace)::
-        # wave_lean_kernel<1>(...)", a plain kernel as "filter_pod_kernel(...)"
-        key = ev.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-        for name in KERNELS:
-            if key.startswith(f"{name}_kernel"):
-                dev[name] = dev_us / 1e6
+        name = kernel_of(ev.key)
+        if name is not None:
+            dev[name] = dev.get(name, 0.0) + dev_us / 1e6
     round_s = sum(dev.get(k, 0.0) for k in ROUND_KERNELS)
     busy_s = sum(dev.values())
     n_pods = record["pods"]
@@ -2021,32 +2069,106 @@ def run_large_capacity(card: str):
     return plan, launches, wall
 
 
+def quota_key_domains(statics, pods, a: int) -> int:
+    """The domains on t*'s key (the first self-matching hard term of the
+    round's group, engine/rounds.py _quota_fill): the most K15's quota
+    ladder can list."""
+    g = int(pods[0][a])
+    terms = statics.g_terms[g].cpu().numpy()
+    hard = (statics.s_match[g] & (statics.a_anti_req[g] | (statics.spread_hard[g] > 0))).cpu().numpy() & (terms >= 0)
+    term = int(terms[int(np.argmax(hard))])
+    dom = statics.node_dom[int(statics.term_topo[term])].cpu().numpy()
+    return len(np.unique(dom[dom >= 0]))
+
+
+#: the round above K15's register path: the bulk mix at this many nodes
+#: (cuda.round_pick_plan: the nodes' rows re-read from global memory, the
+#: quota ranking's buffers in RoundCtx.iscr)
+PICK_GLOBAL_CUT = (9000, 20000)
+
+
 def phase_bulk_kernels(device, err):
     """Phase 2 for K14-K17: the rounds of the bulk problem (plain,
-    quota-spread, quota-anti, storage) and of the matrix cut (matrix, self-
-    affinity, GPU rounds) against their plain versions, K17 on the bulk
-    carry, dense and compact; then their times at named rounds."""
+    quota-spread with t*'s 16 zones, quota-anti with its 5000 hostnames,
+    storage), of the matrix cut (matrix, self-affinity, GPU rounds) and of
+    the bulk mix at 9000 nodes (plain, quota-spread, quota-anti: K15's
+    global-memory paths) against their plain versions, K17 on the bulk
+    carry, dense and compact; then their times at named rounds. Returns
+    the times and the named rounds' inputs (phase 6 splits K15 on them)."""
     b_tensors, b_batch, b_statics, b_state, b_pods = problem_batch(*smoke.bulk_problem(synth), device)
     b_flags = scan.flags_from(b_tensors, b_batch.ext)
     log(f"phase 2: bulk shape N={b_tensors.n_nodes} T={b_tensors.n_terms} G={len(b_tensors.groups)} "
         f"Tc={b_statics.g_terms.shape[1]} domains={b_tensors.n_domains} pods={len(b_pods[0])} flags={b_flags}")
     b_done, b_first, b_buf = phase_rounds("bulk problem", b_tensors, b_batch, b_statics, b_state, b_pods,
                                           b_flags, ("plain", "quota-spread", "quota-anti", "storage"), err)
+    doms = {cls: quota_key_domains(b_statics, b_pods, b_first[cls][0]) for cls in ("quota-spread", "quota-anti")}
+    if not (doms["quota-spread"] <= cuda.PICK_WARP_LADDER < doms["quota-anti"]):
+        raise AssertionError(f"phase 2: the bulk quota rounds' keys have {doms} domains")
     m_tensors, m_batch, m_statics, m_state, m_pods = problem_batch(*smoke.matrix_problem(synth), device)
     m_flags = scan.flags_from(m_tensors, m_batch.ext)
     log(f"phase 2: matrix cut N={m_tensors.n_nodes} V={m_statics.vg_cap.shape[1]} "
         f"GD={m_state.gpu_free.shape[1]} pods={len(m_pods[0])} flags={m_flags}")
     m_done, m_first, _ = phase_rounds("matrix cut", m_tensors, m_batch, m_statics, m_state, m_pods, m_flags,
                                       ("bulkm", "bulka", "gpu"), err)
+    w_tensors, w_batch, w_statics, w_state, w_pods = problem_batch(
+        *smoke.bulk_problem(synth, *PICK_GLOBAL_CUT), device)
+    w_flags = scan.flags_from(w_tensors, w_batch.ext)
+    w_plan = cuda.round_pick_plan(w_tensors.n_nodes, w_statics.g_terms.shape[1], quota=True)
+    if w_plan["template"] != "global" or w_plan["sort"] != "global":
+        raise AssertionError(f"phase 2: the {PICK_GLOBAL_CUT[0]}-node rounds take K15's plan {w_plan}")
+    w_done, _, _ = phase_rounds(f"bulk mix at {PICK_GLOBAL_CUT[0]} nodes", w_tensors, w_batch, w_statics, w_state,
+                                w_pods, w_flags, ("plain", "quota-spread", "quota-anti"), err)
     log(f"phase 2: K14-K16 equal to their plain versions (caps, s0, slope, fill orders, m_n, every state "
-        f"plane, the slot outputs) on rounds of the bulk problem {b_done} and the matrix cut {m_done}")
+        f"plane, the slot outputs) on rounds of the bulk problem {b_done} (t*'s key: {doms['quota-spread']} "
+        f"domains on the quota-spread round, {doms['quota-anti']} on the quota-anti round), the matrix cut "
+        f"{m_done} and the bulk mix at {w_tensors.n_nodes} nodes x {PICK_GLOBAL_CUT[1]} pods {w_done} (K15's "
+        f"plan: {w_plan['template']} rows, {w_plan['sort']} ranking buffers)")
     copy_times = phase_carry_copy(b_tensors, b_buf.state, device, err)
     log("phase 2: K17 equal to its plain version on the bulk carry, dense and compact: fresh storage, "
         "the snapshot untouched when the copy is written")
     times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["plain"], "bulk plain")
     q_times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["quota-spread"], "bulk quota-spread")
+    a_times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["quota-anti"], "bulk quota-anti")
     x_times = time_rounds(m_tensors, m_statics, m_pods, m_flags, m_first["bulkm"], "matrix bulkm")
-    return times, q_times, x_times, copy_times
+    named = {cls: (b_tensors, b_statics, b_pods, b_flags, b_first[cls])
+             for cls in ("plain", "quota-spread", "quota-anti")}
+    return times, q_times, a_times, x_times, copy_times, named
+
+
+def pick_split(tensors, statics, pods, flags, at) -> dict:
+    """K15 phase by phase at a named round: the main build's device time
+    per launch (CUDA events), the profile build's cycles per phase
+    (thread 0's clock64() stamps, csrc/round_pick.cu PICK_PROF_SLOTS)
+    scaled to µs by the profile build's own time per launch, the bisection
+    steps (threshold) or radix passes (quota) and the ladder levels. The
+    profile build's launches are measurements, not counted."""
+    i, k, mode, start = at
+    buf = scan.StepBuffers(statics, clone_state(start), pods, flags)
+    rb = rounds.RoundBuffers(buf, tensors)
+    rb.alloc_outputs(1, rounds._pow2(k))
+    scan.filter_pod(buf, i)
+    if buf.storage_live[i]:
+        scan.storage_pod(buf, i)
+    if buf.gpu_live[i]:
+        scan.gpu_pod(buf, i)
+    scan.topology_pod(buf, i)
+    rounds.round_score(rb, i, mode)
+    torch.cuda.synchronize()
+    main_ms = in_turns({"K15": lambda _: rounds.round_pick(rb, i, k, mode)}, lambda: None, per_turn=10)["K15"]
+    prof_ms = in_turns({"K15": lambda _: cuda.launch_round_profile(rb, i, k, mode)}, lambda: None,
+                       per_turn=10)["K15"]
+    cuda.round_pick_prof()
+    cuda.launch_round_profile(rb, i, k, mode)
+    torch.cuda.synchronize()
+    prof = cuda.round_pick_prof()
+    phases = len(cuda.PICK_PHASES)
+    us_per_cycle = prof_ms * 1e3 / max(sum(prof[:phases]), 1)
+    return {"pod": i, "k": k, "n": int(tensors.n_nodes), "us_per_launch": main_ms * 1e3,
+            "profile_build_us": prof_ms * 1e3,
+            "phase_us": {ph: prof[q] * us_per_cycle for q, ph in enumerate(cuda.PICK_PHASES) if prof[q]},
+            "steps_or_passes": prof[phases], "ladder_levels": prof[phases + 1],
+            "plan": cuda.round_pick_plan(int(tensors.n_nodes), int(statics.g_terms.shape[1]),
+                                         quota=bool(mode & rounds.V_QUOTA))}
 
 
 # -- the batched sweeps (K18 sweep_drain, K19 sweep_place) --------------------
@@ -2147,6 +2269,35 @@ def sweep_bytes(inp, valid, ev_idx, rq_idx) -> dict:
     }
 
 
+def time_drain(inp, ev_idx) -> dict:
+    """K18's device time per launch on a chunk (CUDA events around the
+    launch alone, on replicas allocated before; in turns), its plan, the
+    bytes bound, and the copy-only yardstick: `batched.replicas(base, S,
+    fill=True)`, one `repeat` per plane (device time, the profiler)."""
+    s = ev_idx.shape[0]
+    reps = batched.replicas(inp.state, s)
+    us = in_turns({"K18": lambda _: cuda.launch_sweep_drain(inp.statics, inp.state, reps, inp.log, ev_idx)},
+                  lambda: None, per_turn=5)["K18"] * 1e3
+    dense = sum(t.numel() * t.element_size() for t in inp.state)
+    ev = ev_idx[ev_idx >= 0].long()
+    log_row = sum(t[0].numel() * t.element_size() for t in inp.log.values() if t.shape[0]) if ev.numel() else 0
+    nbytes = dense + s * dense + int(ev.numel()) * (log_row + 4)
+    st = inp.state
+    width = (st.free.shape[1] + st.ports_used.shape[1] + 2 * st.vols_any.shape[1] + st.vg_free.shape[1]
+             + st.sdev_free.shape[1] + st.gpu_free.shape[1])
+    return {"us": us, "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6, "scenarios": s,
+            "entries": int(ev.numel()), "replicas_us": device_ms_per_call(lambda: batched.replicas(st, s, fill=True),
+                                                                           3) * 1e3,
+            "plan": cuda.sweep_drain_plan(s, st.free.shape[0], inp.statics.g_terms.shape[1], width,
+                                          torch.cuda.get_device_properties(0).multi_processor_count)}
+
+
+def drain_rates(t: dict) -> str:
+    return (f"K18 {t['us']:.2f} us per launch (CUDA events; {t['plan']['blocks']} blocks of {t['plan']['tile']}-node "
+            f"tiles), bound {t['bound_us']:.2f} us ({t['us'] / t['bound_us']:.2f}x), copy-only yardstick "
+            f"replicas(fill=True) {t['replicas_us']:.2f} us")
+
+
 def compare_sweep_chunk(phase, label, inp, s0, s1, err, rq_cols=None, sb=None):
     """K18 and K19 against their plain versions on scenarios [s0, s1) of
     `inp` (an faults/sweep.py SweepInputs on the card), the pod lists cut
@@ -2233,9 +2384,18 @@ def phase_sweep_kernels(device, err) -> dict:
     log(f"  the zone chunk (full lists): {place_rates(chunks['zone_4'])}")
     for n_nodes, n_pods in MID_SWEEPS:
         chunks[f"nodes_{n_nodes}"] = phase_sweep_mid(err, n_nodes, n_pods)
+    edges = phase_drain_edges(err, inp)
+    drains = {"k1_16": time_drain(inp, ev_idx), "zone_4": time_drain(z_inp, z_inp.chunk(0, 4, 4)[1]),
+              "ragged_16": edges["ragged_16"]}
+    for label, t in drains.items():
+        log(f"  K18 on the {label} chunk: {drain_rates(t)}")
 
     # times on the k=1 chunk
-    per, _, _ = profile_kernels(lambda: [inp.run(valid, ev_idx, rq_idx) for _ in range(5)])
+    sb = batched.SweepBuffers(inp.batch_buf, inp.pods, inp.statics,
+                              batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx), valid, rq_idx)
+    per, _, _ = profile_kernels(lambda: [inp.run(valid, ev_idx, rq_idx) for _ in range(5)],
+                                {"sweep_drain": lambda: batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx),
+                                 "sweep_place": lambda: batched.sweep_place(sb)})
     host = {"sweep_drain": [], "sweep_place": []}
     for _ in range(5):
         torch.cuda.synchronize()
@@ -2257,12 +2417,61 @@ def phase_sweep_kernels(device, err) -> dict:
                      "host_ms": float(np.median(host[name])) * 1e3, "bytes": nbytes[name],
                      "at": f"16 single-node scenarios of the extended problem, {k_rows} requeue rows",
                      "scenarios": 16, "rows": k_rows, "longest_list": steps,
-                     "us_per_pod_step": dev_us / max(steps, 1), **({"chunks": chunks} if name == "sweep_place" else {})}
+                     "us_per_pod_step": dev_us / max(steps, 1),
+                     **({"chunks": chunks} if name == "sweep_place" else {"chunks": drains, "edges": edges["cases"]})}
         log(f"  {name}: {dev_us:.2f} us device per launch (profiler, 16 blocks"
             + (f", {dev_us / max(steps, 1):.2f} us per pod step of the longest list of {steps}" if name == "sweep_place" else "")
             + f"), {out[name]['host_ms'] * 1e3:.2f} us to enqueue, plain {plain[name] * 1e3:.1f} ms, "
             f"{nbytes[name]} B, bound {out[name]['bound_ms'] * 1e3:.3f} us")
     return out
+
+
+#: K18's edge chunks: the extended mix on (nodes, pods), N no multiple of
+#: 4 (no plane's tile part 16-byte aligned) nor of the tile
+DRAIN_RAGGED = (999, 4995)
+
+
+def phase_drain_edges(err, x_inp) -> dict:
+    """Phase 2: K18 against its plain version on a tile-ragged N (the
+    extended mix at 999 nodes: 16 single-node scenarios), on S = 1, and on
+    the broadcast alone (no entry column, and padding columns only) on the
+    999-node and on the extended problem's carry; every replica plane,
+    the u8 sdev_free among them."""
+    cluster, apps = smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes,
+                                           n_nodes=DRAIN_RAGGED[0], n_pods=DRAIN_RAGGED[1])
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        pc = tfaults.place_cluster(cluster, apps, device="cuda")
+    finally:
+        seed_name_hashes(None)
+    inp = tsweep.SweepInputs(pc, tfaults.generate_scenarios(cluster.nodes, "k=1"))
+    cases = {}
+
+    def check(label, src, ev_idx):
+        d = state_diff(batched.sweep_drain(src.statics, src.state, src.log, ev_idx),
+                       batched.sweep_drain_plain(src.statics, src.state, src.log, ev_idx))
+        err["sweep_drain"] = max(err["sweep_drain"], d)
+        if d:
+            raise AssertionError(f"phase 2: K18 on the {label} differs from its plain version by {d}")
+        cases[label] = {"scenarios": int(ev_idx.shape[0]), "cols": int(ev_idx.shape[1]),
+                        "entries": int((ev_idx >= 0).sum())}
+
+    order = np.argsort([-len(v) for v in inp.rq_lists], kind="stable")
+    check(f"{DRAIN_RAGGED[0]}-node chunk of 16", inp, inp.chunk(0, 16, 16)[1])
+    one = int(order[0])
+    check(f"{DRAIN_RAGGED[0]}-node chunk of 1 (S = 1)", inp, inp.chunk(one, one + 1, 1)[1])
+    for label, src in ((f"{DRAIN_RAGGED[0]}-node", inp), ("extended", x_inp)):
+        for cols in (0, 8):
+            check(f"{label} carry, broadcast alone ({cols} padding columns)", src,
+                  torch.full((4, cols), -1, dtype=torch.int32, device="cuda"))
+    if not cases[f"{DRAIN_RAGGED[0]}-node chunk of 16"]["entries"]:
+        raise AssertionError("phase 2: K18's ragged chunk drains no entry")
+    sd = int(inp.state.sdev_free.shape[1]), int(x_inp.state.sdev_free.shape[1])
+    if min(sd) < 1:
+        raise AssertionError(f"phase 2: K18's edge carries have no sdev_free column ({sd})")
+    log(f"phase 2: K18 equal to its plain version (every replica plane, sdev_free's u8 columns {sd} among "
+        f"them) on {', '.join(cases)}")
+    return {"cases": cases, "ragged_16": time_drain(inp, inp.chunk(0, 16, 16)[1])}
 
 
 #: the chunks between 1024 and 4096 nodes (K19's two- and
@@ -2321,7 +2530,7 @@ def profiled_sweep(pc, scen):
     t0 = time.perf_counter()
     out = []
     with PlaceTimer() as timer:
-        per, _, _ = profile_kernels(lambda: out.append(tfaults.sweep_scenarios(pc, scen)))
+        per, _, _ = profile_kernels(lambda: out.append(tfaults.sweep_scenarios(pc, scen)), tries=1)
     wall = time.perf_counter() - t0
     dev_s = sum(per[k][0] * per[k][1] for k in SWEEP_KERNELS if k in per) / 1e6
     per["sweep_place_events"] = timer.summary()
@@ -2369,13 +2578,13 @@ def compare_main_chunk(phase, label, pc, scen, err, rq_cols=None) -> dict:
     full = inp.chunk(0, min(s_chunk, len(scen)), s_chunk)
     out = {"scenarios": s_chunk, "e_pad": inp.e_pad, "r_pad": inp.r_pad, "cols": int(rq_idx.shape[1]),
            "entries": int((ev_idx >= 0).sum()), "rows": rows, "placed": int((nodes >= 0).sum()),
-           "plain_s": plain, "timed": time_place(inp, *full[:3])}
+           "plain_s": plain, "timed": time_place(inp, *full[:3]), "drain": time_drain(inp, full[1])}
     log(f"{phase}: K18/K19 equal to their plain versions on the {label} ({s_chunk} scenarios x "
         f"N={pc.n_nodes}, e_pad {inp.e_pad} with {out['entries']} entries, r_pad {inp.r_pad}"
         + (f" cut to {out['cols']}" if rq_cols is not None else "")
         + f", {rows} requeue rows, {out['placed']} re-placed): every replica plane, nodes, reasons, the base "
         f"carry untouched; plain K18 {plain['sweep_drain']:.1f} s, K19 {plain['sweep_place']:.1f} s; the "
-        f"chunk with its full lists: {place_rates(out['timed'])}")
+        f"chunk with its full lists: {place_rates(out['timed'])}; {drain_rates(out['drain'])}")
     return out
 
 
@@ -3056,7 +3265,9 @@ def phase_relax_kernels(device, err) -> dict:
     for label, (a, b) in pair.items():
         bound = relax_bound(b)
         per, _, _ = profile_kernels(lambda: [(cuda.launch_relax_load(b), cuda.launch_relax_project(b))
-                                             for _ in range(20)])
+                                             for _ in range(20)],
+                                    {"relax_load": lambda: cuda.launch_relax_load(b),
+                                     "relax_project": lambda: cuda.launch_relax_project(b)})
         plan = cuda.relax_project_plan(b.y.shape[2], b.y.shape[0] * b.y.shape[1])
         out[label].update({
             "device_us": {k: per[k][0] for k in RELAX_KERNELS}, "bound": bound,
@@ -3424,7 +3635,7 @@ def phase_grow_kernels(device) -> dict:
             plain = lambda: sstate.grow_nodes_plain(st, *arg)  # noqa: E731
         host_ms = time_call(launch, 100)
         plain_ms = time_call(plain, 20)
-        per, _, _ = profile_kernels(lambda: [launch() for _ in range(20)])
+        per, _, _ = profile_kernels(lambda: [launch() for _ in range(20)], {name: launch})
         nbytes = grow_bytes(name, st, arg)
         at = (f"t {st.cnt_match.shape[0]} -> {arg.t_cap}, ti {st.cnt_own_anti.shape[0]} -> {arg.ti_cap}, "
               f"N={st.free.shape[0]}" if name == "grow_terms" else f"N={st.free.shape[0]} + {arg[1]}")
@@ -3646,13 +3857,14 @@ def main() -> int:
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    # the wave kernels' profile build (phase 2's breakdown) compiles beside
-    # the twenty-five libraries, every nvcc started together
+    # the profile build of K9/K10 (phase 2's breakdown) and K15 (phase 6's
+    # split) compiles beside the twenty-five libraries, every nvcc started
+    # together
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        profile_build = pool.submit(cuda.build_wave_profile)
+        profile_build = pool.submit(cuda.build_profile)
         cuda.build()
         profile_build.result()
-    log(f"phase 1: built {len(cuda.KERNELS)} kernels and K9/K10's profile build in "
+    log(f"phase 1: built {len(cuda.KERNELS)} kernels and the K9/K10/K15 profile build in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {cuda.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for name in cuda.KERNELS:
         for line in cuda.BUILD_INFO.get(name, "").splitlines():
@@ -3758,7 +3970,8 @@ def main() -> int:
     log(f"phase 2: K13 equal to its plain version and to the expand -> K7 -> compress route evicting "
         f"and restoring {len(entries)} placements on the extended carry; the round trip restores "
         "every compact field bit for bit")
-    round_times, q_round_times, m_round_times, copy_times = phase_bulk_kernels(device, err)
+    round_times, q_round_times, a_round_times, m_round_times, copy_times, pick_rounds = \
+        phase_bulk_kernels(device, err)
     sweep_times = phase_sweep_kernels(device, err)
     relax_kernels = phase_relax_kernels(device, err)
     relax_wide = phase_relax_wide(device, err)
@@ -3803,7 +4016,7 @@ def main() -> int:
     x_per, x_busy, x_wall = phase_profile(x_statics, x_state, x_pods, x_flags, 2000)
     log(f"  profiler, extended K1-K6 over 2000 pods: {x_wall:.3f} s wall, device busy {x_busy:.3f} "
         "of it; " + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in x_per.items()))
-    d_per, _, _ = profile_kernels(lambda: [delta_pair() for _ in range(20)])
+    d_per, _, _ = profile_kernels(lambda: [delta_pair() for _ in range(20)], {"delta_apply": (delta_pair, 2)})
     x_per.update(d_per)
     log(f"  profiler, delta_apply: {d_per['delta_apply'][0]:.2f} us x {d_per['delta_apply'][1]}")
     # K11/K12 at the serial smoke carry, K13 on K7's batches at the extended one
@@ -3832,7 +4045,10 @@ def main() -> int:
     c_bytes["compact_delta"] = compact_delta_bytes(x_statics, run.state, x_start, packed[-1.0], x_tensors)
     c_per, _, _ = profile_kernels(lambda: [(sstate.compress_state(c_dev, c_state),
                                             sstate.expand_state(c_dev, c_carry, c_nds),
-                                            compact_delta_pair()) for _ in range(20)])
+                                            compact_delta_pair()) for _ in range(20)],
+                                  {"compact_compress": lambda: sstate.compress_state(c_dev, c_state),
+                                   "compact_expand": lambda: sstate.expand_state(c_dev, c_carry, c_nds),
+                                   "compact_delta": (compact_delta_pair, 2)})
     x_per.update(c_per)
     for name, (host_ms, plain_ms) in compact_times.items():
         log(f"  {name}: {c_per[name][0]:.2f} us device (profiler), {host_ms * 1e3:.2f} us per "
@@ -3853,8 +4069,9 @@ def main() -> int:
             f"(profiler), {t['device_us'] / t['pods']:.2f} us per pod step, {t['host_us']:.2f} us to enqueue "
             f"a launch, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B")
     breakdown = phase_wave_breakdown({"serial": (s_wbuf, s_runs), "extended": (x_wbuf, x_runs)})
-    # every template instance and path of K9, K10, K19 and K23
-    ptxas = {name: ptxas_entries(name) for name in (*WAVES, "sweep_place", "relax_project")}
+    # every template instance and path of K9, K10, K15, K18, K19 and K23
+    ptxas = {name: ptxas_entries(name) for name in (*WAVES, "sweep_place", "relax_project", "round_pick",
+                                                    "sweep_drain")}
     for name, entries in ptxas.items():
         for fn, info in entries.items():
             log(f"  ptxas {name} {fn}: {info}")
@@ -3918,6 +4135,17 @@ def main() -> int:
 
     # -- phase 6: the bulk main path ------------------------------------------
     b_launches, b_steps, b_wall, b_pods, b_dev = run_bulk(card)
+    # K15 phase by phase on the bulk problem's named rounds (phase 2's
+    # start states), after the main path's counts were read
+    k15_split = {cls: pick_split(*args) for cls, args in pick_rounds.items()}
+    del pick_rounds
+    for cls, sp in k15_split.items():
+        log(f"phase 6: K15's split at the bulk problem's first {cls} round (pod {sp['pod']}, k={sp['k']}, "
+            f"N={sp['n']}, {sp['plan']['kernel']} kernel): {sp['us_per_launch']:.2f} us per launch (CUDA events; "
+            f"profile build {sp['profile_build_us']:.2f} us); " + ", ".join(
+                f"{ph} {us:.2f} us" for ph, us in sp["phase_us"].items())
+            + f"; {sp['steps_or_passes']} bisection steps / radix passes, {sp['ladder_levels']} ladder levels "
+            f"[{card}]")
 
     # -- phase 7: the large capacity plan (bulk + incremental) ---------------
     l_plan, l_launches, l_wall = run_large_capacity(card)
@@ -3947,7 +4175,8 @@ def main() -> int:
                           device)
     k8_ms = time_call(lambda: kaudit.audit_bulk(w_x), 200)
     k8_plain_ms = time_call(lambda: kaudit.audit_bulk_plain(w_x), 5)
-    k8_per, _, _ = profile_kernels(lambda: [kaudit.audit_bulk(w_x) for _ in range(20)])
+    k8_per, _, _ = profile_kernels(lambda: [kaudit.audit_bulk(w_x) for _ in range(20)],
+                                   {"audit_bulk": lambda: kaudit.audit_bulk(w_x)})
     x_per.update(k8_per)
     k8_bytes = audit_bytes(w_x)
     log(f"  audit_bulk: M={len(w_e.n)} N={w_tensors.n_nodes}: {k8_per['audit_bulk'][0]:.2f} us device "
@@ -3985,7 +4214,7 @@ def main() -> int:
                 "library_ms": None,
                 "host_ms": t["host_ms"],
                 "launch_ms": launch_ms,
-                "ms_from": "profiler",
+                "ms_from": ms_from(name),
                 "at": (f"the capacity relaxation {tuple(relax_kernels['problems']['capacity']['shape'])}"
                        if name in RELAX_KERNELS else t["at"]),
                 "bytes": t["bytes"],
@@ -4042,7 +4271,7 @@ def main() -> int:
                 "library_ms": None,
                 "host_ms": t["host_ms"],
                 "launch_ms": launch_ms,
-                "ms_from": "profiler",
+                "ms_from": ms_from(name),
                 "at": t["at"],
                 "bytes": t["bytes"],
                 "us_per_pod_step": t["us_per_pod_step"] if name == "sweep_place" else None,
@@ -4051,6 +4280,10 @@ def main() -> int:
                 "launches_bulk_faults_path": bulk_faults["launches"].get(name, 0),
                 "launches_batched_capacity_path": batched_capacity["launches"].get(name, 0),
                 "launches_resilience_plan_path": resilience_plan["launches"].get(name, 0),
+                **({"ptxas": ptxas[name], "chunks": t["chunks"], "edges": t["edges"],
+                    "first_chunks": {"serial_k1": serial_faults["k1"]["compare"]["drain"],
+                                     "bulk_k2": bulk_faults["compare"]["drain"]}}
+                   if name == "sweep_drain" else {}),
                 **({"ptxas": ptxas[name], "events_by_path": {"serial_k1": serial_faults["k1"]["sweep_place_events"],
                                        "bulk_k2": bulk_faults["sweep_place_events"],
                                        "batched_capacity": batched_capacity["sweep_place_events"],
@@ -4075,18 +4308,20 @@ def main() -> int:
                 "library_ms": t.get("library_ms"),
                 "host_ms": t["host_ms"],
                 "launch_ms": launch_ms,
-                "ms_from": "profiler",
+                "ms_from": ms_from(name),
                 "at": t.get("round", "the bulk problem's compact carry"),
                 "bytes": t["bytes"],
                 "launches_bulk_path": b_launches.get(name, 0),
                 "launches_large_capacity_path": l_launches.get(name, 0),
-                **({"quota_round": q_round_times[name], "matrix_round": m_round_times[name]}
+                **({"quota_round": q_round_times[name], "quota_anti_round": a_round_times[name],
+                    "matrix_round": m_round_times[name]}
                    if name in ROUND_KERNELS else {"dense_carry": copy_times["dense"]}),
+                **({"ptxas": ptxas[name], "phase_split": k15_split} if name == "round_pick" else {}),
             })
             continue
         if name in WAVES:
             t = wave_times[name]
-            mean_us = xw_per[name][0] if name in xw_per else w_per[name][0]
+            mean_us = (xw_per.get(name) or w_per.get(name) or (t["device_us"],))[0]
             busy_s += mean_us / 1e6 * x_launches.get(name, 0)
             rows.append({
                 "name": name,
@@ -4103,7 +4338,7 @@ def main() -> int:
                 "library_ms": None,
                 "host_ms": t["host_us"] / 1e3,
                 "launch_ms": launch_ms,
-                "ms_from": "profiler",
+                "ms_from": ms_from(name),
                 "run": {"kind": t["kind"], "pods": t["pods"], "us_per_pod_step": t["device_us"] / t["pods"]},
                 "ptxas": ptxas[name],
                 "breakdown": [r for r in breakdown if r["name"] == name],
@@ -4136,7 +4371,7 @@ def main() -> int:
             "library_ms": None,
             "host_ms": host_ms,
             "launch_ms": launch_ms,
-            "ms_from": "profiler" if prof else "cuda events",
+            "ms_from": ms_from(name) if prof else "cuda events",
             "launches_serial_path": launches.get(name, 0),
             "launches_capacity_path": c_launches.get(name, 0),
             "ms_extended": x_per[name][0] / 1e3 if name in x_per else None,

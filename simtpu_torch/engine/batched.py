@@ -8,10 +8,12 @@ _fault_sweep`); the batched capacity sweep is the same requeue over every
 pod with no drain (`simtpu/parallel/sweep.py _sweep_scan`). Here the
 scenario axis is a kernel's grid:
 
-- K18 `sweep_drain` (`kernels/csrc/sweep_drain.cu`): block s copies the
-  base carry into replica s of a `[S, ...]` state and applies row s of an
-  `[S, E]` table of placement-log entries (-1 = padding) in log order,
-  the arithmetic of K7 `delta_apply`. The base carry is only read.
+- K18 `sweep_drain` (`kernels/csrc/sweep_drain.cu`): replica s of a `[S,
+  ...]` state is the base carry with row s of an `[S, E]` table of
+  placement-log entries (-1 = padding) applied in log order, the
+  arithmetic of K7 `delta_apply`; block (s, j) copies node tile j of
+  replica s and applies the entries to that tile's nodes
+  (`kernels/cuda.py sweep_drain_plan`). The base carry is only read.
 - K19 `sweep_place` (`kernels/csrc/sweep_place.cu`): block s walks row s
   of an `[S, R]` table of batch rows (-1 = padding, which only trails)
   over replica s, the chain K1 -> (K5) -> (K6) -> K2 -> K3 -> K4 pod by

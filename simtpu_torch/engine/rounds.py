@@ -152,7 +152,7 @@ class RoundBuffers:
         self.dom_sums = z(max(st.g_terms.shape[1], 1), self.n_domains)
         self.scr = z(cuda.ROUND_SCR_ROWS, n)
         self.dscr = z(cuda.ROUND_DSCR_ROWS, self.n_domains + 1)
-        self.iscr = z(2 * n + self.n_domains + 2, dtype=torch.int32)
+        self.iscr = z(4 * n + 2 * (self.n_domains + 1), dtype=torch.int32)
         self.alloc_outputs(1, 1)
 
     def alloc_outputs(self, rows: int, k_cap: int) -> None:

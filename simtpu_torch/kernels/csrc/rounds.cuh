@@ -34,8 +34,10 @@ constexpr int BISECT_STEPS = 40;
 enum : int { SC_RAW1 = 0, SC_CUM = 4, SC_CAP_O = 5, SC_EXCL = 6, SC_BASE = 7, SCR_ROWS = 8 };
 // RoundCtx.dscr rows [DSCR_ROWS, n_dom + 1]
 enum : int { DS_K = 0, DS_C = 1, DS_OWN = 2, DS_ELIG = 3, DS_X = 4, DS_POUR = 5, DSCR_ROWS = 6 };
-// RoundCtx.iscr: [N] sorted position, [N] sorted key, [n_dom + 2] key counts / offsets
-enum : int { IS_POS = 0, IS_KEY = 1 };
+// RoundCtx.iscr: K15's ranking, two [N] (key, node) buffers a pass reads
+// from and writes to, then the ladder's domain list and each domain's
+// rank among those with a capped node [2, n_dom + 1]
+enum : int { IS_KEY_A = 0, IS_NODE_A = 1, IS_KEY_B = 2, IS_NODE_B = 3, IS_NODE_ROWS = 4 };
 
 struct RoundCtx {
   int i, k, mode, row, n_dom, k_cap;
@@ -60,7 +62,7 @@ struct RoundCtx {
   const int* node_dom_small;  // [K, N] compact per-key domain id, -1 absent
   float* scr;      // [SCR_ROWS, N]
   float* dscr;     // [DSCR_ROWS, n_dom + 1]
-  int* iscr;       // [2 N + n_dom + 2]
+  int* iscr;       // [4 N + 2 (n_dom + 1)]
   int* assign;     // [rows, k_cap] node per slot, -1 past the placed count
   int* vg_idx;     // [rows, k_cap]
   int* dev_idx;    // [rows, k_cap]

@@ -211,13 +211,13 @@ struct DeltaCtx {
 };
 
 // The scenario-batched sweep's kernels (K18 sweep_drain, K19 sweep_place):
-// one block per scenario. Each passes the single-scenario block of its
-// kernel family (DeltaCtx for K18, StepCtx for K19) with every state
-// plane, per-block scratch and output pointing at replica / block / row 0;
-// block s reads and writes replica s, s planes further on (sweep_replica,
-// sweep_block_ctx below).
+// K19 one block per scenario, K18 one per scenario and node tile. Each
+// passes the single-scenario block of its kernel family (DeltaCtx for K18,
+// StepCtx for K19) with every state plane, per-block scratch and output
+// pointing at replica / block / row 0; scenario s's blocks read and write
+// replica s, s planes further on (sweep_replica, sweep_block_ctx below).
 struct SweepCtx {
-  int s;     // scenarios (the grid)
+  int s;     // scenarios (the grid's first axis)
   int cols;  // columns of idx: K18 entries, K19 pod rows per scenario
   int t, ti; // term rows T of cnt_match / cnt_total, interpod rows Ti
   // [S, cols] K18: placement-log entries; K19: rows of the batch's pod
@@ -240,7 +240,10 @@ struct SweepCtx {
   // K19's launch plan (simtpu_torch/kernels/cuda.py sweep_place_plan):
   // threads, nodes per thread (0: the step rows in `carry`), dynamic
   // shared bytes, the words of one staged pod, and the byte offsets of the
-  // shared segments (off_free -1: the free rows stay in global memory)
+  // shared segments (off_free -1: the free rows stay in global memory).
+  // K18's (sweep_drain_plan): threads a block, `npt` the nodes of a tile,
+  // `pod_words` the entries staged at a time in `smem` shared bytes; the
+  // other fields unused
   int threads, npt, smem, pod_words, off_pod, off_min, off_free, pad_;
   float* carry;  // [S, SWEEP_ROWS, N] the step rows past what registers hold (npt 0), else null
 };

@@ -8,7 +8,7 @@ expand and update the compact carried state (`engine/state.py`), K14-K16
 score, pick and commit one bulk round (`engine/rounds.py`), K17 copies a
 carried state for the incremental planner's probes
 (`plan/incremental.py`), K18/K19 drain and requeue every scenario of a
-batched sweep chunk, one block per scenario (`engine/batched.py`), K20
+batched sweep chunk (`engine/batched.py`), K20
 explains a chunk of unplaced pods' failures, one block per pod
 (`explain/breakdown.py`), K21 decomposes one pod's score into its
 plugin terms (`explain/scores.py`), K22/K23 run the solve backend's
@@ -164,22 +164,24 @@ def build() -> dict:
     return _LIBS
 
 
-#: the wave kernels' profile build: the same sources with the per-phase
-#: clock64() stamps of csrc/wave.cuh compiled in (SIMTPU_WAVE_PROFILE), in
-#: libraries of their own that the main path never loads
-PROFILE_FLAGS = ("-DSIMTPU_WAVE_PROFILE",)
+#: the profile build: the same sources with per-phase clock64() stamps
+#: compiled in (csrc/wave.cuh's SIMTPU_WAVE_PROFILE for K9/K10,
+#: csrc/round_pick.cu's SIMTPU_PICK_PROFILE for K15), in libraries of their
+#: own that the main path never loads
+PROFILE_FLAGS = ("-DSIMTPU_WAVE_PROFILE", "-DSIMTPU_PICK_PROFILE")
+PROFILE_KERNELS = WAVE_KERNELS + ("round_pick",)
 _PROFILE_LIBS: dict = {}
 
 
-def build_wave_profile() -> dict:
-    """Compile K9/K10's profile build (in parallel) and load it. Returns
-    {name: ctypes.CDLL}; wave_lean's library also exports
-    simtpu_wave_barrier_cycles."""
+def build_profile() -> dict:
+    """Compile the profile build of K9, K10 and K15 (in parallel) and load
+    it. Returns {name: ctypes.CDLL}; wave_lean's library also exports
+    simtpu_wave_barrier_cycles, round_pick's simtpu_round_pick_prof."""
     if _PROFILE_LIBS:
         return _PROFILE_LIBS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in WAVE_KERNELS:
+    for name in PROFILE_KERNELS:
         out = _lib_path(name).with_name(_lib_path(name).stem + "-profile.so")
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -192,7 +194,7 @@ def build_wave_profile() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the profile build of {name}:\n{log}")
         os.replace(tmp, _PROFILE_LIBS[name])
-    for name in WAVE_KERNELS:
+    for name in PROFILE_KERNELS:
         lib = ctypes.CDLL(str(_PROFILE_LIBS[name]))
         fn = getattr(lib, f"simtpu_{name}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -201,6 +203,9 @@ def build_wave_profile() -> dict:
     bar = _PROFILE_LIBS["wave_lean"].simtpu_wave_barrier_cycles
     bar.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     bar.restype = ctypes.c_int
+    prof = _PROFILE_LIBS["round_pick"].simtpu_round_pick_prof
+    prof.argtypes = [ctypes.c_void_p]
+    prof.restype = ctypes.c_int
     return _PROFILE_LIBS
 
 
@@ -208,7 +213,7 @@ def launch_wave_profile(name: str, buf, a: int, b: int, mode) -> None:
     """Launch the profile build of wave kernel `name` for the run [a, b)
     of `buf`, its phase cycles added into `buf.wave_prof` (zero it first).
     A measurement launch: not counted in LAUNCHES. No synchronization."""
-    libs = build_wave_profile()
+    libs = build_profile()
     if buf.ctx is None:
         buf.ctx = make_ctx(buf)
     ctx = make_wave_ctx(buf, a, b, mode)
@@ -224,7 +229,7 @@ def barrier_cycles(threads: int, iters: int = 4096) -> float:
     `threads` threads, the mean over `iters` back-to-back barriers, on the
     current CUDA device (the profile build's micro-kernel)."""
     out = torch.zeros(1, dtype=torch.int64, device="cuda")
-    err = build_wave_profile()["wave_lean"].simtpu_wave_barrier_cycles(
+    err = build_profile()["wave_lean"].simtpu_wave_barrier_cycles(
         threads, iters, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"CUDA barrier micro-kernel failed to launch ({err})")
@@ -897,7 +902,7 @@ def _round_pointers(rb) -> dict:
         **{f: (n, sd) for f in ("ord_dev", "cs_dev", "cum_dev")},
         **{f: (n, gd) for f in ("ord_gpu", "cs_gpu", "cum_gpu", "c_gpu", "cum_gidx")},
         "dom_sums": (max(st.g_terms.shape[1], 1), d), "key_kind": (k_n,), "node_dom_small": (k_n, n),
-        "scr": (ROUND_SCR_ROWS, n), "dscr": (ROUND_DSCR_ROWS, d + 1), "iscr": (2 * n + d + 2,),
+        "scr": (ROUND_SCR_ROWS, n), "dscr": (ROUND_DSCR_ROWS, d + 1), "iscr": (4 * n + 2 * (d + 1),),
         **{f: (rows, k_cap) for f in ("assign", "vg_idx", "dev_idx", "gpu_idx")},
         "lvm_mat": (rows, k_cap, v), "gpu_mat": (rows, k_cap, gd),
     })
@@ -926,6 +931,76 @@ def launch_round(name: str, rb, i: int, k: int, mode: int, row: int) -> None:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
     LAUNCHES[name] += 1
+
+
+#: K15's launch plan (csrc/round_pick.cu): one block of up to
+#: ROUND_THREADS threads, thread t owning the contiguous nodes [t * per,
+#: (t + 1) * per); the threshold round keeps up to PICK_REG_NPT nodes a
+#: thread in registers (templates 1, 2, 4, PICK_REG_NPT), re-reads them from
+#: global memory above; PICK_LEVELS bisection levels per block reduction;
+#: the quota round's ranking buffers sit in shared memory up to
+#: PICK_SORT_SMEM_N nodes, in RoundCtx.iscr above; its ladder runs on one
+#: warp up to PICK_WARP_LADDER listed domains (decided by the data)
+ROUND_THREADS = 1024
+PICK_REG_NPT = 8
+PICK_LEVELS = 1
+PICK_SORT_SMEM_N = 8192
+PICK_BUCKETS = 256
+PICK_WARP_LADDER = 32
+#: the profile build's slots (round_pick.cu PICK_PROF_SLOTS): cycles per
+#: phase, then the bisection steps (threshold) or radix passes (quota) and
+#: the ladder levels
+PICK_PHASES = ("load", "bisection", "clamp scans", "spread minima + base", "aggregates + compaction",
+               "ladder", "ranking", "split scans")
+PICK_PROF_SLOTS = len(PICK_PHASES) + 2
+
+
+def round_pick_plan(n: int, tc: int = 0, quota: bool = False) -> dict:
+    """K15's launch plan for a round over N nodes (`tc` term columns, a
+    quota round or a threshold round): threads, nodes per thread, the
+    threshold template ("1", "2", "4", "8", or "global" where the nodes'
+    rows are re-read from global memory) and, for a quota round, where the
+    ranking's buffers sit and the dynamic shared bytes."""
+    threads = min(max(-(-n // 32) * 32, 32), ROUND_THREADS)
+    per = -(-n // threads)
+    npt = next((t for t in (1, 2, 4, PICK_REG_NPT) if per <= t), 0)
+    plan = {"threads": threads, "nodes_per_thread": per, "template": str(npt) if npt else "global",
+            "path": "registers" if npt else "global", "levels": PICK_LEVELS, "kernel": "threshold"}
+    if quota:
+        sort_smem = n <= PICK_SORT_SMEM_N
+        ints = ((tc + 3) & ~3) + PICK_BUCKETS * (threads // 32 + 1) + (4 * n if sort_smem else 0)
+        plan.update(kernel="quota", sort="shared" if sort_smem else "global", shared_bytes=4 * ints)
+    return plan
+
+
+def launch_round_profile(rb, i: int, k: int, mode: int) -> None:
+    """Launch the profile build of K15 for the round of pod i, run length
+    k, variant `mode`; its phase cycles add into the library's counters
+    (`round_pick_prof`). A measurement launch: not counted in LAUNCHES. No
+    synchronization."""
+    libs = build_profile()
+    buf = rb.buf
+    if buf.ctx is None:
+        buf.ctx = make_ctx(buf)
+    if rb.ctx is None:
+        rb.ctx = _round_pointers(rb)
+    ctx = RoundCtx(i=i, k=k, mode=mode, row=0, n_dom=rb.n_domains, k_cap=rb.assign.shape[1], **rb.ctx)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = libs["round_pick"].simtpu_round_pick(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    if err:
+        msg = build()[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel round_pick (profile build) failed to launch: {msg} ({err})")
+
+
+def round_pick_prof() -> list:
+    """The profile build's K15 counters since the last read (PICK_PHASES'
+    cycles, then the steps or passes and the ladder levels), zeroed.
+    Synchronizes the device."""
+    out = (ctypes.c_ulonglong * PICK_PROF_SLOTS)()
+    err = build_profile()["round_pick"].simtpu_round_pick_prof(out)
+    if err:
+        raise RuntimeError(f"reading K15's profile counters failed ({err})")
+    return list(out)
 
 
 class CopyCtx(ctypes.Structure):
@@ -1031,6 +1106,53 @@ def sweep_place_plan(n: int, r: int, tc: int) -> dict:
             "carry_rows": 0 if npt else SWEEP_ROWS}
 
 
+#: K18's launch plan (csrc/sweep_drain.cu): threads a block at most, the
+#: smallest node tile, the blocks per SM the tiles aim at, and the SMs of
+#: the card the plan is made for where none is given (an H100 SXM)
+DRAIN_THREADS = 256
+DRAIN_MIN_TILE = 64
+DRAIN_BLOCKS_PER_SM = 2
+H100_SMS = 132
+#: the entries K18 stages in shared memory at a time at most, and the
+#: shared words the staging may take (5 per entry, 12 per entry and term,
+#: one per entry and element of a node's rows)
+DRAIN_STAGE_ENTRIES = 64
+DRAIN_STAGE_WORDS = 12 * 1024
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    """The SMs of CUDA device `device` (asked once per device)."""
+    key = torch.device(device).index or 0
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
+
+
+def sweep_drain_plan(s: int, n: int, tc: int = 0, width: int = 0, sms: int = H100_SMS) -> dict:
+    """K18's launch plan for S scenarios over N nodes (groups of `tc` term
+    columns, node rows `width` elements wide) on a card of `sms` SMs: a grid of S x `tiles` blocks, block
+    (s, j) the nodes [j * tile, min(N, (j + 1) * tile)) of scenario s,
+    DRAIN_THREADS threads (the copy takes every thread a block has, the
+    walk one per node of the tile); the tile a multiple of 32 nodes (every plane's tile
+    part starts 16-byte aligned where N is a multiple of 4), as large as
+    still puts DRAIN_BLOCKS_PER_SM blocks on every SM, never under
+    DRAIN_MIN_TILE (the kernel holds one more block an SM, so the main
+    paths' chunks run in one wave). The tile-0 block of each scenario also owns its
+    cnt_total. Each block stages `stage_entries` entries at a time in
+    `shared_bytes` of shared memory."""
+    want = -(-DRAIN_BLOCKS_PER_SM * sms // max(s, 1))
+    tile = max(DRAIN_MIN_TILE, -(-(-(-max(n, 1) // want)) // 32) * 32)
+    tiles = max(1, -(-n // tile))
+    threads = DRAIN_THREADS
+    per_entry = 5 + 12 * tc + width
+    entries = max(1, min(DRAIN_STAGE_ENTRIES, DRAIN_STAGE_WORDS // per_entry))
+    return {"tile": tile, "tiles": tiles, "threads": threads, "blocks": s * tiles, "grid": (s, tiles),
+            "total_owner_tile": 0, "stage_entries": entries, "shared_bytes": 4 * entries * per_entry}
+
+
 def _replica_dims(base, reps, s: int) -> tuple:
     """(T, Ti) of a replicated state `reps` ([S, ...] planes) whose replica
     shapes must equal `base`'s (a SchedState, or None to skip that check)."""
@@ -1045,22 +1167,27 @@ def _replica_dims(base, reps, s: int) -> tuple:
 
 
 def launch_sweep_drain(statics, base, reps, log: dict, idx: torch.Tensor) -> None:
-    """K18 on the current stream, in one launch of idx.shape[0] blocks:
-    replica s of `reps` (a SchedState of [S, ...] planes, written here)
-    becomes `base` (a SchedState, read only) with the placement-log entries
-    of row s of `idx` ([S, E] int32, -1 = trailing padding) applied in
-    order; `log` maps g, node, wgt, req, vg, sd_take, gp to the packed
-    whole log on the device. Raises if an input is malformed or the launch
-    is refused."""
+    """K18 on the current stream, in one launch of idx.shape[0] x tiles
+    blocks (`sweep_drain_plan` for the card's SM count): replica s of
+    `reps` (a SchedState of [S, ...] planes, written here) becomes `base`
+    (a SchedState, read only) with the placement-log entries of row s of
+    `idx` ([S, E] int32, -1 = trailing padding) applied in order; `log`
+    maps g, node, wgt, req, vg, sd_take, gp to the packed whole log on the
+    device. Raises if an input is malformed or the launch is refused."""
     libs = build()
     device = base.free.device
     s, cols = idx.shape
     _checked("idx", idx, device, torch.int32)
     t, ti = _replica_dims(base, reps, s)
+    if statics.node_dom.shape[0] >= 1 << 12 or t >= 1 << 28:
+        raise ValueError(f"sweep_drain: {statics.node_dom.shape[0]} topology keys or {t} terms past its sort keys")
     rep0 = type(base)(*(r[0] for r in reps))
     ctx = make_delta_ctx(statics, rep0, log)
     planes = {f: _checked(f"base.{f}", b, device, b.dtype).data_ptr() for f, b in zip(DENSE_FIELDS, base)}
-    sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=idx.data_ptr(), **planes)
+    width = ctx.r + ctx.p_ports + 2 * ctx.w + ctx.v + ctx.sd + ctx.gd
+    plan = sweep_drain_plan(s, ctx.n, ctx.tc, width, _sm_count(device))
+    sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=idx.data_ptr(), **planes, threads=plan["threads"],
+                  npt=plan["tile"], pod_words=plan["stage_entries"], smem=plan["shared_bytes"])
     stream = torch.cuda.current_stream(device).cuda_stream
     err = libs["sweep_drain"].simtpu_sweep_drain(ctypes.byref(ctx), ctypes.byref(sw), stream)
     if err:

@@ -1,15 +1,20 @@
-"""The launch plans of K23 `relax_project` and K19 `sweep_place`.
+"""The launch plans of K23 `relax_project`, K19 `sweep_place`, K18
+`sweep_drain` and K15 `round_pick`.
 
-Both wrappers take their launch arithmetic from plain Python functions in
-`simtpu_torch/kernels/cuda.py` (`relax_project_plan`, `sweep_place_plan`),
-which K19's CUDA entry follows and K23's checks. Here, at node counts on
-both sides of every boundary (N = 999, 1024, 1025, 4096, 4097, 16 384,
-16 385 and 100 000): K23's path, threads per row, keys per thread, rows per
+The wrappers take their launch arithmetic from plain Python functions in
+`simtpu_torch/kernels/cuda.py` (`relax_project_plan`, `sweep_place_plan`,
+`sweep_drain_plan`, `round_pick_plan`), which K18's and K19's CUDA entries
+follow and K15's and K23's compute alike. Here, at node counts on both
+sides of every boundary (N = 999, 1024, 1025, 4096, 4097, 16 384, 16 385
+and 100 000): K23's path, threads per row, keys per thread, rows per
 block, shared bytes and slab switch; K19's threads, nodes per thread,
-register template and shared-memory plan. Then the plans as the argument
-blocks carry them, the constants they mirror in the CUDA sources, and the
-argument blocks' fields against the CUDA headers. Nothing here needs a
-card.
+register template and shared-memory plan; K18's node tiles (every node in
+exactly one tile of every scenario, one cnt_total owner a scenario, at
+least two blocks an SM on the main paths' chunks); K15's threads, register
+template or global rows, and the quota ranking's shared or global buffers.
+Then the plans as the argument blocks carry them, the constants they
+mirror in the CUDA sources, and the argument blocks' fields against the
+CUDA headers. Nothing here needs a card.
 """
 
 import ctypes
@@ -112,6 +117,77 @@ def test_sweep_place_plan_without_terms():
     assert plan["shared_bytes"] == plan["off_free"] + 3 * 500 * 4
 
 
+# (threads, nodes per thread, template) of K15 by N
+PICK_WANT = {
+    999: (1024, 1, "1"),
+    1024: (1024, 1, "1"),
+    1025: (1024, 2, "2"),
+    4096: (1024, 4, "4"),
+    4097: (1024, 5, "8"),
+    16384: (1024, 16, "global"),
+    16385: (1024, 17, "global"),
+    100000: (1024, 98, "global"),
+}
+
+
+def _drain_tiles(plan, n):
+    """The node ranges of one scenario's blocks under a K18 plan, as the
+    kernel computes them from the tile (csrc/sweep_drain.cu)."""
+    tiles = max(1, -(-n // plan["tile"])) if n else 1
+    assert tiles == plan["tiles"]
+    return [(j * plan["tile"], min(n, (j + 1) * plan["tile"])) for j in range(tiles)]
+
+
+@pytest.mark.parametrize("n", NODES + (1, 31, 33, 1000, 5000, 5001))
+@pytest.mark.parametrize("s", [1, 16, 32, 100, 128, 1000])
+def test_sweep_drain_plan_covers_every_node_once(s, n):
+    plan = cuda.sweep_drain_plan(s, n, tc=6, width=20)
+    seen = np.zeros(n, np.int64)
+    for lo, hi in _drain_tiles(plan, n):
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert plan["grid"] == (s, plan["tiles"]) and plan["blocks"] == s * plan["tiles"]
+    # one cnt_total owner a scenario: the tile-0 block
+    assert plan["total_owner_tile"] == 0
+    assert plan["tile"] % 32 == 0 and plan["tile"] >= cuda.DRAIN_MIN_TILE
+    assert plan["threads"] == cuda.DRAIN_THREADS
+    # the entry staging fits its shared bytes, within 48 KB
+    assert 1 <= plan["stage_entries"] <= cuda.DRAIN_STAGE_ENTRIES
+    assert plan["shared_bytes"] == 4 * plan["stage_entries"] * (5 + 12 * 6 + 20) <= 4 * cuda.DRAIN_STAGE_WORDS
+    # the tiles as large as still put DRAIN_BLOCKS_PER_SM blocks on every
+    # SM: one tile less would leave some SM fewer
+    want = cuda.DRAIN_BLOCKS_PER_SM * cuda.H100_SMS
+    if plan["tile"] > cuda.DRAIN_MIN_TILE and n:
+        assert plan["blocks"] >= want or plan["tiles"] == -(-n // plan["tile"])
+
+
+@pytest.mark.parametrize("s, n", [(128, 1000), (32, 5000)])
+def test_sweep_drain_plan_fills_the_card_on_the_main_chunks(s, n):
+    # the k=1 chunk of the serial smoke problem and the bulk k=2:256 chunk
+    plan = cuda.sweep_drain_plan(s, n, tc=4)
+    assert plan["blocks"] >= 264
+    assert plan["tiles"] * plan["tile"] >= n > (plan["tiles"] - 1) * plan["tile"]
+
+
+@pytest.mark.parametrize("n", NODES)
+def test_round_pick_plan(n):
+    threads, per, template = PICK_WANT[n]
+    plan = cuda.round_pick_plan(n)
+    assert (plan["threads"], plan["nodes_per_thread"], plan["template"]) == (threads, per, template)
+    assert plan["path"] == ("global" if template == "global" else "registers")
+    assert plan["threads"] * plan["nodes_per_thread"] >= n and plan["kernel"] == "threshold"
+    q = cuda.round_pick_plan(n, tc=6, quota=True)
+    assert q["kernel"] == "quota" and q["sort"] == ("shared" if n <= cuda.PICK_SORT_SMEM_N else "global")
+    ints = 8 + cuda.PICK_BUCKETS * (threads // 32 + 1) + (4 * n if q["sort"] == "shared" else 0)
+    assert q["shared_bytes"] == 4 * ints <= 227 * 1024
+
+
+def test_round_pick_plan_small_rounds():
+    for n, threads in ((1, 32), (32, 32), (33, 64), (500, 512)):
+        plan = cuda.round_pick_plan(n)
+        assert (plan["threads"], plan["nodes_per_thread"], plan["template"]) == (threads, 1, "1"), n
+
+
 @pytest.mark.parametrize("n", NODES)
 def test_relax_argument_block_carries_the_plan(n):
     rng = np.random.default_rng(n)
@@ -147,6 +223,31 @@ def test_plan_constants_mirror_the_cuda_sources():
     assert _cuda_int(place, "S_RAW") + 4 == cuda.SWEEP_ROWS
     for n in NODES:
         assert cuda.wave_threads(n) == min(max(-(-n // 32) * 32, 32), 1024)
+    drain = (cuda.CSRC / "sweep_drain.cu").read_text()
+    assert _cuda_int(drain, "DRAIN_THREADS") == cuda.DRAIN_THREADS
+    assert _cuda_int(drain, "DRAIN_MIN_TILE") == cuda.DRAIN_MIN_TILE
+    assert _cuda_int(drain, "DRAIN_BLOCKS_PER_SM") == cuda.DRAIN_BLOCKS_PER_SM
+    assert _cuda_int(drain, "DRAIN_STAGE_ENTRIES") == cuda.DRAIN_STAGE_ENTRIES
+    assert _cuda_int(drain, "DRAIN_STAGE_WORDS") == cuda.DRAIN_STAGE_WORDS
+    # 5 words per staged entry, 12 per entry and term, 1 per entry and element
+    assert "return en * (5 + 12 * tc + width);" in drain
+    pick = (cuda.CSRC / "round_pick.cu").read_text()
+    rounds_h = (cuda.CSRC / "rounds.cuh").read_text()
+    assert _cuda_int(rounds_h, "ROUND_THREADS") == cuda.ROUND_THREADS
+    assert _cuda_int(pick, "PICK_REG_NPT") == cuda.PICK_REG_NPT
+    assert _cuda_int(pick, "PICK_LEVELS") == cuda.PICK_LEVELS
+    assert _cuda_int(pick, "PICK_SORT_SMEM_N") == cuda.PICK_SORT_SMEM_N
+    assert 1 << _cuda_int(pick, "PICK_RADIX_BITS") == cuda.PICK_BUCKETS
+    assert _cuda_int(pick, "PICK_WARP_LADDER") == cuda.PICK_WARP_LADDER
+    # the profile slots: one per phase, then the steps and the levels
+    slots = re.search(r"enum : int \{\s*(PP_LOAD[^}]*)\}", pick).group(1)
+    names = [w.split("=")[0].strip() for w in slots.split(",") if w.strip()]
+    assert names[-1] == "PICK_PROF_SLOTS" and len(names) - 1 == cuda.PICK_PROF_SLOTS
+    assert len(cuda.PICK_PHASES) == cuda.PICK_PROF_SLOTS - 2
+    # the threshold templates the C entry dispatches on
+    assert re.search(r"case PICK_REG_NPT: return launch_threshold<PICK_REG_NPT>", pick)
+    for npt in (1, 2, 4):
+        assert f"case {npt}: return launch_threshold<{npt}>" in pick
 
 
 def _struct_fields(text: str, struct: str) -> list:

@@ -32,6 +32,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 import simtpu
 import simtpu_torch
@@ -539,3 +540,319 @@ def test_round_ctx_mirrors_the_header():
     assert f"SCR_ROWS = {cuda.ROUND_SCR_ROWS}" in src and f"DSCR_ROWS = {cuda.ROUND_DSCR_ROWS}" in src
     assert cuda.ROUND_KERNELS == ("round_score", "round_pick", "round_commit")
     assert "carry_copy" in cuda.KERNELS
+
+
+# -- 5. K15's exact reorderings: numpy models of the kernel's order -------------
+#
+# csrc/round_pick.cu reorders the JAX formulas where the result cannot
+# tell: the bisection decides PICK_LEVELS steps per block reduction from
+# saturated integer counts and stops at its fixed point; the quota split
+# orders the nodes by a stable LSD radix sort; the quota ladder runs over
+# the compacted list of domains that are eligible or have k_dom != 0. The
+# models below follow the kernel's order step by step, in float32, and are
+# held to the plain version (`round_pick_plain`) and to the JAX formulas'
+# own order (a 40-step bisection, a stable argsort, a ladder over every
+# domain).
+
+F32 = np.float32
+BIG32 = F32(3.4e38)
+
+
+def _jmin(a, b):
+    return np.where(np.isnan(a) | np.isnan(b), a + b, np.minimum(a, b)).astype(F32)
+
+
+def _jclip(x, lo, hi):
+    x = np.where(np.isnan(x), x, np.maximum(x, F32(lo))).astype(F32)
+    return _jmin(x, F32(hi))
+
+
+def _counts(s0, slope, cap, tau):
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        q = np.floor((s0 - tau) / np.maximum(slope, F32(1e-30))).astype(F32) + F32(1)
+    c = np.where(s0 >= tau, np.where(slope > 0, q, cap), F32(0)).astype(F32)
+    return _jmin(c, cap)
+
+
+def _search_inputs(s0, slope, cap, m_all, k):
+    kt = F32(k)
+    cap_sum = cap.sum(dtype=F32)
+    hi = F32(s0.max())
+    with np.errstate(over="ignore", invalid="ignore"):
+        low = (s0 - slope * _jclip(cap - F32(1), 0.0, kt)).astype(F32)
+    lo = F32(np.where(m_all, low, BIG32).min() - F32(1))
+    return lo, hi, _jmin(kt, cap_sum)
+
+
+def _kernel_bisection(s0, slope, cap, m_all, k, levels, threads=64):
+    """The kernel's search: the counts saturated at kf + 1 and summed per
+    thread chunk, per warp and per block; `levels` steps decided per
+    reduction from the tree of their midpoints; stop at the fixed point.
+    Returns (lo, hi, steps run)."""
+    lo, hi, kf = _search_inputs(s0, slope, cap, m_all, k)
+    kf_ok = kf == kf
+    kf_u = int(kf) if kf_ok else 0
+    top = kf_u + 1
+    n = len(s0)
+    per = -(-n // threads)
+
+    def over_count(tau):
+        c = _counts(s0, slope, cap, tau)
+        nan = bool(np.isnan(c).any())
+        u = np.where(c > kf, top, np.where(np.isnan(c), 0, c)).astype(np.int64)
+        chunks = [min(int(u[t * per:(t + 1) * per].sum()), top) for t in range(threads)]
+        warps = [min(sum(chunks[w * 32:(w + 1) * 32]), top) for w in range(threads // 32)]
+        return nan, sum(warps)
+
+    it = steps = 0
+    nq = (1 << levels) - 1
+    while it < 40:
+        tl, th, tau = [lo] + [None] * (nq - 1), [hi] + [None] * (nq - 1), [None] * nq
+        for q in range(nq):
+            tau[q] = F32(F32(0.5) * F32(tl[q] + th[q]))
+            if 2 * q + 2 < nq:
+                tl[2 * q + 1], th[2 * q + 1] = tl[q], tau[q]
+                tl[2 * q + 2], th[2 * q + 2] = tau[q], th[q]
+        sums = [over_count(t) for t in tau]
+        q = 0
+        for _ in range(levels):
+            if it >= 40:
+                break
+            nan, tot = sums[q]
+            over = kf_ok and not nan and tot > kf_u
+            nlo, nhi = (tau[q], hi) if over else (lo, tau[q])
+            fixed = tau[q] == tau[q] and np.float32(nlo).tobytes() == np.float32(lo).tobytes() \
+                and np.float32(nhi).tobytes() == np.float32(hi).tobytes()
+            lo, hi = nlo, nhi
+            it += 1
+            steps += 1
+            if fixed:
+                it = 40
+                break
+            q = 2 * q + 1 + int(over)
+    return lo, hi, steps
+
+
+def _jax_bisection(s0, slope, cap, m_all, k):
+    """The JAX formula's 40 steps, float sums in index order."""
+    lo, hi, kf = _search_inputs(s0, slope, cap, m_all, k)
+    for _ in range(40):
+        mid = F32(F32(0.5) * F32(lo + hi))
+        with np.errstate(over="ignore", invalid="ignore"):
+            over = np.cumsum(_counts(s0, slope, cap, mid), dtype=F32)[-1] > kf
+        lo, hi = (mid, hi) if over else (lo, mid)
+    return lo, hi
+
+
+def _fake_round(s0, slope, cap, m_all):
+    from types import SimpleNamespace
+
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt)  # noqa: E731
+    buf = SimpleNamespace(group=[0], flags=tscan.StepFlags(),
+                          statics=SimpleNamespace(g_terms=torch.zeros((1, 0), dtype=torch.int32)))
+    return SimpleNamespace(buf=buf, cap=t(cap), s0=t(s0), slope=t(slope), m_all=t(m_all, torch.bool),
+                           m_n=torch.zeros(len(cap)))
+
+
+def _kernel_threshold(s0, slope, cap, m_all, k, levels):
+    """The kernel's threshold round after its search: the overshoot clamp
+    and the tie fill, prefixes by node index."""
+    lo, hi, steps = _kernel_bisection(s0, slope, cap, m_all, k, levels)
+    kf = _search_inputs(s0, slope, cap, m_all, k)[2]
+    m = _counts(s0, slope, cap, hi)
+    with np.errstate(over="ignore", invalid="ignore"):
+        mc = _jclip(kf - (np.cumsum(m, dtype=F32) - m), 0.0, m)
+        room = np.maximum(_counts(s0, slope, cap, lo) - mc, F32(0)).astype(F32)
+        extra = _jclip(kf - mc.sum(dtype=F32) - (np.cumsum(room, dtype=F32) - room), 0.0, room)
+    return (mc + extra).astype(F32), (lo, hi, steps)
+
+
+def _search_case(name, rng):
+    n = 300
+    s0 = rng.normal(50, 20, n).astype(F32)
+    slope = rng.uniform(0, 3, n).astype(F32)
+    cap = rng.integers(0, 6, n).astype(F32)
+    m_all = rng.random(n) < 0.8
+    k = int(rng.integers(1, 400))
+    if name == "ties":
+        s0 = np.round(s0 / 10).astype(F32) * F32(10)
+        slope = np.where(rng.random(n) < 0.5, F32(0), np.round(slope)).astype(F32)
+    elif name == "slope-0":
+        slope[:] = 0
+    elif name == "big-caps":
+        cap = np.where(rng.random(n) < 0.05, BIG32, cap).astype(F32)
+        slope = np.where(cap == BIG32, F32(0), slope).astype(F32)
+    elif name == "k-0":
+        k = 0
+    elif name == "no-m-all":
+        m_all[:] = False
+    s0 = np.where(m_all, s0, F32(-3.4e38)).astype(F32)
+    cap = np.where(m_all, cap, F32(0)).astype(F32)
+    return s0, slope, cap, m_all, k
+
+
+SEARCH_CASES = ("random", "ties", "slope-0", "big-caps", "k-0", "no-m-all")
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("case", SEARCH_CASES)
+def test_k15_search_order_equals_the_plain_round(case, levels):
+    """The speculative levels, the fixed-point exit and the saturated
+    counts: the same (lo, hi) as the JAX formula's 40 steps and the same
+    m_n as round_pick_plain, on random rounds and the edge cases."""
+    for seed in range(4):
+        s0, slope, cap, m_all, k = _search_case(case, np.random.default_rng(seed))
+        want_lo, want_hi = _jax_bisection(s0, slope, cap, m_all, k)
+        got, (lo, hi, steps) = _kernel_threshold(s0, slope, cap, m_all, k, levels)
+        assert (np.float32(lo).tobytes(), np.float32(hi).tobytes()) == \
+            (np.float32(want_lo).tobytes(), np.float32(want_hi).tobytes()), (case, seed)
+        rb = _fake_round(s0, slope, cap, m_all)
+        trounds.round_pick_plain(rb, 0, k, 0)
+        assert np.array_equal(got, rb.m_n.numpy(), equal_nan=True), (case, seed)
+        assert steps <= 40
+    if case == "random":
+        # the fixed point comes well before the 40th step on a spread of scores
+        assert steps < 40
+
+
+def _radix_order(keys, threads):
+    """The kernel's stable LSD radix sort of (key, index): items
+    warp-striped, ranks within a warp in (item, lane) order as the
+    match-any ranks give them, digit-major offsets over (digit, warp)."""
+    n = len(keys)
+    nw = threads // 32
+    per = -(-n // threads)
+    seq_k, seq_n = keys.astype(np.int64), np.arange(n)
+    passes = -(-int(keys.max(initial=0)).bit_length() // 8)
+    for p in range(passes):
+        dig = (seq_k >> (8 * p)) & 255
+        hist = np.zeros((nw, 256), np.int64)
+        rank = np.zeros(n, np.int64)
+        warp = np.zeros(n, np.int64)
+        for w in range(nw):
+            for j in range(per):
+                for lane in range(32):
+                    q = w * 32 * per + 32 * j + lane
+                    if q < n:
+                        rank[q] = hist[w, dig[q]]
+                        hist[w, dig[q]] += 1
+                        warp[q] = w
+        flat = hist.T.reshape(-1)
+        off = (np.cumsum(flat) - flat).reshape(256, nw).T
+        pos = off[warp, dig] + rank
+        new_k, new_n = np.empty_like(seq_k), np.empty_like(seq_n)
+        new_k[pos], new_n[pos] = seq_k, seq_n
+        seq_k, seq_n = new_k, new_n
+    return seq_n
+
+
+def _split(order, key, cap, x_dom, n_keys):
+    """The JAX split formula on an order of the nodes (`_quota_fill`'s
+    global prefix, running maximum at domain starts, difference)."""
+    key_o = key[order]
+    cap_o = np.where(key_o < n_keys, cap[order], F32(0)).astype(F32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        excl = (np.cumsum(cap_o, dtype=F32) - cap_o).astype(F32)
+        start = np.ones(len(order), bool)
+        start[1:] = key_o[1:] != key_o[:-1]
+        seg = np.maximum.accumulate(np.where(start, excl, F32(0))).astype(F32)
+        x_o = np.where(key_o < n_keys, x_dom[np.minimum(key_o, n_keys - 1)], F32(0)).astype(F32)
+        allow_o = _jclip(x_o - (excl - seg), 0.0, cap_o)
+    allow = np.empty_like(allow_o)
+    allow[order] = allow_o
+    return allow
+
+
+@pytest.mark.parametrize("n_keys", [1, 37, 600])
+@pytest.mark.parametrize("threads", [64, 256])
+def test_k15_ranking_equals_the_stable_argsort_split(n_keys, threads):
+    """The radix ranking (one pass up to 255 capped domains, two above)
+    gives the stable argsort's order on keys with ties and keyless nodes,
+    at D = 1 and at D = N, and so the same split, 3.4e38 caps included."""
+    n = 600
+    rng = np.random.default_rng(n_keys + threads)
+    key = rng.integers(0, n_keys, n) if n_keys < n else rng.permutation(n)
+    keyless = rng.random(n) < 0.2
+    key = np.where(keyless, n_keys, key)
+    order = _radix_order(key, threads)
+    want = np.argsort(key, kind="stable")
+    assert np.array_equal(order, want)
+    cap = rng.integers(1, 5, n).astype(F32)
+    cap[rng.random(n) < 0.02] = BIG32
+    x_dom = rng.integers(0, 8, n_keys).astype(F32)
+    assert np.array_equal(_split(order, key, cap, x_dom, n_keys), _split(want, key, cap, x_dom, n_keys),
+                          equal_nan=True)
+
+
+def _ladder(c, k, elig, rem, skew, ids, kernel=False):
+    """The level ladder over domains `ids` (ascending) in float32; every
+    other domain's intake stays 0. `kernel`: a level's total as the
+    kernel takes it, min(rem, sum of the pours), the JAX formula's sum of
+    the takes otherwise."""
+    x = np.zeros(len(c), F32)
+    rem = F32(rem)
+    use_skew = skew > 0
+    go = True
+    levels = 0
+    while go and rem > 0:
+        cc = (c[ids] + x[ids]).astype(F32)
+        level = F32(np.where(elig[ids], cc, BIG32).min(initial=BIG32))
+        level = F32(0) if level >= BIG32 else level
+        with np.errstate(invalid="ignore"):
+            room = _jclip(level + F32(skew) - cc, 0.0, BIG32) if use_skew else np.full(len(ids), BIG32)
+            pour = _jmin(room, (k[ids] - x[ids]).astype(F32))
+            cum = np.cumsum(pour, dtype=F32)
+            taken = _jclip(rem - (cum - pour), 0.0, pour)
+        tot = _jmin(rem, pour.sum(dtype=F32)) if kernel else taken.sum(dtype=F32)
+        x[ids] = (x[ids] + taken).astype(F32)
+        rem = F32(rem - tot)
+        go = tot > 0
+        levels += 1
+    return x, levels
+
+
+@pytest.mark.parametrize("key", [ZONE, HOST])
+@pytest.mark.parametrize("quota", ["spread", "anti"])
+def test_k15_compacted_ladder_equals_the_full_ladder(round_inputs, key, quota):
+    """On the round fixture's zone key and hostname key: the aggregates of
+    random capped intakes over t*'s key, the anti clamp, then the ladder
+    over the compacted list, each level's total taken as min(rem, sum of
+    the pours), equals the JAX ladder over all n_dom domains, bit for bit;
+    a NaN count lists every domain."""
+    tt = round_inputs[simtpu_torch][0]
+    d_n = int(tt.n_domains)
+    dom = np.asarray(tt.node_dom)[list(tt.topo_keys).index(key)]
+    # the fixture's 24 nodes: 24 hostname domains, 3 zones, global ids
+    assert len(set(dom[dom >= 0].tolist())) == (3 if key == ZONE else 24) and d_n == 27
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        n = len(dom)
+        cap = np.where(rng.random(n) < 0.7, rng.integers(0, 5, n), 0).astype(F32)
+        cnt = rng.integers(0, 4, n).astype(F32)
+        own = np.where(rng.random(n) < 0.3, F32(1), F32(0))
+        m_static = rng.random(n) < 0.8
+        on = dom >= 0
+        k_dom = np.zeros(d_n, F32)
+        np.add.at(k_dom, dom[on], cap[on])
+        c_dom = np.zeros(d_n, F32)
+        np.maximum.at(c_dom, dom[on], cnt[on])
+        own_dom = np.zeros(d_n, F32)
+        np.maximum.at(own_dom, dom[on], own[on])
+        elig = np.zeros(d_n, bool)
+        np.logical_or.at(elig, dom[on], m_static[on])
+        skew = 0.0 if quota == "anti" else float(rng.integers(1, 3))
+        if quota == "anti":
+            k_dom = _jmin(k_dom, ((c_dom <= 0) & (own_dom <= 0)).astype(F32))
+        if seed == 5:
+            c_dom[int(dom[on][0])] = np.nan
+        listed = np.flatnonzero(elig | (k_dom != 0))
+        if np.isnan(c_dom).any() or np.isnan(k_dom).any():
+            listed = np.arange(d_n)
+        else:
+            # the other key's domains are never listed
+            assert len(listed) <= (3 if key == ZONE else 24)
+        for k in (1, 7, int(cap.sum()) + 3):
+            want, _ = _ladder(c_dom, k_dom, elig, k, skew, np.arange(d_n))
+            got, levels = _ladder(c_dom, k_dom, elig, k, skew, listed, kernel=True)
+            assert np.array_equal(got, want, equal_nan=True), (key, quota, seed, k)
+            assert levels >= 1
