@@ -7,7 +7,7 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
 
 1. the card's name and power limit (nvidia-smi); build the twenty-five CUDA
    kernels from `simtpu_torch/kernels/csrc/` and the profile build of K9,
-   K10 and K15 (nvcc, sm_90a, one process per source, all at once);
+   K10 and K14-K16 (nvcc, sm_90a, one process per source, all at once);
 2. each kernel against its plain PyTorch version on the card, pod by pod:
    K1-K4 on the tensorized serial smoke problem (1000 nodes x 10 000 pods,
    a seeded placement log) and a small edge problem; K1-K6 on the
@@ -48,8 +48,8 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    clock64() stamps around each phase, never the main path's build)
    cycles per phase per step, the barriers per step and their floor (the
    measured cost of one block barrier at the block's size), ptxas'
-   registers and spills per template instance and path of K9, K10, K15,
-   K18, K19 and K23;
+   registers and spills per template instance and path of K9, K10,
+   K14-K16, K18, K19 and K23;
 3. the serial main path: `simtpu_torch.simulate(device="cuda")` on the
    serial smoke problem, the speculative wavefront and the compact carry
    on (the defaults). K9 and K10 must have launched once per wave of the
@@ -113,9 +113,10 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    and once per round, K5/K6 once per storage / GPU step or round, K9/K10
    once per planned wave, K11/K12 as the JAX package's compact-carry
    counters (smoke.COMPACT_CARRY); no plain version. Prints the wall,
-   pods/s, the rounds and their device share; then K15 phase by phase at
-   the bulk problem's first plain, quota-spread and quota-anti rounds (the
-   main build's time per launch, CUDA events; the profile build's clock64()
+   pods/s, the rounds and their device share; then K14, K15 and K16 phase
+   by phase at the bulk problem's first plain, quota-spread and quota-anti
+   rounds and K14 / K16 at the matrix cut's first `bulkm` round (the main
+   build's time per launch, CUDA events; the profile build's clock64()
    cycles per phase, `cuda.launch_round_profile`, never the main path's
    build);
 7. the large capacity problem (smoke.py: 2000 nodes, 43 300 pods) written
@@ -200,9 +201,17 @@ one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
 cut (2000 x 20 000, bench.py's "matrix" mix: multi-GPU, self-affinity and
 GPU rounds) and of the bulk mix at 9000 nodes x 20 000 pods (plain,
 quota-spread, quota-anti: K15's nodes re-read from global memory, its
-ranking buffers in RoundCtx.iscr), each from the state the earlier rounds
-left, and K17 on the bulk carry, dense and compact; then their times at
-named rounds (K15 at the plain, quota-spread and quota-anti rounds). And
+ranking buffers in RoundCtx.iscr), of the large capacity problem (its
+first plain round, N = 2000) and at 3001 and 120 nodes (K14/K16's
+cluster with a ragged last tile, and one block), each from the state the
+earlier rounds left, printing the K14/K16 plan each takes; K14 and K16 on
+clusters of 1, 2, 4, 8 and 16 blocks at the bulk plain and quota-spread,
+matrix `bulkm`, 9000-, 3001- and 120-node plain rounds (bit for bit, then
+each block count's time in turns: the sweep behind
+`cuda.ROUND_NODES_PER_BLOCK`); K17 on the bulk carry, dense and compact;
+then their times at named rounds (the bulk plain, quota-spread and
+quota-anti rounds, the matrix round and the large capacity problem's
+plain round). And
 K18/K19 against their plain versions on the extended problem's
 `place_cluster` (a chunk of 16 single-node scenarios and one of 4 zone
 outages, storage and GPU pods in the requeue) and on 16 single-node
@@ -1809,19 +1818,9 @@ def time_rounds(tensors, statics, pods, flags, at, label: str) -> dict:
     """K14-K16 at a named round: the device time per launch (profiler), the
     back-to-back launch time from Python, the plain versions' time and the
     bound, from the round's start state."""
-    i, k, mode, start = at
-    buf = scan.StepBuffers(statics, clone_state(start), pods, flags)
-    rb = rounds.RoundBuffers(buf, tensors)
-    rb.alloc_outputs(1, rounds._pow2(k))
-    scan.filter_pod(buf, i)
-    if buf.storage_live[i]:
-        scan.storage_pod(buf, i)
-    if buf.gpu_live[i]:
-        scan.gpu_pod(buf, i)
-    scan.topology_pod(buf, i)
-    rounds.round_score(rb, i, mode)
-    rounds.round_pick(rb, i, k, mode)
-    torch.cuda.synchronize()
+    i, k, mode, _ = at
+    rb = round_at(tensors, statics, pods, flags, at)
+    buf = rb.buf
     calls = {
         "round_score": (lambda: rounds.round_score(rb, i, mode), lambda: rounds.round_score_plain(rb, i, mode)),
         "round_pick": (lambda: rounds.round_pick(rb, i, k, mode), lambda: rounds.round_pick_plain(rb, i, k, mode)),
@@ -1841,6 +1840,8 @@ def time_rounds(tensors, statics, pods, flags, at, label: str) -> dict:
         out[name] = {"ms": per[name][0] / 1e3, "host_ms": host_ms, "plain_ms": plain_ms,
                      "bytes": nbytes[name], "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "round": label}
+        if name in cuda.CLUSTER_KERNELS:
+            out[name]["plan"] = cuda.round_plan(int(tensors.n_nodes), int(statics.g_terms.shape[1]))
         log(f"  {name} at the {label} round (pod {i}, k={k}, N={tensors.n_nodes}): {out[name]['ms'] * 1e3:.2f} us "
             f"device (profiler), {host_ms * 1e3:.2f} us per back-to-back launch from Python, plain "
             f"{plain_ms * 1e3:.1f} us, {nbytes[name]} B, bound {out[name]['bound_ms'] * 1e3:.3f} us "
@@ -2085,6 +2086,17 @@ def quota_key_domains(statics, pods, a: int) -> int:
 #: (cuda.round_pick_plan: the nodes' rows re-read from global memory, the
 #: quota ranking's buffers in RoundCtx.iscr)
 PICK_GLOBAL_CUT = (9000, 20000)
+#: the bulk mix at two more node counts for K14/K16's plans: a cluster
+#: whose last tile is ragged, and one block (cuda.round_plan)
+ROUND_RAGGED_CUT = (3001, 20000)
+ROUND_ONE_BLOCK_CUT = (120, 20000)
+
+
+def plan_line(tensors, statics) -> str:
+    plan = cuda.round_plan(int(tensors.n_nodes), int(statics.g_terms.shape[1]))
+    last = int(tensors.n_nodes) - (plan["blocks"] - 1) * plan["tile"]
+    return (f"K14/K16 plan B={plan['blocks']} x {plan['threads']} threads, tile {plan['tile']} (last {last}), "
+            f"template {plan['template']}, K16 {plan['shared_bytes']} B shared")
 
 
 def phase_bulk_kernels(device, err):
@@ -2101,6 +2113,9 @@ def phase_bulk_kernels(device, err):
         f"Tc={b_statics.g_terms.shape[1]} domains={b_tensors.n_domains} pods={len(b_pods[0])} flags={b_flags}")
     b_done, b_first, b_buf = phase_rounds("bulk problem", b_tensors, b_batch, b_statics, b_state, b_pods,
                                           b_flags, ("plain", "quota-spread", "quota-anti", "storage"), err)
+    log(f"phase 2: bulk problem: {plan_line(b_tensors, b_statics)}")
+    if cuda.round_plan(int(b_tensors.n_nodes), int(b_statics.g_terms.shape[1]))["blocks"] < 2:
+        raise AssertionError("phase 2: the bulk problem's rounds take one block")
     doms = {cls: quota_key_domains(b_statics, b_pods, b_first[cls][0]) for cls in ("quota-spread", "quota-anti")}
     if not (doms["quota-spread"] <= cuda.PICK_WARP_LADDER < doms["quota-anti"]):
         raise AssertionError(f"phase 2: the bulk quota rounds' keys have {doms} domains")
@@ -2110,19 +2125,52 @@ def phase_bulk_kernels(device, err):
         f"GD={m_state.gpu_free.shape[1]} pods={len(m_pods[0])} flags={m_flags}")
     m_done, m_first, _ = phase_rounds("matrix cut", m_tensors, m_batch, m_statics, m_state, m_pods, m_flags,
                                       ("bulkm", "bulka", "gpu"), err)
+    log(f"phase 2: matrix cut: {plan_line(m_tensors, m_statics)}")
+    # the large capacity problem's rounds (phase 7 plans on its 2000 nodes)
+    l_cluster, l_apps, _ = smoke.large_capacity_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    l_tensors, l_batch, l_statics, l_state, l_pods = problem_batch(l_cluster, l_apps, device)
+    l_flags = scan.flags_from(l_tensors, l_batch.ext)
+    l_done, l_first, _ = phase_rounds("large capacity problem", l_tensors, l_batch, l_statics, l_state, l_pods,
+                                      l_flags, ("plain",), err)
+    log(f"phase 2: large capacity problem: {plan_line(l_tensors, l_statics)}")
     w_tensors, w_batch, w_statics, w_state, w_pods = problem_batch(
         *smoke.bulk_problem(synth, *PICK_GLOBAL_CUT), device)
     w_flags = scan.flags_from(w_tensors, w_batch.ext)
     w_plan = cuda.round_pick_plan(w_tensors.n_nodes, w_statics.g_terms.shape[1], quota=True)
     if w_plan["template"] != "global" or w_plan["sort"] != "global":
         raise AssertionError(f"phase 2: the {PICK_GLOBAL_CUT[0]}-node rounds take K15's plan {w_plan}")
-    w_done, _, _ = phase_rounds(f"bulk mix at {PICK_GLOBAL_CUT[0]} nodes", w_tensors, w_batch, w_statics, w_state,
-                                w_pods, w_flags, ("plain", "quota-spread", "quota-anti"), err)
+    w_done, w_first, _ = phase_rounds(f"bulk mix at {PICK_GLOBAL_CUT[0]} nodes", w_tensors, w_batch, w_statics,
+                                      w_state, w_pods, w_flags, ("plain", "quota-spread", "quota-anti"), err)
+    log(f"phase 2: bulk mix at {PICK_GLOBAL_CUT[0]} nodes: {plan_line(w_tensors, w_statics)}")
+    edge_done, edge_sweeps = {}, {}
+    for cut in (ROUND_RAGGED_CUT, ROUND_ONE_BLOCK_CUT):
+        e_tensors, e_batch, e_statics, e_state, e_pods = problem_batch(*smoke.bulk_problem(synth, *cut), device)
+        e_plan = cuda.round_plan(int(e_tensors.n_nodes), int(e_statics.g_terms.shape[1]))
+        ragged = e_tensors.n_nodes % e_plan["tile"] != 0
+        if (cut == ROUND_ONE_BLOCK_CUT) != (e_plan["blocks"] == 1) or not ragged:
+            raise AssertionError(f"phase 2: the bulk mix at {cut[0]} nodes takes the plan {e_plan}")
+        e_flags = scan.flags_from(e_tensors, e_batch.ext)
+        edge_done[cut[0]], e_first, _ = phase_rounds(f"bulk mix at {cut[0]} nodes", e_tensors, e_batch, e_statics,
+                                                     e_state, e_pods, e_flags, ("plain", "quota-spread", "quota-anti"),
+                                                     err)
+        log(f"phase 2: bulk mix at {cut[0]} nodes: {plan_line(e_tensors, e_statics)}")
+        edge_sweeps[f"{cut[0]} plain"] = round_sweep(f"{cut[0]}-node plain", e_tensors, e_statics, e_pods, e_flags,
+                                                     e_first["plain"], err)
+        del e_tensors, e_batch, e_statics, e_state, e_pods
     log(f"phase 2: K14-K16 equal to their plain versions (caps, s0, slope, fill orders, m_n, every state "
         f"plane, the slot outputs) on rounds of the bulk problem {b_done} (t*'s key: {doms['quota-spread']} "
         f"domains on the quota-spread round, {doms['quota-anti']} on the quota-anti round), the matrix cut "
-        f"{m_done} and the bulk mix at {w_tensors.n_nodes} nodes x {PICK_GLOBAL_CUT[1]} pods {w_done} (K15's "
-        f"plan: {w_plan['template']} rows, {w_plan['sort']} ranking buffers)")
+        f"{m_done}, the large capacity problem {l_done}, the bulk mix at {w_tensors.n_nodes} nodes x "
+        f"{PICK_GLOBAL_CUT[1]} pods {w_done} (K15's "
+        f"plan: {w_plan['template']} rows, {w_plan['sort']} ranking buffers) and at "
+        + ", ".join(f"{n_} nodes {d}" for n_, d in edge_done.items()))
+    sweep = {"bulk plain": round_sweep("bulk plain", b_tensors, b_statics, b_pods, b_flags, b_first["plain"], err),
+             "bulk quota-spread": round_sweep("bulk quota-spread", b_tensors, b_statics, b_pods, b_flags,
+                                              b_first["quota-spread"], err),
+             "matrix bulkm": round_sweep("matrix bulkm", m_tensors, m_statics, m_pods, m_flags, m_first["bulkm"],
+                                         err),
+             f"{PICK_GLOBAL_CUT[0]} plain": round_sweep(f"{PICK_GLOBAL_CUT[0]}-node plain", w_tensors, w_statics,
+                                                        w_pods, w_flags, w_first["plain"], err), **edge_sweeps}
     copy_times = phase_carry_copy(b_tensors, b_buf.state, device, err)
     log("phase 2: K17 equal to its plain version on the bulk carry, dense and compact: fresh storage, "
         "the snapshot untouched when the copy is written")
@@ -2130,18 +2178,17 @@ def phase_bulk_kernels(device, err):
     q_times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["quota-spread"], "bulk quota-spread")
     a_times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["quota-anti"], "bulk quota-anti")
     x_times = time_rounds(m_tensors, m_statics, m_pods, m_flags, m_first["bulkm"], "matrix bulkm")
-    named = {cls: (b_tensors, b_statics, b_pods, b_flags, b_first[cls])
+    l_times = time_rounds(l_tensors, l_statics, l_pods, l_flags, l_first["plain"], "large capacity plain")
+    named = {f"bulk {cls}": (b_tensors, b_statics, b_pods, b_flags, b_first[cls])
              for cls in ("plain", "quota-spread", "quota-anti")}
-    return times, q_times, a_times, x_times, copy_times, named
+    named["matrix bulkm"] = (m_tensors, m_statics, m_pods, m_flags, m_first["bulkm"])
+    return times, q_times, a_times, x_times, l_times, copy_times, named, sweep
 
 
-def pick_split(tensors, statics, pods, flags, at) -> dict:
-    """K15 phase by phase at a named round: the main build's device time
-    per launch (CUDA events), the profile build's cycles per phase
-    (thread 0's clock64() stamps, csrc/round_pick.cu PICK_PROF_SLOTS)
-    scaled to µs by the profile build's own time per launch, the bisection
-    steps (threshold) or radix passes (quota) and the ladder levels. The
-    profile build's launches are measurements, not counted."""
+def round_at(tensors, statics, pods, flags, at):
+    """The round buffers of a named round (pod i, run length k, variant
+    mode, start state): K1/K2 (K5/K6) run for its pod from a copy of the
+    start state, K14 and K15 once."""
     i, k, mode, start = at
     buf = scan.StepBuffers(statics, clone_state(start), pods, flags)
     rb = rounds.RoundBuffers(buf, tensors)
@@ -2153,22 +2200,117 @@ def pick_split(tensors, statics, pods, flags, at) -> dict:
         scan.gpu_pod(buf, i)
     scan.topology_pod(buf, i)
     rounds.round_score(rb, i, mode)
+    rounds.round_pick(rb, i, k, mode)
     torch.cuda.synchronize()
-    main_ms = in_turns({"K15": lambda _: rounds.round_pick(rb, i, k, mode)}, lambda: None, per_turn=10)["K15"]
-    prof_ms = in_turns({"K15": lambda _: cuda.launch_round_profile(rb, i, k, mode)}, lambda: None,
-                       per_turn=10)["K15"]
-    cuda.round_pick_prof()
-    cuda.launch_round_profile(rb, i, k, mode)
+    return rb
+
+
+#: the phases of each round kernel's profile build, by slot
+ROUND_PHASES = {"round_score": cuda.SCORE_PHASES, "round_pick": cuda.PICK_PHASES,
+                "round_commit": cuda.COMMIT_PHASES}
+
+
+def round_split(name: str, tensors, statics, pods, flags, at) -> dict:
+    """Round kernel `name` (K14-K16) phase by phase at a named round: the
+    main build's device time per launch (CUDA events), the profile build's
+    cycles per phase (thread 0 of block 0's clock64() stamps) scaled to µs
+    by the profile build's own time per launch, and for K15 the bisection
+    steps (threshold) or radix passes (quota) and the ladder levels. K16's
+    launches start from the round's state each time. The profile build's
+    launches are measurements, not counted."""
+    i, k, mode, _ = at
+    rb = round_at(tensors, statics, pods, flags, at)
+    start = clone_state(rb.buf.state)
+    setup = (lambda: copy_state(rb.buf.state, start)) if name == "round_commit" else (lambda: None)
+    main = {"round_score": lambda _: rounds.round_score(rb, i, mode),
+            "round_pick": lambda _: rounds.round_pick(rb, i, k, mode),
+            "round_commit": lambda _: rounds.round_commit(rb, i, k, mode, 0)}[name]
+    main_ms = in_turns({name: main}, setup, per_turn=10)[name]
+    prof_ms = in_turns({name: lambda _: cuda.launch_round_profile(name, rb, i, k, mode)}, setup,
+                       per_turn=10)[name]
+    cuda.round_prof(name)
+    setup()
+    cuda.launch_round_profile(name, rb, i, k, mode)
     torch.cuda.synchronize()
-    prof = cuda.round_pick_prof()
-    phases = len(cuda.PICK_PHASES)
-    us_per_cycle = prof_ms * 1e3 / max(sum(prof[:phases]), 1)
-    return {"pod": i, "k": k, "n": int(tensors.n_nodes), "us_per_launch": main_ms * 1e3,
-            "profile_build_us": prof_ms * 1e3,
-            "phase_us": {ph: prof[q] * us_per_cycle for q, ph in enumerate(cuda.PICK_PHASES) if prof[q]},
-            "steps_or_passes": prof[phases], "ladder_levels": prof[phases + 1],
-            "plan": cuda.round_pick_plan(int(tensors.n_nodes), int(statics.g_terms.shape[1]),
-                                         quota=bool(mode & rounds.V_QUOTA))}
+    prof = cuda.round_prof(name)
+    phases = ROUND_PHASES[name]
+    us_per_cycle = prof_ms * 1e3 / max(sum(prof[:len(phases)]), 1)
+    n = int(tensors.n_nodes)
+    tc = int(statics.g_terms.shape[1])
+    out = {"pod": i, "k": k, "n": n, "us_per_launch": main_ms * 1e3, "profile_build_us": prof_ms * 1e3,
+           "phase_us": {ph: prof[q] * us_per_cycle for q, ph in enumerate(phases) if prof[q]}}
+    if name == "round_pick":
+        out.update(steps_or_passes=prof[len(phases)], ladder_levels=prof[len(phases) + 1],
+                   plan=cuda.round_pick_plan(n, tc, quota=bool(mode & rounds.V_QUOTA)))
+    else:
+        out["plan"] = cuda.round_plan(n, tc)
+    if name == "round_commit":
+        copy_state(rb.buf.state, start)
+    return out
+
+
+#: phase 2's cluster sweep: K14 / K16 at these blocks a cluster
+SWEEP_BLOCKS = (1, 2, 4, 8, 16)
+
+
+def round_sweep(label: str, tensors, statics, pods, flags, at, err) -> dict:
+    """K14 and K16 at a named round on a cluster of each of SWEEP_BLOCKS
+    blocks (the plan's tile and template follow): each equal to the plain
+    versions bit for bit (K14's rows, then K15 and K16 from the same state:
+    every state plane and the slot outputs), then each block count's device
+    time per launch in turns (CUDA events; K16 from the round's state each
+    launch). Returns {blocks: {plan, K14 µs, K16 µs}} and the plan's own
+    block count."""
+    i, k, mode, start = at
+    rb = round_at(tensors, statics, pods, flags, at)
+    base = clone_state(rb.buf.state)
+    pbuf = scan.StepBuffers(statics, clone_state(base), pods, flags)
+    for f in ROUND_SCRATCH:
+        getattr(pbuf, f).copy_(getattr(rb.buf, f))
+    prb = rounds.RoundBuffers(pbuf, tensors)
+    prb.alloc_outputs(1, rb.k_cap)
+    rounds.round_score_plain(prb, i, mode)
+    rounds.round_pick_plain(prb, i, k, mode)
+    rounds.round_commit_plain(prb, i, k, mode, 0)
+    quota = bool(mode & rounds.V_QUOTA)
+    mats = bool(mode & rounds.V_MATS)
+    fields14 = ["cap", "m_all"] + ([] if quota else ["s0", "slope"])
+    if flags.storage:
+        fields14 += ["ord_vg", "cs_vg", "cum_vg", "ord_dev", "cs_dev", "cum_dev"]
+    if flags.gpu:
+        fields14 += ["ord_gpu", "cs_gpu", "cum_gpu"] + (["c_gpu", "cum_gidx"] if mats else [])
+    outs = ("assign", "dev_idx", "lvm_mat", "gpu_mat") if mats else ("assign", "vg_idx", "dev_idx", "gpu_idx")
+    n, tc = int(tensors.n_nodes), int(statics.g_terms.shape[1])
+    res = {}
+    for b in SWEEP_BLOCKS:
+        copy_state(rb.buf.state, base)
+        cuda.launch_round("round_score", rb, i, 0, mode, 0, blocks=b)
+        torch.cuda.synchronize()
+        e14 = round_diff(rb, prb, fields14)
+        rounds.round_pick(rb, i, k, mode)
+        cuda.launch_round("round_commit", rb, i, k, mode, 0, blocks=b)
+        torch.cuda.synchronize()
+        e16 = max(state_diff(rb.buf.state, pbuf.state), round_diff(rb, prb, outs), tensor_diff(rb.m_n, prb.m_n))
+        err["round_score"] = max(err["round_score"], e14)
+        err["round_commit"] = max(err["round_commit"], e16)
+        if e14 or e16:
+            raise AssertionError(f"phase 2: the {label} round at {b} blocks differs from the plain versions: "
+                                 f"K14 {e14}, K16 {e16}")
+        res[b] = {"plan": cuda.round_plan(n, tc, b)}
+    copy_state(rb.buf.state, base)
+    t14 = in_turns({b: (lambda _, b=b: cuda.launch_round("round_score", rb, i, 0, mode, 0, blocks=b))
+                    for b in SWEEP_BLOCKS}, lambda: None, per_turn=5)
+    t16 = in_turns({b: (lambda _, b=b: cuda.launch_round("round_commit", rb, i, k, mode, 0, blocks=b))
+                    for b in SWEEP_BLOCKS}, lambda: copy_state(rb.buf.state, base), per_turn=5)
+    copy_state(rb.buf.state, base)
+    for b in SWEEP_BLOCKS:
+        res[b].update(round_score_us=t14[b] * 1e3, round_commit_us=t16[b] * 1e3)
+    chosen = cuda.round_plan(n, tc)["blocks"]
+    log(f"phase 2: K14/K16 cluster sweep at the {label} round (pod {i}, k={k}, N={n}): equal to the plain "
+        f"versions at every block count; " + ", ".join(
+            f"B={b} ({r['plan']['template']}, {r['plan']['threads']} threads) {r['round_score_us']:.2f} / "
+            f"{r['round_commit_us']:.2f} us" for b, r in res.items()) + f"; the plan takes B={chosen}")
+    return {"rounds": {str(b): r for b, r in res.items()}, "plan_blocks": chosen, "n": n}
 
 
 # -- the batched sweeps (K18 sweep_drain, K19 sweep_place) --------------------
@@ -3857,14 +3999,14 @@ def main() -> int:
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    # the profile build of K9/K10 (phase 2's breakdown) and K15 (phase 6's
-    # split) compiles beside the twenty-five libraries, every nvcc started
-    # together
+    # the profile build of K9/K10 (phase 2's breakdown) and K14-K16 (phase
+    # 6's splits) compiles beside the twenty-five libraries, every nvcc
+    # started together
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         profile_build = pool.submit(cuda.build_profile)
         cuda.build()
         profile_build.result()
-    log(f"phase 1: built {len(cuda.KERNELS)} kernels and the K9/K10/K15 profile build in "
+    log(f"phase 1: built {len(cuda.KERNELS)} kernels and the K9/K10/K14-K16 profile build in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {cuda.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for name in cuda.KERNELS:
         for line in cuda.BUILD_INFO.get(name, "").splitlines():
@@ -3970,8 +4112,8 @@ def main() -> int:
     log(f"phase 2: K13 equal to its plain version and to the expand -> K7 -> compress route evicting "
         f"and restoring {len(entries)} placements on the extended carry; the round trip restores "
         "every compact field bit for bit")
-    round_times, q_round_times, a_round_times, m_round_times, copy_times, pick_rounds = \
-        phase_bulk_kernels(device, err)
+    round_times, q_round_times, a_round_times, m_round_times, l_round_times, copy_times, split_rounds, \
+        round_sweeps = phase_bulk_kernels(device, err)
     sweep_times = phase_sweep_kernels(device, err)
     relax_kernels = phase_relax_kernels(device, err)
     relax_wide = phase_relax_wide(device, err)
@@ -4069,8 +4211,8 @@ def main() -> int:
             f"(profiler), {t['device_us'] / t['pods']:.2f} us per pod step, {t['host_us']:.2f} us to enqueue "
             f"a launch, plain {t['plain_ms'] * 1e3:.1f} us, {t['bytes']} B")
     breakdown = phase_wave_breakdown({"serial": (s_wbuf, s_runs), "extended": (x_wbuf, x_runs)})
-    # every template instance and path of K9, K10, K15, K18, K19 and K23
-    ptxas = {name: ptxas_entries(name) for name in (*WAVES, "sweep_place", "relax_project", "round_pick",
+    # every template instance and path of K9, K10, K14-K16, K18, K19 and K23
+    ptxas = {name: ptxas_entries(name) for name in (*WAVES, "sweep_place", "relax_project", *ROUND_KERNELS,
                                                     "sweep_drain")}
     for name, entries in ptxas.items():
         for fn, info in entries.items():
@@ -4135,17 +4277,22 @@ def main() -> int:
 
     # -- phase 6: the bulk main path ------------------------------------------
     b_launches, b_steps, b_wall, b_pods, b_dev = run_bulk(card)
-    # K15 phase by phase on the bulk problem's named rounds (phase 2's
-    # start states), after the main path's counts were read
-    k15_split = {cls: pick_split(*args) for cls, args in pick_rounds.items()}
-    del pick_rounds
-    for cls, sp in k15_split.items():
-        log(f"phase 6: K15's split at the bulk problem's first {cls} round (pod {sp['pod']}, k={sp['k']}, "
-            f"N={sp['n']}, {sp['plan']['kernel']} kernel): {sp['us_per_launch']:.2f} us per launch (CUDA events; "
-            f"profile build {sp['profile_build_us']:.2f} us); " + ", ".join(
-                f"{ph} {us:.2f} us" for ph, us in sp["phase_us"].items())
-            + f"; {sp['steps_or_passes']} bisection steps / radix passes, {sp['ladder_levels']} ladder levels "
-            f"[{card}]")
+    # K14-K16 phase by phase on the named rounds (phase 2's start states),
+    # after the main path's counts were read; K15 on the bulk rounds
+    splits = {name: {label: round_split(name, *args) for label, args in split_rounds.items()
+                     if name != "round_pick" or label.startswith("bulk")} for name in ROUND_KERNELS}
+    del split_rounds
+    for name in ROUND_KERNELS:
+        for label, sp in splits[name].items():
+            kplan = sp["plan"]
+            how = (f"{kplan['kernel']} kernel" if name == "round_pick" else
+                   f"B={kplan['blocks']} x {kplan['threads']} threads, template {kplan['template']}")
+            extra = (f"; {sp['steps_or_passes']} bisection steps / radix passes, {sp['ladder_levels']} ladder "
+                     f"levels" if name == "round_pick" else "")
+            log(f"phase 6: {name}'s split at the {label} round (pod {sp['pod']}, k={sp['k']}, N={sp['n']}, "
+                f"{how}): {sp['us_per_launch']:.2f} us per launch (CUDA events; profile build "
+                f"{sp['profile_build_us']:.2f} us); " + ", ".join(
+                    f"{ph} {us:.2f} us" for ph, us in sp["phase_us"].items()) + f"{extra} [{card}]")
 
     # -- phase 7: the large capacity plan (bulk + incremental) ---------------
     l_plan, l_launches, l_wall = run_large_capacity(card)
@@ -4314,9 +4461,10 @@ def main() -> int:
                 "launches_bulk_path": b_launches.get(name, 0),
                 "launches_large_capacity_path": l_launches.get(name, 0),
                 **({"quota_round": q_round_times[name], "quota_anti_round": a_round_times[name],
-                    "matrix_round": m_round_times[name]}
+                    "matrix_round": m_round_times[name], "large_capacity_round": l_round_times[name]}
                    if name in ROUND_KERNELS else {"dense_carry": copy_times["dense"]}),
-                **({"ptxas": ptxas[name], "phase_split": k15_split} if name == "round_pick" else {}),
+                **({"ptxas": ptxas[name], "phase_split": splits[name]} if name in ROUND_KERNELS else {}),
+                **({"cluster_sweep": round_sweeps} if name in cuda.CLUSTER_KERNELS else {}),
             })
             continue
         if name in WAVES:

@@ -5,53 +5,89 @@
 // (with _unsort_take :149), and the chunk's row gather / scatter of
 // rounds_scan_sliced :809 and scan.py _gather_rows_tuple :1197 /
 // _scatter_rows :1205: the port carries full planes, so the group's term
-// rows are addressed directly. One block of ROUND_THREADS threads:
-//   phase 1: the per-domain totals of m_n over the group's term rows,
-//            routed by key_kind as :576-614 do — a small key (<= 64
-//            domains) sums into DOM_SMALL bins of shared memory through
-//            node_dom_small, a key unique per node is its own sum, any
-//            other key sums into the [Tc, n_dom] fallback rows — and the
-//            per-term dot valid @ m_n for cnt_total. The sums add
-//            integer-valued f32 below 2^24: f32 atomicAdd is exact in any
-//            order there, so the order of the atomics cannot move a bit;
+// rows are addressed directly. One thread-block cluster (rounds.cuh
+// `RoundPlan`, cuda.round_plan), block b owning a node tile:
+//   phase 0: the group's term columns (term, key, route, own-plane row and
+//            coefficients) staged in shared memory; where a column routes
+//            to the [Tc, n_dom] fallback domain sums, those zeroed by every
+//            block and one cluster barrier;
+//   phase 1: per block, the per-domain totals of m_n over the group's term
+//            rows, routed by key_kind as :576-614 do — a small key (<= 64
+//            domains) sums into DOM_SMALL bins of the block's shared
+//            memory through node_dom_small, a key unique per node is its
+//            own sum, any other key sums into the fallback rows by global
+//            atomics — every term's dot valid @ m_n (warp sums, then shared
+//            atomics), and the tile's inclusive prefix of m_n (in shared
+//            memory, tile-relative) and its total. One cluster barrier,
+//            then each block adds every block's small-key bins, dots and
+//            tile totals into its own, and one thread of block 0 adds the
+//            dots into cnt_total, term by term. The sums add
+//            integer-valued f32 below 2^24: exact in any order, so neither
+//            the atomics' order nor the tiling can move a bit;
 //   phase 2: per node: free -= m_n * req (one FMA, as the compiled round
 //            contracts it), ports and volumes by min(m_n, 1), the count
-//            rows and own planes by the domain totals, cnt_total, then
-//            vg_free / sdev_free / gpu_free by the pods per container
-//            (_unsort_take over K14's visit order; on a matrix round the
-//            multi-claim plan, the multi-GPU share pool or the preset row),
-//            and the inclusive prefix of m_n over the nodes;
+//            rows and own planes by the domain totals, then vg_free /
+//            sdev_free / gpu_free by the pods per container (_unsort_take
+//            over K14's visit order; on a matrix round the multi-claim
+//            plan, the multi-GPU share pool or the preset row);
 //   phase 3: per slot j < k_cap: the node by a search over the prefix
-//            (side="right"), the slot's ordinal on its node, the container
-//            picks, and on a matrix round the slot's LVM bytes and GPU
-//            shares.
+//            (side="right") — each block expands the slots of its own
+//            tile's nodes, [tile offset, tile offset + tile total), by a
+//            search over its shared prefix; the slots past the total are
+//            spread over the cluster — the slot's ordinal on its node, the
+//            container picks, and on a matrix round the slot's LVM bytes
+//            and GPU shares.
+// Phase 3 reads only K14's rows and the prefix, never what phase 2 writes,
+// so the two need no barrier between them; the last cluster barrier is
+// split (arrive after the block's last remote read, wait before it exits).
 //
-// Bound: bytes — each touched state row is read and written once, the
-// group's Tc domain rows read once, k_cap slots written; at N = 5000 a
-// round moves well under a megabyte and the barriers dominate.
+// Bound: bytes — each touched state row read and written once, the
+// group's Tc domain rows read once, k_cap slots written (about 0.9 MB at
+// the bulk problem's N = 5000: 0.27 µs at 3.35 TB/s). One block moves that
+// at one SM's share of the device's rate and runs a block reduction per
+// term column; the cluster spreads the nodes over up to 16 SMs for two
+// barriers.
+//
+// The profile build (-DSIMTPU_ROUND_PROFILE) adds thread 0 of block 0's
+// clock64() cycles per phase (COMMIT_PROF_PHASES) into
+// `round_commit_prof`.
 #include "rounds.cuh"
 
-// node n's per-domain total of m_n for term row t (0 off the key)
-__device__ inline float domain_total(const StepCtx& x, const RoundCtx& r, const float* small, int t,
-                                     int term, int n) {
-  const int N = x.n;
-  const int key = x.term_topo[term];
-  const int dom = x.node_dom[static_cast<size_t>(key) * N + n];
-  if (dom < 0) return 0.0f;
-  const int kind = r.key_kind[key];
-  if (kind == 2) return r.m_n[n];
-  if (kind == 1) {
-    const int ds = r.node_dom_small[static_cast<size_t>(key) * N + n];
-    return ds >= 0 ? small[t * DOM_SMALL + ds] : 0.0f;
-  }
-  return r.dom_sums[static_cast<size_t>(t) * r.n_dom + dom];
+// profile slots, one per phase
+enum : int { CP_ZERO = 0, CP_SUMS, CP_FOLD, CP_UPDATE, CP_SLOTS, CP_END, COMMIT_PROF_PHASES };
+
+#ifdef SIMTPU_ROUND_PROFILE
+__device__ unsigned long long round_commit_prof[ROUND_PROF_SLOTS];
+#define COMMIT_FLUSH(c) (c).flush(round_commit_prof)
+#else
+#define COMMIT_FLUSH(c) ((void)0)
+#endif
+
+// The block's shared words: what it publishes to the cluster (the small
+// bins [Tc, DOM_SMALL], the dots [Tc], the tile total), the same folded
+// over the cluster, the ranks' tile totals, the group's term columns (term,
+// key, route, own-plane row, and the s_match / required anti / required
+// affinity / preferred weights, COMMIT_TERM_WORDS a column) and the tile's
+// prefix of m_n (cuda.round_plan's shared_bytes)
+constexpr int COMMIT_TERM_WORDS = 9;
+// term columns whose domain totals a thread loads before it updates their
+// rows (phase 2)
+constexpr int COMMIT_TERM_BATCH = 8;
+__host__ __device__ inline int commit_pub_words(int tc) { return tc * (DOM_SMALL + 1) + 1; }
+__host__ __device__ inline int commit_smem_words(int tc, int tile) {
+  return 2 * commit_pub_words(tc) + ROUND_CLUSTER_MAX + COMMIT_TERM_WORDS * tc + tile;
 }
 
-__global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, RoundCtx r) {
-  extern __shared__ float small[];  // [Tc, DOM_SMALL] small-key domain totals
+__global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(StepCtx x, RoundCtx r, RoundPlan plan) {
+  extern __shared__ float smem[];
   __shared__ BlockScratch sh;
+  PhaseClock clk;
   const int N = x.n;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int B = plan.blocks, rank = blockIdx.x;
+  const int lo_n = rank * plan.tile;
+  const int hi_n = min(N, lo_n + plan.tile);
+  const int len = hi_n - lo_n;
   const RoundPod p = round_pod(x, r.i);
   const int g = p.g;
   const float* req = p.req;
@@ -61,46 +97,135 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, 
   const int* terms = x.g_terms + static_cast<size_t>(g) * x.tc;
   const size_t g0 = static_cast<size_t>(g) * x.tc;
   const int V = x.v, SD = x.sd, GD = x.gd;
+  const int pub = commit_pub_words(tc);
+  float* small = smem;                       // [tc, DOM_SMALL] this block's bins
+  float* dots = small + tc * DOM_SMALL;      // [tc]
+  float* tile_total = dots + tc;             // [1]
+  float* small_all = smem + pub;             // the cluster's bins and dots, folded
+  float* dots_all = small_all + tc * DOM_SMALL;
+  float* tot = smem + 2 * pub;               // [ROUND_CLUSTER_MAX] every rank's tile total
+  int* c_term = reinterpret_cast<int*>(tot + ROUND_CLUSTER_MAX);  // [tc] -1 on a pad column
+  int* c_key = c_term + tc;
+  int* c_kind = c_key + tc;                  // key_kind, -1 on a pad column
+  int* c_ip = c_kind + tc;
+  float* c_sm = reinterpret_cast<float*>(c_ip + tc);
+  float* c_anti = c_sm + tc;
+  float* c_aff = c_anti + tc;
+  float* c_waff = c_aff + tc;
+  float* c_wanti = c_waff + tc;
+  float* rel = c_wanti + tc;                 // [tile] the tile's inclusive prefix of m_n
 
-  // phase 1: per-domain totals and the cnt_total dots
-  for (int q = tid; q < tc * DOM_SMALL; q += nt) small[q] = 0.0f;
-  for (size_t q = tid; q < static_cast<size_t>(tc) * r.n_dom; q += nt) r.dom_sums[q] = 0.0f;
-  __syncthreads();
-  for (int n = tid; n < N; n += nt) {
-    const float m = r.m_n[n];
-    for (int t = 0; t < tc; ++t) {
-      const int term = terms[t];
-      if (term < 0) continue;
-      const int key = x.term_topo[term];
-      const int dom = x.node_dom[static_cast<size_t>(key) * N + n];
-      if (dom < 0) continue;
-      const int kind = r.key_kind[key];
+  // phase 0: the shared words zeroed, the term columns staged; the tile's
+  // inclusive prefix (thread t owning a contiguous chunk) and its total;
+  // where a column routes to the [Tc, n_dom] fallback domain sums, those
+  // zeroed by every block and one cluster barrier
+  for (int q = tid; q < 2 * pub; q += nt) smem[q] = 0.0f;
+  const int per = (len + nt - 1) / nt;
+  const int c0 = tid * per, c1 = min(len, c0 + per);
+  float run = 0.0f;
+  for (int q = c0; q < c1; ++q) {
+    run += r.m_n[lo_n + q];
+    rel[q] = run;
+  }
+  for (int t = tid; t < tc; t += nt) {
+    const int term = terms[t];
+    const int key = term >= 0 ? x.term_topo[term] : -1;
+    c_term[t] = term;
+    c_key[t] = key;
+    c_kind[t] = term >= 0 ? r.key_kind[key] : -1;
+    c_ip[t] = term >= 0 ? x.ip_of[term] : -1;
+    c_sm[t] = x.s_match[g0 + t] ? 1.0f : 0.0f;
+    c_anti[t] = x.a_anti_req[g0 + t] ? 1.0f : 0.0f;
+    c_aff[t] = x.a_aff_req[g0 + t] ? 1.0f : 0.0f;
+    c_waff[t] = x.w_aff_pref[g0 + t];
+    c_wanti[t] = x.w_anti_pref[g0 + t];
+  }
+  {
+    // (its barriers also publish the staged columns to the block)
+    const float before = block_exclusive(run, [](float a, float b) { return a + b; }, 0.0f, sh);
+    for (int q = c0; q < c1; ++q) rel[q] = before + rel[q];
+    if (c1 == len && c0 < c1) *tile_total = before + run;
+  }
+  bool any_fall = false;
+  int n_small = 0;  // the columns on a small key
+  for (int t = 0; t < tc; ++t) {
+    any_fall = any_fall || (c_term[t] >= 0 && c_kind[t] != 1 && c_kind[t] != 2);
+    n_small += c_term[t] >= 0 && c_kind[t] == 1 ? 1 : 0;
+  }
+  if (any_fall) {
+    const size_t n_fall = static_cast<size_t>(tc) * r.n_dom;
+    for (size_t q = static_cast<size_t>(rank) * nt + tid; q < n_fall; q += static_cast<size_t>(B) * nt)
+      r.dom_sums[q] = 0.0f;
+    cluster_barrier();
+  }
+  clk.stamp(CP_ZERO);
+
+  // phase 1: the tile's domain sums and dots
+  for (int t = 0; t < tc; ++t) {
+    if (c_term[t] < 0) continue;
+    const int kind = c_kind[t];
+    const int* dom = x.node_dom + static_cast<size_t>(c_key[t]) * N;
+    const int* dsm = r.node_dom_small + static_cast<size_t>(c_key[t]) * N;
+    float* fall = r.dom_sums + static_cast<size_t>(t) * r.n_dom;
+    float dot = 0.0f;
+    for (int n = lo_n + tid; n < hi_n; n += nt) {
+      const int d = dom[n];
+      if (d < 0) continue;
+      const float m = r.m_n[n];
+      dot += m;
       if (kind == 1) {
-        const int ds = r.node_dom_small[static_cast<size_t>(key) * N + n];
+        const int ds = dsm[n];
         if (ds >= 0) atomicAdd(&small[t * DOM_SMALL + ds], m);
       } else if (kind != 2) {
-        atomicAdd(&r.dom_sums[static_cast<size_t>(t) * r.n_dom + dom], m);
+        atomicAdd(&fall[d], m);
       }
     }
+    for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0) atomicAdd(&dots[t], dot);
   }
-  for (int t = 0; t < tc; ++t) {
-    const int term = terms[t];
-    float dot = 0.0f;
-    if (term >= 0) {
-      const int* dom = x.node_dom + static_cast<size_t>(x.term_topo[term]) * N;
-      for (int n = tid; n < N; n += nt)
-        if (dom[n] >= 0) dot += r.m_n[n];
+  clk.stamp(CP_SUMS);
+  cluster_barrier();
+
+  // the cluster's small-key bins, dots and tile totals: one word a thread,
+  // every rank's copy loaded at once and added in rank order
+  // (integer-valued: exact in any order)
+  const int n_words = n_small * DOM_SMALL + tc + 1;
+  for (int w = tid; w < n_words; w += nt) {
+    int q = tc * DOM_SMALL + (w - n_small * DOM_SMALL);  // a dot, or the tile total
+    if (w < n_small * DOM_SMALL) {
+      int k = w / DOM_SMALL, t = 0;
+      for (; t < tc; ++t)
+        if (c_term[t] >= 0 && c_kind[t] == 1 && k-- == 0) break;
+      q = t * DOM_SMALL + w % DOM_SMALL;
     }
-    dot = block_sum(dot, sh);
-    if (tid == 0 && term >= 0 && x.s_match[g0 + t]) x.cnt_total[term] = x.cnt_total[term] + dot;
+    float v[ROUND_CLUSTER_MAX];
+#pragma unroll
+    for (int b = 0; b < ROUND_CLUSTER_MAX; ++b) v[b] = b < B ? *cluster_peer(&smem[q], b) : 0.0f;
+    if (q == pub - 1) {
+#pragma unroll
+      for (int b = 0; b < ROUND_CLUSTER_MAX; ++b)
+        if (b < B) tot[b] = v[b];
+    } else {
+      float s = v[0];
+#pragma unroll
+      for (int b = 1; b < ROUND_CLUSTER_MAX; ++b)
+        if (b < B) s += v[b];
+      small_all[q] = s;
+    }
   }
   __syncthreads();
+  cluster_arrive();  // the block's last remote read is done
+  if (rank == 0 && tid == 0) {
+    for (int t = 0; t < tc; ++t) {
+      const int term = c_term[t];
+      if (term >= 0 && c_sm[t] != 0.0f) x.cnt_total[term] = x.cnt_total[term] + dots_all[t];
+    }
+  }
+  clk.stamp(CP_FOLD);
 
-  // phase 2: the per-node state update and the prefix of m_n
-  float* cum = r.scr + static_cast<size_t>(SC_CUM) * N;
-  for (int n = tid; n < N; n += nt) {
+  // phase 2: the per-node state update
+  for (int n = lo_n + tid; n < hi_n; n += nt) {
     const float m = r.m_n[n];
-    cum[n] = m;
     float* fr = x.free + static_cast<size_t>(n) * x.r;
     for (int q = 0; q < x.r; ++q) fr[q] = __fmaf_rn(-m, req[q], fr[q]);
     const float one = jmin(m, 1.0f);
@@ -118,22 +243,48 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, 
         if (f & F_VOLS) x.vols_rw[nw + q] = x.vols_rw[nw + q] + one * (rw ? 1.0f : 0.0f);
       }
     }
-    for (int t = 0; t < tc; ++t) {
-      const int term = terms[t];
-      if (term < 0) continue;
-      const float add = domain_total(x, r, small, t, term, n);
-      const size_t tn = static_cast<size_t>(term) * N + n;
-      x.cnt_match[tn] = x.cnt_match[tn] + (x.s_match[g0 + t] ? 1.0f : 0.0f) * add;
-      const int ip = x.ip_of[term];
-      if (ip < 0) continue;
-      const size_t in = static_cast<size_t>(ip) * N + n;
-      if (f & F_INTERPOD_REQ) {
-        x.cnt_own_anti[in] = x.cnt_own_anti[in] + (x.a_anti_req[g0 + t] ? 1.0f : 0.0f) * add;
-        x.cnt_own_aff[in] = x.cnt_own_aff[in] + (x.a_aff_req[g0 + t] ? 1.0f : 0.0f) * add;
+    // COMMIT_TERM_BATCH columns at a time: their domain totals first (the
+    // loads of one column do not wait on another's), then their rows in
+    // column order
+    for (int t0 = 0; t0 < tc; t0 += COMMIT_TERM_BATCH) {
+      float add[COMMIT_TERM_BATCH];
+#pragma unroll
+      for (int u = 0; u < COMMIT_TERM_BATCH; ++u) {
+        const int t = t0 + u;
+        add[u] = 0.0f;
+        if (t >= tc || c_term[t] < 0) continue;
+        // the node's per-domain total of m_n for the column (0 off the key)
+        const size_t kn = static_cast<size_t>(c_key[t]) * N + n;
+        const int d = x.node_dom[kn];
+        if (d < 0) continue;
+        if (c_kind[t] == 2) {
+          add[u] = m;
+        } else if (c_kind[t] == 1) {
+          const int ds = r.node_dom_small[kn];
+          add[u] = ds >= 0 ? small_all[t * DOM_SMALL + ds] : 0.0f;
+        } else {
+          add[u] = r.dom_sums[static_cast<size_t>(t) * r.n_dom + d];
+        }
       }
-      if (f & F_INTERPOD_PREF) {
-        x.w_own_aff_pref[in] = x.w_own_aff_pref[in] + x.w_aff_pref[g0 + t] * add;
-        x.w_own_anti_pref[in] = x.w_own_anti_pref[in] + x.w_anti_pref[g0 + t] * add;
+#pragma unroll
+      for (int u = 0; u < COMMIT_TERM_BATCH; ++u) {
+        const int t = t0 + u;
+        if (t >= tc) break;
+        const int term = c_term[t];
+        if (term < 0) continue;
+        const size_t tn = static_cast<size_t>(term) * N + n;
+        x.cnt_match[tn] = x.cnt_match[tn] + c_sm[t] * add[u];
+        const int ip = c_ip[t];
+        if (ip < 0) continue;
+        const size_t in = static_cast<size_t>(ip) * N + n;
+        if (f & F_INTERPOD_REQ) {
+          x.cnt_own_anti[in] = x.cnt_own_anti[in] + c_anti[t] * add[u];
+          x.cnt_own_aff[in] = x.cnt_own_aff[in] + c_aff[t] * add[u];
+        }
+        if (f & F_INTERPOD_PREF) {
+          x.w_own_aff_pref[in] = x.w_own_aff_pref[in] + c_waff[t] * add[u];
+          x.w_own_anti_pref[in] = x.w_own_anti_pref[in] + c_wanti[t] * add[u];
+        }
       }
     }
     if (f & F_STORAGE) {
@@ -179,30 +330,28 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, 
       }
     }
   }
-  __syncthreads();
-  block_scan_array(cum, N, [](float a, float b) { return a + b; }, 0.0f, sh);
-  const float total = cum[N - 1];  // cum_slots[-1]
+  clk.stamp(CP_UPDATE);
 
-  // phase 3: the slots
+  // phase 3: the slots. Slot j < cum_slots[-1] goes to the node whose
+  // prefix first passes it (searchsorted side="right"), which lies in the
+  // tile whose prefix range [off, off + total) holds j: each block expands
+  // its own tile's slots from its shared prefix; the slots past the total
+  // (no node) are spread over the cluster.
+  float off = 0.0f, total = 0.0f;  // the nodes before this tile; cum_slots[-1]
+  for (int b = 0; b < B; ++b) {
+    if (b == rank) off = total;
+    total += tot[b];
+  }
   const size_t row = static_cast<size_t>(r.row) * r.k_cap;
   const bool has_lvm = p.l_size > 0.0f, has_dev = p.d_size > 0.0f, is_gpu = p.gpu_mem > 0.0f;
   const float count_f = fmaxf(static_cast<float>(p.gpu_count), 1.0f);
-  for (int j = tid; j < r.k_cap; j += nt) {
-    const float slot = static_cast<float>(j);
-    int a_lo = 0, a_hi = N;  // searchsorted(cum, slot, side="right")
-    while (a_lo < a_hi) {
-      const int mid = (a_lo + a_hi) >> 1;
-      if (!(slot < cum[mid])) a_lo = mid + 1; else a_hi = mid;
-    }
-    const bool valid = slot < total;
-    const int a = valid ? a_lo : 0;
-    const float ordinal = slot - (cum[a] - r.m_n[a]);
+  auto emit = [&](int j, bool valid, int a, float ordinal) {
     auto pick = [&](const int* ord, const float* cumx, int X) -> int {
       if (X == 0) return -1;
-      int rank = 0;
-      for (int v = 0; v < X; ++v) rank += cumx[static_cast<size_t>(a) * X + v] <= ordinal ? 1 : 0;
-      rank = rank > X - 1 ? X - 1 : rank;
-      return ord[static_cast<size_t>(a) * X + rank];
+      int rank_x = 0;
+      for (int v = 0; v < X; ++v) rank_x += cumx[static_cast<size_t>(a) * X + v] <= ordinal ? 1 : 0;
+      rank_x = rank_x > X - 1 ? X - 1 : rank_x;
+      return ord[static_cast<size_t>(a) * X + rank_x];
     };
     int vg = -1, dv = -1, gp = -1;
     if (f & F_STORAGE) {
@@ -210,12 +359,12 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, 
       if (valid && has_dev) dv = pick(r.ord_dev, r.cum_dev, SD);
     }
     if ((f & F_GPU) && valid && is_gpu) gp = pick(r.ord_gpu, r.cum_gpu, GD);
-    r.assign[row + j] = valid ? a_lo : -1;
+    r.assign[row + j] = valid ? a : -1;
     r.dev_idx[row + j] = dv;
     if (!mats) {
       r.vg_idx[row + j] = vg;
       r.gpu_idx[row + j] = gp;
-      continue;
+      return;
     }
     if ((f & F_STORAGE) && V) {
       float* lm = r.lvm_mat + (row + j) * V;
@@ -243,13 +392,50 @@ __global__ void __launch_bounds__(ROUND_THREADS) round_commit_kernel(StepCtx x, 
         gmat[d] = (valid && is_gpu) ? val : 0.0f;
       }
     }
+  };
+  // the tile's slots [j0, j1): the prefix sums are integer-valued; none
+  // where the total is NaN (slot < NaN holds for no slot)
+  const float k_f = static_cast<float>(r.k_cap), hi_f = off + tot[rank];
+  const int j0 = off < k_f ? static_cast<int>(off) : r.k_cap;
+  const int j1 = total == total ? (hi_f < k_f ? static_cast<int>(hi_f) : r.k_cap) : j0;
+  for (int j = j0 + tid; j < j1; j += nt) {
+    const float slot = static_cast<float>(j);
+    int q_lo = 0, q_hi = len;
+    while (q_lo < q_hi) {
+      const int mid = (q_lo + q_hi) >> 1;
+      if (!(slot < off + rel[mid])) q_lo = mid + 1; else q_hi = mid;
+    }
+    const int a = lo_n + q_lo;
+    emit(j, true, a, slot - ((off + rel[q_lo]) - r.m_n[a]));
   }
+  // the slots past the total: no node (their ordinal is never read)
+  const int jt = total < k_f ? static_cast<int>(total) : (total == total ? r.k_cap : 0);
+  for (int j = jt + rank * nt + tid; j < r.k_cap; j += B * nt) emit(j, false, 0, 0.0f);
+  clk.stamp(CP_SLOTS);
+  cluster_wait();
+  clk.stamp(CP_END);
+  COMMIT_FLUSH(clk);
 }
 
-extern "C" int simtpu_round_commit(const StepCtx* ctx, const RoundCtx* r, void* stream) {
-  int threads = ((ctx->n + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > ROUND_THREADS ? ROUND_THREADS : threads);
-  const size_t smem = static_cast<size_t>(ctx->tc > 0 ? ctx->tc : 1) * DOM_SMALL * sizeof(float);
-  round_commit_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(*ctx, *r);
-  return launch_status();
+// the wrapper's plan (cuda.round_plan); refused only if it does not cover
+// the nodes or its shared bytes are not the kernel's (sized for every
+// term column of the batch)
+extern "C" int simtpu_round_commit(const StepCtx* ctx, const RoundCtx* r, const RoundPlan* plan, void* stream) {
+  const int bad = check_plan(*plan, ctx->n);
+  if (bad) return bad;
+  if (plan->smem != commit_smem_words(ctx->tc, plan->tile) * static_cast<int>(sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster(round_commit_kernel, *plan, static_cast<cudaStream_t>(stream), *ctx, *r, *plan);
 }
+
+#ifdef SIMTPU_ROUND_PROFILE
+// the profile build's phase cycles (ROUND_PROF_SLOTS words) into `out`
+// (host memory), then zeroed; synchronizes the device
+extern "C" int simtpu_round_commit_prof(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, round_commit_prof, sizeof(round_commit_prof));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[ROUND_PROF_SLOTS] = {};
+  e = cudaMemcpyToSymbol(round_commit_prof, zero, sizeof(round_commit_prof));
+  return static_cast<int>(e);
+}
+#endif

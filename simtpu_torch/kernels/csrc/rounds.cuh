@@ -6,9 +6,13 @@
 // One round places up to k identical pods (representative pod i of the
 // batch) after K1, K5/K6 and K2 ran for it: K14 reads their stage byte,
 // plans and raw count rows; K15 reads K14's caps, s0 and slope; K16 reads
-// K15's per-node intake m_n. Each is one block striding over the nodes,
-// so a phase that needs every node's value (a normalizer, a domain sum, a
-// prefix) is a barrier away, not a second launch.
+// K15's per-node intake m_n. K15 is one block striding over the nodes;
+// K14 and K16 are one thread-block cluster each (`RoundPlan`: block b of
+// the cluster owns the node tile [b * tile, (b + 1) * tile)), whose blocks
+// trade per-block partials through distributed shared memory across a
+// cluster barrier. Either way a phase that needs every node's value (a
+// normalizer, a domain sum, a prefix) is a barrier away, not a second
+// launch.
 //
 // Numerics: the formulas are the JAX package's simtpu/engine/rounds.py
 // (and the port's plain versions in simtpu_torch/engine/rounds.py) term
@@ -19,6 +23,8 @@
 // is inf in any order, so reductions and scans may reassociate them.
 // min/max/clip propagate NaN as XLA's do (`jmin` / `jmax`).
 #pragma once
+#include <cooperative_groups.h>
+
 #include "scores.cuh"
 #include "topology.cuh"
 
@@ -143,6 +149,129 @@ __device__ inline void block_scan_array(float* a, int n, Op op, float ident, Blo
   const float before = block_exclusive(run, op, ident, sh);
   for (int j = lo; j < hi; ++j) a[j] = op(before, a[j]);
   __syncthreads();
+}
+
+// -- the round's thread-block cluster (K14, K16) -------------------------------
+//
+// One launch is one cluster of `blocks` blocks (cudaLaunchKernelEx with a
+// cluster dimension; above 8 blocks the non-portable size): the grid is
+// the cluster, so a block's rank is blockIdx.x. Block b owns the nodes
+// [b * tile, min(N, (b + 1) * tile)); thread t of a block the nodes tile_lo
+// + t + j * threads, j < npt (npt 1, 2 or ROUND_NPT: kept in registers) or,
+// with npt 0, every threads-th node of the tile (re-read from memory).
+// Blocks publish partials in their own shared memory, pass a cluster
+// barrier (release / acquire at cluster scope: it orders their global
+// writes too) and read each other's partials; each block folds the ranks
+// in rank order. No block may exit while another may still read its
+// shared memory: every path ends with cluster_wait() after a
+// cluster_arrive() that follows the block's last remote read. Every block
+// takes the same branch at each barrier (the branches follow mode bits and
+// flags, never a tile's data).
+
+// blocks of a cluster at most (the non-portable size), threads of a block
+// at most, nodes per thread kept in registers at most
+constexpr int ROUND_CLUSTER_MAX = 16;
+constexpr int ROUND_CLUSTER_THREADS = 512;
+constexpr int ROUND_NPT = 4;
+
+// the launch plan (cuda.round_plan), passed by value
+struct RoundPlan {
+  int blocks, threads, npt, tile, smem, pad_;
+};
+
+__device__ inline void cluster_arrive() { asm volatile("barrier.cluster.arrive;\n" ::: "memory"); }
+__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
+__device__ inline void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// `p` (this block's shared memory) in block `rank` of the cluster
+template <class T>
+__device__ inline const T* cluster_peer(const T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(const_cast<T*>(p), rank);
+}
+
+// the nodes of this thread: f(j, n) for each, j the register slot
+template <int NPT, class F>
+__device__ inline void for_tile(int lo, int hi, F f) {
+  if constexpr (NPT > 0) {
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) {
+      const int n = lo + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x);
+      if (n < hi) f(j, n);
+    }
+  } else {
+    for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) f(0, n);
+  }
+}
+
+// The round's profile build (-DSIMTPU_ROUND_PROFILE, never the main
+// path's): thread 0 of block 0 adds its clock64() cycles per phase into
+// the kernel's counters (`round_score_prof`, `round_commit_prof`), read and
+// zeroed by simtpu_<kernel>_prof.
+constexpr int ROUND_PROF_SLOTS = 8;
+struct PhaseClock {
+#ifdef SIMTPU_ROUND_PROFILE
+  long long t0, acc[ROUND_PROF_SLOTS];
+  __device__ PhaseClock() {
+    t0 = clock64();
+    for (int q = 0; q < ROUND_PROF_SLOTS; ++q) acc[q] = 0;
+  }
+  __device__ void stamp(int q) {
+    const long long t = clock64();
+    acc[q] += t - t0;
+    t0 = t;
+  }
+  __device__ void flush(unsigned long long* out) const {
+    if (threadIdx.x == 0 && blockIdx.x == 0)
+      for (int q = 0; q < ROUND_PROF_SLOTS; ++q) atomicAdd(&out[q], static_cast<unsigned long long>(acc[q]));
+  }
+#else
+  __device__ void stamp(int) {}
+  __device__ void flush(unsigned long long*) const {}
+#endif
+};
+
+// Launch `kernel` as one cluster of plan.blocks blocks of plan.threads
+// threads with plan.smem bytes of dynamic shared memory; 0 or a CUDA error.
+template <class... P, class... A>
+inline int launch_cluster(void (*kernel)(P...), const RoundPlan& plan, cudaStream_t s, const A&... args) {
+  cudaError_t e;
+  if (plan.blocks > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (plan.smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.blocks, 1, 1);
+  cfg.blockDim = dim3(plan.threads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(plan.smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_status();
+}
+
+// The plan covers the N nodes: every node in exactly one tile, every node
+// of a tile on one thread; cudaErrorInvalidValue otherwise.
+inline int check_plan(const RoundPlan& p, int n) {
+  const bool ok = p.blocks >= 1 && p.blocks <= ROUND_CLUSTER_MAX && p.threads >= 32 && p.threads % 32 == 0 &&
+                  p.threads <= ROUND_CLUSTER_THREADS && p.tile >= 1 &&
+                  static_cast<long long>(p.blocks) * p.tile >= n && static_cast<long long>(p.blocks - 1) * p.tile < (n > 0 ? n : 1) &&
+                  (p.npt == 0 || static_cast<long long>(p.npt) * p.threads >= p.tile) &&
+                  (p.npt == 0 || p.npt == 1 || p.npt == 2 || p.npt == ROUND_NPT);
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // -- the round's pod ------------------------------------------------------------

@@ -58,7 +58,10 @@ STEP_KERNELS = KERNELS[:6]
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
 WAVE_KERNELS = KERNELS[8:10]
 #: the round kernels, launched as simtpu_<name>(StepCtx*, RoundCtx*, stream)
+#: (K15) or simtpu_<name>(StepCtx*, RoundCtx*, RoundPlan*, stream) (K14,
+#: K16: one thread-block cluster each)
 ROUND_KERNELS = KERNELS[13:16]
+CLUSTER_KERNELS = ("round_score", "round_commit")
 #: the sweep kernels, launched as simtpu_<name>(DeltaCtx* or StepCtx*,
 #: SweepCtx*, stream)
 SWEEP_KERNELS = KERNELS[17:19]
@@ -143,6 +146,8 @@ def build() -> dict:
         fn = getattr(lib, f"simtpu_{name}")
         if name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        elif name in CLUSTER_KERNELS:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name == "explain_pass":
@@ -166,17 +171,18 @@ def build() -> dict:
 
 #: the profile build: the same sources with per-phase clock64() stamps
 #: compiled in (csrc/wave.cuh's SIMTPU_WAVE_PROFILE for K9/K10,
-#: csrc/round_pick.cu's SIMTPU_PICK_PROFILE for K15), in libraries of their
-#: own that the main path never loads
-PROFILE_FLAGS = ("-DSIMTPU_WAVE_PROFILE", "-DSIMTPU_PICK_PROFILE")
-PROFILE_KERNELS = WAVE_KERNELS + ("round_pick",)
+#: csrc/round_pick.cu's SIMTPU_PICK_PROFILE for K15, csrc/rounds.cuh's
+#: SIMTPU_ROUND_PROFILE for K14/K16), in libraries of their own that the
+#: main path never loads
+PROFILE_FLAGS = ("-DSIMTPU_WAVE_PROFILE", "-DSIMTPU_PICK_PROFILE", "-DSIMTPU_ROUND_PROFILE")
+PROFILE_KERNELS = WAVE_KERNELS + ROUND_KERNELS
 _PROFILE_LIBS: dict = {}
 
 
 def build_profile() -> dict:
-    """Compile the profile build of K9, K10 and K15 (in parallel) and load
-    it. Returns {name: ctypes.CDLL}; wave_lean's library also exports
-    simtpu_wave_barrier_cycles, round_pick's simtpu_round_pick_prof."""
+    """Compile the profile build of K9, K10 and K14-K16 (in parallel) and
+    load it. Returns {name: ctypes.CDLL}; wave_lean's library also exports
+    simtpu_wave_barrier_cycles, each round kernel's simtpu_<name>_prof."""
     if _PROFILE_LIBS:
         return _PROFILE_LIBS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -197,15 +203,16 @@ def build_profile() -> dict:
     for name in PROFILE_KERNELS:
         lib = ctypes.CDLL(str(_PROFILE_LIBS[name]))
         fn = getattr(lib, f"simtpu_{name}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (4 if name in CLUSTER_KERNELS else 3)
         fn.restype = ctypes.c_int
         _PROFILE_LIBS[name] = lib
     bar = _PROFILE_LIBS["wave_lean"].simtpu_wave_barrier_cycles
     bar.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     bar.restype = ctypes.c_int
-    prof = _PROFILE_LIBS["round_pick"].simtpu_round_pick_prof
-    prof.argtypes = [ctypes.c_void_p]
-    prof.restype = ctypes.c_int
+    for name in ROUND_KERNELS:
+        prof = getattr(_PROFILE_LIBS[name], f"simtpu_{name}_prof")
+        prof.argtypes = [ctypes.c_void_p]
+        prof.restype = ctypes.c_int
     return _PROFILE_LIBS
 
 
@@ -909,27 +916,97 @@ def _round_pointers(rb) -> dict:
     return {f: t.data_ptr() for f, t in tensors.items()}
 
 
-def launch_round(name: str, rb, i: int, k: int, mode: int, row: int) -> None:
-    """Launch round kernel `name` (K14-K16) for the round of pod i of the
-    batch, run length k, variant `mode` (engine/rounds.py V_*), output row
-    `row`, on the current CUDA stream; raises if the launch is refused. No
-    synchronization."""
+#: K14's and K16's launch plan (csrc/rounds.cuh): one thread-block cluster
+#: of at most ROUND_CLUSTER_MAX blocks (above 8 the non-portable size), at
+#: most ROUND_CLUSTER_THREADS threads a block, up to ROUND_NPT nodes a
+#: thread in registers (templates 1, 2, ROUND_NPT; "global" above, the
+#: nodes re-read); the cluster aims at ROUND_NODES_PER_BLOCK nodes a block
+#: (the measured sweep, PERF.md), the tile a multiple of 32 nodes
+ROUND_CLUSTER_MAX = 16
+ROUND_CLUSTER_THREADS = 512
+ROUND_NPT = 4
+ROUND_NODES_PER_BLOCK = 128
+#: the small-key domain bins of K16's blocks (rounds.cuh DOM_SMALL) and
+#: the shared words of one term column it stages (round_commit.cu
+#: COMMIT_TERM_WORDS)
+ROUND_DOM_SMALL = 64
+ROUND_TERM_WORDS = 9
+
+
+class RoundPlan(ctypes.Structure):
+    """ctypes mirror of `struct RoundPlan` in csrc/rounds.cuh."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "npt", "tile", "smem", "pad_")]
+
+
+def round_blocks(n: int) -> int:
+    """The blocks of K14's / K16's cluster for N nodes: the power of two
+    that gives each block at most ROUND_NODES_PER_BLOCK nodes, at most
+    ROUND_CLUSTER_MAX."""
+    want = -(-max(n, 1) // ROUND_NODES_PER_BLOCK)
+    return min(ROUND_CLUSTER_MAX, 1 << (want - 1).bit_length())
+
+
+def round_plan(n: int, tc: int = 0, blocks: int = None) -> dict:
+    """K14's and K16's launch plan for a round over N nodes (`tc` term
+    columns of the batch), with `blocks` blocks where given (the sweep),
+    `round_blocks(n)` otherwise: block b owns the nodes [b * tile, min(N,
+    (b + 1) * tile)) (the tile a multiple of 32, the last one ragged, none
+    empty), thread t of a block the nodes tile start + t + j * threads for j
+    < nodes_per_thread (kept in registers under template "1", "2" or "4",
+    re-read under "global"), and K16's dynamic shared bytes (its published
+    bins, dots and tile total, their fold, the ranks' tile totals, the
+    staged term columns, the tile's prefix)."""
+    b = min(max(int(blocks or round_blocks(n)), 1), ROUND_CLUSTER_MAX)
+    tile = -(-(-(-max(n, 1) // b)) // 32) * 32
+    b = -(-max(n, 1) // tile)
+    per = -(-tile // ROUND_CLUSTER_THREADS)
+    threads = -(-(-(-tile // per)) // 32) * 32
+    npt = next((t for t in (1, 2, ROUND_NPT) if per <= t), 0)
+    if npt:
+        threads = -(-(-(-tile // npt)) // 32) * 32
+    words = 2 * (tc * (ROUND_DOM_SMALL + 1) + 1) + ROUND_CLUSTER_MAX + ROUND_TERM_WORDS * tc + tile
+    return {"blocks": b, "threads": threads, "nodes_per_thread": npt or per, "npt": npt,
+            "template": str(npt) if npt else "global", "tile": tile, "shared_bytes": 4 * words}
+
+
+def _round_plan_struct(name: str, n: int, tc: int, blocks: int = None) -> RoundPlan:
+    plan = round_plan(n, tc, blocks)
+    return RoundPlan(blocks=plan["blocks"], threads=plan["threads"], npt=plan["npt"], tile=plan["tile"],
+                     smem=plan["shared_bytes"] if name == "round_commit" else 0, pad_=0)
+
+
+def _launch_round_with(libs, name: str, rb, i: int, k: int, mode: int, row: int, blocks: int = None) -> None:
     buf = rb.buf
-    if not 0 <= i < buf.n_pods:
-        raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
-    if not 0 <= row < rb.assign.shape[0]:
-        raise IndexError(f"output row {row} outside {rb.assign.shape[0]} rows")
-    libs = build()
     if buf.ctx is None:
         buf.ctx = make_ctx(buf)
     if rb.ctx is None:
         rb.ctx = _round_pointers(rb)
     ctx = RoundCtx(i=i, k=k, mode=mode, row=row, n_dom=rb.n_domains, k_cap=rb.assign.shape[1], **rb.ctx)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    fn = getattr(libs[name], f"simtpu_{name}")
+    if name in CLUSTER_KERNELS:
+        plan = _round_plan_struct(name, buf.ctx.n, buf.ctx.tc, blocks)
+        err = fn(ctypes.byref(buf.ctx), ctypes.byref(ctx), ctypes.byref(plan), stream)
+    else:
+        err = fn(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
     if err:
-        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        msg = build()[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+
+
+def launch_round(name: str, rb, i: int, k: int, mode: int, row: int, blocks: int = None) -> None:
+    """Launch round kernel `name` (K14-K16) for the round of pod i of the
+    batch, run length k, variant `mode` (engine/rounds.py V_*), output row
+    `row`, on the current CUDA stream (K14/K16 on `round_plan`'s cluster,
+    of `blocks` blocks where given); raises if the launch is refused. No
+    synchronization."""
+    buf = rb.buf
+    if not 0 <= i < buf.n_pods:
+        raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
+    if not 0 <= row < rb.assign.shape[0]:
+        raise IndexError(f"output row {row} outside {rb.assign.shape[0]} rows")
+    _launch_round_with(build(), name, rb, i, k, mode, row, blocks)
     LAUNCHES[name] += 1
 
 
@@ -947,12 +1024,19 @@ PICK_LEVELS = 1
 PICK_SORT_SMEM_N = 8192
 PICK_BUCKETS = 256
 PICK_WARP_LADDER = 32
-#: the profile build's slots (round_pick.cu PICK_PROF_SLOTS): cycles per
-#: phase, then the bisection steps (threshold) or radix passes (quota) and
-#: the ladder levels
+#: the profile builds' phases by slot (csrc/round_pick.cu PICK_PROF_SLOTS:
+#: cycles per phase, then the bisection steps (threshold) or radix passes
+#: (quota) and the ladder levels; round_score.cu SCORE_PROF_PHASES,
+#: round_commit.cu COMMIT_PROF_PHASES: cycles per phase, of
+#: ROUND_PROF_SLOTS slots)
 PICK_PHASES = ("load", "bisection", "clamp scans", "spread minima + base", "aggregates + compaction",
                "ladder", "ranking", "split scans")
 PICK_PROF_SLOTS = len(PICK_PHASES) + 2
+SCORE_PHASES = ("pass 1 + raws", "cluster fold", "pass 2", "bootstrap", "pass 4", "end wait")
+COMMIT_PHASES = ("zero + barrier", "sums, dots, tile prefix", "cluster fold", "state update", "slots",
+                 "end wait")
+ROUND_PROF_SLOTS = 8
+PROF_SLOTS = {"round_pick": PICK_PROF_SLOTS, "round_score": ROUND_PROF_SLOTS, "round_commit": ROUND_PROF_SLOTS}
 
 
 def round_pick_plan(n: int, tc: int = 0, quota: bool = False) -> dict:
@@ -973,33 +1057,22 @@ def round_pick_plan(n: int, tc: int = 0, quota: bool = False) -> dict:
     return plan
 
 
-def launch_round_profile(rb, i: int, k: int, mode: int) -> None:
-    """Launch the profile build of K15 for the round of pod i, run length
-    k, variant `mode`; its phase cycles add into the library's counters
-    (`round_pick_prof`). A measurement launch: not counted in LAUNCHES. No
-    synchronization."""
-    libs = build_profile()
-    buf = rb.buf
-    if buf.ctx is None:
-        buf.ctx = make_ctx(buf)
-    if rb.ctx is None:
-        rb.ctx = _round_pointers(rb)
-    ctx = RoundCtx(i=i, k=k, mode=mode, row=0, n_dom=rb.n_domains, k_cap=rb.assign.shape[1], **rb.ctx)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = libs["round_pick"].simtpu_round_pick(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
-    if err:
-        msg = build()[KERNELS[0]].simtpu_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel round_pick (profile build) failed to launch: {msg} ({err})")
+def launch_round_profile(name: str, rb, i: int, k: int, mode: int, row: int = 0) -> None:
+    """Launch the profile build of round kernel `name` (K14-K16) for the
+    round of pod i, run length k, variant `mode`; its phase cycles add into
+    the library's counters (`round_prof`). A measurement launch: not
+    counted in LAUNCHES. No synchronization."""
+    _launch_round_with(build_profile(), name, rb, i, k, mode, row)
 
 
-def round_pick_prof() -> list:
-    """The profile build's K15 counters since the last read (PICK_PHASES'
-    cycles, then the steps or passes and the ladder levels), zeroed.
-    Synchronizes the device."""
-    out = (ctypes.c_ulonglong * PICK_PROF_SLOTS)()
-    err = build_profile()["round_pick"].simtpu_round_pick_prof(out)
+def round_prof(name: str) -> list:
+    """The profile build's counters of round kernel `name` since the last
+    read (its phases' cycles, and for K15 the steps or passes and the
+    ladder levels), zeroed. Synchronizes the device."""
+    out = (ctypes.c_ulonglong * PROF_SLOTS[name])()
+    err = getattr(build_profile()[name], f"simtpu_{name}_prof")(out)
     if err:
-        raise RuntimeError(f"reading K15's profile counters failed ({err})")
+        raise RuntimeError(f"reading {name}'s profile counters failed ({err})")
     return list(out)
 
 

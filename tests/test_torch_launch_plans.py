@@ -1,17 +1,21 @@
 """The launch plans of K23 `relax_project`, K19 `sweep_place`, K18
-`sweep_drain` and K15 `round_pick`.
+`sweep_drain`, K15 `round_pick` and K14 / K16 `round_score` /
+`round_commit`.
 
 The wrappers take their launch arithmetic from plain Python functions in
 `simtpu_torch/kernels/cuda.py` (`relax_project_plan`, `sweep_place_plan`,
-`sweep_drain_plan`, `round_pick_plan`), which K18's and K19's CUDA entries
-follow and K15's and K23's compute alike. Here, at node counts on both
+`sweep_drain_plan`, `round_pick_plan`, `round_plan`), which K14's, K16's,
+K18's and K19's CUDA entries follow and K15's and K23's compute alike. Here, at node counts on both
 sides of every boundary (N = 999, 1024, 1025, 4096, 4097, 16 384, 16 385
 and 100 000): K23's path, threads per row, keys per thread, rows per
 block, shared bytes and slab switch; K19's threads, nodes per thread,
 register template and shared-memory plan; K18's node tiles (every node in
 exactly one tile of every scenario, one cnt_total owner a scenario, at
 least two blocks an SM on the main paths' chunks); K15's threads, register
-template or global rows, and the quota ranking's shared or global buffers.
+template or global rows, and the quota ranking's shared or global buffers;
+K14/K16's cluster (every node in exactly one tile and on one thread, at
+N = 1, 31, 1000, 2000, 5000, 9000, 16 385 and 100 000 and at every
+cluster size).
 Then the plans as the argument blocks carry them, the constants they
 mirror in the CUDA sources, and the argument blocks' fields against the
 CUDA headers. Nothing here needs a card.
@@ -188,6 +192,71 @@ def test_round_pick_plan_small_rounds():
         assert (plan["threads"], plan["nodes_per_thread"], plan["template"]) == (threads, 1, "1"), n
 
 
+ROUND_NODES = (1, 31, 1000, 2000, 5000, 9000, 16385, 100000)
+
+
+def _cluster_nodes(plan, n):
+    """How many times each node is visited under a K14/K16 plan, as the
+    kernels walk it (csrc/rounds.cuh for_tile): block b's tile [b * tile,
+    min(N, (b + 1) * tile)), thread t's nodes tile start + t + j * threads
+    for j < npt, or every threads-th node with npt 0."""
+    seen = np.zeros(n, np.int64)
+    for b in range(plan["blocks"]):
+        lo, hi = b * plan["tile"], min(n, (b + 1) * plan["tile"])
+        assert lo < hi or n == 0, "an empty tile"
+        for t in range(plan["threads"]):
+            if plan["npt"]:
+                nodes = [lo + t + j * plan["threads"] for j in range(plan["npt"])]
+            else:
+                nodes = range(lo + t, hi, plan["threads"])
+            for node in nodes:
+                if node < hi:
+                    seen[node] += 1
+    return seen
+
+
+@pytest.mark.parametrize("blocks", [None, 1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("n", ROUND_NODES)
+def test_round_plan_covers_every_node_once(n, blocks):
+    plan = cuda.round_plan(n, tc=4, blocks=blocks)
+    assert (_cluster_nodes(plan, n) == 1).all()
+    assert 1 <= plan["blocks"] <= cuda.ROUND_CLUSTER_MAX
+    assert blocks is None or plan["blocks"] <= blocks
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= min(cuda.ROUND_CLUSTER_THREADS, 1024)
+    assert plan["tile"] % 32 == 0 and plan["blocks"] * plan["tile"] >= n > (plan["blocks"] - 1) * plan["tile"]
+    assert plan["template"] == (str(plan["npt"]) if plan["npt"] else "global")
+    assert plan["npt"] in (0, 1, 2, cuda.ROUND_NPT)
+    assert plan["nodes_per_thread"] * plan["threads"] >= plan["tile"]
+    if plan["npt"]:
+        assert plan["nodes_per_thread"] == plan["npt"]
+    # the last tile is ragged wherever the nodes do not fill it
+    assert (n % plan["tile"] != 0) == (n - (plan["blocks"] - 1) * plan["tile"] < plan["tile"])
+
+
+@pytest.mark.parametrize("tc", [0, 1, 4, 22, 64, 200])
+def test_round_plan_shared_bytes(tc):
+    # K16's published words (bins, dots, tile total), their fold, the
+    # ranks' tile totals, the staged term columns and the tile's prefix,
+    # within a block's 227 KB
+    for n in ROUND_NODES:
+        plan = cuda.round_plan(n, tc)
+        words = (2 * (tc * (cuda.ROUND_DOM_SMALL + 1) + 1) + cuda.ROUND_CLUSTER_MAX
+                 + cuda.ROUND_TERM_WORDS * tc + plan["tile"])
+        assert plan["shared_bytes"] == 4 * words <= 227 * 1024
+
+
+def test_round_plan_by_nodes():
+    # one block for small rounds; a cluster on the bulk problem's 5000
+    # nodes; never past the non-portable cluster size
+    assert cuda.round_plan(31)["blocks"] == 1 and cuda.round_plan(120)["blocks"] == 1
+    assert cuda.round_plan(5000)["blocks"] > 1
+    assert cuda.round_plan(100000)["blocks"] == cuda.ROUND_CLUSTER_MAX
+    assert [cuda.round_plan(n)["blocks"] for n in ROUND_NODES] == sorted(
+        cuda.round_plan(n)["blocks"] for n in ROUND_NODES)
+    for n in ROUND_NODES:
+        assert cuda.round_plan(n)["blocks"] == cuda.round_blocks(n) or n <= 32
+
+
 @pytest.mark.parametrize("n", NODES)
 def test_relax_argument_block_carries_the_plan(n):
     rng = np.random.default_rng(n)
@@ -248,6 +317,25 @@ def test_plan_constants_mirror_the_cuda_sources():
     assert re.search(r"case PICK_REG_NPT: return launch_threshold<PICK_REG_NPT>", pick)
     for npt in (1, 2, 4):
         assert f"case {npt}: return launch_threshold<{npt}>" in pick
+    # K14 / K16: the cluster plan, K16's shared words, the profile slots
+    score = (cuda.CSRC / "round_score.cu").read_text()
+    commit = (cuda.CSRC / "round_commit.cu").read_text()
+    assert _cuda_int(rounds_h, "ROUND_CLUSTER_MAX") == cuda.ROUND_CLUSTER_MAX
+    assert _cuda_int(rounds_h, "ROUND_CLUSTER_THREADS") == cuda.ROUND_CLUSTER_THREADS
+    assert _cuda_int(rounds_h, "ROUND_NPT") == cuda.ROUND_NPT
+    assert _cuda_int(rounds_h, "DOM_SMALL") == cuda.ROUND_DOM_SMALL
+    assert _cuda_int(rounds_h, "ROUND_PROF_SLOTS") == cuda.ROUND_PROF_SLOTS
+    assert "return tc * (DOM_SMALL + 1) + 1;" in commit
+    assert "return 2 * commit_pub_words(tc) + ROUND_CLUSTER_MAX + COMMIT_TERM_WORDS * tc + tile;" in commit
+    assert _cuda_int(commit, "COMMIT_TERM_WORDS") == cuda.ROUND_TERM_WORDS
+    for src, enum, phases in ((score, "SP_PASS1", cuda.SCORE_PHASES), (commit, "CP_ZERO", cuda.COMMIT_PHASES)):
+        slots = re.search(rf"enum : int \{{\s*({enum}[^}}]*)\}}", src).group(1)
+        names = [w.split("=")[0].strip() for w in slots.split(",") if w.strip()]
+        assert len(names) - 1 == len(phases) <= cuda.ROUND_PROF_SLOTS
+    # the register templates K14's entry dispatches on
+    for npt in (1, 2):
+        assert f"case {npt}: return launch_score<{npt}>" in score
+    assert "case ROUND_NPT: return launch_score<ROUND_NPT>" in score
 
 
 def _struct_fields(text: str, struct: str) -> list:
@@ -264,7 +352,8 @@ def _struct_fields(text: str, struct: str) -> list:
     return out
 
 
-@pytest.mark.parametrize("source, struct", [("step_ctx.cuh", "SweepCtx"), ("relax.cuh", "RelaxCtx")])
+@pytest.mark.parametrize("source, struct", [("step_ctx.cuh", "SweepCtx"), ("relax.cuh", "RelaxCtx"),
+                                            ("rounds.cuh", "RoundPlan")])
 def test_plan_argument_blocks_mirror_the_cuda_headers(source, struct):
     # both blocks are passed by address and read field by field: the ctypes
     # mirror lists the header's fields in its order, with their C types

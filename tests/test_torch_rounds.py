@@ -856,3 +856,283 @@ def test_k15_compacted_ladder_equals_the_full_ladder(round_inputs, key, quota):
             got, levels = _ladder(c_dom, k_dom, elig, k, skew, listed, kernel=True)
             assert np.array_equal(got, want, equal_nan=True), (key, quota, seed, k)
             assert levels >= 1
+
+
+# -- 6. K14 / K16's cluster tiles: a numpy model of the tiled order -------------
+#
+# csrc/round_score.cu and round_commit.cu run a round on a thread-block
+# cluster, block b owning the node tile [b * tile, (b + 1) * tile): each
+# block reduces, sums and scans its tile, the blocks publish their
+# partials, and every block folds them in block order. The models below
+# follow that order in float32 and are held to the plain versions on the
+# round fixture and on a problem with a hostname key (unique per node), a
+# zone key (small) and a rack key (the fallback route).
+
+
+def _tile_problem(pkg):
+    """170 nodes in 3 zones and 70 racks of 2-3 nodes: the hostname key is
+    unique per node (kind 2), the zone key small (kind 1), the rack key
+    neither (kind 0); one run per key mix."""
+    nodes = []
+    for i in range(170):
+        labels = {HOST: f"n-{i}", ZONE: f"z{i % 3}", "rack": f"r{i * 70 // 170}"}
+        nodes.append(_mod(pkg, "synth").make_node(f"n-{i}", 8000, 16, labels))
+    mk = _mod(pkg, "synth").make_deployment
+    res = pkg.ResourceTypes(deployments=[
+        mk("racky", 40, 500, 512, spread_topo="rack", anti_affinity_topo=HOST),
+        mk("zonal", 30, 300, 128, spread_topo=ZONE, anti_affinity_topo="rack"),
+        mk("hosty", 24, 700, 256, anti_affinity_topo=HOST, spread_topo=ZONE),
+    ])
+    return pkg.ResourceTypes(nodes=nodes), [pkg.AppResource(name="tiles", resource=res)]
+
+
+@pytest.fixture(scope="module")
+def tile_inputs():
+    return _tensorized(simtpu_torch, _tile_problem)
+
+
+def _plain_round(inputs, dep, n_log, seed=5):
+    """The plain K1/K2, K14 and K15 of the first pod of deployment `dep`
+    from a seeded log, on the CPU. Returns (round buffers, pod, k, group)."""
+    tt, batch, tarr, tflags, _ = inputs
+    names = [p["metadata"]["name"] for p in batch.pods]
+    a = next(i for i, nm in enumerate(names) if nm.startswith(dep + "-"))
+    k = sum(nm.startswith(dep + "-") for nm in names)
+    g_log, n_log_a, r_log = _log(tt, tarr, n_log, seed)
+    ts = tscan.statics_from(tt, None, "cpu")
+    st = tstate.build_state(tt, g_log, n_log_a, r_log, None, "cpu")
+    buf = tscan.StepBuffers(ts, st, tarr, tflags)
+    rb = trounds.RoundBuffers(buf, tt)
+    rb.alloc_outputs(1, trounds._pow2(k))
+    tscan.filter_pod(buf, a)
+    if buf.storage_live[a]:
+        tscan.storage_pod(buf, a)
+    if buf.gpu_live[a]:
+        tscan.gpu_pod(buf, a)
+    tscan.topology_pod(buf, a)
+    trounds.round_score_plain(rb, a, 0)
+    trounds.round_pick_plain(rb, a, k, 0)
+    return rb, a, k, int(buf.group[a])
+
+
+def _tile_bounds(n, blocks):
+    """The model's tiles: `blocks` tiles of ceil(N / blocks) nodes, the last
+    one ragged."""
+    tile = -(-n // blocks)
+    return [(lo, min(n, lo + tile)) for lo in range(0, n, tile)]
+
+
+def _fold(parts, op):
+    out = parts[0]
+    for p in parts[1:]:
+        out = op(out, p)
+    return out
+
+
+def _tiled_extreme(x, mask, blocks, is_min, ident):
+    """A masked min or max as the cluster takes it (fminf / fmaxf): per
+    tile, then folded in block order."""
+    op = np.fmin if is_min else np.fmax
+    parts = [op.reduce(np.where(mask[lo:hi], x[lo:hi], F32(ident)).astype(F32), initial=F32(ident))
+             for lo, hi in _tile_bounds(len(x), blocks)]
+    return F32(_fold(parts, op))
+
+
+def _merge(a, b):
+    """rounds.cuh argmax_merge: the higher value, the lower index on ties."""
+    (av, ai), (bv, bi) = a, b
+    return (bv, bi) if bv > av or (bv == av and bi < ai) else (av, ai)
+
+
+def _tiled_argmax(v, blocks):
+    parts = []
+    for lo, hi in _tile_bounds(len(v), blocks):
+        best = (F32(-np.inf), 2 ** 31 - 1)
+        for n in range(lo, hi):
+            best = _merge(best, (v[n], n))
+        parts.append(best)
+    return _fold(parts, _merge)[1]
+
+
+def _tiled_prefix(m, blocks):
+    """K16's prefix: each tile's inclusive cumsum (tile-relative, float32,
+    in node order) and its total; the tiles' offsets are the totals before
+    them, in block order. Returns (relative cum, tile totals, tiles)."""
+    tiles = _tile_bounds(len(m), blocks)
+    rel = np.zeros(len(m), F32)
+    tot = []
+    for lo, hi in tiles:
+        rel[lo:hi] = np.cumsum(m[lo:hi], dtype=F32)
+        tot.append(rel[hi - 1])
+    return rel, np.asarray(tot, F32), tiles
+
+
+def _tiled_search(rel, tot, tiles, slot):
+    """searchsorted(cum, slot, side="right") as K16's slots take it: the
+    tile whose prefix range [offset, offset + total) holds the slot (the
+    block that expands it), then the first node of it whose prefix passes
+    the slot."""
+    tb, base = 0, F32(0)
+    while tb < len(tiles) - 1 and not (slot < F32(base + tot[tb])):
+        base = F32(base + tot[tb])
+        tb += 1
+    lo, hi = tiles[tb]
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if not (slot < F32(base + rel[mid])):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo, base
+
+
+BLOCKS = (1, 2, 3, 8, 16)
+
+
+def _tile_cases(round_inputs, tile_inputs):
+    """(label, round buffers, pod, k, group) of the rounds the models run
+    on: the round fixture's plain, spread and anti runs, and each run of
+    the tile problem."""
+    out = []
+    for dep in ("plain", "spread", "anti"):
+        out.append((dep, *_plain_round(round_inputs[simtpu_torch], dep, 40)))
+    for dep in ("racky", "zonal", "hosty"):
+        out.append((dep, *_plain_round(tile_inputs, dep, 120)))
+    return out
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+def test_k14_tiled_normalizers_equal_the_whole_row(round_inputs, tile_inputs, blocks):
+    """Per-tile masked minima and maxima folded in block order equal the
+    whole row's (the plain version's amin / amax over m_all), on every
+    score row a normalizer reads."""
+    for label, rb, a, k, g in _tile_cases(round_inputs, tile_inputs):
+        buf = rb.buf
+        m_all = rb.m_all.numpy()
+        rows = [buf.statics.node_pref[g], buf.statics.taint_intol[g], *buf.raw.unbind(0),
+                torch.where(rb.m_all, rb.s0, torch.zeros_like(rb.s0)), rb.slope]
+        for row in rows:
+            x = row.to(torch.float32)
+            for is_min, ident in ((True, 3.4e38), (False, -3.4e38), (False, 0.0)):
+                fill = torch.full_like(x, ident)
+                whole = (torch.where(rb.m_all, x, fill).amin() if is_min else
+                         torch.where(rb.m_all, x, fill).amax()).numpy()
+                got = _tiled_extreme(x.numpy(), m_all, blocks, is_min, ident)
+                assert got.tobytes() == F32(whole).tobytes(), (label, blocks, is_min)
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+def test_k14_tiled_argmax_equals_the_first_index_argmax(round_inputs, tile_inputs, blocks):
+    """The bootstrap's argmax of where(cap > 0, s0, NEG), per tile by
+    argmax_merge and folded in block order, equals torch.argmax (the first
+    index of the maximum): on the rounds' scores, on scores rounded into
+    ties, and with NEG everywhere."""
+    rng = np.random.default_rng(blocks)
+    for label, rb, a, k, g in _tile_cases(round_inputs, tile_inputs):
+        s0, cap = rb.s0.numpy(), rb.cap.numpy()
+        n = len(s0)
+        ties = np.round(s0 / F32(25)).astype(F32) * F32(25)
+        for score, c in ((s0, cap), (ties, cap), (ties, np.where(rng.random(n) < 0.5, cap, F32(0))),
+                         (s0, np.zeros(n, F32))):
+            v = np.where(c > 0, score, F32(-3.4e38)).astype(F32)
+            want = int(torch.argmax(torch.as_tensor(v)))
+            assert _tiled_argmax(v, blocks) == want, (label, blocks)
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+def test_k16_tiled_domain_sums_and_dots_equal_the_plain(round_inputs, tile_inputs, blocks):
+    """K16's phase 1 by tiles: each tile's small-key bins (node_dom_small),
+    fallback-key domain sums (node_dom) and term dots, folded in block
+    order, give the plain version's per-node domain totals (`_domain_add`)
+    and its dots (valid @ m_n) bit for bit; a unique key is the node's own
+    intake."""
+    kinds_seen = set()
+    for label, rb, a, k, g in _tile_cases(round_inputs, tile_inputs):
+        buf = rb.buf
+        st = buf.statics
+        m = rb.m_n.numpy().astype(F32)
+        n = len(m)
+        t_cap, terms_g, tvalid, tsafe, dom_sub, valid_sub = trounds._round_terms(buf, g)
+        want_add = trounds._domain_add(rb, g, rb.m_n).numpy()
+        want_dot = (valid_sub.to(torch.float32) @ rb.m_n).numpy()
+        kind = rb.key_kind.numpy()
+        nds = rb.node_dom_small.numpy()
+        node_dom = st.node_dom.numpy()
+        tiles = _tile_bounds(n, blocks)
+        for t in range(t_cap):
+            term = int(terms_g[t])
+            if term < 0:
+                continue
+            key = int(st.term_topo[term])
+            dom = node_dom[key]
+            kinds_seen.add(int(kind[key]))
+            bins, sums, dots = [], [], []
+            for lo, hi in tiles:
+                b = np.zeros(trounds.DOM_SMALL, F32)
+                s = np.zeros(rb.n_domains, F32)
+                for node in range(lo, hi):
+                    if dom[node] < 0:
+                        continue
+                    if kind[key] == 1 and nds[key, node] >= 0:
+                        b[nds[key, node]] += m[node]
+                    elif kind[key] == 0:
+                        s[dom[node]] += m[node]
+                bins.append(b)
+                sums.append(s)
+                dots.append(np.sum(np.where(dom[lo:hi] >= 0, m[lo:hi], F32(0)), dtype=F32))
+            b_all = _fold(bins, lambda x, y: (x + y).astype(F32))
+            s_all = _fold(sums, lambda x, y: (x + y).astype(F32))
+            got = np.zeros(n, F32)
+            for node in range(n):
+                if dom[node] < 0:
+                    continue
+                got[node] = (m[node] if kind[key] == 2 else
+                             (b_all[nds[key, node]] if nds[key, node] >= 0 else F32(0)) if kind[key] == 1 else
+                             s_all[dom[node]])
+            assert got.tobytes() == want_add[t].astype(F32).tobytes(), (label, blocks, t)
+            assert F32(_fold(dots, lambda x, y: F32(x + y))).tobytes() == F32(want_dot[t]).tobytes()
+    assert kinds_seen == {0, 1, 2}
+
+
+def _check_prefix(label, m, k_cap, blocks):
+    """The tiled prefix and search of intakes `m` against torch.cumsum and
+    torch.searchsorted, bit for bit."""
+    rel, tot, tls = _tiled_prefix(m, blocks)
+    want = torch.cumsum(torch.as_tensor(m), 0)
+    offs = np.concatenate([[F32(0)], np.cumsum(tot, dtype=F32)[:-1]]).astype(F32)
+    got = np.concatenate([(rel[a_:b_] + offs[j]).astype(F32) for j, (a_, b_) in enumerate(tls)])
+    assert got.tobytes() == want.numpy().tobytes(), (label, blocks)
+    slots = torch.arange(k_cap, dtype=torch.float32)
+    want_a = torch.searchsorted(want, slots, right=True).numpy()
+    total = np.sum(tot, dtype=F32)
+    for j in range(k_cap):
+        a_, base = _tiled_search(rel, tot, tls, F32(j))
+        if F32(j) < total:
+            assert a_ == want_a[j], (label, blocks, j)
+            assert F32(base + rel[a_]).tobytes() == want[a_].numpy().tobytes()
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+def test_k16_tiled_prefix_and_search_equal_cumsum(round_inputs, tile_inputs, blocks):
+    """The tile-relative prefix plus the tiles' offsets equals
+    torch.cumsum(m_n), and the two-level search equals torch.searchsorted
+    (side="right") on every slot: on the rounds' intakes, with a whole tile
+    of no pods, and with 3.4e38 beside it (the sums saturate and overflow
+    alike in any order)."""
+    rng = np.random.default_rng(blocks)
+    cases = [(label, rb.m_n.numpy().astype(F32), rb.k_cap)
+             for label, rb, a, k, g in _tile_cases(round_inputs, tile_inputs)]
+    n = 170
+    tiles = _tile_bounds(n, blocks)
+    empty = rng.integers(0, 4, n).astype(F32)
+    lo, hi = tiles[len(tiles) // 2]
+    empty[lo:hi] = 0
+    cases.append(("empty tile", empty, int(empty.sum()) + 8))
+    big = empty.copy()
+    big[max(lo - 1, 0)] = F32(3.4e38)
+    big[min(hi, n - 1)] = F32(3.4e38)
+    cases.append(("3.4e38 beside it", big, int(empty[:max(lo - 1, 0)].sum()) + 8))
+    for label, m, k_cap in cases:
+        with np.errstate(over="ignore"):
+            _check_prefix(label, m, k_cap, blocks)
+
