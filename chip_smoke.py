@@ -3031,7 +3031,7 @@ def explain_bytes(eb) -> int:
     return int(node + rows + ext + pods + outs)
 
 
-def compare_explain_chunk(label: str, inputs, err) -> dict:
+def compare_explain_chunk(label: str, inputs, err, phase: str = "phase 12") -> dict:
     """K20 against its plain version on `inputs` (a path's first chunk: its
     statics, state, pod rows, flags and k), on the card: every output
     equal. Returns the chunk's shape, the plain version's seconds and the
@@ -3044,12 +3044,12 @@ def compare_explain_chunk(label: str, inputs, err) -> dict:
     plain_s = time.perf_counter() - t0
     for name, a, b in zip(("counts", "feasible", "witnesses", "fail_code"), got, want):
         if not np.array_equal(a, b):
-            raise AssertionError(f"phase 12: K20 differs from its plain version on the {label} ({name})")
+            raise AssertionError(f"{phase}: K20 differs from its plain version on the {label} ({name})")
     eb = tbd.ExplainBuffers(statics, state, pods, flags, k)
-    log(f"phase 12: K20 equal to its plain version on the {label} ({len(pods[0])} pods x "
+    log(f"{phase}: K20 equal to its plain version on the {label} ({len(pods[0])} pods x "
         f"N={statics.alloc.shape[0]}: counts, feasible, witnesses, fail codes; "
         f"{int(np.asarray(got[0]).sum())} eliminations); plain {plain_s:.2f} s")
-    return {"pods": len(pods[0]), "n": int(statics.alloc.shape[0]), "plain_s": plain_s, "eb": eb}
+    return {"pods": len(pods[0]), "n": int(statics.alloc.shape[0]), "plain_s": plain_s, "eb": eb, "want": want}
 
 
 def compare_pod_terms(inputs, err) -> dict:
@@ -3987,6 +3987,253 @@ def run_grow_path(card: str, device) -> dict:
     return {"wall_s": wall, "wall_s_no_grow": flat_wall, "launches": launches, "grow": rec["grow"]}
 
 
+# -- phase 17: term columns past the shared budget; K22 and K20 at their shapes --
+
+#: the terms problem (smoke.terms_problem) on the card: (preferred terms,
+#: the Tc they give) on TERMS_NODES nodes, (many, web, webq) replicas
+TERMS_CASES = ((300, 512), (600, 1024))
+TERMS_NODES = 1000
+TERMS_REPLICAS = (120, 1200, 120)
+
+
+def terms_cluster(terms: int):
+    return smoke.terms_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes, TERMS_NODES, terms,
+                               TERMS_REPLICAS)
+
+
+def phase_terms(device, err) -> dict:
+    """Phase 17 (a): any number of term columns. The terms problem at Tc =
+    512 and 1024 (a seeded placement log of 2000 entries): K14 -> K15 ->
+    K16 against their plain versions on its first plain and quota rounds
+    (K16's published words in global memory), K10 on its first hard-spread
+    run, and at Tc = 1024 K18/K19 on the 16 single-node scenarios of a k=1
+    sweep that evict the most pods (the lists cut to 48 rows for the plain
+    version); every output and plane equal. Then the plans' modes, and
+    K10's, K16's and K19's device time at Tc = 1024."""
+    out = {}
+    for terms, tc in TERMS_CASES:
+        cluster, apps = terms_cluster(terms)
+        t, b, s, st, p = tensorized_batch(cluster, apps, device, 2000)
+        f = scan.flags_from(t, b.ext)
+        if s.g_terms.shape[1] != tc:
+            raise AssertionError(f"phase 17: the terms problem has Tc = {s.g_terms.shape[1]}, want {tc}")
+        label = f"Tc={tc} terms problem"
+        r_done, r_first, _ = phase_rounds(label, t, b, s, st, p, f, ("plain", "quota-anti"), err)
+        w_done, w_runs, w_buf = phase_waves(label, t, b, s, st, p, f, ("hard-spread",), err, per_kind=1)
+        n, r = int(t.n_nodes), int(t.alloc.shape[1])
+        kmax = max(1, min(tc, int(s.node_dom.shape[0])))
+        pods_max = max(bb - a for _, a, bb, _, _ in w_runs)
+        plans = {"round_commit": cuda.round_plan(n, tc)["mode"],
+                 "wave_hard": cuda.wave_hard_plan(n, r, tc, kmax, pods_max)["mode"],
+                 "sweep_place": cuda.sweep_place_plan(n, r, tc)["mode"],
+                 "sweep_drain": cuda.sweep_drain_plan(16, n, tc, 20)["staging"]}
+        row = {"tc": tc, "nodes": n, "terms": int(t.n_terms), "rounds": r_done, "waves": w_done, "plans": plans}
+        log(f"phase 17: K14-K16 equal to their plain versions on the {label}'s rounds {r_done}, K10 on its "
+            f"runs {w_done}; plans {plans}")
+        if tc == 1024:
+            seed_name_hashes(smoke.NAME_SEED)
+            try:
+                pc = tfaults.place_cluster(cluster, apps, device="cuda")
+            finally:
+                seed_name_hashes(None)
+            inp = tsweep.SweepInputs(pc, tfaults.generate_scenarios(cluster.nodes, "k=1"))
+            order = np.argsort([-len(v) for v in inp.rq_lists], kind="stable")[:16]
+            keep = np.zeros(len(inp.masks), bool)
+            keep[order] = True
+            inp = tsweep.SweepInputs(pc, tfaults.ScenarioSet(masks=inp.masks[keep], labels=tuple(
+                f"node:{i}" for i in np.flatnonzero(keep))))
+            (_, _, _), rows, nodes, plain = compare_sweep_chunk("phase 17", f"{label}'s k=1 chunk", inp, 0, 16, err,
+                                                                 rq_cols=48)
+            valid, ev_idx, rq_idx, _ = inp.chunk(0, 16, 16)
+            place = time_place(inp, valid, ev_idx, rq_idx)
+
+            def fresh_place():
+                batched.sweep_place(batched.SweepBuffers(inp.batch_buf, inp.pods, inp.statics, batched.sweep_drain(
+                    inp.statics, inp.state, inp.log, ev_idx), valid, rq_idx))
+            per, _, _ = profile_kernels(lambda: [fresh_place() for _ in range(5)], {"sweep_place": fresh_place})
+            place["device_us"] = per["sweep_place"][0]
+            rt = time_rounds(t, s, p, f, r_first["plain"], f"{label}'s first plain")
+            wt = time_wave(w_buf, w_runs[0], 10)
+            row["times"] = {"wave_hard": wt, "round_commit": rt["round_commit"], "round_score": rt["round_score"],
+                            "round_pick": rt["round_pick"], "sweep_place": place,
+                            "sweep_rows_compared": rows, "sweep_plain_s": plain}
+            log(f"phase 17: K18/K19 equal to their plain versions on 16 scenarios of the {label} ({rows} requeue "
+                f"rows compared); at Tc = 1024: K10 {wt['device_us']:.2f} us a launch of {wt['pods']} pods "
+                f"({wt['device_us'] / wt['pods']:.2f} us a pod step), K16 {rt['round_commit']['ms'] * 1e3:.2f} us "
+                f"a round, K19 {place['device_us']:.2f} us a launch (profiler; {place_rates(place)})")
+        out[f"tc{tc}"] = row
+    return out
+
+
+#: K22 beside the two relaxations: seeded (S, C, N, R), no N a multiple of 4
+RELAX_LOAD_SHAPES = ((8, 7, 1001, 1), (8, 7, 1003, 3), (6, 5, 999, 12))
+#: K22's plan sweep (cuda.relax_load_plan): threads, nodes a thread,
+#: classes unrolled
+RELAX_LOAD_SWEEP = ((64, 128, 256), (1, 2, 4), (4, 8, 16))
+
+
+def relax_seeded(device, shape, seed: int):
+    """Relaxation buffers of (S, C, N, R) from `seed`; candidate 0 has no
+    valid node, so it is stuck (its residual +inf)."""
+    s, c, n, r = shape
+    rng = np.random.default_rng(seed)
+    cap = (rng.random((n, r)) * 4 + 1).astype(np.float32)
+    valid = rng.random((s, n)) < 0.9
+    valid[0] = False
+    return trelax.relax_buffers(rng.random((c, n)) < 0.7, rng.random((c, r)).astype(np.float32),
+                                rng.integers(1000, 5000, c).astype(np.float32),
+                                (rng.random((n, r)) * cap * 0.5).astype(np.float32), cap, valid, np.float32(0.05),
+                                device)
+
+
+def relax_load_equal(a, b, steps: int, label: str, err) -> float:
+    """`steps` K22 launches on `b` against relax_load_plain on `a` from the
+    same y (the plain projection moving y between them; the last step in
+    residual mode): over and the residual exactly equal."""
+    for it in range(steps):
+        res = it == steps - 1
+        b.y.copy_(a.y)
+        b.residual.zero_()
+        a.residual.zero_()
+        trelax.relax_load_plain(a, residual=res)
+        cuda.launch_relax_load(b, residual=res)
+        torch.cuda.synchronize()
+        d = float((a.over - b.over).abs().max())
+        if d or (res and not torch.equal(a.residual, b.residual)):
+            raise AssertionError(f"phase 17: K22 differs from relax_load_plain on {label} at step {it}: over {d}, "
+                                 f"residual {a.residual.tolist()} vs {b.residual.tolist()}")
+        trelax.relax_project_plain(a)
+
+
+def phase_relax_load_shapes(device, err) -> dict:
+    """Phase 17 (b): K22 against relax_load_plain at R = 1, 3 and 12 (the
+    chunked path) on seeded relaxations at N no multiple of 4, 5 steps
+    each, exactly; its plan swept at the capacity relaxation (every plan
+    equal to the plain version, then each one's device time in turns), and
+    the load's yardstick, one torch.einsum("scn,cr->snr") on the same y
+    and req (the load alone, not K22's whole function)."""
+    out = {"shapes": {}}
+    for q, shape in enumerate(RELAX_LOAD_SHAPES):
+        a, b = relax_seeded(device, shape, 40 + q), relax_seeded(device, shape, 40 + q)
+        trelax.relax_project_plain(a, init=True)
+        b.stuck.copy_(a.stuck)
+        relax_load_equal(a, b, 5, f"{shape}", err)
+        per, _, _ = profile_kernels(lambda: [cuda.launch_relax_load(b) for _ in range(20)],
+                                    {"relax_load": lambda: cuda.launch_relax_load(b)})
+        plan = cuda.relax_load_plan(*shape[:1], shape[2], shape[3])
+        out["shapes"][str(shape)] = {"device_us": per["relax_load"][0], "bound_us":
+                                     relax_bound(b)["relax_load"]["bound_ms"] * 1e3, "template": plan["template"],
+                                     "r_chunks": plan["r_chunks"]}
+        log(f"phase 17: K22 equal to relax_load_plain on (S, C, N, R) = {shape} (5 steps, the last in residual "
+            f"mode, candidate 0 stuck): {per['relax_load'][0]:.2f} us device, template {plan['template']} in "
+            f"{plan['r_chunks']} chunk(s)")
+    prob, valid = relax_problem_of(smoke.capacity_problem)
+    args = (prob.feas, prob.req, prob.cnt, prob.fixed, prob.cap, valid, np.float32(prob.lr), device)
+    a, b = trelax.relax_buffers(*args), trelax.relax_buffers(*args)
+    trelax.relax_project_plain(a, init=True)
+    b.stuck.copy_(a.stuck)
+    trelax.relax_project_plain(a)
+    b.y.copy_(a.y)
+    trelax.relax_load_plain(a)
+    cuda.launch_relax_load(b)
+    ctx = b.cache["ctx"]
+    chosen = (ctx.load_threads, ctx.load_npt, ctx.load_unroll)
+    launchers = {}
+    for threads in RELAX_LOAD_SWEEP[0]:
+        for npt in RELAX_LOAD_SWEEP[1]:
+            for unroll in RELAX_LOAD_SWEEP[2]:
+                def go(_, cfg=(threads, npt, unroll)):
+                    ctx.load_threads, ctx.load_npt, ctx.load_unroll = cfg
+                    cuda.launch_relax_load(b)
+                go(None)
+                torch.cuda.synchronize()
+                if not torch.equal(a.over, b.over):
+                    raise AssertionError(f"phase 17: K22 at plan {(threads, npt, unroll)} differs from its plain "
+                                         "version on the capacity relaxation")
+                launchers[f"{threads}x{npt}x{unroll}"] = go
+    launchers["einsum"] = lambda _: torch.einsum("scn,cr->snr", b.y, b.req)
+    sweep = in_turns(launchers, lambda: None, per_turn=4)
+    ctx.load_threads, ctx.load_npt, ctx.load_unroll = chosen
+    out["sweep_us"] = {k: v * 1e3 for k, v in sweep.items() if k != "einsum"}
+    out["yardstick_us"] = sweep["einsum"] * 1e3
+    out["chosen"] = "x".join(map(str, chosen))
+    best = min(out["sweep_us"], key=out["sweep_us"].get)
+    log(f"phase 17: K22's plan sweep at the capacity relaxation (threads x nodes a thread x unroll, CUDA events "
+        f"in turns, every plan equal to the plain version): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(out["sweep_us"].items(), key=lambda kv: kv[1])) +
+        f" us; fastest {best}, the plan's {out['chosen']}; the load's yardstick torch.einsum {out['yardstick_us']:.2f} us")
+    return out
+
+
+#: K20 beside the explain paths' chunks: (label, N, pods, k) of seeded
+#: states of the serial smoke mix
+EXPLAIN_SHAPES = (("one pod, N=120", 120, 1, 4), ("N=3001", 3001, 64, 4), ("N=5000", 5000, 64, 4),
+                  ("N=9000", 9000, 64, 4), ("one pod, N=9000", 9000, 1, 4), ("8 pods, N=3001, k=128", 3001, 8, 128),
+                  ("N=120, k=64", 120, 64, 64))
+
+
+def explain_inputs(device, n: int, p: int, k: int, seed: int):
+    """(statics, state, pod rows, flags, k) of `p` pods drawn from the
+    serial smoke mix on `n` nodes against a state of 3 n seeded
+    placements."""
+    t, b, s, st, pods = tensorized_batch(*smoke.smoke_problem(synth_cluster, synth_apps, n_nodes=n,
+                                                              n_pods=max(4 * p, 400)), device, 3 * n)
+    rng = np.random.default_rng(seed)
+    sel = np.sort(rng.choice(len(pods[0]), p, replace=False))
+    return s, st, tuple(np.asarray(x)[sel] for x in pods), scan.flags_from(t, b.ext), k
+
+
+def phase_explain_shapes(device, err) -> dict:
+    """Phase 17 (c): K20 against explain_pass_plain beside phase 12's
+    chunks: one pod on 120 nodes (one block), 64 pods on 3001 (a ragged
+    last tile), 5000 and 9000 nodes, one pod on 9000 (16 blocks), 8 on
+    3001 with k = 128 (4 blocks a pod),
+    where some stage's first k witnesses span two tiles, and 64 on 120
+    with k = 64, where some stage eliminates fewer than k nodes; counts,
+    feasible, witnesses and fail codes exactly. Then each shape's device time, and the cluster
+    size swept at 64 x 5000 (every size equal, then in turns)."""
+    out = {}
+    for q, (label, n, p, k) in enumerate(EXPLAIN_SHAPES):
+        inputs = explain_inputs(device, n, p, k, 60 + q)
+        cmp = compare_explain_chunk(f"{label} chunk", inputs, err, "phase 17")
+        eb = cmp["eb"]
+        plan = cuda.explain_plan(n, int(inputs[0].g_terms.shape[1]), pods=p, sms=torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        counts, _, wits, _ = tbd.explain_pass(*inputs)
+        row = {"pods": p, "n": n, "k": k, "blocks": plan["blocks"], "tile": plan["tile"],
+               "plain_ms": cmp["plain_s"] * 1e3}
+        if k > tbd.WITNESS_K:
+            tiles = [np.unique(w[w >= 0] // plan["tile"]).size for w in wits.reshape(-1, k)]
+            short = int(((counts > 0) & (counts < k)).sum())
+            row.update(stages_spanning_tiles=int(sum(t_ > 1 for t_ in tiles)), stages_below_k=short)
+        per, _, _ = profile_kernels(lambda: [cuda.launch_explain_pass(eb) for _ in range(20)],
+                                    {"explain_pass": lambda: cuda.launch_explain_pass(eb)})
+        nbytes = explain_bytes(eb)
+        row.update(device_us=per["explain_pass"][0], bytes=nbytes, bound_us=nbytes / HBM_BYTES_PER_S * 1e6)
+        if n == 5000:
+            launchers = {}
+            for blocks in (1, 2, 4, 8, 16):
+                # a pad the kernel does not write would keep this value
+                eb.witnesses.fill_(-7)
+                cuda.launch_explain_pass(eb, blocks)
+                if not all(np.array_equal(x, y) for x, y in zip(eb.outputs(), cmp["want"])):
+                    raise AssertionError(f"phase 17: K20 on {blocks} blocks a pod differs on the {label} chunk")
+                launchers[str(blocks)] = lambda _, blocks=blocks: cuda.launch_explain_pass(eb, blocks)
+            row["cluster_sweep_us"] = {kk: v * 1e3 for kk, v in in_turns(launchers, lambda: None, 4).items()}
+        out[label] = row
+        log(f"phase 17: K20 on the {label} chunk ({p} pods x N={n}, k={k}, {plan['blocks']} blocks of "
+            f"{plan['tile']} nodes a pod): {row['device_us']:.2f} us device, bound {row['bound_us']:.4f} us"
+            + (f"; {row['stages_spanning_tiles']} stage rows with witnesses in two tiles or more, "
+               f"{row['stages_below_k']} with fewer eliminations than k" if k > tbd.WITNESS_K else "")
+            + (f"; cluster sweep (blocks a pod: us, CUDA events in turns) {row['cluster_sweep_us']}"
+               if "cluster_sweep_us" in row else ""))
+    wide = [r for r in out.values() if r["k"] > tbd.WITNESS_K]
+    if not any(r["stages_spanning_tiles"] for r in wide) or not any(r["stages_below_k"] for r in wide):
+        raise AssertionError("phase 17: no K20 shape has a stage whose first k witnesses span two tiles, or none "
+                             "a stage with fewer eliminations than k")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4119,6 +4366,10 @@ def main() -> int:
     relax_wide = phase_relax_wide(device, err)
     relax_kernels["shapes"] = phase_relax_shapes(device, err)
     grow_times = phase_grow_kernels(device)
+    # -- phase 17: any Tc; K22 and K20 at their shapes and plan sweeps --------
+    terms_run = phase_terms(device, err)
+    relax_kernels["load"] = phase_relax_load_shapes(device, err)
+    explain_shapes = phase_explain_shapes(device, err)
 
     # timing: K1-K4 at the smoke pod with the most term rows (as PR 2);
     # K1-K4 and K5 at a storage pod and K6 at a GPU pod of the extended batch
@@ -4525,7 +4776,17 @@ def main() -> int:
             "ms_extended": x_per[name][0] / 1e3 if name in x_per else None,
             "host_ms_extended": s_times[name][0] if name in s_times else None,
         })
-    print(json.dumps({"kernels": rows, "card": card,
+    # phase 17's figures on the rows of the kernels they time
+    for row in rows:
+        if row["name"] in terms_run["tc1024"]["times"]:
+            row["tc1024"] = terms_run["tc1024"]["times"][row["name"]]
+        if row["name"] == "relax_load":
+            row["load"] = relax_kernels["load"]
+            row["yardstick_ms"] = relax_kernels["load"]["yardstick_us"] / 1e3
+            row["yardstick"] = 'torch.einsum("scn,cr->snr", y, req): the load alone, not the whole function'
+        if row["name"] == "explain_pass":
+            row["shapes"] = explain_shapes
+    print(json.dumps({"kernels": rows, "card": card, "terms": terms_run,
                       "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
                                         "partitions": parts},
                       "serial": {"wall_s": wall, "pods": n_pods, "pods_per_s": n_pods / wall,

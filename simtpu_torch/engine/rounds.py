@@ -153,6 +153,9 @@ class RoundBuffers:
         self.scr = z(cuda.ROUND_SCR_ROWS, n)
         self.dscr = z(cuda.ROUND_DSCR_ROWS, self.n_domains + 1)
         self.iscr = z(4 * n + 2 * (self.n_domains + 1), dtype=torch.int32)
+        # K16's per-block words where the group's term columns pass its
+        # shared budget (kernels/cuda.py round_plan's global mode), at first use
+        self.pub = None
         self.alloc_outputs(1, 1)
 
     def alloc_outputs(self, rows: int, k_cap: int) -> None:

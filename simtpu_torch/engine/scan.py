@@ -874,6 +874,9 @@ class StepBuffers:
         # kernels' profile build adds up (kernels/csrc/wave.cuh)
         self.wave_rows = torch.zeros((cuda.WAVE_ROWS, n), dtype=torch.float32, device=dev)
         self.wave_prof = torch.zeros(cuda.WAVE_PROF_SLOTS, dtype=torch.int64, device=dev)
+        # K10's scratch past its shared budget (kernels/cuda.py
+        # wave_hard_plan), at first use
+        self.wave_slab = None
         self.ctx = None  # the kernels' argument struct, built at first launch
 
     def pod_ext(self, i: int) -> PodExt:

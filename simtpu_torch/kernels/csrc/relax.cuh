@@ -18,6 +18,10 @@ constexpr int RELAX_INIT = 1;
 constexpr int RELAX_REG_ROW = 4096;
 constexpr int RELAX_ROW_THREADS = 512;
 constexpr int RELAX_SHARED_ROW = 16384;
+// K22's threads a block at most (its plan: kernels/cuda.py relax_load_plan)
+constexpr int RELAX_LOAD_THREADS = 256;
+// the classes of req K22 stages in shared memory at a time
+constexpr int RELAX_LOAD_REQ_ROWS = 1024;
 
 struct RelaxCtx {
   int s, c, n, r, mode, np2;
@@ -37,4 +41,6 @@ struct RelaxCtx {
   // K23's register path (np2 <= RELAX_REG_ROW): threads per row and keys
   // per thread (kernels/cuda.py relax_project_plan)
   int threads, kpt;
+  // K22's plan: threads a block, nodes a thread, classes unrolled
+  int load_threads, load_npt, load_unroll, pad_;
 };

@@ -41,6 +41,15 @@
 // so the two need no barrier between them; the last cluster barrier is
 // split (arrive after the block's last remote read, wait before it exits).
 //
+// Where the group has many term columns (past cuda.round_plan's shared
+// budget, from Tc = 512), each block's words before the prefix — the
+// published bins, dots and tile total, their fold, the ranks' totals and
+// the staged columns — move to the block's own row of a global scratch
+// (RoundPlan.pub, the wrapper's torch.empty): the peers read a row with
+// ld.global.cg after the cluster barrier, whose release / acquire at
+// cluster scope orders global memory as it does shared. The sums stay
+// integer-valued f32, so the fold is exact in either mode.
+//
 // Bound: bytes — each touched state row read and written once, the
 // group's Tc domain rows read once, k_cap slots written (about 0.9 MB at
 // the bulk problem's N = 5000: 0.27 µs at 3.35 TB/s). One block moves that
@@ -77,7 +86,15 @@ __host__ __device__ inline int commit_pub_words(int tc) { return tc * (DOM_SMALL
 __host__ __device__ inline int commit_smem_words(int tc, int tile) {
   return 2 * commit_pub_words(tc) + ROUND_CLUSTER_MAX + COMMIT_TERM_WORDS * tc + tile;
 }
+// the plan's global mode: the block's words before the tile's prefix in
+// its own row of RoundPlan.pub (rows 16-byte aligned), the prefix alone in
+// shared memory
+__host__ __device__ inline int commit_row_words(int tc) { return (commit_smem_words(tc, 0) + 3) & ~3; }
 
+// GPUB: the plan's global mode (RoundPlan.pub set); a build for each, so
+// that shared mode's words stay shared-typed (a pointer to either space is
+// generic, and generic atomics on shared memory are slower)
+template <bool GPUB>
 __global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(StepCtx x, RoundCtx r, RoundPlan plan) {
   extern __shared__ float smem[];
   __shared__ BlockScratch sh;
@@ -98,12 +115,17 @@ __global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(
   const size_t g0 = static_cast<size_t>(g) * x.tc;
   const int V = x.v, SD = x.sd, GD = x.gd;
   const int pub = commit_pub_words(tc);
-  float* small = smem;                       // [tc, DOM_SMALL] this block's bins
+  // the block's words: shared memory, or its row of the global scratch
+  // where a plan's term columns pass the shared budget (the peers then
+  // read them from global memory, after the same cluster barrier)
+  constexpr bool gmode = GPUB;
+  float* words = gmode ? plan.pub + static_cast<size_t>(rank) * commit_row_words(x.tc) : smem;
+  float* small = words;                      // [tc, DOM_SMALL] this block's bins
   float* dots = small + tc * DOM_SMALL;      // [tc]
   float* tile_total = dots + tc;             // [1]
-  float* small_all = smem + pub;             // the cluster's bins and dots, folded
+  float* small_all = words + pub;            // the cluster's bins and dots, folded
   float* dots_all = small_all + tc * DOM_SMALL;
-  float* tot = smem + 2 * pub;               // [ROUND_CLUSTER_MAX] every rank's tile total
+  float* tot = words + 2 * pub;              // [ROUND_CLUSTER_MAX] every rank's tile total
   int* c_term = reinterpret_cast<int*>(tot + ROUND_CLUSTER_MAX);  // [tc] -1 on a pad column
   int* c_key = c_term + tc;
   int* c_kind = c_key + tc;                  // key_kind, -1 on a pad column
@@ -113,13 +135,13 @@ __global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(
   float* c_aff = c_anti + tc;
   float* c_waff = c_aff + tc;
   float* c_wanti = c_waff + tc;
-  float* rel = c_wanti + tc;                 // [tile] the tile's inclusive prefix of m_n
+  float* rel = gmode ? smem : c_wanti + tc;  // [tile] the tile's inclusive prefix of m_n
 
   // phase 0: the shared words zeroed, the term columns staged; the tile's
   // inclusive prefix (thread t owning a contiguous chunk) and its total;
   // where a column routes to the [Tc, n_dom] fallback domain sums, those
   // zeroed by every block and one cluster barrier
-  for (int q = tid; q < 2 * pub; q += nt) smem[q] = 0.0f;
+  for (int q = tid; q < 2 * pub; q += nt) words[q] = 0.0f;
   const int per = (len + nt - 1) / nt;
   const int c0 = tid * per, c1 = min(len, c0 + per);
   float run = 0.0f;
@@ -147,11 +169,7 @@ __global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(
     if (c1 == len && c0 < c1) *tile_total = before + run;
   }
   bool any_fall = false;
-  int n_small = 0;  // the columns on a small key
-  for (int t = 0; t < tc; ++t) {
-    any_fall = any_fall || (c_term[t] >= 0 && c_kind[t] != 1 && c_kind[t] != 2);
-    n_small += c_term[t] >= 0 && c_kind[t] == 1 ? 1 : 0;
-  }
+  for (int t = 0; t < tc; ++t) any_fall = any_fall || (c_term[t] >= 0 && c_kind[t] != 1 && c_kind[t] != 2);
   if (any_fall) {
     const size_t n_fall = static_cast<size_t>(tc) * r.n_dom;
     for (size_t q = static_cast<size_t>(rank) * nt + tid; q < n_fall; q += static_cast<size_t>(B) * nt)
@@ -186,21 +204,18 @@ __global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(
   clk.stamp(CP_SUMS);
   cluster_barrier();
 
-  // the cluster's small-key bins, dots and tile totals: one word a thread,
-  // every rank's copy loaded at once and added in rank order
+  // the cluster's small-key bins, dots and tile totals: one word a thread
+  // (the bins of the columns on a small key, then every dot and the
+  // total), every rank's copy loaded at once and added in rank order
   // (integer-valued: exact in any order)
-  const int n_words = n_small * DOM_SMALL + tc + 1;
-  for (int w = tid; w < n_words; w += nt) {
-    int q = tc * DOM_SMALL + (w - n_small * DOM_SMALL);  // a dot, or the tile total
-    if (w < n_small * DOM_SMALL) {
-      int k = w / DOM_SMALL, t = 0;
-      for (; t < tc; ++t)
-        if (c_term[t] >= 0 && c_kind[t] == 1 && k-- == 0) break;
-      q = t * DOM_SMALL + w % DOM_SMALL;
-    }
+  for (int q = tid; q < pub; q += nt) {
+    if (q < tc * DOM_SMALL && !(c_term[q / DOM_SMALL] >= 0 && c_kind[q / DOM_SMALL] == 1)) continue;
     float v[ROUND_CLUSTER_MAX];
 #pragma unroll
-    for (int b = 0; b < ROUND_CLUSTER_MAX; ++b) v[b] = b < B ? *cluster_peer(&smem[q], b) : 0.0f;
+    for (int b = 0; b < ROUND_CLUSTER_MAX; ++b)
+      v[b] = b >= B ? 0.0f
+             : gmode ? __ldcg(plan.pub + static_cast<size_t>(b) * commit_row_words(x.tc) + q)
+                     : *cluster_peer(&words[q], b);
     if (q == pub - 1) {
 #pragma unroll
       for (int b = 0; b < ROUND_CLUSTER_MAX; ++b)
@@ -419,13 +434,16 @@ __global__ void __launch_bounds__(ROUND_CLUSTER_THREADS, 1) round_commit_kernel(
 
 // the wrapper's plan (cuda.round_plan); refused only if it does not cover
 // the nodes or its shared bytes are not the kernel's (sized for every
-// term column of the batch)
+// term column of the batch; in global mode the tile's prefix alone, the
+// rest in RoundPlan.pub, commit_row_words(tc) floats a block)
 extern "C" int simtpu_round_commit(const StepCtx* ctx, const RoundCtx* r, const RoundPlan* plan, void* stream) {
   const int bad = check_plan(*plan, ctx->n);
   if (bad) return bad;
-  if (plan->smem != commit_smem_words(ctx->tc, plan->tile) * static_cast<int>(sizeof(float)))
+  if (plan->smem != (plan->pub ? plan->tile : commit_smem_words(ctx->tc, plan->tile)) * static_cast<int>(sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(round_commit_kernel, *plan, static_cast<cudaStream_t>(stream), *ctx, *r, *plan);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return plan->pub ? launch_cluster(round_commit_kernel<true>, *plan, s, *ctx, *r, *plan)
+                   : launch_cluster(round_commit_kernel<false>, *plan, s, *ctx, *r, *plan);
 }
 
 #ifdef SIMTPU_ROUND_PROFILE

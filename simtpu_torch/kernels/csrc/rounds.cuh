@@ -23,8 +23,6 @@
 // is inf in any order, so reductions and scans may reassociate them.
 // min/max/clip propagate NaN as XLA's do (`jmin` / `jmax`).
 #pragma once
-#include <cooperative_groups.h>
-
 #include "scores.cuh"
 #include "topology.cuh"
 
@@ -174,23 +172,16 @@ constexpr int ROUND_CLUSTER_MAX = 16;
 constexpr int ROUND_CLUSTER_THREADS = 512;
 constexpr int ROUND_NPT = 4;
 
-// the launch plan (cuda.round_plan), passed by value
+// the launch plan (cuda.round_plan), passed by value; with `pub` set
+// (global scratch), K16 keeps its per-block words there and not in shared
+// memory (round_commit.cu)
 struct RoundPlan {
   int blocks, threads, npt, tile, smem, pad_;
+  float* pub;
 };
 
-__device__ inline void cluster_arrive() { asm volatile("barrier.cluster.arrive;\n" ::: "memory"); }
-__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
-__device__ inline void cluster_barrier() {
-  cluster_arrive();
-  cluster_wait();
-}
-
-// `p` (this block's shared memory) in block `rank` of the cluster
-template <class T>
-__device__ inline const T* cluster_peer(const T* p, int rank) {
-  return cooperative_groups::this_cluster().map_shared_rank(const_cast<T*>(p), rank);
-}
+// (cluster_arrive / cluster_wait / cluster_barrier / cluster_peer:
+// topology.cuh, which K20's cluster shares)
 
 // the nodes of this thread: f(j, n) for each, j the register slot
 template <int NPT, class F>
@@ -234,33 +225,11 @@ struct PhaseClock {
 };
 
 // Launch `kernel` as one cluster of plan.blocks blocks of plan.threads
-// threads with plan.smem bytes of dynamic shared memory; 0 or a CUDA error.
+// threads with plan.smem bytes of dynamic shared memory (topology.cuh
+// launch_clusters with one cluster); 0 or a CUDA error.
 template <class... P, class... A>
 inline int launch_cluster(void (*kernel)(P...), const RoundPlan& plan, cudaStream_t s, const A&... args) {
-  cudaError_t e;
-  if (plan.blocks > 8) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (plan.smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(plan.blocks, 1, 1);
-  cfg.blockDim = dim3(plan.threads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(plan.smem);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = plan.blocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_status();
+  return launch_clusters(kernel, plan.blocks, 1, plan.threads, plan.smem, s, args...);
 }
 
 // The plan covers the N nodes: every node in exactly one tile, every node

@@ -240,12 +240,16 @@ struct SweepCtx {
   // K19's launch plan (simtpu_torch/kernels/cuda.py sweep_place_plan):
   // threads, nodes per thread (0: the step rows in `carry`), dynamic
   // shared bytes, the words of one staged pod, and the byte offsets of the
-  // shared segments (off_free -1: the free rows stay in global memory).
+  // segments (off_free -1: the free rows stay in global memory; off_pod,
+  // off_min < 0: the segment past the budget, in the scenario's slab,
+  // wave.cuh wave_seg).
   // K18's (sweep_drain_plan): threads a block, `npt` the nodes of a tile,
-  // `pod_words` the entries staged at a time in `smem` shared bytes; the
-  // other fields unused
-  int threads, npt, smem, pod_words, off_pod, off_min, off_free, pad_;
+  // `pod_words` the entries staged at a time in `smem` shared bytes, or
+  // with `slab` set in the block's slab (blocks in grid order); the other
+  // fields unused
+  int threads, npt, smem, pod_words, off_pod, off_min, off_free, slab_stride;
   float* carry;  // [S, SWEEP_ROWS, N] the step rows past what registers hold (npt 0), else null
+  unsigned char* slab;  // global scratch past the shared budget, slab_stride bytes a block / scenario, else null
 };
 
 // The compact carried state's kernels (K11 compact_compress, K12

@@ -55,9 +55,13 @@ constexpr int DRAIN_THREADS = 256;
 constexpr int DRAIN_MIN_TILE = 64;
 constexpr int DRAIN_BLOCKS_PER_SM = 2;
 // the entries staged in shared memory at a time at most, and the words
-// the staging may take (48 KB: no opt-in attribute)
+// the staging may take (48 KB: no opt-in attribute); where one entry of a
+// group's term columns takes more, one entry at a time in up to
+// DRAIN_SMEM_MAX shared bytes (opt-in), and past that in the block's slab
+// of global scratch (SweepCtx.slab; kernels/cuda.py sweep_drain_plan)
 constexpr int DRAIN_STAGE_ENTRIES = 64;
 constexpr int DRAIN_STAGE_WORDS = 12 * 1024;
+constexpr int DRAIN_SMEM_MAX = 200 * 1024;
 
 // term rows of a node a walk reads before it writes them
 constexpr int DRAIN_RUNS = 2;
@@ -138,6 +142,9 @@ __device__ inline void copy_rows(void* dst, const void* src, int rows, size_t st
     copy_rows_as<uint8_t>(d, s, rows, stride, bytes_row);
 }
 
+// SLAB: the plan stages in the block's slab of global scratch (a build
+// for each, so that the shared staging stays shared-typed)
+template <bool SLAB>
 __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_drain_kernel(DeltaCtx x, SweepCtx w) {
   const int s = blockIdx.x;
   const int N = x.n;
@@ -170,7 +177,11 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
   // five increments (each incidence or weight times w: the products the
   // sequential scan adds) and the sort key (keys below 2^12, domains below
   // 2^24, terms below 2^28: the wrapper checks the first and the last).
-  extern __shared__ unsigned long long stage[];
+  extern __shared__ unsigned long long stage_smem[];
+  unsigned long long* stage =
+      SLAB ? reinterpret_cast<unsigned long long*>(
+                 w.slab + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * w.slab_stride)
+           : stage_smem;
   const DeltaRows<float> rows{x.r, x.p_ports, x.w, x.v, x.sd, x.gd, x.req, x.vg, x.sd_take, x.gp,
                               x.ports_req, x.vol_rw_req, x.vol_ro_req, x.vol_att_req, free,
                               ports_used, vols_any, vols_rw, vg_free, sdev_free, gpu_free};
@@ -439,14 +450,23 @@ extern "C" int simtpu_sweep_drain(const DeltaCtx* ctx, const SweepCtx* w, void* 
   // the launch follows the wrapper's plan (kernels/cuda.py
   // sweep_drain_plan); a plan whose tiles do not cover the nodes, or whose
   // entry staging does not fit its shared bytes, is refused
+  const long long need = static_cast<long long>(drain_stage_words(
+                             w->pod_words, ctx->tc, ctx->r + ctx->p_ports + 2 * ctx->w + ctx->v + ctx->sd + ctx->gd)) * 4;
   if (w->threads < 32 || w->threads > DRAIN_THREADS || w->threads % 32 != 0 || w->npt < 1 ||
-      w->pod_words < 1 ||
-      w->smem < drain_stage_words(w->pod_words, ctx->tc,
-                                  ctx->r + ctx->p_ports + 2 * ctx->w + ctx->v + ctx->sd + ctx->gd) * 4 ||
-      w->smem > DRAIN_STAGE_WORDS * 4)
+      w->pod_words < 1 || (w->slab ? (w->slab_stride < need || w->slab_stride % 16 != 0 || w->smem != 0)
+                                   : (w->smem < need || w->smem > DRAIN_SMEM_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (w->smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(sweep_drain_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, w->smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int tiles = ctx->n > 0 ? (ctx->n + w->npt - 1) / w->npt : 1;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  sweep_drain_kernel<<<dim3(w->s, tiles), w->threads, w->smem, static_cast<cudaStream_t>(stream)>>>(*ctx, *w);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w->slab)
+    sweep_drain_kernel<true><<<dim3(w->s, tiles), w->threads, 0, st>>>(*ctx, *w);
+  else
+    sweep_drain_kernel<false><<<dim3(w->s, tiles), w->threads, w->smem, st>>>(*ctx, *w);
   return launch_status();
 }

@@ -28,6 +28,10 @@
 //     recomputed only where the request or the node's free row moved, and
 //     K5's and K6's verdicts and scores likewise (K10's rule: the plans
 //     rerun at the chosen node only while consecutive pods claim alike).
+//   - The staged pods and the minima below sit in shared memory up to
+//     the plan's 200 KB and past it in the scenario's slab of global
+//     scratch (wave.cuh wave_seg; kernels/cuda.py sweep_place_plan): any
+//     number of term columns.
 //   - The replica's free rows are staged once per launch in shared memory
 //     (resource-major) and written back at the end; the other replica
 //     rows a step reads (the count and own-plane rows of the pod's terms,
@@ -209,7 +213,7 @@ __device__ inline void stage_pod(const StepCtx& x, const int* rows, int cols, in
   }
 }
 
-template <int NPT>
+template <int NPT, bool SLAB>
 __global__ void __launch_bounds__(WAVE_BLOCK, 1) sweep_place_kernel(StepCtx x0, SweepCtx w) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned slots_b[32 * NormRed::WORDS];
@@ -222,8 +226,9 @@ __global__ void __launch_bounds__(WAVE_BLOCK, 1) sweep_place_kernel(StepCtx x0, 
   const int nj = NPT > 0 ? NPT : (N + nt - 1) / nt;
   const int f = x.flags;
   const int* rows = w.idx + static_cast<size_t>(scen) * w.cols;
-  int* pods = reinterpret_cast<int*>(smem + w.off_pod);                   // [2][pod_words]
-  unsigned* slots_min = reinterpret_cast<unsigned*>(smem + w.off_min);    // [32][tc] warp partial minima (keys)
+  unsigned char* slab = SLAB ? w.slab + static_cast<size_t>(scen) * w.slab_stride : nullptr;
+  int* pods = wave_seg<int, SLAB>(smem, slab, w.off_pod);                 // [2][pod_words]
+  unsigned* slots_min = wave_seg<unsigned, SLAB>(smem, slab, w.off_min);  // [32][tc] warp partial minima (keys)
   float* wmin = reinterpret_cast<float*>(slots_min + 32 * TC);            // [32][tc] each warp's copy of the minima
   float* sfree = w.off_free >= 0 ? reinterpret_cast<float*>(smem + w.off_free) : nullptr;
   const int fs = sfree ? N : 1;
@@ -522,15 +527,20 @@ __global__ void __launch_bounds__(WAVE_BLOCK, 1) sweep_place_kernel(StepCtx x0, 
 #undef NODE
 }
 
-template <int NPT>
-int launch_place(const StepCtx& x, const SweepCtx& w, cudaStream_t stream) {
+template <int NPT, bool SLAB>
+int launch_place_with(const StepCtx& x, const SweepCtx& w, cudaStream_t stream) {
   if (w.smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(sweep_place_kernel<NPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, w.smem);
+        cudaFuncSetAttribute(sweep_place_kernel<NPT, SLAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, w.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sweep_place_kernel<NPT><<<w.s, w.threads, w.smem, stream>>>(x, w);
+  sweep_place_kernel<NPT, SLAB><<<w.s, w.threads, w.smem, stream>>>(x, w);
   return launch_status();
+}
+
+template <int NPT>
+int launch_place(const StepCtx& x, const SweepCtx& w, cudaStream_t stream) {
+  return w.slab ? launch_place_with<NPT, true>(x, w, stream) : launch_place_with<NPT, false>(x, w, stream);
 }
 
 }  // namespace
@@ -543,7 +553,7 @@ extern "C" int simtpu_sweep_place(const StepCtx* ctx, const SweepCtx* w, void* s
   const bool reg = w->npt == 1 || w->npt == 2 || w->npt == WAVE_REG_NPT;
   if (w->threads < 32 || w->threads > WAVE_BLOCK || w->threads % 32 != 0 ||
       (reg ? w->threads * w->npt < ctx->n : (w->npt != WAVE_GLOBAL_NPT || !w->carry)) ||
-      w->pod_words != POD_HEAD + ctx->r + 8 * ctx->tc || w->off_pod < 0 || w->off_min < 0)
+      w->pod_words != POD_HEAD + ctx->r + 8 * ctx->tc || ((w->off_pod < 0 || w->off_min < 0) && !w->slab))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w->npt) {

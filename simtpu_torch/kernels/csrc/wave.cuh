@@ -57,6 +57,24 @@ struct SmemPlan {
   }
 };
 
+// Where a scratch segment of a plan lives (K10's term columns, minima, key
+// slots and pod flags; K19's staged pods and minima): an offset >= 0 is a
+// byte offset into dynamic shared memory; past the plan's budget the
+// segment is read and written at byte -1 - off of the block's slab of
+// global scratch (the wrapper's torch.empty; kernels/cuda.py
+// wave_hard_plan, sweep_place_plan). The same code runs either way: a
+// barrier publishes a global write to the block as it does a shared one.
+// The kernels are built twice, SLAB false where the plan has no slab: a
+// pointer that may point to either space is a generic one, and generic
+// loads, stores and atomics on shared memory slowed the steps on the card.
+template <class T, bool SLAB>
+__device__ inline T* wave_seg(unsigned char* smem, unsigned char* slab, int off) {
+  if constexpr (!SLAB)
+    return reinterpret_cast<T*>(smem + off);
+  else
+    return reinterpret_cast<T*>(off >= 0 ? smem + off : slab + (-1 - static_cast<long long>(off)));
+}
+
 // a thread's nodes' carried rows: registers (NPT > 0), or the rows of
 // WaveCtx.carry (WAVE_GLOBAL_NPT); (row, j, n) = row `row` of the thread's
 // j-th node, node n

@@ -23,9 +23,13 @@
 // end: the group's term columns (term, key slot, interpod row, statics),
 // the count rows of the group's terms at every node ([tc, N] cnt_match and
 // the four [tc, N] own planes), the node_dom rows of the group's keys, the
-// free rows and the run's request rows (each segment where it fits:
-// wave.cuh SmemPlan; past 200 KB the rest is read in place from global
-// memory, through the same code). g_terms[g] lists distinct terms with
+// free rows and the run's request rows (each segment where it fits in
+// the plan's 200 KB, kernels/cuda.py wave_hard_plan; past that the rest
+// is read in place from global memory, through the same code). The
+// block's own scratch (the staged columns, 8 words a term column, the
+// per-warp minima, 64 a column, the key slots and the pod flags) is
+// planned first and, past the budget, moves to a slab of global scratch
+// (wave.cuh wave_seg): any number of term columns. g_terms[g] lists distinct terms with
 // distinct interpod rows (engine/scan.py _compact_terms, engine/state.py
 // interpod_term_index), so each staged row has one column. Each step,
 // with one barrier per reduction:
@@ -56,6 +60,26 @@
 #include "topology.cuh"
 #include "wave.cuh"
 
+// the launch plan (kernels/cuda.py wave_hard_plan): the scratch segments
+// (the columns, the minima, the key slots, the pod flags) in shared memory
+// or, past the budget, in the slab (wave.cuh wave_seg); the staged copies
+// of state rows at a byte offset into dynamic shared memory, -1 where the
+// segment is read in place from global memory
+struct HardPlan {
+  int kmax;      // key slots
+  int off_cols;  // columns: 8 arrays of [tc] words
+  int off_mins;  // minima: [2][32][tc] words
+  int off_keys;  // key slots [kmax]
+  int off_flags; // pod flags [b - a]
+  int off_dom;   // node_dom rows of the key slots [kmax][N] i32
+  int off_cm;    // cnt_match rows of the columns [tc][N] f32
+  int off_free;  // free rows, resource-major [R][N] f32
+  int off_req;   // the run's request rows [b - a][R] f32
+  int off_own;   // own planes [4][tc][N] f32: cnt_own_anti, cnt_own_aff, w_own_aff_pref, w_own_anti_pref
+  int smem;      // dynamic shared bytes
+  unsigned char* slab;    // global scratch for the segments past the budget
+};
+
 namespace {
 
 // the carried rows of a node (wave.cuh WaveRows)
@@ -82,19 +106,8 @@ enum : int {
   P_STAGE = 0, P_FOLD_B = 1, P_SCORE = 2, P_FOLD_C = 3, P_COMMIT = 4, P_FOLD_A = 5, P_SETUP = 6, P_END = 7,
 };
 
-// the launch plan: byte offsets into dynamic shared memory, -1 where the
-// segment stays in global memory
-struct HardPlan {
-  int kmax;      // key slots
-  int off_misc;  // columns (8 x tc words), mins ([2][32][tc] words), keys [kmax], pod flags [b - a]
-  int off_dom;   // node_dom rows of the key slots [kmax][N] i32
-  int off_cm;    // cnt_match rows of the columns [tc][N] f32
-  int off_free;  // free rows, resource-major [R][N] f32
-  int off_req;   // the run's request rows [b - a][R] f32
-  int off_own;   // own planes [4][tc][N] f32: cnt_own_anti, cnt_own_aff, w_own_aff_pref, w_own_anti_pref
-};
 
-template <int NPT>
+template <int NPT, bool SLAB>
 __global__ void __launch_bounds__(WAVE_BLOCK, 1) wave_hard_kernel(StepCtx x, WaveCtx w, HardPlan p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned slots_b[32 * NormRed::WORDS];
@@ -118,7 +131,7 @@ __global__ void __launch_bounds__(WAVE_BLOCK, 1) wave_hard_kernel(StepCtx x, Wav
   const size_t gn0 = static_cast<size_t>(g) * N;
   const int kmax = p.kmax, pods = w.b - w.a;
   // the column segment
-  int* cterm = reinterpret_cast<int*>(smem + p.off_misc);
+  int* cterm = wave_seg<int, SLAB>(smem, p.slab, p.off_cols);
   int* cip = cterm + TC;
   int* cslot = cip + TC;
   int* cflag = cslot + TC;
@@ -126,10 +139,10 @@ __global__ void __launch_bounds__(WAVE_BLOCK, 1) wave_hard_kernel(StepCtx x, Wav
   float* cw_anti = cw_aff + TC;
   float* chard = cw_anti + TC;
   float* csoft = chard + TC;
-  unsigned* slots_min = reinterpret_cast<unsigned*>(csoft + TC);  // [32][tc] per-warp partial minima (keys)
-  float* wmin = reinterpret_cast<float*>(slots_min + 32 * TC);      // [32][tc] each warp's copy of the minima
-  int* skey = reinterpret_cast<int*>(wmin + 32 * TC);
-  int* qflag = skey + kmax;
+  unsigned* slots_min = wave_seg<unsigned, SLAB>(smem, p.slab, p.off_mins);  // [32][tc] per-warp partial minima (keys)
+  float* wmin = reinterpret_cast<float*>(slots_min + 32 * TC);           // [32][tc] each warp's copy of the minima
+  int* skey = wave_seg<int, SLAB>(smem, p.slab, p.off_keys);
+  int* qflag = wave_seg<int, SLAB>(smem, p.slab, p.off_flags);
   int* sdom = p.off_dom >= 0 ? reinterpret_cast<int*>(smem + p.off_dom) : nullptr;
   float* scm = p.off_cm >= 0 ? reinterpret_cast<float*>(smem + p.off_cm) : nullptr;
   float* sfree = p.off_free >= 0 ? reinterpret_cast<float*>(smem + p.off_free) : nullptr;
@@ -557,35 +570,36 @@ __global__ void __launch_bounds__(WAVE_BLOCK, 1) wave_hard_kernel(StepCtx x, Wav
 #undef NODE
 }
 
-template <int NPT>
-int launch_hard(const StepCtx& x, const WaveCtx& w, const HardPlan& p, int smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
+template <int NPT, bool SLAB>
+int launch_hard_with(const StepCtx& x, const WaveCtx& w, const HardPlan& p, cudaStream_t stream) {
+  if (p.smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(wave_hard_kernel<NPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(wave_hard_kernel<NPT, SLAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  wave_hard_kernel<NPT><<<1, wave_threads(x.n), smem, stream>>>(x, w, p);
+  wave_hard_kernel<NPT, SLAB><<<1, wave_threads(x.n), p.smem, stream>>>(x, w, p);
   return launch_status();
+}
+
+template <int NPT>
+int launch_hard(const StepCtx& x, const WaveCtx& w, const HardPlan& p, cudaStream_t stream) {
+  return p.slab ? launch_hard_with<NPT, true>(x, w, p, stream) : launch_hard_with<NPT, false>(x, w, p, stream);
 }
 
 }  // namespace
 
-extern "C" int simtpu_wave_hard(const StepCtx* ctx, const WaveCtx* w, void* stream) {
-  const int n = ctx->n, r = ctx->r, tc = ctx->tc, pods = w->b - w->a;
-  HardPlan p{};
-  p.kmax = std::max(1, std::min(tc, w->k));
-  SmemPlan plan;
-  p.off_misc = plan.add((static_cast<size_t>(8) * tc + 64 * static_cast<size_t>(tc) + p.kmax + pods) * 4, true);
-  p.off_dom = plan.add(static_cast<size_t>(p.kmax) * n * 4);
-  p.off_cm = plan.add(static_cast<size_t>(tc) * n * 4);
-  p.off_free = plan.add(static_cast<size_t>(r) * n * 4);
-  p.off_req = plan.add(static_cast<size_t>(pods) * r * 4);
-  p.off_own = plan.add(static_cast<size_t>(4) * tc * n * 4);
+// the wrapper's plan (kernels/cuda.py wave_hard_plan); refused where it
+// does not hold every key slot, or a segment past the budget has no slab
+extern "C" int simtpu_wave_hard(const StepCtx* ctx, const WaveCtx* w, const HardPlan* p, void* stream) {
+  const int n = ctx->n;
+  const bool slab_needed = p->off_cols < 0 || p->off_mins < 0 || p->off_keys < 0 || p->off_flags < 0;
+  if (p->kmax < std::max(1, std::min(ctx->tc, w->k)) || p->smem < 0 || (slab_needed && !p->slab))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (wave_npt(n)) {
-    case 1: return launch_hard<1>(*ctx, *w, p, plan.used, s);
-    case 2: return launch_hard<2>(*ctx, *w, p, plan.used, s);
-    case WAVE_REG_NPT: return launch_hard<WAVE_REG_NPT>(*ctx, *w, p, plan.used, s);
-    default: return launch_hard<WAVE_GLOBAL_NPT>(*ctx, *w, p, plan.used, s);
+    case 1: return launch_hard<1>(*ctx, *w, *p, s);
+    case 2: return launch_hard<2>(*ctx, *w, *p, s);
+    case WAVE_REG_NPT: return launch_hard<WAVE_REG_NPT>(*ctx, *w, *p, s);
+    default: return launch_hard<WAVE_GLOBAL_NPT>(*ctx, *w, *p, s);
   }
 }

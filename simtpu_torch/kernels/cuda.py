@@ -62,6 +62,9 @@ WAVE_KERNELS = KERNELS[8:10]
 #: K16: one thread-block cluster each)
 ROUND_KERNELS = KERNELS[13:16]
 CLUSTER_KERNELS = ("round_score", "round_commit")
+#: kernels whose launch plan the wrapper passes as a third argument block:
+#: simtpu_<name>(StepCtx*, WaveCtx* or ExplainCtx*, plan*, stream)
+PLANNED_KERNELS = ("wave_hard", "explain_pass")
 #: the sweep kernels, launched as simtpu_<name>(DeltaCtx* or StepCtx*,
 #: SweepCtx*, stream)
 SWEEP_KERNELS = KERNELS[17:19]
@@ -146,11 +149,9 @@ def build() -> dict:
         fn = getattr(lib, f"simtpu_{name}")
         if name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        elif name in CLUSTER_KERNELS:
+        elif name in CLUSTER_KERNELS or name in PLANNED_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS:
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        elif name == "explain_pass":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name == "pod_terms":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -203,7 +204,7 @@ def build_profile() -> dict:
     for name in PROFILE_KERNELS:
         lib = ctypes.CDLL(str(_PROFILE_LIBS[name]))
         fn = getattr(lib, f"simtpu_{name}")
-        fn.argtypes = [ctypes.c_void_p] * (4 if name in CLUSTER_KERNELS else 3)
+        fn.argtypes = [ctypes.c_void_p] * (4 if name in CLUSTER_KERNELS or name in PLANNED_KERNELS else 3)
         fn.restype = ctypes.c_int
         _PROFILE_LIBS[name] = lib
     bar = _PROFILE_LIBS["wave_lean"].simtpu_wave_barrier_cycles
@@ -220,12 +221,7 @@ def launch_wave_profile(name: str, buf, a: int, b: int, mode) -> None:
     """Launch the profile build of wave kernel `name` for the run [a, b)
     of `buf`, its phase cycles added into `buf.wave_prof` (zero it first).
     A measurement launch: not counted in LAUNCHES. No synchronization."""
-    libs = build_profile()
-    if buf.ctx is None:
-        buf.ctx = make_ctx(buf)
-    ctx = make_wave_ctx(buf, a, b, mode)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    err = _launch_wave_with(build_profile(), name, buf, a, b, mode)
     if err:
         msg = build()[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} (profile build) failed to launch: {msg} ({err})")
@@ -444,15 +440,105 @@ def make_wave_ctx(buf, a: int, b: int, mode) -> WaveCtx:
     return WaveCtx(a=a, b=b, mode=bits, k=k, **{f: t.data_ptr() for f, t in tensors.items()})
 
 
-def launch_wave(name: str, buf, a: int, b: int, mode) -> None:
-    """Launch wave kernel `name` for the run [a, b) of `buf` on the current
-    CUDA stream; raises if the launch is refused. No synchronization."""
-    libs = build()
+#: the dynamic shared memory the plans of the one-thread-per-node kernels
+#: and of K16 take at most (csrc/wave.cuh WAVE_SMEM; of the 227 KB a block
+#: may take, less the static reduction slots)
+WAVE_SMEM = 200 * 1024
+
+
+class _SmemPlan:
+    """csrc/wave.cuh's shared-memory plan: segments in priority order, each
+    16-byte aligned where it still fits in WAVE_SMEM. A staged copy of
+    state rows that does not fit is read in place (offset -1); a scratch
+    segment that does not fit goes to the block's slab of global scratch,
+    its offset encoded as -1 - its byte offset in the slab (wave.cuh
+    wave_seg)."""
+
+    def __init__(self):
+        self.used = 0
+        self.slab = 0
+
+    def add(self, nbytes: int, scratch: bool = False) -> int:
+        at = (self.used + 15) & ~15
+        if at + nbytes <= WAVE_SMEM:
+            self.used = at + nbytes
+            return at
+        if not scratch:
+            return -1
+        at = (self.slab + 15) & ~15
+        self.slab = at + nbytes
+        return -1 - at
+
+
+class HardPlan(ctypes.Structure):
+    """ctypes mirror of `struct HardPlan` in csrc/wave_hard.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("kmax", "off_cols", "off_mins", "off_keys", "off_flags", "off_dom",
+                                            "off_cm", "off_free", "off_req", "off_own", "smem")] + [
+        ("slab", ctypes.c_void_p)]
+
+
+def wave_hard_plan(n: int, r: int, tc: int, kmax: int, pods: int) -> dict:
+    """K10's launch plan for a run of `pods` pods over N nodes, R resources,
+    Tc term columns and `kmax` key slots: one block of `threads` threads,
+    `nodes_per_thread` nodes each (the register template `template`,
+    "global" where the carried rows live in WaveCtx.carry), and its
+    segments in wave.cuh's priority order. The block's own scratch — the
+    staged columns (8 words a column), the key slots, the pod flags, the
+    per-warp minima (64 words a column) — takes shared memory while it
+    fits and past it the slab (`slab_bytes` of global scratch; `mode`
+    "global"); then the staged copies of the key slots' node_dom rows, the
+    count rows, the free rows, the run's request rows and the own planes,
+    each where it still fits, else read in place (-1)."""
+    plan = _SmemPlan()
+    offs = {
+        "off_cols": plan.add(8 * tc * 4, True),
+        "off_keys": plan.add(kmax * 4, True),
+        "off_flags": plan.add(pods * 4, True),
+        "off_mins": plan.add(64 * tc * 4, True),
+        "off_dom": plan.add(kmax * n * 4),
+        "off_cm": plan.add(tc * n * 4),
+        "off_free": plan.add(r * n * 4),
+        "off_req": plan.add(pods * r * 4),
+        "off_own": plan.add(4 * tc * n * 4),
+    }
+    threads, npt = wave_threads(n), wave_npt(n)
+    return {"threads": threads, "npt": npt, "nodes_per_thread": npt or -(-n // threads),
+            "template": str(npt) if npt else "global", "kmax": kmax, **offs, "shared_bytes": plan.used,
+            "slab_bytes": plan.slab, "mode": "global" if plan.slab else "shared"}
+
+
+def _hard_plan_struct(buf, ctx: WaveCtx) -> HardPlan:
+    """K10's plan for the run of `ctx` on `buf`, its slab (buf.wave_slab)
+    grown where the plan needs more than it holds."""
+    n, r, tc = buf.ctx.n, buf.ctx.r, buf.ctx.tc
+    plan = wave_hard_plan(n, r, tc, max(1, min(tc, ctx.k)), ctx.b - ctx.a)
+    slab = 0
+    if plan["slab_bytes"]:
+        if buf.wave_slab is None or buf.wave_slab.numel() < plan["slab_bytes"]:
+            buf.wave_slab = torch.empty(plan["slab_bytes"], dtype=torch.uint8, device=buf.device)
+        slab = buf.wave_slab.data_ptr()
+    return HardPlan(smem=plan["shared_bytes"], slab=slab,
+                    **{f: plan[f] for f, _ in HardPlan._fields_ if f not in ("smem", "slab")})
+
+
+def _launch_wave_with(libs, name: str, buf, a: int, b: int, mode) -> int:
     if buf.ctx is None:
         buf.ctx = make_ctx(buf)
     ctx = make_wave_ctx(buf, a, b, mode)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    fn = getattr(libs[name], f"simtpu_{name}")
+    if name == "wave_hard":
+        return fn(ctypes.byref(buf.ctx), ctypes.byref(ctx), ctypes.byref(_hard_plan_struct(buf, ctx)), stream)
+    return fn(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+
+
+def launch_wave(name: str, buf, a: int, b: int, mode) -> None:
+    """Launch wave kernel `name` for the run [a, b) of `buf` on the current
+    CUDA stream (K10 on `wave_hard_plan`); raises if the launch is refused.
+    No synchronization."""
+    libs = build()
+    err = _launch_wave_with(libs, name, buf, a, b, mode)
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
@@ -936,7 +1022,8 @@ ROUND_TERM_WORDS = 9
 class RoundPlan(ctypes.Structure):
     """ctypes mirror of `struct RoundPlan` in csrc/rounds.cuh."""
 
-    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "npt", "tile", "smem", "pad_")]
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "npt", "tile", "smem", "pad_")] + [
+        ("pub", ctypes.c_void_p)]
 
 
 def round_blocks(n: int) -> int:
@@ -956,7 +1043,11 @@ def round_plan(n: int, tc: int = 0, blocks: int = None) -> dict:
     < nodes_per_thread (kept in registers under template "1", "2" or "4",
     re-read under "global"), and K16's dynamic shared bytes (its published
     bins, dots and tile total, their fold, the ranks' tile totals, the
-    staged term columns, the tile's prefix)."""
+    staged term columns, the tile's prefix). Where those pass WAVE_SMEM
+    (from Tc = 512) K16's `mode` is "global": each block keeps all but the
+    prefix in its own row of `row_words` floats of global scratch
+    (round_commit.cu commit_row_words) and its shared bytes are the
+    prefix's."""
     b = min(max(int(blocks or round_blocks(n)), 1), ROUND_CLUSTER_MAX)
     tile = -(-(-(-max(n, 1) // b)) // 32) * 32
     b = -(-max(n, 1) // tile)
@@ -965,15 +1056,27 @@ def round_plan(n: int, tc: int = 0, blocks: int = None) -> dict:
     npt = next((t for t in (1, 2, ROUND_NPT) if per <= t), 0)
     if npt:
         threads = -(-(-(-tile // npt)) // 32) * 32
-    words = 2 * (tc * (ROUND_DOM_SMALL + 1) + 1) + ROUND_CLUSTER_MAX + ROUND_TERM_WORDS * tc + tile
+    region = 2 * (tc * (ROUND_DOM_SMALL + 1) + 1) + ROUND_CLUSTER_MAX + ROUND_TERM_WORDS * tc
+    mode = "shared" if 4 * (region + tile) <= WAVE_SMEM else "global"
     return {"blocks": b, "threads": threads, "nodes_per_thread": npt or per, "npt": npt,
-            "template": str(npt) if npt else "global", "tile": tile, "shared_bytes": 4 * words}
+            "template": str(npt) if npt else "global", "tile": tile, "mode": mode,
+            "shared_bytes": 4 * (tile + (region if mode == "shared" else 0)),
+            "row_words": (region + 3) & ~3 if mode == "global" else 0}
 
 
-def _round_plan_struct(name: str, n: int, tc: int, blocks: int = None) -> RoundPlan:
+def _round_plan_struct(name: str, rb, n: int, tc: int, blocks: int = None) -> RoundPlan:
+    """K14's / K16's plan; K16's global mode points at `rb.pub` (one row
+    per block of the largest cluster, allocated at its first use)."""
     plan = round_plan(n, tc, blocks)
+    commit = name == "round_commit"
+    pub = 0
+    if commit and plan["mode"] == "global":
+        need = ROUND_CLUSTER_MAX * plan["row_words"]
+        if rb.pub is None or rb.pub.numel() < need:
+            rb.pub = torch.empty(need, dtype=torch.float32, device=rb.device)
+        pub = rb.pub.data_ptr()
     return RoundPlan(blocks=plan["blocks"], threads=plan["threads"], npt=plan["npt"], tile=plan["tile"],
-                     smem=plan["shared_bytes"] if name == "round_commit" else 0, pad_=0)
+                     smem=plan["shared_bytes"] if commit else 0, pad_=0, pub=pub)
 
 
 def _launch_round_with(libs, name: str, rb, i: int, k: int, mode: int, row: int, blocks: int = None) -> None:
@@ -986,7 +1089,7 @@ def _launch_round_with(libs, name: str, rb, i: int, k: int, mode: int, row: int,
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     fn = getattr(libs[name], f"simtpu_{name}")
     if name in CLUSTER_KERNELS:
-        plan = _round_plan_struct(name, buf.ctx.n, buf.ctx.tc, blocks)
+        plan = _round_plan_struct(name, rb, buf.ctx.n, buf.ctx.tc, blocks)
         err = fn(ctypes.byref(buf.ctx), ctypes.byref(ctx), ctypes.byref(plan), stream)
     else:
         err = fn(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
@@ -1119,15 +1222,14 @@ class SweepCtx(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in ("s", "cols", "t", "ti")] + [
         (f, ctypes.c_void_p) for f in ("idx",) + DENSE_FIELDS
     ] + [(f, ctypes.c_int) for f in ("threads", "npt", "smem", "pod_words", "off_pod", "off_min", "off_free",
-                                     "pad_")] + [("carry", ctypes.c_void_p)]
+                                     "slab_stride")] + [("carry", ctypes.c_void_p), ("slab", ctypes.c_void_p)]
 
 
 #: the one-thread-per-node layout of csrc/wave.cuh (K9, K10, K19): threads
-#: of a block at most, nodes per thread in registers at most, the dynamic
-#: shared memory a block plans with
+#: of a block at most, nodes per thread in registers at most (the shared
+#: memory a block plans with: WAVE_SMEM)
 WAVE_BLOCK = 1024
 WAVE_REG_NPT = 4
-WAVE_SMEM = 200 * 1024
 #: K19's step rows per node past the register templates (csrc/sweep_place.cu
 #: SWEEP_ROWS) and the scalar words heading a staged pod (POD_HEAD)
 SWEEP_ROWS = 10
@@ -1156,27 +1258,21 @@ def sweep_place_plan(n: int, r: int, tc: int) -> dict:
     (the register template `template`, "global" where the step rows live
     in `carry_rows` rows of global memory per scenario), and the dynamic
     shared memory in wave.cuh's priority order — the two staged-pod
-    buffers and the hard-spread minima always, the replica's free rows
-    where they still fit in WAVE_SMEM (`off_free` -1 otherwise)."""
+    buffers and the hard-spread minima while they fit in WAVE_SMEM, past
+    it in the scenario's slab (`slab_bytes` of global scratch a scenario,
+    `mode` "global"; wave.cuh wave_seg), then the replica's free rows
+    where they still fit (`off_free` -1 otherwise)."""
     pod_words = SWEEP_POD_HEAD + r + 8 * tc
-    used = 0
-
-    def add(nbytes: int, required: bool) -> int:
-        nonlocal used
-        at = (used + 15) & ~15
-        if not required and at + nbytes > WAVE_SMEM:
-            return -1
-        used = at + nbytes
-        return at
-
-    off_pod = add(2 * pod_words * 4, True)
-    off_min = add(2 * 32 * tc * 4, True)
-    off_free = add(r * n * 4, False)
+    plan = _SmemPlan()
+    off_pod = plan.add(2 * pod_words * 4, True)
+    off_min = plan.add(2 * 32 * tc * 4, True)
+    off_free = plan.add(r * n * 4)
     threads, npt = wave_threads(n), wave_npt(n)
     return {"threads": threads, "npt": npt, "nodes_per_thread": npt or -(-n // threads),
             "template": str(npt) if npt else "global", "pod_words": pod_words, "off_pod": off_pod,
-            "off_min": off_min, "off_free": off_free, "shared_bytes": used,
-            "carry_rows": 0 if npt else SWEEP_ROWS}
+            "off_min": off_min, "off_free": off_free, "shared_bytes": plan.used,
+            "carry_rows": 0 if npt else SWEEP_ROWS, "slab_bytes": plan.slab,
+            "mode": "global" if plan.slab else "shared"}
 
 
 #: K18's launch plan (csrc/sweep_drain.cu): threads a block at most, the
@@ -1191,6 +1287,10 @@ H100_SMS = 132
 #: one per entry and element of a node's rows)
 DRAIN_STAGE_ENTRIES = 64
 DRAIN_STAGE_WORDS = 12 * 1024
+#: where one entry of a group's term columns passes DRAIN_STAGE_WORDS: the
+#: shared bytes the staging may take with the opt-in attribute, and past
+#: them one entry at a time in each block's slab of global scratch
+DRAIN_SMEM_MAX = 200 * 1024
 
 
 _SMS: dict = {}
@@ -1215,15 +1315,23 @@ def sweep_drain_plan(s: int, n: int, tc: int = 0, width: int = 0, sms: int = H10
     DRAIN_MIN_TILE (the kernel holds one more block an SM, so the main
     paths' chunks run in one wave). The tile-0 block of each scenario also owns its
     cnt_total. Each block stages `stage_entries` entries at a time in
-    `shared_bytes` of shared memory."""
+    `shared_bytes` of shared memory (`staging` "shared"), or where one
+    entry passes DRAIN_SMEM_MAX one at a time in its own `slab_stride`
+    bytes of a global slab of `slab_bytes` (`staging` "global")."""
     want = -(-DRAIN_BLOCKS_PER_SM * sms // max(s, 1))
     tile = max(DRAIN_MIN_TILE, -(-(-(-max(n, 1) // want)) // 32) * 32)
     tiles = max(1, -(-n // tile))
     threads = DRAIN_THREADS
     per_entry = 5 + 12 * tc + width
-    entries = max(1, min(DRAIN_STAGE_ENTRIES, DRAIN_STAGE_WORDS // per_entry))
-    return {"tile": tile, "tiles": tiles, "threads": threads, "blocks": s * tiles, "grid": (s, tiles),
-            "total_owner_tile": 0, "stage_entries": entries, "shared_bytes": 4 * entries * per_entry}
+    budget = DRAIN_STAGE_WORDS if per_entry <= DRAIN_STAGE_WORDS else DRAIN_SMEM_MAX // 4
+    entries = max(1, min(DRAIN_STAGE_ENTRIES, budget // per_entry))
+    plan = {"tile": tile, "tiles": tiles, "threads": threads, "blocks": s * tiles, "grid": (s, tiles),
+            "total_owner_tile": 0, "stage_entries": entries, "shared_bytes": 4 * entries * per_entry,
+            "staging": "shared", "slab_stride": 0, "slab_bytes": 0}
+    if per_entry > budget:
+        stride = (4 * per_entry + 15) & ~15
+        plan.update(shared_bytes=0, staging="global", slab_stride=stride, slab_bytes=s * tiles * stride)
+    return plan
 
 
 def _replica_dims(base, reps, s: int) -> tuple:
@@ -1259,8 +1367,10 @@ def launch_sweep_drain(statics, base, reps, log: dict, idx: torch.Tensor) -> Non
     planes = {f: _checked(f"base.{f}", b, device, b.dtype).data_ptr() for f, b in zip(DENSE_FIELDS, base)}
     width = ctx.r + ctx.p_ports + 2 * ctx.w + ctx.v + ctx.sd + ctx.gd
     plan = sweep_drain_plan(s, ctx.n, ctx.tc, width, _sm_count(device))
+    slab = torch.empty(plan["slab_bytes"], dtype=torch.uint8, device=device) if plan["slab_bytes"] else None
     sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=idx.data_ptr(), **planes, threads=plan["threads"],
-                  npt=plan["tile"], pod_words=plan["stage_entries"], smem=plan["shared_bytes"])
+                  npt=plan["tile"], pod_words=plan["stage_entries"], smem=plan["shared_bytes"],
+                  slab_stride=plan["slab_stride"], slab=slab.data_ptr() if slab is not None else 0)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = libs["sweep_drain"].simtpu_sweep_drain(ctypes.byref(ctx), ctypes.byref(sw), stream)
     if err:
@@ -1275,8 +1385,9 @@ def launch_sweep_place(sb) -> None:
     s places the batch rows of row s of `sb.rows` on replica s of
     `sb.reps` under row s of `sb.valid_s`, writing output row j for pod
     list entry j. Past 4096 nodes the step rows' scratch `sb.carry_s` ([S,
-    SWEEP_ROWS, N]) is allocated here. Raises if an input is malformed or
-    the launch is refused."""
+    SWEEP_ROWS, N]) is allocated here, and where the plan's staged pods or
+    minima pass the shared budget the slab `sb.slab_s` ([S, stride] bytes).
+    Raises if an input is malformed or the launch is refused."""
     libs = build()
     s, cols = sb.rows.shape
     _checked("rows", sb.rows, sb.device, torch.int32)
@@ -1289,9 +1400,14 @@ def launch_sweep_place(sb) -> None:
     if plan["carry_rows"]:
         sb.carry_s = torch.empty((s, plan["carry_rows"], ctx.n), dtype=torch.float32, device=sb.device)
         carry = sb.carry_s.data_ptr()
+    stride = (plan["slab_bytes"] + 15) & ~15
+    slab = 0
+    if stride:
+        sb.slab_s = torch.empty((s, stride), dtype=torch.uint8, device=sb.device)
+        slab = sb.slab_s.data_ptr()
     sw = SweepCtx(s=s, cols=cols, t=t, ti=ti, idx=sb.rows.data_ptr(), threads=plan["threads"], npt=plan["npt"],
                   smem=plan["shared_bytes"], pod_words=plan["pod_words"], off_pod=plan["off_pod"],
-                  off_min=plan["off_min"], off_free=plan["off_free"], carry=carry)
+                  off_min=plan["off_min"], off_free=plan["off_free"], carry=carry, slab_stride=stride, slab=slab)
     stream = torch.cuda.current_stream(sb.device).cuda_stream
     err = libs["sweep_place"].simtpu_sweep_place(ctypes.byref(ctx), ctypes.byref(sw), stream)
     if err:
@@ -1308,12 +1424,63 @@ class ExplainCtx(ctypes.Structure):
     ]
 
 
-def launch_explain_pass(eb) -> None:
-    """K20 on the current stream, in one launch of one block per pod of
-    `eb` (an explain/breakdown.py ExplainBuffers): block p explains pod p
-    of the chunk against the shared state, in its own scratch, and writes
-    row p of the counts, feasible, witnesses and fail codes. Raises if an
-    input is malformed or the launch is refused."""
+class ExplainPlan(ctypes.Structure):
+    """ctypes mirror of `struct ExplainPlan` in csrc/explain_pass.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "tile", "smem")]
+
+
+#: K20's launch plan (csrc/explain_pass.cu): one thread-block cluster a pod
+#: of at most EXPLAIN_CLUSTER_MAX blocks (above 8 the non-portable size),
+#: at most EXPLAIN_THREADS threads a block, and the threads an SM holds at
+#: once (its registers: 64 a thread), which the launch's clusters share
+EXPLAIN_CLUSTER_MAX = 16
+EXPLAIN_THREADS = 1024
+EXPLAIN_SM_THREADS = 1024
+#: the fewest nodes a block of K20 takes where the pod could use more blocks
+EXPLAIN_MIN_TILE = 256
+
+
+def explain_plan(n: int, tc: int = 0, blocks: int = None, pods: int = 64, sms: int = H100_SMS) -> dict:
+    """K20's launch plan for `pods` pods over N nodes (`tc` term columns) on
+    a card of `sms` SMs, with `blocks` blocks a pod where given (the
+    sweep): else the most blocks (a power of two, at most
+    EXPLAIN_CLUSTER_MAX) that still keep every pod's threads within its
+    share of one wave (sms x EXPLAIN_SM_THREADS / pods) and every tile
+    at EXPLAIN_MIN_TILE nodes or more. Block b of a pod's cluster owns the nodes [b
+    * tile, min(N, (b + 1) * tile)) (the tile a multiple of 32, the last
+    one ragged, none empty); in steps 1 and 2 thread t of a block takes
+    the tile's nodes t, t + threads, ...; in the cascade walk the
+    contiguous run [t * nodes_per_thread, (t + 1) * nodes_per_thread) of
+    the tile. The dynamic shared bytes hold two [tc] minima (the tile's,
+    the cluster's)."""
+    n1 = max(n, 1)
+
+    def threads_of(b):
+        return min(EXPLAIN_THREADS, -(-(-(-n1 // b)) // 32) * 32)
+
+    if blocks:
+        b = min(max(int(blocks), 1), EXPLAIN_CLUSTER_MAX)
+    else:
+        budget = sms * EXPLAIN_SM_THREADS // max(pods, 1)
+        b = 1
+        while (b < EXPLAIN_CLUSTER_MAX and -(-n1 // (2 * b)) >= EXPLAIN_MIN_TILE
+               and 2 * b * threads_of(2 * b) <= budget):
+            b *= 2
+    tile = -(-(-(-n1 // b)) // 32) * 32
+    b = -(-n1 // tile)
+    threads = min(EXPLAIN_THREADS, tile)
+    return {"blocks": b, "tile": tile, "threads": threads, "nodes_per_thread": -(-tile // threads),
+            "shared_bytes": 2 * tc * 4}
+
+
+def launch_explain_pass(eb, blocks: int = None) -> None:
+    """K20 on the current stream, in one launch of one thread-block cluster
+    per pod of `eb` (an explain/breakdown.py ExplainBuffers; `explain_plan`,
+    of `blocks` blocks a pod where given): the cluster explains pod p of
+    the chunk against the shared state, in the pod's own scratch, and
+    writes row p of the counts, feasible, witnesses and fail codes. Raises
+    if an input is malformed or the launch is refused."""
     libs = build()
     buf = eb.buf
     p, n = buf.n_pods, buf.statics.alloc.shape[0]
@@ -1332,8 +1499,11 @@ def launch_explain_pass(eb) -> None:
     if buf.ctx is None:
         buf.ctx = make_ctx(buf)
     ctx = ExplainCtx(p=p, k=eb.k, **{f: t.data_ptr() for f, t in outs.items()})
+    plan = explain_plan(n, buf.ctx.tc, blocks, p, _sm_count(eb.device))
+    ep = ExplainPlan(blocks=plan["blocks"], threads=plan["threads"], tile=plan["tile"], smem=plan["shared_bytes"])
     stream = torch.cuda.current_stream(eb.device).cuda_stream
-    err = libs["explain_pass"].simtpu_explain_pass(ctypes.byref(buf.ctx), ctypes.byref(ctx), stream)
+    err = libs["explain_pass"].simtpu_explain_pass(ctypes.byref(buf.ctx), ctypes.byref(ctx), ctypes.byref(ep),
+                                                    stream)
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel explain_pass failed to launch: {msg} ({err})")
@@ -1367,7 +1537,34 @@ class RelaxCtx(ctypes.Structure):
         ("lr", ctypes.c_float), ("slabs", ctypes.c_int)] + [
         (f, ctypes.c_void_p) for f in ("feas", "req", "cnt", "fixed", "cap", "valid", "y", "over",
                                        "residual", "stuck", "scratch")
-    ] + [(f, ctypes.c_int) for f in ("threads", "kpt")]
+    ] + [(f, ctypes.c_int) for f in ("threads", "kpt", "load_threads", "load_npt", "load_unroll", "pad_")]
+
+
+#: K22's launch plan (csrc/relax_load.cu): threads a block at most, the
+#: classes of req it stages at a time; the threads, nodes a thread (1, 2,
+#: 4) and classes unrolled (4, 8, 16) it takes, from the sweep on the card
+#: (PERF.md)
+RELAX_LOAD_THREADS = 256
+RELAX_LOAD_REQ_ROWS = 1024
+RELAX_LOAD_BLOCK = 128
+RELAX_LOAD_NPT = 1
+RELAX_LOAD_UNROLL = 8
+
+
+def relax_load_plan(s: int, n: int, r: int, threads: int = None, npt: int = None, unroll: int = None) -> dict:
+    """K22's launch plan for S candidates over N nodes and R resources (the
+    sweep's `threads`, `npt`, `unroll` where given): a grid of (node tiles,
+    S) blocks of `threads` threads, each thread `nodes_per_thread` nodes
+    (tile start + t + j * threads) and the class loop unrolled `unroll`
+    deep; the R sums of a node in registers under the "r4" (R <= 4) or
+    "r8" template, in `r_chunks` chunks of 8 above 8 (each re-reading y)."""
+    threads = int(threads or RELAX_LOAD_BLOCK)
+    npt = int(npt or RELAX_LOAD_NPT)
+    unroll = int(unroll or RELAX_LOAD_UNROLL)
+    rmax = 4 if r <= 4 else 8
+    return {"threads": threads, "nodes_per_thread": npt, "unroll": unroll, "template": f"r{rmax}",
+            "r_chunks": max(1, -(-r // rmax)), "rereads_y": r > 8,
+            "grid": (max(1, -(-n // (threads * npt))), s)}
 
 
 #: K23's paths by the padded node row (the next power of two >= N,
@@ -1411,7 +1608,7 @@ def relax_ctx(rb) -> RelaxCtx:
     """K22/K23's argument block for a solve/relax.py RelaxBuffers on one
     device: every tensor's device, dtype, contiguity and shape checked,
     K23's launch plan (`relax_project_plan`; a block built from CPU
-    tensors plans for one SM). Rows wider than RELAX_SHARED_ROW get the
+    tensors plans for one SM) and K22's (`relax_load_plan`). Rows wider than RELAX_SHARED_ROW get the
     wide-row path, each slab in `rb.cache["scratch"]`."""
     device = rb.y.device
     s, c, n = rb.y.shape
@@ -1428,8 +1625,10 @@ def relax_ctx(rb) -> RelaxCtx:
     if slabs:
         rb.cache["scratch"] = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=device)
     scratch = rb.cache["scratch"].data_ptr() if slabs else 0
+    load = relax_load_plan(s, n, r)
     return RelaxCtx(s=s, c=c, n=n, r=r, mode=0, np2=plan["np2"], lr=float(rb.lr), slabs=slabs, scratch=scratch,
-                    threads=plan["threads"], kpt=plan["keys_per_thread"],
+                    threads=plan["threads"], kpt=plan["keys_per_thread"], load_threads=load["threads"],
+                    load_npt=load["nodes_per_thread"], load_unroll=load["unroll"],
                     **{f: t.data_ptr() for f, t in tensors.items()})
 
 

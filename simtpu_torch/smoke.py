@@ -342,6 +342,41 @@ def keys_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, keys=KEYS, repl
     return cluster, [app_cls(name="keys", resource=resources_cls(deployments=deps))]
 
 
+#: the terms problem: any number of term columns per group (Tc). One app
+#: ("many") carries TERMS preferred anti-affinity terms, term i selecting
+#: `tier In [web, x<i>]` over the hostname, zone or rack key (i mod 3), so
+#: the labels `tier: web` match every one of them; beside them a required
+#: anti-affinity term per host and a DoNotSchedule zone spread of its own
+#: (its runs are hard: K10). "web" carries the labels and no term of its
+#: own (plain bulk rounds over those columns: K14-K16), "webq" the labels
+#: and one required anti-affinity term per host (quota rounds). Every
+#: group of the three sees terms + 2 or more relevant columns, so Tc is the
+#: next power of two: 300 terms give Tc = 512, 600 give 1024.
+TERMS_CLUSTER_KW = dict(zones=8, taint_frac=0.0)
+TERMS_KEYS = ("kubernetes.io/hostname", "topology.kubernetes.io/zone", "simtpu.io/rack")
+
+
+def terms_problem(synth, app_cls, resources_cls, n_nodes: int, terms: int, replicas=(40, 400, 40), seed: int = 7):
+    """(cluster, apps) of the terms problem from a package's own synth
+    module, AppResource and ResourceTypes: `n_nodes` nodes from `seed`,
+    `terms` preferred terms, (many, web, webq) replicas."""
+    cluster = synth.synth_cluster(n_nodes, seed=seed, **TERMS_CLUSTER_KW)
+    many = synth.make_deployment("many", replicas[0], 200, 256, anti_affinity_topo=TERMS_KEYS[0],
+                                 anti_affinity_required=True, spread_topo=TERMS_KEYS[1], spread_hard=True)
+    many["spec"]["template"]["spec"]["affinity"]["podAntiAffinity"]["preferredDuringSchedulingIgnoredDuringExecution"] = [
+        {"weight": 1 + i % 100, "podAffinityTerm": {
+            "labelSelector": {"matchExpressions": [{"key": "tier", "operator": "In", "values": ["web", f"x{i}"]}]},
+            "topologyKey": TERMS_KEYS[i % 3]}}
+        for i in range(terms)]
+    web = synth.make_deployment("web", replicas[1], 300, 512)
+    webq = synth.make_deployment("webq", replicas[2], 250, 384, anti_affinity_topo=TERMS_KEYS[0],
+                                 anti_affinity_required=True)
+    for dep in (many, web, webq):
+        dep["metadata"]["labels"]["tier"] = "web"
+        dep["spec"]["template"]["metadata"]["labels"]["tier"] = "web"
+    return cluster, [app_cls(name="terms", resource=resources_cls(deployments=[many, web, webq]))]
+
+
 def capacity_problem(synth, app_cls, resources_cls, n_nodes=CAP_NODES, n_pods=N_PODS, burst=CAP_BURST):
     """(cluster, apps, new_node) of the capacity problem from a package's own
     synth module, AppResource and ResourceTypes: the serial smoke mix on
