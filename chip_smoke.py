@@ -194,7 +194,23 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    simulate(bulk=True) (K14-K16), place_cluster + a k=1 sweep (K18/K19),
    simulate(explain=True) (K20) and `cli explain --scores 4` (K21): every
    record equal to the CPU path's, each of those kernels launched, no
-   plain version on the card.
+   plain version on the card;
+18. K18 past the 4096 topology keys its packed sort keys held: the
+   many-keys problem (`smoke.many_keys_problem`, 4100 keys every node
+   carries, Tc = 64 a group) placed on the card, 16 single-node scenarios
+   on the nodes whose pods own the highest key ids: K18 and K19 equal to
+   their plain versions, the keys and K18's staging plan printed; K8
+   equal to its plain version on phase 7's large-capacity winner's log
+   and on seeded 150 000-entry logs of the bulk problem's pods on its 5000
+   nodes (seeded nodes, every entry on one node, half of them on one
+   node), each one's device time (the sum of its kernels) and the kernels
+   a launch the profiler saw, held against `cuda.audit_plan`, and the
+   seeded log's prefixes; K3 equal to its plain version (the score row bit
+   for bit, chosen, placed, reason, out_node) at N = 120, 943, 1000, 2000,
+   3001, 5000 and 9000 on the serial mix, custom score weights, forced
+   and pinned pods and the extended mix (storage and GPU pods), its
+   device time at each N, and up to 1024 nodes its global path equal to
+   and timed in turns against its register path.
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread with t*'s 16 zones — K15's
 one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
@@ -240,10 +256,13 @@ rows resident per SM; K24/K25
 against theirs on every growth of
 the grow problem's carry (entry, extension, promotions, node growth), bit
 for bit; then their times.
-Last, K8's time at the capacity winner's log (device time from the
-profiler, back-to-back launches from Python, the plain version's).
+Last, K8's time at the capacity winner's log (device time and kernels a
+launch from the profiler, back-to-back launches from Python, the plain
+version's).
 
-The line before the last is the JSON `{"kernels": [...]}`; the last line is
+The line before the last is the JSON `{"kernels": [...], "plans": {...}}`
+(`plans`: the launch plans of phase 18's shapes, the wrappers' choices
+beside the run's readings); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 no CUDA device is available.
 """
@@ -253,6 +272,8 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -1132,19 +1153,33 @@ def kernel_of(key: str):
     template instances included. A template instance demangles as "void
     (anonymous namespace)::wave_lean_kernel<1>(...)", a plain kernel as
     "filter_pod_kernel(...)"."""
-    fn = key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    fn = part_of(key).split("<")[0]
     for name in KERNELS:
         if fn == f"{name}_kernel" or (fn.startswith(f"{name}_") and fn.endswith("_kernel")):
             return name
     return None
 
 
+#: kernels whose one launch is several CUDA kernels (K8: cuda.audit_plan's
+#: radix passes and scans), each mapped to its part that runs exactly once a
+#: launch; the profiler's device time of a launch is the sum of its parts,
+#: its launches the count of that part
+MULTI_KERNEL = {"audit_bulk": "audit_bulk_flags_kernel"}
+
 # kernels whose device time came from CUDA events because the profiler's
 # windows lost their device events
 PROFILER_MISSED = set()
 
 
-def profile_window(fn):
+def part_of(key: str) -> str:
+    """The CUDA kernel a profiler key names, template arguments kept:
+    "audit_bulk_count_kernel<true>"."""
+    return key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def window_events(fn):
+    """Run `fn` in one profiler window: [(KERNELS name, part_of, device us,
+    count)] for each CUDA kernel of KERNELS it ran, and the window's wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1152,18 +1187,27 @@ def profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    total = {}
-    busy_us = 0.0
+    events = []
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.cuda_time_total
         name = kernel_of(ev.key)
         if name is not None:
-            us, count = total.get(name, (0.0, 0))
-            total[name] = (us + dev_us, count + ev.count)
-            busy_us += dev_us
-    per = {name: (us / max(count, 1), count) for name, (us, count) in total.items()}
+            dev_us = getattr(ev, "device_time_total", None)
+            events.append((name, part_of(ev.key), ev.cuda_time_total if dev_us is None else dev_us, ev.count))
+    return events, wall
+
+
+def profile_window(fn):
+    events, wall = window_events(fn)
+    total = {}
+    for name, part, dev_us, count in events:
+        us, n = total.get(name, (0.0, 0))
+        if name in MULTI_KERNEL and part != MULTI_KERNEL[name]:
+            count = 0
+        total[name] = (us + dev_us, n + count)
+    busy_us = sum(us for us, _ in total.values())
+    # a several-kernel launch whose once-a-launch part lost its events is
+    # missing from the window
+    per = {name: (us / count, count) for name, (us, count) in total.items() if count}
     return per, busy_us / 1e6 / wall, wall
 
 
@@ -2028,7 +2072,8 @@ def run_large_capacity(card: str):
     the auto-selection must pick bulk placement and the incremental search
     with the JAX package's notice, the plan must equal the golden record,
     K17 must have launched once per probe's snapshot copy, and no plain
-    version may run. Returns (plan, launches, wall)."""
+    version may run. Returns (plan, launches, wall, the last audit's K8
+    inputs: the winner's log)."""
     cluster, apps, template = smoke.large_capacity_problem(synth, simtpu_torch.AppResource,
                                                            simtpu_torch.ResourceTypes)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2040,7 +2085,7 @@ def run_large_capacity(card: str):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stderr(err_text):
+            with contextlib.redirect_stderr(err_text), AuditCapture() as audits:
                 plan = applier.run()
             torch.cuda.synchronize()
         finally:
@@ -2067,7 +2112,9 @@ def run_large_capacity(card: str):
         f"problem ({len(cluster.nodes)} nodes, {n_all} pods): {plan.nodes_added} nodes added, probes "
         f"{plan.probes}, audit {plan.audit.get('ok')}, plan == golden; {wall:.2f} s; phases {phases}; "
         f"{len(plan.candidates)} placements ({runs}); launches {launches} [{card}]")
-    return plan, launches, wall
+    if audits.last is None:
+        raise AssertionError(f"phase 7: no audit reached K8 (launches {launches})")
+    return plan, launches, wall, audits.last
 
 
 def quota_key_domains(statics, pods, a: int) -> int:
@@ -4234,6 +4281,296 @@ def phase_explain_shapes(device, err) -> dict:
     return out
 
 
+#: phase 18's many-keys sweep problem (smoke.many_keys_problem): nodes and
+#: replicas a deployment
+MANY_KEYS_NODES, MANY_KEYS_REPLICAS = 256, 4
+
+
+def phase_many_keys(device, err) -> tuple:
+    """Phase 18 (a): K18 past the 4096 topology keys its packed sort keys
+    held. The many-keys problem (4100 keys every node carries, 50 a group,
+    Tc = 64) placed on the card; the 16 single-node scenarios of a k=1 sweep
+    on the nodes whose pods own the highest key ids: K18 and K19 equal to
+    their plain versions (every replica plane, nodes, reasons), some
+    drained pair on a key past 4095; then K18's device time there.
+    Returns the measurements and K18's plan there (staging)."""
+    cluster, apps = smoke.many_keys_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes,
+                                            MANY_KEYS_NODES, MANY_KEYS_REPLICAS)
+    seed_name_hashes(smoke.NAME_SEED)
+    try:
+        pc = tfaults.place_cluster(cluster, apps, device="cuda")
+    finally:
+        seed_name_hashes(None)
+    inp = tsweep.SweepInputs(pc, tfaults.generate_scenarios(cluster.nodes, "k=1"))
+    keys, tc = int(inp.statics.node_dom.shape[0]), int(inp.statics.g_terms.shape[1])
+    g_terms, topo = inp.statics.g_terms.cpu().numpy(), inp.statics.term_topo.cpu().numpy()
+    group_key = np.where(g_terms >= 0, topo[np.maximum(g_terms, 0)], -1).max(axis=1)
+    log_g, log_n = inp.log["g"].cpu().numpy(), inp.log["node"].cpu().numpy()
+    node_key = np.full(pc.n_nodes, -1)
+    np.maximum.at(node_key, log_n[log_n >= 0], group_key[log_g[log_n >= 0]])
+    pick = np.sort(np.argsort(-node_key, kind="stable")[:16])
+    if keys < smoke.MANY_KEYS or tc > 64 or node_key[pick].max() < 4096:
+        raise AssertionError(f"phase 18: the many-keys problem has {keys} keys, Tc = {tc}, highest key on the "
+                             f"picked nodes {node_key[pick].max()}")
+    masks = np.zeros((16, pc.n_nodes), bool)
+    masks[np.arange(16), pick] = True
+    inp = tsweep.SweepInputs(pc, tfaults.ScenarioSet(masks=masks, labels=tuple(f"node:{i}" for i in pick)))
+    (valid, ev_idx, rq_idx), rows, nodes, plain = compare_sweep_chunk(
+        "phase 18", "many-keys problem's k=1 chunk", inp, 0, 16, err)
+    st = inp.state
+    width = (st.free.shape[1] + st.ports_used.shape[1] + 2 * st.vols_any.shape[1] + st.vg_free.shape[1]
+             + st.sdev_free.shape[1] + st.gpu_free.shape[1])
+    plan = cuda.sweep_drain_plan(16, pc.n_nodes, tc, width, torch.cuda.get_device_properties(0).multi_processor_count)
+    per, _, _ = profile_kernels(
+        lambda: [batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx) for _ in range(20)],
+        {"sweep_drain": lambda: batched.sweep_drain(inp.statics, inp.state, inp.log, ev_idx)})
+    out = {"keys": keys, "tc": tc, "nodes": pc.n_nodes, "highest_key_drained": int(node_key[pick].max()),
+           "entries": int((ev_idx >= 0).sum()), "requeue_rows": rows, "replaced": int((nodes >= 0).sum()),
+           "plain_s": plain, "sweep_drain_us": per["sweep_drain"][0], "ms_from": ms_from("sweep_drain")}
+    plan = {"staged_bytes_a_pair": 4 * cuda.DRAIN_PAIR_WORDS, "staging": plan["staging"],
+            "stage_entries": plan["stage_entries"]}
+    log(f"phase 18: K18/K19 equal to their plain versions on 16 single-node scenarios of the many-keys problem "
+        f"({keys} topology keys, Tc = {tc}, N={pc.n_nodes}; {out['entries']} drained entries, the highest key "
+        f"{out['highest_key_drained']}; {rows} requeue rows, {out['replaced']} re-placed); K18 "
+        f"{out['sweep_drain_us']:.2f} us device ({ms_from('sweep_drain')}); plan {plan}")
+    return out, plan
+
+
+class AuditCapture:
+    """The auditor's K8 call (audit/checker.py audit_bulk), keeping the
+    inputs of the last audit it ran; the launches and their counts are the
+    wrapper's own."""
+
+    def __enter__(self):
+        self.fn, self.last, self.calls = checker.audit_bulk, None, 0
+        checker.audit_bulk = self
+        return self
+
+    def __call__(self, x):
+        self.last = x
+        self.calls += 1
+        return self.fn(x)
+
+    def __exit__(self, *exc):
+        checker.audit_bulk = self.fn
+
+
+#: phase 18's seeded log on the bulk problem's nodes, and the prefixes K8
+#: is timed on (time linear in M)
+K8_BULK_LOG = 150000
+K8_PREFIXES = (18750, 37500, 75000, 150000)
+
+
+def bulk_audit_logs(pc, device) -> dict:
+    """Phase 18 (b)'s logs on the bulk problem's nodes (its place_cluster,
+    phase 9): K8_BULK_LOG entries of the batch's own pods (groups, requests,
+    pins), in a seeded order on seeded nodes; the same entries all on one
+    node; half of them on one node. {label: AuditInputs} on the card."""
+    rng = np.random.default_rng(18)
+    t, b = pc.tensors, pc.batch
+    rows = rng.permutation(len(b.group))[:K8_BULK_LOG]
+    if len(rows) < K8_BULK_LOG:
+        rows = rng.choice(len(b.group), K8_BULK_LOG)
+    nodes = rng.integers(0, t.n_nodes, K8_BULK_LOG)
+    r, m = t.alloc.shape[1], K8_BULK_LOG
+    v, sd, gd = t.ext.vg_cap.shape[1], t.ext.sdev_cap.shape[1], t.ext.gpu_dev_total.shape[1]
+    base = checker._Entries(g=np.asarray(b.group, np.int64)[rows], n=nodes.astype(np.int64),
+                            req=checker._pad_req(np.asarray(b.req, np.float64)[rows], r),
+                            forced=np.asarray(b.forced, bool)[rows], pin=np.asarray(b.pin, np.int64)[rows],
+                            lvm=np.zeros((m, v)), sdev=np.zeros((m, sd), bool), gpu=np.zeros((m, gd)),
+                            rows=rows)
+    half = nodes.copy()
+    half[rng.permutation(m)[: m // 2]] = 7
+    nv = np.ones(t.n_nodes, bool)
+    return {label: checker._upload(t, dataclasses.replace(base, n=n.astype(np.int64)), nv, device)
+            for label, n in (("seeded", nodes), ("one node", np.full(m, 7)), ("half on one node", half))}
+
+
+def audit_prefix(x, m: int):
+    """The first m entries of AuditInputs `x`."""
+    per_entry = ("g", "n", "req", "forced", "pin", "lvm", "sdev", "gpu")
+    return type(x)(**{f: (getattr(x, f)[:m].contiguous() if f in per_entry else getattr(x, f)) for f in x._fields})
+
+
+def audit_window(x, calls: int = 10, tries: int = 3) -> dict:
+    """K8's device time on AuditInputs `x` from `calls` launches in one
+    profiler window: us per launch (the sum of its parts), each part's us
+    per launch, and the kernels per launch the window saw (the parts'
+    events over the launches of its once-a-launch part, MULTI_KERNEL),
+    held against cuda.audit_plan's count. A window that lacks events, or
+    whose count differs, is profiled again, up to `tries` windows; a count
+    that differs in every window fails the phase. With no events in any
+    window, the time is from CUDA events and the kernels not measured."""
+    plan = cuda.audit_plan(x.alloc.shape[0], x.g.shape[0], 0)
+    seen = []
+    for _ in range(tries):
+        events, _ = window_events(lambda: [kaudit.audit_bulk(x) for _ in range(calls)])
+        parts = {part: (us, count) for name, part, us, count in events if name == "audit_bulk"}
+        launches = parts.get(MULTI_KERNEL["audit_bulk"], (0.0, 0))[1]
+        if not launches:
+            continue
+        kernels = sum(count for _, count in parts.values()) / launches
+        if kernels == plan["kernels"]:
+            return {"device_us": sum(us for us, _ in parts.values()) / launches, "ms_from": "profiler",
+                    "kernels_per_launch": kernels, "parts_us": {p: us / launches for p, (us, _) in parts.items()}}
+        seen.append(kernels)
+    if seen:
+        raise AssertionError(f"K8 on M={x.g.shape[0]}, N={x.alloc.shape[0]}: the profiler saw {seen} kernels a "
+                             f"launch, its plan {plan['kernels']}")
+    PROFILER_MISSED.add("audit_bulk")
+    log("  audit_bulk: device time from CUDA events around back-to-back launches")
+    return {"device_us": time_call(lambda: kaudit.audit_bulk(x), 20) * 1e3, "ms_from": "cuda events",
+            "kernels_per_launch": None, "parts_us": {}}
+
+
+def phase_audit_logs(logs: dict) -> tuple:
+    """Phase 18 (b): K8 against its plain version on each log of `logs`
+    ({label: AuditInputs}), the flag words equal; then each one's device
+    time and kernels a launch (audit_window), bound, the plain version's
+    time, and the seeded log's prefixes (time linear in M). Returns the
+    measurements and each log's launch plan."""
+    out, plans = {}, {}
+    for label, x in logs.items():
+        got, want = kaudit.audit_bulk(x), kaudit.audit_bulk_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 18: K8 on the {label} log: {int((got != want).sum())} flag words differ "
+                                 "from the plain version")
+        n, m = x.alloc.shape[0], x.g.shape[0]
+        plans[label] = {k: v for k, v in cuda.audit_plan(n, m, 0).items() if k not in ("offsets", "s", "words")}
+        nbytes = audit_bytes(x)
+        row = out[label] = {"n": n, "m": m, "flagged": int((want != 0).sum()), **audit_window(x),
+                            "plain_ms": time_call(lambda: kaudit.audit_bulk_plain(x), 3), "bytes": nbytes,
+                            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+        log(f"phase 18: K8 equal to its plain version on the {label} log (M={m}, N={n}, {row['flagged']} "
+            f"flagged): {row['device_us']:.2f} us device over {row['kernels_per_launch']} kernels a launch "
+            f"({row['ms_from']}; plan {plans[label]['kernels']}), bound {row['bound_us']:.3f} us, plain "
+            f"{row['plain_ms']:.3f} ms; parts " + ", ".join(f"{k} {v:.2f}" for k, v in row["parts_us"].items()))
+    if "seeded" in logs:
+        x = logs["seeded"]
+        prefixes = {str(m): audit_window(audit_prefix(x, m))["device_us"] for m in K8_PREFIXES}
+        out["seeded"]["prefixes_us"] = prefixes
+        log("phase 18: K8 on the seeded log's prefixes (M: device us) " + ", ".join(
+            f"{k}: {v:.2f}" for k, v in prefixes.items()))
+    return out, plans
+
+
+#: phase 18's K3 widths, and the pods sampled per case
+K3_WIDTHS = (120, 943, 1000, 2000, 3001, 5000, 9000)
+K3_SAMPLE = 12
+
+
+def k3_cases(device, n: int) -> dict:
+    """Phase 18 (c)'s cases at N nodes: the serial smoke mix; the same with
+    custom score weights; with pods forced (some pinned to a node, some to
+    no node); the extended mix (storage and GPU pods). {label: (statics,
+    state, pods, flags, sample)}."""
+    rng = np.random.default_rng(n)
+    t, b, s, st, pods = tensorized_batch(*smoke.smoke_problem(synth_cluster, synth_apps, n_nodes=n, n_pods=400),
+                                         device, 3 * n)
+    f = scan.flags_from(t, b.ext)
+    sample = np.sort(rng.choice(len(pods[0]), K3_SAMPLE, replace=False))
+    weights = torch.as_tensor(np.array([1.3, 0.7, 2.1, 0.9, 1.7, 3.3, 0.45, 2.6, 1.15, 0.8, 1.9, 1.05], np.float32),
+                              device=device)
+    forced = [np.array(x, copy=True) for x in pods]
+    forced[3][sample[::2]] = True
+    forced[2][sample[::4]] = rng.integers(0, n, len(sample[::4]))
+    forced[2][sample[2::4]] = -2
+    xt, xb, xs, xst, xpods = tensorized_batch(*smoke.extended_problem(
+        synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes, n_nodes=n, n_pods=600), device, 3 * n)
+    probe = scan.StepBuffers(xs, xst, xpods, scan.flags_from(xt, xb.ext))
+    ext_rows = np.flatnonzero(probe.storage_live | probe.gpu_live)
+    x_sample = np.sort(np.concatenate([rng.choice(ext_rows, K3_SAMPLE // 2, replace=False),
+                                       rng.choice(len(xpods[0]), K3_SAMPLE // 2, replace=False)]))
+    return {"serial": (s, st, pods, f, sample),
+            "custom weights": (s._replace(score_w=weights), st, pods, f, sample),
+            "forced": (s, st, tuple(forced), f, sample),
+            "extended": (xs, xst, xpods, scan.flags_from(xt, xb.ext), np.unique(x_sample))}
+
+
+def compare_k3(label: str, statics, state, pods, flags, sample, err) -> tuple:
+    """K3 against score_argmax_pod_plain on each pod of `sample` after the
+    kernels K1 (K5, K6) and K2 on the same state: the score row bit for bit
+    and chosen, placed, reason and out_node equal. Returns the buffers."""
+    buf = scan.StepBuffers(statics, clone_state(state), pods, flags)
+    fields = ("chosen", "placed", "reason", "out_node")
+    for i in map(int, sample):
+        scan.filter_pod(buf, i)
+        if buf.storage_live[i]:
+            scan.storage_pod(buf, i)
+        if buf.gpu_live[i]:
+            scan.gpu_pod(buf, i)
+        scan.topology_pod(buf, i)
+        scan.score_argmax_pod_plain(buf, i)
+        want = buf.score.clone(), [getattr(buf, f)[i].clone() for f in fields]
+        buf.score.fill_(float("nan"))
+        scan.score_argmax_pod(buf, i)
+        torch.cuda.synchronize()
+        if not torch.equal(buf.score.view(torch.int32), want[0].view(torch.int32)):
+            bad = int((buf.score.view(torch.int32) != want[0].view(torch.int32)).sum())
+            raise AssertionError(f"phase 18: K3 ({label}, N={buf.ctx.n}) pod {i}: {bad} scores differ bitwise")
+        for f, w in zip(fields, want[1]):
+            if getattr(buf, f)[i] != w:
+                raise AssertionError(f"phase 18: K3 ({label}, N={buf.ctx.n}) pod {i}: {f} differs")
+        err["score_argmax_pod"] = max(err["score_argmax_pod"], score_diff(buf.score, want[0]))
+    return buf
+
+
+def launch_score_with(buf, i: int, npt: int) -> None:
+    """K3 for pod i of `buf` on the template `npt` (1: registers, 0:
+    global) instead of its plan's: a measurement launch, not counted."""
+    threads = cuda.score_plan(buf.ctx.n)["threads"]
+    err = cuda.build()["score_argmax_pod"].simtpu_score_argmax_pod(
+        ctypes.byref(buf.ctx), i, ctypes.byref(cuda.ScorePlan(threads=threads, npt=npt)),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K3 on template {npt} failed to launch ({err})")
+
+
+def phase_k3_widths(device, err) -> tuple:
+    """Phase 18 (c): K3 at N = 120 ... 9000 (one node a thread in registers
+    up to 1024 nodes, the global path above) on each case of k3_cases,
+    equal to its plain version; then its device time per launch (profiler)
+    at each N on a serial pod, the plain version's and the bound; up to
+    1024 nodes the global path too, equal to the register path's and timed
+    against it in turns (the sweep behind `cuda.score_plan`). Returns the
+    measurements and each N's plan."""
+    out, plans = {}, {}
+    for n in K3_WIDTHS:
+        plan = plans[str(n)] = cuda.score_plan(n)
+        row = {}
+        timed = None
+        for label, (s, st, pods, f, sample) in k3_cases(device, n).items():
+            buf = compare_k3(label, s, st, pods, f, sample, err)
+            row[label] = len(sample)
+            if label == "serial":
+                timed = (buf, int(sample[-1]))
+        buf, i = timed
+        per, _, _ = profile_kernels(lambda: [scan.score_argmax_pod(buf, i) for _ in range(50)],
+                                    {"score_argmax_pod": lambda: scan.score_argmax_pod(buf, i)})
+        nbytes = kernel_bytes(buf, i)["score_argmax_pod"]
+        row.update(device_us=per["score_argmax_pod"][0], ms_from=ms_from("score_argmax_pod"),
+                   plain_ms=time_call(lambda: scan.score_argmax_pod_plain(buf, i), 10), bytes=nbytes,
+                   bound_us=nbytes / HBM_BYTES_PER_S * 1e6)
+        if plan["npt"]:
+            want = buf.score.clone()
+            buf.score.fill_(float("nan"))
+            launch_score_with(buf, i, 0)
+            torch.cuda.synchronize()
+            if not torch.equal(buf.score.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"phase 18: K3's global path at N={n} differs from its register path")
+            launchers = {"registers": lambda _: launch_score_with(buf, i, plan["npt"]),
+                         "global": lambda _: launch_score_with(buf, i, 0)}
+            row["sweep_us"] = {k: v * 1e3 for k, v in in_turns(launchers, lambda: None, 10).items()}
+        out[str(n)] = row
+        log(f"phase 18: K3 equal to its plain version at N={n} (plan: template {plan['template']}, "
+            f"{plan['threads']} threads) on the serial, custom-weights, forced and extended cases "
+            f"({K3_SAMPLE} pods each): {row['device_us']:.2f} us device ({row['ms_from']}), bound "
+            f"{row['bound_us']:.4f} us, plain {row['plain_ms']:.3f} ms"
+            + (f"; paths (us, CUDA events in turns) {row['sweep_us']}" if "sweep_us" in row else ""))
+    return out, plans
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4546,11 +4883,13 @@ def main() -> int:
                     f"{ph} {us:.2f} us" for ph, us in sp["phase_us"].items()) + f"{extra} [{card}]")
 
     # -- phase 7: the large capacity plan (bulk + incremental) ---------------
-    l_plan, l_launches, l_wall = run_large_capacity(card)
+    l_plan, l_launches, l_wall, l_audit = run_large_capacity(card)
 
     # -- phases 8-11: the batched what-if sweeps -------------------------------
     serial_faults = run_serial_faults(card, err)
     bulk_faults, bulk_pc = run_bulk_faults(card, err)
+    # phase 18's K8 logs on the bulk problem's nodes
+    k8_logs = {"large capacity winner": l_audit, **bulk_audit_logs(bulk_pc, device)}
     batched_capacity = run_batched_capacity(card)
     resilience_plan = run_resilience_plan(card)
 
@@ -4567,19 +4906,24 @@ def main() -> int:
     # -- phase 16: the wide problem through every StepCtx kernel family ---------
     wide_paths = run_wide(card)
 
+    # -- phase 18: K18 past 4096 keys; K8 on large and skewed logs; K3's widths --
+    many_keys, many_keys_plan = phase_many_keys(device, err)
+    audit_logs, audit_plans = phase_audit_logs(k8_logs)
+    del k8_logs, l_audit
+    k3_widths, k3_plans = phase_k3_widths(device, err)
+
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
     w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
                           device)
     k8_ms = time_call(lambda: kaudit.audit_bulk(w_x), 200)
     k8_plain_ms = time_call(lambda: kaudit.audit_bulk_plain(w_x), 5)
-    k8_per, _, _ = profile_kernels(lambda: [kaudit.audit_bulk(w_x) for _ in range(20)],
-                                   {"audit_bulk": lambda: kaudit.audit_bulk(w_x)})
-    x_per.update(k8_per)
+    k8_winner = audit_window(w_x, 20)
+    x_per["audit_bulk"] = (k8_winner["device_us"], 20)
     k8_bytes = audit_bytes(w_x)
-    log(f"  audit_bulk: M={len(w_e.n)} N={w_tensors.n_nodes}: {k8_per['audit_bulk'][0]:.2f} us device "
-        f"(profiler), {k8_ms * 1e3:.2f} us per back-to-back launch from Python, plain "
-        f"{k8_plain_ms * 1e3:.1f} us, {k8_bytes} B")
+    log(f"  audit_bulk: M={len(w_e.n)} N={w_tensors.n_nodes}: {k8_winner['device_us']:.2f} us device over "
+        f"{k8_winner['kernels_per_launch']} kernels a launch ({k8_winner['ms_from']}), {k8_ms * 1e3:.2f} us per "
+        f"back-to-back launch from Python, plain {k8_plain_ms * 1e3:.1f} us, {k8_bytes} B")
 
     rows = []
     busy_s = 0.0
@@ -4786,7 +5130,32 @@ def main() -> int:
             row["yardstick"] = 'torch.einsum("scn,cr->snr", y, req): the load alone, not the whole function'
         if row["name"] == "explain_pass":
             row["shapes"] = explain_shapes
-    print(json.dumps({"kernels": rows, "card": card, "terms": terms_run,
+        if row["name"] == "sweep_drain":
+            row["many_keys"] = many_keys
+        if row["name"] == "audit_bulk":
+            row["kernels_per_launch"] = k8_winner["kernels_per_launch"]
+            row["parts_us"] = k8_winner["parts_us"]
+            row["logs"] = audit_logs
+            row["launches_by_phase"] = {
+                "5": c_launches.get("audit_bulk", 0), "7": l_launches.get("audit_bulk", 0),
+                "8": sum(serial_faults[k]["launches"].get("audit_bulk", 0) for k in ("zone", "k1")),
+                "9": bulk_faults["launches"].get("audit_bulk", 0),
+                "10": batched_capacity["launches"].get("audit_bulk", 0),
+                "11": resilience_plan["launches"].get("audit_bulk", 0),
+                "12": sum(explain[p]["launches"].get("audit_bulk", 0) for p in ("extended", "bulk", "scores", "plan")),
+                "13": fuzz_run["launches"].get("audit_bulk", 0) + fuzz_run["mutation_kill"]["launches"].get(
+                    "audit_bulk", 0)}
+        if row["name"] == "score_argmax_pod":
+            row["widths"] = k3_widths
+            row["launches_bulk_path"] = b_launches.get("score_argmax_pod", 0)
+            row["launches_large_capacity_path"] = l_launches.get("score_argmax_pod", 0)
+    # launch plans and constants beside the line's measurements: the
+    # wrappers' choices, not readings of this run
+    plans = {"sweep_drain_many_keys": many_keys_plan, "audit_bulk_logs": audit_plans,
+             "audit_bulk_capacity_winner": {k: v for k, v in cuda.audit_plan(
+                 w_tensors.n_nodes, len(w_e.n), 0).items() if k not in ("offsets", "s", "words")},
+             "score_argmax_pod_widths": k3_plans}
+    print(json.dumps({"kernels": rows, "plans": plans, "card": card, "terms": terms_run,
                       "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
                                         "partitions": parts},
                       "serial": {"wall_s": wall, "pods": n_pods, "pods_per_s": n_pods / wall,

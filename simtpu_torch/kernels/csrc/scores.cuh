@@ -279,42 +279,3 @@ __device__ inline float node_score(const StepCtx& x, int i, int n, const ScoreNo
   if (f & F_STORAGE) s = __fmaf_rn(w_[10], minmax_norm(st_live ? x.st_raw[n] : 0.0f, lo[3], hi[7]), s);
   return s;
 }
-
-// K3 for pod i, block-wide. For a pod that ran K5 (K6) the storage (GPU)
-// verdict is ANDed into the cascade after the bind stage, so the stages
-// are static, ports, resources, volumes, attach, bind, storage, GPU,
-// spread, all (FILTER_CASCADE). Two passes over the nodes:
-//   pass 1 (score_norms_block) reduces the stage bits (OR) and the masked
-//          normalizers over the feasible nodes;
-//   pass 2 (node_score) forms each node's score, then the argmax with the
-//          lowest index on ties (all -inf gives 0).
-// Thread 0 applies the forced-pod override and writes chosen, placed,
-// reason and out_node for pod i, at row `o` of the outputs (default i).
-__device__ inline void score_argmax_block(const StepCtx& x, int i, int o = -1) {
-  __shared__ float sh_bv[32];
-  __shared__ int sh_bi[32];
-  const int N = x.n;
-  ScoreNorms nm;
-  score_norms_block(x, i, nm);
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float s = node_score(x, i, n, nm);
-    x.score[n] = s;
-    argmax_merge(bv, bi, s, n);
-  }
-  block_argmax(bv, bi, sh_bv, sh_bi);
-  if (threadIdx.x != 0) return;
-  const unsigned any = nm.any;
-  const int fail = fail_code(any);
-  const bool forced = x.forced[i];
-  const int pin = x.pin[i];
-  const int pin_c = pin < 0 ? 0 : (pin >= N ? N - 1 : pin);
-  const int chosen = forced ? pin : bi;
-  const bool placed = forced ? (pin >= 0 && x.node_valid[pin_c]) : ((any & CASCADE_ALL) != 0u);
-  if (o < 0) o = i;
-  x.chosen[o] = chosen;
-  x.placed[o] = placed ? 1 : 0;
-  x.reason[o] = placed ? OK : (forced ? FAIL_NO_NODE : fail);
-  x.out_node[o] = placed ? chosen : -1;
-}

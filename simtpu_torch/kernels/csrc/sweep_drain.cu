@@ -31,10 +31,12 @@
 //      increments added in a register in log order, written once: the
 //      entries' own nodes' rows one element a thread (a scenario's entries
 //      mostly name the same few failed nodes), the count rows by node
-//      through the run's (entry, term) pairs sorted by (key, domain, term,
-//      log order), where a node finds the pairs of its own domains by
-//      binary search; the tile-0 block updates cnt_total, one thread a
-//      term.
+//      through the run's (entry, term) pairs ranked by (key, domain, term,
+//      log order) on the staged fields (no field cut to pack a key: any
+//      number of topology keys, domains and terms), where a node finds the pairs of
+//      its own domains by binary search, first its key's run and then its
+//      domain's inside it; the tile-0 block updates cnt_total, one thread
+//      a term.
 // A w = 0 entry is skipped (in JAX its device mask is zeroed, so it is an
 // exact no-op there too). Each element has one writer and its f32 adds
 // happen in log order, bit for bit JAX's sequential scan: no atomics. (A
@@ -67,10 +69,10 @@ constexpr int DRAIN_SMEM_MAX = 200 * 1024;
 constexpr int DRAIN_RUNS = 2;
 
 // shared words of `en` staged entries of a group with tc term columns, on
-// node rows `width` elements wide: 5 per entry, 12 per (entry, term), one
+// node rows `width` elements wide: 5 per entry, 10 per (entry, term), one
 // per (entry, element)
 __host__ __device__ inline int drain_stage_words(int en, int tc, int width) {
-  return en * (5 + 12 * tc + width);
+  return en * (5 + 10 * tc + width);
 }
 
 namespace {
@@ -172,12 +174,12 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
 
   // The staged run: per entry its node, weight, row, group, whether it is
   // the first staged entry on its node and its operands on its node's rows
-  // (delta_rows.cuh); per (entry, term) pair the term, its key, the domain
-  // of the entry's node on it (-1: no count moves), the interpod row, the
-  // five increments (each incidence or weight times w: the products the
-  // sequential scan adds) and the sort key (keys below 2^12, domains below
-  // 2^24, terms below 2^28: the wrapper checks the first and the last).
-  extern __shared__ unsigned long long stage_smem[];
+  // (delta_rows.cuh); per (entry, term) pair its key, the domain of the
+  // entry's node on it (-1: no count moves, also for a w = 0 entry), the
+  // term, the interpod row, its sort rank and the five increments (each
+  // incidence or weight times w: the products the sequential scan adds).
+  extern __shared__ __align__(16) unsigned long long stage_smem[];
+  __shared__ int s_moves;  // the staged run's pairs that move a count
   unsigned long long* stage =
       SLAB ? reinterpret_cast<unsigned long long*>(
                  w.slab + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * w.slab_stride)
@@ -187,13 +189,12 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
                               ports_used, vols_any, vols_rw, vg_free, sdev_free, gpu_free};
   const int tc = x.tc, en = w.pod_words, width = delta_node_width(rows);
   const int pn = en * tc;
-  unsigned long long* sk = stage;  // [pn] (key << 52 | domain << 28 | term), ~0: moves no count
-  int* t_order = reinterpret_cast<int*>(stage + pn);  // [pn] the pair of each sort rank
-  int* t_term = t_order + pn;
-  int* t_key = t_term + pn;
-  int* t_dc = t_key + pn;
-  int* t_ip = t_dc + pn;
-  float* t_inc = reinterpret_cast<float*>(t_ip + pn);  // [5][pn]
+  // [pn] (domain, key, term, interpod row) of each pair, (-1, -1) where it
+  // moves no count: the rank pass reads a pair's sort fields in one
+  // 16-byte load
+  int4* t_pair = reinterpret_cast<int4*>(stage);
+  int* t_order = reinterpret_cast<int*>(t_pair + pn);  // [pn] the pair of each sort rank
+  float* t_inc = reinterpret_cast<float*>(t_order + pn);  // [5][pn]
   int* e_c = reinterpret_cast<int*>(t_inc + 5 * pn);
   float* e_w = reinterpret_cast<float*>(e_c + en);
   int* e_e = e_c + 2 * en;
@@ -201,14 +202,24 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
   int* e_first = e_c + 4 * en;
   float* e_op = reinterpret_cast<float*>(e_c + 5 * en);  // [en][width]
   const int* idx = w.idx + static_cast<size_t>(s) * w.cols;
-  constexpr unsigned long long NO_MOVE = ~0ull, LOW28 = (1ull << 28) - 1;
-  // the sort key of rank q; the first rank in [lo, hi) whose key is at
-  // least v
-  auto ranked = [&](int q) { return sk[t_order[q]]; };
-  auto lower = [&](int lo, int hi, unsigned long long v) {
+  // the pairs' order: by (key, domain, term, log order), the key and the
+  // domain (both below 2^31) compared as one 64-bit word, key high: no
+  // field is cut. A pair that moves no count (no domain: no term, or w = 0)
+  // has both at -1, so its word is the largest and it sorts after every
+  // pair that moves one.
+  auto kd = [](const int4& a) {
+    return (static_cast<unsigned long long>(static_cast<unsigned>(a.y)) << 32) | static_cast<unsigned>(a.x);
+  };
+  auto before = [&](const int4& a, int p2, const int4& b, int p) {
+    const unsigned long long ka = kd(a), kb = kd(b);
+    return ka < kb || (ka == kb && (a.z < b.z || (a.z == b.z && p2 < p)));
+  };
+  // the first rank in [lo, hi) whose pair is not below the bound: a key
+  // above kk; a domain of at least d (in kk's run)
+  auto first = [&](int lo, int hi, auto below) {
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (ranked(mid) < v) lo = mid + 1; else hi = mid;
+      if (below(t_order[mid])) lo = mid + 1; else hi = mid;
     }
     return lo;
   };
@@ -288,6 +299,7 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
   for (int k0 = 0; k0 < w.cols; k0 += en) {
     const int kn = min(en, w.cols - k0);
     if (k0 > 0) stage_entries(k0, kn);
+    if (threadIdx.x == 0) s_moves = 0;
     __syncthreads();
     // the entries end at the first padding column
     int kv = kn;
@@ -306,6 +318,7 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
       e_op[q] = e_w[k] == 0.0f ? 0.0f : delta_node_operand(rows, e_e[k], e_g[k], e_w[k], i);
     }
     const int pv = kv * tc;
+    int moving = 0;
     for (int p = threadIdx.x; p < pv; p += blockDim.x) {
       const int k = p / tc, t = p - k * tc;
       const float wt = e_w[k];
@@ -323,27 +336,26 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
         inc[3] = x.w_aff_pref[gt] * wt;
         inc[4] = x.w_anti_pref[gt] * wt;
       }
-      t_term[p] = term;
-      t_key[p] = key;
-      t_dc[p] = dc;
-      t_ip[p] = ip;
+      const bool moves = wt != 0.0f && dc >= 0;
+      moving += moves ? 1 : 0;
+      t_pair[p] = make_int4(moves ? dc : -1, moves ? key : -1, term, ip);
       for (int q = 0; q < 5; ++q) t_inc[q * pn + p] = inc[q];
-      sk[p] = (wt == 0.0f || term < 0 || dc < 0)
-                  ? NO_MOVE
-                  : (static_cast<unsigned long long>(key) << 52) | (static_cast<unsigned long long>(dc) << 28) |
-                        static_cast<unsigned long long>(term);
     }
+    if (moving) atomicAdd(&s_moves, moving);
     __syncthreads();
-    // each pair's rank: keys ascending, log order within a key
+    // each moving pair's rank in that order (no pair that moves nothing
+    // comes before it, so it is its rank among the moving pairs); the rest
+    // are never walked
     for (int p = threadIdx.x; p < pv; p += blockDim.x) {
-      const unsigned long long v = sk[p];
+      const int4 b = t_pair[p];
+      if (b.x < 0) continue;
       int rank = 0;
-      for (int p2 = 0; p2 < pv; ++p2) rank += (sk[p2] < v || (sk[p2] == v && p2 < p)) ? 1 : 0;
+      for (int p2 = 0; p2 < pv; ++p2) rank += before(t_pair[p2], p2, b, p) ? 1 : 0;
       t_order[rank] = p;
     }
     const bool first_run = k0 == 0;
     __syncthreads();
-    const int moves = lower(0, pv, NO_MOVE);
+    const int moves = s_moves;
 
     // the entries' own nodes' rows, one thread per element of a node's rows
     for (int k = 0; k < kv; ++k) {
@@ -383,13 +395,12 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
     float* dst_own[4] = {own_anti, own_aff, aff_pref, anti_pref};
     for (int n = n0 + threadIdx.x; n < n1; n += blockDim.x) {
       for (int q = 0; q < moves;) {
-        const unsigned long long kk = ranked(q) >> 52;
-        const int end = lower(q, moves, (kk + 1) << 52);
+        const int kk = t_pair[t_order[q]].y;
+        const int end = first(q, moves, [&](int p) { return t_pair[p].y <= kk; });
         const int d = __ldg(x.node_dom + static_cast<size_t>(kk) * N + n);
         if (d >= 0) {
-          const unsigned long long at = (kk << 52) | (static_cast<unsigned long long>(d) << 28);
-          int a = lower(q, end, at);
-          const int z = lower(a, end, at + (1ull << 28));
+          int a = first(q, end, [&](int p) { return t_pair[p].x < d; });
+          const int z = first(a, end, [&](int p) { return t_pair[p].x <= d; });
           while (a < z) {
             int run0[DRAIN_RUNS], run1[DRAIN_RUNS];
             float v[DRAIN_RUNS][5];
@@ -399,13 +410,13 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
             for (int u = 0; u < DRAIN_RUNS; ++u) {
               run0[u] = run1[u] = a;
               if (a >= z) continue;
-              const unsigned long long term_k = ranked(a) & LOW28;
-              while (a < z && (ranked(a) & LOW28) == term_k) ++a;
+              const int term_k = t_pair[t_order[a]].z;
+              while (a < z && t_pair[t_order[a]].z == term_k) ++a;
               run1[u] = a;
-              const int p0 = t_order[run0[u]];
-              row[u] = static_cast<size_t>(t_term[p0]) * N + n;
-              own[u] = t_ip[p0] >= 0;
-              ipn[u] = static_cast<size_t>(own[u] ? t_ip[p0] : 0) * N + n;
+              const int4 p0 = t_pair[t_order[run0[u]]];
+              row[u] = static_cast<size_t>(p0.z) * N + n;
+              own[u] = p0.w >= 0;
+              ipn[u] = static_cast<size_t>(own[u] ? p0.w : 0) * N + n;
               v[u][0] = src_match[row[u]];
               if (own[u])
                 for (int o = 0; o < 4; ++o) v[u][1 + o] = src_own[o][ipn[u]];
@@ -432,9 +443,8 @@ __global__ void __launch_bounds__(DRAIN_THREADS, DRAIN_BLOCKS_PER_SM + 1) sweep_
     // term % threads's, which adds its pairs in log order
     if (total_owner)
       for (int p = 0; p < pv; ++p) {
-        const int term = t_term[p];
-        if (term < 0 || term % static_cast<int>(blockDim.x) != static_cast<int>(threadIdx.x) || t_dc[p] < 0 ||
-            e_w[p / tc] == 0.0f)
+        const int term = t_pair[p].z;
+        if (term < 0 || term % static_cast<int>(blockDim.x) != static_cast<int>(threadIdx.x) || t_pair[p].x < 0)
           continue;
         cnt_total[term] = cnt_total[term] + t_inc[p];
       }

@@ -54,6 +54,7 @@ KERNELS = (
     "relax_load", "relax_project", "grow_terms", "grow_nodes",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
+#: (K3 as simtpu_score_argmax_pod(StepCtx*, pod, ScorePlan*, stream))
 STEP_KERNELS = KERNELS[:6]
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
 WAVE_KERNELS = KERNELS[8:10]
@@ -147,7 +148,9 @@ def build() -> dict:
     for name in KERNELS:
         lib = ctypes.CDLL(str(_lib_path(name)))
         fn = getattr(lib, f"simtpu_{name}")
-        if name in STEP_KERNELS:
+        if name == "score_argmax_pod":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        elif name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         elif name in CLUSTER_KERNELS or name in PLANNED_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -155,6 +158,8 @@ def build() -> dict:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name == "pod_terms":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        elif name == "audit_bulk":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -383,16 +388,48 @@ def make_ctx(buf, out_rows: int = None) -> StepCtx:
     )
 
 
+#: K3's launch plan (csrc/score_argmax_pod.cu): threads a block at most,
+#: and the nodes a thread keeps in registers (one; past SCORE_BLOCK nodes
+#: the inputs are read again in pass 2: 2 and 4 nodes a thread in
+#: registers measured no faster than that on the card)
+SCORE_BLOCK = 1024
+SCORE_REG_NPT = 1
+
+
+class ScorePlan(ctypes.Structure):
+    """ctypes mirror of `struct ScorePlan` in csrc/score_argmax_pod.cu."""
+
+    _fields_ = [("threads", ctypes.c_int), ("npt", ctypes.c_int)]
+
+
+def score_plan(n: int) -> dict:
+    """K3's launch plan for N nodes: one block of `threads` threads, node n
+    on thread n % threads; up to SCORE_BLOCK nodes each thread keeps its
+    node's inputs in registers between its two passes (npt 1), and past
+    that reads its `nodes_per_thread` nodes' inputs again in pass 2 (npt 0,
+    "global")."""
+    threads = min(max(-(-n // 32) * 32, 32), SCORE_BLOCK)
+    npt = SCORE_REG_NPT if n <= SCORE_BLOCK else 0
+    return {"threads": threads, "npt": npt, "nodes_per_thread": npt or -(-n // threads),
+            "template": "registers" if npt else "global"}
+
+
 def launch(name: str, buf, i: int) -> None:
-    """Launch kernel `name` for pod i of `buf` on the current CUDA stream;
-    raises if the launch is refused. No synchronization."""
+    """Launch kernel `name` for pod i of `buf` on the current CUDA stream
+    (K3 on `score_plan`); raises if the launch is refused. No
+    synchronization."""
     if not 0 <= i < buf.n_pods:
         raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
     libs = build()
     if buf.ctx is None:
         buf.ctx = make_ctx(buf)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = getattr(libs[name], f"simtpu_{name}")(ctypes.byref(buf.ctx), i, stream)
+    fn = getattr(libs[name], f"simtpu_{name}")
+    if name == "score_argmax_pod":
+        plan = score_plan(buf.ctx.n)
+        err = fn(ctypes.byref(buf.ctx), i, ctypes.byref(ScorePlan(threads=plan["threads"], npt=plan["npt"])), stream)
+    else:
+        err = fn(ctypes.byref(buf.ctx), i, stream)
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
@@ -890,13 +927,67 @@ class AuditCtx(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_int) for f in _AUDIT_INT_FIELDS] + [
         (f, ctypes.c_void_p) for f, _, _ in _AUDIT_PTR_FIELDS
-    ] + [("acc", ctypes.c_void_p), ("flags", ctypes.c_void_p)]
+    ] + [("flags", ctypes.c_void_p)]
+
+
+#: K8's launch plan (csrc/audit_bulk.cu): threads a block, the entries a
+#: radix block ranks, the sorted positions a scan block holds (one a
+#: thread), the widest radix digit
+AUDIT_THREADS = 256
+AUDIT_SORT_TILE = 2048
+AUDIT_SCAN_TILE = 256
+AUDIT_MAX_DIGIT_BITS = 10
+#: the scratch arrays of `struct AuditPlan`, in its order: (name, bytes of
+#: one element, elements as a function of the plan)
+_AUDIT_SCRATCH = (
+    ("keys", 4, lambda p: 2 * p["m"]),
+    ("vals", 4, lambda p: 2 * p["m"]),
+    ("hist", 4, lambda p: p["buckets"] * p["sort_tiles"]),
+    ("tail", 8, lambda p: p["scan_tiles"] * p["s"]),
+    ("carry", 8, lambda p: p["scan_tiles"] * p["s"]),
+    ("starts", 4, lambda p: p["scan_tiles"]),
+    ("onw", 4, lambda p: p["words"] * p["m"]),
+    ("done", 4, lambda p: p["passes"] + 1),
+)
+
+
+class AuditPlan(ctypes.Structure):
+    """ctypes mirror of `struct AuditPlan` in csrc/audit_bulk.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("passes", "digit_bits", "sort_tiles", "scan_tiles", "s", "words")] + [
+        (f, ctypes.c_void_p) for f, _, _ in _AUDIT_SCRATCH]
+
+
+def audit_plan(n: int, m: int, s: int, w: int = 0) -> dict:
+    """K8's launch plan for M entries on N nodes, S prefix columns (R + P +
+    2W + V + SD + GD) and W volumes: the node ids (N for one outside [0,
+    N)) sorted by `passes` LSD radix passes of `digit_bits` bits
+    (`buckets` digits; one pass up to 1023 nodes), each a count and a place
+    kernel over `sort_tiles` blocks of AUDIT_SORT_TILE entries, then the
+    tails and the flags kernels over `scan_tiles` blocks of
+    AUDIT_SCAN_TILE sorted positions: `kernels` launches an audit, none
+    scanning the log once per node. `offsets` / `scratch_bytes` lay the
+    scratch arrays out in one slab, each 16-byte aligned."""
+    key_bits = max(1, int(n).bit_length())
+    passes = -(-key_bits // AUDIT_MAX_DIGIT_BITS)
+    digit_bits = -(-key_bits // passes)
+    plan = {"n": n, "m": m, "s": s, "words": -(-w // 32), "passes": passes, "digit_bits": digit_bits,
+            "buckets": 1 << digit_bits, "threads": AUDIT_THREADS,
+            "sort_tiles": max(1, -(-m // AUDIT_SORT_TILE)), "scan_tiles": max(1, -(-m // AUDIT_SCAN_TILE)),
+            "kernels": 2 * passes + 2}
+    at, offsets = 0, {}
+    for name, size, count in _AUDIT_SCRATCH:
+        offsets[name] = at
+        at = (at + size * count(plan) + 15) & ~15
+    plan.update(offsets=offsets, scratch_bytes=at)
+    return plan
 
 
 def launch_audit(x) -> torch.Tensor:
     """K8 over `x` (a kernels/audit.py AuditInputs on one CUDA device) on
-    the current stream, in one launch; returns the flag words [M] int32.
-    Raises if an input is malformed or the launch is refused."""
+    the current stream, in one call of its C entry (`audit_plan`'s kernels
+    and the memset of their finish counters); returns the flag words [M]
+    int32. Raises if an input is malformed or the launch is refused."""
     libs = build()
     device = x.alloc.device
     tensors = {
@@ -915,14 +1006,17 @@ def launch_audit(x) -> torch.Tensor:
         "node": (m,), "pin": (m,), "forced": (m,), "req": (m, r), "lvm": (m, v),
         "sdev": (m, sd), "gpu": (m, gd),
     })
-    # the walkers' running sums: written (zeroed first) by the kernel itself
-    acc = torch.empty((n, r + p + 2 * w + v + sd + gd), dtype=torch.float64, device=device)
-    flags = torch.zeros(m, dtype=torch.int32, device=device)
-    ctx = AuditCtx(n=n, m=m, r=r, p=p, w=w, c=c, v=v, sd=sd, gd=gd, pad_=0,
-                   acc=acc.data_ptr(), flags=flags.data_ptr(),
+    plan = audit_plan(n, m, r + p + 2 * w + v + sd + gd, w)
+    # every flag word and scratch element is written by the kernels
+    flags = torch.empty(m, dtype=torch.int32, device=device)
+    slab = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=device)
+    ctx = AuditCtx(n=n, m=m, r=r, p=p, w=w, c=c, v=v, sd=sd, gd=gd, pad_=0, flags=flags.data_ptr(),
                    **{f: t.data_ptr() for f, t in tensors.items()})
+    block = AuditPlan(passes=plan["passes"], digit_bits=plan["digit_bits"], sort_tiles=plan["sort_tiles"],
+                      scan_tiles=plan["scan_tiles"], s=plan["s"], words=plan["words"],
+                      **{f: slab.data_ptr() + off for f, off in plan["offsets"].items()})
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = libs["audit_bulk"].simtpu_audit_bulk(ctypes.byref(ctx), stream)
+    err = libs["audit_bulk"].simtpu_audit_bulk(ctypes.byref(ctx), ctypes.byref(block), stream)
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel audit_bulk failed to launch: {msg} ({err})")
@@ -1283,10 +1377,15 @@ DRAIN_MIN_TILE = 64
 DRAIN_BLOCKS_PER_SM = 2
 H100_SMS = 132
 #: the entries K18 stages in shared memory at a time at most, and the
-#: shared words the staging may take (5 per entry, 12 per entry and term,
+#: shared words the staging may take (5 per entry, 10 per entry and term,
 #: one per entry and element of a node's rows)
 DRAIN_STAGE_ENTRIES = 64
 DRAIN_STAGE_WORDS = 12 * 1024
+#: the staged words of one (entry, term) pair: its domain, key, term and
+#: interpod row, its rank and five increments (the pairs are ranked on
+#: those fields as staged, so no packed sort key is staged and no count of
+#: keys, domains or terms is refused)
+DRAIN_PAIR_WORDS = 10
 #: where one entry of a group's term columns passes DRAIN_STAGE_WORDS: the
 #: shared bytes the staging may take with the opt-in attribute, and past
 #: them one entry at a time in each block's slab of global scratch
@@ -1322,7 +1421,7 @@ def sweep_drain_plan(s: int, n: int, tc: int = 0, width: int = 0, sms: int = H10
     tile = max(DRAIN_MIN_TILE, -(-(-(-max(n, 1) // want)) // 32) * 32)
     tiles = max(1, -(-n // tile))
     threads = DRAIN_THREADS
-    per_entry = 5 + 12 * tc + width
+    per_entry = 5 + DRAIN_PAIR_WORDS * tc + width
     budget = DRAIN_STAGE_WORDS if per_entry <= DRAIN_STAGE_WORDS else DRAIN_SMEM_MAX // 4
     entries = max(1, min(DRAIN_STAGE_ENTRIES, budget // per_entry))
     plan = {"tile": tile, "tiles": tiles, "threads": threads, "blocks": s * tiles, "grid": (s, tiles),
@@ -1347,6 +1446,22 @@ def _replica_dims(base, reps, s: int) -> tuple:
     return reps[2].shape[1], reps[3].shape[1]
 
 
+def check_sweep_drain(statics, base, reps, idx: torch.Tensor) -> tuple:
+    """K18's input checks, on any device: `idx` a contiguous [S, E] int32
+    tensor on the base's device, `reps` S contiguous replicas of `base`'s
+    planes, the statics' node_dom a contiguous int32 [K, N] tensor there.
+    Returns (S, T, Ti). No count of topology keys (node_dom's rows),
+    domains or terms is refused."""
+    device = base.free.device
+    _checked("idx", idx, device, torch.int32)
+    _checked("statics.node_dom", statics.node_dom, device, torch.int32)
+    if idx.dim() != 2:
+        raise ValueError(f"idx: need an [S, E] tensor, got {tuple(idx.shape)}")
+    s = idx.shape[0]
+    t, ti = _replica_dims(base, reps, s)
+    return s, t, ti
+
+
 def launch_sweep_drain(statics, base, reps, log: dict, idx: torch.Tensor) -> None:
     """K18 on the current stream, in one launch of idx.shape[0] x tiles
     blocks (`sweep_drain_plan` for the card's SM count): replica s of
@@ -1355,13 +1470,10 @@ def launch_sweep_drain(statics, base, reps, log: dict, idx: torch.Tensor) -> Non
     `idx` ([S, E] int32, -1 = trailing padding) applied in order; `log`
     maps g, node, wgt, req, vg, sd_take, gp to the packed whole log on the
     device. Raises if an input is malformed or the launch is refused."""
+    s, t, ti = check_sweep_drain(statics, base, reps, idx)
     libs = build()
     device = base.free.device
-    s, cols = idx.shape
-    _checked("idx", idx, device, torch.int32)
-    t, ti = _replica_dims(base, reps, s)
-    if statics.node_dom.shape[0] >= 1 << 12 or t >= 1 << 28:
-        raise ValueError(f"sweep_drain: {statics.node_dom.shape[0]} topology keys or {t} terms past its sort keys")
+    cols = idx.shape[1]
     rep0 = type(base)(*(r[0] for r in reps))
     ctx = make_delta_ctx(statics, rep0, log)
     planes = {f: _checked(f"base.{f}", b, device, b.dtype).data_ptr() for f, b in zip(DENSE_FIELDS, base)}

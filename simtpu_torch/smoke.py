@@ -342,6 +342,35 @@ def keys_problem(synth, app_cls, resources_cls, n_nodes=N_NODES, keys=KEYS, repl
     return cluster, [app_cls(name="keys", resource=resources_cls(deployments=deps))]
 
 
+#: the many-keys problem: more topology keys than a packed 12-bit key
+#: field holds. Every node carries MANY_KEYS label keys (`mk-<k>`, three
+#: domains each); deployment d owns MANY_KEYS_PER_GROUP preferred
+#: anti-affinity terms over keys [d * per, (d + 1) * per), each selecting
+#: the deployment's own pods, so every group's Tc stays at 64 while the
+#: problem has MANY_KEYS keys.
+MANY_KEYS = 4100
+MANY_KEYS_PER_GROUP = 50
+
+
+def many_keys_problem(synth, app_cls, resources_cls, n_nodes: int, replicas: int, keys=MANY_KEYS,
+                      per_group=MANY_KEYS_PER_GROUP):
+    """(cluster, apps) of the many-keys problem from a package's own synth
+    module, AppResource and ResourceTypes."""
+    cluster = synth.synth_cluster(n_nodes, **CLUSTER_KW)
+    for i, node in enumerate(cluster.nodes):
+        node["metadata"]["labels"].update({f"mk-{k}": f"d{(i + k) % 3}" for k in range(keys)})
+    deps = []
+    for d in range(-(-keys // per_group)):
+        dep = synth.make_deployment(f"mk-{d}", replicas, 200, 128, anti_affinity_topo="mk-0")
+        dep["spec"]["template"]["spec"]["affinity"]["podAntiAffinity"][
+            "preferredDuringSchedulingIgnoredDuringExecution"] = [
+            {"weight": 1 + k % 100, "podAffinityTerm": {"labelSelector": {"matchLabels": {"app": f"mk-{d}"}},
+                                                       "topologyKey": f"mk-{k}"}}
+            for k in range(d * per_group, min(keys, (d + 1) * per_group))]
+        deps.append(dep)
+    return cluster, [app_cls(name="many-keys", resource=resources_cls(deployments=deps))]
+
+
 #: the terms problem: any number of term columns per group (Tc). One app
 #: ("many") carries TERMS preferred anti-affinity terms, term i selecting
 #: `tier In [web, x<i>]` over the hostname, zone or rack key (i mod 3), so

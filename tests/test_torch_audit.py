@@ -18,8 +18,11 @@
 The JAX side runs its numpy twin (`SIMTPU_AUDIT_JIT=0`, set per test).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 import simtpu
 import simtpu.audit.checker as jchecker
@@ -32,6 +35,7 @@ from simtpu_torch.kernels import cuda
 
 from .test_torch_preemption import CASES as PREEMPT_CASES
 from .test_torch_simulate import _demo
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = simtpu_torch.device.resolve_device("cpu")
 BIT = {kind: i for i, kind in enumerate(kaudit.BULK_BITS)}
@@ -95,6 +99,8 @@ def _bulk_cases():
     cases += [("bulk", k) for k in fuzz.BULK_CORRUPTIONS]
     cases += [("mut", k) for k in ("forced-elsewhere", "forced-overcommit", "pin-missing",
                                    "pin-elsewhere", "exact-fill", "just-past-fill")]
+    # skewed logs: every entry on one node; most nodes empty
+    cases += [(fx, k) for fx in ("mut", "bulk") for k in ("one-node", "most-empty")]
     return cases
 
 
@@ -109,6 +115,11 @@ def test_bulk_plain_flags_equal_the_numpy_twin(placements, fixture, kind):
         x = checker._upload(*inputs, np.ones(tensors.alloc.shape[0], bool), CPU)
         assert x.ports.shape[1] == x.vol_rw.shape[1] == x.vol_class_mask.shape[0] == 0
         assert x.vg_avail0.shape[1] == x.sdev_free0.shape[1] == x.gpu_total.shape[1] == 0
+    elif kind == "one-node":
+        inputs = (tensors, dataclasses.replace(e, n=np.full_like(e.n, e.n[len(e.n) // 2])))
+    elif kind == "most-empty":
+        last = tensors.alloc.shape[0] - 1
+        inputs = (tensors, dataclasses.replace(e, n=np.where(e.n % 2 == 0, 0, last).astype(e.n.dtype)))
     elif kind in NODE_MUTATIONS:
         mut = fuzz.mutate_entries(kind, tensors, e, np.random.default_rng(rng_seed))
         ref = jfuzz._mutate_nodes(kind, tensors, fuzz.entries_as_batch(e), e.n,
@@ -144,8 +155,6 @@ def test_exact_fill_sits_on_the_boundary(placements):
 
 def test_no_entries(placements):
     tensors, e = placements["bulk"]
-    import dataclasses
-
     empty = dataclasses.replace(e, g=e.g[:0], n=e.n[:0], req=e.req[:0], forced=e.forced[:0],
                                 pin=e.pin[:0], lvm=e.lvm[:0], sdev=e.sdev[:0], gpu=e.gpu[:0],
                                 rows=e.rows[:0], names=[])

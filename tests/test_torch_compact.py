@@ -47,6 +47,7 @@ from simtpu_torch.engine import scan as tscan
 from simtpu_torch.engine import state as tstate
 from simtpu_torch.engine import wavefront as twf
 from simtpu_torch.kernels import cuda
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

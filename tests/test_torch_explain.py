@@ -61,6 +61,7 @@ from simtpu_torch.kernels import cuda
 
 from .test_torch_kernels import _numpy_tree
 from .test_torch_simulate import REPO
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL, MARGIN_ATOL = smoke.TERMS_RTOL, smoke.TERMS_ATOL, smoke.MARGIN_ATOL
 

@@ -62,6 +62,7 @@ from .test_torch_kernels import (
     _volume_pod,
 )
 from .test_torch_simulate import REPO, assert_same_simulation
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = np.float32
 GI = 2**30

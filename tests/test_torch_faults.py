@@ -44,6 +44,7 @@ from simtpu_torch.kernels import cuda
 
 from .test_torch_kernels import _numpy_tree, _port_flags
 from .test_torch_simulate import REPO
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 SWEEP_KEYS = ("evicted", "lost", "requeued", "unplaced", "requeue_rows", "requeue_nodes",
               "requeue_reasons")
@@ -68,11 +69,12 @@ def _mixed_problem(pkg, node_seed=21, app_seed=22, n_nodes=10, n_pods=60):
     return cluster, apps
 
 
-def _place(pkg, **kw):
-    """(cluster, PlacedCluster) of the mixed problem, pod names seeded."""
+def _place(pkg, problem=_mixed_problem, **kw):
+    """(cluster, PlacedCluster) of the mixed problem (or `problem`), pod
+    names seeded."""
     pkg.workloads.expand.seed_name_hashes(41)
     try:
-        cluster, apps = _mixed_problem(pkg, **kw)
+        cluster, apps = problem(pkg, **kw)
         if pkg is simtpu:
             return cluster, jf.place_cluster(cluster, apps)
         return cluster, tf.place_cluster(cluster, apps, device="cpu")
@@ -441,13 +443,50 @@ def test_fault_sweep_plain_equals_the_jax_fault_sweep_above_1024_nodes(placed_wi
     assert (live & 1).any() and (live & 2).any(), "storage and GPU pods in the requeue"
 
 
-def _check_fault_sweep(placed, spec):
-    """The body of the two tests above; returns the ext_live bits of the
-    real requeue rows."""
+#: past the 4096 topology keys K18's packed sort keys held: the many-keys
+#: problem (smoke.many_keys_problem, 4100 keys, Tc = 64 a group)
+MANY_KEYS_NODES, MANY_KEYS_REPLICAS = 64, 2
+
+
+def _many_keys_problem(pkg, n_nodes, replicas):
+    return smoke.many_keys_problem(_synth(pkg), pkg.AppResource, pkg.ResourceTypes, n_nodes, replicas)
+
+
+@pytest.fixture(scope="module")
+def placed_many_keys():
+    """The many-keys problem, placed by both packages."""
+    kw = dict(problem=_many_keys_problem, n_nodes=MANY_KEYS_NODES, replicas=MANY_KEYS_REPLICAS)
+    out = {"jax": _place(simtpu, **kw), "torch": _place(simtpu_torch, **kw)}
+    assert np.array_equal(out["jax"][1].nodes, out["torch"][1].nodes)
+    return out
+
+
+def test_fault_sweep_plain_equals_the_jax_fault_sweep_past_4096_keys(placed_many_keys):
+    """As above on the many-keys problem: two single-node scenarios on the
+    nodes whose pods own the highest topology key ids (past 4095)."""
+    _, jpc = placed_many_keys["jax"]
+    statics = jscan.statics_from(jpc.tensors, jpc.engine.sched_config)
+    assert np.asarray(statics.node_dom).shape[0] >= smoke.MANY_KEYS
+    g_terms, topo = np.asarray(statics.g_terms), np.asarray(statics.term_topo)
+    assert g_terms.shape[1] <= 64
+    group_key = np.where(g_terms >= 0, topo[np.maximum(g_terms, 0)], -1).max(axis=1)
+    node_key = np.full(jpc.n_nodes, -1)
+    np.maximum.at(node_key, np.asarray(jpc.engine.placed_node), group_key[np.asarray(jpc.engine.placed_group)])
+    pick = np.argsort(-node_key, kind="stable")[:2]
+    assert node_key[pick].min() >= 4096
+    masks = np.zeros((2, jpc.n_nodes), bool)
+    masks[[0, 1], pick] = True
+    _check_fault_sweep(placed_many_keys, masks=masks)
+
+
+def _check_fault_sweep(placed, spec=None, masks=None):
+    """The body of the tests above (scenarios from `spec`, or `masks`);
+    returns the ext_live bits of the real requeue rows."""
     cluster, jpc = placed["jax"]
     tensors = jpc.tensors
     r = tensors.alloc.shape[1]
-    masks = jf.generate_scenarios(cluster.nodes, spec, samples=9, seed=4).masks
+    if masks is None:
+        masks = jf.generate_scenarios(cluster.nodes, spec, samples=9, seed=4).masks
     valid_s, entries_s, pods_s, n_real = _jax_chunk(jpc, masks, r)
     flags = jscan.flags_from(tensors, jpc.batch.ext)
     statics = jscan.statics_from(tensors, jpc.engine.sched_config)

@@ -21,6 +21,7 @@ import simtpu.cli as jcli
 import simtpu_torch.audit.fuzz as tfuzz
 import simtpu_torch.cli as tcli
 from simtpu_torch import smoke
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -39,6 +39,7 @@ import pytest
 
 from simtpu_torch import smoke
 from simtpu_torch.plan.capacity import AUTO_ENGINE_NODES, AUTO_ENGINE_PODS
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _record(problem) -> dict:

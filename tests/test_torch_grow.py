@@ -41,6 +41,7 @@ from simtpu_torch.kernels import cuda
 
 from . import test_grow as jgrow
 from .test_torch_plan import REPO
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rand_state(rng, n: int, t: int, ti: int, r=3, v=2, sd=1, gd=4, p=2, w=3) -> dict:

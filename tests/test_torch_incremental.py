@@ -32,6 +32,7 @@ from simtpu_torch.kernels import cuda
 
 from .fixtures import make_fake_daemon_set, make_fake_deployment, make_fake_node, with_node_taints
 from .test_torch_plan import REPO, _cli, _plan_doc
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"

@@ -39,6 +39,7 @@ from simtpu_torch.engine import state as tstate
 from simtpu_torch.kernels import filters as tf
 from simtpu_torch.kernels import scores as ts
 from simtpu_torch.kernels.fp import fma
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, R, T, P, W, C = 37, 4, 6, 3, 5, 2
 F32 = np.float32
@@ -258,9 +259,33 @@ FLAG_SETS = {
 CUSTOM_WEIGHTS = np.array([1.3, 0.7, 2.1, 0.9, 1.7, 3.3, 0.45, 2.6, 1.15, 0.8, 1.9, 1.05], F32)
 
 
+def _plain_chain(problem, statics, jflags):
+    """The port's K1→K4 plain chain over the whole batch from the problem's
+    state: (buffers, the plain calls and the launches it made)."""
+    from simtpu_torch.kernels import cuda
+
+    _, _, _, state, pods = problem
+    buf = tscan.StepBuffers(tscan.statics_from_numpy(_numpy_tree(statics), "cpu"),
+                            tstate.state_from_numpy(_numpy_tree(state), "cpu"), pods, _port_flags(jflags))
+    before_plain, before_launch = dict(cuda.PLAIN_CALLS), dict(cuda.LAUNCHES)
+    tscan.run_batch(buf)
+    plain = {k: cuda.PLAIN_CALLS[k] - before_plain.get(k, 0) for k in cuda.KERNELS}
+    launched = {k: cuda.LAUNCHES.get(k, 0) - before_launch.get(k, 0) for k in cuda.KERNELS}
+    return buf, plain, launched
+
+
+@pytest.fixture(scope="module")
+def derived_chain(problem):
+    """The plain chain with the derived flags, run once for the two tests
+    that read it (the scan comparison and the wrappers' counts)."""
+    tensors, batch, statics, _, _ = problem
+    return _plain_chain(problem, statics, FLAG_SETS["derived"](tensors, batch))
+
+
 @pytest.mark.parametrize("flag_set", sorted(FLAG_SETS) + ["general-custom-weights"])
-def test_k1_to_k4_plain_chain_matches_jax_scan(problem, flag_set):
+def test_k1_to_k4_plain_chain_matches_jax_scan(problem, derived_chain, flag_set):
     tensors, batch, statics, state, pods = problem
+    derived = flag_set == "derived"
     if flag_set == "general-custom-weights":
         statics = statics._replace(score_w=jnp.asarray(CUSTOM_WEIGHTS))
         flag_set = "general"
@@ -268,13 +293,10 @@ def test_k1_to_k4_plain_chain_matches_jax_scan(problem, flag_set):
     j_state, (j_node, j_reason, *_) = jscan._run_scan(
         statics, jax.tree_util.tree_map(jnp.copy, state), pods, jflags
     )
-    t_statics = tscan.statics_from_numpy(_numpy_tree(statics), "cpu")
-    t_state = tstate.state_from_numpy(_numpy_tree(state), "cpu")
-    buf = tscan.StepBuffers(t_statics, t_state, pods, _port_flags(jflags))
-    tscan.run_batch(buf)
+    buf = derived_chain[0] if derived else _plain_chain(problem, statics, jflags)[0]
     np.testing.assert_array_equal(buf.out_node.numpy(), np.asarray(j_node))
     np.testing.assert_array_equal(buf.reason.numpy(), np.asarray(j_reason))
-    assert jstate.diff_state_planes(tstate.state_to_numpy(t_state), _numpy_tree(j_state)) == []
+    assert jstate.diff_state_planes(tstate.state_to_numpy(buf.state), _numpy_tree(j_state)) == []
     reasons = set(np.asarray(j_reason).tolist())
     assert {0, jscan.FAIL_NO_NODE} <= reasons and len(reasons) >= 4, reasons
 
@@ -362,7 +384,7 @@ def test_ctypes_step_ctx_mirrors_the_cuda_header():
         ("step_ctx.cuh", "StepCtx", cuda._INT_FIELDS, cuda._PTR_FIELDS, cuda.StepCtx),
         ("step_ctx.cuh", "DeltaCtx", cuda._DELTA_INT_FIELDS, cuda._DELTA_PTR_FIELDS, cuda.DeltaCtx),
         ("audit_bulk.cu", "AuditCtx", cuda._AUDIT_INT_FIELDS,
-         cuda._AUDIT_PTR_FIELDS + (("acc",), ("flags",)), cuda.AuditCtx),
+         cuda._AUDIT_PTR_FIELDS + (("flags",),), cuda.AuditCtx),
         ("step_ctx.cuh", "CompactCtx", cuda._COMPACT_INT_FIELDS, cuda._COMPACT_PTR_FIELDS,
          cuda.CompactCtx),
     ):
@@ -376,19 +398,12 @@ def test_ctypes_step_ctx_mirrors_the_cuda_header():
         assert [f for f, _ in mirror._fields_] == ints + ptrs, struct
 
 
-def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors(derived_chain):
     """On CPU tensors each wrapper runs its plain version (counted as such)
-    and launches nothing."""
+    and launches nothing: the counts of the derived-flags chain."""
     from simtpu_torch.kernels import cuda
 
-    tensors, batch, statics, state, pods = problem
-    buf = tscan.StepBuffers(
-        tscan.statics_from_numpy(_numpy_tree(statics), "cpu"),
-        tstate.state_from_numpy(_numpy_tree(state), "cpu"),
-        pods, _port_flags(jscan.flags_from(tensors, batch.ext)),
-    )
-    before_plain, before_launch = dict(cuda.PLAIN_CALLS), dict(cuda.LAUNCHES)
-    tscan.run_batch(buf)
+    buf, plain, launched = derived_chain
     calls = {"storage_pod": int(buf.storage_live.sum()), "gpu_pod": int(buf.gpu_live.sum()),
              "delta_apply": 0, "audit_bulk": 0, "wave_lean": 0, "wave_hard": 0,
              "compact_compress": 0, "compact_expand": 0, "compact_delta": 0,
@@ -396,9 +411,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(problem):
              "sweep_drain": 0, "sweep_place": 0, "explain_pass": 0, "pod_terms": 0,
              "relax_load": 0, "relax_project": 0, "grow_terms": 0, "grow_nodes": 0}
     for name in cuda.KERNELS:
-        want = calls.get(name, buf.n_pods)
-        assert cuda.PLAIN_CALLS[name] - before_plain.get(name, 0) == want
-        assert cuda.LAUNCHES.get(name, 0) == before_launch.get(name, 0)
+        assert plain[name] == calls.get(name, buf.n_pods)
+        assert launched[name] == 0
 
 
 def test_kernel_argument_block_checks_its_tensors(problem):

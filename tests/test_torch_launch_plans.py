@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from simtpu_torch.kernels import cuda
 from simtpu_torch.solve import relax as trelax
@@ -157,12 +158,98 @@ def test_sweep_drain_plan_covers_every_node_once(s, n):
     assert plan["threads"] == cuda.DRAIN_THREADS
     # the entry staging fits its shared bytes, within 48 KB
     assert 1 <= plan["stage_entries"] <= cuda.DRAIN_STAGE_ENTRIES
-    assert plan["shared_bytes"] == 4 * plan["stage_entries"] * (5 + 12 * 6 + 20) <= 4 * cuda.DRAIN_STAGE_WORDS
+    assert plan["shared_bytes"] == 4 * plan["stage_entries"] * (5 + 10 * 6 + 20) <= 4 * cuda.DRAIN_STAGE_WORDS
     # the tiles as large as still put DRAIN_BLOCKS_PER_SM blocks on every
     # SM: one tile less would leave some SM fewer
     want = cuda.DRAIN_BLOCKS_PER_SM * cuda.H100_SMS
     if plan["tile"] > cuda.DRAIN_MIN_TILE and n:
         assert plan["blocks"] >= want or plan["tiles"] == -(-n // plan["tile"])
+
+
+def test_sweep_drain_plan_stages_no_sort_key():
+    # an (entry, term) pair stages its rank, term, key, domain, interpod row
+    # and five increments: 40 bytes, no packed 64-bit sort key
+    for tc, width in ((4, 20), (64, 20), (64, 136)):
+        plan = cuda.sweep_drain_plan(16, 1000, tc, width)
+        assert plan["shared_bytes"] == 4 * plan["stage_entries"] * (5 + cuda.DRAIN_PAIR_WORDS * tc + width)
+    assert 4 * cuda.DRAIN_PAIR_WORDS == 40
+
+
+@pytest.mark.parametrize("keys", [1, 4095, 4096, 4100, 70000])
+def test_sweep_drain_checks_refuse_no_count_of_keys(keys):
+    # K18's input checks (run by its wrapper before the launch) take any
+    # number of topology keys; they still refuse a malformed index
+    from types import SimpleNamespace
+
+    from simtpu_torch.engine import state as tstate
+
+    s, n, t, ti = 3, 40, 7, 2
+    shapes = {"free": (n, 4), "cnt_match": (t, n), "cnt_total": (t,), "cnt_own_anti": (ti, n),
+              "cnt_own_aff": (ti, n), "w_own_aff_pref": (ti, n), "w_own_anti_pref": (ti, n),
+              "ports_used": (n, 1), "vols_any": (n, 1), "vols_rw": (n, 1), "vg_free": (n, 0),
+              "sdev_free": (n, 0), "gpu_free": (n, 0)}
+    base = tstate.SchedState(**{f: torch.zeros(shapes[f]) for f in tstate.SchedState._fields})
+    reps = tstate.SchedState(**{f: torch.zeros((s,) + shapes[f]) for f in tstate.SchedState._fields})
+    statics = SimpleNamespace(node_dom=torch.zeros((keys, n), dtype=torch.int32))
+    idx = torch.full((s, 5), -1, dtype=torch.int32)
+    assert cuda.check_sweep_drain(statics, base, reps, idx) == (s, t, ti)
+    with pytest.raises(ValueError, match="idx"):
+        cuda.check_sweep_drain(statics, base, reps, idx.long())
+
+
+SCORE_NODES = (1, 31, 943, 1024, 1025, 5000, 9000)
+# (threads, nodes per thread, template) of K3 by N
+SCORE_WANT = {1: (32, 1, "registers"), 31: (32, 1, "registers"), 943: (960, 1, "registers"),
+              1024: (1024, 1, "registers"), 1025: (1024, 2, "global"), 5000: (1024, 5, "global"),
+              9000: (1024, 9, "global")}
+
+
+@pytest.mark.parametrize("n", SCORE_NODES)
+def test_score_plan(n):
+    plan = cuda.score_plan(n)
+    assert (plan["threads"], plan["nodes_per_thread"], plan["template"]) == SCORE_WANT[n]
+    assert plan["npt"] == (cuda.SCORE_REG_NPT if n <= cuda.SCORE_BLOCK else 0)
+    # node m is thread m % threads's (m // threads)-th node: each node on
+    # one thread, within the nodes a thread walks
+    m = np.arange(n)
+    assert (m // plan["threads"] < plan["nodes_per_thread"]).all()
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= cuda.SCORE_BLOCK
+    assert plan["threads"] * plan["nodes_per_thread"] >= n
+
+
+@pytest.mark.parametrize("n", SCORE_NODES)
+@pytest.mark.parametrize("m", [0, 1, 2047, 2049, 12340, 150000])
+def test_audit_plan(n, m):
+    s, w = 11, 3
+    plan = cuda.audit_plan(n, m, s, w)
+    # the node ids 0..N (N: a node outside [0, N)) fit the passes' digits
+    assert plan["passes"] * plan["digit_bits"] >= max(1, n.bit_length())
+    assert 1 <= plan["digit_bits"] <= cuda.AUDIT_MAX_DIGIT_BITS
+    assert plan["passes"] == (1 if n < 1 << cuda.AUDIT_MAX_DIGIT_BITS else 2)
+    assert plan["buckets"] == 1 << plan["digit_bits"]
+    assert plan["kernels"] == 2 * plan["passes"] + 2
+    assert plan["sort_tiles"] * cuda.AUDIT_SORT_TILE >= m > (plan["sort_tiles"] - 1) * cuda.AUDIT_SORT_TILE or m == 0
+    assert plan["scan_tiles"] * cuda.AUDIT_SCAN_TILE >= m > (plan["scan_tiles"] - 1) * cuda.AUDIT_SCAN_TILE or m == 0
+    assert plan["words"] == 1 and plan["s"] == s
+    # the scratch arrays in AuditPlan's order, 16-byte aligned, apart
+    sizes = {"keys": 8 * m, "vals": 8 * m, "hist": 4 * plan["sort_tiles"] * plan["buckets"],
+             "tail": 8 * plan["scan_tiles"] * s, "carry": 8 * plan["scan_tiles"] * s,
+             "starts": 4 * plan["scan_tiles"], "onw": 4 * m, "done": 4 * (plan["passes"] + 1)}
+    offs = plan["offsets"]
+    assert list(offs) == [f for f, _ in cuda.AuditPlan._fields_ if f in sizes]
+    ends = [offs[f] + sizes[f] for f in offs]
+    assert all(o % 16 == 0 for o in offs.values())
+    assert all(e <= nxt for e, nxt in zip(ends, list(offs.values())[1:])) and ends[-1] <= plan["scratch_bytes"]
+
+
+def test_audit_plan_is_linear_in_the_log():
+    # no part scans the log once per node: the scratch and the blocks grow
+    # with M, not with N x M
+    small, large = cuda.audit_plan(5000, 15000, 9), cuda.audit_plan(5000, 150000, 9)
+    assert large["scratch_bytes"] < 11 * small["scratch_bytes"]
+    assert large["sort_tiles"] <= 10 * small["sort_tiles"] + 1
+    wide = cuda.audit_plan(50000, 15000, 9)
+    assert wide["scratch_bytes"] < 2 * small["scratch_bytes"]
 
 
 @pytest.mark.parametrize("s, n", [(128, 1000), (32, 5000)])
@@ -298,8 +385,21 @@ def test_plan_constants_mirror_the_cuda_sources():
     assert _cuda_int(drain, "DRAIN_BLOCKS_PER_SM") == cuda.DRAIN_BLOCKS_PER_SM
     assert _cuda_int(drain, "DRAIN_STAGE_ENTRIES") == cuda.DRAIN_STAGE_ENTRIES
     assert _cuda_int(drain, "DRAIN_STAGE_WORDS") == cuda.DRAIN_STAGE_WORDS
-    # 5 words per staged entry, 12 per entry and term, 1 per entry and element
-    assert "return en * (5 + 12 * tc + width);" in drain
+    # 5 words per staged entry, 10 per entry and term, 1 per entry and element
+    assert "return en * (5 + 10 * tc + width);" in drain
+    assert cuda.DRAIN_PAIR_WORDS == 10
+    # K3: the block, the register and global templates its entry dispatches on
+    score3 = (cuda.CSRC / "score_argmax_pod.cu").read_text()
+    assert _cuda_int(score3, "SCORE_BLOCK") == cuda.SCORE_BLOCK
+    assert _cuda_int(score3, "SCORE_REG_NPT") == cuda.SCORE_REG_NPT
+    assert _cuda_int(score3, "SCORE_GLOBAL_NPT") == 0
+    assert score3.count("return launch_score<") == 2
+    assert "case SCORE_REG_NPT: return launch_score<SCORE_REG_NPT>" in score3
+    assert "case SCORE_GLOBAL_NPT: return launch_score<SCORE_GLOBAL_NPT>" in score3
+    # K8: threads, tiles, the widest digit
+    audit = (cuda.CSRC / "audit_bulk.cu").read_text()
+    for name in ("AUDIT_THREADS", "AUDIT_SORT_TILE", "AUDIT_SCAN_TILE", "AUDIT_MAX_DIGIT_BITS"):
+        assert _cuda_int(audit, name) == getattr(cuda, name), name
     pick = (cuda.CSRC / "round_pick.cu").read_text()
     rounds_h = (cuda.CSRC / "rounds.cuh").read_text()
     assert _cuda_int(rounds_h, "ROUND_THREADS") == cuda.ROUND_THREADS
@@ -353,7 +453,8 @@ def _struct_fields(text: str, struct: str) -> list:
 
 
 @pytest.mark.parametrize("source, struct", [("step_ctx.cuh", "SweepCtx"), ("relax.cuh", "RelaxCtx"),
-                                            ("rounds.cuh", "RoundPlan")])
+                                            ("rounds.cuh", "RoundPlan"), ("audit_bulk.cu", "AuditPlan"),
+                                            ("score_argmax_pod.cu", "ScorePlan")])
 def test_plan_argument_blocks_mirror_the_cuda_headers(source, struct):
     # both blocks are passed by address and read field by field: the ctypes
     # mirror lists the header's fields in its order, with their C types

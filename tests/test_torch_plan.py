@@ -40,6 +40,7 @@ from .fixtures import (
     with_pod_node_selector,
     with_template_node_selector,
 )
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEMPLATE = make_fake_node("template", "4", "8Gi")

@@ -36,6 +36,7 @@ from .fixtures import (
     with_pod_labels,
 )
 from .test_torch_simulate import _carried, assert_same_simulation
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 GI = 2**30
 

@@ -47,6 +47,7 @@ from simtpu_torch.kernels import cuda
 from simtpu_torch.smoke import placement_record
 
 from .fixtures import make_fake_deployment, make_fake_node, make_fake_pod, with_template_affinity
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"

@@ -34,6 +34,7 @@ from simtpu_torch.engine import state as torch_state
 from simtpu_torch.engine.scan import Engine as TorchEngine
 from simtpu_torch.engine.state import state_to_numpy
 from simtpu_torch.smoke import APPS_KW, placement_record
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,7 @@ from simtpu_torch.parallel import sweep as tps
 
 from .test_torch_faults import _small_plan, _synth
 from .test_torch_kernels import _numpy_tree, _port_flags
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

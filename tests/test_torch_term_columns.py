@@ -35,6 +35,7 @@ from simtpu_torch.kernels import cuda
 from .test_torch_explain import _assert_breakdowns_equal, _breakdowns, _place
 from .test_torch_launch_plans import _cluster_nodes, _cuda_int, _struct_fields
 from .test_torch_simulate import assert_same_simulation
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 BLOCK_SMEM = 227 * 1024
 WIDE_TC = (512, 1024, 4096)
@@ -104,7 +105,7 @@ def test_sweep_plans_take_any_term_columns(tc, n):
             assert -1 - off + size <= plan["slab_bytes"]
     assert plan["mode"] == ("shared" if tc == 512 else "global")
     drain = cuda.sweep_drain_plan(32, n, tc, width=20)
-    per_entry = 5 + 12 * tc + 20
+    per_entry = 5 + cuda.DRAIN_PAIR_WORDS * tc + 20
     assert drain["shared_bytes"] <= 200 * 1024 and drain["stage_entries"] >= 1
     if drain["staging"] == "shared":
         assert drain["shared_bytes"] == 4 * drain["stage_entries"] * per_entry

@@ -54,6 +54,7 @@ from simtpu_torch.engine import wavefront as twf
 from simtpu_torch.kernels import cuda
 
 from .fixtures import make_fake_node
+from ._threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIXES = ("north", "hard", "priority", "matrix")
