@@ -210,7 +210,20 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    3001, 5000 and 9000 on the serial mix, custom score weights, forced
    and pinned pods and the extended mix (storage and GPU pods), its
    device time at each N, and up to 1024 nodes its global path equal to
-   and timed in turns against its register path.
+   and timed in turns against its register path;
+19. K2 and K4 against their plain versions, bit for bit, on phase 18's
+   cases at N = 120 ... 9000 (K2 on its plan — up to 1024 nodes a plain
+   launch of blocks of 256 nodes, each block taking the hard-spread minima
+   over every node itself, past that a thread-block cluster — and on every
+   plan of its sweeps, `k2_plans`; the stage bytes and the four raw rows;
+   then every state plane and the pod's output rows after K4) and on the
+   terms problem at Tc = 512 and 1024 (K2 also with every scratch segment
+   in the global slab: one block, a cluster, a plain launch of four); per N
+   on a serial pod K2's and K4's device time (profiler), host time per
+   back-to-back launch, plain time and bound, and at N = 1000, 2000, 3001,
+   5000 and 9000 K2's device time on each plan of its sweep, on a pod with
+   a hard-spread column and on one without (the sweeps behind
+   `cuda.TOPO_SMALL_NODES` and `cuda.TOPO_NODES_PER_BLOCK`).
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread with t*'s 16 zones — K15's
 one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
@@ -261,7 +274,7 @@ launch from the profiler, back-to-back launches from Python, the plain
 version's).
 
 The line before the last is the JSON `{"kernels": [...], "plans": {...}}`
-(`plans`: the launch plans of phase 18's shapes, the wrappers' choices
+(`plans`: the launch plans of phases 18's and 19's shapes, the wrappers' choices
 beside the run's readings); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 no CUDA device is available.
@@ -1169,6 +1182,9 @@ MULTI_KERNEL = {"audit_bulk": "audit_bulk_flags_kernel"}
 # kernels whose device time came from CUDA events because the profiler's
 # windows lost their device events
 PROFILER_MISSED = set()
+#: seconds a profiler window waits, after an empty kernel, before the
+#: calls it measures
+PROFILER_LEAD_S = 0.005
 
 
 def part_of(key: str) -> str:
@@ -1183,6 +1199,13 @@ def window_events(fn):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # an empty kernel, a synchronisation and a pause open the window
+        # before `fn`: without them a run's windows of short kernels came
+        # back with no device events at all (one run with them saw none)
+        torch.cuda.synchronize()
+        cuda.launch_noop(torch.device("cuda"))
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_LEAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1252,6 +1275,7 @@ def device_ms_per_call(fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)  # as window_events, without the empty kernel this sum would take in
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -4394,26 +4418,36 @@ def audit_prefix(x, m: int):
 
 def audit_window(x, calls: int = 10, tries: int = 3) -> dict:
     """K8's device time on AuditInputs `x` from `calls` launches in one
-    profiler window: us per launch (the sum of its parts), each part's us
-    per launch, and the kernels per launch the window saw (the parts'
-    events over the launches of its once-a-launch part, MULTI_KERNEL),
-    held against cuda.audit_plan's count. A window that lacks events, or
-    whose count differs, is profiled again, up to `tries` windows; a count
-    that differs in every window fails the phase. With no events in any
-    window, the time is from CUDA events and the kernels not measured."""
+    profiler window, and the kernels a launch the window saw, held against
+    cuda.audit_plan's count. The trace has come back without some of a
+    window's K8 launches, whole or in part (two or three of ten, at random),
+    so each part's multiplicity is read as its events over the launches of
+    the once-a-launch part (MULTI_KERNEL), rounded: a kernel the plan has
+    and a launch lacks reads 0, a pass more reads one part more. Returns
+    us per launch (each part's mean over the launches it was seen in, times
+    its multiplicity, summed), each part's us per launch, and the kernels
+    per launch (the multiplicities' sum). A window with fewer than half its
+    launches, or whose count differs, is profiled again, up to `tries`
+    windows; a count that differs in every window fails the phase, naming
+    each window's events per part. With no events in any window, the time
+    is from CUDA events and the kernels not measured."""
     plan = cuda.audit_plan(x.alloc.shape[0], x.g.shape[0], 0)
     seen = []
     for _ in range(tries):
         events, _ = window_events(lambda: [kaudit.audit_bulk(x) for _ in range(calls)])
         parts = {part: (us, count) for name, part, us, count in events if name == "audit_bulk"}
         launches = parts.get(MULTI_KERNEL["audit_bulk"], (0.0, 0))[1]
-        if not launches:
+        if 2 * launches < calls:
             continue
-        kernels = sum(count for _, count in parts.values()) / launches
+        mult = {part: round(count / launches) for part, (_, count) in parts.items()}
+        kernels = sum(mult.values())
         if kernels == plan["kernels"]:
-            return {"device_us": sum(us for us, _ in parts.values()) / launches, "ms_from": "profiler",
-                    "kernels_per_launch": kernels, "parts_us": {p: us / launches for p, (us, _) in parts.items()}}
-        seen.append(kernels)
+            per_launch = {p: us / count * mult[p] for p, (us, count) in parts.items() if mult[p]}
+            return {"device_us": sum(per_launch.values()), "ms_from": "profiler", "kernels_per_launch": kernels,
+                    "parts_us": per_launch, "launches_seen": launches}
+        seen.append((kernels, {part: count for part, (_, count) in parts.items()}))
+        log(f"  audit_bulk: a profiler window saw {kernels} kernels a launch (plan {plan['kernels']}) over {launches} "
+            f"of {calls} launches: {seen[-1][1]}")
     if seen:
         raise AssertionError(f"K8 on M={x.g.shape[0]}, N={x.alloc.shape[0]}: the profiler saw {seen} kernels a "
                              f"launch, its plan {plan['kernels']}")
@@ -4460,11 +4494,22 @@ K3_WIDTHS = (120, 943, 1000, 2000, 3001, 5000, 9000)
 K3_SAMPLE = 12
 
 
+#: k3_cases' cases by N, built once for phases 18 and 19 (their states are
+#: cloned before use)
+K3_CASES = {}
+
+
 def k3_cases(device, n: int) -> dict:
     """Phase 18 (c)'s cases at N nodes: the serial smoke mix; the same with
     custom score weights; with pods forced (some pinned to a node, some to
     no node); the extended mix (storage and GPU pods). {label: (statics,
     state, pods, flags, sample)}."""
+    if n not in K3_CASES:
+        K3_CASES[n] = _k3_cases(device, n)
+    return K3_CASES[n]
+
+
+def _k3_cases(device, n: int) -> dict:
     rng = np.random.default_rng(n)
     t, b, s, st, pods = tensorized_batch(*smoke.smoke_problem(synth_cluster, synth_apps, n_nodes=n, n_pods=400),
                                          device, 3 * n)
@@ -4570,6 +4615,199 @@ def phase_k3_widths(device, err) -> tuple:
             + (f"; paths (us, CUDA events in turns) {row['sweep_us']}" if "sweep_us" in row else ""))
     return out, plans
 
+
+
+# -- phase 19: K2 and K4 at N = 120 ... 9000 and at Tc = 512 and 1024 -----------
+
+#: the plans K2 is held at and timed at (the sweeps behind
+#: cuda.TOPO_SMALL_NODES and cuda.TOPO_NODES_PER_BLOCK): up to
+#: TOPO_THREADS nodes plain launches of K2_PLAIN_BLOCKS blocks; past that
+#: clusters of K2_CLUSTER_BLOCKS blocks, and for the comparison plain
+#: launches of K2_WIDE_PLAIN blocks, each block taking every node's minima
+K2_PLAIN_BLOCKS = (1, 2, 3, 4, 6, 8)
+K2_CLUSTER_BLOCKS = (2, 4, 8, 12, 16)
+K2_WIDE_PLAIN = (8, 16, 32)
+K2_SWEEP_NODES = (1000, 2000, 3001, 5000, 9000)
+
+
+def k2_plans(n: int) -> tuple:
+    """(blocks, shared budget, cluster) of K2's swept plans at N nodes."""
+    if n <= cuda.TOPO_THREADS:
+        return tuple((b, None, False) for b in K2_PLAIN_BLOCKS)
+    return tuple((b, None, True) for b in K2_CLUSTER_BLOCKS) + tuple((b, None, False) for b in K2_WIDE_PLAIN)
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit (float planes compared as their int32 bits)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def launch_topology_with(buf, i: int, blocks: int = None, budget: int = None, cluster: bool = None) -> None:
+    """K2 for pod i of `buf` on `topology_plan`'s plan of `blocks` blocks,
+    a shared `budget` (0: every scratch segment in the slab) and a
+    `cluster` launch or not: a measurement launch, not counted."""
+    if buf.ctx is None:
+        buf.ctx = cuda.make_ctx(buf)
+    plan = cuda.topology_plan_struct(buf, blocks, budget, cluster)
+    err = cuda.build()["topology_pod"].simtpu_topology_pod(ctypes.byref(buf.ctx), buf.group_host[i],
+                                                           ctypes.byref(plan), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K2 on {blocks} block(s), budget {budget}, failed to launch ({err})")
+
+
+def compare_k2_k4(label: str, statics, state, pods, flags, sample, plans=((None, None, None),)) -> tuple:
+    """Phase 19: K2 and K4 against their plain versions, pod by pod along
+    `sample` on one state advanced by the kernels: K1 (K5, K6) on the card,
+    then K2 on each of `plans` ((blocks, shared budget, cluster launch);
+    all None: the wrapper's own plan) and its plain version from the same
+    stage bytes —
+    the stage bytes and the four raw rows bit for bit; K3 on the card; then
+    K4 and its plain version from the same state — every state plane and
+    the pod's output rows bit for bit. Returns the buffers and the placed
+    pods of the sample."""
+    buf = scan.StepBuffers(statics, clone_state(state), pods, flags)
+    outs = ("out_lvm", "out_take", "out_gpu")
+    placed = 0
+    for i in map(int, sample):
+        scan.filter_pod(buf, i)
+        if buf.storage_live[i]:
+            scan.storage_pod(buf, i)
+        if buf.gpu_live[i]:
+            scan.gpu_pod(buf, i)
+        stage0 = buf.stage.clone()
+        scan.topology_pod_plain(buf, i)
+        want = buf.stage.clone(), buf.raw.clone()
+        for blocks, budget, cluster in plans:
+            buf.stage.copy_(stage0)
+            buf.raw.fill_(float("nan"))
+            if blocks is None and budget is None and cluster is None:
+                scan.topology_pod(buf, i)
+            else:
+                launch_topology_with(buf, i, blocks, budget, cluster)
+            torch.cuda.synchronize()
+            if not (torch.equal(buf.stage, want[0]) and bits_equal(buf.raw, want[1])):
+                bad = int((buf.raw.view(torch.int32) != want[1].view(torch.int32)).sum())
+                raise AssertionError(f"phase 19: K2 ({label}, N={buf.ctx.n}, Tc={buf.ctx.tc}, blocks {blocks}, "
+                                     f"budget {budget}, cluster {cluster}) pod {i}: stage bytes equal "
+                                     f"{torch.equal(buf.stage, want[0])}, {bad} raw words differ")
+        scan.score_argmax_pod(buf, i)
+        before = clone_state(buf.state), [getattr(buf, f)[i].clone() for f in outs]
+        scan.commit_pod_plain(buf, i)
+        want = clone_state(buf.state), [getattr(buf, f)[i].clone() for f in outs]
+        copy_state(buf.state, before[0])
+        for f, v in zip(outs, before[1]):
+            getattr(buf, f)[i] = v
+        scan.commit_pod(buf, i)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(buf.state, want[0])):
+            if not bits_equal(a, b):
+                raise AssertionError(f"phase 19: K4 ({label}, N={buf.ctx.n}, Tc={buf.ctx.tc}) pod {i}: state "
+                                     f"plane {type(buf.state)._fields[k]} differs")
+        for f, w in zip(outs, want[1]):
+            if not bits_equal(getattr(buf, f)[i], w):
+                raise AssertionError(f"phase 19: K4 ({label}, N={buf.ctx.n}) pod {i}: {f} differs")
+        placed += int(buf.placed[i])
+    return buf, placed
+
+
+def time_k2_k4(buf, i: int) -> dict:
+    """K2's and K4's device µs per launch (profiler) at pod i of `buf`, the
+    host's µs per back-to-back launch (CUDA events around 2000 launches
+    from Python), their plain versions' ms and their bounds (bytes)."""
+    row = {}
+    nbytes = kernel_bytes(buf, i)
+    for name, fn in (("topology_pod", scan.topology_pod), ("commit_pod", scan.commit_pod)):
+        per, _, _ = profile_kernels(lambda: [fn(buf, i) for _ in range(50)], {name: lambda: fn(buf, i)})
+        row[name] = {"device_us": per[name][0], "ms_from": ms_from(name),
+                     "host_us": time_call(lambda: fn(buf, i), 2000) * 1e3,
+                     "plain_ms": time_call(lambda: WRAPPERS[name][1](buf, i), 10),
+                     "bytes": nbytes[name], "bound_us": nbytes[name] / HBM_BYTES_PER_S * 1e6}
+    return row
+
+
+def k2_sweep(buf, sample) -> dict:
+    """K2's device µs per launch (profiler) on each of k2_plans(N), at the
+    first pod of `sample` with a hard-spread column and the first without
+    (K1 for the pod first: K2 reads its stage bytes)."""
+    out = {}
+    st = buf.statics
+    for i in map(int, sample):
+        hard = bool((st.spread_hard[buf.group_host[i]] > 0).any()) and buf.flags.spread_hard
+        key = "hard" if hard else "no_hard"
+        if key in out:
+            continue
+        scan.filter_pod(buf, i)
+        row = {"pod": i}
+        lib = cuda.build()["topology_pod"].simtpu_topology_pod
+        stream = torch.cuda.current_stream().cuda_stream
+        for blocks, _, cluster in k2_plans(buf.ctx.n):
+            label = f"{'cluster' if cluster else 'plain'} {blocks}"
+            # the plan built once, so a window timed by CUDA events holds
+            # the kernels and not the plan's construction on the host
+            plan = cuda.topology_plan_struct(buf, blocks, None, cluster)
+            call = (lambda p_: lambda: lib(ctypes.byref(buf.ctx), buf.group_host[i], ctypes.byref(p_), stream))(plan)
+            if call():
+                raise RuntimeError(f"phase 19: K2 on {label} blocks failed to launch")
+            per, _, _ = profile_kernels(lambda: [call() for _ in range(50)], {"topology_pod": call})
+            row[label] = per["topology_pod"][0]
+        out[key] = row
+    return out
+
+
+def phase_k2_k4(device) -> tuple:
+    """Phase 19: K2 and K4 against their plain versions bit for bit on phase
+    18's cases (k3_cases) at N = 120 ... 9000 (K2 on the wrapper's plan and
+    on every plan of k2_plans(N)), and on the terms problem at Tc = 512 and
+    1024 (K2 also on plans whose scratch lives wholly in the slab: one
+    block, a cluster, a plain launch of four blocks); then at each N on a
+    serial pod K2's and K4's device time, host time per launch, plain time
+    and bound, and at K2_SWEEP_NODES K2's device time on each plan of its
+    sweep, on a pod with a hard-spread column and one without. Returns the
+    measurements and each N's plan."""
+    out, plans = {}, {}
+    for n in K3_WIDTHS:
+        plan = plans[str(n)] = cuda.topology_plan(n, 4)
+        sizes = ((None, None, None),) + k2_plans(n)
+        row = {"pods": {}}
+        timed = None
+        for label, (s, st, pods, f, sample) in k3_cases(device, n).items():
+            buf, placed = compare_k2_k4(label, s, st, pods, f, sample, sizes)
+            row["pods"][label] = [len(sample), placed]
+            if label == "serial":
+                timed = buf, sample
+        buf, sample = timed
+        row.update(time_k2_k4(buf, int(sample[-1])))
+        if n in K2_SWEEP_NODES:
+            row["sweep_us"] = k2_sweep(buf, sample)
+        out[str(n)] = row
+        log(f"phase 19: K2 and K4 equal to their plain versions at N={n} (K2's plan: {plan['blocks']} block(s) of "
+            f"{plan['threads']} threads, {plan['launch']} launch; and on {k2_plans(n)}) on the serial, "
+            f"custom-weights, forced and extended cases (pods, placed: {row['pods']}): K2 "
+            f"{row['topology_pod']['device_us']:.2f} us device ({row['topology_pod']['ms_from']}), "
+            f"{row['topology_pod']['host_us']:.2f} us host a launch, bound {row['topology_pod']['bound_us']:.4f} us, "
+            f"plain {row['topology_pod']['plain_ms']:.3f} ms; K4 {row['commit_pod']['device_us']:.2f} us device, "
+            f"{row['commit_pod']['host_us']:.2f} us host, bound {row['commit_pod']['bound_us']:.4f} us, plain "
+            f"{row['commit_pod']['plain_ms']:.3f} ms"
+            + (f"; K2 by plan (device us, profiler) {row['sweep_us']}" if "sweep_us" in row else ""))
+    rng = np.random.default_rng(19)
+    for terms, tc in TERMS_CASES:
+        t, b, s, st, p = tensorized_batch(*terms_cluster(terms), device, 2000)
+        if s.g_terms.shape[1] != tc:
+            raise AssertionError(f"phase 19: the terms problem has Tc = {s.g_terms.shape[1]}, want {tc}")
+        sample = np.sort(rng.choice(len(p[0]), K3_SAMPLE, replace=False))
+        sizes = ((None, None, None), (1, 0, None), (4, 0, True), (4, None, True), (4, 0, False), (1, None, False))
+        buf, placed = compare_k2_k4(f"Tc={tc} terms problem", s, st, p, scan.flags_from(t, b.ext), sample, sizes)
+        plan = cuda.topology_plan(int(t.n_nodes), tc)
+        timed = time_k2_k4(buf, int(sample[-1]))
+        out[f"tc{tc}"] = {"pods": [len(sample), placed], "plan_mode": plan["mode"], **timed}
+        log(f"phase 19: K2 and K4 equal to their plain versions on {len(sample)} pods ({placed} placed) of the "
+            f"Tc={tc} terms problem (K2's plan in {plan['mode']} memory, and with every segment in the slab on "
+            f"one block, a cluster of 4 and a plain launch of 4, and on a cluster of 4 and one block): K2 "
+            f"{timed['topology_pod']['device_us']:.2f} us, K4 "
+            f"{timed['commit_pod']['device_us']:.2f} us device")
+    return out, plans
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4741,6 +4979,9 @@ def main() -> int:
     log(f"  empty launch: {launch_ms * 1e3:.2f} us")
 
     per, busy, pwall = phase_profile(statics, state, pods, flags, 2000)
+    # where K1-K4's times came from, before later phases' windows (phase 19
+    # times K2 and K4 again) add to PROFILER_MISSED
+    step_from = {name: ms_from(name) for name in STEP}
     log(f"  profiler, serial smoke K1-K4 over 2000 pods: {pwall:.3f} s wall, device busy {busy:.3f} "
         "of it; " + ", ".join(f"{k} {v[0]:.2f} us x {v[1]}" for k, v in per.items()))
     x_per, x_busy, x_wall = phase_profile(x_statics, x_state, x_pods, x_flags, 2000)
@@ -4911,6 +5152,9 @@ def main() -> int:
     audit_logs, audit_plans = phase_audit_logs(k8_logs)
     del k8_logs, l_audit
     k3_widths, k3_plans = phase_k3_widths(device, err)
+
+    # -- phase 19: K2 and K4 at N = 120 ... 9000 and at Tc = 512 and 1024 -------
+    k2k4_widths, k2_plans = phase_k2_k4(device)
 
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
@@ -5114,7 +5358,7 @@ def main() -> int:
             "library_ms": None,
             "host_ms": host_ms,
             "launch_ms": launch_ms,
-            "ms_from": ms_from(name) if prof else "cuda events",
+            "ms_from": step_from.get(name, ms_from(name)) if prof else "cuda events",
             "launches_serial_path": launches.get(name, 0),
             "launches_capacity_path": c_launches.get(name, 0),
             "ms_extended": x_per[name][0] / 1e3 if name in x_per else None,
@@ -5145,6 +5389,23 @@ def main() -> int:
                 "12": sum(explain[p]["launches"].get("audit_bulk", 0) for p in ("extended", "bulk", "scores", "plan")),
                 "13": fuzz_run["launches"].get("audit_bulk", 0) + fuzz_run["mutation_kill"]["launches"].get(
                     "audit_bulk", 0)}
+        if row["name"] in ("filter_pod", "topology_pod", "commit_pod"):
+            # the main paths' launches of K1, K2 and K4, path by path (a bulk
+            # round launches K1 and K2 once more)
+            name = row["name"]
+            row["launches_by_path"] = {
+                "serial": launches.get(name, 0), "extended": x_launches.get(name, 0),
+                "serial_exact_extended": off_x_launches.get(name, 0), "capacity": c_launches.get(name, 0),
+                "bulk": b_launches.get(name, 0), "bulk_rounds": b_steps["rounds"],
+                "large_capacity": l_launches.get(name, 0),
+                "phase_8_zone": serial_faults["zone"]["launches"].get(name, 0),
+                "phase_8_k1": serial_faults["k1"]["launches"].get(name, 0),
+                "phase_11": resilience_plan["launches"].get(name, 0),
+                **{f"explain_{p}": explain[p]["launches"].get(name, 0) for p in ("extended", "bulk", "scores", "plan")}}
+        if row["name"] in ("topology_pod", "commit_pod"):
+            row["widths"] = {k: {"pods": v["pods"], **v[row["name"]],
+                                 **({"sweep_us": v["sweep_us"]} if "sweep_us" in v and row["name"] == "topology_pod"
+                                    else {})} for k, v in k2k4_widths.items()}
         if row["name"] == "score_argmax_pod":
             row["widths"] = k3_widths
             row["launches_bulk_path"] = b_launches.get("score_argmax_pod", 0)
@@ -5154,7 +5415,7 @@ def main() -> int:
     plans = {"sweep_drain_many_keys": many_keys_plan, "audit_bulk_logs": audit_plans,
              "audit_bulk_capacity_winner": {k: v for k, v in cuda.audit_plan(
                  w_tensors.n_nodes, len(w_e.n), 0).items() if k not in ("offsets", "s", "words")},
-             "score_argmax_pod_widths": k3_plans}
+             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans}
     print(json.dumps({"kernels": rows, "plans": plans, "card": card, "terms": terms_run,
                       "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
                                         "partitions": parts},

@@ -823,7 +823,11 @@ class StepBuffers:
             return torch.as_tensor(host(x, dtype), device=dev).contiguous()
 
         group, req, pin, forced = pods[:4]
+        # the pods' groups on the host too (a list: the launch reads one):
+        # K2 and K4 take a pod's group as an argument, one dependent load
+        # less on the card
         self.group = on_dev(group, np.int32)
+        self.group_host = host(group, np.int32).tolist()
         self.req = on_dev(req, np.float32)
         self.pin = on_dev(pin, np.int32)
         self.forced = on_dev(forced, bool)
@@ -877,6 +881,13 @@ class StepBuffers:
         # K10's scratch past its shared budget (kernels/cuda.py
         # wave_hard_plan), at first use
         self.wave_slab = None
+        # K2's launch plan (kernels/cuda.py topology_plan) and its slab, at
+        # first use; a swept plan's, kept alive while in use; the term
+        # columns' table K2 and K4 stage (kernels/cuda.py column_table),
+        # built with the argument block
+        self.topo_plan = None
+        self.topo_sweep = None
+        self.g_cols = None
         self.ctx = None  # the kernels' argument struct, built at first launch
 
     def pod_ext(self, i: int) -> PodExt:

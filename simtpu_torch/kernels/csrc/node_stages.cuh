@@ -1,7 +1,10 @@
-// Per-node device code of the filter stages (K1) and of the commit (K4),
-// shared by filter_pod.cu, commit_pod.cu and the wave kernels
-// wave_lean.cu (K9) and wave_hard.cu (K10): one source for every path,
-// so a stage or an FMA site cannot drift between them.
+// Per-node device code of the filter stages (K1), shared by filter_pod.cu
+// and the wave kernels wave_lean.cu (K9) and wave_hard.cu (K10): one source
+// for every path, so a stage or an FMA site cannot drift between them; and
+// the commit's (K4, commit_pod.cu) update of the chosen node's own rows.
+// K10 and K19 (sweep_place.cu) copy the commit's arithmetic — this
+// function and commit_pod.cu's per-node update, which their comments call
+// commit_node, the single-thread form the two were split from.
 //
 // The stages are those of the JAX package's simtpu/kernels/filters.py
 // :23-76 as simtpu/engine/scan.py filter_and_score runs them
@@ -86,89 +89,54 @@ __device__ inline unsigned filter_bits(const StepCtx& x, int i, int n) {
   return bits;
 }
 
-// K4's update at node n for pod i (reads chosen/placed, which K3 wrote):
-// the chosen node's thread takes the request, ports, volumes and the
-// pod's extended allocations into its rows and bumps cnt_total; every
-// node's thread adds the group's incidence into its count and own-plane
-// entries of each term whose domain it shares with the chosen node. Each
-// (row, node) entry has one writer. The per-pod outputs (chosen, placed
-// and the extended allocations) are at row `o` (default: the pod's row i;
-// the scenario sweep K19 writes row j of its requeue list).
-__device__ inline void commit_node(const StepCtx& x, int i, int n, int o = -1) {
-  if (o < 0) o = i;
-  if (!x.placed[o]) return;
-  const int N = x.n;
-  const int c = x.chosen[o];
-  const int g = x.group[i];
+// K4's update of the chosen node c's own rows for pod i (placed there),
+// one family of rows (CommitPart) spread over `lanes` threads, this one
+// `lane` of them: the request out of its free row, the group's ports and
+// exclusive volumes into its planes, and the pod's LVM allocation,
+// exclusive devices and GPU shares x per-GPU memory at c (K5/K6's plans;
+// none for a pod that skipped them) out of vg_free, sdev_free and gpu_free
+// and into the pod's output rows. Each entry has one writer.
+enum CommitPart : int { COMMIT_FREE = 0, COMMIT_PORTS, COMMIT_VOLS, COMMIT_STORAGE, COMMIT_GPU, COMMIT_PARTS };
+
+__device__ inline void commit_chosen_rows(const StepCtx& x, int i, int c, int g, int part, int lane, int lanes) {
   const int f = x.flags;
-  if (n == c) {
+  if (part == COMMIT_FREE) {
     const float* req = x.req + static_cast<size_t>(i) * x.r;
     float* fr = x.free + static_cast<size_t>(c) * x.r;
-    for (int r = 0; r < x.r; ++r) fr[r] = fr[r] - req[r];
-    if (f & F_PORTS) {
-      const uint8_t* want = x.ports_req + static_cast<size_t>(g) * x.p_ports;
-      float* used = x.ports_used + static_cast<size_t>(c) * x.p_ports;
-      for (int p = 0; p < x.p_ports; ++p) used[p] = used[p] + (want[p] ? 1.0f : 0.0f);
+    for (int r = lane; r < x.r; r += lanes) fr[r] = fr[r] - req[r];
+  } else if (part == COMMIT_PORTS && (f & F_PORTS)) {
+    const uint8_t* want = x.ports_req + static_cast<size_t>(g) * x.p_ports;
+    float* used = x.ports_used + static_cast<size_t>(c) * x.p_ports;
+    for (int p = lane; p < x.p_ports; p += lanes) used[p] = used[p] + (want[p] ? 1.0f : 0.0f);
+  } else if (part == COMMIT_VOLS && (f & (F_VOLS | F_ATTACH))) {
+    const size_t gw = static_cast<size_t>(g) * x.w;
+    const size_t cw = static_cast<size_t>(c) * x.w;
+    for (int w = lane; w < x.w; w += lanes) {
+      const bool rw = x.vol_rw_req[gw + w];
+      const bool present = rw || x.vol_ro_req[gw + w] || x.vol_att_req[gw + w];
+      x.vols_any[cw + w] = x.vols_any[cw + w] + (present ? 1.0f : 0.0f);
+      if (f & F_VOLS) x.vols_rw[cw + w] = x.vols_rw[cw + w] + (rw ? 1.0f : 0.0f);
     }
-    if (f & (F_VOLS | F_ATTACH)) {
-      const size_t gw = static_cast<size_t>(g) * x.w;
-      const size_t cw = static_cast<size_t>(c) * x.w;
-      for (int w = 0; w < x.w; ++w) {
-        const bool rw = x.vol_rw_req[gw + w];
-        const bool present = rw || x.vol_ro_req[gw + w] || x.vol_att_req[gw + w];
-        x.vols_any[cw + w] = x.vols_any[cw + w] + (present ? 1.0f : 0.0f);
-        if (f & F_VOLS) x.vols_rw[cw + w] = x.vols_rw[cw + w] + (rw ? 1.0f : 0.0f);
-      }
+  } else if (part == COMMIT_STORAGE && (f & F_STORAGE) && (x.ext_live[i] & LIVE_STORAGE)) {
+    const size_t cv = static_cast<size_t>(c) * x.v, iv = static_cast<size_t>(i) * x.v;
+    for (int v = lane; v < x.v; v += lanes) {
+      const float a = x.st_alloc[cv + v];
+      x.vg_free[cv + v] = x.vg_free[cv + v] + (-a);
+      x.out_lvm[iv + v] = a;
     }
-    const unsigned live = x.ext_live[i];
-    if ((f & F_STORAGE) && (live & LIVE_STORAGE)) {
-      const size_t cv = static_cast<size_t>(c) * x.v, iv = static_cast<size_t>(o) * x.v;
-      for (int v = 0; v < x.v; ++v) {
-        const float a = x.st_alloc[cv + v];
-        x.vg_free[cv + v] = x.vg_free[cv + v] + (-a);
-        x.out_lvm[iv + v] = a;
-      }
-      const size_t cs = static_cast<size_t>(c) * x.sd, is = static_cast<size_t>(o) * x.sd;
-      for (int d = 0; d < x.sd; ++d) {
-        const uint8_t take = x.st_take[cs + d];
-        x.sdev_free[cs + d] = (x.sdev_free[cs + d] && !take) ? 1 : 0;
-        x.out_take[is + d] = take;
-      }
+    const size_t cs = static_cast<size_t>(c) * x.sd, is = static_cast<size_t>(i) * x.sd;
+    for (int d = lane; d < x.sd; d += lanes) {
+      const uint8_t take = x.st_take[cs + d];
+      x.sdev_free[cs + d] = (x.sdev_free[cs + d] && !take) ? 1 : 0;
+      x.out_take[is + d] = take;
     }
-    if ((f & F_GPU) && (live & LIVE_GPU)) {
-      const float mem = x.gpu_mem[i];
-      const size_t cg = static_cast<size_t>(c) * x.gd, ig = static_cast<size_t>(o) * x.gd;
-      for (int d = 0; d < x.gd; ++d) {
-        const float sh = x.gpu_sh[cg + d];
-        x.gpu_free[cg + d] = x.gpu_free[cg + d] + (-sh) * mem;
-        x.out_gpu[ig + d] = sh;
-      }
-    }
-  }
-  if (!(f & F_TOPOLOGY) || x.tc == 0) return;
-  const int* terms = x.g_terms + static_cast<size_t>(g) * x.tc;
-  for (int t = 0; t < x.tc; ++t) {
-    const int term = terms[t];
-    if (term < 0) continue;
-    const size_t gt = static_cast<size_t>(g) * x.tc + t;
-    const int* dom = x.node_dom + static_cast<size_t>(x.term_topo[term]) * N;
-    const int dc = dom[c];
-    if (dc < 0) continue;  // the chosen node misses this term's key
-    const float s = x.s_match[gt] ? 1.0f : 0.0f;
-    if (n == c) x.cnt_total[term] = x.cnt_total[term] + s;
-    if (dom[n] != dc) continue;
-    const size_t tn = static_cast<size_t>(term) * N + n;
-    x.cnt_match[tn] = x.cnt_match[tn] + s;
-    const int ip = x.ip_of[term];
-    if (ip < 0) continue;
-    const size_t ipn = static_cast<size_t>(ip) * N + n;
-    if (f & F_INTERPOD_REQ) {
-      x.cnt_own_anti[ipn] = x.cnt_own_anti[ipn] + (x.a_anti_req[gt] ? 1.0f : 0.0f);
-      x.cnt_own_aff[ipn] = x.cnt_own_aff[ipn] + (x.a_aff_req[gt] ? 1.0f : 0.0f);
-    }
-    if (f & F_INTERPOD_PREF) {
-      x.w_own_aff_pref[ipn] = x.w_own_aff_pref[ipn] + x.w_aff_pref[gt];
-      x.w_own_anti_pref[ipn] = x.w_own_anti_pref[ipn] + x.w_anti_pref[gt];
+  } else if (part == COMMIT_GPU && (f & F_GPU) && (x.ext_live[i] & LIVE_GPU)) {
+    const float mem = x.gpu_mem[i];
+    const size_t cg = static_cast<size_t>(c) * x.gd, ig = static_cast<size_t>(i) * x.gd;
+    for (int d = lane; d < x.gd; d += lanes) {
+      const float sh = x.gpu_sh[cg + d];
+      x.gpu_free[cg + d] = x.gpu_free[cg + d] + (-sh) * mem;
+      x.out_gpu[ig + d] = sh;
     }
   }
 }

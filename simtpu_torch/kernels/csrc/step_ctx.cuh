@@ -53,6 +53,18 @@ constexpr float MAX_NODE_SCORE = 100.0f;
 constexpr int LIVE_STORAGE = 1;
 constexpr int LIVE_GPU = 2;
 
+// The group's term columns as one table, built once per argument block
+// from the statics (kernels/cuda.py column_table): word k of column t of
+// group g at g_cols[(g * TOPO_COL_WORDS + k) * Tc + t] — the term (-1 =
+// pad), its topology key's node_dom row, its interpod row (-1 none), the
+// column's flag bits, and the bits of its four float weights. K2 and K4
+// stage a group's rows of it with one round of loads.
+constexpr int TOPO_COL_WORDS = 8;
+enum : int {
+  COL_TERM = 0, COL_KEY = 1, COL_IP = 2, COL_FLAGS = 3, COL_W_AFF = 4, COL_W_ANTI = 5, COL_HARD = 6, COL_SOFT = 7,
+};
+enum : int { TOPO_SMATCH = 1, TOPO_AFF = 2, TOPO_ANTI = 4, TOPO_SSHOST = 8, TOPO_SSZONE = 16 };
+
 struct StepCtx {
   int n, r, p_ports, w, c, tc, flags, v, sd, gd, l, k;
   // the batch's pod arrays [P]
@@ -89,6 +101,7 @@ struct StepCtx {
   const float* spread_soft;   // [G, Tc]
   const uint8_t* ss_host;     // [G, Tc]
   const uint8_t* ss_zone;     // [G, Tc]
+  const int* g_cols;          // [G, TOPO_COL_WORDS, Tc] the term columns' table (above)
   const uint8_t* ports_req;   // [G, P]
   const uint8_t* vol_rw_req;  // [G, W]
   const uint8_t* vol_ro_req;  // [G, W]

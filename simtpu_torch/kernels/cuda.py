@@ -54,8 +54,12 @@ KERNELS = (
     "relax_load", "relax_project", "grow_terms", "grow_nodes",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
-#: (K3 as simtpu_score_argmax_pod(StepCtx*, pod, ScorePlan*, stream))
+#: (K2 as simtpu_topology_pod(StepCtx*, group, TopoPlan*, stream), K3 as
+#: simtpu_score_argmax_pod(StepCtx*, pod, ScorePlan*, stream), K4 as
+#: simtpu_commit_pod(StepCtx*, pod, group, stream): the pod's group from
+#: the host)
 STEP_KERNELS = KERNELS[:6]
+STEP_PLANNED = ("topology_pod", "score_argmax_pod")
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
 WAVE_KERNELS = KERNELS[8:10]
 #: the round kernels, launched as simtpu_<name>(StepCtx*, RoundCtx*, stream)
@@ -148,8 +152,10 @@ def build() -> dict:
     for name in KERNELS:
         lib = ctypes.CDLL(str(_lib_path(name)))
         fn = getattr(lib, f"simtpu_{name}")
-        if name == "score_argmax_pod":
+        if name in STEP_PLANNED:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        elif name == "commit_pod":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         elif name in STEP_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         elif name in CLUSTER_KERNELS or name in PLANNED_KERNELS:
@@ -279,6 +285,7 @@ _PTR_FIELDS = (
     ("spread_soft", "statics", "spread_soft", torch.float32),
     ("ss_host", "statics", "ss_host", torch.bool),
     ("ss_zone", "statics", "ss_zone", torch.bool),
+    ("g_cols", "buf", "g_cols", torch.int32),
     ("ports_req", "statics", "ports_req", torch.bool),
     ("vol_rw_req", "statics", "vol_rw_req", torch.bool),
     ("vol_ro_req", "statics", "vol_ro_req", torch.bool),
@@ -350,12 +357,45 @@ def _check_shapes(tensors: dict, want: dict) -> None:
             raise ValueError(f"{field}: shape {tuple(tensors[field].shape)}, want {shape}")
 
 
+#: the words of a term column in the table K2 and K4 stage
+#: (csrc/step_ctx.cuh TOPO_COL_WORDS, COL_*), and its flag bits (TOPO_*)
+TOPO_COL_WORDS = 8
+TOPO_FLAG_BITS = (("s_match", 1), ("a_aff_req", 2), ("a_anti_req", 4), ("ss_host", 8), ("ss_zone", 16))
+
+
+def column_table(statics) -> torch.Tensor:
+    """The term columns' table of csrc/step_ctx.cuh (StepCtx g_cols):
+    [G, TOPO_COL_WORDS, Tc] int32, for group g and column t the term
+    g_terms[g, t] (-1 = pad), its key row term_topo[term] and interpod row
+    ip_of[term] (-1 for a pad), the flag bits of s_match, a_aff_req,
+    a_anti_req, ss_host and ss_zone, and the bits of w_aff_pref,
+    w_anti_pref, spread_hard and spread_soft."""
+    terms = statics.g_terms
+    live = terms >= 0
+    safe = terms.clamp(min=0).long()
+
+    def of_term(row):
+        if not row.numel():
+            return torch.full_like(terms, -1)
+        return torch.where(live, row[safe], torch.full_like(terms, -1))
+
+    flags = torch.zeros_like(terms)
+    for name, bit in TOPO_FLAG_BITS:
+        flags |= getattr(statics, name).to(torch.int32) * bit
+    bits = [getattr(statics, f).contiguous().view(torch.int32)
+            for f in ("w_aff_pref", "w_anti_pref", "spread_hard", "spread_soft")]
+    return torch.stack([terms, of_term(statics.term_topo), of_term(statics.ip_of), flags, *bits], dim=1).contiguous()
+
+
 def make_ctx(buf, out_rows: int = None) -> StepCtx:
     """The kernels' argument block for a StepBuffers: checks every tensor's
-    device, dtype, contiguity and shape, then takes its address. The
+    device, dtype, contiguity and shape, then takes its address; builds the
+    term columns' table (`column_table`, kept as `buf.g_cols`) first. The
     buffers keep the tensors alive as long as the block is in use.
     `out_rows` is the per-pod outputs' row count when it is not the
     batch's (the sweep's output rows follow its pod lists)."""
+    if getattr(buf, "g_cols", None) is None:
+        buf.g_cols = column_table(buf.statics)
     owners = {"buf": buf, "statics": buf.statics, "state": buf.state}
     tensors = {
         field: _checked(f"{owner}.{attr}", getattr(owners[owner], attr), buf.device, dtype)
@@ -381,6 +421,7 @@ def make_ctx(buf, out_rows: int = None) -> StepCtx:
                                 "static_score", "avoid_pen")},
         **{f: (g, tc) for f in ("s_match", "a_aff_req", "a_anti_req", "w_aff_pref",
                                  "w_anti_pref", "spread_hard", "spread_soft", "ss_host", "ss_zone")},
+        "g_cols": (g, TOPO_COL_WORDS, tc),
     })
     return StepCtx(
         n=n, r=r, p_ports=p, w=w, c=c, tc=tc, flags=buf.flag_bits, v=v, sd=sd, gd=gd, l=l, k=k,
@@ -414,9 +455,91 @@ def score_plan(n: int) -> dict:
             "template": "registers" if npt else "global"}
 
 
+#: K2's launch plan (csrc/topology_pod.cu): up to TOPO_THREADS nodes a
+#: plain launch (one node a thread; TOPO_SMALL_NODES nodes a block, each
+#: block taking the hard-spread minima over every node itself), past that
+#: a thread-block cluster of at most TOPO_CLUSTER_MAX blocks (above 8 the
+#: non-portable size), one node tile a block, TOPO_NODES_PER_BLOCK nodes a
+#: block where the cluster allows (the measured sweeps, PERF.md); the staged
+#: columns take TOPO_REC_WORDS words a column
+TOPO_THREADS = 1024
+TOPO_CLUSTER_MAX = 16
+TOPO_SMALL_NODES = 256
+TOPO_NODES_PER_BLOCK = 256
+TOPO_REC_WORDS = 8
+
+
+class TopoPlan(ctypes.Structure):
+    """ctypes mirror of `struct TopoPlan` in csrc/topology_pod.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "tile", "npt", "cluster", "off_cols", "off_bmin",
+                                            "off_mins", "smem", "slab_stride")] + [("slab", ctypes.c_void_p)]
+
+
+def topology_plan(n: int, tc: int = 0, blocks: int = None, budget: int = None, cluster: bool = None) -> dict:
+    """K2's launch plan for a pod over N nodes and Tc term columns, with
+    `blocks` blocks, a shared `budget` and a `cluster` launch where given
+    (the sweeps; the slab path at any Tc): else up to TOPO_THREADS nodes a
+    plain launch of blocks of TOPO_SMALL_NODES nodes, each taking the
+    hard-spread minima over every node itself, and past that a cluster of
+    the fewest blocks (at most TOPO_CLUSTER_MAX) that give each
+    TOPO_NODES_PER_BLOCK nodes or fewer, the blocks trading their minima.
+    Block b owns the nodes [b * tile, min(N, (b + 1) * tile)) (the tile a
+    multiple of 32, the last one ragged, none empty); under npt 1 thread t
+    owns node tile start + t, under npt 0 (a tile past TOPO_THREADS nodes)
+    the nodes tile start + t + j * threads. A block's scratch — the staged
+    columns (TOPO_REC_WORDS words a column), its minima (one word a column,
+    which its cluster peers read) and its warps' minima (32 words a column)
+    — takes shared memory while it fits in WAVE_SMEM (or `budget`) and past
+    it a slab of global scratch, `slab_bytes` a block (`mode` "global")."""
+    n1 = max(n, 1)
+    if cluster is None:
+        cluster = n1 > TOPO_THREADS
+    per = TOPO_NODES_PER_BLOCK if cluster else TOPO_SMALL_NODES
+    b = int(blocks) if blocks else -(-n1 // per)
+    b = max(b, 1)
+    if cluster:
+        b = min(b, TOPO_CLUSTER_MAX)
+    tile = -(-(-(-n1 // b)) // 32) * 32
+    b = -(-n1 // tile)
+    cluster = bool(cluster and b > 1)
+    npt = 1 if tile <= TOPO_THREADS else 0
+    plan = _SmemPlan(WAVE_SMEM if budget is None else budget)
+    offs = {"off_cols": plan.add(TOPO_REC_WORDS * tc * 4, True), "off_bmin": plan.add(tc * 4, True),
+            "off_mins": plan.add(32 * tc * 4, True)}
+    return {"blocks": b, "tile": tile, "threads": tile if npt else TOPO_THREADS, "npt": npt,
+            "nodes_per_thread": 1 if npt else -(-tile // TOPO_THREADS), "template": "1" if npt else "global",
+            "cluster": int(cluster), "launch": "cluster" if cluster else "plain", **offs,
+            "shared_bytes": plan.used, "slab_bytes": (plan.slab + 15) & ~15, "mode": "global" if plan.slab else "shared"}
+
+
+def topology_plan_struct(buf, blocks: int = None, budget: int = None, cluster: bool = None) -> TopoPlan:
+    """K2's plan for `buf` (`topology_plan`'s, of `blocks` blocks, a shared
+    `budget` and a `cluster` launch where given), its slab allocated (one
+    per block) where the plan needs one; the default plan is built once per
+    buffer and kept (`buf.topo_plan`), the slab with it."""
+    default = blocks is None and budget is None and cluster is None
+    if default and buf.topo_plan is not None:
+        return buf.topo_plan[0]
+    plan = topology_plan(buf.ctx.n, buf.ctx.tc, blocks, budget, cluster)
+    slab = None
+    if plan["slab_bytes"]:
+        slab = torch.empty(plan["blocks"] * plan["slab_bytes"], dtype=torch.uint8, device=buf.device)
+    struct = TopoPlan(smem=plan["shared_bytes"], slab_stride=plan["slab_bytes"],
+                      slab=slab.data_ptr() if slab is not None else 0,
+                      **{f: plan[f] for f in ("blocks", "threads", "tile", "npt", "cluster", "off_cols", "off_bmin",
+                                              "off_mins")})
+    if default:
+        buf.topo_plan = (struct, slab)
+    else:
+        buf.topo_sweep = (struct, slab)  # alive until the next swept plan
+    return struct
+
+
 def launch(name: str, buf, i: int) -> None:
     """Launch kernel `name` for pod i of `buf` on the current CUDA stream
-    (K3 on `score_plan`); raises if the launch is refused. No
+    (K2 on `topology_plan`, K3 on `score_plan`; K2 and K4 take the pod's
+    group from `buf.group_host`); raises if the launch is refused. No
     synchronization."""
     if not 0 <= i < buf.n_pods:
         raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
@@ -425,7 +548,12 @@ def launch(name: str, buf, i: int) -> None:
         buf.ctx = make_ctx(buf)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     fn = getattr(libs[name], f"simtpu_{name}")
-    if name == "score_argmax_pod":
+    if name == "topology_pod":
+        plan = buf.topo_plan[0] if buf.topo_plan is not None else topology_plan_struct(buf)
+        err = fn(ctypes.byref(buf.ctx), buf.group_host[i], ctypes.byref(plan), stream)
+    elif name == "commit_pod":
+        err = fn(ctypes.byref(buf.ctx), i, buf.group_host[i], stream)
+    elif name == "score_argmax_pod":
         plan = score_plan(buf.ctx.n)
         err = fn(ctypes.byref(buf.ctx), i, ctypes.byref(ScorePlan(threads=plan["threads"], npt=plan["npt"])), stream)
     else:
@@ -491,13 +619,14 @@ class _SmemPlan:
     its offset encoded as -1 - its byte offset in the slab (wave.cuh
     wave_seg)."""
 
-    def __init__(self):
+    def __init__(self, budget: int = WAVE_SMEM):
         self.used = 0
         self.slab = 0
+        self.budget = budget
 
     def add(self, nbytes: int, scratch: bool = False) -> int:
         at = (self.used + 15) & ~15
-        if at + nbytes <= WAVE_SMEM:
+        if at + nbytes <= self.budget:
             self.used = at + nbytes
             return at
         if not scratch:

@@ -1,10 +1,10 @@
 """The launch plans of K23 `relax_project`, K19 `sweep_place`, K18
-`sweep_drain`, K15 `round_pick` and K14 / K16 `round_score` /
-`round_commit`.
+`sweep_drain`, K15 `round_pick`, K14 / K16 `round_score` /
+`round_commit` and K2 `topology_pod`.
 
 The wrappers take their launch arithmetic from plain Python functions in
 `simtpu_torch/kernels/cuda.py` (`relax_project_plan`, `sweep_place_plan`,
-`sweep_drain_plan`, `round_pick_plan`, `round_plan`), which K14's, K16's,
+`sweep_drain_plan`, `round_pick_plan`, `round_plan`, `topology_plan`), which K2's, K14's, K16's,
 K18's and K19's CUDA entries follow and K15's and K23's compute alike. Here, at node counts on both
 sides of every boundary (N = 999, 1024, 1025, 4096, 4097, 16 384, 16 385
 and 100 000): K23's path, threads per row, keys per thread, rows per
@@ -15,7 +15,10 @@ least two blocks an SM on the main paths' chunks); K15's threads, register
 template or global rows, and the quota ranking's shared or global buffers;
 K14/K16's cluster (every node in exactly one tile and on one thread, at
 N = 1, 31, 1000, 2000, 5000, 9000, 16 385 and 100 000 and at every
-cluster size).
+cluster size); K2's (`topology_plan`: one plain block up to 1024 nodes, a
+cluster above, every node on one thread at every cluster size; its
+scratch in shared memory within a block's 227 KB or past the budget in a
+slab, at Tc up to 4096).
 Then the plans as the argument blocks carry them, the constants they
 mirror in the CUDA sources, and the argument blocks' fields against the
 CUDA headers. Nothing here needs a card.
@@ -332,6 +335,81 @@ def test_round_plan_shared_bytes(tc):
         assert plan["shared_bytes"] == 4 * words <= 227 * 1024
 
 
+TOPO_NODES = (1, 31, 120, 1000, 1024, 1025, 2000, 3001, 5000, 9000, 16384, 16385, 100000)
+
+
+def _topology_nodes(plan, n):
+    """How many times each node is visited under a K2 plan, as the kernel
+    walks it (csrc/topology_pod.cu): block b's tile [b * tile, min(N, (b +
+    1) * tile)), thread t's node tile start + t (npt 1) or every
+    threads-th node of the tile (npt 0)."""
+    seen = np.zeros(n, np.int64)
+    for b in range(plan["blocks"]):
+        lo, hi = b * plan["tile"], min(n, (b + 1) * plan["tile"])
+        assert lo < hi, "an empty tile"
+        for t in range(plan["threads"]):
+            nodes = [lo + t] if plan["npt"] else range(lo + t, hi, plan["threads"])
+            for node in nodes:
+                if node < hi:
+                    seen[node] += 1
+    return seen
+
+
+@pytest.mark.parametrize("cluster", [None, False, True])
+@pytest.mark.parametrize("blocks", [None, 1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("n", TOPO_NODES)
+def test_topology_plan_covers_every_node_once(n, blocks, cluster):
+    plan = cuda.topology_plan(n, 4, blocks, cluster=cluster)
+    assert (_topology_nodes(plan, n) == 1).all()
+    assert plan["blocks"] >= 1 and (blocks is None or plan["blocks"] <= blocks)
+    assert plan["tile"] % 32 == 0 and plan["blocks"] * plan["tile"] >= n > (plan["blocks"] - 1) * plan["tile"]
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= cuda.TOPO_THREADS == 1024
+    # one node a thread where a tile fits a block, the walk above
+    assert plan["npt"] == (1 if plan["tile"] <= cuda.TOPO_THREADS else 0)
+    assert plan["threads"] == (plan["tile"] if plan["npt"] else cuda.TOPO_THREADS)
+    assert plan["nodes_per_thread"] * plan["threads"] >= plan["tile"]
+    # a cluster never passes 16 blocks, nor is one of a single block
+    assert plan["cluster"] in (0, 1) and plan["launch"] == ("cluster" if plan["cluster"] else "plain")
+    if plan["cluster"]:
+        assert 2 <= plan["blocks"] <= cuda.TOPO_CLUSTER_MAX == 16
+    if cluster is None:
+        # a plain launch up to 1024 nodes, a cluster above, of tiles of at
+        # most TOPO_NODES_PER_BLOCK nodes (rounded to 32) where 16 blocks allow
+        assert plan["cluster"] == (n > cuda.TOPO_THREADS and plan["blocks"] > 1)
+        if blocks is None and n > cuda.TOPO_THREADS and plan["blocks"] < cuda.TOPO_CLUSTER_MAX:
+            assert plan["tile"] <= -(-cuda.TOPO_NODES_PER_BLOCK // 32) * 32
+        if blocks is None and n <= cuda.TOPO_THREADS:
+            assert plan["tile"] <= -(-cuda.TOPO_SMALL_NODES // 32) * 32
+
+
+@pytest.mark.parametrize("tc", [0, 1, 3, 4, 512, 1024, 1536, 4096])
+def test_topology_plan_shared_bytes(tc):
+    # the staged column records, the block's minima and the warps' minima:
+    # in shared memory within a block's 227 KB while they fit the plan's
+    # budget, past it in a slab of global scratch a block, each segment
+    # 16-byte aligned (the records are read as int4)
+    words = {"off_cols": cuda.TOPO_REC_WORDS * tc, "off_bmin": tc, "off_mins": 32 * tc}
+    for n in (1000, 5000):
+        plan = cuda.topology_plan(n, tc)
+        assert plan["shared_bytes"] <= cuda.WAVE_SMEM < 227 * 1024
+        shared = sum(4 * w for k, w in words.items() if plan[k] >= 0)
+        slab = sum(4 * w for k, w in words.items() if plan[k] < 0)
+        assert plan["shared_bytes"] >= shared and plan["slab_bytes"] >= slab
+        assert plan["mode"] == ("global" if slab else "shared")
+        assert (plan["mode"] == "global") == (4 * sum(words.values()) > cuda.WAVE_SMEM)
+        for k in words:
+            at = plan[k] if plan[k] >= 0 else -1 - plan[k]
+            assert at % 16 == 0
+            if plan[k] < 0:  # a slab segment's byte offset, past the ones before it
+                assert at + 4 * words[k] <= plan["slab_bytes"]
+        assert plan["slab_bytes"] % 16 == 0
+        # with no shared budget every segment moves to the slab
+        bare = cuda.topology_plan(n, tc, budget=0)
+        assert bare["shared_bytes"] == 0 and all(bare[k] < 0 for k in words if words[k])
+        assert bare["slab_bytes"] >= 4 * sum(words.values()) and bare["slab_bytes"] % 16 == 0
+    assert cuda.topology_plan(1000, tc)["mode"] == ("global" if tc >= 1536 else "shared")
+
+
 def test_round_plan_by_nodes():
     # one block for small rounds; a cluster on the bulk problem's 5000
     # nodes; never past the non-portable cluster size
@@ -388,6 +466,24 @@ def test_plan_constants_mirror_the_cuda_sources():
     # 5 words per staged entry, 10 per entry and term, 1 per entry and element
     assert "return en * (5 + 10 * tc + width);" in drain
     assert cuda.DRAIN_PAIR_WORDS == 10
+    # K2: the block, the cluster, the staged column words, the templates
+    # its entry dispatches on
+    topo = (cuda.CSRC / "topology_pod.cu").read_text()
+    step = (cuda.CSRC / "step_ctx.cuh").read_text()
+    assert _cuda_int(topo, "TOPO_THREADS") == cuda.TOPO_THREADS
+    assert _cuda_int(topo, "TOPO_CLUSTER_MAX") == cuda.TOPO_CLUSTER_MAX
+    assert _cuda_int((cuda.CSRC / "topology.cuh").read_text(), "TOPO_REC_WORDS") == cuda.TOPO_REC_WORDS
+    # the term columns' table: its words and flag bits (cuda.column_table)
+    assert _cuda_int(step, "TOPO_COL_WORDS") == cuda.TOPO_COL_WORDS
+    words = ("COL_TERM", "COL_KEY", "COL_IP", "COL_FLAGS", "COL_W_AFF", "COL_W_ANTI", "COL_HARD", "COL_SOFT")
+    assert [_cuda_int(step, w) for w in words] == list(range(cuda.TOPO_COL_WORDS))
+    for (field, bit), name in zip(cuda.TOPO_FLAG_BITS, ("TOPO_SMATCH", "TOPO_AFF", "TOPO_ANTI", "TOPO_SSHOST",
+                                                        "TOPO_SSZONE")):
+        assert _cuda_int(step, name) == bit, field
+    for npt in (0, 1):
+        for slab in ("true", "false"):
+            assert f"launch_topology<{npt}, {slab}>" in topo
+    assert "q.smem > WAVE_SMEM" in topo
     # K3: the block, the register and global templates its entry dispatches on
     score3 = (cuda.CSRC / "score_argmax_pod.cu").read_text()
     assert _cuda_int(score3, "SCORE_BLOCK") == cuda.SCORE_BLOCK
@@ -454,7 +550,8 @@ def _struct_fields(text: str, struct: str) -> list:
 
 @pytest.mark.parametrize("source, struct", [("step_ctx.cuh", "SweepCtx"), ("relax.cuh", "RelaxCtx"),
                                             ("rounds.cuh", "RoundPlan"), ("audit_bulk.cu", "AuditPlan"),
-                                            ("score_argmax_pod.cu", "ScorePlan")])
+                                            ("score_argmax_pod.cu", "ScorePlan"),
+                                            ("topology_pod.cu", "TopoPlan")])
 def test_plan_argument_blocks_mirror_the_cuda_headers(source, struct):
     # both blocks are passed by address and read field by field: the ctypes
     # mirror lists the header's fields in its order, with their C types
