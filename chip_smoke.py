@@ -223,7 +223,22 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    back-to-back launch, plain time and bound, and at N = 1000, 2000, 3001,
    5000 and 9000 K2's device time on each plan of its sweep, on a pod with
    a hard-spread column and on one without (the sweeps behind
-   `cuda.TOPO_SMALL_NODES` and `cuda.TOPO_NODES_PER_BLOCK`).
+   `cuda.TOPO_SMALL_NODES` and `cuda.TOPO_NODES_PER_BLOCK`);
+20. K1 and K5 against their plain versions, bit for bit, at N = 120,
+   1000, 2000, 5000 and 9000: K1 (the stage bytes) on phase 18's serial
+   and forced cases (pods pinned to a node and to no node, forced) and on
+   two edge states of the serial case (every flag on, seeded ports, volume
+   and attach rows within and past K1's register template, a
+   volume-binding mask: each stage failing first somewhere), K1 and K5
+   (st_ok, st_alloc, st_take, st_raw) on the extended case and on a tight
+   state of it (VGs cut, devices taken); K1 on the edge batch and its edge
+   state; K5 on the wide problem (V = SD = 36) — each on the wrapper's
+   plan (`cuda.filter_plan`, `cuda.storage_plan`) and on every plan of its
+   sweep (K1 by threads, K5 by threads x template); per N K1's device time
+   at a serial pod and K5's at an extended storage pod (profiler), host
+   time per back-to-back launch, plain time and bound; K1's sweep at each
+   N and K5's at N = 1000 and 5000 and on the wide problem (device time
+   per launch, the variants launched in turns in one profiler window).
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread with t*'s 16 zones — K15's
 one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
@@ -274,7 +289,7 @@ launch from the profiler, back-to-back launches from Python, the plain
 version's).
 
 The line before the last is the JSON `{"kernels": [...], "plans": {...}}`
-(`plans`: the launch plans of phases 18's and 19's shapes, the wrappers' choices
+(`plans`: the launch plans of phases 18's to 20's shapes, the wrappers' choices
 beside the run's readings); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 no CUDA device is available.
@@ -1085,7 +1100,11 @@ def kernel_bytes(buf, i: int) -> dict:
     live = int(buf.ext_live[i])
     st_live, gpu_live = live & 1, (live >> 1) & 1
     f4 = 4
-    k1 = n * r * f4 + n * p * f4 + 2 * n * w * f4 + n * c * f4 + 3 * n + n  # + stage out
+    # K1 reads the rows of the stages its flags make live
+    fl = buf.flag_bits
+    k1 = (n * r * f4 + (n * p * f4 if fl & cuda.F_PORTS else 0)
+          + (n * w * f4 if fl & (cuda.F_VOLS | cuda.F_ATTACH) else 0) + (n * w * f4 if fl & cuda.F_VOLS else 0)
+          + (n * c * f4 if fl & cuda.F_ATTACH else 0) + 3 * n + n)  # + stage out
     k2 = n + tv * 2 * n * f4 + ti * 4 * n * f4 + n + 4 * n * f4
     k3 = (n + 4 * n * f4 + n * r * f4 + n * 2 * f4 + 4 * n * f4 + n * f4
           + st_live * (n + n * f4) + gpu_live * n)
@@ -4809,6 +4828,317 @@ def phase_k2_k4(device) -> tuple:
             f"{timed['commit_pod']['device_us']:.2f} us device")
     return out, plans
 
+# -- phase 20: K1 and K5 at N = 120 ... 9000, on edge states and the wide problem --
+
+#: the node counts, and the plans K1 and K5 are held at and timed at (the
+#: sweeps behind cuda.FILTER_THREADS and cuda.STORAGE_THREADS and K5's
+#: templates)
+K1K5_WIDTHS = (120, 1000, 2000, 5000, 9000)
+FILTER_SWEEP = (32, 64, 128, 256, 512)
+STORAGE_SWEEP = (32, 64, 128, 256)
+#: K5's sweep of templates and threads is timed at these node counts
+STORAGE_SWEEP_NODES = (1000, 5000)
+#: the group-row widths (P, W, C) of the edge states: within K1's register
+#: template, and past it
+EDGE_WIDTHS = ((2, 3, 2), (12, 12, 12))
+#: launches of each variant in a turns window, after TURNS_LEAD turns
+#: that are not read (a window's trace can drop its first launches)
+TURNS_REPS = 30
+TURNS_LEAD = 5
+#: storage pods of the extended mix K5 is held at per N, beside the case's
+K5_SAMPLE = 8
+
+
+def edge_state(statics, state, widths, seed: int):
+    """`statics`/`state` with seeded ports, volume and attach rows of widths
+    (P, W, C) — the group's ports_req, vol_rw/ro/att_req and the class mask,
+    the nodes' ports_used, vols_any, vols_rw and attach limits — and a
+    volume-binding mask that fails one node in five: with every flag on,
+    each of K1's stages fails first somewhere."""
+    p, w, c = widths
+    rng = np.random.default_rng(seed)
+    g, n = statics.static_mask.shape
+    dev = statics.alloc.device
+
+    def t(x):
+        return torch.as_tensor(x, device=dev).contiguous()
+
+    s = statics._replace(ports_req=t(rng.random((g, p)) < 0.2), vol_rw_req=t(rng.random((g, w)) < 0.15),
+                         vol_ro_req=t(rng.random((g, w)) < 0.15), vol_att_req=t(rng.random((g, w)) < 0.3),
+                         vol_class_mask=t(rng.random((c, w)) < 0.4),
+                         attach_limits=t(rng.integers(0, 4, (n, c)).astype(np.float32)),
+                         vol_mask=t(rng.random((g, n)) < 0.8))
+    st = state._replace(ports_used=t((rng.random((n, p)) < 0.1).astype(np.float32)),
+                        vols_any=t((rng.random((n, w)) < 0.2).astype(np.float32)),
+                        vols_rw=t((rng.random((n, w)) < 0.1).astype(np.float32)))
+    return s, st
+
+
+def tight_state(state, seed: int):
+    """`state` with each VG's free space cut to a seeded fraction and half
+    the exclusive devices taken: K5's claims fail on many nodes."""
+    rng = np.random.default_rng(seed)
+    dev = state.vg_free.device
+    return state._replace(
+        vg_free=(state.vg_free * torch.as_tensor(rng.random(tuple(state.vg_free.shape)), dtype=torch.float32,
+                                                 device=dev)).contiguous(),
+        sdev_free=torch.as_tensor(rng.random(tuple(state.sdev_free.shape)) < 0.5, device=dev).contiguous())
+
+
+def launch_filter_with(buf, i: int, threads: int) -> None:
+    """K1 for pod i of `buf` on `filter_plan`'s plan of `threads` threads: a
+    measurement launch, not counted."""
+    if buf.ctx is None:
+        buf.ctx = cuda.make_ctx(buf)
+    plan = cuda.filter_plan_struct(buf, threads)
+    err = cuda.build()["filter_pod"].simtpu_filter_pod(ctypes.byref(buf.ctx), i, buf.group_host[i], buf.pin_host[i],
+                                                       ctypes.byref(plan), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K1 on {threads} threads failed to launch ({err})")
+
+
+def launch_storage_with(buf, i: int, threads: int, template: int) -> None:
+    """K5 for pod i of `buf` on `storage_plan`'s plan of `threads` threads
+    and template `template`: a measurement launch, not counted."""
+    if buf.ctx is None:
+        buf.ctx = cuda.make_ctx(buf)
+    plan = cuda.storage_plan_struct(buf, threads, template)
+    err = cuda.build()["storage_pod"].simtpu_storage_pod(ctypes.byref(buf.ctx), i, ctypes.byref(plan),
+                                                         torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K5 on {threads} threads, template {template}, failed to launch ({err})")
+
+
+def storage_templates(buf) -> tuple:
+    """K5's templates that hold `buf`'s widths: the register template where
+    max(V, SD) fits it, shared and global."""
+    regs = (cuda.STORAGE_REG,) if max(buf.ctx.v, buf.ctx.sd) <= cuda.STORAGE_REG else ()
+    return regs + (cuda.STORAGE_SHARED, cuda.STORAGE_GLOBAL)
+
+
+def storage_shared_fits(buf, threads: int) -> bool:
+    x = buf.ctx
+    plan = cuda.storage_plan(x.n, x.v, x.sd, x.l, x.k, threads, cuda.STORAGE_SHARED)
+    return plan["smem"] <= cuda.WAVE_SMEM
+
+
+def compare_k1(label: str, buf, sample) -> dict:
+    """Phase 20: K1 against filter_pod_plain on each pod of `sample` (pod by
+    pod on one state), on the wrapper's plan and on every plan of
+    FILTER_SWEEP: the stage bytes equal. Returns the stage bytes seen."""
+    seen = set()
+    for i in map(int, sample):
+        scan.filter_pod_plain(buf, i)
+        want = buf.stage.clone()
+        seen |= set(want.unique().tolist())
+        for threads in (None,) + FILTER_SWEEP:
+            buf.stage.fill_(0xAA)
+            if threads is None:
+                scan.filter_pod(buf, i)
+            else:
+                launch_filter_with(buf, i, threads)
+            torch.cuda.synchronize()
+            if not torch.equal(buf.stage, want):
+                bad = int((buf.stage != want).sum())
+                raise AssertionError(f"phase 20: K1 ({label}, N={buf.ctx.n}, P={buf.ctx.p_ports}, W={buf.ctx.w}, "
+                                     f"C={buf.ctx.c}, threads {threads}) pod {i}: {bad} stage bytes differ")
+    return {"pods": len(sample), "stage_bytes": sorted(seen), "plan": cuda.filter_plan(
+        buf.ctx.n, buf.ctx.r, buf.ctx.p_ports, buf.ctx.w, buf.ctx.c, buf.ctx.flags)["template"]}
+
+
+def compare_k5(label: str, buf, sample) -> dict:
+    """Phase 20: K5 against storage_pod_plain on each storage pod of
+    `sample`, on the wrapper's plan and on every (threads, template) of
+    STORAGE_SWEEP x storage_templates: st_ok, st_alloc, st_take and st_raw
+    bit for bit. Returns the pods and the nodes whose plans fit."""
+    if buf.ctx is None:
+        buf.ctx = cuda.make_ctx(buf)
+    fields = ("st_ok", "st_alloc", "st_take", "st_raw")
+    pods = [int(i) for i in sample if buf.storage_live[int(i)]]
+    fit = 0
+    for i in pods:
+        scan.storage_pod_plain(buf, i)
+        want = [getattr(buf, f).clone() for f in fields]
+        fit += int(want[0].sum())
+        plans = [(None, None)] + [(t, m) for t in STORAGE_SWEEP for m in storage_templates(buf)
+                                  if m != cuda.STORAGE_SHARED or storage_shared_fits(buf, t)]
+        for threads, template in plans:
+            buf.st_ok.fill_(True)
+            buf.st_take.fill_(True)
+            buf.st_alloc.fill_(float("nan"))
+            buf.st_raw.fill_(float("nan"))
+            if threads is None:
+                scan.storage_pod(buf, i)
+            else:
+                launch_storage_with(buf, i, threads, template)
+            torch.cuda.synchronize()
+            for f, w in zip(fields, want):
+                if not bits_equal(getattr(buf, f), w):
+                    raise AssertionError(f"phase 20: K5 ({label}, N={buf.ctx.n}, V={buf.ctx.v}, SD={buf.ctx.sd}, "
+                                         f"threads {threads}, template {template}) pod {i}: {f} differs")
+    x = buf.ctx
+    return {"pods": len(pods), "nodes_fit": fit,
+            "plan": cuda.storage_plan(x.n, x.v, x.sd, x.l, x.k)["template"]}
+
+
+def turns_window(variants: dict, kernel: str, reps: int = TURNS_REPS):
+    """Device µs per launch of each of `variants` ({label: fn launching one
+    `kernel` kernel}) in one profiler window, the variants launched in turns
+    (a, b, c, a, b, c, ...) TURNS_LEAD + `reps` times and the window's last
+    `reps` turns of kernel events read in launch order: the median per
+    variant. None where the window lost more than the lead's events (then
+    the caller times in turns by CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = list(variants)
+    for fn in variants.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        cuda.launch_noop(torch.device("cuda"))
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_LEAD_S)
+        for _ in range(TURNS_LEAD + reps):
+            for k in labels:
+                variants[k]()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel_of(e.name) == kernel),
+                 key=lambda e: e.time_range.start)
+    if len(evs) < reps * len(labels):
+        return None
+    evs = evs[len(evs) - reps * len(labels):]
+    got = {k: [] for k in labels}
+    for j, e in enumerate(evs):
+        got[labels[j % len(labels)]].append(e.time_range.elapsed_us())
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def sweep_us(variants: dict, kernel: str) -> tuple:
+    """turns_window's medians, or CUDA events in turns where the window lost
+    an event; and which of the two."""
+    got = turns_window(variants, kernel)
+    if got is not None:
+        return got, "profiler"
+    return {k: v * 1e3 for k, v in in_turns({k: (lambda f: lambda _: f())(f) for k, f in variants.items()},
+                                            lambda: None, 10).items()}, "cuda events"
+
+
+def time_k1_k5(name: str, buf, i: int) -> dict:
+    """K1's or K5's device µs per launch (profiler) at pod i of `buf`, the
+    host's µs per back-to-back launch (CUDA events around 2000 launches
+    from Python), the plain version's ms and the bound (bytes)."""
+    fn, plain = WRAPPERS[name]
+    nbytes = kernel_bytes(buf, i)[name]
+    per, _, _ = profile_kernels(lambda: [fn(buf, i) for _ in range(50)], {name: lambda: fn(buf, i)})
+    return {"pod": i, "device_us": per[name][0], "ms_from": ms_from(name),
+            "host_us": time_call(lambda: fn(buf, i), 2000) * 1e3, "plain_ms": time_call(lambda: plain(buf, i), 10),
+            "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+
+
+def k1_sweep(buf, i: int) -> dict:
+    """K1's device µs per launch on each plan of FILTER_SWEEP at pod i."""
+    got, how = sweep_us({str(t): (lambda t_: lambda: launch_filter_with(buf, i, t_))(t) for t in FILTER_SWEEP},
+                        "filter_pod")
+    return {"us": got, "from": how}
+
+
+def k5_sweep(buf, i: int) -> dict:
+    """K5's device µs per launch on each (threads, template) of STORAGE_SWEEP
+    x storage_templates at pod i."""
+    variants = {f"{t} x {m}": (lambda t_, m_: lambda: launch_storage_with(buf, i, t_, m_))(t, m)
+                for t in STORAGE_SWEEP for m in storage_templates(buf)
+                if m != cuda.STORAGE_SHARED or storage_shared_fits(buf, t)}
+    got, how = sweep_us(variants, "storage_pod")
+    return {"us": got, "from": how}
+
+
+def phase_k1_k5(device) -> tuple:
+    """Phase 20: K1 and K5 against their plain versions bit for bit — K1 on
+    phase 18's serial and forced cases (pods pinned to a node, to no node,
+    forced) and on two edge states of the serial case (edge_state: every
+    flag on, ports / volume / attach rows within and past the register
+    template), K1 and K5 on the extended case and on its tight state, at N
+    = 120 ... 9000; K1 on the edge batch and its edge state; K5 on the wide
+    problem (V = SD = 36) — each on the wrapper's plan and on every plan of
+    its sweep; then at each N K1's and K5's device time, host time per
+    launch, plain time and bound, K1's sweep at each N and K5's at
+    STORAGE_SWEEP_NODES and on the wide problem. Returns the measurements
+    and the plans."""
+    out, plans = {}, {"filter_plan": {}, "storage_plan": {}}
+    rng = np.random.default_rng(20)
+    for n in K1K5_WIDTHS:
+        cases = k3_cases(device, n)
+        row = {"compare": {}}
+        s, st, pods, f, sample = cases["serial"]
+        sbuf = scan.StepBuffers(s, clone_state(st), pods, f)
+        row["compare"]["serial"] = compare_k1("serial", sbuf, sample)
+        fs, fst, fpods, ff, fsample = cases["forced"]
+        row["compare"]["forced"] = compare_k1("forced", scan.StepBuffers(fs, clone_state(fst), fpods, ff), fsample)
+        for widths in EDGE_WIDTHS:
+            es, est = edge_state(s, st, widths, n + sum(widths))
+            label = "edge P{} W{} C{}".format(*widths)
+            row["compare"][label] = compare_k1(label, scan.StepBuffers(es, est, pods, scan.StepFlags()), sample)
+        xs, xst, xpods, xf, xsample = cases["extended"]
+        xbuf = scan.StepBuffers(xs, clone_state(xst), xpods, xf)
+        row["compare"]["extended"] = compare_k1("extended", xbuf, xsample)
+        # the case's storage pods and K5_SAMPLE more of the mix's
+        live = np.flatnonzero(xbuf.storage_live)
+        k5_sample = np.union1d(xsample, rng.choice(live, min(K5_SAMPLE, len(live)), replace=False))
+        row["compare"]["extended_k5"] = compare_k5("extended", xbuf, k5_sample)
+        tbuf = scan.StepBuffers(xs, tight_state(xst, n), xpods, xf)
+        row["compare"]["extended_tight_k5"] = compare_k5("extended, tight state", tbuf, k5_sample)
+        i = int(sample[-1])
+        row["filter_pod"] = time_k1_k5("filter_pod", sbuf, i)
+        row["filter_pod"]["sweep"] = k1_sweep(sbuf, i)
+        si = next(int(j) for j in xsample if xbuf.storage_live[int(j)])
+        row["storage_pod"] = time_k1_k5("storage_pod", xbuf, si)
+        if n in STORAGE_SWEEP_NODES:
+            row["storage_pod"]["sweep"] = k5_sweep(xbuf, si)
+        x = sbuf.ctx
+        plans["filter_plan"][str(n)] = cuda.filter_plan(x.n, x.r, x.p_ports, x.w, x.c, x.flags)
+        x = xbuf.ctx
+        plans["storage_plan"][str(n)] = cuda.storage_plan(x.n, x.v, x.sd, x.l, x.k)
+        out[str(n)] = row
+        log(f"phase 20: K1 and K5 equal to their plain versions at N={n} on every plan of their sweeps "
+            f"({json.dumps(row['compare'])}): K1 {row['filter_pod']['device_us']:.2f} us device "
+            f"({row['filter_pod']['ms_from']}), {row['filter_pod']['host_us']:.2f} us host a launch, bound "
+            f"{row['filter_pod']['bound_us']:.4f} us, plain {row['filter_pod']['plain_ms']:.3f} ms; K5 "
+            f"{row['storage_pod']['device_us']:.2f} us device, {row['storage_pod']['host_us']:.2f} us host, bound "
+            f"{row['storage_pod']['bound_us']:.4f} us, plain {row['storage_pod']['plain_ms']:.3f} ms; K1 by threads "
+            f"(device us, {row['filter_pod']['sweep']['from']}) {row['filter_pod']['sweep']['us']}"
+            + (f"; K5 by threads x template ({row['storage_pod']['sweep']['from']}) "
+               f"{row['storage_pod']['sweep']['us']}" if "sweep" in row["storage_pod"] else ""))
+    # the edge batch (host ports, exclusive volumes, a pod forced onto a
+    # missing node, an impossible selector) and its edge state
+    e_tensors, e_batch, e_statics, e_state, e_pods = edge_batch(device)
+    every = range(len(e_pods[0]))
+    edge = {"derived": compare_k1("edge batch", scan.StepBuffers(
+        e_statics, e_state, e_pods, scan.flags_from(e_tensors, e_batch.ext)), every)}
+    es, est = edge_state(e_statics, e_state, tuple(int(d) for d in (e_statics.ports_req.shape[1],
+                                                                     e_statics.vol_rw_req.shape[1],
+                                                                     e_statics.vol_class_mask.shape[0])), 20)
+    edge["edge_state"] = compare_k1("edge batch, edge state", scan.StepBuffers(es, est, e_pods, scan.StepFlags()),
+                                    every)
+    out["edge_batch"] = edge
+    # the wide problem: 36 VGs and 36 SSDs on one node
+    w_cluster, w_apps = smoke.wide_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    wt, wb, ws, wst, wpods = tensorized_batch(w_cluster, w_apps, device, 5)
+    wbuf = scan.StepBuffers(ws, clone_state(wst), wpods, scan.flags_from(wt, wb.ext))
+    wl = np.flatnonzero(wbuf.storage_live)
+    wide = {"k5": compare_k5("wide problem", wbuf, wl), "k1": compare_k1("wide problem", wbuf, wl)}
+    wide["storage_pod"] = time_k1_k5("storage_pod", wbuf, int(wl[0]))
+    wide["storage_pod"]["sweep"] = k5_sweep(wbuf, int(wl[0]))
+    x = wbuf.ctx
+    plans["storage_plan"]["wide"] = cuda.storage_plan(x.n, x.v, x.sd, x.l, x.k)
+    out["wide"] = wide
+    log(f"phase 20: K1 equal to its plain version on the edge batch ({json.dumps(edge)}); K5 on the wide problem "
+        f"(V = {x.v}, SD = {x.sd}; {json.dumps(wide['k5'])}): {wide['storage_pod']['device_us']:.2f} us device, "
+        f"by threads x template ({wide['storage_pod']['sweep']['from']}) {wide['storage_pod']['sweep']['us']}")
+    return out, plans
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5156,6 +5486,9 @@ def main() -> int:
     # -- phase 19: K2 and K4 at N = 120 ... 9000 and at Tc = 512 and 1024 -------
     k2k4_widths, k2_plans = phase_k2_k4(device)
 
+    # -- phase 20: K1 and K5 at N = 120 ... 9000, edge states, the wide problem --
+    k1k5_widths, k1k5_plans = phase_k1_k5(device)
+
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
     w_x = checker._upload(w_tensors, w_e, np.ones(w_tensors.n_nodes, bool) if w_nv is None else w_nv,
@@ -5389,9 +5722,10 @@ def main() -> int:
                 "12": sum(explain[p]["launches"].get("audit_bulk", 0) for p in ("extended", "bulk", "scores", "plan")),
                 "13": fuzz_run["launches"].get("audit_bulk", 0) + fuzz_run["mutation_kill"]["launches"].get(
                     "audit_bulk", 0)}
-        if row["name"] in ("filter_pod", "topology_pod", "commit_pod"):
-            # the main paths' launches of K1, K2 and K4, path by path (a bulk
-            # round launches K1 and K2 once more)
+        if row["name"] in ("filter_pod", "topology_pod", "commit_pod", "storage_pod"):
+            # the main paths' launches of K1, K2, K4 and K5, path by path (a
+            # bulk round launches K1 and K2, and K5 for a storage pod, once
+            # more)
             name = row["name"]
             row["launches_by_path"] = {
                 "serial": launches.get(name, 0), "extended": x_launches.get(name, 0),
@@ -5406,6 +5740,12 @@ def main() -> int:
             row["widths"] = {k: {"pods": v["pods"], **v[row["name"]],
                                  **({"sweep_us": v["sweep_us"]} if "sweep_us" in v and row["name"] == "topology_pod"
                                     else {})} for k, v in k2k4_widths.items()}
+        if row["name"] in ("filter_pod", "storage_pod"):
+            name = row["name"]
+            row["widths"] = {k: {**v[name], "compare": v["compare"]} for k, v in k1k5_widths.items()
+                             if k not in ("edge_batch", "wide")}
+            row["edge_batch" if name == "filter_pod" else "wide"] = (
+                k1k5_widths["edge_batch"] if name == "filter_pod" else k1k5_widths["wide"])
         if row["name"] == "score_argmax_pod":
             row["widths"] = k3_widths
             row["launches_bulk_path"] = b_launches.get("score_argmax_pod", 0)
@@ -5415,7 +5755,7 @@ def main() -> int:
     plans = {"sweep_drain_many_keys": many_keys_plan, "audit_bulk_logs": audit_plans,
              "audit_bulk_capacity_winner": {k: v for k, v in cuda.audit_plan(
                  w_tensors.n_nodes, len(w_e.n), 0).items() if k not in ("offsets", "s", "words")},
-             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans}
+             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans, **k1k5_plans}
     print(json.dumps({"kernels": rows, "plans": plans, "card": card, "terms": terms_run,
                       "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
                                         "partitions": parts},

@@ -823,13 +823,14 @@ class StepBuffers:
             return torch.as_tensor(host(x, dtype), device=dev).contiguous()
 
         group, req, pin, forced = pods[:4]
-        # the pods' groups on the host too (a list: the launch reads one):
-        # K2 and K4 take a pod's group as an argument, one dependent load
-        # less on the card
+        # the pods' groups and pins on the host too (lists: the launch reads
+        # one): K1, K2 and K4 take a pod's group, K1 its pin, as arguments,
+        # one dependent load less on the card
         self.group = on_dev(group, np.int32)
         self.group_host = host(group, np.int32).tolist()
         self.req = on_dev(req, np.float32)
         self.pin = on_dev(pin, np.int32)
+        self.pin_host = host(pin, np.int32).tolist()
         self.forced = on_dev(forced, bool)
         n, p = statics.alloc.shape[0], len(self.group)
         v, sd = statics.vg_cap.shape[1], statics.sdev_cap.shape[1]
@@ -887,6 +888,10 @@ class StepBuffers:
         # built with the argument block
         self.topo_plan = None
         self.topo_sweep = None
+        # K1's and K5's launch plans (kernels/cuda.py filter_plan,
+        # storage_plan), at first use
+        self.filter_plan = None
+        self.storage_plan = None
         self.g_cols = None
         self.ctx = None  # the kernels' argument struct, built at first launch
 

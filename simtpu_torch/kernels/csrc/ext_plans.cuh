@@ -1,102 +1,150 @@
 // Per-node device code of the Open-Local storage plan (K5) and the
-// GPU-share plan (K6), shared by storage_pod.cu, gpu_pod.cu and the hard
-// wave kernel wave_hard.cu (K10): one source for every path.
+// GPU-share plan (K6), shared by storage_pod.cu, gpu_pod.cu, the hard
+// wave kernel wave_hard.cu (K10), sweep_place.cu (K19) and
+// explain_pass.cu (K20): one source for every path.
 //
-// storage_node: the JAX package's simtpu/kernels/storage.py lvm_plan
+// storage_plan: the JAX package's simtpu/kernels/storage.py lvm_plan
 // (:25), device_plan (:66) and open_local_score (:100); gpu_node:
 // simtpu/kernels/gpushare.py gpu_plan (:25). The thread of node n walks
-// the pod's claims in order and builds the node's plan in place in the
-// StepCtx scratch rows (st_alloc, st_take; gpu_sh), the VGs' running free
-// space in st_fr, then writes the verdicts (st_ok, st_raw; gpu_ok). No
-// per-thread array: the VG, device and GPU axes may have any width. See
-// the two kernels' notes.
+// the pod's claims in order and builds the node's plan: the VGs' running
+// free space, the allocation and the take row, then the verdict and the
+// raw score. storage_plan is written once, as a template over where its
+// rows live (a "plan rows" class): `ScratchPlanRows` reads the node's
+// rows in place and builds the plan in the StepCtx scratch rows (st_fr,
+// st_alloc, st_take: any width; K10, K19, K20, and K5 past its shared
+// budget), K5's `RegPlanRows<M>` holds the node's rows and the plan in
+// registers up to M VGs and devices, `SharedPlanRows` the plan's running
+// rows in shared memory. See the two kernels' notes.
 #pragma once
 #include "step_ctx.cuh"
 
-__device__ inline void storage_node(const StepCtx& x, int i, int n) {
+// f(j) for j in [0, n): M > 0 a loop unrolled to M (rows in registers)
+// that branches out past n, 0 a runtime loop
+template <int M, class F>
+__device__ __forceinline__ void each(int n, F&& f) {
+  if constexpr (M > 0) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if (j >= n) break;
+      f(j);
+    }
+  } else {
+    for (int j = 0; j < n; ++j) f(j);
+  }
+}
+
+// the pod's claims: LVM sizes and VG ids [L], device sizes and media [K]
+struct Claims {
+  const float* lsz;
+  const int* lvg;
+  const float* dsz;
+  const int* dmd;
+};
+
+__device__ inline Claims claims_in_place(const StepCtx& x, int i) {
+  return {x.lvm_size + static_cast<size_t>(i) * x.l, x.lvm_vg + static_cast<size_t>(i) * x.l,
+          x.dev_size + static_cast<size_t>(i) * x.k, x.dev_media + static_cast<size_t>(i) * x.k};
+}
+
+// The plan rows read in place and built in the StepCtx scratch rows of
+// node n (st_fr, st_alloc, st_take): any width
+struct ScratchPlanRows {
+  static constexpr int M = 0;
+  const StepCtx& x;
+  Claims cl;
+  size_t nv, nsd;
+  __device__ int name(int v) const { return x.vg_name_id[nv + v]; }
+  __device__ float free0(int v) const { return x.vg_free[nv + v]; }
+  __device__ float cap(int v) const { return x.vg_cap[nv + v]; }
+  __device__ float& fr(int v) const { return x.st_fr[nv + v]; }
+  __device__ float& alloc(int v) const { return x.st_alloc[nv + v]; }
+  __device__ bool dev_free(int d) const { return x.sdev_free[nsd + d] != 0; }
+  __device__ float dev_cap(int d) const { return x.sdev_cap[nsd + d]; }
+  __device__ int media(int d) const { return x.sdev_media[nsd + d]; }
+  __device__ uint8_t& take(int d) const { return x.st_take[nsd + d]; }
+  __device__ void flush() const {}
+};
+
+// The plan of one node through a plan rows class `S`: returns the LVM and
+// device verdict (has_storage not yet ANDed) and sets the raw score; the
+// allocation and the take row are left in S's rows.
+template <class S>
+__device__ inline bool storage_plan(const StepCtx& x, S& s, float& raw) {
+  constexpr int M = S::M;
   const int V = x.v, SD = x.sd;
-  const float* lsz = x.lvm_size + static_cast<size_t>(i) * x.l;
-  const int* lvg = x.lvm_vg + static_cast<size_t>(i) * x.l;
-  const float* dsz = x.dev_size + static_cast<size_t>(i) * x.k;
-  const int* dmd = x.dev_media + static_cast<size_t>(i) * x.k;
-  const size_t nv = static_cast<size_t>(n) * V;
-  const size_t nsd = static_cast<size_t>(n) * SD;
+  const Claims& cl = s.cl;
 
   // -- LVM plan (storage.py lvm_plan): the running free space and the
-  // allocation in the node's scratch rows --
-  float* fr = x.st_fr + nv;
-  float* alloc = x.st_alloc + nv;
+  // allocation --
   bool has_any_vg = false;
-  for (int v = 0; v < V; ++v) {
-    fr[v] = x.vg_free[nv + v];
-    alloc[v] = 0.0f;
-    has_any_vg = has_any_vg || x.vg_name_id[nv + v] >= 0;
-  }
+  each<M>(V, [&](int v) {
+    s.fr(v) = s.free0(v);
+    s.alloc(v) = 0.0f;
+    has_any_vg = has_any_vg || s.name(v) >= 0;
+  });
   bool lvm_ok = true;
   int n_lvm = 0;
   for (int c = 0; c < x.l; ++c) {
-    const float size = lsz[c];
-    const int vid = lvg[c];
+    const float size = cl.lsz[c];
+    const int vid = cl.lvg[c];
     const bool active = size > 0.0f;
     n_lvm += active ? 1 : 0;
     const bool named = vid >= 0;
-    // the binpack choice: first index of the smallest eligible free
+    // one pass: the binpack choice (first index of the smallest eligible
+    // free) and the named VG's slot and room (which need no binpack
+    // choice; an unnamed claim's verdict is any_eligible)
     int best = 0;
     float best_key = BIG;
-    bool any_eligible = false;
-    for (int v = 0; v < V; ++v) {
-      const bool eligible = x.vg_name_id[nv + v] >= 0 && fr[v] >= size;
+    bool any_eligible = false, any_slot = false, room = false;
+    each<M>(V, [&](int v) {
+      const bool eligible = s.name(v) >= 0 && s.fr(v) >= size;
       any_eligible = any_eligible || eligible;
-      const float key = eligible ? fr[v] : BIG;
+      const float key = eligible ? s.fr(v) : BIG;
       if (v == 0 || key < best_key) { best_key = key; best = v; }
-    }
-    bool any_slot = false, room = false;
-    for (int v = 0; v < V; ++v) {
-      const bool slot = named ? (x.vg_name_id[nv + v] >= 0 && x.vg_name_id[nv + v] == vid)
-                              : (v == best && any_eligible);
+      const bool slot = s.name(v) >= 0 && s.name(v) == vid;
       any_slot = any_slot || slot;
-      room = room || (slot && fr[v] >= size);
-    }
+      room = room || (slot && s.fr(v) >= size);
+    });
+    auto slot_of = [&](int v) {
+      return named ? (s.name(v) >= 0 && s.name(v) == vid) : (v == best && any_eligible);
+    };
     const bool ok = (named ? (any_slot && room) : any_eligible) && vid != -2 && has_any_vg;
-    for (int v = 0; v < V; ++v) {
-      const bool slot = named ? (x.vg_name_id[nv + v] >= 0 && x.vg_name_id[nv + v] == vid)
-                              : (v == best && any_eligible);
-      const float upd = (active && ok && slot && fr[v] >= size) ? size : 0.0f;
-      alloc[v] = alloc[v] + upd;
-      fr[v] = fr[v] - upd;
-    }
+    each<M>(V, [&](int v) {
+      const float upd = (active && ok && slot_of(v) && s.fr(v) >= size) ? size : 0.0f;
+      s.alloc(v) = s.alloc(v) + upd;
+      s.fr(v) = s.fr(v) - upd;
+    });
     if (active) lvm_ok = lvm_ok && ok;
   }
 
-  // -- exclusive-device plan (storage.py device_plan): the take row in
-  // the node's scratch; a device is still free while free and not taken --
-  uint8_t* take = x.st_take + nsd;
-  for (int d = 0; d < SD; ++d) take[d] = 0;
+  // -- exclusive-device plan (storage.py device_plan): a device is still
+  // free while free and not taken --
+  each<M>(SD, [&](int d) { s.take(d) = 0; });
   bool dev_ok = true;
   float tight = 0.0f;
   int n_dev = 0;
   for (int c = 0; c < x.k; ++c) {
-    const float size = dsz[c];
-    const int media = dmd[c];
+    const float size = cl.dsz[c];
+    const int media = cl.dmd[c];
     const bool active = size > 0.0f;
     n_dev += active ? 1 : 0;
     int best = 0;
     float best_key = BIG;
     bool found = false;
-    for (int d = 0; d < SD; ++d) {
-      const float cap = x.sdev_cap[nsd + d];
-      const bool dfree = x.sdev_free[nsd + d] != 0 && !take[d];
-      const bool eligible = dfree && x.sdev_media[nsd + d] == media && cap >= size;
+    each<M>(SD, [&](int d) {
+      const float cap = s.dev_cap(d);
+      const bool dfree = s.dev_free(d) && !s.take(d);
+      const bool eligible = dfree && s.media(d) == media && cap >= size;
       found = found || eligible;
       const float key = eligible ? cap : BIG;
       if (d == 0 || key < best_key) { best_key = key; best = d; }
-    }
+    });
     float cap_chosen = 0.0f;
-    for (int d = 0; d < SD; ++d) {
+    each<M>(SD, [&](int d) {
       const bool sel = d == best && found && active;
-      if (sel) take[d] = 1;
-      cap_chosen = cap_chosen + (sel ? x.sdev_cap[nsd + d] : 0.0f);
-    }
+      if (sel) s.take(d) = 1;
+      cap_chosen = cap_chosen + (sel ? s.dev_cap(d) : 0.0f);
+    });
     tight = tight + ((found && active) ? __fdiv_rn(size, fmaxf(cap_chosen, TINY)) : 0.0f);
     if (active) dev_ok = dev_ok && found;
   }
@@ -104,18 +152,26 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
   // -- raw Open-Local score (storage.py open_local_score) --
   float per_sum = 0.0f;
   int vg_count = 0;
-  for (int v = 0; v < V; ++v) {
-    const bool used = alloc[v] > 0.0f;
-    per_sum = per_sum + (used ? __fdiv_rn(alloc[v], fmaxf(x.vg_cap[nv + v], TINY)) : 0.0f);
+  each<M>(V, [&](int v) {
+    const bool used = s.alloc(v) > 0.0f;
+    per_sum = per_sum + (used ? __fdiv_rn(s.alloc(v), fmaxf(s.cap(v), TINY)) : 0.0f);
     vg_count += used ? 1 : 0;
-  }
+  });
   const float lvm_score = (n_lvm > 0 && vg_count > 0)
       ? __fdiv_rn(per_sum, static_cast<float>(vg_count)) * 10.0f : 0.0f;
-  const float raw = n_dev > 0
+  raw = n_dev > 0
       ? __fmaf_rn(__fdiv_rn(tight, static_cast<float>(n_dev)), 10.0f, lvm_score)
       : lvm_score + 0.0f;
+  return lvm_ok && dev_ok;
+}
 
-  x.st_ok[n] = (x.has_storage[n] && lvm_ok && dev_ok) ? 1 : 0;
+// The storage plan of pod i at node n in the StepCtx scratch rows, and its
+// verdict and raw score (K10, K19, K20)
+__device__ inline void storage_node(const StepCtx& x, int i, int n) {
+  ScratchPlanRows s{x, claims_in_place(x, i), static_cast<size_t>(n) * x.v, static_cast<size_t>(n) * x.sd};
+  float raw;
+  const bool ok = storage_plan(x, s, raw);
+  x.st_ok[n] = (x.has_storage[n] && ok) ? 1 : 0;
   x.st_raw[n] = raw;
 }
 

@@ -20,6 +20,7 @@
 // its wrapper computes by the same rules (kernels/cuda.py
 // sweep_place_plan).
 #pragma once
+#include "node_stages.cuh"
 #include "step_ctx.cuh"
 
 constexpr int WAVE_BLOCK = 1024;
@@ -214,13 +215,11 @@ __device__ inline float slot_min(const unsigned* slots, int stride) {
   return fkey_value(__reduce_min_sync(0xffffffffu, k));
 }
 
-// the resource fit of one free row (node_stages.cuh res_fit's arithmetic)
-// at stride `fs` between resources
+// the resource fit of one free row (node_stages.cuh res_fits) at stride
+// `fs` between resources
 __device__ inline bool fit_row(const float* fr, int fs, const float* req, int r) {
-  for (int q = 0; q < r; ++q) {
-    const float f = fr[q * fs];
-    if (!(__fmaf_rn(1e-5f, fmaxf(fabsf(f), 1.0f), f) >= req[q])) return false;
-  }
+  for (int q = 0; q < r; ++q)
+    if (!res_fits(fr[q * fs], req[q])) return false;
   return true;
 }
 

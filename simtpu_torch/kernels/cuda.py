@@ -54,12 +54,14 @@ KERNELS = (
     "relax_load", "relax_project", "grow_terms", "grow_nodes",
 )
 #: the per-pod kernels, launched as simtpu_<name>(StepCtx*, pod, stream)
-#: (K2 as simtpu_topology_pod(StepCtx*, group, TopoPlan*, stream), K3 as
-#: simtpu_score_argmax_pod(StepCtx*, pod, ScorePlan*, stream), K4 as
-#: simtpu_commit_pod(StepCtx*, pod, group, stream): the pod's group from
-#: the host)
+#: (K1 as simtpu_filter_pod(StepCtx*, pod, group, pin, FilterPlan*,
+#: stream), K2 as simtpu_topology_pod(StepCtx*, group, TopoPlan*, stream),
+#: K3 as simtpu_score_argmax_pod(StepCtx*, pod, ScorePlan*, stream), K4 as
+#: simtpu_commit_pod(StepCtx*, pod, group, stream), K5 as
+#: simtpu_storage_pod(StepCtx*, pod, StoragePlan*, stream): the pod's
+#: group and pin from the host)
 STEP_KERNELS = KERNELS[:6]
-STEP_PLANNED = ("topology_pod", "score_argmax_pod")
+STEP_PLANNED = ("topology_pod", "score_argmax_pod", "storage_pod")
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
 WAVE_KERNELS = KERNELS[8:10]
 #: the round kernels, launched as simtpu_<name>(StepCtx*, RoundCtx*, stream)
@@ -154,6 +156,9 @@ def build() -> dict:
         fn = getattr(lib, f"simtpu_{name}")
         if name in STEP_PLANNED:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        elif name == "filter_pod":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p]
         elif name == "commit_pod":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         elif name in STEP_KERNELS:
@@ -429,6 +434,126 @@ def make_ctx(buf, out_rows: int = None) -> StepCtx:
     )
 
 
+#: K1's launch plan (csrc/filter_pod.cu): threads a block (the measured
+#: sweep, PERF.md), the entries of a node's row held in registers at most
+#: (FILTER_REG; also the attach classes of the one-pass count), the shared
+#: bytes the group's staged rows may take, and the StepCtx flag bits of the
+#: stages that read the group's rows (ports, volumes, attach)
+FILTER_THREADS = 128
+FILTER_MAX_THREADS = 512
+FILTER_REG = 8
+FILTER_SMEM = 48 * 1024
+F_PORTS, F_VOLS, F_ATTACH = 1, 2, 4
+
+
+class FilterPlan(ctypes.Structure):
+    """ctypes mirror of `struct FilterPlan` in csrc/filter_pod.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "regs", "staged", "smem")]
+
+
+def filter_smem_bytes(p: int, w: int, c: int, regs: bool) -> int:
+    """K1's staged group rows (csrc/filter_pod.cu filter_smem_bytes): ports
+    [P], rw, ro, att [W], then a class-bits byte a volume (the register
+    template) or the class mask [C, W]."""
+    return p + 3 * w + (w if regs else c * w)
+
+
+def filter_plan(n: int, r: int, p: int, w: int, c: int, flags: int, threads: int = None) -> dict:
+    """K1's launch plan for N nodes, R resources, P ports, W volumes, C
+    attach classes and the StepCtx flag bits: blocks of `threads` threads
+    (FILTER_THREADS, fewer for a small N; at most FILTER_MAX_THREADS), one
+    node a thread; the register template ("registers") where every live
+    row (free; ports under F_PORTS; the volume rows under F_VOLS /
+    F_ATTACH; the limits and classes under F_ATTACH) has at most FILTER_REG
+    entries, else the rows read in place ("global"); the group's rows
+    staged in shared memory where a stage that reads them is live and they
+    take at most FILTER_SMEM bytes, else read in place."""
+    n1 = max(n, 1)
+    live_p = p if flags & F_PORTS else 0
+    live_w = w if flags & (F_VOLS | F_ATTACH) else 0
+    live_c = c if flags & F_ATTACH else 0
+    regs = max(r, live_p, live_w, live_c) <= FILTER_REG
+    smem = filter_smem_bytes(p, w, c, regs)
+    staged = bool(flags & (F_PORTS | F_VOLS | F_ATTACH)) and smem <= FILTER_SMEM
+    t = min(int(threads or FILTER_THREADS), FILTER_MAX_THREADS, max(-(-n1 // 32) * 32, 32))
+    return {"blocks": -(-n1 // t), "threads": t, "regs": int(regs), "staged": int(staged),
+            "smem": smem if staged else 0, "template": "registers" if regs else "global",
+            "group_rows": "shared" if staged else "in place"}
+
+
+def filter_plan_struct(buf, threads: int = None) -> FilterPlan:
+    """K1's plan for `buf` (of `threads` threads where given); the default
+    plan is built once per buffer and kept (`buf.filter_plan`)."""
+    if threads is None and buf.filter_plan is not None:
+        return buf.filter_plan
+    x = buf.ctx
+    plan = filter_plan(x.n, x.r, x.p_ports, x.w, x.c, x.flags, threads)
+    struct = FilterPlan(**{f: plan[f] for f, _ in FilterPlan._fields_})
+    if threads is None:
+        buf.filter_plan = struct
+    return struct
+
+
+#: K5's launch plan (csrc/storage_pod.cu): threads a block (the measured
+#: sweep, PERF.md), the register template (VGs and devices a node holds in
+#: registers, also its code), the codes of the shared and global
+#: templates, and the bytes of claims a block stages at most
+STORAGE_THREADS = 128
+STORAGE_MAX_THREADS = 256
+STORAGE_REG = 4
+STORAGE_SHARED = 1
+STORAGE_GLOBAL = 0
+STORAGE_CLAIMS_SMEM = 16 * 1024
+
+
+class StoragePlan(ctypes.Structure):
+    """ctypes mirror of `struct StoragePlan` in csrc/storage_pod.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "tmpl", "staged", "smem", "off_rows")]
+
+
+def storage_plan(n: int, v: int, sd: int, l: int, k: int, threads: int = None, template: int = None) -> dict:
+    """K5's launch plan for N nodes, V VGs, SD devices, L LVM and K device
+    claims: blocks of `threads` threads (STORAGE_THREADS, fewer for a small
+    N; at most STORAGE_MAX_THREADS), one node a thread; the pod's 8 (L + K)
+    claim bytes staged in shared memory while they take at most
+    STORAGE_CLAIMS_SMEM; the template `template` where given, else the
+    register template ("registers") where max(V, SD) <= STORAGE_REG, past
+    it the plan's running rows in shared memory ("shared", 8 V + SD bytes
+    a thread after the claims) while they fit in WAVE_SMEM, else in the
+    StepCtx scratch rows ("global")."""
+    n1 = max(n, 1)
+    t = min(int(threads or STORAGE_THREADS), STORAGE_MAX_THREADS, max(-(-n1 // 32) * 32, 32))
+    claims = 8 * (l + k)
+    staged = claims <= STORAGE_CLAIMS_SMEM
+    off_rows = ((claims + 15) & ~15) if staged else 0
+    rows = t * (8 * v + sd)
+    width = max(v, sd)
+    if template is None:
+        template = (STORAGE_REG if width <= STORAGE_REG else
+                    STORAGE_SHARED if off_rows + rows <= WAVE_SMEM else STORAGE_GLOBAL)
+    smem = (off_rows + rows) if template == STORAGE_SHARED else (claims if staged else 0)
+    name = {STORAGE_REG: "registers", STORAGE_SHARED: "shared"}.get(template, "global")
+    return {"blocks": -(-n1 // t), "threads": t, "tmpl": int(template), "staged": int(staged), "smem": smem,
+            "off_rows": off_rows, "template": name}
+
+
+def storage_plan_struct(buf, threads: int = None, template: int = None) -> StoragePlan:
+    """K5's plan for `buf` (of `threads` threads and template `template`
+    where given); the default plan is built once per buffer and kept
+    (`buf.storage_plan`)."""
+    default = threads is None and template is None
+    if default and buf.storage_plan is not None:
+        return buf.storage_plan
+    x = buf.ctx
+    plan = storage_plan(x.n, x.v, x.sd, x.l, x.k, threads, template)
+    struct = StoragePlan(**{f: plan[f] for f, _ in StoragePlan._fields_})
+    if default:
+        buf.storage_plan = struct
+    return struct
+
+
 #: K3's launch plan (csrc/score_argmax_pod.cu): threads a block at most,
 #: and the nodes a thread keeps in registers (one; past SCORE_BLOCK nodes
 #: the inputs are read again in pass 2: 2 and 4 nodes a thread in
@@ -538,17 +663,28 @@ def topology_plan_struct(buf, blocks: int = None, budget: int = None, cluster: b
 
 def launch(name: str, buf, i: int) -> None:
     """Launch kernel `name` for pod i of `buf` on the current CUDA stream
-    (K2 on `topology_plan`, K3 on `score_plan`; K2 and K4 take the pod's
-    group from `buf.group_host`); raises if the launch is refused. No
-    synchronization."""
+    (K1 on `filter_plan`, K2 on `topology_plan`, K3 on `score_plan`, K5 on
+    `storage_plan`; K1, K2 and K4 take the pod's group from
+    `buf.group_host`, K1 its pin from `buf.pin_host`); raises if the launch
+    is refused. No synchronization."""
     if not 0 <= i < buf.n_pods:
         raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
     libs = build()
     if buf.ctx is None:
         buf.ctx = make_ctx(buf)
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    # the current stream's handle on the buffers' device, as
+    # torch.cuda.current_stream(device).cuda_stream gives it but without
+    # building a Stream object, which took about 6 of a launch's 16 µs on
+    # the host (PERF.md)
+    stream = torch._C._cuda_getCurrentRawStream(buf.device.index)
     fn = getattr(libs[name], f"simtpu_{name}")
-    if name == "topology_pod":
+    if name == "filter_pod":
+        plan = buf.filter_plan or filter_plan_struct(buf)
+        err = fn(ctypes.byref(buf.ctx), i, buf.group_host[i], buf.pin_host[i], ctypes.byref(plan), stream)
+    elif name == "storage_pod":
+        plan = buf.storage_plan or storage_plan_struct(buf)
+        err = fn(ctypes.byref(buf.ctx), i, ctypes.byref(plan), stream)
+    elif name == "topology_pod":
         plan = buf.topo_plan[0] if buf.topo_plan is not None else topology_plan_struct(buf)
         err = fn(ctypes.byref(buf.ctx), buf.group_host[i], ctypes.byref(plan), stream)
     elif name == "commit_pod":
