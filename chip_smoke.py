@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (simtpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(`--parent DIR`: a `git archive` of an earlier tree, whose K5, K6 and K13
+phase 21 builds and times in turns against this tree's.)
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
@@ -238,7 +241,25 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    at a serial pod and K5's at an extended storage pod (profiler), host
    time per back-to-back launch, plain time and bound; K1's sweep at each
    N and K5's at N = 1000 and 5000 and on the wide problem (device time
-   per launch, the variants launched in turns in one profiler window).
+   per launch, the variants launched in turns in one profiler window);
+21. K6 and K13 against their plain versions, bit for bit: K6 (gpu_ok,
+   gpu_sh) at N = 120 ... 9000 on the extended case's GPU pods and on
+   seeded GPU states of GD = 1, 2, 4, 5, 8, 9 and 40 (one-GPU pods on a
+   grid of free memory, multi-GPU stacking, preset rows, missing devices,
+   requests past every device, a count of 0) and on the wide problem (GD
+   = 40), each on its launch plan (`cuda.gpu_plan`) and every plan of its
+   sweep (threads x template); K13 (every compact field) on 200- and
+   2000-entry batches of phase 2's extended run evicted and restored, on
+   the extended carry and on its tabular-only and dense-only variants,
+   and on the terms problem at Tc = 512, each on its launch plan
+   (`cuda.compact_delta_plan`) and every plan of its sweep (the plain
+   version on CPU copies of the inputs); per N K6's device / host / plain
+   time and bound, its sweep at N = 1000 and 5000 (also at GD = 9 and 40)
+   and on the wide problem; K13's device time by kernel, host time, bound
+   and its sweep; with `--parent DIR` the parent's K6 and K13 paths equal
+   to this tree's and timed in turns (device and host), and its K5 timed
+   in turns against this tree's on the wide problem (V = 36, where the
+   raw score's row sum changed).
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread with t*'s 16 zones — K15's
 one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
@@ -289,7 +310,7 @@ launch from the profiler, back-to-back launches from Python, the plain
 version's).
 
 The line before the last is the JSON `{"kernels": [...], "plans": {...}}`
-(`plans`: the launch plans of phases 18's to 20's shapes, the wrappers' choices
+(`plans`: the launch plans of phases 18's to 21's shapes, the wrappers' choices
 beside the run's readings); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 no CUDA device is available.
@@ -884,6 +905,13 @@ def delta_entries(kbuf, placed_pods, rng, k: int):
     ok = placed_pods[node[placed_pods] >= 0]
     pick = np.concatenate([rng.choice(ok[ext[ok]], k // 2, replace=False),
                            rng.choice(ok[~ext[ok]], k - k // 2, replace=False)])
+    return placement_records(kbuf, pick)
+
+
+def placement_records(kbuf, pick):
+    """The placements `pick` of a kernel run as remove_placements-style
+    records."""
+    node = kbuf.out_node.cpu().numpy()
     g, req = kbuf.group.cpu().numpy(), kbuf.req.cpu().numpy()
     lvm, take = kbuf.out_lvm.cpu().numpy(), kbuf.out_take.cpu().numpy()
     shares, mem = kbuf.out_gpu.cpu().numpy(), kbuf.gpu_mem.cpu().numpy()
@@ -1025,11 +1053,12 @@ def compact_bytes(tensors, state, cstate) -> dict:
     return {"compact_compress": int(k11), "compact_expand": int(k12)}
 
 
-def compact_delta_bytes(statics, state, cstate, packed, tensors) -> int:
-    """Bytes K13 must move for these entries: the entries read once, the
-    chosen nodes' rows read and written, each tabular bucket and cnt_total
-    entry the entries touch read and written, and the dense count rows'
-    elements they touch read and written."""
+def compact_delta_bytes(statics, cstate, packed, dspec, ndom, nds) -> int:
+    """Bytes K13 must move for these entries into the carry `cstate` under
+    the row maps `dspec` and the maps `ndom` / `nds`: the entries read once,
+    the chosen nodes' rows read and written, each tabular bucket and
+    cnt_total entry the entries touch read and written, and the dense count
+    rows' elements they touch read and written."""
     g, node, wgt, req, vg, sd, gp = (np.asarray(x) for x in packed)
     live = wgt != 0
     e, r = req.shape
@@ -1039,14 +1068,13 @@ def compact_delta_bytes(statics, state, cstate, packed, tensors) -> int:
                              + 4 * cstate.vg_free.shape[1] + cstate.sdev_free.shape[1]
                              + 4 * cstate.gpu_free.shape[1])
     g_terms = statics.g_terms.cpu().numpy()
-    node_dom = statics.node_dom.cpu().numpy()
+    node_dom = ndom.cpu().numpy()
     term_topo = statics.term_topo.cpu().numpy()
     ip_of = statics.ip_of.cpu().numpy()
-    dspec = sstate.compact_delta_spec(tensors)
-    t_tab_of, t_dense_of = dspec.t_tab_of.numpy(), dspec.t_dense_of.numpy()
-    ip_tab_of, ip_dense_of = dspec.ip_tab_of.numpy(), dspec.ip_dense_of.numpy()
-    nds = tensors.node_dom_small
-    n = tensors.n_nodes
+    t_tab_of, t_dense_of = dspec.t_tab_of.cpu().numpy(), dspec.t_dense_of.cpu().numpy()
+    ip_tab_of, ip_dense_of = dspec.ip_tab_of.cpu().numpy(), dspec.ip_dense_of.cpu().numpy()
+    small = nds.cpu().numpy()
+    n = node_dom.shape[1]
     buckets, ip_buckets, totals = set(), set(), set()
     dense = np.zeros((cstate.cm_dense.shape[0], n), bool)
     ip_dense = np.zeros((cstate.oa_dense.shape[0], n), bool)
@@ -1057,13 +1085,16 @@ def compact_delta_bytes(statics, state, cstate, packed, tensors) -> int:
             key = term_topo[term]
             totals.add(term)
             ip = ip_of[term]
-            if t_tab_of[term] >= 0:
-                buckets.add((term, nds[key, c]))
+            if small[key, c] >= 0:
+                if t_tab_of[term] >= 0:
+                    buckets.add((term, small[key, c]))
                 if ip >= 0 and ip_tab_of[ip] >= 0:
-                    ip_buckets.add((ip, nds[key, c]))
+                    ip_buckets.add((ip, small[key, c]))
+            if t_dense_of[term] < 0 and (ip < 0 or ip_dense_of[ip] < 0):
                 continue
             same = node_dom[key] == node_dom[key, c]
-            dense[t_dense_of[term]] |= same
+            if t_dense_of[term] >= 0:
+                dense[t_dense_of[term]] |= same
             if ip >= 0 and ip_dense_of[ip] >= 0:
                 ip_dense[ip_dense_of[ip]] |= same
     count_bytes = 2 * 4 * (len(buckets) + 4 * len(ip_buckets) + len(totals) + int(dense.sum())
@@ -1193,10 +1224,11 @@ def kernel_of(key: str):
 
 
 #: kernels whose one launch is several CUDA kernels (K8: cuda.audit_plan's
-#: radix passes and scans), each mapped to its part that runs exactly once a
-#: launch; the profiler's device time of a launch is the sum of its parts,
-#: its launches the count of that part
-MULTI_KERNEL = {"audit_bulk": "audit_bulk_flags_kernel"}
+#: radix passes and scans; K13: its grouping and pair kernel, then its
+#: walk), each mapped to its part that runs exactly once a launch; the
+#: profiler's device time of a launch is the sum of its parts, its
+#: launches the count of that part
+MULTI_KERNEL = {"audit_bulk": "audit_bulk_flags_kernel", "compact_delta": "compact_delta_kernel"}
 
 # kernels whose device time came from CUDA events because the profiler's
 # windows lost their device events
@@ -4091,6 +4123,18 @@ def terms_cluster(terms: int):
                                TERMS_REPLICAS)
 
 
+#: the terms problems tensorized (phases 17 and 21), by term count
+TERMS_BATCHES = {}
+
+
+def terms_batch(device, terms: int):
+    """terms_cluster(terms) tensorized with a seeded 2000-entry placement
+    log (tensorized_batch), once per term count."""
+    if terms not in TERMS_BATCHES:
+        TERMS_BATCHES[terms] = tensorized_batch(*terms_cluster(terms), device, 2000)
+    return TERMS_BATCHES[terms]
+
+
 def phase_terms(device, err) -> dict:
     """Phase 17 (a): any number of term columns. The terms problem at Tc =
     512 and 1024 (a seeded placement log of 2000 entries): K14 -> K15 ->
@@ -4103,7 +4147,7 @@ def phase_terms(device, err) -> dict:
     out = {}
     for terms, tc in TERMS_CASES:
         cluster, apps = terms_cluster(terms)
-        t, b, s, st, p = tensorized_batch(cluster, apps, device, 2000)
+        t, b, s, st, p = terms_batch(device, terms)
         f = scan.flags_from(t, b.ext)
         if s.g_terms.shape[1] != tc:
             raise AssertionError(f"phase 17: the terms problem has Tc = {s.g_terms.shape[1]}, want {tc}")
@@ -5006,21 +5050,30 @@ def turns_window(variants: dict, kernel: str, reps: int = TURNS_REPS):
         torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel_of(e.name) == kernel),
                  key=lambda e: e.time_range.start)
-    if len(evs) < reps * len(labels):
+    # a call of several kernels (MULTI_KERNEL; K13's begins with the part
+    # named there, as its parent's one kernel does) is the sum of its parts
+    calls = []
+    for e in evs:
+        if not calls or kernel not in MULTI_KERNEL or part_of(e.name) == MULTI_KERNEL[kernel]:
+            calls.append(0.0)
+        calls[-1] += e.time_range.elapsed_us()
+    if len(calls) < reps * len(labels):
         return None
-    evs = evs[len(evs) - reps * len(labels):]
+    calls = calls[len(calls) - reps * len(labels):]
     got = {k: [] for k in labels}
-    for j, e in enumerate(evs):
-        got[labels[j % len(labels)]].append(e.time_range.elapsed_us())
+    for j, us in enumerate(calls):
+        got[labels[j % len(labels)]].append(us)
     return {k: float(np.median(v)) for k, v in got.items()}
 
 
 def sweep_us(variants: dict, kernel: str) -> tuple:
-    """turns_window's medians, or CUDA events in turns where the window lost
-    an event; and which of the two."""
-    got = turns_window(variants, kernel)
-    if got is not None:
-        return got, "profiler"
+    """turns_window's medians (a window that lost events taken again once),
+    or CUDA events in turns where both lost an event; and which of the
+    two."""
+    for _ in range(2):
+        got = turns_window(variants, kernel)
+        if got is not None:
+            return got, "profiler"
     return {k: v * 1e3 for k, v in in_turns({k: (lambda f: lambda _: f())(f) for k, f in variants.items()},
                                             lambda: None, 10).items()}, "cuda events"
 
@@ -5139,6 +5192,514 @@ def phase_k1_k5(device) -> tuple:
     return out, plans
 
 
+#: phase 21: K6's plan sweep, threads a block (x each template that holds
+#: the width: cuda.gpu_plan)
+GPU_SWEEP = (32, 64, 128, 256, 512)
+#: K6's sweep is timed at these node counts (and on the wide problem)
+GPU_SWEEP_NODES = (1000, 5000)
+#: the GPU widths of the seeded GPU states (gpu_case): every register
+#: template, one past each, and the wide problem's 40
+GPU_WIDTHS = (1, 2, 4, 5, 8, 9, 40)
+#: the seeded GPU pods: (per-GPU memory MiB, count, preset devices; -1 the
+#: last device): one-GPU pods on a grid of free memory (ties), multi-GPU
+#: stacking, several shares a device, preset rows, a request larger than
+#: every device, a count of 0, and a pod without GPU memory
+GPU_PODS = ((4096, 1, ()), (8192, 1, ()), (16384, 1, ()), (2048, 2, ()), (4096, 3, ()), (1024, 7, ()),
+            (4096, 2, (0, 1)), (4096, 1, (-1,)), (1 << 30, 1, ()), (1 << 30, 3, ()), (4096, 0, ()), (0, 0, ()))
+#: K13's plan sweep: (threads a block, shared budget; None the plan's, 0
+#: the grouping scratch in global memory)
+DELTA_SWEEP = ((128, None), (256, None), (512, None), (1024, None), (1024, 0))
+#: K13's batches of the extended log, entries before padding
+DELTA_ENTRIES = (200, 2000)
+#: the terms problem's K13 batch: seeded entries at Tc = 512
+DELTA_TERMS = (300, 512, 200)
+
+
+def gpu_case(statics, state, pods, gd: int, seed: int):
+    """`statics`/`state` with seeded GPU rows of GD devices — 8, 16 or 24
+    GiB a device, free memory on a grid of quarters (ties), one device in
+    five missing, every 17th node without a device, every 13th node's
+    total short of one device — and a batch of the GPU_PODS on the first
+    pods of `pods` (an extended batch's arrays)."""
+    rng = np.random.default_rng(seed)
+    n = statics.alloc.shape[0]
+    dev = statics.alloc.device
+    exists = rng.random((n, gd)) < 0.8
+    exists[::17] = False
+    cap = rng.choice(np.array([8192, 16384, 24576], np.float32), (n, gd))
+    grid = rng.choice(np.array([0.0, 0.25, 0.5, 0.75, 1.0], np.float32), (n, gd))
+    free = np.where(exists, cap * grid, 0.0).astype(np.float32)
+    total = (cap * exists).sum(axis=1, dtype=np.float32)
+    total[::13] = 2048.0
+
+    def t(x):
+        return torch.as_tensor(x, device=dev).contiguous()
+
+    p = len(GPU_PODS)
+    mem = np.array([m for m, _, _ in GPU_PODS], np.float32)
+    count = np.array([c for _, c, _ in GPU_PODS], np.int32)
+    preset = np.zeros((p, gd), np.int32)
+    for j, (_, _, devs) in enumerate(GPU_PODS):
+        for d in devs:
+            preset[j, d % gd] = 1
+    base = tuple(np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)[:p] for a in pods[:8])
+    return (statics._replace(gpu_dev_exists=t(exists), gpu_total=t(total)), state._replace(gpu_free=t(free)),
+            (*base, mem, count, preset))
+
+
+def launch_gpu_with(buf, i: int, threads: int, template: str) -> None:
+    """K6 for pod i of `buf` on `gpu_plan`'s plan of `threads` threads and
+    template `template`: a measurement launch, not counted."""
+    if buf.ctx is None:
+        buf.ctx = cuda.make_ctx(buf)
+    plan = cuda.gpu_plan_struct(buf, threads, template)
+    err = cuda.build()["gpu_pod"].simtpu_gpu_pod(ctypes.byref(buf.ctx), i, ctypes.byref(plan),
+                                                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K6 on {threads} threads, template {template}, failed to launch ({err})")
+
+
+def gpu_templates(buf, threads: int) -> tuple:
+    """K6's templates that hold `buf`'s GD: the register template up to
+    GPU_REG devices, and the rows read in place."""
+    return (("registers",) if buf.ctx.gd <= cuda.GPU_REG else ()) + ("global",)
+
+
+def compare_k6(label: str, buf, sample) -> dict:
+    """Phase 21: K6 against gpu_pod_plain on each pod of `sample`, on the
+    wrapper's plan and on every (threads, template) of GPU_SWEEP x
+    gpu_templates: gpu_ok and gpu_sh bit for bit, each element written
+    (the outputs filled with the negated verdicts and NaN first)."""
+    if buf.ctx is None:
+        buf.ctx = cuda.make_ctx(buf)
+    fit = presets = 0
+    for i in map(int, sample):
+        scan.gpu_pod_plain(buf, i)
+        want_ok, want_sh = buf.gpu_ok.clone(), buf.gpu_sh.clone()
+        fit += int(want_ok.sum())
+        presets += buf.gpu_host[i][2]
+        for threads, template in [(None, None)] + [(t, m) for t in GPU_SWEEP for m in gpu_templates(buf, t)]:
+            buf.gpu_ok.copy_(~want_ok)
+            buf.gpu_sh.fill_(float("nan"))
+            if threads is None:
+                scan.gpu_pod(buf, i)
+            else:
+                launch_gpu_with(buf, i, threads, template)
+            torch.cuda.synchronize()
+            if not (torch.equal(buf.gpu_ok, want_ok) and bits_equal(buf.gpu_sh, want_sh)):
+                raise AssertionError(f"phase 21: K6 ({label}, N={buf.ctx.n}, GD={buf.ctx.gd}, threads {threads}, "
+                                     f"template {template}) pod {i}: gpu_ok or gpu_sh differs")
+    x = buf.ctx
+    return {"pods": len(sample), "nodes_fit": fit, "preset_pods": presets, "plan": cuda.gpu_plan(x.n, x.gd)["template"]}
+
+
+def k6_sweep(buf, i: int) -> dict:
+    """K6's device µs per launch on each (threads, template) of GPU_SWEEP x
+    gpu_templates at pod i."""
+    variants = {f"{t} x {m}": (lambda t_, m_: lambda: launch_gpu_with(buf, i, t_, m_))(t, m)
+                for t in GPU_SWEEP for m in gpu_templates(buf, t)}
+    got, how = sweep_us(variants, "gpu_pod")
+    return {"us": got, "from": how}
+
+
+#: the parent tree's kernels that phase 21 builds and times against this
+#: tree's (K5: the raw score's row sum, repaired past 32 VGs)
+PARENT_KERNELS = ("gpu_pod", "compact_delta", "storage_pod")
+
+
+def load_parent(parent: Path):
+    """The parent tree's kernels/cuda.py as a module of its own, its
+    PARENT_KERNELS built from the parent tree's sources (nvcc, all at once)
+    and its other libraries this tree's: the parent's K5, K6 and K13 paths,
+    wrappers included, for timing in turns against this tree's."""
+    import importlib.util
+
+    src = parent / "simtpu_torch" / "kernels"
+    spec = importlib.util.spec_from_file_location("parent_cuda", src / "cuda.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    libs = dict(cuda.build())
+    out = Path(tempfile.mkdtemp(prefix="parent_kernels_"))
+    procs = {name: subprocess.Popen([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+                                     str(src / "csrc" / f"{name}.cu")], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True) for name in PARENT_KERNELS}
+    for name, proc in procs.items():
+        build_log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the parent's {name} failed to build:\n{build_log}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        fn = getattr(lib, f"simtpu_{name}")
+        fn.argtypes = {"gpu_pod": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                       "compact_delta": [ctypes.c_void_p, ctypes.c_void_p],
+                       "storage_pod": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]}[name]
+        fn.restype = ctypes.c_int
+        libs[name] = lib
+    mod._LIBS.update(libs)
+    return mod
+
+
+def host_in_turns(calls: dict, iters: int, turns: int = 7) -> dict:
+    """Host µs per back-to-back call of each of `calls` ({label: fn}):
+    CUDA events around `iters` calls, the labels in turns, the order
+    reversed every other turn; the median per label."""
+    got = {k: [] for k in calls}
+    for turn in range(turns):
+        for k in (list(calls) if turn % 2 == 0 else list(calls)[::-1]):
+            got[k].append(time_call(calls[k], iters) * 1e3)
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def k6_vs_parent(pmod, buf, i: int) -> dict:
+    """The parent's K6 path against this tree's at pod i (each through
+    engine/scan.py gpu_pod's device check): the same outputs, then device
+    µs per launch in turns in one profiler window and host µs per launch in
+    turns."""
+    def parent(b, j):
+        if b.device.type == "cpu":
+            scan.gpu_pod_plain(b, j)
+        else:
+            pmod.launch("gpu_pod", b, j)
+
+    parent(buf, i)
+    torch.cuda.synchronize()
+    want = (buf.gpu_ok.clone(), buf.gpu_sh.clone())
+    scan.gpu_pod(buf, i)
+    torch.cuda.synchronize()
+    if not (torch.equal(buf.gpu_ok, want[0]) and bits_equal(buf.gpu_sh, want[1])):
+        raise AssertionError(f"phase 21: K6 differs from the parent's K6 at pod {i} (N={buf.ctx.n})")
+    got, how = sweep_us({"parent": lambda: parent(buf, i), "new": lambda: scan.gpu_pod(buf, i)}, "gpu_pod")
+    host = host_in_turns({"parent": lambda: parent(buf, i), "new": lambda: scan.gpu_pod(buf, i)}, 2000)
+    return {"pod": i, "device_us": got, "from": how, "speedup": got["parent"] / got["new"], "host_us": host,
+            "host_ratio": host["new"] / host["parent"]}
+
+
+def k5_vs_parent(pmod, buf, i: int) -> dict:
+    """The parent's K5 path against this tree's at pod i (each through
+    engine/scan.py storage_pod's device check): the verdicts and
+    allocations equal (the raw score may differ past 32 VGs, where this
+    tree sums in XLA's order), then device µs per launch in turns in one
+    profiler window and host µs per launch in turns."""
+    def parent(b, j):
+        if b.device.type == "cpu":
+            scan.storage_pod_plain(b, j)
+        else:
+            pmod.launch("storage_pod", b, j)
+
+    parent(buf, i)
+    torch.cuda.synchronize()
+    want = (buf.st_ok.clone(), buf.st_alloc.clone())
+    scan.storage_pod(buf, i)
+    torch.cuda.synchronize()
+    if not (torch.equal(buf.st_ok, want[0]) and bits_equal(buf.st_alloc, want[1])):
+        raise AssertionError(f"phase 21: K5 differs from the parent's K5 at pod {i} (N={buf.ctx.n})")
+    got, how = sweep_us({"parent": lambda: parent(buf, i), "new": lambda: scan.storage_pod(buf, i)}, "storage_pod")
+    return {"pod": i, "device_us": got, "from": how, "speedup": got["parent"] / got["new"]}
+
+
+def log_entries(kbuf, placed, rng, k: int):
+    """`k` seeded placements of a kernel run as remove_placements-style
+    records (drawn again where the run placed fewer than k pods)."""
+    node = kbuf.out_node.cpu().numpy()
+    ok = placed[node[placed] >= 0]
+    return placement_records(kbuf, rng.choice(ok, k, replace=k > len(ok)))
+
+
+def seeded_entries(tensors, pods, rng, k: int):
+    """`k` seeded records of random groups on random nodes with requests of
+    the batch's pods and no extended rows."""
+    ext = tensors.ext
+    v, sd, gd = ext.vg_cap.shape[1], ext.sdev_cap.shape[1], ext.gpu_dev_total.shape[1]
+    req = np.asarray(pods[1])
+    return [(int(rng.integers(len(tensors.groups))), int(rng.integers(tensors.n_nodes)),
+             req[int(rng.integers(len(req)))], 0, np.zeros(v, np.float32), np.zeros(sd, bool),
+             np.zeros(gd, np.float32), 0.0) for _ in range(k)]
+
+
+def packed_pair(tensors, entries) -> dict:
+    """The entries packed to evict (w = -1) and to restore (w = +1)."""
+    ext = tensors.ext
+    widths = (tensors.alloc.shape[1], ext.vg_cap.shape[1], ext.sdev_cap.shape[1], ext.gpu_dev_total.shape[1])
+    return {sign: sstate.pack_delta_entries(entries, *widths, sign) for sign in (-1.0, 1.0)}
+
+
+def carry_variants(cstate, dspec, nds, seed: int) -> dict:
+    """The carry `cstate` ({"mixed": (cstate, dspec, nds)}, its own rows)
+    and two seeded variants on the same entries' terms: "tabular", every
+    count row a histogram over a small key's domains (cm_dense and the own
+    planes' dense rows empty, node_dom_small every key's row the first
+    small key's), and "dense", every count row a [N] row (no tabular row:
+    each term adds at every node of the chosen node's domain under its
+    key, a zone's ~62 nodes or one host)."""
+    rng = np.random.default_rng(seed)
+    dev = cstate.free.device
+    t, ti = cstate.cnt_total.shape[0], dspec.ip_tab_of.shape[0]
+    n, d = cstate.free.shape[0], cstate.cm_tab.shape[1]
+
+    def ints(*shape):
+        return torch.as_tensor(rng.integers(0, 50, shape).astype(np.int32), device=dev)
+
+    def rows(size):
+        return torch.arange(size, dtype=torch.int32, device=dev)
+
+    def none(size):
+        return torch.full((size,), -1, dtype=torch.int32, device=dev)
+
+    small = int(np.flatnonzero((nds >= 0).any(dim=1).cpu().numpy())[0])
+    tab = cstate._replace(cm_tab=ints(t, d), cm_dense=ints(0, n), cnt_total=ints(t),
+                          **{f"{q}_tab": ints(ti, d) for q in ("oa", "of", "wa", "wn")},
+                          **{f"{q}_dense": ints(0, n) for q in ("oa", "of", "wa", "wn")})
+    dense = cstate._replace(cm_tab=ints(0, d), cm_dense=ints(t, n), cnt_total=ints(t),
+                            **{f"{q}_tab": ints(0, d) for q in ("oa", "of", "wa", "wn")},
+                            **{f"{q}_dense": ints(ti, n) for q in ("oa", "of", "wa", "wn")})
+    return {"mixed": (cstate, dspec, nds),
+            "tabular": (tab, type(dspec)(rows(t), none(t), rows(ti), none(ti)),
+                        nds[small].expand_as(nds).contiguous()),
+            "dense": (dense, type(dspec)(none(t), rows(t), none(ti), rows(ti)), nds)}
+
+
+def launch_delta_with(statics, dspec, ndom, nds, cstate, packed, threads: int, budget: int) -> None:
+    """K13 on `compact_delta_plan`'s plan of `threads` threads and shared
+    `budget`: a measurement launch, not counted."""
+    device = cstate.free.device
+    ctx, entries = cuda.delta_ctx(statics, dspec, ndom, nds, cstate, packed)
+    plan = cuda.delta_plan_struct(ctx, device, threads, budget)
+    err = cuda.build()["compact_delta"].simtpu_compact_delta(ctypes.byref(ctx), ctypes.byref(plan),
+                                                             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K13 on {threads} threads, budget {budget}, failed to launch ({err})")
+
+
+def on_cpu(nt):
+    """A NamedTuple of tensors copied to the CPU."""
+    return type(nt)(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in nt))
+
+
+def compare_k13(label: str, statics, dspec, ndom, nds, cstate, packed, signs=(-1.0, 1.0)) -> dict:
+    """Phase 21: K13 against apply_placement_deltas_compact_plain, the
+    packed batch applied with each sign of `signs` in turn from `cstate`,
+    on the wrapper's plan and on every plan of DELTA_SWEEP: every compact
+    field bit for bit after each step. The plain version runs on copies of
+    the inputs on the CPU (its thousands of small ops take a fraction of
+    the time there that they take launched one by one on the card)."""
+    want, plain = [], on_cpu(cstate)
+    t0 = time.perf_counter()
+    args = (on_cpu(statics), on_cpu(dspec), ndom.cpu(), nds.cpu())
+    for sign in signs:
+        sstate.apply_placement_deltas_compact_plain(*args, plain, packed[sign])
+        want.append(clone_state(plain))
+    plain_s = time.perf_counter() - t0
+    for threads, budget in ((None, None),) + DELTA_SWEEP:
+        got = clone_state(cstate)
+        for sign, w in zip(signs, want):
+            if threads is None:
+                sstate.apply_placement_deltas_compact(statics, dspec, ndom, nds, got, packed[sign])
+            else:
+                launch_delta_with(statics, dspec, ndom, nds, got, packed[sign], threads, budget)
+            torch.cuda.synchronize()
+            bad = [f for f, a, b in zip(got._fields, got, w) if not bits_equal(a.cpu(), b)]
+            if bad:
+                raise AssertionError(f"phase 21: K13 ({label}, threads {threads}, budget {budget}, w = {sign:+.0f}): "
+                                     f"fields {bad} differ from the plain version")
+    wgt, node = np.asarray(packed[-1.0][2]), np.asarray(packed[-1.0][1])
+    moved = sorted(f for f, a, b in zip(cstate._fields, want[0], cstate) if a.numel() and not torch.equal(a, b.cpu()))
+    return {"entries": int((wgt != 0).sum()), "padded": int(len(wgt)), "nodes": int(len(np.unique(node[wgt != 0]))),
+            "most_on_a_node": int(np.bincount(node[wgt != 0]).max()), "moved": moved, "plain_s": plain_s}
+
+
+def time_k13(statics, dspec, ndom, nds, cstate, packed, nbytes: int) -> dict:
+    """K13's device µs per call, the sum of its two kernels (profiler;
+    evict and restore in turn on a copy of the carry), each kernel's share,
+    host µs per back-to-back call, and its bound."""
+    carry = clone_state(cstate)
+
+    def pair():
+        sstate.apply_placement_deltas_compact(statics, dspec, ndom, nds, carry, packed[-1.0])
+        sstate.apply_placement_deltas_compact(statics, dspec, ndom, nds, carry, packed[1.0])
+
+    per, _, _ = profile_kernels(lambda: [pair() for _ in range(20)], {"compact_delta": (pair, 2)})
+    events, _ = window_events(lambda: [pair() for _ in range(20)])
+    parts = {part: us / 40 for name, part, us, _ in events if name == "compact_delta"}
+    return {"device_us": per["compact_delta"][0], "ms_from": ms_from("compact_delta"), "parts_us": parts,
+            "host_us": time_call(pair, 100) / 2 * 1e3, "bytes": nbytes,
+            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+
+
+def k13_sweep(statics, dspec, ndom, nds, cstate, packed) -> dict:
+    """K13's device µs per call on each plan of DELTA_SWEEP, the plans in
+    turns, each evicting and restoring in turn on its own copy of the
+    carry."""
+    variants = {}
+    for threads, budget in DELTA_SWEEP:
+        carry, sign = clone_state(cstate), [-1.0]
+
+        def call(t=threads, b=budget, c=carry, s=sign):
+            launch_delta_with(statics, dspec, ndom, nds, c, packed[s[0]], t, b)
+            s[0] = -s[0]
+        variants[f"{threads} threads" + (", global" if budget == 0 else "")] = call
+    got, how = sweep_us(variants, "compact_delta")
+    return {"us": got, "from": how}
+
+
+def k13_vs_parent(pmod, statics, dspec, ndom, nds, cstate, packed) -> dict:
+    """The parent's K13 path against this tree's on copies of one carry
+    (each through engine/state.py apply_placement_deltas_compact's device
+    check): evict and restore in turn, call by call, each side on its own copy
+    (the copies equal bit for bit after every turn); device µs per launch
+    in turns in one profiler window; host µs per call in turns."""
+    def parent(st, ds, nd, ns, carry, p):
+        if carry.free.device.type == "cpu":
+            sstate.apply_placement_deltas_compact_plain(st, ds, nd, ns, carry, p)
+        else:
+            pmod.launch_compact_delta(st, ds, nd, ns, carry, p)
+
+    carries = {"parent": clone_state(cstate), "new": clone_state(cstate)}
+    apply = {"parent": parent, "new": sstate.apply_placement_deltas_compact}
+    sign = {"parent": -1.0, "new": -1.0}
+
+    def call(side):
+        apply[side](statics, dspec, ndom, nds, carries[side], packed[sign[side]])
+        sign[side] = -sign[side]
+
+    for _ in range(2):
+        call("parent")
+        call("new")
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(cstate._fields, carries["parent"], carries["new"]) if not bits_equal(a, b)]
+    if bad:
+        raise AssertionError(f"phase 21: K13 differs from the parent's K13: {bad}")
+    got, how = sweep_us({side: (lambda s_: lambda: call(s_))(side) for side in ("parent", "new")}, "compact_delta")
+    host = host_in_turns({side: (lambda s_: lambda: call(s_))(side) for side in ("parent", "new")}, 100)
+    return {"device_us": got, "from": how, "speedup": got["parent"] / got["new"], "host_us": host,
+            "host_ratio": host["new"] / host["parent"]}
+
+
+def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> tuple:
+    """Phase 21: K6 and K13 against their plain versions bit for bit. K6
+    at N = 120 ... 9000 on the extended case's GPU pods and on seeded GPU
+    states of GD = 1, 2, 4, 5, 8, 9 and 40 (gpu_case: ties, stacking,
+    presets, missing devices, a request past every device, a count of 0),
+    and on the wide problem's GPU pods (GD = 40), each on the wrapper's
+    plan and every plan of its sweep; per N its device / host / plain time
+    and bound, its sweep at GPU_SWEEP_NODES and on the wide problem. K13
+    on the extended log (run's placements) at E = 200 and 2000 on the
+    extended carry and its tabular and dense variants, and at the terms
+    problem's Tc = 512, each on its plan and every plan of DELTA_SWEEP;
+    their device / host / plain time and bound. With `parent` (a module of
+    load_parent) the parent's K6 and K13 equal this tree's and are timed
+    in turns against them, and its K5 on the wide problem. Returns the
+    measurements and the plans."""
+    rng = np.random.default_rng(21)
+    out, plans = {"gpu_pod": {}, "compact_delta": {}}, {"gpu_plan": {}, "compact_delta_plan": {}}
+    t0 = time.perf_counter()
+    for n in K1K5_WIDTHS:
+        xs, xst, xpods, xf, xsample = k3_cases(device, n)["extended"]
+        xbuf = scan.StepBuffers(xs, xst, xpods, xf)
+        live = np.flatnonzero(xbuf.gpu_live)
+        sample = np.union1d(xsample[xbuf.gpu_live[xsample]], rng.choice(live, min(8, len(live)), replace=False))
+        row = {"compare": {"extended": compare_k6("extended", xbuf, sample)}}
+        gbufs = {}
+        for gd in GPU_WIDTHS:
+            s, st, pods = gpu_case(xs, xst, xpods, gd, n + gd)
+            gbufs[gd] = scan.StepBuffers(s, st, pods, xf)
+            row["compare"][f"GD={gd}"] = compare_k6(f"GD={gd}", gbufs[gd], range(len(GPU_PODS)))
+        counts = xbuf.gpu_host
+        gi = next(int(i) for i in sample if counts[int(i)][1] >= 2)
+        row["timing"] = time_k1_k5("gpu_pod", xbuf, gi)
+        if n in GPU_SWEEP_NODES:
+            row["timing"]["sweep"] = k6_sweep(xbuf, gi)
+            # past the register templates: the seeded GD = 9 and 40 states'
+            # multi-GPU pod (GPU_PODS[3]), by threads
+            for gd in (9, 40):
+                row["timing"][f"sweep_gd{gd}"] = k6_sweep(gbufs[gd], 3)
+            if parent is not None:
+                row["timing"]["parent"] = k6_vs_parent(parent, xbuf, gi)
+        plans["gpu_plan"][str(n)] = cuda.gpu_plan(xbuf.ctx.n, xbuf.ctx.gd)
+        out["gpu_pod"][str(n)] = row
+        tm = row["timing"]
+        log(f"phase 21: K6 equal to its plain version at N={n} on every plan of its sweep "
+            f"({json.dumps(row['compare'])}): {tm['device_us']:.2f} us device ({tm['ms_from']}), "
+            f"{tm['host_us']:.2f} us host a launch, bound {tm['bound_us']:.4f} us, plain {tm['plain_ms']:.3f} ms"
+            + (f"; by threads x template ({tm['sweep']['from']}) {tm['sweep']['us']}, at GD = 9 "
+               f"{tm['sweep_gd9']['us']}, at GD = 40 {tm['sweep_gd40']['us']}" if "sweep" in tm else "")
+            + (f"; against the parent's K6 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+    # the wide problem: a node with 40 GPU devices
+    w_cluster, w_apps = smoke.wide_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
+    wt, wb, ws, wst, wpods = tensorized_batch(w_cluster, w_apps, device, 5)
+    wbuf = scan.StepBuffers(ws, clone_state(wst), wpods, scan.flags_from(wt, wb.ext))
+    wl = np.flatnonzero(wbuf.gpu_live)
+    wide = {"compare": compare_k6("wide problem", wbuf, wl)}
+    wi = next(int(i) for i in wl if wbuf.gpu_host[int(i)][1] >= 2)
+    wide["timing"] = time_k1_k5("gpu_pod", wbuf, wi)
+    wide["timing"]["sweep"] = k6_sweep(wbuf, wi)
+    if parent is not None:
+        wide["timing"]["parent"] = k6_vs_parent(parent, wbuf, wi)
+        # K5 after the row-sum repair against the parent's on the 36-VG node
+        wide["k5_vs_parent"] = k5_vs_parent(parent, wbuf, int(np.flatnonzero(wbuf.storage_live)[0]))
+    plans["gpu_plan"]["wide"] = cuda.gpu_plan(wbuf.ctx.n, wbuf.ctx.gd)
+    out["gpu_pod"]["wide"] = wide
+    log(f"phase 21: K6 on the wide problem (GD = {wbuf.ctx.gd}; {json.dumps(wide['compare'])}): "
+        f"{wide['timing']['device_us']:.2f} us device, by threads x template ({wide['timing']['sweep']['from']}) "
+        f"{wide['timing']['sweep']['us']}"
+        + (f"; against the parent's K6 {json.dumps(wide['timing']['parent'])}; K5 (V = {wbuf.ctx.v}) against "
+           f"the parent's K5 {json.dumps(wide['k5_vs_parent'])}" if parent is not None else ""))
+    k6_s = time.perf_counter() - t0
+    # K13 on the extended log
+    n = x_tensors.n_nodes
+    dev, nds = compact_maps(x_tensors, device)
+    dspec = sstate.compact_delta_spec_dev(x_tensors, device)
+    ndom = sstate.node_dom_for(x_tensors, n, device)
+    carry = sstate.compress_state_plain(dev, clone_state(run.state))
+    batches = {200: packed200, 2000: packed_pair(x_tensors, log_entries(run, head, rng, 2000))}
+    for label, (cst, dsp, nd) in carry_variants(carry, dspec, nds, 21).items():
+        for e, packed in batches.items():
+            if label != "mixed" and e != 2000:
+                continue
+            key = f"{label} E={e}"
+            signs = (-1.0, 1.0) if e == 200 else (-1.0,)
+            row = {"compare": compare_k13(f"extended {key}", x_statics, dsp, ndom, nd, cst, packed, signs)}
+            row["timing"] = time_k13(x_statics, dsp, ndom, nd, cst, packed,
+                                     compact_delta_bytes(x_statics, cst, packed[-1.0], dsp, ndom, nd))
+            if (label, e) in (("mixed", 200), ("tabular", 2000)):
+                row["timing"]["sweep"] = k13_sweep(x_statics, dsp, ndom, nd, cst, packed)
+            if parent is not None:
+                row["timing"]["parent"] = k13_vs_parent(parent, x_statics, dsp, ndom, nd, cst, packed)
+            x = cuda.delta_ctx(x_statics, dsp, ndom, nd, cst, packed[-1.0])[0]
+            plans["compact_delta_plan"][key] = cuda.delta_plan_of(x)
+            out["compact_delta"][key] = row
+            tm = row["timing"]
+            log(f"phase 21: K13 equal to its plain version on the extended log's {key} batch on every plan of its "
+                f"sweep ({json.dumps(row['compare'])}): {tm['device_us']:.2f} us device ({tm['ms_from']}), "
+                f"{tm['host_us']:.2f} us host a call, bound {tm['bound_us']:.4f} us, by kernel {tm['parts_us']}"
+                + (f"; by plan ({tm['sweep']['from']}) {tm['sweep']['us']}" if "sweep" in tm else "")
+                + (f"; against the parent's K13 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+    # the terms problem at Tc = 512: seeded entries
+    terms, tc, e = DELTA_TERMS
+    tt, tb, ts, tst, tp = terms_batch(device, terms)
+    if ts.g_terms.shape[1] != tc:
+        raise AssertionError(f"phase 21: the terms problem has Tc = {ts.g_terms.shape[1]}, want {tc}")
+    tdev, tnds = compact_maps(tt, device)
+    tspec = sstate.compact_delta_spec_dev(tt, device)
+    tndom = sstate.node_dom_for(tt, tt.n_nodes, device)
+    tcarry = sstate.compress_state_plain(tdev, clone_state(tst))
+    tpacked = packed_pair(tt, seeded_entries(tt, tp, rng, e))
+    key = f"terms Tc={tc} E={e}"
+    row = {"compare": compare_k13(key, ts, tspec, tndom, tnds, tcarry, tpacked)}
+    row["timing"] = time_k13(ts, tspec, tndom, tnds, tcarry, tpacked,
+                             compact_delta_bytes(ts, tcarry, tpacked[-1.0], tspec, tndom, tnds))
+    if parent is not None:
+        row["timing"]["parent"] = k13_vs_parent(parent, ts, tspec, tndom, tnds, tcarry, tpacked)
+    x = cuda.delta_ctx(ts, tspec, tndom, tnds, tcarry, tpacked[-1.0])[0]
+    plans["compact_delta_plan"][key] = cuda.delta_plan_of(x)
+    out["compact_delta"][key] = row
+    tm = row["timing"]
+    log(f"phase 21: K13 equal to its plain version on the {key} batch ({json.dumps(row['compare'])}): "
+        f"{tm['device_us']:.2f} us device, {tm['host_us']:.2f} us host a call, bound {tm['bound_us']:.4f} us"
+        + (f"; against the parent's K13 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+    out["seconds"] = {"k6": k6_s, "all": time.perf_counter() - t0}
+    log(f"phase 21: {out['seconds']['all']:.1f} s (K6 {k6_s:.1f} s)")
+    return out, plans
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5148,6 +5709,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"card: {card}")
+    args = sys.argv[1:]
+    parent_dir = Path(args[args.index("--parent") + 1]).resolve() if "--parent" in args else None
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -5164,6 +5727,11 @@ def main() -> int:
         for line in cuda.BUILD_INFO.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the parent tree's K5, K6 and K13 (phase 21 times them in turns
+    # against this tree's), where a directory of it was given
+    parent = load_parent(parent_dir) if parent_dir is not None else None
+    if parent is not None:
+        log(f"phase 1: built the parent's {', '.join(PARENT_KERNELS)} from {parent_dir}")
 
     # -- phase 2: kernels against their plain versions ---------------------
     configure_numerics()
@@ -5205,6 +5773,7 @@ def main() -> int:
         scan.score_argmax_pod(run, int(i))
         scan.commit_pod(run, int(i))
     torch.cuda.synchronize()
+    x_run = run  # phase 21's log
     entries = delta_entries(run, head, rng, 200)
     packed = phase_delta(x_statics, run.state, entries, x_tensors, err)
     log(f"phase 2: K7 equal to its plain version evicting and restoring {len(entries)} placements; "
@@ -5343,7 +5912,7 @@ def main() -> int:
     compact_times["compact_delta"] = (
         time_call(compact_delta_pair, 200) / 2,
         time_call(lambda: compact_delta_pair(sstate.apply_placement_deltas_compact_plain), 2) / 2)
-    c_bytes["compact_delta"] = compact_delta_bytes(x_statics, run.state, x_start, packed[-1.0], x_tensors)
+    c_bytes["compact_delta"] = compact_delta_bytes(x_statics, x_start, packed[-1.0], x_dspec, x_ndom, x_nds)
     c_per, _, _ = profile_kernels(lambda: [(sstate.compress_state(c_dev, c_state),
                                             sstate.expand_state(c_dev, c_carry, c_nds),
                                             compact_delta_pair()) for _ in range(20)],
@@ -5488,6 +6057,9 @@ def main() -> int:
 
     # -- phase 20: K1 and K5 at N = 120 ... 9000, edge states, the wide problem --
     k1k5_widths, k1k5_plans = phase_k1_k5(device)
+
+    # -- phase 21: K6 and K13 at their shapes, against the parent's where given --
+    k6k13, k6k13_plans = phase_k6_k13(device, x_tensors, x_statics, x_run, head, packed, parent)
 
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
@@ -5722,10 +6294,10 @@ def main() -> int:
                 "12": sum(explain[p]["launches"].get("audit_bulk", 0) for p in ("extended", "bulk", "scores", "plan")),
                 "13": fuzz_run["launches"].get("audit_bulk", 0) + fuzz_run["mutation_kill"]["launches"].get(
                     "audit_bulk", 0)}
-        if row["name"] in ("filter_pod", "topology_pod", "commit_pod", "storage_pod"):
-            # the main paths' launches of K1, K2, K4 and K5, path by path (a
-            # bulk round launches K1 and K2, and K5 for a storage pod, once
-            # more)
+        if row["name"] in ("filter_pod", "topology_pod", "commit_pod", "storage_pod", "gpu_pod", "compact_delta"):
+            # the main paths' launches of K1, K2, K4, K5, K6 and K13, path by
+            # path (a bulk round launches K1 and K2, and K5 for a storage
+            # pod, once more)
             name = row["name"]
             row["launches_by_path"] = {
                 "serial": launches.get(name, 0), "extended": x_launches.get(name, 0),
@@ -5746,6 +6318,11 @@ def main() -> int:
                              if k not in ("edge_batch", "wide")}
             row["edge_batch" if name == "filter_pod" else "wide"] = (
                 k1k5_widths["edge_batch"] if name == "filter_pod" else k1k5_widths["wide"])
+        if row["name"] == "gpu_pod":
+            row["widths"] = k6k13["gpu_pod"]
+        if row["name"] == "compact_delta":
+            row["entries"] = k6k13["compact_delta"]
+            row["phase_21_s"] = k6k13["seconds"]
         if row["name"] == "score_argmax_pod":
             row["widths"] = k3_widths
             row["launches_bulk_path"] = b_launches.get("score_argmax_pod", 0)
@@ -5755,7 +6332,7 @@ def main() -> int:
     plans = {"sweep_drain_many_keys": many_keys_plan, "audit_bulk_logs": audit_plans,
              "audit_bulk_capacity_winner": {k: v for k, v in cuda.audit_plan(
                  w_tensors.n_nodes, len(w_e.n), 0).items() if k not in ("offsets", "s", "words")},
-             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans, **k1k5_plans}
+             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans, **k1k5_plans, **k6k13_plans}
     print(json.dumps({"kernels": rows, "plans": plans, "card": card, "terms": terms_run,
                       "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
                                         "partitions": parts},

@@ -857,6 +857,12 @@ class StepBuffers:
         self.gpu_mem = on_dev(gpu_mem, np.float32)
         self.gpu_count = on_dev(gpu_count, np.int32)
         self.gpu_preset = on_dev(gpu_preset, np.int32)
+        # each pod's GPU request on the host too, as K6 takes it: (per-GPU
+        # memory, count, whether its preset row is set — a sum > 0 in
+        # int32, as the JAX package sums it)
+        preset_set = host(gpu_preset, np.int32).sum(axis=1, dtype=np.int32) > 0
+        self.gpu_host = list(zip(gpu_mem.tolist(), host(gpu_count, np.int32).tolist(),
+                                 preset_set.astype(np.int32).tolist()))
         self.stage = torch.zeros(n, dtype=torch.uint8, device=dev)
         self.raw = torch.zeros((4, n), dtype=torch.float32, device=dev)
         self.score = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -888,10 +894,12 @@ class StepBuffers:
         # built with the argument block
         self.topo_plan = None
         self.topo_sweep = None
-        # K1's and K5's launch plans (kernels/cuda.py filter_plan,
-        # storage_plan), at first use
+        # K1's, K5's and K6's launch plans (kernels/cuda.py filter_plan,
+        # storage_plan, gpu_plan), at first use
         self.filter_plan = None
         self.storage_plan = None
+        # K6's plan, its address and the requests it points at (host)
+        self.gpu_plan = self.gpu_plan_ptr = self.gpu_reqs = None
         self.g_cols = None
         self.ctx = None  # the kernels' argument struct, built at first launch
 

@@ -72,15 +72,17 @@ __device__ inline void delta_node_rows(const DeltaRows<C>& x, int e, int g, int 
   }
 }
 
-// The same update one element at a time, for the dense carry (every
-// plane f32 but the u8 sdev_free): element i of node c's rows, in the
-// order free [R], ports_used [P], vols_any [W], vols_rw [W], vg_free [V],
-// sdev_free [SD], gpu_free [GD], so that threads can share one node's rows
-// and a thread can add a node's entries to element i in a register, in log
-// order, between one read and one write. An entry's operand for element i
-// is the product delta_node_rows adds (or, in sdev_free, 1 to clear the
-// device, 2 to set it, 0 to leave it).
-__device__ inline int delta_node_width(const DeltaRows<float>& x) {
+// The same update one element at a time (K18 on the dense carry, every
+// plane f32 but the u8 sdev_free; K13 on the compact carry, its count
+// planes int32): element i of node c's rows, in the order free [R],
+// ports_used [P], vols_any [W], vols_rw [W], vg_free [V], sdev_free [SD],
+// gpu_free [GD], so that threads can share one node's rows and a thread
+// can add a node's entries to element i in a register, in log order,
+// between one read and one write. An entry's operand for element i is the
+// product delta_node_rows adds (or, in sdev_free, 1 to clear the device,
+// 2 to set it, 0 to leave it).
+template <typename C>
+__device__ inline int delta_node_width(const DeltaRows<C>& x) {
   return x.r + x.p + 2 * x.w + x.v + x.sd + x.gd;
 }
 
@@ -106,8 +108,10 @@ __device__ inline void delta_node_at(F* free, F* ports, F* any, F* rws, F* vg, B
   f = gpu + cr * x.gd + i;
 }
 
-// entry e's (group g, weight w) operand for element i
-__device__ inline float delta_node_operand(const DeltaRows<float>& x, int e, int g, float w, int i) {
+// entry e's (group g, weight w) operand for element i (a count plane of
+// type C adds it cast to C, as delta_node_rows does)
+template <typename C>
+__device__ inline float delta_node_operand(const DeltaRows<C>& x, int e, int g, float w, int i) {
   const size_t er = static_cast<size_t>(e);
   if (i < x.r) return (-x.req[er * x.r + i]) * w;
   i -= x.r;

@@ -4,17 +4,21 @@
 // explain_pass.cu (K20): one source for every path.
 //
 // storage_plan: the JAX package's simtpu/kernels/storage.py lvm_plan
-// (:25), device_plan (:66) and open_local_score (:100); gpu_node:
+// (:25), device_plan (:66) and open_local_score (:100); gpu_plan:
 // simtpu/kernels/gpushare.py gpu_plan (:25). The thread of node n walks
 // the pod's claims in order and builds the node's plan: the VGs' running
 // free space, the allocation and the take row, then the verdict and the
-// raw score. storage_plan is written once, as a template over where its
-// rows live (a "plan rows" class): `ScratchPlanRows` reads the node's
-// rows in place and builds the plan in the StepCtx scratch rows (st_fr,
-// st_alloc, st_take: any width; K10, K19, K20, and K5 past its shared
-// budget), K5's `RegPlanRows<M>` holds the node's rows and the plan in
-// registers up to M VGs and devices, `SharedPlanRows` the plan's running
-// rows in shared memory. See the two kernels' notes.
+// raw score, whose per-VG usage is summed in XLA's order (xla_row_sum).
+// Both plans are written once, as templates over where their rows live
+// (a "rows" class): `ScratchPlanRows` reads the node's rows in place and
+// builds the plan in the StepCtx scratch rows (st_fr, st_alloc, st_take:
+// any width; K10, K19, K20, and K5 past its shared budget), K5's
+// `RegPlanRows<M>` holds the node's rows and the plan in registers up to M
+// VGs and devices, `SharedPlanRows` the plan's running rows in shared
+// memory; `InPlaceGpuRows` reads a node's GPU rows in place and builds its
+// shares in its gpu_sh row (gpu_node: K10, K19, K20, and K6 past its
+// register templates), K6's `RegGpuRows<M>` holds them in registers. See
+// the kernels' notes.
 #pragma once
 #include "step_ctx.cuh"
 
@@ -31,6 +35,37 @@ __device__ __forceinline__ void each(int n, F&& f) {
   } else {
     for (int j = 0; j < n; ++j) f(j);
   }
+}
+
+// XLA's CPU backend sums a row of n floats (jnp.sum over the last axis)
+// left to right up to XLA_ROW_PART columns; past that in k = ceil(n / 32)
+// contiguous parts — with r = n - 32 (k - 2), a head of (r + 1) / 2
+// columns, k - 2 parts of 32, a tail of r / 2 — each summed left to right
+// from 0, then the parts left to right from 0 (kernels/storage.py
+// xla_row_parts, which holds the evidence). f(j) is column j's value; M > 0
+// (a row in registers, M <= XLA_ROW_PART) is the one-part loop.
+constexpr int XLA_ROW_PART = 32;
+
+template <int M, class F>
+__device__ __forceinline__ float xla_row_sum(int n, F&& f) {
+  float s = 0.0f;
+  if constexpr (M > 0) {
+    static_assert(M <= XLA_ROW_PART, "a register row is one part");
+    each<M>(n, [&](int j) { s = s + f(j); });
+  } else if (n <= XLA_ROW_PART) {
+    for (int j = 0; j < n; ++j) s = s + f(j);
+  } else {
+    const int k = (n + XLA_ROW_PART - 1) / XLA_ROW_PART;
+    const int r = n - XLA_ROW_PART * (k - 2);
+    int j = 0;
+    for (int p = 0; p < k; ++p) {
+      const int len = p == 0 ? (r + 1) / 2 : p == k - 1 ? r / 2 : XLA_ROW_PART;
+      float part = 0.0f;
+      for (const int end = j + len; j < end; ++j) part = part + f(j);
+      s = s + part;
+    }
+  }
+  return s;
 }
 
 // the pod's claims: LVM sizes and VG ids [L], device sizes and media [K]
@@ -149,13 +184,13 @@ __device__ inline bool storage_plan(const StepCtx& x, S& s, float& raw) {
     if (active) dev_ok = dev_ok && found;
   }
 
-  // -- raw Open-Local score (storage.py open_local_score) --
-  float per_sum = 0.0f;
+  // -- raw Open-Local score (storage.py open_local_score): the per-VG
+  // usage summed in XLA's order --
   int vg_count = 0;
-  each<M>(V, [&](int v) {
+  const float per_sum = xla_row_sum<M>(V, [&](int v) {
     const bool used = s.alloc(v) > 0.0f;
-    per_sum = per_sum + (used ? __fdiv_rn(s.alloc(v), fmaxf(s.cap(v), TINY)) : 0.0f);
     vg_count += used ? 1 : 0;
+    return used ? __fdiv_rn(s.alloc(v), fmaxf(s.cap(v), TINY)) : 0.0f;
   });
   const float lvm_score = (n_lvm > 0 && vg_count > 0)
       ? __fdiv_rn(per_sum, static_cast<float>(vg_count)) * 10.0f : 0.0f;
@@ -175,52 +210,91 @@ __device__ inline void storage_node(const StepCtx& x, int i, int n) {
   x.st_raw[n] = raw;
 }
 
-__device__ inline void gpu_node(const StepCtx& x, int i, int n) {
-  const int GD = x.gd;
-  const size_t ng = static_cast<size_t>(n) * GD;
-  const float mem = x.gpu_mem[i];
-  const int count = x.gpu_count[i];
-  const int* preset = x.gpu_preset + static_cast<size_t>(i) * GD;
-  const bool is_gpu_pod = mem > 0.0f;
-  const bool valid_req = count > 0;
-  const float count_f = static_cast<float>(count);
+// The pod's GPU request (gpushare.py gpu_plan's mem, count and preset):
+// the preset row where one is set (its sum > 0), else null
+struct GpuReq {
+  float mem;
+  int count;
+  const int* preset;
+};
 
-  // a device's free memory (a missing device counts as -1), read afresh
-  // from the state row each time
-  auto fr = [&](int d) { return x.gpu_dev_exists[ng + d] ? x.gpu_free[ng + d] : -1.0f; };
+__device__ inline GpuReq gpu_req_in_place(const StepCtx& x, int i) {
+  const int* preset = x.gpu_preset + static_cast<size_t>(i) * x.gd;
+  int preset_sum = 0;
+  for (int d = 0; d < x.gd; ++d) preset_sum += preset[d];
+  return {x.gpu_mem[i], x.gpu_count[i], preset_sum > 0 ? preset : nullptr};
+}
+
+// Node n's GPU rows read in place, its shares built in its gpu_sh row: any
+// width
+struct InPlaceGpuRows {
+  static constexpr int M = 0;
+  const StepCtx& x;
+  size_t ng;
+  int n;
+  __device__ bool exists(int d) const { return x.gpu_dev_exists[ng + d] != 0; }
+  __device__ float free(int d) const { return x.gpu_free[ng + d]; }
+  __device__ float total() const { return x.gpu_total[n]; }
+  __device__ float& sh(int d) const { return x.gpu_sh[ng + d]; }
+};
+
+// The GPU plan of one node through a GPU rows class `S` (gpushare.py
+// gpu_plan): one pass over the devices builds the greedy stacking (its
+// running sum and shares in f32, the shares left in S's sh row) and the
+// tightest fit (strict <, the lowest index on ties); the count-1 choice,
+// the preset override and the final mask then write each share once, into
+// the same row. Returns the verdict. A missing device counts as free = -1.
+template <class S>
+__device__ inline bool gpu_plan(const GpuReq& q, S& s, int GD) {
+  constexpr int M = S::M;
+  const bool is_gpu_pod = q.mem > 0.0f;
+  const bool valid_req = q.count > 0;
+  const float count_f = static_cast<float>(q.count);
   bool has_dev = false, any_fit = false;
   int tight_idx = 0;
-  float tight_key = BIG;
-  for (int d = 0; d < GD; ++d) {
-    const float f = fr(d);
-    has_dev = has_dev || x.gpu_dev_exists[ng + d] != 0;
-    const bool fit1 = f >= mem;
+  float tight_key = BIG, cum = 0.0f, total = 0.0f;
+  auto pass = [&](int d) {
+    const bool ex = s.exists(d);
+    const float f = ex ? s.free(d) : -1.0f;
+    has_dev = has_dev || ex;
+    const bool fit1 = f >= q.mem;
     any_fit = any_fit || fit1;
     const float key = fit1 ? f : BIG;
     if (d == 0 || key < tight_key) { tight_key = key; tight_idx = d; }
-  }
-  // the shares, built in place in the node's gpu_sh row
-  float* shares = x.gpu_sh + ng;
-  float cum = 0.0f, total = 0.0f;
-  for (int d = 0; d < GD; ++d) {
-    const float f = fr(d);
-    const float per_dev = f >= mem ? floorf(__fdiv_rn(f, fmaxf(mem, TINY))) : 0.0f;
+    const float per_dev = fit1 ? floorf(__fdiv_rn(f, fmaxf(q.mem, TINY))) : 0.0f;
     cum = cum + per_dev;
     const float prev = cum - per_dev;
     const float greedy = fminf(fmaxf(fminf(cum, count_f) - prev, 0.0f), per_dev);
-    const float tight = (d == tight_idx && any_fit) ? 1.0f : 0.0f;
-    shares[d] = count == 1 ? tight : greedy;
-    total = total + shares[d];
-  }
-  const bool node_total_ok = x.gpu_total[n] >= mem;
-  bool fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req && total >= count_f) : true;
-  int preset_sum = 0;
-  for (int d = 0; d < GD; ++d) preset_sum += preset[d];
-  if (preset_sum > 0) {
-    fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req) : true;
-    for (int d = 0; d < GD; ++d) shares[d] = (is_gpu_pod && fits) ? static_cast<float>(preset[d]) : 0.0f;
+    s.sh(d) = greedy;
+    total = total + greedy;
+  };
+  // rows read in place or from shared memory: four devices' loads and
+  // divisions in flight at once
+  if constexpr (M > 0) {
+    each<M>(GD, pass);
   } else {
-    for (int d = 0; d < GD; ++d) shares[d] = (is_gpu_pod && fits) ? shares[d] : 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < GD; ++d) pass(d);
   }
-  x.gpu_ok[n] = fits ? 1 : 0;
+  // a one-GPU pod's shares are the tightest fit's one-hot row: their sum
+  // is 1 where a device fits, else 0
+  const bool one = q.count == 1;
+  if (one) total = any_fit ? 1.0f : 0.0f;
+  const bool node_total_ok = s.total() >= q.mem;
+  bool fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req && total >= count_f) : true;
+  if (q.preset) fits = is_gpu_pod ? (node_total_ok && has_dev && valid_req) : true;
+  const bool keep = is_gpu_pod && fits;
+  each<M>(GD, [&](int d) {
+    const float share = q.preset ? static_cast<float>(q.preset[d])
+                                 : one ? ((d == tight_idx && any_fit) ? 1.0f : 0.0f) : s.sh(d);
+    s.sh(d) = keep ? share : 0.0f;
+  });
+  return fits;
+}
+
+// The GPU plan of pod i at node n in place (K10, K19, K20; K6 past its
+// register templates reads its rows the same way)
+__device__ inline void gpu_node(const StepCtx& x, int i, int n) {
+  InPlaceGpuRows s{x, static_cast<size_t>(n) * x.gd, n};
+  x.gpu_ok[n] = gpu_plan(gpu_req_in_place(x, i), s, x.gd) ? 1 : 0;
 }

@@ -55,36 +55,6 @@ __host__ __device__ inline long long filter_smem_bytes(int p, int w, int c, bool
   return static_cast<long long>(p) + 3LL * w + (regs ? static_cast<long long>(w) : static_cast<long long>(c) * w);
 }
 
-// a row of up to M floats into registers: 16-byte loads where its length
-// and address allow, else 8-byte, else one float at a time
-template <int M>
-__device__ __forceinline__ void load_row(float (&dst)[M], const float* src, int len) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  if ((len & 3) == 0 && (a & 15) == 0) {
-#pragma unroll
-    for (int j = 0; j < M; j += 4)
-      if (j < len) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(src + j));
-        dst[j] = v.x;
-        dst[j + 1] = v.y;
-        dst[j + 2] = v.z;
-        dst[j + 3] = v.w;
-      }
-  } else if ((len & 1) == 0 && (a & 7) == 0) {
-#pragma unroll
-    for (int j = 0; j < M; j += 2)
-      if (j < len) {
-        const float2 v = __ldg(reinterpret_cast<const float2*>(src + j));
-        dst[j] = v.x;
-        dst[j + 1] = v.y;
-      }
-  } else {
-#pragma unroll
-    for (int j = 0; j < M; ++j)
-      if (j < len) dst[j] = __ldg(src + j);
-  }
-}
-
 // The node's live rows in registers and the verdicts stage_bits asks for
 struct RegStages {
   const StepCtx& x;

@@ -343,6 +343,11 @@ struct CompactCtx {
   int* c_ports_used;      // [N, P]
   int* c_vols_any;        // [N, W]
   int* c_vols_rw;         // [N, W]
+  // K13: the nodes of each node_dom domain, domain d's at
+  // dom_nodes[dom_start[d] .. dom_start[d + 1]) (kernels/cuda.py
+  // domain_nodes, built once per node_dom map)
+  const int* dom_start;   // [domains + 1]
+  const int* dom_nodes;   // [the nodes' domains over every key]
 };
 
 // The five count planes of both layouts, in CompactState order (cnt_match,
@@ -365,6 +370,89 @@ __device__ inline CountPlane count_plane(const CompactCtx& x, int q) {
   int* dense[5] = {x.cm_dense, x.oa_dense, x.of_dense, x.wa_dense, x.wn_dense};
   if (q == 0) return {full[0], tab[0], dense[0], x.rt, x.rd, x.t_tab, x.t_dense, x.t_keys, x.t_rep};
   return {full[q], tab[q], dense[q], x.rti, x.rdi, x.ip_tab, x.ip_dense, x.ip_keys, x.ip_rep};
+}
+
+// a row of up to M floats into registers: 16-byte loads where M, its
+// length and address allow, else 8-byte, else one float at a time
+template <int M>
+__device__ __forceinline__ void load_row(float (&dst)[M], const float* src, int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if constexpr (M % 4 == 0) {
+    if ((len & 3) == 0 && (a & 15) == 0) {
+#pragma unroll
+      for (int j = 0; j < M; j += 4)
+        if (j < len) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(src + j));
+          dst[j] = v.x;
+          dst[j + 1] = v.y;
+          dst[j + 2] = v.z;
+          dst[j + 3] = v.w;
+        }
+      return;
+    }
+  }
+  if constexpr (M % 2 == 0) {
+    if ((len & 1) == 0 && (a & 7) == 0) {
+#pragma unroll
+      for (int j = 0; j < M; j += 2)
+        if (j < len) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(src + j));
+          dst[j] = v.x;
+          dst[j + 1] = v.y;
+        }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    if (j < len) dst[j] = __ldg(src + j);
+}
+
+// a row of up to M bytes into registers as flags: 4-byte loads where M,
+// its length and address allow, else one byte at a time
+template <int M>
+__device__ __forceinline__ void load_flags(bool (&dst)[M], const uint8_t* src, int len) {
+  if constexpr (M % 4 == 0) {
+    if ((len & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+#pragma unroll
+      for (int j = 0; j < M; j += 4)
+        if (j < len) {
+          const unsigned int v = __ldg(reinterpret_cast<const unsigned int*>(src + j));
+#pragma unroll
+          for (int b = 0; b < 4; ++b) dst[j + b] = ((v >> (8 * b)) & 0xFFu) != 0;
+        }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    if (j < len) dst[j] = __ldg(src + j) != 0;
+}
+
+// a row of up to M floats from registers: 16-byte stores where M, its
+// length and address allow, else 8-byte, else one float at a time
+template <int M>
+__device__ __forceinline__ void store_row(float* dst, const float (&src)[M], int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  if constexpr (M % 4 == 0) {
+    if ((len & 3) == 0 && (a & 15) == 0) {
+#pragma unroll
+      for (int j = 0; j < M; j += 4)
+        if (j < len) *reinterpret_cast<float4*>(dst + j) = make_float4(src[j], src[j + 1], src[j + 2], src[j + 3]);
+      return;
+    }
+  }
+  if constexpr (M % 2 == 0) {
+    if ((len & 1) == 0 && (a & 7) == 0) {
+#pragma unroll
+      for (int j = 0; j < M; j += 2)
+        if (j < len) *reinterpret_cast<float2*>(dst + j) = make_float2(src[j], src[j + 1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    if (j < len) dst[j] = src[j];
 }
 
 static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

@@ -58,10 +58,11 @@ KERNELS = (
 #: stream), K2 as simtpu_topology_pod(StepCtx*, group, TopoPlan*, stream),
 #: K3 as simtpu_score_argmax_pod(StepCtx*, pod, ScorePlan*, stream), K4 as
 #: simtpu_commit_pod(StepCtx*, pod, group, stream), K5 as
-#: simtpu_storage_pod(StepCtx*, pod, StoragePlan*, stream): the pod's
-#: group and pin from the host)
+#: simtpu_storage_pod(StepCtx*, pod, StoragePlan*, stream), K6 as
+#: simtpu_gpu_pod(StepCtx*, pod, GpuPlan*, stream): the pod's group and
+#: pin, and its GPU request, from the host)
 STEP_KERNELS = KERNELS[:6]
-STEP_PLANNED = ("topology_pod", "score_argmax_pod", "storage_pod")
+STEP_PLANNED = ("topology_pod", "score_argmax_pod", "storage_pod", "gpu_pod")
 #: the wave kernels, launched as simtpu_<name>(StepCtx*, WaveCtx*, stream)
 WAVE_KERNELS = KERNELS[8:10]
 #: the round kernels, launched as simtpu_<name>(StepCtx*, RoundCtx*, stream)
@@ -165,7 +166,7 @@ def build() -> dict:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         elif name in CLUSTER_KERNELS or name in PLANNED_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS:
+        elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS or name == "compact_delta":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name == "pod_terms":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -554,6 +555,74 @@ def storage_plan_struct(buf, threads: int = None, template: int = None) -> Stora
     return struct
 
 
+#: K6's launch plan (csrc/gpu_pod.cu): threads a block (the measured sweep,
+#: PERF.md), the register templates' widths (devices a node holds in
+#: registers), and the bytes of the preset row a block stages at most past
+#: them
+GPU_THREADS = 64
+GPU_MAX_THREADS = 512
+GPU_REG_WIDTHS = (1, 2, 4, 8)
+GPU_REG = GPU_REG_WIDTHS[-1]
+GPU_PRESET_SMEM = 16 * 1024
+
+
+class GpuRequest(ctypes.Structure):
+    """ctypes mirror of `struct GpuRequest` in csrc/gpu_pod.cu."""
+
+    _fields_ = [("mem", ctypes.c_float), ("count", ctypes.c_int), ("preset_set", ctypes.c_int)]
+
+
+class GpuPlan(ctypes.Structure):
+    """ctypes mirror of `struct GpuPlan` in csrc/gpu_pod.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("blocks", "threads", "reg", "staged", "smem")] + [
+        ("reqs", ctypes.c_void_p)]
+
+
+def gpu_plan(n: int, gd: int, threads: int = None, template: str = None) -> dict:
+    """K6's launch plan for N nodes of GD devices: blocks of `threads`
+    threads (GPU_THREADS, fewer for a small N; at most GPU_MAX_THREADS), one
+    node a thread; the template `template` where given ("registers" or
+    "global"), else the register template of the narrowest width in
+    GPU_REG_WIDTHS that holds GD ("registers", `reg` that width; the preset
+    row in static shared memory), past GPU_REG the rows read in place
+    ("global"; the pod's preset row, 4 GD bytes, staged in dynamic shared
+    memory while it takes at most GPU_PRESET_SMEM bytes)."""
+    n1 = max(n, 1)
+    t = min(int(threads or GPU_THREADS), GPU_MAX_THREADS, max(-(-n1 // 32) * 32, 32))
+    if template is None:
+        template = "registers" if gd <= GPU_REG else "global"
+    reg = next(w for w in GPU_REG_WIDTHS if w >= gd) if template == "registers" else 0
+    staged = bool(reg) or 4 * gd <= GPU_PRESET_SMEM
+    return {"blocks": -(-n1 // t), "threads": t, "reg": reg, "staged": int(staged),
+            "smem": 0 if reg or not staged else 4 * gd, "template": template}
+
+
+def gpu_requests(buf):
+    """The batch's GPU requests as K6's entry reads them (`buf.gpu_host`
+    in a host array of GpuRequest), built once per buffer and kept
+    (`buf.gpu_reqs`)."""
+    if buf.gpu_reqs is None:
+        buf.gpu_reqs = (GpuRequest * max(len(buf.gpu_host), 1))(*(GpuRequest(*r) for r in buf.gpu_host))
+    return buf.gpu_reqs
+
+
+def gpu_plan_struct(buf, threads: int = None, template: str = None) -> GpuPlan:
+    """K6's plan for `buf` (of `threads` threads and template `template`
+    where given), pointing at its requests (`gpu_requests`); the default
+    plan is built once per buffer and kept (`buf.gpu_plan`, its address
+    `buf.gpu_plan_ptr`, which the launch passes)."""
+    default = threads is None and template is None
+    if default and buf.gpu_plan is not None:
+        return buf.gpu_plan
+    plan = gpu_plan(buf.ctx.n, buf.ctx.gd, threads, template)
+    struct = GpuPlan(reqs=ctypes.addressof(gpu_requests(buf)),
+                     **{f: plan[f] for f, _ in GpuPlan._fields_ if f != "reqs"})
+    if default:
+        buf.gpu_plan, buf.gpu_plan_ptr = struct, ctypes.addressof(struct)
+    return struct
+
+
 #: K3's launch plan (csrc/score_argmax_pod.cu): threads a block at most,
 #: and the nodes a thread keeps in registers (one; past SCORE_BLOCK nodes
 #: the inputs are read again in pass 2: 2 and 4 nodes a thread in
@@ -664,9 +733,10 @@ def topology_plan_struct(buf, blocks: int = None, budget: int = None, cluster: b
 def launch(name: str, buf, i: int) -> None:
     """Launch kernel `name` for pod i of `buf` on the current CUDA stream
     (K1 on `filter_plan`, K2 on `topology_plan`, K3 on `score_plan`, K5 on
-    `storage_plan`; K1, K2 and K4 take the pod's group from
-    `buf.group_host`, K1 its pin from `buf.pin_host`); raises if the launch
-    is refused. No synchronization."""
+    `storage_plan`, K6 on `gpu_plan`; K1, K2 and K4 take the pod's group
+    from `buf.group_host`, K1 its pin from `buf.pin_host`, K6 its GPU
+    request from `buf.gpu_host`); raises if the launch is refused. No
+    synchronization."""
     if not 0 <= i < buf.n_pods:
         raise IndexError(f"pod {i} outside the batch of {buf.n_pods}")
     libs = build()
@@ -684,6 +754,10 @@ def launch(name: str, buf, i: int) -> None:
     elif name == "storage_pod":
         plan = buf.storage_plan or storage_plan_struct(buf)
         err = fn(ctypes.byref(buf.ctx), i, ctypes.byref(plan), stream)
+    elif name == "gpu_pod":
+        if buf.gpu_plan is None:
+            gpu_plan_struct(buf)
+        err = fn(ctypes.byref(buf.ctx), i, buf.gpu_plan_ptr, stream)
     elif name == "topology_pod":
         plan = buf.topo_plan[0] if buf.topo_plan is not None else topology_plan_struct(buf)
         err = fn(ctypes.byref(buf.ctx), buf.group_host[i], ctypes.byref(plan), stream)
@@ -921,11 +995,7 @@ def launch_delta(statics, state, packed) -> None:
     the current CUDA stream, in one launch; raises if it is refused."""
     libs = build()
     device = state.free.device
-    names = ("g", "node", "wgt", "req", "vg", "sd_take", "gp")
-    entries = {
-        name: torch.as_tensor(np.ascontiguousarray(arr), device=device)
-        for name, arr in zip(names, packed)
-    }
+    entries = upload_entries(packed, device)
     ctx = make_delta_ctx(statics, state, entries)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = libs["delta_apply"].simtpu_delta_apply(ctypes.byref(ctx), stream)
@@ -973,6 +1043,8 @@ _COMPACT_PTR_FIELDS = (
     ("c_ports_used", "compact", "ports_used", torch.int32),
     ("c_vols_any", "compact", "vols_any", torch.int32),
     ("c_vols_rw", "compact", "vols_rw", torch.int32),
+    ("dom_start", "domains", "dom_start", torch.int32),
+    ("dom_nodes", "domains", "dom_nodes", torch.int32),
 )
 #: SchedState's fields (engine/state.py), in order
 DENSE_FIELDS = ("free", "cnt_match", "cnt_total", "cnt_own_anti", "cnt_own_aff", "w_own_aff_pref",
@@ -1096,18 +1168,60 @@ def expand_ctx(spec, cstate, nds):
     return ctx, out
 
 
+#: the packed entries' fields (engine/state.py pack_delta_entries), in order
+ENTRY_FIELDS = (("g", torch.int32), ("node", torch.int32), ("wgt", torch.float32), ("req", torch.float32),
+                ("vg", torch.float32), ("sd_take", torch.bool), ("gp", torch.float32))
+
+
+def upload_entries(packed, device) -> dict:
+    """The packed entries on `device` in one copy: each array's bytes at a
+    16-byte aligned offset of one byte buffer, viewed back as its field."""
+    arrays = [np.ascontiguousarray(a, dtype=torch.empty(0, dtype=dt).numpy().dtype)
+              for a, (_, dt) in zip(packed, ENTRY_FIELDS)]
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += (a.nbytes + 15) & ~15
+    host = np.zeros(max(total, 16), np.uint8)
+    for a, at in zip(arrays, offsets):
+        host[at:at + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(host).to(device)
+    return {name: dev[at:at + a.nbytes].view(dt).view(a.shape)
+            for (name, dt), a, at in zip(ENTRY_FIELDS, arrays, offsets)}
+
+
+def domain_nodes(ndom: torch.Tensor) -> tuple:
+    """The nodes of each domain of the node_dom map `ndom` [K, N] (-1 where
+    a node misses the key; a domain id names one key's value): (dom_start
+    [D + 1], dom_nodes) int32 on its device, domain d's nodes ascending at
+    dom_nodes[dom_start[d]:dom_start[d + 1]]. Built once per map and kept
+    on it."""
+    cached = getattr(ndom, "_domain_nodes", None)
+    if cached is not None:
+        return cached
+    n = ndom.shape[1]
+    flat = ndom.reshape(-1).cpu().numpy()
+    live = np.flatnonzero(flat >= 0)
+    doms = flat[live]
+    nodes = (live % max(n, 1))[np.argsort(doms, kind="stable")].astype(np.int32)
+    start = np.zeros(int(doms.max(initial=-1)) + 2, np.int32)
+    np.cumsum(np.bincount(doms, minlength=len(start) - 1), out=start[1:])
+    out = (torch.from_numpy(start).to(ndom.device), torch.from_numpy(nodes).to(ndom.device))
+    ndom._domain_nodes = out
+    return out
+
+
 def delta_ctx(statics, dspec, ndom, nds, cstate, packed):
     """K13's argument block for folding the packed entries
     (`engine/state.py pack_delta_entries`) into the compact carry `cstate`;
     `dspec` is its CompactDeltaSpec, `ndom` / `nds` node_dom and
-    node_dom_small at the carry's width. Returns (block, the entries on the
-    device), which the caller keeps alive until the launch is enqueued."""
+    node_dom_small at the carry's width (ndom's domain node lists,
+    `domain_nodes`, built at its first use). Returns (block, the entries
+    on the device, uploaded in one copy), which the caller keeps alive until
+    the launch is enqueued."""
     device = cstate.free.device
-    names = ("g", "node", "wgt", "req", "vg", "sd_take", "gp")
-    entries = {
-        name: torch.as_tensor(np.ascontiguousarray(arr), device=device)
-        for name, arr in zip(names, packed)
-    }
+    entries = upload_entries(packed, device)
+    dom_start, dom_nodes = domain_nodes(ndom)
     n, r = cstate.free.shape
     t = cstate.cnt_total.shape[0]
     e = entries["g"].shape[0]
@@ -1119,7 +1233,8 @@ def delta_ctx(statics, dspec, ndom, nds, cstate, packed):
     ctx = make_compact_ctx(
         device,
         {"dspec": dspec._asdict(), "nds": {"nds": nds}, "ndom": {"node_dom": ndom}, "entries": entries,
-         "statics": statics._asdict(), "compact": cstate._asdict()},
+         "statics": statics._asdict(), "compact": cstate._asdict(),
+         "domains": {"dom_start": dom_start, "dom_nodes": dom_nodes}},
         dims,
         {"nds": (dims["k"], n), "node_dom": (dims["k"], n), "t_tab_of": (t,), "t_dense_of": (t,),
          "ip_dense_of": (dims["ti"],), "node": (e,), "wgt": (e,), "req": (e, r),
@@ -1127,6 +1242,71 @@ def delta_ctx(statics, dspec, ndom, nds, cstate, packed):
          **_compact_shapes(dims)},
     )
     return ctx, entries
+
+
+#: K13's launch plan (csrc/compact_delta.cu): threads a block of the
+#: grouping and pair kernel (the measured sweep, PERF.md) and at most, and
+#: of the walk
+DELTA_THREADS = 512
+DELTA_MAX_THREADS = 1024
+DELTA_WALK_THREADS = 256
+
+
+class DeltaPlan(ctypes.Structure):
+    """ctypes mirror of `struct DeltaPlan` in csrc/compact_delta.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("threads", "pair_blocks", "walk_blocks", "segs", "shared", "smem")] + [
+        ("scratch", ctypes.c_void_p)]
+
+
+def compact_delta_plan(n: int, e: int, tc: int, width: int, threads: int = None, budget: int = None) -> dict:
+    """K13's launch plan for a carry of N nodes whose rows are `width`
+    elements a node (R + P + 2 W + V + SD + GD), E entries and Tc term
+    slots: blocks of `threads` threads (DELTA_THREADS, fewer for a small
+    batch; whole warps, at most DELTA_MAX_THREADS): the grouping block and
+    `pair_blocks` blocks of one (entry, slot) pair a thread, then
+    `walk_blocks` blocks of DELTA_WALK_THREADS, one (element, run) a
+    thread. The grouping block walks the entries' chunks of 32 in `segs`
+    segments at once, a warp a segment; its scratch (4 N + 12 E + 8 E segs
+    bytes: a word per segment and head, the nodes' slots, the entries'
+    nodes and positions, the heads) in shared memory while it fits in
+    WAVE_SMEM (or `budget`) with one segment or more — as many as fit, at
+    most one a warp and one a chunk — else in global scratch ("global"; a
+    segment a warp); `scratch_words` ints of global scratch: the runs (4 +
+    7 E: the entries in run order as 16-byte words, the heads' nodes,
+    starts and counts) and, past the budget, the grouping scratch."""
+    pairs, walkers = e * tc, e * width
+    t = min(int(threads or DELTA_THREADS), DELTA_MAX_THREADS, max(-(-max(pairs, e, 1) // 32) * 32, 32))
+    most = max(min(t // 32, -(-e // 32)), 1)
+    room = (WAVE_SMEM if budget is None else budget) - 4 * n - 12 * e
+    shared = room >= 8 * e
+    segs = max(min(most, room // (8 * e) if e else most), 1) if shared else most
+    group = 4 * n + 12 * e + 8 * e * segs
+    return {"threads": t, "pair_blocks": -(-pairs // t), "walk_blocks": -(-walkers // DELTA_WALK_THREADS),
+            "segs": segs, "shared": int(shared), "smem": group if shared else 0,
+            "scratch_words": 4 + 7 * e + (0 if shared else group // 4), "group": "shared" if shared else "global"}
+
+
+_DELTA_SCRATCH: dict = {}
+
+
+def delta_plan_of(ctx: CompactCtx, threads: int = None, budget: int = None) -> dict:
+    """compact_delta_plan for the argument block `ctx` (its node rows'
+    width R + P + 2 W + V + SD + GD)."""
+    width = ctx.r + ctx.p + 2 * ctx.w + ctx.v + ctx.sd + ctx.gd
+    return compact_delta_plan(ctx.n, ctx.e, ctx.tc, width, threads, budget)
+
+
+def delta_plan_struct(ctx: CompactCtx, device, threads: int = None, budget: int = None) -> DeltaPlan:
+    """K13's plan for the argument block `ctx` (of `threads` threads and a
+    shared `budget` where given), its scratch taken from a buffer per
+    device, grown as needed (the stream orders its reuse)."""
+    plan = delta_plan_of(ctx, threads, budget)
+    key = str(device)
+    buf = _DELTA_SCRATCH.get(key)
+    if buf is None or buf.numel() < plan["scratch_words"]:
+        buf = _DELTA_SCRATCH[key] = torch.empty(plan["scratch_words"], dtype=torch.int32, device=device)
+    return DeltaPlan(scratch=buf.data_ptr(), **{f: plan[f] for f, _ in DeltaPlan._fields_ if f != "scratch"})
 
 
 def launch_compact_compress(spec, state) -> dict:
@@ -1146,10 +1326,19 @@ def launch_compact_expand(spec, cstate, nds) -> dict:
 
 
 def launch_compact_delta(statics, dspec, ndom, nds, cstate, packed) -> None:
-    """K13 (see delta_ctx): the entries folded into `cstate` in place, in
-    one launch on the current stream."""
+    """K13 (see delta_ctx) on `compact_delta_plan`: the entries folded into
+    `cstate` in place, in one call (its two kernels) on the current
+    stream."""
+    device = cstate.free.device
     ctx, entries = delta_ctx(statics, dspec, ndom, nds, cstate, packed)
-    _launch_compact("compact_delta", ctx, cstate.free.device)
+    libs = build()
+    plan = delta_plan_struct(ctx, device)
+    err = libs["compact_delta"].simtpu_compact_delta(ctypes.byref(ctx), ctypes.byref(plan),
+                                                     torch._C._cuda_getCurrentRawStream(device.index))
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel compact_delta failed to launch: {msg} ({err})")
+    LAUNCHES["compact_delta"] += 1
 
 
 def launch_noop(device) -> None:

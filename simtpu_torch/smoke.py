@@ -269,13 +269,16 @@ WIDE_CLUSTER_KW = dict(seed=21, zones=2, taint_frac=0.0)
 #: (name, replicas, make_deployment keywords): a 36-GPU pod (one share on
 #: each of devices 0-35; the second replica fails), single-GPU pods on the
 #: devices left (two fail), 4 GiB pods into the leftovers, two-claim LVM
-#: pods into VGs 32-35 (the third fails), 345 GiB SSD claims on devices
-#: 34 and 35 (one fails), and plain pods
+#: pods into VGs 32-35 (the third fails), a three-claim LVM pod into VGs 0,
+#: 18 and 19 (its per-VG usages fall into both parts of the raw score's
+#: 36-column row sum, where its order shows), 345 GiB SSD claims on
+#: devices 34 and 35 (one fails), and plain pods
 WIDE_APPS = (
     ("gpu-stack", 2, dict(cpu_milli=1000, mem_mib=1024, gpu_mem_mib=12288, gpu_count=WIDE_VGS)),
     ("gpu-one", 6, dict(cpu_milli=500, mem_mib=512, gpu_mem_mib=15360)),
     ("gpu-small", 10, dict(cpu_milli=200, mem_mib=256, gpu_mem_mib=4096)),
     ("lvm-wide", 5, dict(cpu_milli=500, mem_mib=512, lvm_gib=(340, 330))),
+    ("lvm-three", 1, dict(cpu_milli=500, mem_mib=512, lvm_gib=(3, 185, 195))),
     ("ssd-wide", 3, dict(cpu_milli=500, mem_mib=512, device_gib=345)),
     ("plain", 24, dict(cpu_milli=500, mem_mib=512)),
 )

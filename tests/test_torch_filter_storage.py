@@ -30,6 +30,7 @@ All inputs come from numpy seeds; nothing here needs a card.
 
 import ctypes
 import re
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ from simtpu.workloads.expand import get_valid_pods_exclude_daemonset, seed_name_
 from simtpu_torch.engine import scan as tscan
 from simtpu_torch.engine import state as tstate
 from simtpu_torch.kernels import cuda
+from simtpu_torch.kernels import storage as tstorage
 
 from .test_torch_kernels import _numpy_tree, _port_flags, _volume_pod
 from .test_torch_launch_plans import _cuda_int, _struct_fields
@@ -211,11 +213,13 @@ def test_the_wrapper_passes_the_group_and_pin_the_buffers_hold(monkeypatch, edge
     libs = {name: _FakeLib() for name in cuda.KERNELS}
     monkeypatch.setattr(cuda, "build", lambda: libs)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
-    before = dict(cuda.LAUNCHES)
+    # the launches counted on a counter of the test's own: the process's
+    # stays as the other modules' tests find it
+    monkeypatch.setattr(cuda, "LAUNCHES", Counter())
     for i in range(buf.n_pods):
         cuda.launch("filter_pod", buf, i)
         cuda.launch("storage_pod", buf, i)
-    assert cuda.LAUNCHES["filter_pod"] - before.get("filter_pod", 0) == buf.n_pods
+    assert cuda.LAUNCHES["filter_pod"] == buf.n_pods
     fplan = cuda.filter_plan(buf.ctx.n, buf.ctx.r, buf.ctx.p_ports, buf.ctx.w, buf.ctx.c, buf.ctx.flags)
     for i, (name, (ctx, pod, g, pin, plan, stream)) in enumerate(libs["filter_pod"].calls):
         assert name == "simtpu_filter_pod" and (pod, g, pin, stream) == (i, int(buf.group[i]), int(buf.pin[i]), 7)
@@ -464,3 +468,137 @@ def test_storage_plain_raw_score_equals_the_jax_open_local_score(edge_problem, v
     for i, _, _, _, raw in want:
         tscan.storage_pod_plain(buf, i)
         np.testing.assert_array_equal(buf.st_raw.numpy().view(np.int32), raw.view(np.int32), err_msg=f"pod {i}")
+
+
+# -- 4. the raw score's row sum in XLA's order --------------------------------
+
+#: VG widths past XLA_ROW_PART: one split point (33, 36, 48, 64), three parts
+#: (65, 72), four (100, 128)
+STORAGE_V_WIDE = [33, 48, 64, 65, 72, 100, 128]
+
+
+def _wide_storage_case(edge_problem, v):
+    """_storage_case's rows at V = SD = v with a tenth pod of eight
+    unnamed LVM claims, which binpack into eight VGs of a node wherever
+    they fit: the per-VG usages fall into several of the row sum's parts."""
+    tensors, batch, statics, state, pods = edge_problem
+    rng = np.random.default_rng(1000 + v)
+    (free, name, cap, has, sfree, scap, media), (lsz, lvg, dsz, dmd) = _storage_inputs(rng, tensors.n_nodes, v)
+    name = np.where(name < 0, rng.integers(0, 6, name.shape), name).astype(np.int32)  # every VG live
+    name[0] = -1
+    p, l = len(lsz) + 1, 8
+    lvm_size = np.zeros((p, l), F32)
+    lvm_vg = np.full((p, l), -1, np.int32)
+    lvm_size[:-1, :lsz.shape[1]], lvm_vg[:-1, :lvg.shape[1]] = lsz, lvg
+    lvm_size[-1] = [F32(k * 1.25 * GI) for k in (3, 1, 7, 2, 5, 4, 6, 1)]
+    dev_size = np.zeros((p, dsz.shape[1]), F32)
+    dev_media = np.zeros((p, dmd.shape[1]), np.int32)
+    dev_size[:-1], dev_media[:-1] = dsz, dmd
+    stc = tscan.statics_from_numpy(_numpy_tree(statics._replace(
+        vg_name_id=jnp.asarray(name), vg_cap=jnp.asarray(cap), has_storage=jnp.asarray(has),
+        sdev_cap=jnp.asarray(scap), sdev_media=jnp.asarray(media))), "cpu")
+    st = tstate.state_from_numpy(_numpy_tree(state._replace(vg_free=jnp.asarray(free),
+                                                            sdev_free=jnp.asarray(sfree))), "cpu")
+    gd = st.gpu_free.shape[1]
+    batch_pods = (pods[0][:p], pods[1][:p], np.full(p, -1, np.int32), np.zeros(p, bool), lvm_size, lvm_vg,
+                  dev_size, dev_media, np.zeros(p, F32), np.zeros(p, np.int32), np.zeros((p, gd), np.int32))
+    buf = tscan.StepBuffers(stc, st, batch_pods, tscan.StepFlags())
+    lvm_plan, device_plan, score = jax.jit(js.lvm_plan), jax.jit(js.device_plan), jax.jit(js.open_local_score)
+    want = []
+    for i in range(p):
+        _, alloc = lvm_plan(free, name, lvm_size[i], lvm_vg[i])
+        _, _, tight = device_plan(sfree, scap, media, dev_size[i], dev_media[i])
+        raw = score(alloc, cap, tight, jnp.sum(lvm_size[i] > 0), jnp.sum(dev_size[i] > 0))
+        want.append((i, np.asarray(alloc), np.asarray(raw)))
+    return buf, cap, want
+
+
+def _left_to_right(x):
+    out = np.zeros(x.shape[0], F32)
+    for j in range(x.shape[1]):
+        out = (out + x[:, j]).astype(F32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def wide_storage_cases(edge_problem):
+    return {v: _wide_storage_case(edge_problem, v) for v in STORAGE_V_WIDE}
+
+
+@pytest.mark.parametrize("v", STORAGE_V_WIDE)
+def test_storage_plain_raw_score_equals_the_jax_open_local_score_past_32_vgs(wide_storage_cases, v):
+    buf, _, want = wide_storage_cases[v]
+    spread = 0
+    for i, alloc, raw in want:
+        tscan.storage_pod_plain(buf, i)
+        np.testing.assert_array_equal(buf.st_raw.numpy().view(np.int32), raw.view(np.int32), err_msg=f"pod {i}")
+        np.testing.assert_array_equal(buf.st_alloc.numpy().view(np.int32), alloc.view(np.int32), err_msg=f"pod {i}")
+        # nodes whose used VGs lie in two or more of the row sum's parts
+        used = alloc > 0
+        bounds = np.array([b for _, b in tstorage.xla_row_parts(v)])
+        part_of = np.searchsorted(bounds, np.arange(v), side="right")
+        spread += int(sum(len(set(part_of[row])) >= 2 for row in used if row.sum() >= 3))
+    assert spread > 0
+
+
+def test_the_xla_order_differs_from_left_to_right_on_the_wide_cases(wide_storage_cases):
+    # the cases have teeth: on some node the reference's order gives
+    # another last bit than a left-to-right sum would
+    differs = 0
+    for v, (_, cap, want) in wide_storage_cases.items():
+        for _, alloc, _ in want:
+            used = alloc > 0
+            per_vg = np.where(used, alloc / np.maximum(cap, F32(1e-30)), F32(0)).astype(F32)
+            lr = _left_to_right(per_vg)
+            xla = tstorage.xla_row_sum(torch.from_numpy(per_vg)).numpy()
+            differs += int((lr.view(np.int32) != xla.view(np.int32)).sum())
+    assert differs > 0
+
+
+@pytest.mark.parametrize("first", range(1, 301, 30))
+def test_xla_row_sum_equals_the_jitted_jnp_sum(first):
+    # every V in [first, first + 30), on 300 seeded rows whose exponents
+    # spread over 2^-20 ... 2^20, three in ten zero; one jitted function
+    # sums the 30 widths (one compile)
+    widths = range(first, first + 30)
+    xs = []
+    for v in widths:
+        rng = np.random.default_rng(v)
+        x = (rng.random((300, v)) * np.exp2(rng.integers(-20, 21, (300, v)))).astype(F32)
+        x[rng.random((300, v)) < 0.3] = 0
+        xs.append(x)
+    sums = jax.jit(lambda arrays: [jnp.sum(a, axis=1) for a in arrays])(xs)
+    for v, x, want in zip(widths, xs, sums):
+        got = tstorage.xla_row_sum(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), np.asarray(want).view(np.int32), err_msg=f"V={v}")
+
+
+def _device_parts(v: int) -> list:
+    """ext_plans.cuh xla_row_sum's walk over a row of V columns, line for
+    line: the column ranges it sums as one part."""
+    part = tstorage.XLA_ROW_PART
+    if v <= part:
+        return [(0, v)]
+    k = (v + part - 1) // part
+    r = v - part * (k - 2)
+    out, j = [], 0
+    for p in range(k):
+        n = (r + 1) // 2 if p == 0 else r // 2 if p == k - 1 else part
+        out.append((j, j + n))
+        j += n
+    return out
+
+
+def test_xla_row_split_mirrors_the_cuda_source():
+    src = (cuda.CSRC / "ext_plans.cuh").read_text()
+    assert _cuda_int(src, "XLA_ROW_PART") == tstorage.XLA_ROW_PART == 32
+    for line in ("const int k = (n + XLA_ROW_PART - 1) / XLA_ROW_PART;",
+                 "const int r = n - XLA_ROW_PART * (k - 2);",
+                 "const int len = p == 0 ? (r + 1) / 2 : p == k - 1 ? r / 2 : XLA_ROW_PART;",
+                 "const float per_sum = xla_row_sum<M>(V, "):
+        assert line in src, line
+    for v in range(1, 1025):
+        assert _device_parts(v) == tstorage.xla_row_parts(v), v
+    assert [b - a for a, b in tstorage.xla_row_parts(65)] == [17, 32, 16]
+    assert [b - a for a, b in tstorage.xla_row_parts(72)] == [20, 32, 20]
+    assert [b - a for a, b in tstorage.xla_row_parts(128)] == [32] * 4
