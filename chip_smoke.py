@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-(`--parent DIR`: a `git archive` of an earlier tree, whose K5, K6 and K13
-phase 21 builds and times in turns against this tree's.)
+(`--parent DIR`: a `git archive` of an earlier tree, whose K7 and K11
+phase 22 builds and times in turns against this tree's.)
 
 Phases (each failure ends the run with a non-zero exit; none is caught):
 
@@ -256,10 +256,28 @@ Phases (each failure ends the run with a non-zero exit; none is caught):
    version on CPU copies of the inputs); per N K6's device / host / plain
    time and bound, its sweep at N = 1000 and 5000 (also at GD = 9 and 40)
    and on the wide problem; K13's device time by kernel, host time, bound
-   and its sweep; with `--parent DIR` the parent's K6 and K13 paths equal
-   to this tree's and timed in turns (device and host), and its K5 timed
-   in turns against this tree's on the wide problem (V = 36, where the
-   raw score's row sum changed).
+   and its sweep.
+22. K7 and K11 against their plain versions, bit for bit: K7 (every state
+   plane, evicted then restored) on phase 2's 200-entry batch and a
+   2000-entry batch of its extended run, on that state's hostname-only
+   variant (every key a per-node key) at 2000 entries, on its region
+   variant (each zone key one domain of all its nodes, the per-node keys
+   kept) at 1000 entries, with integer preference weights (1-100: the
+   atomic path of the preference planes), with those weights and
+   preference planes past `cuda.pref_mode`'s bound and with fractional
+   weights (the log-order path), the integer cases back to the state
+   before, each on its launch plan (`cuda.compact_delta_plan`, a thread
+   per node of each pair's domain: `cuda.pair_starts`) and every plan of
+   its sweep (the plain version on CPU copies); K11 (every
+   compact field, the narrowed planes aligned and apart) on the serial
+   and extended carries of phase 2, the capacity winner's, the bulk
+   problem's and a 1001-node serial cut (N % 4 != 0), on its task plan
+   (`cuda.compress_plan`) and at 1 and 3 times its tiles; K7's device
+   time by kernel, host time and bound at 200 and 2000 entries and on the
+   region batch, K11's at
+   the serial and bulk carries; with `--parent DIR` the parent's K7 and
+   K11 paths equal to this tree's and timed in turns (`vs_parent`: device
+   µs in one profiler window, host µs in seven turns).
 Phase 2 also holds K14-K16 against their plain versions on rounds of the
 bulk problem (plain, storage, quota-spread with t*'s 16 zones — K15's
 one-warp ladder — and quota-anti with its 5000 hostnames), of the matrix
@@ -310,7 +328,7 @@ launch from the profiler, back-to-back launches from Python, the plain
 version's).
 
 The line before the last is the JSON `{"kernels": [...], "plans": {...}}`
-(`plans`: the launch plans of phases 18's to 21's shapes, the wrappers' choices
+(`plans`: the launch plans of phases 18's to 22's shapes, the wrappers' choices
 beside the run's readings); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 no CUDA device is available.
@@ -1224,11 +1242,12 @@ def kernel_of(key: str):
 
 
 #: kernels whose one launch is several CUDA kernels (K8: cuda.audit_plan's
-#: radix passes and scans; K13: its grouping and pair kernel, then its
-#: walk), each mapped to its part that runs exactly once a launch; the
+#: radix passes and scans; K7 and K13: the grouping and pair kernel, then
+#: the walk), each mapped to its part that runs exactly once a launch; the
 #: profiler's device time of a launch is the sum of its parts, its
 #: launches the count of that part
-MULTI_KERNEL = {"audit_bulk": "audit_bulk_flags_kernel", "compact_delta": "compact_delta_kernel"}
+MULTI_KERNEL = {"audit_bulk": "audit_bulk_flags_kernel", "compact_delta": "compact_delta_kernel",
+                "delta_apply": "delta_apply_kernel"}
 
 # kernels whose device time came from CUDA events because the profiler's
 # windows lost their device events
@@ -2294,6 +2313,8 @@ def phase_bulk_kernels(device, err):
              f"{PICK_GLOBAL_CUT[0]} plain": round_sweep(f"{PICK_GLOBAL_CUT[0]}-node plain", w_tensors, w_statics,
                                                         w_pods, w_flags, w_first["plain"], err), **edge_sweeps}
     copy_times = phase_carry_copy(b_tensors, b_buf.state, device, err)
+    # the bulk problem's carry, for phase 22's K11
+    copy_times["bulk_carry"] = (b_tensors, clone_state(b_buf.state))
     log("phase 2: K17 equal to its plain version on the bulk carry, dense and compact: fresh storage, "
         "the snapshot untouched when the copy is written")
     times = time_rounds(b_tensors, b_statics, b_pods, b_flags, b_first["plain"], "bulk plain")
@@ -5302,15 +5323,17 @@ def k6_sweep(buf, i: int) -> dict:
     return {"us": got, "from": how}
 
 
-#: the parent tree's kernels that phase 21 builds and times against this
-#: tree's (K5: the raw score's row sum, repaired past 32 VGs)
-PARENT_KERNELS = ("gpu_pod", "compact_delta", "storage_pod")
+#: the parent tree's kernels that phase 22 builds and times against this
+#: tree's, and their C entries' argument types there (K7's and K11's block
+#: and the stream)
+PARENT_KERNELS = {"delta_apply": [ctypes.c_void_p, ctypes.c_void_p],
+                  "compact_compress": [ctypes.c_void_p, ctypes.c_void_p]}
 
 
 def load_parent(parent: Path):
     """The parent tree's kernels/cuda.py as a module of its own, its
     PARENT_KERNELS built from the parent tree's sources (nvcc, all at once)
-    and its other libraries this tree's: the parent's K5, K6 and K13 paths,
+    and its other libraries this tree's: the parent's K7 and K11 paths,
     wrappers included, for timing in turns against this tree's."""
     import importlib.util
 
@@ -5329,9 +5352,7 @@ def load_parent(parent: Path):
             raise RuntimeError(f"the parent's {name} failed to build:\n{build_log}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         fn = getattr(lib, f"simtpu_{name}")
-        fn.argtypes = {"gpu_pod": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-                       "compact_delta": [ctypes.c_void_p, ctypes.c_void_p],
-                       "storage_pod": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]}[name]
+        fn.argtypes = PARENT_KERNELS[name]
         fn.restype = ctypes.c_int
         libs[name] = lib
     mod._LIBS.update(libs)
@@ -5349,51 +5370,16 @@ def host_in_turns(calls: dict, iters: int, turns: int = 7) -> dict:
     return {k: float(np.median(v)) for k, v in got.items()}
 
 
-def k6_vs_parent(pmod, buf, i: int) -> dict:
-    """The parent's K6 path against this tree's at pod i (each through
-    engine/scan.py gpu_pod's device check): the same outputs, then device
-    µs per launch in turns in one profiler window and host µs per launch in
-    turns."""
-    def parent(b, j):
-        if b.device.type == "cpu":
-            scan.gpu_pod_plain(b, j)
-        else:
-            pmod.launch("gpu_pod", b, j)
-
-    parent(buf, i)
-    torch.cuda.synchronize()
-    want = (buf.gpu_ok.clone(), buf.gpu_sh.clone())
-    scan.gpu_pod(buf, i)
-    torch.cuda.synchronize()
-    if not (torch.equal(buf.gpu_ok, want[0]) and bits_equal(buf.gpu_sh, want[1])):
-        raise AssertionError(f"phase 21: K6 differs from the parent's K6 at pod {i} (N={buf.ctx.n})")
-    got, how = sweep_us({"parent": lambda: parent(buf, i), "new": lambda: scan.gpu_pod(buf, i)}, "gpu_pod")
-    host = host_in_turns({"parent": lambda: parent(buf, i), "new": lambda: scan.gpu_pod(buf, i)}, 2000)
-    return {"pod": i, "device_us": got, "from": how, "speedup": got["parent"] / got["new"], "host_us": host,
+def vs_parent(calls: dict, kernel: str, host_iters: int) -> dict:
+    """The parent's path against this tree's: `calls` maps "parent" and
+    "new" to a callable each (one call of `kernel` through each tree's
+    wrapper): device µs per call in turns in one profiler window (CUDA
+    events where the windows lost events), host µs per back-to-back call
+    in seven turns, and the ratios."""
+    got, how = sweep_us(calls, kernel)
+    host = host_in_turns(calls, host_iters)
+    return {"device_us": got, "from": how, "speedup": got["parent"] / got["new"], "host_us": host,
             "host_ratio": host["new"] / host["parent"]}
-
-
-def k5_vs_parent(pmod, buf, i: int) -> dict:
-    """The parent's K5 path against this tree's at pod i (each through
-    engine/scan.py storage_pod's device check): the verdicts and
-    allocations equal (the raw score may differ past 32 VGs, where this
-    tree sums in XLA's order), then device µs per launch in turns in one
-    profiler window and host µs per launch in turns."""
-    def parent(b, j):
-        if b.device.type == "cpu":
-            scan.storage_pod_plain(b, j)
-        else:
-            pmod.launch("storage_pod", b, j)
-
-    parent(buf, i)
-    torch.cuda.synchronize()
-    want = (buf.st_ok.clone(), buf.st_alloc.clone())
-    scan.storage_pod(buf, i)
-    torch.cuda.synchronize()
-    if not (torch.equal(buf.st_ok, want[0]) and bits_equal(buf.st_alloc, want[1])):
-        raise AssertionError(f"phase 21: K5 differs from the parent's K5 at pod {i} (N={buf.ctx.n})")
-    got, how = sweep_us({"parent": lambda: parent(buf, i), "new": lambda: scan.storage_pod(buf, i)}, "storage_pod")
-    return {"pod": i, "device_us": got, "from": how, "speedup": got["parent"] / got["new"]}
 
 
 def log_entries(kbuf, placed, rng, k: int):
@@ -5506,22 +5492,28 @@ def compare_k13(label: str, statics, dspec, ndom, nds, cstate, packed, signs=(-1
             "most_on_a_node": int(np.bincount(node[wgt != 0]).max()), "moved": moved, "plain_s": plain_s}
 
 
+def time_pair(kernel: str, pair, nbytes: int) -> dict:
+    """A delta kernel's (K7's or K13's) device µs per call, the sum of its
+    two kernels (profiler; `pair` evicts and restores, two calls), each
+    kernel's share, host µs per back-to-back call, and its bound."""
+    per, _, _ = profile_kernels(lambda: [pair() for _ in range(20)], {kernel: (pair, 2)})
+    events, _ = window_events(lambda: [pair() for _ in range(20)])
+    parts = {part: us / 40 for name, part, us, _ in events if name == kernel}
+    return {"device_us": per[kernel][0], "ms_from": ms_from(kernel), "parts_us": parts,
+            "host_us": time_call(pair, 100) / 2 * 1e3, "bytes": nbytes,
+            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+
+
 def time_k13(statics, dspec, ndom, nds, cstate, packed, nbytes: int) -> dict:
-    """K13's device µs per call, the sum of its two kernels (profiler;
-    evict and restore in turn on a copy of the carry), each kernel's share,
-    host µs per back-to-back call, and its bound."""
+    """time_pair of K13, evicting and restoring in turn on a copy of the
+    carry."""
     carry = clone_state(cstate)
 
     def pair():
         sstate.apply_placement_deltas_compact(statics, dspec, ndom, nds, carry, packed[-1.0])
         sstate.apply_placement_deltas_compact(statics, dspec, ndom, nds, carry, packed[1.0])
 
-    per, _, _ = profile_kernels(lambda: [pair() for _ in range(20)], {"compact_delta": (pair, 2)})
-    events, _ = window_events(lambda: [pair() for _ in range(20)])
-    parts = {part: us / 40 for name, part, us, _ in events if name == "compact_delta"}
-    return {"device_us": per["compact_delta"][0], "ms_from": ms_from("compact_delta"), "parts_us": parts,
-            "host_us": time_call(pair, 100) / 2 * 1e3, "bytes": nbytes,
-            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+    return time_pair("compact_delta", pair, nbytes)
 
 
 def k13_sweep(statics, dspec, ndom, nds, cstate, packed) -> dict:
@@ -5540,40 +5532,7 @@ def k13_sweep(statics, dspec, ndom, nds, cstate, packed) -> dict:
     return {"us": got, "from": how}
 
 
-def k13_vs_parent(pmod, statics, dspec, ndom, nds, cstate, packed) -> dict:
-    """The parent's K13 path against this tree's on copies of one carry
-    (each through engine/state.py apply_placement_deltas_compact's device
-    check): evict and restore in turn, call by call, each side on its own copy
-    (the copies equal bit for bit after every turn); device µs per launch
-    in turns in one profiler window; host µs per call in turns."""
-    def parent(st, ds, nd, ns, carry, p):
-        if carry.free.device.type == "cpu":
-            sstate.apply_placement_deltas_compact_plain(st, ds, nd, ns, carry, p)
-        else:
-            pmod.launch_compact_delta(st, ds, nd, ns, carry, p)
-
-    carries = {"parent": clone_state(cstate), "new": clone_state(cstate)}
-    apply = {"parent": parent, "new": sstate.apply_placement_deltas_compact}
-    sign = {"parent": -1.0, "new": -1.0}
-
-    def call(side):
-        apply[side](statics, dspec, ndom, nds, carries[side], packed[sign[side]])
-        sign[side] = -sign[side]
-
-    for _ in range(2):
-        call("parent")
-        call("new")
-    torch.cuda.synchronize()
-    bad = [f for f, a, b in zip(cstate._fields, carries["parent"], carries["new"]) if not bits_equal(a, b)]
-    if bad:
-        raise AssertionError(f"phase 21: K13 differs from the parent's K13: {bad}")
-    got, how = sweep_us({side: (lambda s_: lambda: call(s_))(side) for side in ("parent", "new")}, "compact_delta")
-    host = host_in_turns({side: (lambda s_: lambda: call(s_))(side) for side in ("parent", "new")}, 100)
-    return {"device_us": got, "from": how, "speedup": got["parent"] / got["new"], "host_us": host,
-            "host_ratio": host["new"] / host["parent"]}
-
-
-def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> tuple:
+def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200) -> tuple:
     """Phase 21: K6 and K13 against their plain versions bit for bit. K6
     at N = 120 ... 9000 on the extended case's GPU pods and on seeded GPU
     states of GD = 1, 2, 4, 5, 8, 9 and 40 (gpu_case: ties, stacking,
@@ -5584,10 +5543,8 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
     on the extended log (run's placements) at E = 200 and 2000 on the
     extended carry and its tabular and dense variants, and at the terms
     problem's Tc = 512, each on its plan and every plan of DELTA_SWEEP;
-    their device / host / plain time and bound. With `parent` (a module of
-    load_parent) the parent's K6 and K13 equal this tree's and are timed
-    in turns against them, and its K5 on the wide problem. Returns the
-    measurements and the plans."""
+    their device / host / plain time and bound. Returns the measurements
+    and the plans."""
     rng = np.random.default_rng(21)
     out, plans = {"gpu_pod": {}, "compact_delta": {}}, {"gpu_plan": {}, "compact_delta_plan": {}}
     t0 = time.perf_counter()
@@ -5611,8 +5568,6 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
             # multi-GPU pod (GPU_PODS[3]), by threads
             for gd in (9, 40):
                 row["timing"][f"sweep_gd{gd}"] = k6_sweep(gbufs[gd], 3)
-            if parent is not None:
-                row["timing"]["parent"] = k6_vs_parent(parent, xbuf, gi)
         plans["gpu_plan"][str(n)] = cuda.gpu_plan(xbuf.ctx.n, xbuf.ctx.gd)
         out["gpu_pod"][str(n)] = row
         tm = row["timing"]
@@ -5620,8 +5575,7 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
             f"({json.dumps(row['compare'])}): {tm['device_us']:.2f} us device ({tm['ms_from']}), "
             f"{tm['host_us']:.2f} us host a launch, bound {tm['bound_us']:.4f} us, plain {tm['plain_ms']:.3f} ms"
             + (f"; by threads x template ({tm['sweep']['from']}) {tm['sweep']['us']}, at GD = 9 "
-               f"{tm['sweep_gd9']['us']}, at GD = 40 {tm['sweep_gd40']['us']}" if "sweep" in tm else "")
-            + (f"; against the parent's K6 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+               f"{tm['sweep_gd9']['us']}, at GD = 40 {tm['sweep_gd40']['us']}" if "sweep" in tm else ""))
     # the wide problem: a node with 40 GPU devices
     w_cluster, w_apps = smoke.wide_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes)
     wt, wb, ws, wst, wpods = tensorized_batch(w_cluster, w_apps, device, 5)
@@ -5631,17 +5585,11 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
     wi = next(int(i) for i in wl if wbuf.gpu_host[int(i)][1] >= 2)
     wide["timing"] = time_k1_k5("gpu_pod", wbuf, wi)
     wide["timing"]["sweep"] = k6_sweep(wbuf, wi)
-    if parent is not None:
-        wide["timing"]["parent"] = k6_vs_parent(parent, wbuf, wi)
-        # K5 after the row-sum repair against the parent's on the 36-VG node
-        wide["k5_vs_parent"] = k5_vs_parent(parent, wbuf, int(np.flatnonzero(wbuf.storage_live)[0]))
     plans["gpu_plan"]["wide"] = cuda.gpu_plan(wbuf.ctx.n, wbuf.ctx.gd)
     out["gpu_pod"]["wide"] = wide
     log(f"phase 21: K6 on the wide problem (GD = {wbuf.ctx.gd}; {json.dumps(wide['compare'])}): "
         f"{wide['timing']['device_us']:.2f} us device, by threads x template ({wide['timing']['sweep']['from']}) "
-        f"{wide['timing']['sweep']['us']}"
-        + (f"; against the parent's K6 {json.dumps(wide['timing']['parent'])}; K5 (V = {wbuf.ctx.v}) against "
-           f"the parent's K5 {json.dumps(wide['k5_vs_parent'])}" if parent is not None else ""))
+        f"{wide['timing']['sweep']['us']}")
     k6_s = time.perf_counter() - t0
     # K13 on the extended log
     n = x_tensors.n_nodes
@@ -5661,8 +5609,6 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
                                      compact_delta_bytes(x_statics, cst, packed[-1.0], dsp, ndom, nd))
             if (label, e) in (("mixed", 200), ("tabular", 2000)):
                 row["timing"]["sweep"] = k13_sweep(x_statics, dsp, ndom, nd, cst, packed)
-            if parent is not None:
-                row["timing"]["parent"] = k13_vs_parent(parent, x_statics, dsp, ndom, nd, cst, packed)
             x = cuda.delta_ctx(x_statics, dsp, ndom, nd, cst, packed[-1.0])[0]
             plans["compact_delta_plan"][key] = cuda.delta_plan_of(x)
             out["compact_delta"][key] = row
@@ -5670,8 +5616,7 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
             log(f"phase 21: K13 equal to its plain version on the extended log's {key} batch on every plan of its "
                 f"sweep ({json.dumps(row['compare'])}): {tm['device_us']:.2f} us device ({tm['ms_from']}), "
                 f"{tm['host_us']:.2f} us host a call, bound {tm['bound_us']:.4f} us, by kernel {tm['parts_us']}"
-                + (f"; by plan ({tm['sweep']['from']}) {tm['sweep']['us']}" if "sweep" in tm else "")
-                + (f"; against the parent's K13 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+                + (f"; by plan ({tm['sweep']['from']}) {tm['sweep']['us']}" if "sweep" in tm else ""))
     # the terms problem at Tc = 512: seeded entries
     terms, tc, e = DELTA_TERMS
     tt, tb, ts, tst, tp = terms_batch(device, terms)
@@ -5686,17 +5631,303 @@ def phase_k6_k13(device, x_tensors, x_statics, run, head, packed200, parent) -> 
     row = {"compare": compare_k13(key, ts, tspec, tndom, tnds, tcarry, tpacked)}
     row["timing"] = time_k13(ts, tspec, tndom, tnds, tcarry, tpacked,
                              compact_delta_bytes(ts, tcarry, tpacked[-1.0], tspec, tndom, tnds))
-    if parent is not None:
-        row["timing"]["parent"] = k13_vs_parent(parent, ts, tspec, tndom, tnds, tcarry, tpacked)
     x = cuda.delta_ctx(ts, tspec, tndom, tnds, tcarry, tpacked[-1.0])[0]
     plans["compact_delta_plan"][key] = cuda.delta_plan_of(x)
     out["compact_delta"][key] = row
     tm = row["timing"]
     log(f"phase 21: K13 equal to its plain version on the {key} batch ({json.dumps(row['compare'])}): "
-        f"{tm['device_us']:.2f} us device, {tm['host_us']:.2f} us host a call, bound {tm['bound_us']:.4f} us"
-        + (f"; against the parent's K13 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+        f"{tm['device_us']:.2f} us device, {tm['host_us']:.2f} us host a call, bound {tm['bound_us']:.4f} us")
     out["seconds"] = {"k6": k6_s, "all": time.perf_counter() - t0}
     log(f"phase 21: {out['seconds']['all']:.1f} s (K6 {k6_s:.1f} s)")
+    return out, plans
+
+
+# -- phase 22: K7 and K11 ---------------------------------------------------
+
+#: K11's tiles along a row checked beside the wrapper's plan: one, and
+#: three times the plan's
+K11_TILES = (1, 3)
+#: phase 22's serial cut whose node count is not a multiple of 4
+K11_ODD_NODES = 1001
+#: the preference weights of phase 22's fractional K7 case (0 where a slot
+#: has no ip row) and the values its preference planes start from
+FRACTIONAL = (2.5, 0.3, 1.75, 0.6)
+#: the integer weights of the weighted K7 cases (real Kubernetes weights)
+INT_WEIGHTS = tuple(range(1, 101))
+
+
+def launch_delta_apply_with(statics, state, packed, threads: int, budget: int) -> None:
+    """K7 on `compact_delta_plan`'s plan of `threads` threads and shared
+    `budget`: a measurement launch, not counted."""
+    ctx, _, entries = cuda.delta_apply_call(statics, state, packed)
+    plan = cuda.delta_plan_struct(ctx, state.free.device, threads, budget)
+    err = cuda.build()["delta_apply"].simtpu_delta_apply(ctypes.byref(ctx), ctypes.byref(plan),
+                                                         torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K7 on {threads} threads, budget {budget}, failed to launch ({err})")
+
+
+def hostname_statics(statics):
+    """The statics with every topology key a per-node key (node_dom[k, n] =
+    k N + n): a hostname-only cluster's layout, every domain one node."""
+    k, n = statics.node_dom.shape
+    ids = torch.arange(k * n, dtype=torch.int32, device=statics.node_dom.device).reshape(k, n)
+    return statics._replace(node_dom=ids)
+
+
+def region_statics(statics):
+    """The statics with every key that groups nodes (a zone) made one
+    domain of all the nodes that have it, as a region or single-value
+    label is, and the per-node keys kept: one large domain beside
+    one-node ones."""
+    nd = statics.node_dom.cpu().numpy().copy()
+    for row in nd:
+        live = row >= 0
+        if live.any() and len(np.unique(row[live])) < live.sum():
+            row[live] = row[live].min()
+    return statics._replace(node_dom=torch.from_numpy(nd).to(statics.node_dom.device))
+
+
+def weighted_statics(statics, rng, values):
+    """The statics with both preference weights drawn from `values` on every
+    slot whose term has an ip row."""
+    terms = statics.g_terms
+    ip = (terms >= 0) & (statics.ip_of[terms.clamp(min=0).long()] >= 0)
+
+    def draw():
+        v = torch.as_tensor(rng.choice(np.asarray(values, np.float32), tuple(terms.shape)), device=terms.device)
+        return torch.where(ip, v, torch.zeros((), device=terms.device))
+
+    return statics._replace(w_aff_pref=draw(), w_anti_pref=draw())
+
+
+def pref_state(state, rng, values):
+    """A copy of the state with both preference planes drawn from `values`."""
+    def draw(t):
+        return torch.as_tensor(rng.choice(np.asarray(values, np.float32), tuple(t.shape)), device=t.device)
+
+    return clone_state(state)._replace(w_own_aff_pref=draw(state.w_own_aff_pref),
+                                       w_own_anti_pref=draw(state.w_own_anti_pref))
+
+
+def compare_k7(label: str, statics, state, packed, round_trip: bool) -> dict:
+    """Phase 22: K7 against apply_placement_deltas_plain, the batch evicted
+    (w = -1) then restored (w = +1) from `state`, on the wrapper's plan and
+    every plan of DELTA_SWEEP: every plane bit for bit after each step, and
+    with `round_trip` the state before the eviction after the restore. The
+    plain version runs on copies of the inputs on the CPU."""
+    want, plain, args = [], on_cpu(state), on_cpu(statics)
+    t0 = time.perf_counter()
+    for sign in (-1.0, 1.0):
+        sstate.apply_placement_deltas_plain(args, plain, packed[sign])
+        want.append(clone_state(plain))
+    plain_s = time.perf_counter() - t0
+    if round_trip and not all(bits_equal(a, b.cpu()) for a, b in zip(want[1], state)):
+        raise AssertionError(f"phase 22: K7's plain version ({label}) does not return the state before")
+    for threads, budget in ((None, None),) + DELTA_SWEEP:
+        got = clone_state(state)
+        for sign, w in zip((-1.0, 1.0), want):
+            if threads is None:
+                sstate.apply_placement_deltas(statics, got, packed[sign])
+            else:
+                launch_delta_apply_with(statics, got, packed[sign], threads, budget)
+            torch.cuda.synchronize()
+            bad = [f for f, a, b in zip(got._fields, got, w) if not bits_equal(a.cpu(), b)]
+            if bad:
+                raise AssertionError(f"phase 22: K7 ({label}, threads {threads}, budget {budget}, w = {sign:+.0f}): "
+                                     f"planes {bad} differ from the plain version")
+    wgt, node = np.asarray(packed[-1.0][2]), np.asarray(packed[-1.0][1])
+    moved = sorted(f for f, a, b in zip(state._fields, want[0], state) if a.numel() and not torch.equal(a, b.cpu()))
+    return {"entries": int((wgt != 0).sum()), "padded": int(len(wgt)), "nodes": int(len(np.unique(node[wgt != 0]))),
+            "most_on_a_node": int(np.bincount(node[wgt != 0]).max()), "pref_mode": cuda.pref_mode(statics, len(wgt)),
+            "moved": moved, "round_trip": round_trip, "plain_s": plain_s}
+
+
+def time_k7(statics, state, packed) -> dict:
+    """time_pair of K7, evicting and restoring in turn on a copy of the
+    state."""
+    carry = clone_state(state)
+
+    def pair():
+        sstate.apply_placement_deltas(statics, carry, packed[-1.0])
+        sstate.apply_placement_deltas(statics, carry, packed[1.0])
+
+    return time_pair("delta_apply", pair, delta_bytes(statics, state, packed[-1.0]))
+
+
+def k7_vs_parent(pmod, statics, state, packed) -> dict:
+    """The parent's K7 path against this tree's on copies of one state
+    (each through engine/state.py apply_placement_deltas' device check):
+    evict and restore in turn, call by call, the copies equal bit for bit
+    after two turns; then vs_parent."""
+    def parent(st, carry, p):
+        if carry.free.device.type == "cpu":
+            sstate.apply_placement_deltas_plain(st, carry, p)
+        else:
+            pmod.launch_delta(st, carry, p)
+
+    carries = {"parent": clone_state(state), "new": clone_state(state)}
+    apply = {"parent": parent, "new": sstate.apply_placement_deltas}
+    sign = {"parent": -1.0, "new": -1.0}
+
+    def call(side):
+        apply[side](statics, carries[side], packed[sign[side]])
+        sign[side] = -sign[side]
+
+    for _ in range(2):
+        call("parent")
+        call("new")
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(state._fields, carries["parent"], carries["new"]) if not bits_equal(a, b)]
+    if bad:
+        raise AssertionError(f"phase 22: K7 differs from the parent's K7: {bad}")
+    return vs_parent({side: (lambda s_: lambda: call(s_))(side) for side in ("parent", "new")}, "delta_apply", 100)
+
+
+def launch_compress_with(spec, state, tiles: int):
+    """K11 on its task table with `tiles` blocks along a row: a
+    measurement launch, not counted; the CompactState it writes."""
+    ctx, plan, out = cuda.compress_ctx(spec, state)
+    plan = cuda.CompressPlan(n_tasks=plan.n_tasks, tiles=tiles, tasks=plan.tasks, gather=plan.gather)
+    err = cuda.build()["compact_compress"].simtpu_compact_compress(ctypes.byref(ctx), ctypes.byref(plan),
+                                                                   torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K11 on {tiles} tiles failed to launch ({err})")
+    return sstate.CompactState(**out)
+
+
+def compare_k11(label: str, tensors, state, device) -> dict:
+    """Phase 22: K11 against compress_state_plain on `state`, on the
+    wrapper's plan and on K11_TILES times its tiles: every field bit for
+    bit, the narrowed planes 16-byte aligned and apart in one buffer."""
+    spec = sstate.compact_spec_dev(tensors, device)
+    want = sstate.compress_state_plain(spec, clone_state(state))
+    plan = cuda._compress_setup(spec, state)["plan"]
+    for tiles in (None,) + tuple(k * plan.tiles for k in K11_TILES):
+        got = (sstate.compress_state(spec, clone_state(state)) if tiles is None
+               else launch_compress_with(spec, clone_state(state), tiles))
+        torch.cuda.synchronize()
+        bad = [f for f, a, b in zip(got._fields, got, want) if a.dtype != b.dtype or not bits_equal(a, b)]
+        if bad:
+            raise AssertionError(f"phase 22: K11 ({label}, tiles {tiles}): fields {bad} differ from the plain version")
+        spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                       for f, t in zip(got._fields, got) if f in cuda.NARROW_FIELDS and t.numel())
+        if any(a % 16 for a, _ in spans) or any(b > a for (_, b), (a, _) in zip(spans, spans[1:])):
+            raise AssertionError(f"phase 22: K11 ({label}): the narrowed planes are not aligned and apart")
+    return {"n": tensors.n_nodes, "n_mod_4": tensors.n_nodes % 4, "tasks": plan.n_tasks, "tiles": plan.tiles,
+            "rows": {"Rt": int(spec.t_tab.shape[0]), "Rd": int(spec.t_dense.shape[0]),
+                     "Rti": int(spec.ip_tab.shape[0]), "Rdi": int(spec.ip_dense.shape[0]), "D": int(spec.t_rep.shape[1])}}
+
+
+def time_k11(tensors, state, device) -> dict:
+    """K11's device µs per launch (profiler), host µs per back-to-back
+    call, the plain version's ms and the bound (bytes)."""
+    spec = sstate.compact_spec_dev(tensors, device)
+    call = (lambda: sstate.compress_state(spec, state))
+    nbytes = compact_bytes(tensors, state, call())["compact_compress"]
+    per, _, _ = profile_kernels(lambda: [call() for _ in range(50)], {"compact_compress": call})
+    return {"device_us": per["compact_compress"][0], "ms_from": ms_from("compact_compress"),
+            "host_us": time_call(call, 200) * 1e3,
+            "plain_ms": time_call(lambda: sstate.compress_state_plain(spec, state), 10),
+            "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+
+
+def k11_vs_parent(pmod, tensors, state, device) -> dict:
+    """The parent's K11 path against this tree's on one state (each
+    through engine/state.py compress_state's device check): equal field
+    for field, then vs_parent."""
+    spec = sstate.compact_spec_dev(tensors, device)
+
+    def parent():
+        if state.free.device.type == "cpu":
+            return sstate.compress_state_plain(spec, state)
+        return sstate.CompactState(**pmod.launch_compact_compress(spec, state))
+
+    a, b = parent(), sstate.compress_state(spec, state)
+    torch.cuda.synchronize()
+    bad = [f for f, x, y in zip(a._fields, a, b) if not bits_equal(x, y)]
+    if bad:
+        raise AssertionError(f"phase 22: K11 differs from the parent's K11: {bad}")
+    return vs_parent({"parent": parent, "new": lambda: sstate.compress_state(spec, state)}, "compact_compress", 200)
+
+
+def seeded_carry(tensors, device, k: int, seed: int):
+    """A dense state rebuilt from a seeded placement log of `k` entries
+    (random groups on random nodes) on `tensors`."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, len(tensors.groups), k).astype(np.int32)
+    n = rng.integers(0, tensors.n_nodes, k).astype(np.int32)
+    return sstate.build_state(tensors, g, n, np.zeros((k, tensors.alloc.shape[1]), np.float32), None, device)
+
+
+def phase_k7_k11(device, x_tensors, x_statics, run, head, packed200, carries: dict, parent) -> tuple:
+    """Phase 22: K7 and K11 against their plain versions bit for bit. K7
+    on the extended problem's dense state (run's placements) at E = 200
+    (phase 2's batch) and 2000, on its hostname-only variant (every key a
+    per-node key) at 2000, on its region variant (each zone key one domain
+    of all its nodes beside the per-node keys) at 1000, with integer
+    preference weights (1-100: the atomic
+    path), with those weights and preference planes past pref_mode's bound
+    and with fractional weights and planes (the log-order path), each
+    evicted then restored on the wrapper's plan and every plan of
+    DELTA_SWEEP (the integer cases back to the state before); K11 on
+    `carries` ({label: (tensors, dense state)}: the serial, extended,
+    capacity-winner and bulk carries and N % 4 != 0) on its plan and
+    K11_TILES. Then their device / host / plain times and bounds, and with
+    `parent` (a module of load_parent) the parent's K7 and K11 equal and
+    timed in turns (vs_parent). Returns the measurements and the plans."""
+    rng = np.random.default_rng(22)
+    t0 = time.perf_counter()
+    state = run.state
+    packed2000 = packed_pair(x_tensors, log_entries(run, head, rng, 2000))
+    weights = weighted_statics(x_statics, rng, INT_WEIGHTS)
+    cases = {
+        "extended E=200": (x_statics, state, packed200, True),
+        "extended E=2000": (x_statics, state, packed2000, True),
+        "hostname E=2000": (hostname_statics(x_statics), state, packed2000, True),
+        "region E=1000": (region_statics(x_statics), state, packed_pair(x_tensors, log_entries(run, head, rng, 1000)),
+                          True),
+        "weighted E=200": (weights, state, packed200, True),
+        "past the bound E=200": (weights, pref_state(state, rng, cuda.F32_EXACT - np.arange(1, 60)), packed200,
+                                 False),
+        "fractional E=200": (weighted_statics(x_statics, rng, FRACTIONAL), pref_state(state, rng, FRACTIONAL),
+                             packed200, False),
+    }
+    out = {"delta_apply": {}, "compact_compress": {}}
+    plans = {"delta_apply_plan": {}, "compress_plan": {}}
+    for label, (st, s, packed, round_trip) in cases.items():
+        row = {"compare": compare_k7(label, st, s, packed, round_trip)}
+        if label in ("extended E=200", "extended E=2000", "hostname E=2000", "region E=1000", "fractional E=200"):
+            row["timing"] = time_k7(st, s, packed)
+            if parent is not None and label != "fractional E=200":
+                row["timing"]["parent"] = k7_vs_parent(parent, st, s, packed)
+        plans["delta_apply_plan"][label] = cuda.delta_plan_of(cuda.delta_apply_call(st, s, packed[-1.0])[0])
+        out["delta_apply"][label] = row
+        tm = row.get("timing", {})
+        log(f"phase 22: K7 equal to its plain version on the {label} batch on every plan of its sweep "
+            f"({json.dumps(row['compare'])})"
+            + (f": {tm['device_us']:.2f} us device ({tm['ms_from']}), {tm['host_us']:.2f} us host a call, bound "
+               f"{tm['bound_us']:.4f} us, by kernel {tm['parts_us']}" if tm else "")
+            + (f"; against the parent's K7 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+    k7_s = time.perf_counter() - t0
+    for label, (tensors, s) in carries.items():
+        row = {"compare": compare_k11(label, tensors, s, device)}
+        if label in ("serial", "bulk"):
+            row["timing"] = time_k11(tensors, s, device)
+            if parent is not None:
+                row["timing"]["parent"] = k11_vs_parent(parent, tensors, s, device)
+        setup = cuda._compress_setup(sstate.compact_spec_dev(tensors, device), s)
+        plans["compress_plan"][label] = {"tasks": setup["plan"].n_tasks, "tiles": setup["plan"].tiles,
+                                         "narrow_bytes": setup["nbytes"]}
+        out["compact_compress"][label] = row
+        tm = row.get("timing", {})
+        log(f"phase 22: K11 equal to its plain version on the {label} carry on its plan and {K11_TILES} x its "
+            f"tiles ({json.dumps(row['compare'])})"
+            + (f": {tm['device_us']:.2f} us device ({tm['ms_from']}), {tm['host_us']:.2f} us host a call, bound "
+               f"{tm['bound_us']:.4f} us ({tm['bytes']} B), plain {tm['plain_ms']:.3f} ms" if tm else "")
+            + (f"; against the parent's K11 {json.dumps(tm['parent'])}" if "parent" in tm else ""))
+    out["seconds"] = {"k7": k7_s, "all": time.perf_counter() - t0}
+    log(f"phase 22: {out['seconds']['all']:.1f} s (K7 {k7_s:.1f} s)")
     return out, plans
 
 
@@ -5826,6 +6057,9 @@ def main() -> int:
                                       ("rack problem", r_tensors, r_wbuf.state),
                                       ("keys problem", k_tensors, k_wbuf.state)):
         _, parts[label] = phase_compact(label, c_tensors, c_state, device, err)
+    # phase 22's K11 carries: these states as they are now, later phases'
+    # (the bulk carry, the capacity winner, a 1001-node cut) added there
+    k11_carries = {"serial": (tensors, clone_state(s_wbuf.state)), "extended": (x_tensors, clone_state(x_wbuf.state))}
     log("phase 2: K11/K12 equal to their plain versions (every compact field; the expansion equal to "
         "the state compressed, state_diff 0, no storage shared) on " + "; ".join(
             f"the {k} {v}" for k, v in parts.items()))
@@ -5965,7 +6199,7 @@ def main() -> int:
     # -- phase 3d: both main paths in the serial-exact configuration -------
     # (the wavefront and the compact carry off, the JAX package's audit
     # fallback engine)
-    _, _, off_wall, _, _, _, _, _ = run_main_path(
+    off_launches, _, off_wall, _, _, _, _, _ = run_main_path(
         smoke.smoke_problem(synth_cluster, synth_apps), smoke.GOLDEN, card, "phase 3d serial", "serial",
         speculate=False, compact=False)
     off_x_launches, off_x_steps, off_x_wall, _, _, _, _, _ = run_main_path(
@@ -6059,7 +6293,15 @@ def main() -> int:
     k1k5_widths, k1k5_plans = phase_k1_k5(device)
 
     # -- phase 21: K6 and K13 at their shapes, against the parent's where given --
-    k6k13, k6k13_plans = phase_k6_k13(device, x_tensors, x_statics, x_run, head, packed, parent)
+    k6k13, k6k13_plans = phase_k6_k13(device, x_tensors, x_statics, x_run, head, packed)
+
+    # -- phase 22: K7 and K11, against the parent's where given -----------------
+    w_tensors = winner[0]
+    n_tensors = big_batch(device, K11_ODD_NODES)[0]
+    k11_carries.update({"capacity winner": (w_tensors, seeded_carry(w_tensors, device, 12000, 22)),
+                        "bulk": copy_times.pop("bulk_carry"),
+                        f"serial N={K11_ODD_NODES}": (n_tensors, seeded_carry(n_tensors, device, 3000, 23))})
+    k7k11, k7k11_plans = phase_k7_k11(device, x_tensors, x_statics, x_run, head, packed, k11_carries, parent)
 
     # K8's time at the capacity winner's log (M entries on the plan's nodes)
     w_tensors, w_e, w_nv = winner
@@ -6294,20 +6536,27 @@ def main() -> int:
                 "12": sum(explain[p]["launches"].get("audit_bulk", 0) for p in ("extended", "bulk", "scores", "plan")),
                 "13": fuzz_run["launches"].get("audit_bulk", 0) + fuzz_run["mutation_kill"]["launches"].get(
                     "audit_bulk", 0)}
-        if row["name"] in ("filter_pod", "topology_pod", "commit_pod", "storage_pod", "gpu_pod", "compact_delta"):
-            # the main paths' launches of K1, K2, K4, K5, K6 and K13, path by
+        if row["name"] in ("filter_pod", "topology_pod", "commit_pod", "storage_pod", "gpu_pod", "delta_apply",
+                           "compact_compress", "compact_delta"):
+            # the main paths' launches of K1, K2, K4-K7, K11 and K13, path by
             # path (a bulk round launches K1 and K2, and K5 for a storage
-            # pod, once more)
+            # pod, once more; the bulk path's K7 reverts a failed stretch)
             name = row["name"]
             row["launches_by_path"] = {
                 "serial": launches.get(name, 0), "extended": x_launches.get(name, 0),
+                "serial_exact_serial": off_launches.get(name, 0),
                 "serial_exact_extended": off_x_launches.get(name, 0), "capacity": c_launches.get(name, 0),
                 "bulk": b_launches.get(name, 0), "bulk_rounds": b_steps["rounds"],
                 "large_capacity": l_launches.get(name, 0),
                 "phase_8_zone": serial_faults["zone"]["launches"].get(name, 0),
                 "phase_8_k1": serial_faults["k1"]["launches"].get(name, 0),
+                "phase_9": bulk_faults["launches"].get(name, 0),
+                "phase_10": batched_capacity["launches"].get(name, 0),
                 "phase_11": resilience_plan["launches"].get(name, 0),
-                **{f"explain_{p}": explain[p]["launches"].get(name, 0) for p in ("extended", "bulk", "scores", "plan")}}
+                **{f"explain_{p}": explain[p]["launches"].get(name, 0) for p in ("extended", "bulk", "scores", "plan")},
+                "phase_13": fuzz_run["launches"].get(name, 0) + fuzz_run["mutation_kill"]["launches"].get(name, 0),
+                "phase_14": sum(o["launches"].get(name, 0) for o in solver_paths.values()),
+                "phase_15_grow": grow_path["launches"].get(name, 0)}
         if row["name"] in ("topology_pod", "commit_pod"):
             row["widths"] = {k: {"pods": v["pods"], **v[row["name"]],
                                  **({"sweep_us": v["sweep_us"]} if "sweep_us" in v and row["name"] == "topology_pod"
@@ -6323,6 +6572,9 @@ def main() -> int:
         if row["name"] == "compact_delta":
             row["entries"] = k6k13["compact_delta"]
             row["phase_21_s"] = k6k13["seconds"]
+        if row["name"] in ("delta_apply", "compact_compress"):
+            row["phase_22"] = k7k11[row["name"]]
+            row["phase_22_s"] = k7k11["seconds"]
         if row["name"] == "score_argmax_pod":
             row["widths"] = k3_widths
             row["launches_bulk_path"] = b_launches.get("score_argmax_pod", 0)
@@ -6332,7 +6584,8 @@ def main() -> int:
     plans = {"sweep_drain_many_keys": many_keys_plan, "audit_bulk_logs": audit_plans,
              "audit_bulk_capacity_winner": {k: v for k, v in cuda.audit_plan(
                  w_tensors.n_nodes, len(w_e.n), 0).items() if k not in ("offsets", "s", "words")},
-             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans, **k1k5_plans, **k6k13_plans}
+             "score_argmax_pod_widths": k3_plans, "topology_pod_widths": k2_plans, **k1k5_plans, **k6k13_plans,
+             **k7k11_plans}
     print(json.dumps({"kernels": rows, "plans": plans, "card": card, "terms": terms_run,
                       "compact_carry": {"serial": s_gauge, "extended": x_gauge, "capacity": c_gauge,
                                         "partitions": parts},

@@ -339,8 +339,9 @@ def apply_placement_deltas_plain(statics, state: SchedState, entries) -> None:
 def apply_placement_deltas(statics, state: SchedState, entries) -> None:
     """Fold packed entries (`pack_delta_entries`) into the state IN PLACE,
     in order: K7 (`kernels/csrc/delta_apply.cu`) for a state on the card, in
-    one launch; the plain version for a state on the CPU. Entries with
-    w = -1 undo what the same entries with w = +1 applied."""
+    one call (the grouping and pair kernel, then the walk); the plain
+    version for a state on the CPU. Entries with w = -1 undo what the same
+    entries with w = +1 applied."""
     if state.free.device.type == "cpu":
         apply_placement_deltas_plain(statics, state, entries)
     else:

@@ -1,14 +1,14 @@
 // The per-node part of a signed placement-log delta, shared by K7
-// `delta_apply` (the dense carry, count planes in f32) and K13
-// `compact_delta` (the compact carry, count planes in int32): one entry's
-// update of the chosen node's rows of free, ports_used, vols_any, vols_rw,
-// vg_free, sdev_free and gpu_free.
+// `delta_apply` (the dense carry, count planes in f32), K13
+// `compact_delta` (the compact carry, count planes in int32) and K18
+// `sweep_drain`: one entry's update of the chosen node's rows of free,
+// ports_used, vols_any, vols_rw, vg_free, sdev_free and gpu_free, one
+// element at a time.
 //
-// The caller runs it on the one thread that owns node c and walks the
-// entries in log order: f32 adds onto the same row do not commute bit for
-// bit, and sdev_free's set/clear by sign depends on the order too.
-// `C` is the count planes' type; a count delta (a 0/1 incidence times
-// w = +-1) is exact in either.
+// The caller adds a node's entries to an element in log order: f32 adds
+// onto the same row do not commute bit for bit, and sdev_free's set/clear
+// by sign depends on the order too. `C` is the count planes' type; a
+// count delta (a 0/1 incidence times w = +-1) is exact in either.
 #pragma once
 #include <cstdint>
 
@@ -35,51 +35,13 @@ struct DeltaRows {
   float* gpu_free;    // [N, GD]
 };
 
-template <typename C>
-__device__ inline void delta_node_rows(const DeltaRows<C>& x, int e, int g, int c, float w) {
-  const size_t er = static_cast<size_t>(e);
-  const size_t cr = static_cast<size_t>(c);
-  for (int r = 0; r < x.r; ++r) {
-    float& f = x.free[cr * x.r + r];
-    f = f + (-x.req[er * x.r + r]) * w;
-  }
-  for (int p = 0; p < x.p; ++p) {
-    C& u = x.ports_used[cr * x.p + p];
-    u = u + static_cast<C>((x.ports_req[static_cast<size_t>(g) * x.p + p] ? 1.0f : 0.0f) * w);
-  }
-  for (int v = 0; v < x.w; ++v) {
-    const size_t gw = static_cast<size_t>(g) * x.w + v;
-    const bool rw = x.vol_rw_req[gw];
-    const bool present = rw || x.vol_ro_req[gw] || x.vol_att_req[gw];
-    C& any = x.vols_any[cr * x.w + v];
-    C& rws = x.vols_rw[cr * x.w + v];
-    any = any + static_cast<C>((present ? 1.0f : 0.0f) * w);
-    rws = rws + static_cast<C>((rw ? 1.0f : 0.0f) * w);
-  }
-  for (int v = 0; v < x.v; ++v) {
-    float& f = x.vg_free[cr * x.v + v];
-    f = f + (-x.vg[er * x.v + v]) * w;
-  }
-  // boolean devices: w > 0 consumes (clears), otherwise releases (sets)
-  for (int d = 0; d < x.sd; ++d) {
-    uint8_t& f = x.sdev_free[cr * x.sd + d];
-    const bool take = x.sd_take[er * x.sd + d] != 0;
-    f = (w > 0.0f ? (f && !take) : (f || take)) ? 1 : 0;
-  }
-  for (int d = 0; d < x.gd; ++d) {
-    float& f = x.gpu_free[cr * x.gd + d];
-    f = f + (-x.gp[er * x.gd + d]) * w;
-  }
-}
-
-// The same update one element at a time (K18 on the dense carry, every
-// plane f32 but the u8 sdev_free; K13 on the compact carry, its count
-// planes int32): element i of node c's rows, in the order free [R],
-// ports_used [P], vols_any [W], vols_rw [W], vg_free [V], sdev_free [SD],
-// gpu_free [GD], so that threads can share one node's rows and a thread
-// can add a node's entries to element i in a register, in log order,
-// between one read and one write. An entry's operand for element i is the
-// product delta_node_rows adds (or, in sdev_free, 1 to clear the device,
+// Element i of node c's rows (K7 and K18 on the dense carry, every plane
+// f32 but the u8 sdev_free; K13 on the compact carry, its count planes
+// int32), in the order free [R], ports_used [P], vols_any [W], vols_rw
+// [W], vg_free [V], sdev_free [SD], gpu_free [GD], so that threads can
+// share one node's rows and a thread can add a node's entries to element
+// i in a register, in log order, between one read and one write. An entry's operand for element i is the
+// product the reference adds (or, in sdev_free, 1 to clear the device,
 // 2 to set it, 0 to leave it).
 template <typename C>
 __device__ inline int delta_node_width(const DeltaRows<C>& x) {
@@ -109,7 +71,7 @@ __device__ inline void delta_node_at(F* free, F* ports, F* any, F* rws, F* vg, B
 }
 
 // entry e's (group g, weight w) operand for element i (a count plane of
-// type C adds it cast to C, as delta_node_rows does)
+// type C adds it cast to C)
 template <typename C>
 __device__ inline float delta_node_operand(const DeltaRows<C>& x, int e, int g, float w, int i) {
   const size_t er = static_cast<size_t>(e);

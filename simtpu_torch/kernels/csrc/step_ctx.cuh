@@ -184,7 +184,13 @@ struct WaveCtx {
 };
 
 struct DeltaCtx {
-  int n, r, p_ports, w, v, sd, gd, tc, e, pad_;
+  // `ti` the own planes' rows; K7's `pref`, its preference-plane mode
+  // (kernels/cuda.py pref_mode): -1 no preference weight in the statics,
+  // 0 the adds in log order, > 0 atomic adds where every touched value is
+  // an integer of magnitude below `pref` (2^24 - E x the largest |weight|)
+  int n, r, p_ports, w, v, sd, gd, tc, e, ti, pref, pad_;
+  // K7's pair threads: a thread per node of each (entry, slot) pair's domain
+  long long work;
   // packed log entries [E] (engine/state.py pack_delta_entries)
   const int* g;
   const int* node;
@@ -221,6 +227,18 @@ struct DeltaCtx {
   float* ports_used;      // [N, P]
   float* vols_any;        // [N, W]
   float* vols_rw;         // [N, W]
+  // K7: the nodes of each node_dom domain (as CompactCtx's); each pair's
+  // first thread (kernels/cuda.py pair_starts: pair i's threads are
+  // pair_start[i] .. pair_start[i + 1] - 1, entry-major, work in all) and
+  // the pair of every DELTA_PAIR_CHUNK-th thread, then the last pair
+  // (pair_hints); and a word of the entries' upload, zero at the launch,
+  // that takes the largest |preference value| the batch touches (the
+  // float's bits)
+  const int* dom_start;         // [domains + 1]
+  const int* dom_nodes;
+  const long long* pair_start;  // [E Tc + 1]
+  const int* pair_hint;         // [ceil(work / DELTA_PAIR_CHUNK) + 1]
+  int* pref_seen;               // [1]
 };
 
 // The scenario-batched sweep's kernels (K18 sweep_drain, K19 sweep_place):

@@ -76,6 +76,9 @@ PLANNED_KERNELS = ("wave_hard", "explain_pass")
 #: the sweep kernels, launched as simtpu_<name>(DeltaCtx* or StepCtx*,
 #: SweepCtx*, stream)
 SWEEP_KERNELS = KERNELS[17:19]
+#: the signed log-delta kernels, launched as simtpu_<name>(DeltaCtx* or
+#: CompactCtx*, DeltaPlan*, stream) (K7, K13)
+DELTA_KERNELS = ("delta_apply", "compact_delta")
 #: the explain pass, launched as simtpu_explain_pass(StepCtx*, ExplainCtx*,
 #: stream); the score terms as simtpu_pod_terms(StepCtx*, pod, terms, stream)
 EXPLAIN_KERNELS = KERNELS[19:21]
@@ -166,7 +169,8 @@ def build() -> dict:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         elif name in CLUSTER_KERNELS or name in PLANNED_KERNELS:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        elif name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS or name == "compact_delta":
+        elif (name in WAVE_KERNELS or name in ROUND_KERNELS or name in SWEEP_KERNELS or name in DELTA_KERNELS
+              or name == "compact_compress"):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         elif name == "pod_terms":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -921,8 +925,9 @@ def launch_wave(name: str, buf, a: int, b: int, mode) -> None:
     LAUNCHES[name] += 1
 
 
-_DELTA_INT_FIELDS = ("n", "r", "p_ports", "w", "v", "sd", "gd", "tc", "e", "pad_")
-# (field, owner, dtype) in step_ctx.cuh DeltaCtx order
+_DELTA_INT_FIELDS = ("n", "r", "p_ports", "w", "v", "sd", "gd", "tc", "e", "ti", "pref", "pad_")
+# (field, owner, dtype) in step_ctx.cuh DeltaCtx order, after its ints and
+# `work`; K7 fills every owner, K18 leaves "pairs" and "seen" null
 _DELTA_PTR_FIELDS = (
     ("g", "entries", torch.int32),
     ("node", "entries", torch.int32),
@@ -957,52 +962,226 @@ _DELTA_PTR_FIELDS = (
     ("ports_used", "state", torch.float32),
     ("vols_any", "state", torch.float32),
     ("vols_rw", "state", torch.float32),
+    ("dom_start", "domains", torch.int32),
+    ("dom_nodes", "domains", torch.int32),
+    ("pair_start", "pairs", torch.int64),
+    ("pair_hint", "pairs", torch.int32),
+    ("pref_seen", "seen", torch.int32),
 )
+_DELTA_STATICS = tuple(f for f, owner, _ in _DELTA_PTR_FIELDS if owner == "statics")
+_STATE_FIELDS = tuple(f for f, owner, _ in _DELTA_PTR_FIELDS if owner == "state")
 
 
 class DeltaCtx(ctypes.Structure):
     """ctypes mirror of `struct DeltaCtx` in csrc/step_ctx.cuh."""
 
-    _fields_ = [(f, ctypes.c_int) for f in _DELTA_INT_FIELDS] + [
+    _fields_ = [(f, ctypes.c_int) for f in _DELTA_INT_FIELDS] + [("work", ctypes.c_longlong)] + [
         (f, ctypes.c_void_p) for f, _, _ in _DELTA_PTR_FIELDS
     ]
 
 
-def make_delta_ctx(statics, state, entries: dict) -> DeltaCtx:
-    """K7's argument block: `entries` maps g, node, wgt, req, vg, sd_take,
-    gp to device tensors (which the caller keeps alive until the launch is
-    enqueued; the stream orders any reuse of their memory after it)."""
+#: the setups (`_delta_setup`) kept on one g_terms tensor at most: statics
+#: that share it and differ in a field DeltaCtx reads (other weights, another
+#: node_dom); the oldest goes first
+DELTA_SETUPS = 4
+
+
+def _delta_setup(statics, state) -> dict:
+    """What a DeltaCtx takes from the statics, per statics and state shape:
+    the statics' tensors it reads, checked once; a template block with the
+    dims, their pointers and the domain node lists of their node_dom
+    (`domain_nodes`); the state planes' dtypes and shapes; and the host
+    maps K7's pair sizes read (`pair_starts`: each slot's key row's offset
+    in node_dom flattened with a row of -1 below, padding's group row G
+    after the groups', the domains' sizes with a 0 after). Kept on the
+    statics' g_terms tensor, keyed by the ids of the tensors it reads (a
+    statics that differs only in another field, such as node_valid, shares
+    its entry), the planes' shapes and the device; at most DELTA_SETUPS
+    entries there."""
     device = state.free.device
-    owners = {"entries": entries, "statics": statics._asdict(), "state": state._asdict()}
-    tensors = {
-        f: _checked(f"{owner}.{f}", owners[owner][f], device, dtype)
-        for f, owner, dtype in _DELTA_PTR_FIELDS
-    }
-    n, r = state.free.shape
-    e = tensors["g"].shape[0]
-    v, sd, gd = state.vg_free.shape[1], state.sdev_free.shape[1], state.gpu_free.shape[1]
-    _check_shapes(tensors, {"node": (e,), "wgt": (e,), "req": (e, r), "vg": (e, v),
-                            "sd_take": (e, sd), "gp": (e, gd)})
-    return DeltaCtx(
-        n=n, r=r, p_ports=state.ports_used.shape[1], w=state.vols_any.shape[1], v=v, sd=sd,
-        gd=gd, tc=statics.g_terms.shape[1], e=e, pad_=0,
-        **{f: t.data_ptr() for f, t in tensors.items()},
-    )
+    reads = tuple(getattr(statics, f) for f in _DELTA_STATICS)
+    key = (tuple(map(id, reads)), tuple(tuple(t.shape) for t in state), str(device))
+    cache = getattr(statics.g_terms, "_delta_setup", None)
+    if cache is None:
+        cache = statics.g_terms._delta_setup = {}
+    if key in cache:
+        return cache[key]
+    tensors = {f: _checked(f"statics.{f}", t, device, dtype)
+               for (f, _, dtype), t in zip((x for x in _DELTA_PTR_FIELDS if x[1] == "statics"), reads)}
+    n = state.free.shape[0]
+    _check_shapes(tensors, {"node_dom": (statics.node_dom.shape[0], n)})
+    dom_start, dom_nodes = domain_nodes(statics.node_dom)
+    k = statics.node_dom.shape[0]
+    # each slot's key row's offset in node_dom flattened with a row of -1
+    # below (an empty slot's, and a padding entry's: its group row G)
+    topo = np.append(statics.term_topo.cpu().numpy().astype(np.int64), -1)
+    rows = topo[statics.g_terms.cpu().numpy()]
+    rows = np.vstack([np.where(rows >= 0, rows, k), np.full((1, rows.shape[1]), k)]) * n
+    template = DeltaCtx(
+        n=n, r=state.free.shape[1], p_ports=state.ports_used.shape[1], w=state.vols_any.shape[1],
+        v=state.vg_free.shape[1], sd=state.sdev_free.shape[1], gd=state.gpu_free.shape[1],
+        tc=statics.g_terms.shape[1], ti=state.cnt_own_anti.shape[0], pref=-1,
+        dom_start=dom_start.data_ptr(), dom_nodes=dom_nodes.data_ptr(),
+        **{f: t.data_ptr() for f, t in tensors.items()})
+    shapes = dict(zip(state._fields, (t.shape for t in state)))
+    setup = {"reads": reads, "template": template,
+             "state": {f: (dtype, shapes[f]) for f, owner, dtype in _DELTA_PTR_FIELDS if owner == "state"},
+             "rows": rows.astype(np.int32) if (k + 1) * n < 2 ** 31 else rows,
+             "ndom": np.append(statics.node_dom.cpu().numpy().ravel(), np.full(n, -1, np.int32)),
+             "sizes": np.append(np.diff(dom_start.cpu().numpy()), np.int32(0))}
+    while len(cache) >= DELTA_SETUPS:
+        cache.pop(next(iter(cache)))
+    cache[key] = setup
+    return setup
+
+
+def _delta_block(statics, state) -> tuple:
+    """A DeltaCtx for `state` (K7's carry, K18's replica): `_delta_setup`'s
+    template with the state's planes, checked every call. Returns (block,
+    setup); the caller sets the entries and `e`."""
+    setup = _delta_setup(statics, state)
+    ctx = DeltaCtx.from_buffer_copy(setup["template"])
+    device = state.free.device
+    for f, (dtype, shape) in setup["state"].items():
+        t = getattr(state, f)
+        if t.device != device or t.dtype != dtype or not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"state.{f}: need a contiguous {dtype} tensor of shape {tuple(shape)} on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        setattr(ctx, f, t.data_ptr())
+    return ctx, setup
+
+
+def _check_entry_widths(ctx: DeltaCtx, shapes: list) -> int:
+    """E, where `shapes` are the entries' arrays' shapes in ENTRY_FIELDS
+    order: E rows each, of the block's widths."""
+    e = shapes[0][0] if shapes[0] else 0
+    widths = (ctx.r, ctx.v, ctx.sd, ctx.gd)
+    if list(shapes) != [(e,), (e,), (e,)] + [(e, k) for k in widths]:
+        raise ValueError(f"entries: shapes {list(shapes)}, want E = {e} rows of widths {widths}")
+    return e
+
+
+def make_delta_ctx(statics, state, entries: dict) -> DeltaCtx:
+    """K18's argument block (its single-scenario DeltaCtx): `_delta_block`'s
+    with `entries` mapping ENTRY_FIELDS' names to device tensors (which the
+    caller keeps alive until the launch is enqueued; the stream orders any
+    reuse of their memory after it); K7's pair starts and hints and
+    pref_seen stay null, its preference mode -1."""
+    ctx, _ = _delta_block(statics, state)
+    device = state.free.device
+    tensors = [_checked(f"entries.{f}", entries[f], device, dtype) for f, dtype in ENTRY_FIELDS]
+    ctx.e = _check_entry_widths(ctx, [tuple(t.shape) for t in tensors])
+    for (f, _), t in zip(ENTRY_FIELDS, tensors):
+        setattr(ctx, f, t.data_ptr())
+    return ctx
+
+
+#: 2^24: f32 holds every integer up to it exactly
+F32_EXACT = 1 << 24
+
+
+def pref_weights(statics) -> tuple:
+    """(any nonzero, integer-valued, largest |weight|) over the statics'
+    two preference weight planes w_aff_pref / w_anti_pref; computed once
+    per pair of planes and kept on the w_aff_pref tensor beside the
+    w_anti_pref it was computed with."""
+    cached = getattr(statics.w_aff_pref, "_pref_weights", None)
+    if cached is not None and cached[0] is statics.w_anti_pref:
+        return cached[1]
+    w = np.concatenate([statics.w_aff_pref.cpu().numpy().ravel(), statics.w_anti_pref.cpu().numpy().ravel()])
+    out = (bool((w != 0).any()), bool(np.all(np.isfinite(w) & (w == np.trunc(w)))),
+           float(np.abs(w).max(initial=0.0)))
+    statics.w_aff_pref._pref_weights = (statics.w_anti_pref, out)
+    return out
+
+
+def pref_mode(statics, e: int) -> int:
+    """K7's preference-plane mode for E entries (DeltaCtx.pref): -1 where
+    the statics hold no preference weight (the planes take only +-0), 0
+    for the adds in log order (a weight that is not an integer, or E times
+    the largest |weight| past 2^24), else the bound 2^24 - E x the largest
+    |weight| under which every touched value must lie for atomic adds to
+    be exact."""
+    nonzero, integer, most = pref_weights(statics)
+    if not nonzero:
+        return -1
+    if not integer:
+        return 0
+    return max(int(F32_EXACT - e * most), 0)
+
+
+def pair_starts(setup: dict, g: np.ndarray, node: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """K7's pair threads: int64 [E Tc + 1], the running sum over the (entry,
+    slot) pairs, entry-major, of each pair's nodes, the size of the chosen
+    node's domain under the slot's key (node < 0 reads node 0); 0 for
+    padding, an empty slot or a node without the key. Pair i's threads are
+    start[i] .. start[i + 1] - 1, the k-th adding at the k-th node of the
+    domain. `setup` is `_delta_setup`'s."""
+    rows = setup["rows"]
+    at = rows.take(np.where(w != 0, g, rows.shape[0] - 1), axis=0)
+    at += np.maximum(node, 0).astype(at.dtype)[:, None]
+    size = setup["sizes"].take(setup["ndom"].take(at))
+    start = np.zeros(size.size + 1, np.int64)
+    np.cumsum(size.ravel(), dtype=np.int64, out=start[1:])
+    return start
+
+
+#: K7's pair threads a search hint covers (`pair_hints`; delta_apply.cu)
+DELTA_PAIR_CHUNK = 256
+
+
+def pair_hints(start: np.ndarray) -> np.ndarray:
+    """int32 [ceil(work / DELTA_PAIR_CHUNK) + 1] for `pair_starts`' running
+    sum `start`: the pair of every DELTA_PAIR_CHUNK-th pair thread, then
+    the last pair. Pair thread j's pair lies between hint[c] and
+    hint[c + 1] (c = j / DELTA_PAIR_CHUNK), so that its binary search
+    starts from a few pairs rather than all E Tc."""
+    work = int(start[-1])
+    hint = np.empty(-(-work // DELTA_PAIR_CHUNK) + 1, np.int32)
+    hint[:-1] = np.searchsorted(start, np.arange(0, work, DELTA_PAIR_CHUNK), side="right") - 1
+    hint[-1] = len(start) - 2
+    return hint
 
 
 def launch_delta(statics, state, packed) -> None:
-    """K7 over the packed entries (`engine/state.py pack_delta_entries`) on
-    the current CUDA stream, in one launch; raises if it is refused."""
+    """K7 over the packed entries (`engine/state.py pack_delta_entries`,
+    each w in {-1, 0, +1}) on `compact_delta_plan`, in one call (its two
+    kernels) on the current CUDA stream; raises if the weights are not
+    signs or the launch is refused."""
     libs = build()
     device = state.free.device
-    entries = upload_entries(packed, device)
-    ctx = make_delta_ctx(statics, state, entries)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = libs["delta_apply"].simtpu_delta_apply(ctypes.byref(ctx), stream)
+    ctx, plan, _ = delta_apply_call(statics, state, packed)
+    err = libs["delta_apply"].simtpu_delta_apply(ctypes.byref(ctx), ctypes.byref(plan),
+                                                 torch._C._cuda_getCurrentRawStream(device.index))
     if err:
         msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel delta_apply failed to launch: {msg} ({err})")
     LAUNCHES["delta_apply"] += 1
+
+
+def delta_apply_call(statics, state, packed):
+    """K7's argument block and plan for folding the packed entries into the
+    dense `state`: `_delta_block`'s (the statics checked once), the
+    entries, their pair starts and hints (`pair_starts`, `pair_hints`) and
+    a zeroed pref_seen word uploaded in one copy (`_upload`), the
+    preference mode (`pref_mode`).
+    Returns (block, plan, the upload), which the caller keeps alive until
+    the launch is enqueued."""
+    device = state.free.device
+    arrays = [np.ascontiguousarray(a, dtype=dt) for a, dt in zip(packed, _ENTRY_NP)]
+    g, node, w = arrays[:3]
+    if np.count_nonzero((w != 0) & (w != 1) & (w != -1)):
+        raise ValueError("K7 takes entries of weight -1, 0 or +1 (pack_delta_entries)")
+    ctx, setup = _delta_block(statics, state)
+    e = _check_entry_widths(ctx, [a.shape for a in arrays])
+    start = pair_starts(setup, g, node, w)
+    offsets, dev = _upload(arrays + [start, pair_hints(start), np.zeros(1, np.int32)], device)
+    base = dev.data_ptr()
+    for (f, _), at in zip(ENTRY_FIELDS, offsets):
+        setattr(ctx, f, base + at)
+    ctx.pair_start, ctx.pair_hint, ctx.pref_seen = (base + at for at in offsets[-3:])
+    ctx.e, ctx.work, ctx.pref = e, int(start[-1]), pref_mode(statics, e)
+    return ctx, delta_plan_struct(ctx, device), dev
 
 
 _COMPACT_INT_FIELDS = ("n", "t", "ti", "rt", "rd", "rti", "rdi", "d", "k", "r", "p", "w", "v",
@@ -1116,33 +1295,147 @@ def _launch_compact(name: str, ctx: CompactCtx, device) -> None:
     LAUNCHES[name] += 1
 
 
-def compress_ctx(spec, state):
-    """K11's argument block for the dense `state` (an engine/state.py
-    SchedState) under `spec` (a CompactSpecDev on the same device), and
-    CompactState's fields: the narrowed planes allocated here for the
-    kernel to write, free / vg_free / gpu_free the dense tensors themselves."""
-    device = state.free.device
+#: K11's grid (csrc/compact_compress.cu): threads a block, the task kinds
+COMPRESS_THREADS = 256
+CT_GATHER, CT_DENSE, CT_CAST, CT_BYTES = range(4)
+#: CompactState's narrowed planes (int32 but the bool sdev_free), in order
+NARROW_FIELDS = ("cm_tab", "cm_dense", "cnt_total", "oa_tab", "oa_dense", "of_tab", "of_dense", "wa_tab",
+                 "wa_dense", "wn_tab", "wn_dense", "sdev_free", "ports_used", "vols_any", "vols_rw")
+#: the CompactCtx field each narrowed plane fills
+_NARROW_CTX = {"cnt_total": "c_cnt_total", "sdev_free": "c_sdev_free", "ports_used": "c_ports_used",
+               "vols_any": "c_vols_any", "vols_rw": "c_vols_rw"}
+
+
+class CompressPlan(ctypes.Structure):
+    """ctypes mirror of `struct CompressPlan` in csrc/compact_compress.cu."""
+
+    _fields_ = [("n_tasks", ctypes.c_int), ("tiles", ctypes.c_int), ("tasks", ctypes.c_void_p),
+                ("gather", ctypes.c_void_p)]
+
+
+def compress_plan(spec: dict, n: int, t: int, p: int, w: int, sd: int) -> dict:
+    """K11's row-task table for a carry of N nodes, T terms and P / W / SD
+    wide under `spec` (CompactSpecDev's fields as numpy). `gather`: each
+    tabular element's source offset in its dense plane (row ids_tab[r] x N
+    + rep[r, d], -1 where the domain has no node), cnt_match's [Rt, D]
+    then the own planes' [Rti, D] (the four share their rows). `tasks`: one
+    per output row or chunk, as (kind * 8 + plane, source offset,
+    destination offset, length) in elements: CT_GATHER a chunk of a
+    tabular plane (its source offset into `gather`), CT_DENSE a dense row
+    (row ids_dense[r] cast), CT_CAST a chunk of cnt_total / ports_used /
+    vols_any / vols_rw (plane 0-3) cast, CT_BYTES a chunk of sdev_free.
+    `tiles` blocks of COMPRESS_THREADS along a row give every thread of a
+    row of N elements at most one 16-byte vector; a chunk holds that many
+    elements (casts and gathers) or bytes x 4 (sdev_free)."""
+    d = spec["t_rep"].shape[1]
+    tiles = max(-(-max(n, 1) // (4 * COMPRESS_THREADS)), 1)
+    chunk = 4 * COMPRESS_THREADS * tiles
+
+    def offsets(ids, rep):
+        return np.where(rep >= 0, ids.astype(np.int64)[:, None] * n + rep, -1).reshape(-1)
+
+    gather = np.concatenate([offsets(spec["t_tab"], spec["t_rep"]), offsets(spec["ip_tab"], spec["ip_rep"])])
+    if gather.size and gather.max() >= 1 << 31:
+        raise ValueError(f"K11 indexes its planes in 32 bits: {gather.max()} elements")
+    ip_at = spec["t_tab"].shape[0] * d
+
+    def chunks(kind, q, size, at=0, step=chunk):
+        return [(kind * 8 + q, at + k, k, min(step, size - k)) for k in range(0, size, step)]
+
+    tasks = []
+    for q in range(5):
+        ids_tab, ids_dense = (spec["t_tab"], spec["t_dense"]) if q == 0 else (spec["ip_tab"], spec["ip_dense"])
+        tasks += chunks(CT_GATHER, q, len(ids_tab) * d, 0 if q == 0 else ip_at)
+        tasks += [(CT_DENSE * 8 + q, int(i) * n, r * n, n) for r, i in enumerate(ids_dense)]
+    for q, size in enumerate((t, n * p, n * w, n * w)):
+        tasks += chunks(CT_CAST, q, size)
+    tasks += chunks(CT_BYTES, 0, n * sd, step=4 * chunk)
+    return {"tasks": np.asarray(tasks, np.int32).reshape(-1, 4), "tiles": tiles,
+            "gather": np.ascontiguousarray(gather, np.int32)}
+
+
+def _narrow_layout(dims: dict) -> tuple:
+    """The narrowed planes in one buffer: ((field, byte offset, shape,
+    dtype), ...) in NARROW_FIELDS order, each at a 16-byte aligned offset,
+    and the buffer's bytes."""
+    n, d = dims["n"], dims["d"]
+    shapes = {"cm_tab": (dims["rt"], d), "cm_dense": (dims["rd"], n), "cnt_total": (dims["t"],),
+              **{f"{q}_tab": (dims["rti"], d) for q in ("oa", "of", "wa", "wn")},
+              **{f"{q}_dense": (dims["rdi"], n) for q in ("oa", "of", "wa", "wn")},
+              "sdev_free": (n, dims["sd"]), "ports_used": (n, dims["p"]), "vols_any": (n, dims["w"]),
+              "vols_rw": (n, dims["w"])}
+    out, at = [], 0
+    for f in NARROW_FIELDS:
+        dtype = torch.bool if f == "sdev_free" else torch.int32
+        out.append((f, at, shapes[f], dtype))
+        at += (int(np.prod(shapes[f])) * (1 if dtype == torch.bool else 4) + 15) & ~15
+    return tuple(out), at
+
+
+def _compress_setup(spec, state) -> dict:
+    """What K11 keeps per CompactSpecDev and shape, on the spec's t_tab
+    tensor, keyed by the spec's tensors and the shape: the spec's tensors
+    checked once, the argument block with the dims and the spec's pointers
+    (a template each call copies), the dense planes' shapes, the narrowed
+    planes' layout, and the task and gather tables (`compress_plan`) on
+    the device."""
     n = state.free.shape[0]
     d = spec.t_rep.shape[1]
     widths = (state.free.shape[1], state.ports_used.shape[1], state.vols_any.shape[1],
               state.vg_free.shape[1], state.sdev_free.shape[1], state.gpu_free.shape[1])
-    dims = _compact_dims(spec, n, d, state.cnt_match.shape[0], state.cnt_own_anti.shape[0], widths)
+    key = (tuple(id(t) for t in spec), n, state.cnt_match.shape[0], state.cnt_own_anti.shape[0], widths)
+    cache = getattr(spec.t_tab, "_compress", None)
+    if cache is None:
+        cache = spec.t_tab._compress = {}
+    if key in cache:
+        return cache[key]
+    device = state.free.device
+    dims = _compact_dims(spec, n, d, key[2], key[3], widths)
+    template = make_compact_ctx(device, {"spec": spec._asdict()}, dims, _spec_shapes(spec, d))
+    plan = compress_plan({f: t.cpu().numpy() for f, t in spec._asdict().items()}, n, dims["t"], dims["p"],
+                         dims["w"], dims["sd"])
+    tasks = torch.as_tensor(plan["tasks"], device=device)
+    gather = torch.as_tensor(plan["gather"], device=device)
+    layout, nbytes = _narrow_layout(dims)
+    shapes = _dense_shapes(dims)
+    dense = {f: (torch.bool if f == "sdev_free" else torch.float32, shapes[f]) for f in DENSE_FIELDS}
+    # the entry keeps the spec's tensors alive, so the ids in its key stay theirs
+    cache[key] = {"spec": spec, "template": template, "dense": dense, "layout": layout, "nbytes": nbytes,
+                  "tasks": tasks, "gather": gather,
+                  "plan": CompressPlan(n_tasks=len(plan["tasks"]), tiles=plan["tiles"], tasks=tasks.data_ptr(),
+                                       gather=gather.data_ptr())}
+    return cache[key]
 
-    def empty(*shape, dtype=torch.int32):
-        return torch.empty(shape, dtype=dtype, device=device)
 
-    out = {
-        "free": state.free, "cm_tab": empty(dims["rt"], d), "cm_dense": empty(dims["rd"], n),
-        "cnt_total": empty(dims["t"]),
-        **{f: empty(dims["rti"], d) for f in ("oa_tab", "of_tab", "wa_tab", "wn_tab")},
-        **{f: empty(dims["rdi"], n) for f in ("oa_dense", "of_dense", "wa_dense", "wn_dense")},
-        "vg_free": state.vg_free, "sdev_free": empty(n, dims["sd"], dtype=torch.bool),
-        "gpu_free": state.gpu_free, "ports_used": empty(n, dims["p"]),
-        "vols_any": empty(n, dims["w"]), "vols_rw": empty(n, dims["w"]),
-    }
-    ctx = make_compact_ctx(device, {"spec": spec._asdict(), "dense": state._asdict(), "compact": out},
-                           dims, {**_spec_shapes(spec, d), **_dense_shapes(dims), **_compact_shapes(dims)})
-    return ctx, out
+def compress_ctx(spec, state):
+    """K11's argument block and plan for the dense `state` (an
+    engine/state.py SchedState) under `spec` (a CompactSpecDev on the same
+    device), and CompactState's fields: the narrowed planes views of one
+    buffer allocated here for the kernel to write (16-byte aligned, in
+    NARROW_FIELDS order), free / vg_free / gpu_free the dense tensors
+    themselves. The spec's tensors are checked once per spec and shape
+    (`_compress_setup`), the state's planes every call."""
+    device = state.free.device
+    setup = _compress_setup(spec, state)
+    ctx = CompactCtx.from_buffer_copy(setup["template"])
+    for f, t in zip(DENSE_FIELDS, state):
+        dtype, shape = setup["dense"][f]
+        if t.device != device or t.dtype != dtype or not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"dense.{f}: need a contiguous {dtype} tensor of shape {shape} on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
+        setattr(ctx, f, t.data_ptr())
+    buf = torch.empty(max(setup["nbytes"] // 4, 1), dtype=torch.int32, device=device)
+    flags = buf.view(torch.bool)
+    base = buf.data_ptr()
+    out = {"free": state.free, "vg_free": state.vg_free, "gpu_free": state.gpu_free}
+    for f, at, shape, dtype in setup["layout"]:
+        setattr(ctx, _NARROW_CTX.get(f, f), base + at)
+        if dtype == torch.bool:
+            out[f] = flags.as_strided(shape, (shape[1], 1), at)
+        else:
+            out[f] = buf.as_strided(shape, (shape[1], 1) if len(shape) == 2 else (1,), at // 4)
+    ctx.c_free, ctx.c_vg_free, ctx.c_gpu_free = (t.data_ptr() for t in (state.free, state.vg_free, state.gpu_free))
+    return ctx, setup["plan"], out
 
 
 def expand_ctx(spec, cstate, nds):
@@ -1173,11 +1466,13 @@ ENTRY_FIELDS = (("g", torch.int32), ("node", torch.int32), ("wgt", torch.float32
                 ("vg", torch.float32), ("sd_take", torch.bool), ("gp", torch.float32))
 
 
-def upload_entries(packed, device) -> dict:
-    """The packed entries on `device` in one copy: each array's bytes at a
-    16-byte aligned offset of one byte buffer, viewed back as its field."""
-    arrays = [np.ascontiguousarray(a, dtype=torch.empty(0, dtype=dt).numpy().dtype)
-              for a, (_, dt) in zip(packed, ENTRY_FIELDS)]
+#: ENTRY_FIELDS' numpy dtypes
+_ENTRY_NP = tuple(torch.empty(0, dtype=dt).numpy().dtype for _, dt in ENTRY_FIELDS)
+
+
+def _upload(arrays: list, device) -> tuple:
+    """The numpy `arrays` on `device` in one copy: each one's bytes at a
+    16-byte aligned offset of one byte buffer. Returns (offsets, buffer)."""
     offsets, total = [], 0
     for a in arrays:
         offsets.append(total)
@@ -1185,7 +1480,14 @@ def upload_entries(packed, device) -> dict:
     host = np.zeros(max(total, 16), np.uint8)
     for a, at in zip(arrays, offsets):
         host[at:at + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = torch.from_numpy(host).to(device)
+    return offsets, torch.from_numpy(host).to(device)
+
+
+def upload_entries(packed, device) -> dict:
+    """The packed entries on `device` in one copy (`_upload`), each viewed
+    back as its field."""
+    arrays = [np.ascontiguousarray(a, dtype=dt) for a, dt in zip(packed, _ENTRY_NP)]
+    offsets, dev = _upload(arrays, device)
     return {name: dev[at:at + a.nbytes].view(dt).view(a.shape)
             for (name, dt), a, at in zip(ENTRY_FIELDS, arrays, offsets)}
 
@@ -1244,61 +1546,76 @@ def delta_ctx(statics, dspec, ndom, nds, cstate, packed):
     return ctx, entries
 
 
-#: K13's launch plan (csrc/compact_delta.cu): threads a block of the
-#: grouping and pair kernel (the measured sweep, PERF.md) and at most, and
-#: of the walk
+#: K13's and K7's launch plan (csrc/delta_runs.cuh): threads a block of the
+#: grouping and pair kernel (the measured sweep, PERF.md) and at most, of
+#: the walk, and K7's preference blocks at most (delta_apply.cu)
 DELTA_THREADS = 512
 DELTA_MAX_THREADS = 1024
 DELTA_WALK_THREADS = 256
+DELTA_PREF_BLOCKS = 2048
 
 
 class DeltaPlan(ctypes.Structure):
-    """ctypes mirror of `struct DeltaPlan` in csrc/compact_delta.cu."""
+    """ctypes mirror of `struct DeltaPlan` in csrc/delta_runs.cuh."""
 
-    _fields_ = [(f, ctypes.c_int) for f in ("threads", "pair_blocks", "walk_blocks", "segs", "shared", "smem")] + [
-        ("scratch", ctypes.c_void_p)]
+    _fields_ = [(f, ctypes.c_int) for f in ("threads", "pair_blocks", "walk_blocks", "pref_blocks", "segs", "shared",
+                                            "smem")] + [("scratch", ctypes.c_void_p)]
 
 
-def compact_delta_plan(n: int, e: int, tc: int, width: int, threads: int = None, budget: int = None) -> dict:
-    """K13's launch plan for a carry of N nodes whose rows are `width`
-    elements a node (R + P + 2 W + V + SD + GD), E entries and Tc term
-    slots: blocks of `threads` threads (DELTA_THREADS, fewer for a small
-    batch; whole warps, at most DELTA_MAX_THREADS): the grouping block and
-    `pair_blocks` blocks of one (entry, slot) pair a thread, then
-    `walk_blocks` blocks of DELTA_WALK_THREADS, one (element, run) a
-    thread. The grouping block walks the entries' chunks of 32 in `segs`
-    segments at once, a warp a segment; its scratch (4 N + 12 E + 8 E segs
-    bytes: a word per segment and head, the nodes' slots, the entries'
-    nodes and positions, the heads) in shared memory while it fits in
-    WAVE_SMEM (or `budget`) with one segment or more — as many as fit, at
-    most one a warp and one a chunk — else in global scratch ("global"; a
-    segment a warp); `scratch_words` ints of global scratch: the runs (4 +
-    7 E: the entries in run order as 16-byte words, the heads' nodes,
-    starts and counts) and, past the budget, the grouping scratch."""
-    pairs, walkers = e * tc, e * width
+def compact_delta_plan(n: int, e: int, tc: int, width: int, threads: int = None, budget: int = None,
+                       work: int = None, pref_rows: int = None) -> dict:
+    """K13's and K7's launch plan for a carry of N nodes whose rows are
+    `width` elements a node (R + P + 2 W + V + SD + GD), E entries and Tc
+    term slots: blocks of `threads` threads (DELTA_THREADS, fewer for a
+    small batch; whole warps, at most DELTA_MAX_THREADS): the grouping block
+    and `pair_blocks` blocks of pair threads, `work` of them (K13: E Tc,
+    one an (entry, slot) pair; K7: one a node of each pair's domain,
+    `pair_starts`), then `walk_blocks` blocks of DELTA_WALK_THREADS, one
+    (element, run) a thread, and with `pref_rows` (K7 on statics with a
+    preference weight: its own planes' ip rows) `pref_blocks` more of that
+    size: none without pair threads, else as many as the atomic path's
+    threads fill or the log order's rows take, at most DELTA_PREF_BLOCKS
+    (both loop past them). The grouping block walks the entries' chunks of
+    32 in `segs` segments at once, a warp a segment; its scratch (4 N + 12
+    E + 8 E segs bytes: a word per segment and head, the nodes' slots, the
+    entries' nodes and positions, the heads) in shared memory while it
+    fits in WAVE_SMEM (or `budget`) with one segment or more — as many as
+    fit, at most one a warp and one a chunk — else in global scratch
+    ("global"; a segment a warp); `scratch_words` ints of global scratch:
+    the runs (4 + 7 E: the entries in run order as 16-byte words, the
+    heads' nodes, starts and counts) and, past the budget, the grouping
+    scratch."""
+    pairs, walkers = e * tc if work is None else work, e * width
     t = min(int(threads or DELTA_THREADS), DELTA_MAX_THREADS, max(-(-max(pairs, e, 1) // 32) * 32, 32))
     most = max(min(t // 32, -(-e // 32)), 1)
     room = (WAVE_SMEM if budget is None else budget) - 4 * n - 12 * e
     shared = room >= 8 * e
     segs = max(min(most, room // (8 * e) if e else most), 1) if shared else most
     group = 4 * n + 12 * e + 8 * e * segs
+    pref = 0 if pref_rows is None or pairs == 0 else \
+        min(max(-(-pairs // DELTA_WALK_THREADS), pref_rows), DELTA_PREF_BLOCKS)
     return {"threads": t, "pair_blocks": -(-pairs // t), "walk_blocks": -(-walkers // DELTA_WALK_THREADS),
-            "segs": segs, "shared": int(shared), "smem": group if shared else 0,
+            "pref_blocks": pref, "segs": segs, "shared": int(shared), "smem": group if shared else 0,
             "scratch_words": 4 + 7 * e + (0 if shared else group // 4), "group": "shared" if shared else "global"}
 
 
 _DELTA_SCRATCH: dict = {}
 
 
-def delta_plan_of(ctx: CompactCtx, threads: int = None, budget: int = None) -> dict:
-    """compact_delta_plan for the argument block `ctx` (its node rows'
-    width R + P + 2 W + V + SD + GD)."""
-    width = ctx.r + ctx.p + 2 * ctx.w + ctx.v + ctx.sd + ctx.gd
-    return compact_delta_plan(ctx.n, ctx.e, ctx.tc, width, threads, budget)
+def delta_plan_of(ctx, threads: int = None, budget: int = None) -> dict:
+    """compact_delta_plan for the argument block `ctx`, K13's CompactCtx or
+    K7's DeltaCtx (its node rows' width R + P + 2 W + V + SD + GD; K7's
+    pair threads `work`, its preference blocks where its mode is not -1)."""
+    if not isinstance(ctx, DeltaCtx):
+        width = ctx.r + ctx.p + 2 * ctx.w + ctx.v + ctx.sd + ctx.gd
+        return compact_delta_plan(ctx.n, ctx.e, ctx.tc, width, threads, budget)
+    width = ctx.r + ctx.p_ports + 2 * ctx.w + ctx.v + ctx.sd + ctx.gd
+    return compact_delta_plan(ctx.n, ctx.e, ctx.tc, width, threads, budget, ctx.work,
+                              ctx.ti if ctx.pref >= 0 else None)
 
 
-def delta_plan_struct(ctx: CompactCtx, device, threads: int = None, budget: int = None) -> DeltaPlan:
-    """K13's plan for the argument block `ctx` (of `threads` threads and a
+def delta_plan_struct(ctx, device, threads: int = None, budget: int = None) -> DeltaPlan:
+    """K13's or K7's plan for the argument block `ctx` (of `threads` threads and a
     shared `budget` where given), its scratch taken from a buffer per
     device, grown as needed (the stream orders its reuse)."""
     plan = delta_plan_of(ctx, threads, budget)
@@ -1310,10 +1627,16 @@ def delta_plan_struct(ctx: CompactCtx, device, threads: int = None, budget: int 
 
 
 def launch_compact_compress(spec, state) -> dict:
-    """K11 (see compress_ctx) in one launch on the current stream; returns
-    CompactState's fields."""
-    ctx, out = compress_ctx(spec, state)
-    _launch_compact("compact_compress", ctx, state.free.device)
+    """K11 (see compress_ctx) in one launch of its row-task grid on the
+    current stream; returns CompactState's fields."""
+    ctx, plan, out = compress_ctx(spec, state)
+    libs = build()
+    err = libs["compact_compress"].simtpu_compact_compress(
+        ctypes.byref(ctx), ctypes.byref(plan), torch._C._cuda_getCurrentRawStream(state.free.device.index))
+    if err:
+        msg = libs[KERNELS[0]].simtpu_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel compact_compress failed to launch: {msg} ({err})")
+    LAUNCHES["compact_compress"] += 1
     return out
 
 

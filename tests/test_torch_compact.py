@@ -24,7 +24,12 @@ placements and reasons equal.
    the outcome;
 6. the carried-byte gauge;
 7. a batch that fails part-way leaves the compact carry as it was, and
-   expansion shares no storage with the carry.
+   expansion shares no storage with the carry;
+8. K11's row-task table (`cuda.compress_plan`) run in numpy against
+   compress_state_plain on cuts of the serial and extended problems (one
+   of 103 nodes: N % 4 != 0) and the problems above, every narrowed
+   element written once, and its one-buffer wrapper (a recording stand-in
+   for the library): aligned planes apart, the spec checked once.
 
 Tests that plan with the audit use SIMTPU_AUDIT_JIT=0.
 """
@@ -32,6 +37,7 @@ Tests that plan with the audit use SIMTPU_AUDIT_JIT=0.
 import importlib
 import json
 import os
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -48,6 +54,7 @@ from simtpu_torch.engine import state as tstate
 from simtpu_torch.engine import wavefront as twf
 from simtpu_torch.kernels import cuda
 from ._threads import one_torch_thread  # noqa: F401 (autouse)
+from .test_torch_filter_storage import _FakeLib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -500,7 +507,7 @@ def test_compact_wrappers_take_the_plain_version_only_for_cpu_tensors():
         assert cuda.LAUNCHES.get(name, 0) == before_launch.get(name, 0)
     # the three argument blocks, built on these CPU tensors without a launch
     dense = eng.carried_state()
-    ctx, out = cuda.compress_ctx(spec, dense)
+    ctx, _, out = cuda.compress_ctx(spec, dense)
     assert (ctx.n, ctx.t, ctx.rt, ctx.d) == (n, tensors.n_terms, spec.t_tab.shape[0], spec.t_rep.shape[1])
     assert ctx.cnt_match == dense.cnt_match.data_ptr() and ctx.cm_tab == out["cm_tab"].data_ptr()
     assert out["free"] is dense.free and ctx.nds is None and ctx.g is None
@@ -565,3 +572,138 @@ def test_audit_fallback_carries_dense(monkeypatch):
     assert [c["compact"] for c in plan.candidates] == [not c["fallback"] for c in plan.candidates]
     # the last carry stored is the fallback's, dense
     assert tstate.STATE_GAUGE["compact"] is False
+
+
+# -- 8. K11's row tasks and its one-buffer wrapper -----------------------------
+
+
+def _smoke_carry(name: str, n_nodes: int, n_pods: int, seed: int):
+    """A cut of chip_smoke.py's serial or extended problem on `n_nodes`
+    nodes, tensorized, and a dense state rebuilt from a seeded log of
+    random groups on random nodes."""
+    synth = _mod(simtpu_torch, "synth")
+    if name == "serial":
+        cluster, apps = smoke.smoke_problem(synth.synth_cluster, synth.synth_apps, n_nodes=n_nodes, n_pods=n_pods)
+    else:
+        cluster, apps = smoke.extended_problem(synth, simtpu_torch.AppResource, simtpu_torch.ResourceTypes,
+                                               n_nodes=n_nodes, n_pods=n_pods)
+    pods = [p for a in apps for p in _mod(simtpu_torch, "workloads.expand").get_valid_pods_exclude_daemonset(
+        a.resource)]
+    tz = simtpu_torch.core.tensorize.Tensorizer(cluster.nodes, storage_classes=list(cluster.storage_classes))
+    tz.add_pods(pods)
+    tensors = tz.freeze()
+    rng = np.random.default_rng(seed)
+    k = 4 * n_pods
+    state = tstate.build_state(tensors, rng.integers(0, len(tensors.groups), k).astype(np.int32),
+                               rng.integers(0, tensors.n_nodes, k).astype(np.int32),
+                               np.zeros((k, tensors.alloc.shape[1]), np.float32), None, "cpu")
+    return tensors, state
+
+
+def _carry_of(name: str):
+    if name in ("serial", "extended"):
+        return _smoke_carry(name, 120, 600, 5)
+    if name == "serial N % 4 = 3":
+        return _smoke_carry("serial", 103, 400, 6)
+    eng, _, _ = _place(simtpu_torch, name, compact=True, batches=1)
+    return eng.tensorizer.freeze(), eng.carried_state()
+
+
+def _emulate_k11(spec, state, setup, out) -> np.ndarray:
+    """K11's task table run in numpy into `out` (compress_ctx's planes);
+    returns how many times each narrowed byte was written (per plane)."""
+    tasks, gather = setup["tasks"].numpy(), setup["gather"].numpy()
+    planes = ("cnt_match", "cnt_own_anti", "cnt_own_aff", "w_own_aff_pref", "w_own_anti_pref")
+    tab, dense = [f for f, *_ in tstate.COMPACT_PLANES], [f for _, f, _ in tstate.COMPACT_PLANES]
+    casts = ("cnt_total", "ports_used", "vols_any", "vols_rw")
+    writes = {f: np.zeros(out[f].numel(), np.int64) for f in cuda.NARROW_FIELDS}
+    for word, src, dst, length in tasks:
+        kind, q = word >> 3, word & 7
+        assert 0 < length <= 4 * cuda.COMPRESS_THREADS * setup["plan"].tiles * (4 if kind == cuda.CT_BYTES else 1)
+        if kind == cuda.CT_GATHER:
+            f, full = tab[q], getattr(state, planes[q]).numpy().reshape(-1)
+            at = gather[src:src + length]
+            vals = np.where(at >= 0, full[np.maximum(at, 0)], 0).astype(np.int32)
+        elif kind == cuda.CT_DENSE:
+            f = dense[q]
+            vals = getattr(state, planes[q]).numpy().reshape(-1)[src:src + length].astype(np.int32)
+        elif kind == cuda.CT_CAST:
+            f = casts[q]
+            vals = getattr(state, f).numpy().reshape(-1)[src:src + length].astype(np.int32)
+        else:
+            f = "sdev_free"
+            vals = state.sdev_free.numpy().reshape(-1)[src:src + length]
+        out[f].reshape(-1)[dst:dst + length] = torch.from_numpy(np.ascontiguousarray(vals))
+        writes[f][dst:dst + length] += 1
+    return writes
+
+
+@pytest.mark.parametrize("name", ["serial", "extended", "serial N % 4 = 3", "mixed", "tabular", "wide"])
+def test_k11_row_tasks_equal_the_plain_compress(name):
+    """K11's task table (`cuda.compress_plan`), run in numpy, writes every
+    narrowed element exactly once and gives compress_state_plain's
+    CompactState field for field; the dense planes N % 4 != 0 leaves
+    misaligned are among them."""
+    tensors, state = _carry_of(name)
+    spec = tstate.compact_spec(tensors).dev
+    want = tstate.compress_state_plain(spec, state)
+    ctx, _, out = cuda.compress_ctx(spec, state)
+    setup = cuda._compress_setup(spec, state)
+    writes = _emulate_k11(spec, state, setup, out)
+    for f, w in writes.items():
+        assert (w == 1).all(), f  # every element once
+    _assert_equal(tstate.CompactState(**out), want, name)
+    n = tensors.n_nodes
+    assert (n % 4 == 3) == (name == "serial N % 4 = 3")
+    kinds = set(setup["tasks"].numpy()[:, 0] >> 3)
+    assert {cuda.CT_GATHER, cuda.CT_CAST} <= kinds and (cuda.CT_DENSE in kinds) == bool(
+        spec.t_dense.numel() + spec.ip_dense.numel())
+    # no per-element division: a dense row is one task, its source row's
+    # offset folded in on the host
+    dense_tasks = setup["tasks"].numpy()[setup["tasks"].numpy()[:, 0] >> 3 == cuda.CT_DENSE]
+    assert (dense_tasks[:, 3] == n).all() and (dense_tasks[:, 1] % n == 0).all()
+
+
+def test_k11_one_buffer_wrapper_gives_aligned_planes_apart(monkeypatch):
+    """launch_compact_compress with a recording stand-in for the library:
+    one launch with the plan the setup holds, the narrowed planes 16-byte
+    aligned views of one buffer, apart, of the plain version's dtypes and
+    shapes, the argument block pointing at them, free / vg_free / gpu_free
+    the dense tensors; the spec's part checked and built once per spec."""
+    tensors, state = _carry_of("serial N % 4 = 3")
+    spec = tstate.compact_spec(tensors).dev
+    want = tstate.compress_state_plain(spec, state)
+    libs = {name: _FakeLib() for name in cuda.KERNELS}
+    monkeypatch.setattr(cuda, "build", lambda: libs)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    monkeypatch.setattr(cuda, "LAUNCHES", Counter())
+    got = tstate.CompactState(**cuda.launch_compact_compress(spec, state))
+    assert cuda.LAUNCHES == {"compact_compress": 1}
+    (name, (ctx, plan, stream)), = libs["compact_compress"].calls
+    ctx, plan = ctx._obj, plan._obj
+    setup = cuda._compress_setup(spec, state)
+    assert name == "simtpu_compact_compress" and stream == 7
+    assert (plan.n_tasks, plan.tiles, plan.tasks, plan.gather) == (
+        len(setup["tasks"]), setup["plan"].tiles, setup["tasks"].data_ptr(), setup["gather"].data_ptr())
+    spans = []
+    for f, t, w in zip(got._fields, got, want):
+        assert t.dtype == w.dtype and t.shape == w.shape and t.is_contiguous(), f
+        if f in cuda.NARROW_FIELDS and t.numel():  # an empty view has no address
+            assert t.data_ptr() % 16 == 0, f
+            assert getattr(ctx, cuda._NARROW_CTX.get(f, f)) == t.data_ptr(), f
+            spans.append((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()))
+        elif f not in cuda.NARROW_FIELDS:
+            assert t is getattr(state, f), f  # handed over without a copy
+    assert len({t.untyped_storage().data_ptr() for f, t in zip(got._fields, got) if f in cuda.NARROW_FIELDS}) == 1
+    assert len(spans) >= 8
+    spans.sort()
+    assert all(b <= a for (_, b), (a, _) in zip(spans, spans[1:]))  # apart
+    assert ctx.cnt_match == state.cnt_match.data_ptr() and ctx.t_rep == spec.t_rep.data_ptr()
+    # built once per spec and shape: a second call reuses the setup, and
+    # the state's planes are checked on every call
+    cuda.launch_compact_compress(spec, state)
+    assert cuda._compress_setup(spec, state) is setup and len(spec.t_tab._compress) == 1
+    with pytest.raises(ValueError, match="cnt_match"):
+        cuda.compress_ctx(spec, state._replace(cnt_match=state.cnt_match.double()))
+    with pytest.raises(ValueError, match="free"):
+        cuda.compress_ctx(spec, state._replace(free=state.free.t()))

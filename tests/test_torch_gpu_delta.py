@@ -153,21 +153,22 @@ def test_gpu_and_delta_blocks_mirror_the_cuda_sources():
     kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_float: "float"}
     k6 = (cuda.CSRC / "gpu_pod.cu").read_text()
     k13 = (cuda.CSRC / "compact_delta.cu").read_text()
+    runs = (cuda.CSRC / "delta_runs.cuh").read_text()  # K13's plan, grouping and walk, shared with K7
     step = (cuda.CSRC / "step_ctx.cuh").read_text()
-    for text, struct in ((k6, "GpuRequest"), (k6, "GpuPlan"), (k13, "DeltaPlan"), (step, "CompactCtx")):
+    for text, struct in ((k6, "GpuRequest"), (k6, "GpuPlan"), (runs, "DeltaPlan"), (step, "CompactCtx")):
         assert [(f, kinds[t]) for f, t in getattr(cuda, struct)._fields_] == _struct_fields(text, struct), struct
     for name in ("GPU_MAX_THREADS", "GPU_REG", "GPU_PRESET_SMEM"):
         assert _cuda_int(k6, name) == getattr(cuda, name), name
-    assert _cuda_int(k13, "DELTA_MAX_THREADS") == cuda.DELTA_MAX_THREADS
-    assert _cuda_int(k13, "DELTA_WALK_THREADS") == cuda.DELTA_WALK_THREADS
+    assert _cuda_int(runs, "DELTA_MAX_THREADS") == cuda.DELTA_MAX_THREADS
+    assert _cuda_int(runs, "DELTA_WALK_THREADS") == cuda.DELTA_WALK_THREADS
     for w in cuda.GPU_REG_WIDTHS[:-1]:
         assert f"case {w}: return launch_gpu<{w}>" in k6
     assert "case GPU_REG: return launch_gpu<GPU_REG>" in k6 and "default: return launch_gpu<0>" in k6
-    assert "q.smem < 4LL * x.n + 4LL * x.e * (3 + 2 * q.segs)" in k13 and "q.segs > q.threads / 32" in k13
-    assert "p.scratch + 4 + 7 * static_cast<size_t>(x.e)" in k13
+    assert "q.smem >= 4LL * n + 4LL * e * (3 + 2 * q.segs)" in runs and "q.segs <= q.threads / 32" in runs
+    assert "p.scratch + 4 + 7 * static_cast<size_t>(x.e)" in runs
     # the dense adds walk the chosen node's domain, the node rows take K7's
     # arithmetic element by element (delta_rows.cuh, as K18 does)
-    assert "x.dom_start[dom]" in k13 and "delta_node_operand(rows, en.x, en.y, __int_as_float(en.z), i)" in k13
+    assert "x.dom_start[dom]" in k13 and "delta_node_operand(rows, en.x, en.y, __int_as_float(en.z), i)" in runs
 
 
 def test_the_gpu_arithmetic_lives_once_in_the_header():

@@ -376,6 +376,7 @@ def test_ctypes_step_ctx_mirrors_the_cuda_header():
     structure (StepCtx of K1-K6, DeltaCtx of K7, AuditCtx of K8,
     CompactCtx of K11-K13) must list the header's fields in the header's
     order."""
+    import ctypes
     import re
 
     from simtpu_torch.kernels import cuda
@@ -392,10 +393,12 @@ def test_ctypes_step_ctx_mirrors_the_cuda_header():
         body = header[header.index(f"struct {struct} {{"):]
         body = body[: body.index("};")]
         ints = re.search(r"int ([\w, ]+);", body).group(1).replace(" ", "").split(",")
+        longs = re.findall(r"long long (\w+);", body)  # DeltaCtx's `work`, after its ints
         ptrs = re.findall(r"\*\s*(\w+);", body)
         assert ints == list(int_fields), struct
         assert ptrs == [f for f, *_ in ptr_fields], struct
-        assert [f for f, _ in mirror._fields_] == ints + ptrs, struct
+        assert [f for f, _ in mirror._fields_] == ints + longs + ptrs, struct
+        assert all(t is ctypes.c_longlong for f, t in mirror._fields_ if f in longs), struct
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(derived_chain):

@@ -536,14 +536,15 @@ def test_plan_constants_mirror_the_cuda_sources():
 
 def _struct_fields(text: str, struct: str) -> list:
     """(name, kind) of each field of `struct` in a CUDA source, in order:
-    kind "ptr", "int" or "float"."""
+    kind "ptr", "int", "long" (long long) or "float"."""
     body = text[text.index(f"struct {struct} {{") :]
     body = re.sub(r"//[^\n]*", "", body[: body.index("};")].split("{", 1)[1])
     out = []
     for decl in filter(None, (d.strip() for d in body.split(";"))):
         first, *rest = decl.split(",")
         ptr = "*" in first
-        kind = "ptr" if ptr else ("float" if re.match(r"float\b", first) else "int")
+        kind = "ptr" if ptr else ("float" if re.match(r"float\b", first) else
+                                  "long" if re.match(r"long long\b", first) else "int")
         out += [(n.strip(" *"), kind) for n in [first.split()[-1], *rest]]
     return out
 
@@ -551,11 +552,13 @@ def _struct_fields(text: str, struct: str) -> list:
 @pytest.mark.parametrize("source, struct", [("step_ctx.cuh", "SweepCtx"), ("relax.cuh", "RelaxCtx"),
                                             ("rounds.cuh", "RoundPlan"), ("audit_bulk.cu", "AuditPlan"),
                                             ("score_argmax_pod.cu", "ScorePlan"),
-                                            ("topology_pod.cu", "TopoPlan")])
+                                            ("topology_pod.cu", "TopoPlan"), ("delta_runs.cuh", "DeltaPlan"),
+                                            ("step_ctx.cuh", "DeltaCtx"), ("compact_compress.cu", "CompressPlan")])
 def test_plan_argument_blocks_mirror_the_cuda_headers(source, struct):
     # both blocks are passed by address and read field by field: the ctypes
     # mirror lists the header's fields in its order, with their C types
-    ctypes_kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_float: "float"}
+    ctypes_kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_longlong: "long",
+                   ctypes.c_float: "float"}
     mirror = [(f, ctypes_kind[t]) for f, t in getattr(cuda, struct)._fields_]
     assert mirror == _struct_fields((cuda.CSRC / source).read_text(), struct)
 
